@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of the ``repro`` query engine.
+
+The JAX package ``repro`` stays the reference; this package keeps its own
+copies of the host-side pieces it needs and never imports ``jax`` or
+``repro``. Module names mirror the reference (``core.table``,
+``core.operators``, ``kernels.segmented_agg``, ...) so each counterpart is
+easy to find. Every kernel that the reference wrote in Pallas for the TPU is
+a CUDA C++ kernel under ``kernels/csrc/``, built with ``nvcc`` at first use,
+with a plain PyTorch version beside it that runs for CPU tensors.
+
+Entry point::
+
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import dbgen, queries
+
+    catalog = dbgen.load_catalog(sf=1)
+    out = Session(catalog, batch_rows=1 << 20).execute(queries.q1(catalog))
+
+``Session(device=None)`` runs on ``"cuda"`` and raises when no GPU is
+present; pass ``device="cpu"`` to run the plain versions.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

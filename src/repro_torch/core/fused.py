@@ -1,0 +1,329 @@
+"""Fused per-morsel pipeline (the port of ``repro.core.fused``).
+
+``fused_morsel_program`` runs a run of FilterProject stages over one morsel
+in one launch. The reference traced the stages' expression trees into one
+Pallas kernel; the port lowers them on the host (``lower_stages``) into a
+flat program of typed instructions over 32-bit registers, and a fixed CUDA
+kernel (``kernels/csrc/fused_morsel.cu``) interprets that program with one
+thread per row. The kernel is built once from the repository's source: no
+query writes or compiles CUDA code.
+
+``apply_stages`` is the plain version: it replays the stages with
+``Expr.evaluate``, and it is what a CPU tensor runs. The lowering raises
+``NotImplementedError`` for any node it cannot express (bytes columns,
+``BytesMatch``, ``Year``, ...); it never runs the stages unfused instead.
+The probe variant comes with the join slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from ..kernels import ops as kernel_ops
+from .expr import BinaryOp, ColumnRef, IsIn, Literal, UnaryOp
+from .plan import _canon
+from .table import TorchTable
+
+# one fused stage = one FilterProject's (filter_expr, projections)
+Stage = Tuple[object, Optional[Tuple[Tuple[str, object], ...]]]
+
+# opcode numbers and limits, mirrored from kernels/csrc/fused_morsel.cu
+OPS = {
+    "LOAD32": 0, "LOAD8": 1, "CONST": 2, "STORE32": 3, "STORE8": 4,
+    "FILTER": 5,
+    "ADD_I32": 6, "SUB_I32": 7, "MUL_I32": 8, "NEG_I32": 9,
+    "ADD_F32": 10, "SUB_F32": 11, "MUL_F32": 12, "DIV_F32": 13,
+    "NEG_F32": 14,
+    "EQ_I32": 15, "NE_I32": 16, "LT_I32": 17, "LE_I32": 18, "GT_I32": 19,
+    "GE_I32": 20,
+    "EQ_F32": 21, "NE_F32": 22, "LT_F32": 23, "LE_F32": 24, "GT_F32": 25,
+    "GE_F32": 26,
+    "AND": 27, "OR": 28, "NOT": 29, "I32_TO_F32": 30,
+}
+LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48}
+
+_LIB = "fused_morsel"
+# (program, n_instr, in_ptrs, n_in, out_ptrs, n_out, valid_in, valid_out, n,
+#  stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p]
+_CMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
+_ARITH_OPS = ("add", "sub", "mul")
+# register kinds: 'i32' (int32 bits), 'f32' (float32 bits), 'b' (0 or 1)
+_KIND = {torch.int32: "i32", torch.float32: "f32", torch.bool: "b"}
+_KIND_DTYPE = {"i32": torch.int32, "f32": torch.float32, "b": torch.bool}
+
+
+def apply_stages(table: TorchTable, stages: Sequence[Stage]) -> TorchTable:
+    """Replay a run of FilterProject stages on ``table`` -- the per-stage
+    semantics of ``operators.FilterProject`` without compaction. The plain
+    version of the fused kernel."""
+    for filter_expr, projections in stages:
+        if filter_expr is not None:
+            table = table.filter(filter_expr.evaluate(table))
+        if projections is not None:
+            cols, schema = {}, {}
+            for out_name, e in projections:
+                v = e.evaluate(table)
+                if v.dim() == 0:   # literal: broadcast to rows
+                    v = v.expand(table.capacity)
+                cols[out_name] = v
+                schema[out_name] = e.out_dtype(table.schema)
+            table = TorchTable(cols, table.validity, schema)
+    return table
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """A lowered run of stages: ``code`` is int32[n_instr, 4] on the host,
+    rows of (op, dst, a, b); ``in_names`` are the input columns in load-slot
+    order, with the ``in_dtypes`` the program reads them as; outputs are
+    ``out_names`` with their physical ``out_dtypes``."""
+
+    code: torch.Tensor
+    in_names: Tuple[str, ...]
+    in_dtypes: Tuple[torch.dtype, ...]
+    out_names: Tuple[str, ...]
+    out_dtypes: Tuple[torch.dtype, ...]
+    out_schema: Dict[str, object]
+    n_regs: int
+
+
+class _Lowering:
+    """Expression trees -> register program (one instance per program)."""
+
+    def __init__(self, table: TorchTable):
+        self.table = table
+        self.code: List[Tuple[int, int, int, int]] = []
+        self.n_regs = 0
+        self.in_slots: Dict[str, int] = {}
+        self.loaded: Dict[str, Tuple[int, str]] = {}
+        self.memo: Dict[str, Tuple[int, str]] = {}
+        self.consts: Dict[Tuple[str, int], int] = {}
+
+    # -- emission ------------------------------------------------------------
+    def reg(self) -> int:
+        r = self.n_regs
+        self.n_regs += 1
+        if self.n_regs > LIMITS["kMaxRegs"]:
+            raise NotImplementedError(
+                f"fused lowering: more than {LIMITS['kMaxRegs']} registers")
+        return r
+
+    def emit(self, op: str, dst: int = 0, a: int = 0, b: int = 0) -> int:
+        self.code.append((OPS[op], dst, a, b))
+        return dst
+
+    def const(self, bits: int, kind: str) -> Tuple[int, str]:
+        bits = int(np.int64(bits).astype(np.int32))  # as a signed int32 field
+        key = (kind, bits)
+        if key not in self.consts:
+            self.consts[key] = self.emit("CONST", self.reg(), bits)
+        return self.consts[key], kind
+
+    def column(self, name: str) -> Tuple[int, str]:
+        if name not in self.loaded:
+            t = self.table.columns[name]
+            kind = _KIND.get(t.dtype)
+            if t.dim() != 1 or kind is None:
+                raise NotImplementedError(
+                    f"fused lowering: column {name!r} of dtype {t.dtype} and "
+                    f"shape {tuple(t.shape)} (bytes columns come later)")
+            slot = self.in_slots.setdefault(name, len(self.in_slots))
+            if slot >= LIMITS["kMaxCols"]:
+                raise NotImplementedError("fused lowering: too many columns")
+            op = "LOAD8" if kind == "b" else "LOAD32"
+            self.loaded[name] = (self.emit(op, self.reg(), slot), kind)
+        return self.loaded[name]
+
+    # -- conversions -----------------------------------------------------------
+    def to_f32(self, v):
+        r, kind = v
+        if kind == "f32":
+            return v
+        return self.emit("I32_TO_F32", self.reg(), r), "f32"
+
+    def truth(self, v):
+        r, kind = v
+        if kind == "b":
+            return v
+        zero = self.const(0, kind)[0]
+        return self.emit("NE_F32" if kind == "f32" else "NE_I32", self.reg(),
+                         r, zero), "b"
+
+    def literal(self, value, kind: str):
+        if kind == "f32":
+            return self.const(np.float32(value).view(np.int32), "f32")
+        return self.const(int(value), kind)
+
+    # -- expressions -----------------------------------------------------------
+    def expr(self, e, env, stage: int):
+        key = f"{stage}:{_canon(e)}"
+        if key not in self.memo:
+            self.memo[key] = self._expr(e, env, stage)
+        return self.memo[key]
+
+    def _expr(self, e, env, stage):
+        if isinstance(e, ColumnRef):
+            v = env[e.name]
+            return self.column(e.name) if v is None else v
+        if isinstance(e, Literal):
+            if e.dtype.name in ("float32", "float64"):
+                return self.literal(e.value, "f32")
+            if e.dtype.name == "bool":
+                return self.literal(bool(e.value), "b")
+            if e.dtype.name in ("int32", "int64", "date32", "dict32"):
+                return self.literal(np.int64(e.value).astype(np.int32), "i32")
+            raise NotImplementedError(f"fused lowering: literal {e!r}")
+        if isinstance(e, BinaryOp):
+            a = self.expr(e.lhs, env, stage)
+            b = self.expr(e.rhs, env, stage)
+            if e.op in ("and", "or"):
+                a, b = self.truth(a), self.truth(b)
+                return self.emit(e.op.upper(), self.reg(), a[0], b[0]), "b"
+            if e.op == "div":
+                a, b = self.to_f32(a), self.to_f32(b)
+                return self.emit("DIV_F32", self.reg(), a[0], b[0]), "f32"
+            # the reference's promotion: float32 if either side is a float,
+            # else int32 (bools compare as 0/1)
+            kinds = (a[1], b[1])
+            if "f32" in kinds:
+                a, b, kind = self.to_f32(a), self.to_f32(b), "f32"
+            else:
+                kind = "i32"
+            op = f"{e.op.upper()}_{kind.upper()}"
+            if e.op in _CMP_OPS:
+                return self.emit(op, self.reg(), a[0], b[0]), "b"
+            if e.op in _ARITH_OPS and kinds != ("b", "b"):
+                return self.emit(op, self.reg(), a[0], b[0]), kind
+            raise NotImplementedError(
+                f"fused lowering: {e.op!r} on {kinds[0]} and {kinds[1]}")
+        if isinstance(e, UnaryOp):
+            v = self.expr(e.operand, env, stage)
+            if e.op == "not":
+                return self.emit("NOT", self.reg(), self.truth(v)[0]), "b"
+            if e.op == "neg" and v[1] in ("i32", "f32"):
+                op = "NEG_F32" if v[1] == "f32" else "NEG_I32"
+                return self.emit(op, self.reg(), v[0]), v[1]
+            raise NotImplementedError(f"fused lowering: {e.op!r} on {v[1]}")
+        if isinstance(e, IsIn):
+            v = self.expr(e.operand, env, stage)
+            acc = self.const(0, "b")
+            for val in e.values:
+                # python scalars compare as the reference's weak types: a
+                # float against an integer column compares in float32
+                if isinstance(val, (bool, int, np.integer)) and v[1] != "f32":
+                    lhs, rhs = v, self.literal(int(val), "i32")
+                    op = "EQ_I32"
+                elif isinstance(val, (bool, int, float, np.integer,
+                                      np.floating)):
+                    lhs, rhs = self.to_f32(v), self.literal(float(val), "f32")
+                    op = "EQ_F32"
+                else:
+                    raise NotImplementedError(
+                        f"fused lowering: IN value {val!r}")
+                hit = self.emit(op, self.reg(), lhs[0], rhs[0])
+                acc = self.emit("OR", self.reg(), acc[0], hit), "b"
+            return acc
+        raise NotImplementedError(
+            f"fused lowering: {type(e).__name__} comes with a later slice")
+
+
+def lower_stages(table: TorchTable, stages: Sequence[Stage]) -> Program:
+    """Lower a run of FilterProject stages over ``table``'s columns into a
+    register program for the fused kernel. Raises ``NotImplementedError``
+    for any expression, dtype or size the kernel does not take."""
+    lw = _Lowering(table)
+    # env: column name -> (register, kind), or None for an input column
+    # that is loaded on first use
+    env: Dict[str, Optional[Tuple[int, str]]] = {
+        n: None for n in table.column_names}
+    schema = dict(table.schema)
+    for stage, (filter_expr, projections) in enumerate(stages):
+        if filter_expr is not None:
+            pred = lw.truth(lw.expr(filter_expr, env, stage))
+            lw.emit("FILTER", 0, pred[0])
+        if projections is not None:
+            new_env, new_schema = {}, {}
+            for out_name, e in projections:
+                new_env[out_name] = lw.expr(e, env, stage)
+                new_schema[out_name] = e.out_dtype(schema)
+            env, schema = new_env, new_schema
+    out_names, out_dtypes = [], []
+    for k, (name, v) in enumerate(env.items()):
+        r, kind = lw.column(name) if v is None else v
+        lw.emit("STORE8" if kind == "b" else "STORE32", k, r)
+        out_names.append(name)
+        out_dtypes.append(_KIND_DTYPE[kind])
+    if len(out_names) > LIMITS["kMaxCols"]:
+        raise NotImplementedError("fused lowering: too many output columns")
+    if len(lw.code) > LIMITS["kMaxInstr"]:
+        raise NotImplementedError(
+            f"fused lowering: {len(lw.code)} instructions, more than "
+            f"{LIMITS['kMaxInstr']}")
+    code = torch.tensor(lw.code, dtype=torch.int32).reshape(-1, 4)
+    in_names = tuple(lw.in_slots)
+    in_dtypes = tuple(table.columns[n].dtype for n in in_names)
+    return Program(code, in_names, in_dtypes, tuple(out_names),
+                   tuple(out_dtypes), schema, lw.n_regs)
+
+
+def fused_morsel_program(table: TorchTable, stages: Sequence[Stage],
+                         probe: Optional[dict] = None,
+                         program: Optional[Program] = None):
+    """Run ``stages`` over ``table`` in one launch; returns
+    ``(out_table, found, bidx)`` with ``found``/``bidx`` None (no probe).
+
+    For a CUDA table this launches the fused kernel with ``program`` (or
+    the stages lowered now); for a CPU table it runs ``apply_stages``.
+    """
+    if probe is not None:
+        raise NotImplementedError(
+            "fused_morsel_program: the probe variant comes with the join slice")
+    kernel_ops.mark_kernel("fused")
+    if not table.validity.is_cuda:
+        return apply_stages(table, stages), None, None
+    if program is None:
+        program = lower_stages(table, stages)
+    return _launch(program, table), None, None
+
+
+def _launch(program: Program, table: TorchTable) -> TorchTable:
+    dev = table.device
+    n = table.capacity
+    if table.validity.dtype != torch.bool or table.validity.dim() != 1:
+        raise TypeError("fused_morsel_program: validity must be bool[n]")
+    ins = []
+    for name, dtype in zip(program.in_names, program.in_dtypes):
+        t = table.columns[name]
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != (n,):
+            raise ValueError(
+                f"fused_morsel_program: column {name!r} is {t.dtype}"
+                f"{tuple(t.shape)} on {t.device}; the program reads "
+                f"{dtype}[{n}] on {dev}")
+        ins.append(t.contiguous())
+    valid_in = table.validity.contiguous()
+    outs = [torch.empty(n, dtype=d, device=dev) for d in program.out_dtypes]
+    valid_out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n > 0:
+        fn = build.function(_LIB, "fused_morsel_run", _ARGTYPES)
+        in_ptrs = (ctypes.c_uint64 * max(len(ins), 1))(
+            *[t.data_ptr() for t in ins])
+        out_ptrs = (ctypes.c_uint64 * max(len(outs), 1))(
+            *[t.data_ptr() for t in outs])
+        code = program.code.contiguous()
+        rc = fn(code.data_ptr(), code.shape[0], in_ptrs, len(ins),
+                out_ptrs, len(outs), valid_in.data_ptr(),
+                valid_out.data_ptr(), n,
+                torch.cuda.current_stream(dev).cuda_stream)
+        build.check(_LIB, rc, "fused_morsel_program")
+        kernel_ops.count_launch("fused_morsel_program")
+    return TorchTable(dict(zip(program.out_names, outs)), valid_out,
+                      dict(program.out_schema))

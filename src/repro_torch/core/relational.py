@@ -1,0 +1,158 @@
+"""Relational algorithms on capacity-plus-validity batches (the port of
+``repro.core.relational``): sorting, group-by and segmented aggregation.
+
+Sums and counts go through the segmented-sum kernels, as the reference's
+``pallas`` path sends them (``relational.py:226-250``). Hashing, joins and
+partitioning come with the join slice; min/max aggregation with the slice
+whose queries use it.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence
+
+import torch
+
+from ..kernels import ops as kernel_ops
+from ..kernels import segmented_agg
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def _sort_key(key: torch.Tensor) -> torch.Tensor:
+    """An int32 key whose signed order is the reference's sort order.
+
+    The reference's float sort ties -0.0 with 0.0 and puts every NaN last,
+    so floats are canonicalised that way and then mapped to int32 with the
+    magnitude bits of negative values flipped (IEEE total order). Integers
+    and bools sort as int32."""
+    if key.is_floating_point():
+        x = key.to(torch.float32)
+        x = torch.where(x == 0, torch.zeros_like(x), x)
+        x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+        bits = x.view(torch.int32)
+        return bits ^ ((bits >> 31) & INT32_MAX)
+    return key.to(torch.int32)
+
+
+def lexsort(keys: List[torch.Tensor], validity: torch.Tensor,
+            descending: Sequence[bool] = None) -> torch.Tensor:
+    """Stable multi-key sort order; invalid rows sort last.
+
+    ``keys[0]`` is the primary key. 2-D (bytes) keys sort by their bytes,
+    big-endian, via one pass per byte column."""
+    n = validity.shape[0]
+    descending = descending or [False] * len(keys)
+    order = torch.arange(n, dtype=torch.int64, device=validity.device)
+
+    def _passes(key, desc):
+        if key.dim() == 2:  # fixed-width bytes: byte columns right-to-left
+            cols = [key[:, j].to(torch.int32) for j in range(key.shape[1])]
+            return [(c, desc) for c in reversed(cols)]
+        return [(_sort_key(key), desc)]
+
+    # stable passes, least significant first: the last pass applied (the
+    # validity) is the most significant, and keys[0] precedes keys[1:]
+    all_passes = []
+    for key, desc in reversed(list(zip(keys, descending))):
+        all_passes.extend(_passes(key, desc))
+    all_passes.append(((~validity).to(torch.int32), False))
+
+    for k, desc in all_passes:
+        cur = k.index_select(0, order)
+        if desc:
+            # stable descending without negating (negation corrupts
+            # INT32_MIN): stably sort the reversed array and flip the
+            # result, which keeps original order among equal keys
+            perm = (n - 1 - torch.argsort(cur.flip(0), stable=True)).flip(0)
+        else:
+            perm = torch.argsort(cur, stable=True)
+        order = order.index_select(0, perm)
+    return order
+
+
+class Groups(NamedTuple):
+    """Output of ``group_rows``: permutation, dense group ids, count,
+    representative row per group, and the group-slot validity mask."""
+
+    order: torch.Tensor        # row permutation, valid rows first, grouped
+    gids: torch.Tensor         # int32 group id per *sorted* row; invalid ->
+                               # max_groups
+    num_groups: torch.Tensor   # 0-d
+    key_rows: torch.Tensor     # one representative original row per group
+    group_valid: torch.Tensor  # bool[max_groups]
+
+
+def group_rows(key_cols: List[torch.Tensor], validity: torch.Tensor,
+               max_groups: int) -> Groups:
+    """Dense group ids via sort + boundary detection (exact for any number
+    of key columns; no hashing)."""
+    dev = validity.device
+    order = lexsort(key_cols, validity)
+    valid_sorted = validity.index_select(0, order)
+    change = torch.zeros(order.shape, dtype=torch.bool, device=dev)
+    for k in key_cols:
+        ks = k.index_select(0, order)
+        diff = ks[1:] != ks[:-1]
+        if ks.dim() == 2:
+            diff = diff.any(dim=1)
+        change[1:] |= diff
+    change &= valid_sorted
+    gids = torch.cumsum(change.to(torch.int32), 0, dtype=torch.int32)
+    gids = torch.where(valid_sorted, gids, max_groups).to(torch.int32)
+    num_groups = (change.sum(dtype=torch.int32)
+                  + validity.any().to(torch.int32))
+
+    # representative original row per group (first row of each segment);
+    # rows that start no group, or whose id overflows max_groups, write the
+    # spare slot max_groups, which is sliced off
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       change[1:]])
+    first_of_group = valid_sorted & first
+    slot = torch.where(first_of_group, gids, max_groups)
+    slot = torch.clamp(slot, max=max_groups).long()
+    reps = torch.zeros(max_groups + 1, dtype=torch.int32, device=dev)
+    reps.index_put_((slot,), order.to(torch.int32))
+    group_valid = torch.arange(max_groups, device=dev) < num_groups
+    return Groups(order, gids, num_groups, reps[:max_groups], group_valid)
+
+
+def segment_agg(values: torch.Tensor, gids: torch.Tensor,
+                order: torch.Tensor, validity: torch.Tensor,
+                max_groups: int, kind: str) -> torch.Tensor:
+    """Aggregate ``values`` per group id; ``kind`` is sum or count.
+
+    The reference's kernel branch: counts and integer sums go to
+    ``segmented_int_sum`` (exact, wrapping at 2^31), float sums to
+    ``segmented_sum``; dead rows are zeroed first. Unlike the Pallas
+    kernels, the CUDA kernels take any group count, so there is no capacity
+    fallback."""
+    v = values.index_select(0, order)
+    valid_sorted = validity.index_select(0, order)
+    seg = torch.where(valid_sorted, gids, max_groups).to(torch.int32)
+    if kind == "count":
+        kernel_ops.mark_kernel("agg")
+        return segmented_agg.segmented_int_sum(
+            seg, valid_sorted.to(torch.int32), max_groups)
+    if kind != "sum":
+        raise NotImplementedError(
+            f"segment_agg: {kind!r} (segmented_minmax) comes with a later "
+            "slice")
+    if v.dim() != 1 or v.dtype not in (torch.int32, torch.float32):
+        raise NotImplementedError(
+            f"segment_agg: sum over {v.dtype} {tuple(v.shape)}")
+    # zero dead rows: their values may be NaN/inf (dead-lane arithmetic)
+    acc = torch.where(valid_sorted, v, torch.zeros((), dtype=v.dtype,
+                                                   device=v.device))
+    kernel_ops.mark_kernel("agg")
+    if v.dtype == torch.int32:
+        return segmented_agg.segmented_int_sum(seg, acc, max_groups)
+    return segmented_agg.segmented_sum(seg, acc, max_groups)
+
+
+def _extreme(dtype: torch.dtype, sign: int) -> torch.Tensor:
+    """The min (sign +1) or max (sign -1) reduction identity of ``dtype``."""
+    if dtype.is_floating_point:
+        return torch.tensor(sign * float("inf"), dtype=dtype)
+    info = torch.iinfo(dtype)
+    return torch.tensor(info.max if sign > 0 else info.min, dtype=dtype)

@@ -1,0 +1,149 @@
+"""Session & catalog (the port of ``repro.core.session``).
+
+A ``Session`` binds a catalog of tables to an execution configuration and
+runs logical plans through the ``Driver``::
+
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import dbgen, queries
+
+    catalog = dbgen.load_catalog(sf=0.01)
+    session = Session(catalog)                  # device=None: the GPU
+    out = session.execute(queries.q6(catalog))  # name -> numpy column
+
+``Session(device=None)`` means ``"cuda"`` and raises when no GPU is present;
+``device="cpu"`` runs the plain PyTorch versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from ..device import resolve_device
+from .driver import Driver, ExecutionContext
+from .plan import PlanNode
+from .streaming import HostMorsel, MorselPrefetcher, ScanStats
+
+
+class TableSource:
+    """Abstract storage backend for one catalog table. Backends implement
+    ``_host_morsels`` (host-side reads); ``stream`` wraps the reads in a
+    prefetcher that copies them to the device."""
+
+    name: str
+    schema: dict
+    # column sets that uniquely identify a row (primary/candidate keys)
+    unique_keys: tuple = ()
+
+    def _host_morsels(self, columns, batch_rows: int,
+                      stats: Optional[ScanStats] = None
+                      ) -> Iterator[HostMorsel]:
+        """Host-side scan units (storage reads only, no device copy)."""
+        raise NotImplementedError
+
+    def stream(self, columns, batch_rows: int, device, prefetch_depth: int = 2,
+               stats: Optional[ScanStats] = None) -> MorselPrefetcher:
+        """Asynchronous scan: a background thread reads morsel N+1 and
+        copies it to ``device`` while morsel N computes."""
+        return MorselPrefetcher(self._host_morsels(columns, batch_rows,
+                                                   stats=stats),
+                                device, depth=prefetch_depth, stats=stats)
+
+
+class InMemoryTable(TableSource):
+    """Numpy-backed table, scanned in ``batch_rows`` morsels."""
+
+    def __init__(self, name: str, data: Dict[str, np.ndarray], schema: dict,
+                 unique_keys: tuple = ()):
+        self.name = name
+        self.data = {k: np.asarray(v, dtype=schema[k].np_dtype())
+                     for k, v in data.items()}
+        self.schema = dict(schema)
+        self.unique_keys = tuple(tuple(u) for u in unique_keys)
+        self._n = len(next(iter(self.data.values()))) if self.data else 0
+
+    def _host_morsels(self, columns, batch_rows: int,
+                      stats: Optional[ScanStats] = None
+                      ) -> Iterator[HostMorsel]:
+        cols = list(columns) if columns else list(self.data.keys())
+        schema = {c: self.schema[c] for c in cols}
+        if self._n == 0:   # one dead row keeps downstream shapes alive
+            yield HostMorsel(
+                {c: np.zeros(schema[c].storage_shape(1), schema[c].np_dtype())
+                 for c in cols}, np.zeros(1, dtype=bool), schema)
+            return
+        for lo in range(0, self._n, batch_rows):
+            hi = min(lo + batch_rows, self._n)
+            bufs = {c: self.data[c][lo:hi] for c in cols}
+            if stats is not None:
+                stats.bytes_read += sum(b.nbytes for b in bufs.values())
+            yield HostMorsel(bufs, np.ones(hi - lo, dtype=bool), schema)
+
+
+class Catalog:
+    """Named ``TableSource`` registry (a Presto connector catalog)."""
+
+    def __init__(self):
+        self._tables: Dict[str, TableSource] = {}
+
+    @classmethod
+    def from_numpy(cls, tables: Dict[str, Dict[str, np.ndarray]],
+                   schemas: Dict[str, dict],
+                   unique_keys: Optional[Dict[str, tuple]] = None
+                   ) -> "Catalog":
+        """A catalog of ``InMemoryTable``s over host arrays, e.g. the tables
+        another engine generated, so that both scan the same bytes.
+        ``unique_keys`` maps a table name to its tuple of key-column
+        tuples."""
+        cat = cls()
+        for name, data in tables.items():
+            cat.register(InMemoryTable(name, data, schemas[name],
+                                       (unique_keys or {}).get(name, ())))
+        return cat
+
+    def register(self, source: TableSource):
+        """Add or replace a table."""
+        self._tables[source.name] = source
+
+    def get(self, name: str) -> TableSource:
+        """Look up a table source; raises ``KeyError`` if unknown."""
+        return self._tables[name]
+
+
+@dataclasses.dataclass
+class Session:
+    """The port's entry point: a catalog bound to an execution config.
+
+    ``device=None`` means ``"cuda"`` and raises when there is no GPU.
+    """
+
+    catalog: Catalog
+    batch_rows: int = 8192
+    prefetch_depth: int = 2
+    device: Optional[object] = None
+    num_workers: int = 1
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.last_driver: Optional[Driver] = None
+
+    def context(self) -> ExecutionContext:
+        """Snapshot this session's execution config for one Driver run."""
+        return ExecutionContext(catalog=self.catalog, device=self.device,
+                                num_workers=self.num_workers,
+                                batch_rows=self.batch_rows,
+                                prefetch_depth=self.prefetch_depth)
+
+    def execute(self, plan: PlanNode) -> Dict[str, np.ndarray]:
+        """Execute one plan; returns name -> numpy column of valid rows."""
+        driver = Driver(self.context())
+        self.last_driver = driver
+        return driver.collect(plan)
+
+    def executor_stats(self) -> Dict[str, object]:
+        """Stats from the most recent ``execute`` ({} before any)."""
+        return ({} if self.last_driver is None
+                else self.last_driver.executor_stats())
+

@@ -1,0 +1,185 @@
+"""Morsel-driven streaming scan (the port of ``repro.core.streaming``).
+
+* ``HostMorsel``       -- one scan unit in host memory, before the transfer.
+* ``MorselPrefetcher`` -- a bounded-queue background producer: while the
+                          consumer computes on morsel N, the prefetch thread
+                          reads morsel N+1 and copies it to the device.
+* ``ScanStats``        -- per-scan counters.
+
+On a CUDA device the copy runs from pinned host memory on a side stream,
+and the producer records an event after it; the consumer makes its own
+stream wait on that event before the morsel's first use, and marks each
+tensor as used by its stream so the caching allocator cannot hand the
+memory back to the side stream while a kernel still reads it. Without the
+wait, the copy would race the kernel that reads the morsel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from .table import TorchTable
+
+
+@dataclasses.dataclass
+class ScanStats:
+    """Counters for one table's scan activity within a query."""
+
+    bytes_read: int = 0          # bytes read from storage
+    bytes_transferred: int = 0   # bytes placed into device memory
+    morsels: int = 0             # morsels produced
+    read_seconds: float = 0.0    # producer: storage read + host->device copy
+    wait_seconds: float = 0.0    # consumer: blocked waiting on the queue
+    compute_seconds: float = 0.0 # consumer: time between dequeues
+
+    @property
+    def prefetch_overlap(self) -> float:
+        """Fraction of read+transfer time hidden behind consumer compute."""
+        if self.read_seconds <= 0.0:
+            return 0.0
+        return max(0.0, 1.0 - self.wait_seconds / self.read_seconds)
+
+    def summary(self) -> Dict[str, float]:
+        """Counters as a plain dict, with derived ``prefetch_overlap``."""
+        d = dataclasses.asdict(self)
+        d["prefetch_overlap"] = round(self.prefetch_overlap, 4)
+        return d
+
+
+@dataclasses.dataclass
+class HostMorsel:
+    """One scan unit in host memory: ``[cap, ...]`` column buffers plus
+    validity, ready for one device copy."""
+
+    columns: Dict[str, np.ndarray]
+    validity: np.ndarray
+    schema: Dict[str, object]
+
+    def nbytes(self) -> int:
+        """Host bytes this morsel occupies (columns + validity)."""
+        total = self.validity.nbytes
+        for a in self.columns.values():
+            total += a.nbytes
+        return int(total)
+
+
+def _host_tensor(a: np.ndarray, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    return t.pin_memory() if pin else t
+
+
+def morsel_to_device(morsel: HostMorsel, device: torch.device,
+                     stream: Optional["torch.cuda.Stream"] = None
+                     ) -> TorchTable:
+    """Copy a host morsel to ``device`` in each column's physical dtype.
+
+    For a CUDA device the copy is asynchronous from pinned memory on
+    ``stream`` (the current stream if None); the caller synchronises with
+    it before use (``MorselPrefetcher`` records and waits on an event)."""
+    device = torch.device(device)
+    on_cuda = device.type == "cuda"
+    host = {n: _host_tensor(a, morsel.schema[n].torch_dtype(), on_cuda)
+            for n, a in morsel.columns.items()}
+    hvalid = _host_tensor(morsel.validity, torch.bool, on_cuda)
+    if not on_cuda:
+        return TorchTable(host, hvalid, dict(morsel.schema))
+    with torch.cuda.stream(stream or torch.cuda.current_stream(device)):
+        cols = {n: t.to(device, non_blocking=True) for n, t in host.items()}
+        validity = hvalid.to(device, non_blocking=True)
+    return TorchTable(cols, validity, dict(morsel.schema))
+
+
+_SENTINEL = object()
+
+
+class MorselPrefetcher:
+    """Async double-buffered storage->device prefetcher.
+
+    A daemon thread drains ``host_morsels``, copies each to ``device`` and
+    pushes it into a bounded queue of ``depth`` slots. Iteration is
+    single-consumer; abandoning it early stops the producer, and producer
+    exceptions re-raise in the consumer.
+    """
+
+    def __init__(self, host_morsels: Iterator[HostMorsel], device,
+                 depth: int = 2, stats: Optional[ScanStats] = None):
+        self.stats = stats if stats is not None else ScanStats()
+        self.device = torch.device(device)
+        self._gen = host_morsels
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(int(depth), 1))
+        self._closed = threading.Event()
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="morsel-prefetch")
+
+    # -- producer (background thread) ---------------------------------------
+    def _put(self, item) -> bool:
+        while not self._closed.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self) -> None:
+        try:
+            it = iter(self._gen)
+            while not self._closed.is_set():
+                t0 = time.perf_counter()
+                try:
+                    host = next(it)
+                except StopIteration:
+                    break
+                table = morsel_to_device(host, self.device, self._stream)
+                event = None
+                if self._stream is not None:
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                self.stats.read_seconds += time.perf_counter() - t0
+                self.stats.bytes_transferred += host.nbytes()
+                self.stats.morsels += 1
+                if not self._put((table, event)):
+                    return
+            self._put(_SENTINEL)
+        except BaseException as exc:  # noqa: BLE001 -- re-raised by consumer
+            self._put(exc)
+
+    # -- consumer ------------------------------------------------------------
+    def close(self) -> None:
+        """Stop the producer thread (also called when iteration ends)."""
+        self._closed.set()
+
+    def __iter__(self) -> Iterator[TorchTable]:
+        self._thread.start()
+        try:
+            last = None
+            while True:
+                t0 = time.perf_counter()
+                item = self._q.get()
+                now = time.perf_counter()
+                self.stats.wait_seconds += now - t0
+                if last is not None:
+                    self.stats.compute_seconds += t0 - last
+                last = now
+                if item is _SENTINEL:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                table, event = item
+                if event is not None:
+                    consumer = torch.cuda.current_stream(self.device)
+                    consumer.wait_event(event)
+                    for t in list(table.columns.values()) + [table.validity]:
+                        t.record_stream(consumer)
+                yield table
+        finally:
+            self.close()

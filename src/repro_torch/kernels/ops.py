@@ -1,0 +1,121 @@
+"""Kernel dispatch accounting and launch counters.
+
+The port has no backend switch: it always takes the code path that the
+reference takes under ``kernel_backend="pallas"``. Each kernel wrapper
+launches its CUDA kernel for a CUDA tensor and runs its plain PyTorch
+version for a CPU tensor.
+
+Two kinds of counts are kept:
+
+* **Dispatch accounting** (``collect_dispatches`` / ``table_op``), as the
+  reference's ``kernels/ops.py`` keeps it: each operator call adds one per
+  kernel *kind* it used (``fused``, ``agg``), whichever device it ran on,
+  so ``executor_stats()['kernel_dispatch']`` compares with the reference's
+  ``pallas`` run.
+* **Launch counters** (``count_launch`` / ``launch_counts``): one plain
+  integer per kernel wrapper, raised only where a CUDA kernel is actually
+  launched. A run on the card reads them to show that its main path went
+  through the kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+from typing import Dict, Iterator, Set
+
+_tls = threading.local()
+
+# ---------------------------------------------------------------------------
+# dispatch accounting (per operator call, per kind)
+# ---------------------------------------------------------------------------
+
+
+def _stack(name: str) -> list:
+    s = getattr(_tls, name, None)
+    if s is None:
+        s = []
+        setattr(_tls, name, s)
+    return s
+
+
+@contextlib.contextmanager
+def collect_dispatches(counts: Dict[str, int]) -> Iterator[None]:
+    """Accumulate kernel-dispatch counts into ``counts`` (kind -> calls)
+    for the duration of the scope; the driver wraps each query with this."""
+    stack = _stack("counter_stack")
+    stack.append(counts)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def count_dispatch(kind: str, n: int = 1) -> None:
+    """Report ``n`` calls of kernel ``kind`` to every active
+    ``collect_dispatches`` scope on this thread (no-op outside one)."""
+    for counts in _stack("counter_stack"):
+        counts[kind] = counts.get(kind, 0) + n
+
+
+@contextlib.contextmanager
+def record_kernels(used: Set[str]) -> Iterator[None]:
+    """While active, every kernel wrapper call adds its kind to ``used``."""
+    stack = _stack("record_stack")
+    stack.append(used)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def mark_kernel(kind: str) -> None:
+    """Record that the running operator call used a kernel of ``kind``."""
+    for used in _stack("record_stack"):
+        used.add(kind)
+
+
+def table_op(fn):
+    """Count one dispatch per kernel kind per call of the operator body
+    ``fn`` (the reference's ``table_op`` replays its traced kernel set per
+    call; the port runs eagerly, so it records the set as it runs)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        used: Set[str] = set()
+        with record_kernels(used):
+            out = fn(*args)
+        for kind in sorted(used):
+            count_dispatch(kind)
+        return out
+
+    return wrapper
+
+
+# ---------------------------------------------------------------------------
+# launch counters (per CUDA kernel wrapper)
+# ---------------------------------------------------------------------------
+
+KERNELS = ("fused_morsel_program", "segmented_sum", "segmented_int_sum")
+_launches: Dict[str, int] = {k: 0 for k in KERNELS}
+_launch_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s counter; called right after its CUDA launch."""
+    with _launch_lock:
+        _launches[name] += 1
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    with _launch_lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel name -> CUDA launches since the last reset."""
+    with _launch_lock:
+        return dict(_launches)

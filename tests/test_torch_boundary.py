@@ -1,0 +1,60 @@
+"""The PyTorch port stands alone: no file of ``src/repro_torch`` (nor
+``chip_smoke.py``) imports ``jax`` or the reference package ``repro``, and
+running a query through the port leaves both out of ``sys.modules``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_jax_or_reference(path):
+    bad = [(line, mod) for line, mod in _imports(path)
+           if mod.split(".")[0] in _FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_query_runs_without_jax_in_the_process():
+    code = (
+        "import sys\n"
+        "from repro_torch.core.session import Session\n"
+        "from repro_torch.tpch import dbgen, queries\n"
+        "cat = dbgen.load_catalog(sf=0.002)\n"
+        "out = Session(cat, device='cpu').execute(queries.q6(cat))\n"
+        "assert out['revenue'].shape == (1,), out\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok', float(out['revenue'][0]))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok ")

@@ -1,0 +1,193 @@
+"""Shared helpers for the differential tests of the PyTorch port
+(``repro_torch``) against the JAX reference (``repro``).
+
+* ``to_port`` translates a reference plan or expression tree, node by node,
+  into the port's classes of the same names.
+* ``emulate`` runs a lowered fused-kernel program (``core.fused.Program``)
+  on the CPU, one instruction at a time over whole columns, with the exact
+  32-bit semantics of ``kernels/csrc/fused_morsel.cu``, so the lowering is
+  tested where the CUDA kernel cannot run.
+* ``seeded_columns`` makes a small morsel's worth of columns from a seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import dtypes as port_dtypes
+from repro_torch.core import expr as port_expr
+from repro_torch.core import fused as port_fused
+from repro_torch.core import plan as port_plan
+from repro_torch.core.table import TorchTable
+
+_PORT_CLASSES = {
+    name: obj
+    for mod in (port_plan, port_expr, port_dtypes)
+    for name, obj in vars(mod).items()
+    if isinstance(obj, type) and dataclasses.is_dataclass(obj)
+}
+
+
+def to_port(v):
+    """Reference plan node / Expr / DType (and containers of them) -> the
+    port's object of the same class name and fields."""
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        cls = _PORT_CLASSES[type(v).__name__]
+        return cls(**{f.name: to_port(getattr(v, f.name))
+                      for f in dataclasses.fields(v)})
+    if isinstance(v, list):
+        return [to_port(x) for x in v]
+    if isinstance(v, tuple):
+        return tuple(to_port(x) for x in v)
+    if isinstance(v, dict):
+        return {k: to_port(x) for k, x in v.items()}
+    return v
+
+
+def port_schema(ref_schema: dict) -> dict:
+    """Reference ``name -> DType`` schema -> the port's."""
+    return {n: to_port(d) for n, d in ref_schema.items()}
+
+
+def seeded_columns(n: int, seed: int = 0) -> dict:
+    """Columns of every physical kind the fused kernel takes, with the
+    edge values a morsel can hold (INT32_MIN/MAX, -0.0, inf, NaN)."""
+    rng = np.random.default_rng(seed)
+    i = rng.integers(-50, 50, n).astype(np.int32)
+    i[:4] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, -1]
+    j = rng.integers(-5, 6, n).astype(np.int32)
+    f = rng.normal(0, 10, n).astype(np.float32)
+    f[:4] = [-0.0, np.inf, np.nan, 0.5]
+    g = rng.normal(0, 1, n).astype(np.float32)
+    b = rng.random(n) < 0.5
+    d = rng.integers(8000, 10000, n).astype(np.int32)
+    return {"i": i, "j": j, "f": f, "g": g, "b": b, "d": d}
+
+
+def stage_cases(col, lit, date_lit) -> dict:
+    """Runs of FilterProject stages over ``seeded_columns`` that touch every
+    opcode of the fused kernel, every promotion rule and every edge value;
+    built with either package's ``col``/``lit``/``date_lit``."""
+    return {
+        "arith_i32_wraps": [(None, (("x", col("i") * col("i") + col("j")),
+                                   ("y", col("i") - lit(7)),
+                                   ("z", -col("i"))))],
+        "arith_f32": [(col("f") > lit(0.0),
+                       (("x", col("f") * (lit(1.0) - col("g"))),
+                        ("y", -col("f") + col("g")),
+                        ("z", col("f") / col("g"))))],
+        "div_int_numerator": [(None, (("x", col("i") / col("j")),
+                                      ("y", col("j") / lit(4)),
+                                      ("z", col("i") / col("f"))))],
+        "promotion": [(col("i") < col("f"), (("x", col("i") + col("f")),
+                                             ("y", col("j") * lit(0.5)),
+                                             ("c", col("i") == col("g"))))],
+        "bool_logic": [(~col("b") | (col("d") >= date_lit("1995-01-01")),
+                        (("x", col("b") & (col("j") != lit(0))),
+                         ("y", ~(col("f") <= col("g"))),
+                         ("z", col("b") == (col("i") > lit(3))),
+                         ("t", col("f") & col("i"))))],
+        "isin": [(col("j").isin([1, 2, -3]),
+                  (("x", col("i").isin([0, -1, 5])),
+                   ("y", col("f").isin([0.5, 0.0])),
+                   ("z", col("j").isin([1.5, 2.0])),
+                   ("e", col("i").isin([]))))],
+        "literal_and_passthrough": [(None, (("one", lit(1.0)), ("k", lit(3)),
+                                            ("t", lit(True)), ("b", col("b")),
+                                            ("d", col("d"))))],
+        "three_stages": [(col("f") < lit(5.0), (("a", col("f") * lit(2.0)),
+                                                ("i", col("i")))),
+                         (col("i") > lit(-20), None),
+                         (None, (("s", col("a") + col("i")),
+                                 ("t", col("a") >= lit(1.0))))],
+        "filters_only": [(col("b"), None), (col("j") >= lit(0), None)],
+    }
+
+
+SEEDED_SCHEMA = {"i": port_dtypes.INT32, "j": port_dtypes.INT32,
+                 "f": port_dtypes.FLOAT32, "g": port_dtypes.FLOAT32,
+                 "b": port_dtypes.BOOL, "d": port_dtypes.DATE32}
+
+_OP_NAMES = {v: k for k, v in port_fused.OPS.items()}
+
+
+def emulate(program: "port_fused.Program", table: TorchTable) -> TorchTable:
+    """Run ``program`` over a CPU ``table`` as the CUDA kernel would."""
+    n = table.capacity
+    ins = [table.columns[name].numpy() for name in program.in_names]
+    valid = table.validity.numpy().copy()
+    regs = {}
+    outs = [None] * len(program.out_names)
+
+    def f32(r):
+        return regs[r].view(np.float32)
+
+    def i32(r):
+        return regs[r].view(np.int32)
+
+    def bits(x):
+        return np.ascontiguousarray(x).view(np.uint32)
+
+    with np.errstate(all="ignore"):
+        for code, dst, a, b in program.code.tolist():
+            op = _OP_NAMES[code]
+            if op == "LOAD32":
+                regs[dst] = bits(ins[a]).copy()
+            elif op == "LOAD8":
+                regs[dst] = (ins[a] != 0).astype(np.uint32)
+            elif op == "CONST":
+                regs[dst] = np.full(n, np.int32(a)).view(np.uint32)
+            elif op == "STORE32":
+                outs[dst] = regs[a].copy()
+            elif op == "STORE8":
+                outs[dst] = regs[a] != 0
+            elif op == "FILTER":
+                valid &= regs[a] != 0
+            elif op in ("ADD_I32", "SUB_I32", "MUL_I32"):
+                fn = {"ADD": np.add, "SUB": np.subtract, "MUL": np.multiply}
+                regs[dst] = fn[op[:3]](regs[a], regs[b]).astype(np.uint32)
+            elif op == "NEG_I32":
+                regs[dst] = (np.uint32(0) - regs[a]).astype(np.uint32)
+            elif op in ("ADD_F32", "SUB_F32", "MUL_F32", "DIV_F32"):
+                fn = {"ADD": np.add, "SUB": np.subtract, "MUL": np.multiply,
+                      "DIV": np.divide}
+                regs[dst] = bits(fn[op[:3]](f32(a), f32(b)).astype(np.float32))
+            elif op == "NEG_F32":
+                regs[dst] = regs[a] ^ np.uint32(0x80000000)
+            elif op[:2] in ("EQ", "NE", "LT", "LE", "GT", "GE"):
+                fn = {"EQ": np.equal, "NE": np.not_equal, "LT": np.less,
+                      "LE": np.less_equal, "GT": np.greater,
+                      "GE": np.greater_equal}[op[:2]]
+                view = f32 if op.endswith("F32") else i32
+                regs[dst] = fn(view(a), view(b)).astype(np.uint32)
+            elif op == "AND":
+                regs[dst] = ((regs[a] != 0) & (regs[b] != 0)).astype(np.uint32)
+            elif op == "OR":
+                regs[dst] = ((regs[a] != 0) | (regs[b] != 0)).astype(np.uint32)
+            elif op == "NOT":
+                regs[dst] = (regs[a] == 0).astype(np.uint32)
+            elif op == "I32_TO_F32":
+                regs[dst] = bits(i32(a).astype(np.float32))
+            else:
+                raise AssertionError(f"emulator: unknown op {op}")
+    cols = {}
+    for name, dtype, out in zip(program.out_names, program.out_dtypes, outs):
+        if dtype == torch.bool:
+            cols[name] = torch.from_numpy(out.astype(bool))
+        else:
+            np_dtype = np.float32 if dtype == torch.float32 else np.int32
+            cols[name] = torch.from_numpy(out.view(np_dtype).copy())
+    return TorchTable(cols, torch.from_numpy(valid), dict(program.out_schema))
+
+
+def assert_tables_equal(got: TorchTable, want: TorchTable) -> None:
+    """Same columns, dtypes, validity and bits (NaNs in the same places)."""
+    assert got.column_names == want.column_names
+    np.testing.assert_array_equal(got.validity.numpy(), want.validity.numpy())
+    for name in want.column_names:
+        a, b = got.columns[name], want.columns[name]
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
