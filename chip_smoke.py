@@ -11,15 +11,23 @@ In order it:
 2. builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, all started together) and prints the seconds;
 3. checks each kernel against its plain PyTorch version on the card, on
-   the shapes the main path gives it, with the tolerance stated beside each;
+   the shapes the main path gives it, with the tolerance stated beside each:
+   the segmented sums, the fused program on Q1's and Q6's stages, and the
+   join kernels on the inputs that one run of Q3 and of Q10 at SF 1 gives
+   them (every ``build_table`` bit-identical, Q10's two standalone
+   ``hash_probe`` calls and the first morsel of each fused probe exact),
+   plus a build with many duplicate keys and 1 << 20 probe keys with hits,
+   misses and -1 keys;
 4. times each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``library_ms``), with CUDA events over warm
-   runs, and computes each kernel's bound from its inputs;
-5. generates TPC-H at SF 1 with the port's ``dbgen`` and runs Q6 and Q1
-   through ``Session(device="cuda", batch_rows=1 << 20).execute``, with the
-   launch counters set to 0 just before each query and read just after; each
-   result must match the same plan run by ``Session(device="cpu")`` (exact
-   for keys and counts, rtol 2e-3 for floats);
+   runs, and computes each kernel's bound from its inputs (for the join
+   kernels, from the table sectors this run's keys reach);
+5. generates TPC-H at SF 1 with the port's ``dbgen`` and runs Q6, Q1, Q3 and
+   Q10 through ``Session(device="cuda", batch_rows=1 << 20).execute``, with
+   the launch counters set to 0 just before each query and read just after,
+   each held to the launch counts its morsel counts imply; each result must
+   match the same plan run by ``Session(device="cpu")`` (exact for keys,
+   counts and bytes columns, rtol 2e-3 for floats);
 6. prints one ``{"kernels": [...]}`` line, then the card line again;
 7. prints as its last line ``{"ok": true, "device": {...}}``.
 
@@ -29,6 +37,9 @@ imports only the port, torch, numpy and the standard library; it fails when
 beside it. ``--profile DIR`` adds, after phase 5, each kernel's device time
 per launch at the main path's shapes and one ``torch.profiler`` run of each
 query, whose device time by kernel (and trace) it writes into DIR.
+
+No PyTorch call builds or probes a hash table, so the join kernels'
+``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ _MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 _F32_RATE = 67e12
 _MAIN_ROWS = 1 << 20
 _SF = 1.0
+_QUERIES = (6, 1, 3, 10)
 
 
 def fail(msg: str) -> None:
@@ -222,12 +234,276 @@ def check_fused(torch, fused, queries, morsel, rate):
     return rows_out, launchers
 
 
+def capture_join_calls(torch, hp, fused, catalog):
+    """The join kernels' inputs as the main path gives them: one run of Q3
+    and one of Q10 at SF 1 through the card's ``Session``, with
+    ``build_table``, ``hash_probe`` and ``fused_morsel_program`` wrapped so
+    that each call's arguments are kept (the first call of each fused
+    probe's join only) before the kernel runs on them."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+    calls = {"build": [], "probe": [], "fused": []}
+    now = {}
+    orig = hp.build_table, hp.hash_probe, fused.fused_morsel_program
+
+    def build_table(keys, vals, table_size, empty_key=-1, valid=None):
+        calls["build"].append(dict(
+            q=now["q"], keys=keys.clone(), vals=vals.clone(), t=table_size,
+            empty=empty_key, valid=None if valid is None else valid.clone()))
+        return orig[0](keys, vals, table_size, empty_key, valid)
+
+    def hash_probe(tk, tv, keys, empty_key=-1,
+                   max_probes=hp.MAX_PROBES_DEFAULT):
+        calls["probe"].append(dict(q=now["q"], tk=tk, tv=tv, keys=keys.clone(),
+                                   empty=empty_key, max_probes=max_probes))
+        return orig[1](tk, tv, keys, empty_key, max_probes)
+
+    def fused_morsel_program(table, stages, probe=None, program=None):
+        if probe is not None and not any(
+                c["probe"]["tk"] is probe["tk"] for c in calls["fused"]):
+            calls["fused"].append(dict(q=now["q"], table=table, stages=stages,
+                                       probe=probe, program=program))
+        return orig[2](table, stages, probe=probe, program=program)
+
+    gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    hp.build_table, hp.hash_probe = build_table, hash_probe
+    fused.fused_morsel_program = fused_morsel_program
+    try:
+        for q in (3, 10):
+            now["q"] = q
+            gpu.execute(queries.QUERIES[q](catalog))
+    finally:
+        hp.build_table, hp.hash_probe, fused.fused_morsel_program = orig
+    torch.cuda.synchronize()
+    return calls
+
+
+def _sectors(torch, mask, item_bytes):
+    """32-byte sectors of an array of ``item_bytes``-byte items that hold
+    at least one item where ``mask`` is True."""
+    idx = torch.nonzero(mask).squeeze(1) // (32 // item_bytes)
+    return int(torch.unique(idx).numel())
+
+
+def probe_table_bytes(torch, hp, tk, keys, max_probes, empty_key=-1):
+    """Bytes of the table that a probe of ``keys`` must read: the 32-byte
+    sectors of the key array that the keys' runs visit (home slot to hit,
+    empty slot or ``max_probes``), and those of the value array only at
+    hits."""
+    t = tk.shape[0]
+    seen_k = torch.zeros(t, dtype=torch.bool, device=tk.device)
+    seen_v = torch.zeros_like(seen_k)
+    home, key = hp.hash_home(keys, t), keys
+    for i in range(min(max_probes, t)):
+        idx = (home + i) & (t - 1)
+        k = tk.index_select(0, idx)
+        seen_k[idx] = True
+        hit = k == key
+        seen_v[idx[hit]] = True
+        go = ~(hit | (k == empty_key))
+        if not bool(go.any()):
+            break
+        home, key = home[go], key[go]
+    return 32 * (_sectors(torch, seen_k, 4) + _sectors(torch, seen_v, 4))
+
+
+def build_bytes(torch, c):
+    """Bytes a build must move: the validity of every row, the keys and
+    values of valid rows (the 32-byte sectors that hold one), the table
+    written once."""
+    n = c["keys"].shape[0]
+    valid = (torch.ones(n, dtype=torch.bool, device=c["keys"].device)
+             if c["valid"] is None else c["valid"])
+    return (n * (c["valid"] is not None) + 2 * 32 * _sectors(torch, valid, 4)
+            + c["t"] * 8)
+
+
+def _same_table(torch, got, want, what):
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        fail(f"build_table {what}: {bad} slots differ from the plain version")
+
+
+def _rounds(torch, hp, tk):
+    """Rounds the round-synchronous build needed: the longest displacement
+    of a key from its home slot, plus 1."""
+    t = tk.shape[0]
+    occ = tk != -1
+    idx = torch.arange(t, device=tk.device)
+    disp = (idx - hp.hash_home(tk, t)) & (t - 1)
+    return int(disp[occ].max()) + 1 if bool(occ.any()) else 0
+
+
+def _largest(cs, q, size):
+    return max((c for c in cs if c["q"] == q), key=size)
+
+
+def check_join(torch, hp, fused, catalog, rate):
+    """build_table, hash_probe and the fused probe, each against its plain
+    version on the card, exact, on the inputs the main path gives them at
+    SF 1 (``capture_join_calls``): Q3's and Q10's five builds, Q10's two
+    standalone probes of customer (into the 2^24-slot revenue aggregate
+    and the nation table) and the first morsel of each fused probe. Then
+    two synthetic cases: a build with many duplicate keys, and 1 << 20
+    probe keys with hits, misses and -1 into Q3's orders table. Each
+    kernel is timed on its largest main-path input of Q3 and of Q10."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    calls = capture_join_calls(torch, hp, fused, catalog)
+    for c in calls["build"]:
+        args = (c["keys"], c["vals"], c["t"], c["empty"], c["valid"])
+        got = hp.build_table(*args)
+        _same_table(torch, got, hp.build_table_plain(*args),
+                    f"Q{c['q']} {c['t']} slots")
+        c["table"] = got
+        nv = c["keys"].shape[0] if c["valid"] is None else int(c["valid"].sum())
+        print(f"check build_table Q{c['q']}: rows={c['keys'].shape[0]} "
+              f"valid={nv} slots={c['t']} rounds={_rounds(torch, hp, got[0])} "
+              f"max_probes={hp.probe_bound(got[0])}: bit-identical", flush=True)
+    # many duplicates (16 a key on average), invalid rows and -1 keys
+    nd = 1 << 18
+    dk = torch.randint(-1, 1 << 14, (nd,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    dvalid = torch.rand(nd, generator=gen, device=dev) < 0.9
+    drows = torch.arange(nd, dtype=torch.int32, device=dev)
+    got = hp.build_table(dk, drows, 1 << 19, -1, dvalid)
+    _same_table(torch, got, hp.build_table_plain(dk, drows, 1 << 19, -1,
+                                                 dvalid), "duplicates")
+    print(f"check build_table duplicates: rows={nd} keys<2^14 slots=2^19 "
+          f"rounds={_rounds(torch, hp, got[0])}: bit-identical", flush=True)
+    for c in calls["probe"]:
+        args = (c["tk"], c["tv"], c["keys"], c["empty"], c["max_probes"])
+        got, want = hp.hash_probe(*args), hp.hash_probe_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"hash_probe Q{c['q']} {c['tk'].shape[0]} slots differs "
+                 "from the plain version")
+        print(f"check hash_probe Q{c['q']}: keys={c['keys'].shape[0]} "
+              f"slots={c['tk'].shape[0]} max_probes={c['max_probes']} "
+              f"hits={int(got[0].sum())}: exact", flush=True)
+    for c in calls["fused"]:
+        table, stages, probe = c["table"], c["stages"], c["probe"]
+        got, gf, gb = fused.fused_morsel_program(table, stages, probe=probe,
+                                                 program=c["program"])
+        want = fused.apply_stages(table, stages)
+        wf, wb = fused.apply_probe(want, probe)
+        torch.cuda.synchronize()
+        if not torch.equal(got.validity, want.validity):
+            fail(f"fused probe Q{c['q']}: validity differs from apply_stages")
+        for col in want.column_names:
+            if not torch.equal(got.columns[col], want.columns[col]):
+                fail(f"fused probe Q{c['q']}: column {col} differs")
+        if not (torch.equal(gf, wf) and torch.equal(gb, wb)):
+            fail(f"fused probe Q{c['q']}: found/bidx differ from the plain "
+                 "version")
+        c["key"] = fused.probe_key(want, probe["probe_keys"], probe["pack"],
+                                   probe["empty_key"])
+        c["out"] = got
+        print(f"check fused_morsel_probe Q{c['q']} {probe['probe_keys']}: "
+              f"rows={table.capacity} slots={probe['tk'].shape[0]} "
+              f"{c['program'].code.shape[0]} instructions, found="
+              f"{int(gf.sum())}: exact", flush=True)
+
+    rows_out, launchers = [], {}
+
+    def row(name, source, replaces, ms, plain_ms, nbytes, ops):
+        b, by = bound_ms(nbytes, ops, rate)
+        rows_out.append(dict(name=name, route="cuda", source=source,
+                             replaces=replaces, max_abs_err=0.0, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                             library_ms=None))
+
+    table_cu = "src/repro_torch/kernels/csrc/hash_table.cu"
+    for q in (3, 10):
+        c = _largest(calls["build"], q, lambda c: c["t"])
+        args = (c["keys"], c["vals"], c["t"], c["empty"], c["valid"])
+        name = f"build_table[Q{q}]"
+        launchers[name] = lambda a=args: hp.build_table(*a)
+        # a hash and a compare a row
+        row(name, table_cu, "src/repro/kernels/hash_probe.py:122",
+            time_ms(torch, launchers[name], reps=10),
+            time_ms(torch, lambda a=args: hp.build_table_plain(*a), reps=3,
+                    warm=1),
+            build_bytes(torch, c), c["keys"].shape[0] * 8)
+
+    # the standalone probe: Q10's customer keys into the revenue aggregate
+    c = _largest(calls["probe"], 10, lambda c: c["tk"].shape[0])
+    args = (c["tk"], c["tv"], c["keys"], c["empty"], c["max_probes"])
+    launchers["hash_probe[Q10]"] = lambda a=args: hp.hash_probe(*a)
+    n = c["keys"].shape[0]
+    # keys in, found and value out, the table sectors the runs visit
+    row("hash_probe[Q10]", table_cu, "src/repro/kernels/hash_probe.py:174",
+        time_ms(torch, launchers["hash_probe[Q10]"]),
+        time_ms(torch, lambda: hp.hash_probe_plain(*args)),
+        n * 9 + probe_table_bytes(torch, hp, c["tk"], c["keys"],
+                                  c["max_probes"], c["empty"]), n * 8)
+
+    # an extra case off the main path: 1 << 20 keys into Q3's orders table,
+    # hits, keys of orders the build filtered out, absent keys and -1
+    b3 = _largest(calls["build"], 3, lambda c: c["t"])
+    tk, tv = b3["table"]
+    mp = hp.probe_bound(tk)
+    np_ = 1 << 20
+    keys = b3["keys"]
+    pk = keys[torch.randint(0, keys.shape[0], (np_,), generator=gen,
+                            device=dev)]
+    r = torch.rand(np_, generator=gen, device=dev)
+    pk = torch.where(r < 0.2, pk + (1 << 28), pk)
+    pk = torch.where(r > 0.95, torch.full_like(pk, -1), pk)
+    got = hp.hash_probe(tk, tv, pk, -1, mp)
+    want = hp.hash_probe_plain(tk, tv, pk, -1, mp)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("hash_probe 1 << 20 keys differs from the plain version")
+    ms = time_ms(torch, lambda: hp.hash_probe(tk, tv, pk, -1, mp))
+    b, _ = bound_ms(np_ * 9 + probe_table_bytes(torch, hp, tk, pk, mp), 0,
+                    rate)
+    print(f"check hash_probe keys={np_} slots={tk.shape[0]} max_probes={mp} "
+          f"hits={int(got[0].sum())}: exact; ms={ms} bound_ms={b}",
+          flush=True)
+
+    # the fused probe: the first lineitem morsel of each query, its scan
+    # stages, the probe of l_orderkey into the orders table
+    for q in (3, 10):
+        c = next(c for c in calls["fused"]
+                 if c["q"] == q and c["probe"]["probe_keys"] == ("l_orderkey",))
+        table, stages, probe, program = (c["table"], c["stages"], c["probe"],
+                                         c["program"])
+        name = f"fused_morsel_probe[Q{q}]"
+        launchers[name] = (lambda t_=table, st=stages, pr=probe, p=program:
+                           fused.fused_morsel_program(t_, st, probe=pr,
+                                                      program=p))
+        m = table.capacity
+        # columns and validity in and out, found and bidx out, the table
+        # sectors the runs of every row's key visit (dead rows are probed
+        # too: bidx is defined everywhere)
+        nbytes = (m * (sum(table.columns[x].element_size()
+                           for x in program.in_names) + 1)
+                  + m * (sum(c["out"].columns[x].element_size()
+                             for x in program.out_names) + 1)
+                  + m * 5 + probe_table_bytes(torch, hp, probe["tk"], c["key"],
+                                              probe["max_probes"],
+                                              probe["empty_key"]))
+        alu = sum(1 for op in program.code[:, 0].tolist()
+                  if op >= fused.OPS["FILTER"]) + 8
+        row(name, "src/repro_torch/kernels/csrc/fused_morsel.cu",
+            "src/repro/core/fused.py:78",
+            time_ms(torch, launchers[name]),
+            time_ms(torch, lambda t_=table, st=stages, pr=probe:
+                    fused.apply_probe(fused.apply_stages(t_, st), pr)),
+            nbytes, m * alu)
+    return rows_out, launchers
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
 def compare(q, got, want):
-    """Exact for integer columns (keys, counts), rtol 2e-3 for floats."""
+    """Exact for integer and bytes columns (keys, counts, names), rtol 2e-3
+    for floats. Rows are matched by sorting on the exact columns; a bytes
+    column ([N, W] uint8) sorts by its row bytes."""
     import numpy as np
     if sorted(got) != sorted(want):
         fail(f"Q{q}: columns {sorted(got)} vs {sorted(want)}")
@@ -235,12 +511,22 @@ def compare(q, got, want):
     if any(len(v) != n for v in got.values()):
         fail(f"Q{q}: row count differs from the CPU run")
     ints = [c for c in sorted(want) if want[c].dtype.kind in "iub"]
-    go = np.lexsort([got[c] for c in reversed(ints)]) if ints else slice(None)
-    wo = np.lexsort([want[c] for c in reversed(ints)]) if ints else slice(None)
+
+    def sort_key(a):
+        if a.ndim == 2:
+            return np.array([row.tobytes() for row in a])
+        return a
+
+    def order(res):
+        if not ints:
+            return slice(None)
+        return np.lexsort([sort_key(res[c]) for c in reversed(ints)])
+
+    go, wo = order(got), order(want)
     for c in sorted(want):
         a, b = got[c][go], want[c][wo]
         if c in ints:
-            if not np.array_equal(a, b):
+            if a.shape != b.shape or not np.array_equal(a, b):
                 fail(f"Q{q}: column {c} differs from the CPU run")
         else:
             if not np.all(np.isfinite(a)):
@@ -249,27 +535,46 @@ def compare(q, got, want):
                 fail(f"Q{q}: column {c} differs from the CPU run: {a} vs {b}")
 
 
-def run_main_path(torch, data):
-    """Q6 and Q1 through the port's Session on the card, each against the
-    same plan on the CPU; returns the launch counts of each query's timed
-    run, the card's session and the catalog."""
-    from repro_torch.core.session import Catalog, Session
-    from repro_torch.kernels import ops
-    from repro_torch.tpch import queries, schema
+def expected_launches(ops, data):
+    """Each query's launch counts at the main path's morsel size, from its
+    tables' morsel counts: one fused launch per scanned morsel of a fused
+    pipeline, one segmented-sum launch per aggregate per ``_aggregate`` call
+    (one per morsel, one per merge), one build per hash join, one
+    standalone probe per probe-side morsel of a join the scan cannot fuse
+    (Q10's customer scan has no stage before its joins)."""
+    def morsels(table):
+        return math.ceil(len(next(iter(data[table].values()))) / _MAIN_ROWS)
 
-    catalog = Catalog.from_numpy(
-        data, schema.SCHEMAS, {n: (k,) for n, k in schema.PRIMARY_KEYS.items()})
-    rows = len(data["lineitem"]["l_orderkey"])
+    li, orders, cust = morsels("lineitem"), morsels("orders"), morsels("customer")
+    calls = 2 * li - 1           # one _aggregate per morsel, one per merge
+
+    def counts(**kw):
+        out = dict.fromkeys(ops.KERNELS, 0)
+        out.update(kw)
+        return out
+
+    return {6: counts(fused_morsel_program=li),
+            1: counts(fused_morsel_program=li, segmented_sum=7 * calls,
+                      segmented_int_sum=4 * calls),
+            3: counts(fused_morsel_probe=orders + li, build_table=2,
+                      segmented_sum=calls),
+            10: counts(fused_morsel_probe=li, build_table=3,
+                       hash_probe=2 * cust, segmented_sum=calls)}
+
+
+def run_main_path(torch, data, catalog):
+    """Q6, Q1, Q3 and Q10 through the port's Session on the card, each
+    against the same plan on the CPU; returns the launch counts of each
+    query's timed run and the card's session."""
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import queries
+
     gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
     cpu = Session(catalog, device="cpu", batch_rows=_MAIN_ROWS)
-    morsels = math.ceil(rows / _MAIN_ROWS)
-    calls = 2 * morsels - 1      # one _aggregate per morsel, one per merge
-    expect = {6: {"fused_morsel_program": morsels, "segmented_sum": 0,
-                  "segmented_int_sum": 0},
-              1: {"fused_morsel_program": morsels, "segmented_sum": 7 * calls,
-                  "segmented_int_sum": 4 * calls}}
+    expect = expected_launches(ops, data)
     launches = {}
-    for q in (6, 1):
+    for q in _QUERIES:
         plan = queries.QUERIES[q](catalog)
         gpu.execute(plan)                       # warm: allocator, streams
         torch.cuda.synchronize()
@@ -291,7 +596,8 @@ def run_main_path(torch, data):
         compare(q, got, want)
         print(f"Q{q} SF {_SF}: gpu {[round(t, 4) for t in gpu_s]} s, "
               f"cpu {cpu_s:.4f} s, rows "
-              f"{len(next(iter(got.values())))}, launches {counts}, "
+              f"{len(next(iter(got.values())))}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }, "
               f"kernel_dispatch {stats['kernel_dispatch']}", flush=True)
         if counts != expect[q]:
             fail(f"Q{q}: launches {counts}, expected {expect[q]}")
@@ -299,10 +605,12 @@ def run_main_path(torch, data):
     for k in ops.KERNELS:
         if not any(c[k] for c in launches.values()):
             fail(f"kernel {k} was not launched by the main path")
-    return launches, gpu, catalog
+    return launches, gpu
 
 
-_PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel")
+_PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
+                 "hash_build_claim_kernel", "hash_build_place_kernel",
+                 "hash_probe_kernel")
 
 
 def _device_events(prof):
@@ -330,9 +638,14 @@ def profile_kernels(torch, launchers, reps: int = 20):
     """Device milliseconds per launch of each kernel at the main path's
     shapes, from ``torch.profiler`` (launch overhead on the host excluded)."""
     from torch.profiler import ProfilerActivity, profile
-    symbol = {"segmented_sum": "segmented_sum_kernel<float",
-              "segmented_int_sum": "segmented_sum_kernel<int",
-              "fused": "fused_morsel_kernel"}
+    # the build is two kernels a round, so its launches are a multiple
+    # of the calls
+    symbol = {"segmented_sum": ("segmented_sum_kernel<float",),
+              "segmented_int_sum": ("segmented_sum_kernel<int",),
+              "fused": ("fused_morsel_kernel",),
+              "build_table": ("hash_build_claim_kernel",
+                              "hash_build_place_kernel"),
+              "hash_probe": ("hash_probe_kernel",)}
     out = {}
     for name, fn in launchers.items():
         fn()
@@ -341,24 +654,28 @@ def profile_kernels(torch, launchers, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        key = symbol["fused" if name.startswith("fused") else name]
-        hits = [r for r in _device_events(prof) if key in r[0]]
-        if not hits or sum(r[1] for r in hits) != reps:
-            fail(f"profile of {name}: no kernel events matching {key!r}")
+        key = name.partition("[")[0]
+        keys = symbol["fused" if key.startswith("fused") else key]
+        hits = [r for r in _device_events(prof)
+                if any(k in r[0] for k in keys)]
+        launched = sum(r[1] for r in hits)
+        if not hits or launched < reps or launched % reps:
+            fail(f"profile of {name}: {launched} kernel events matching "
+                 f"{keys!r} for {reps} calls")
         out[name] = sum(r[2] for r in hits) / reps / 1e3
     print(f"device_ms per launch: {json.dumps(out)}", flush=True)
     return out
 
 
 def profile_main_path(torch, gpu, catalog, out_dir):
-    """One profiled warm run of Q6 and of Q1 (``torch.profiler``): device
+    """One profiled warm run of each query (``torch.profiler``): device
     time by kernel, device busy time and idle share of the wall time. The
     profiler's own overhead lengthens the wall time it is divided by."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.tpch import queries
 
     os.makedirs(out_dir, exist_ok=True)
-    for q in (6, 1):
+    for q in _QUERIES:
         plan = queries.QUERIES[q](catalog)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -392,8 +709,8 @@ def profile_main_path(torch, gpu, catalog, out_dir):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile Q6 and Q1 and write the summaries and "
-                         "traces into DIR")
+                    help="also profile Q6, Q1, Q3 and Q10 and write the "
+                         "summaries and traces into DIR")
     args = ap.parse_args()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -406,10 +723,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     from repro_torch.core import fused
+    from repro_torch.core.session import Catalog
     from repro_torch.core.table import TorchTable
     from repro_torch.kernels import build
+    from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import segmented_agg as seg
-    from repro_torch.tpch import dbgen, queries
+    from repro_torch.tpch import dbgen, queries, schema
 
     card = card_line()
     print(card, flush=True)
@@ -429,6 +748,8 @@ def main() -> None:
     n = len(lineitem["l_orderkey"])
     print(f"dbgen SF {_SF}: lineitem {n} rows in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    catalog = Catalog.from_numpy(
+        data, schema.SCHEMAS, {t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
 
     rows_out, launchers = check_segmented(torch, seg, rate, _MAIN_ROWS)
     # the fused kernel on one main-path morsel of real lineitem rows
@@ -440,8 +761,11 @@ def main() -> None:
                                               rate)
     rows_out += fused_rows
     launchers.update(fused_launchers)
+    join_rows, join_launchers = check_join(torch, hp, fused, catalog, rate)
+    rows_out += join_rows
+    launchers.update(join_launchers)
 
-    launches, gpu, catalog = run_main_path(torch, data)
+    launches, gpu = run_main_path(torch, data, catalog)
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:

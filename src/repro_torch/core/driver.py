@@ -6,9 +6,10 @@ operators. Scans run as ``StreamingScan`` stages fed by a
 per-morsel pipeline, which ``operators.fuse_morsel_pipeline`` collapses
 into one fused kernel launch per morsel.
 
-This slice runs TableScan, Filter, Project, Aggregation, OrderBy and Limit
-at ``num_workers == 1``. Any other node raises ``NotImplementedError``
-naming the slice that brings it.
+The port runs TableScan, Filter, Project, Aggregation, Join (single-match
+hash joins; a probe straight off a scan fuses into the scan's morsel
+pipeline), OrderBy and Limit at ``num_workers == 1``. Any other node
+raises ``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from .table import TorchTable, concat_tables
 
 # node type -> the port slice that brings it (ROADMAP.md, queue A)
 _LATER = {
-    "Join": "the join slice (Q3 and Q10)",
     "Distinct": "the all-queries slice",
     "ScalarBroadcast": "the all-queries slice",
     "InMemorySource": "the all-queries slice",
@@ -188,6 +188,25 @@ class Driver:
         agg = ops.HashAggregation(node.group_keys, node.aggs, mode,
                                   node.max_groups)
         return Stream(self._run_pipeline(agg, child.batches))
+
+    def _exec_join(self, node: P.Join) -> Stream:
+        build = self._materialize(self._stream(node.build).batches)
+        probe = self._stream(node.probe)
+        join = ops.HashJoin(node.build_keys, node.probe_keys,
+                            node.build_payload, node.join_type,
+                            node.max_matches, build_rows=node.build_rows)
+        join.open()
+        join.add_build(build)
+        join.seal_build()
+        if probe.scan is not None:
+            # fuse the probe into the scan's per-morsel pipeline, where the
+            # iteration-start collapse folds it and the stages before it
+            # into one fused launch per morsel; the join's time folds into
+            # the StreamingScan entry of op_seconds, and the returned stream
+            # drops the scan so later stages keep their own launches
+            probe.scan.fuse(join)
+            return Stream(probe.batches)
+        return Stream(self._run_pipeline(join, probe.batches))
 
     def _exec_orderby(self, node: P.OrderBy) -> Stream:
         child = self._stream(node.child)

@@ -8,11 +8,17 @@ kernel (``kernels/csrc/fused_morsel.cu``) interprets that program with one
 thread per row. The kernel is built once from the repository's source: no
 query writes or compiles CUDA code.
 
-``apply_stages`` is the plain version: it replays the stages with
-``Expr.evaluate``, and it is what a CPU tensor runs. The lowering raises
-``NotImplementedError`` for any node it cannot express (bytes columns,
-``BytesMatch``, ``Year``, ...); it never runs the stages unfused instead.
-The probe variant comes with the join slice.
+The probe variant ends the program with the join's single-match probe:
+the program computes the probe key from the post-stage registers (the raw
+int column, or the injective composite pack), and the kernel probes the
+join's table (``kernels/csrc/hash_probe.cuh``) and stores ``found`` and
+``bidx`` beside the stage outputs.
+
+``apply_stages`` (with ``kernels.hash_probe.hash_probe_plain`` for the
+probe) is the plain version, and it is what a CPU tensor runs. The lowering
+raises ``NotImplementedError`` for any node it cannot express (bytes
+columns, ``BytesMatch``, ``Year``, ...); it never runs the stages unfused
+instead.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..kernels import hash_probe as hp
 from ..kernels import ops as kernel_ops
+from . import relational as rel
 from .expr import BinaryOp, ColumnRef, IsIn, Literal, UnaryOp
 from .plan import _canon
 from .table import TorchTable
@@ -44,16 +52,18 @@ OPS = {
     "GE_I32": 20,
     "EQ_F32": 21, "NE_F32": 22, "LT_F32": 23, "LE_F32": 24, "GT_F32": 25,
     "GE_F32": 26,
-    "AND": 27, "OR": 28, "NOT": 29, "I32_TO_F32": 30,
+    "AND": 27, "OR": 28, "NOT": 29, "I32_TO_F32": 30, "PROBE": 31,
 }
 LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48}
 
 _LIB = "fused_morsel"
 # (program, n_instr, in_ptrs, n_in, out_ptrs, n_out, valid_in, valid_out, n,
-#  stream)
+#  tk, tv, table_size, max_probes, empty_key, found, bidx, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
 _CMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
 _ARITH_OPS = ("add", "sub", "mul")
 # register kinds: 'i32' (int32 bits), 'f32' (float32 bits), 'b' (0 or 1)
@@ -80,12 +90,35 @@ def apply_stages(table: TorchTable, stages: Sequence[Stage]) -> TorchTable:
     return table
 
 
+def probe_key(table: TorchTable, key_names, pack, empty_key: int
+              ) -> torch.Tensor:
+    """Single-lane probe key: the raw int key, or the injective composite
+    pack (``relational.packed_key``) when ``pack`` is set."""
+    cols = [table.columns[k] for k in key_names]
+    if pack is not None:
+        return rel.packed_key(cols, pack, empty_key=empty_key)
+    key = rel.join_key(cols)
+    return key
+
+
+def apply_probe(table: TorchTable, probe: dict):
+    """Plain version of the fused probe on the post-stage ``table`` ->
+    ``(found, bidx)``; ``found`` is masked by validity and by probe keys
+    equal to the empty sentinel, as the kernel stores it."""
+    key = probe_key(table, probe["probe_keys"], probe["pack"],
+                    probe["empty_key"])
+    found, bidx = hp.hash_probe_plain(probe["tk"], probe["tv"], key,
+                                      probe["empty_key"], probe["max_probes"])
+    return found & table.validity & (key != probe["empty_key"]), bidx
+
+
 @dataclasses.dataclass(frozen=True)
 class Program:
     """A lowered run of stages: ``code`` is int32[n_instr, 4] on the host,
     rows of (op, dst, a, b); ``in_names`` are the input columns in load-slot
     order, with the ``in_dtypes`` the program reads them as; outputs are
-    ``out_names`` with their physical ``out_dtypes``."""
+    ``out_names`` with their physical ``out_dtypes``. With ``probe`` set
+    the program ends in a PROBE of the key register it computed."""
 
     code: torch.Tensor
     in_names: Tuple[str, ...]
@@ -94,6 +127,7 @@ class Program:
     out_dtypes: Tuple[torch.dtype, ...]
     out_schema: Dict[str, object]
     n_regs: int
+    probe: bool = False
 
 
 class _Lowering:
@@ -236,10 +270,14 @@ class _Lowering:
             f"fused lowering: {type(e).__name__} comes with a later slice")
 
 
-def lower_stages(table: TorchTable, stages: Sequence[Stage]) -> Program:
+def lower_stages(table: TorchTable, stages: Sequence[Stage],
+                 probe_keys: Optional[Sequence[str]] = None,
+                 pack=None, empty_key: int = -1) -> Program:
     """Lower a run of FilterProject stages over ``table``'s columns into a
-    register program for the fused kernel. Raises ``NotImplementedError``
-    for any expression, dtype or size the kernel does not take."""
+    register program for the fused kernel; with ``probe_keys`` the program
+    ends in the probe of the key they make (packed by ``pack`` if set).
+    Raises ``NotImplementedError`` for any expression, dtype or size the
+    kernel does not take."""
     lw = _Lowering(table)
     # env: column name -> (register, kind), or None for an input column
     # that is loaded on first use
@@ -256,6 +294,9 @@ def lower_stages(table: TorchTable, stages: Sequence[Stage]) -> Program:
                 new_env[out_name] = lw.expr(e, env, stage)
                 new_schema[out_name] = e.out_dtype(schema)
             env, schema = new_env, new_schema
+    if probe_keys is not None:
+        key = _lower_probe_key(lw, env, probe_keys, pack, empty_key)
+        lw.emit("PROBE", 0, key)
     out_names, out_dtypes = [], []
     for k, (name, v) in enumerate(env.items()):
         r, kind = lw.column(name) if v is None else v
@@ -272,30 +313,86 @@ def lower_stages(table: TorchTable, stages: Sequence[Stage]) -> Program:
     in_names = tuple(lw.in_slots)
     in_dtypes = tuple(table.columns[n].dtype for n in in_names)
     return Program(code, in_names, in_dtypes, tuple(out_names),
-                   tuple(out_dtypes), schema, lw.n_regs)
+                   tuple(out_dtypes), schema, lw.n_regs,
+                   probe=probe_keys is not None)
+
+
+def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
+                     empty_key: int) -> int:
+    """Emit the probe key (``probe_key``'s arithmetic) from the post-stage
+    registers; returns its register. The pack folds ``key * span + (c -
+    lo)`` in wrapping int32 and then selects ``empty_key`` where a column
+    is outside its window, as ``(key - empty) * ok + empty``: where every
+    column is inside, no term wraps and the key equals the clipped one of
+    ``relational.packed_key``."""
+    regs = []
+    for name in probe_keys:
+        v = env[name]
+        r, kind = lw.column(name) if v is None else v
+        if kind != "i32":
+            raise NotImplementedError(
+                f"fused lowering: probe key {name!r} is not an integer "
+                "column (hashed keys come with the all-queries slice)")
+        regs.append(r)
+    if pack is None:
+        if len(regs) != 1:
+            raise NotImplementedError(
+                "fused lowering: a multi-column key needs a pack")
+        return regs[0]
+    key = lw.const(0, "i32")[0]
+    ok = lw.const(1, "b")[0]
+    for r, (lo, span) in zip(regs, pack):
+        lo_r = lw.const(lo, "i32")[0]
+        inside = lw.emit("AND", lw.reg(),
+                         lw.emit("GE_I32", lw.reg(), r, lo_r),
+                         lw.emit("LE_I32", lw.reg(), r,
+                                 lw.const(lo + span - 1, "i32")[0]))
+        ok = lw.emit("AND", lw.reg(), ok, inside)
+        scaled = lw.emit("MUL_I32", lw.reg(), key,
+                         lw.const(span, "i32")[0])
+        key = lw.emit("ADD_I32", lw.reg(), scaled,
+                      lw.emit("SUB_I32", lw.reg(), r, lo_r))
+    empty = lw.const(empty_key, "i32")[0]
+    shifted = lw.emit("SUB_I32", lw.reg(), key, empty)
+    return lw.emit("ADD_I32", lw.reg(),
+                   lw.emit("MUL_I32", lw.reg(), shifted, ok), empty)
 
 
 def fused_morsel_program(table: TorchTable, stages: Sequence[Stage],
                          probe: Optional[dict] = None,
                          program: Optional[Program] = None):
-    """Run ``stages`` over ``table`` in one launch; returns
-    ``(out_table, found, bidx)`` with ``found``/``bidx`` None (no probe).
+    """Run ``stages`` (and optionally a single-match hash probe) over
+    ``table`` in one launch; returns ``(out_table, found, bidx)``.
+
+    ``probe``, when given, is a dict with ``tk``/``tv`` (the join's table),
+    ``probe_keys`` (post-stage column names), ``pack`` (composite-key
+    windows or None), ``empty_key`` and ``max_probes``; ``found`` comes
+    back masked by validity and by keys equal to ``empty_key``, ``bidx``
+    raw (0 where no slot matched). Without a probe both are None.
 
     For a CUDA table this launches the fused kernel with ``program`` (or
-    the stages lowered now); for a CPU table it runs ``apply_stages``.
+    the stages lowered now); for a CPU table it runs ``apply_stages`` and
+    ``apply_probe``.
     """
-    if probe is not None:
-        raise NotImplementedError(
-            "fused_morsel_program: the probe variant comes with the join slice")
     kernel_ops.mark_kernel("fused")
     if not table.validity.is_cuda:
-        return apply_stages(table, stages), None, None
+        out = apply_stages(table, stages)
+        if probe is None:
+            return out, None, None
+        return (out,) + apply_probe(out, probe)
     if program is None:
-        program = lower_stages(table, stages)
-    return _launch(program, table), None, None
+        program = lower_stages(
+            table, stages,
+            probe_keys=None if probe is None else probe["probe_keys"],
+            pack=None if probe is None else probe["pack"],
+            empty_key=-1 if probe is None else probe["empty_key"])
+    if program.probe != (probe is not None):
+        raise ValueError("fused_morsel_program: the program and the call "
+                         "disagree on the probe")
+    return _launch(program, table, probe)
 
 
-def _launch(program: Program, table: TorchTable) -> TorchTable:
+def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
     dev = table.device
     n = table.capacity
     if table.validity.dtype != torch.bool or table.validity.dim() != 1:
@@ -312,6 +409,24 @@ def _launch(program: Program, table: TorchTable) -> TorchTable:
     valid_in = table.validity.contiguous()
     outs = [torch.empty(n, dtype=d, device=dev) for d in program.out_dtypes]
     valid_out = torch.empty(n, dtype=torch.bool, device=dev)
+    found = bidx = None
+    tk = tv = None
+    table_size = max_probes = 0
+    empty_key = -1
+    if probe is not None:
+        tk, tv = probe["tk"].contiguous(), probe["tv"].contiguous()
+        table_size = tk.shape[0]
+        for a in (tk, tv):
+            if a.dtype != torch.int32 or a.device != dev or a.dim() != 1:
+                raise TypeError("fused_morsel_program: the table must be "
+                                f"int32[T] on {dev}")
+        if tv.shape != tk.shape or table_size & (table_size - 1):
+            raise ValueError("fused_morsel_program: the table's keys and "
+                             "values must share one power-of-two size")
+        max_probes = min(int(probe["max_probes"]), table_size)
+        empty_key = int(probe["empty_key"])
+        found = torch.empty(n, dtype=torch.bool, device=dev)
+        bidx = torch.empty(n, dtype=torch.int32, device=dev)
     if n > 0:
         fn = build.function(_LIB, "fused_morsel_run", _ARGTYPES)
         in_ptrs = (ctypes.c_uint64 * max(len(ins), 1))(
@@ -319,11 +434,19 @@ def _launch(program: Program, table: TorchTable) -> TorchTable:
         out_ptrs = (ctypes.c_uint64 * max(len(outs), 1))(
             *[t.data_ptr() for t in outs])
         code = program.code.contiguous()
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
         rc = fn(code.data_ptr(), code.shape[0], in_ptrs, len(ins),
                 out_ptrs, len(outs), valid_in.data_ptr(),
-                valid_out.data_ptr(), n,
+                valid_out.data_ptr(), n, ptr(tk), ptr(tv), table_size,
+                max_probes, empty_key, ptr(found), ptr(bidx),
                 torch.cuda.current_stream(dev).cuda_stream)
-        build.check(_LIB, rc, "fused_morsel_program")
-        kernel_ops.count_launch("fused_morsel_program")
-    return TorchTable(dict(zip(program.out_names, outs)), valid_out,
-                      dict(program.out_schema))
+        name = ("fused_morsel_probe" if probe is not None
+                else "fused_morsel_program")
+        build.check(_LIB, rc, name)
+        kernel_ops.count_launch(name)
+    out = TorchTable(dict(zip(program.out_names, outs)), valid_out,
+                     dict(program.out_schema))
+    return out, found, bidx

@@ -8,9 +8,11 @@ Operators follow Velox's streaming contract, as in the reference::
 
 The port runs one worker on local ``[cap]`` tensors, eagerly; each operator
 body is wrapped in ``kernels.ops.table_op`` only for dispatch accounting.
-This slice has FilterProject, HashAggregation (without spill), the fused
-per-morsel pipeline, OrderBy and Limit. Joins, Distinct and ScalarBroadcast
-come with the join slice.
+The port has FilterProject, HashAggregation (without spill), HashJoin on
+its open-addressing path (single-match probes), the fused per-morsel
+pipeline with its probe variant, OrderBy and Limit. Expansion probes, the
+sorted-key join, Distinct and ScalarBroadcast come with the all-queries
+slice.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels import hash_probe as hp
 from ..kernels.ops import table_op
 from . import dtypes as dt
 from . import fused
@@ -279,7 +282,201 @@ def maybe_compact(table: TorchTable) -> TorchTable:
 
 
 # ---------------------------------------------------------------------------
-# FusedMorsel: one kernel launch per morsel (filter -> project)
+# HashJoin (open-addressing table, single-match probe)
+# ---------------------------------------------------------------------------
+
+# The reference caps the table at 2^18 slots: its probe keeps the table in
+# a TPU core's VMEM (2^18 slots x 8 B = 2 MiB of ~16 MiB, beside the probe
+# blocks) and sends larger builds to the sorted-key path. The H100 keeps
+# the table in device memory behind a 50 MB L2, so that reason does not
+# hold here. The port's cap is the largest table the planner can ask for:
+# 2 x its largest build_rows bound (optimizer MAX_CAPACITY, 1 << 24) slots,
+# for load 1/2.
+MAX_HASH_TABLE_SLOTS = 1 << 25
+EMPTY_KEY = -1
+_PACKABLE_DTYPES = ("int32", "date32", "dict32")
+_ALL_QUERIES = "the all-queries slice"
+
+
+@table_op
+def _build_hash_table(build: TorchTable, build_keys, table_size: int, pack):
+    key = fused.probe_key(build, build_keys, pack, EMPTY_KEY)
+    rows = torch.arange(key.shape[0], dtype=torch.int32, device=key.device)
+    return hp.build_table(key, rows, table_size, empty_key=EMPTY_KEY,
+                          valid=build.validity)
+
+
+def _derive_pack(build: TorchTable, build_keys):
+    """Injective-pack windows ``((lo, span), ...)`` for a composite
+    int-like key, from the valid build rows' min and max (one read back
+    from the device), or None when a column is not int-like or the spans'
+    product passes the int32 key lane. Every valid build row is inside the
+    windows, so the pack needs no verification after the probe."""
+    cols = []
+    for k in build_keys:
+        if build.schema[k].name not in _PACKABLE_DTYPES:
+            return None
+        cols.append(build.columns[k].to(torch.int64))
+    valid = build.validity
+    i64 = torch.iinfo(torch.int64)
+    stats = [valid.any().to(torch.int64)]
+    for c in cols:
+        stats += [torch.where(valid, c, i64.max).min(),
+                  torch.where(valid, c, i64.min).max()]
+    got = torch.stack(stats).tolist()
+    pack, prod = [], 1
+    for lo, hi in zip(got[1::2], got[2::2]):
+        # no valid row: the reference's empty windows
+        lo, span = (lo, hi - lo + 1) if got[0] else (0, 1)
+        prod *= span
+        if prod > rel.INT32_MAX:
+            return None
+        pack.append((lo, span))
+    return tuple(pack)
+
+
+def _attach_build_payload(probe: TorchTable, build: TorchTable, found,
+                          bidx, build_payload, join_type: str) -> TorchTable:
+    """Single-match output (output row i is probe row i), shared by the
+    standalone probe and the fused morsel kernel: semi/anti filter on
+    membership; inner/left_outer gather the build payload by matched row
+    (left_outer zero-fills unmatched rows and carries ``__matched``)."""
+    if join_type == "left_semi":
+        return probe.filter(found)
+    if join_type == "left_anti":
+        return probe.filter(probe.validity & ~found)
+    safe = torch.where(found, bidx, torch.zeros_like(bidx)).long()
+    cols = dict(probe.columns)
+    schema = dict(probe.schema)
+    for n in build_payload:
+        v = build.columns[n].index_select(0, safe)
+        if join_type == "left_outer":
+            mask = found.reshape(found.shape + (1,) * (v.dim() - 1))
+            v = torch.where(mask, v, torch.zeros((), dtype=v.dtype,
+                                                 device=v.device))
+        cols[n] = v
+        schema[n] = build.schema[n]
+    if join_type == "left_outer":
+        cols["__matched"] = found
+        schema["__matched"] = dt.BOOL
+        return TorchTable(cols, probe.validity, schema)
+    return TorchTable(cols, found, schema)
+
+
+@table_op
+def _probe_join_hash(probe: TorchTable, hash_state, probe_keys,
+                     build_payload, join_type: str, max_probes: int, pack):
+    """Open-addressing probe (the reference's ``_probe_join_pallas``): one
+    table lookup per probe row through ``hash_probe``."""
+    build, tk, tv = hash_state
+    key = fused.probe_key(probe, probe_keys, pack, EMPTY_KEY)
+    found, bidx = hp.hash_probe(tk, tv, key, empty_key=EMPTY_KEY,
+                                max_probes=max_probes)
+    # a probe key equal to the empty sentinel reads an empty slot as a hit;
+    # no such key occupies the table (seal_build refuses a build that holds
+    # one, and packed keys are nonnegative), so masking it is exact
+    found = found & probe.validity & (key != EMPTY_KEY)
+    return _attach_build_payload(probe, build, found, bidx, build_payload,
+                                 join_type)
+
+
+class HashJoin(Operator):
+    """Streaming probe against a fully materialised build side, on the
+    reference's ``pallas`` path: exact int-like keys (one column, or a
+    composite packed injectively into one int32 lane by ``_derive_pack``)
+    build an open-addressing table of ``2 * build_rows`` slots rounded up
+    to a power of two (``kernels.hash_probe.build_table``), and each probe
+    batch looks its keys up with ``hash_probe`` (or, fused into the scan,
+    with the fused morsel kernel). Semi/anti joins and joins against a
+    build side the planner proved unique (``max_matches == 1``) take this
+    path.
+
+    Where the reference falls back to its sorted-key path (a non-integer or
+    too wide composite key, a valid build key equal to the empty sentinel
+    -1, a table above ``MAX_HASH_TABLE_SLOTS``) or probes with the
+    expansion kernel (``max_matches > 1``), the port raises
+    ``NotImplementedError``: those paths come with the all-queries slice.
+    """
+
+    name = "HashJoin"
+
+    def __init__(self, build_keys: Sequence[str], probe_keys: Sequence[str],
+                 build_payload: Sequence[str] = (), join_type: str = "inner",
+                 max_matches: int = 1, build_rows: Optional[int] = None):
+        if join_type not in ("inner", "left_semi", "left_anti", "left_outer"):
+            raise ValueError(f"HashJoin: join type {join_type!r}")
+        self.build_keys = tuple(build_keys)
+        self.probe_keys = tuple(probe_keys)
+        self.build_payload = tuple(build_payload)
+        self.join_type = join_type
+        self.max_matches = max_matches
+        self.build_rows = build_rows     # planner's build-side row bound
+        self._build_batches: List[TorchTable] = []
+        self._hash_state = None          # (build, table_keys, table_vals)
+        self._max_probes = 0
+        self._pack = None                # composite-key windows, or None
+
+    def add_build(self, batch: TorchTable) -> None:
+        """Accumulate one build-side batch (device-resident)."""
+        self._build_batches.append(batch)
+
+    def seal_build(self) -> None:
+        """Concatenate the build side and build its table; probing may
+        start after. Reads back two scalars from the device: the shortfall
+        of occupied slots against valid rows, and the longest occupied run
+        (``max_probes``)."""
+        if not self._build_batches:
+            raise RuntimeError("HashJoin: the build side is empty")
+        build = concat_tables(self._build_batches)
+        self._build_batches = []
+        if (self.join_type not in ("left_semi", "left_anti")
+                and self.max_matches != 1):
+            raise NotImplementedError(
+                f"HashJoin: the expansion probe (max_matches="
+                f"{self.max_matches}) comes with {_ALL_QUERIES}")
+        kt = [build.schema[k] for k in self.build_keys]
+        pack = None
+        if not (len(kt) == 1 and kt[0].name in _PACKABLE_DTYPES):
+            if len(kt) >= 2:
+                pack = _derive_pack(build, self.build_keys)
+            if pack is None:
+                raise NotImplementedError(
+                    f"HashJoin: key {self.build_keys} is not integer or too "
+                    f"wide to pack; the sorted-key join comes with "
+                    f"{_ALL_QUERIES}")
+        cap = build.capacity
+        bound = min(self.build_rows or cap, cap)
+        table_size = _pow2(max(2 * bound, 2))
+        if table_size > MAX_HASH_TABLE_SLOTS:
+            raise NotImplementedError(
+                f"HashJoin: a table of {table_size} slots is above the "
+                f"port's cap of {MAX_HASH_TABLE_SLOTS}; the sorted-key join "
+                f"comes with {_ALL_QUERIES}")
+        tk, tv = _build_hash_table(build, self.build_keys, table_size, pack)
+        # every valid build row must occupy a slot: a shortfall means a key
+        # equal to the empty sentinel, whose matches a probe would drop
+        short, longest = torch.stack([
+            build.validity.sum(dtype=torch.int64)
+            - (tk != EMPTY_KEY).sum(dtype=torch.int64),
+            hp.longest_run(tk, EMPTY_KEY)]).tolist()
+        if short:
+            raise NotImplementedError(
+                f"HashJoin: a valid build key equals the empty sentinel "
+                f"{EMPTY_KEY}; the sorted-key join comes with {_ALL_QUERIES}")
+        self._hash_state = (build, tk, tv)
+        self._max_probes = hp.probe_bound_of_run(longest, table_size)
+        self._pack = pack
+
+    def add_input(self, batch):
+        if self._hash_state is None:
+            raise RuntimeError("HashJoin: probe before the build was sealed")
+        return [_probe_join_hash(batch, self._hash_state, self.probe_keys,
+                                 self.build_payload, self.join_type,
+                                 self._max_probes, self._pack)]
+
+
+# ---------------------------------------------------------------------------
+# FusedMorsel: one kernel launch per morsel (filter -> project -> probe)
 # ---------------------------------------------------------------------------
 
 @table_op
@@ -288,47 +485,76 @@ def _fused_morsel(table: TorchTable, stages, program):
     return out
 
 
+@table_op
+def _fused_morsel_probe(table: TorchTable, hash_state, stages, probe_keys,
+                        build_payload, join_type: str, max_probes: int, pack,
+                        program):
+    build, tk, tv = hash_state
+    out, found, bidx = fused.fused_morsel_program(
+        table, stages,
+        probe=dict(tk=tk, tv=tv, probe_keys=probe_keys, pack=pack,
+                   empty_key=EMPTY_KEY, max_probes=max_probes),
+        program=program)
+    return _attach_build_payload(out, build, found, bidx, build_payload,
+                                 join_type)
+
+
 class FusedMorsel(Operator):
-    """A collapsed run of FilterProject stages executed as one fused
+    """A collapsed run of FilterProject stages, optionally ending in a
+    single-match probe of a sealed ``HashJoin``, executed as one fused
     kernel launch per morsel (``core.fused``). Created by
-    ``fuse_morsel_pipeline``; the probe variant (``join``) comes with the
-    join slice."""
+    ``fuse_morsel_pipeline``."""
 
     name = "FusedMorsel"
 
-    def __init__(self, stages, join=None):
-        if join is not None:
-            raise NotImplementedError(
-                "FusedMorsel: the fused probe comes with the join slice")
+    def __init__(self, stages, join: Optional[HashJoin] = None):
         self.stages = tuple(stages)
         self.join = join
         # lowered programs per input signature (names, dtypes, shapes)
         self._programs = {}
 
+    def _program(self, batch: TorchTable):
+        if not batch.validity.is_cuda:
+            return None
+        sig = tuple((n, a.dtype, a.dim()) for n, a in batch.columns.items())
+        program = self._programs.get(sig)
+        if program is None:
+            j = self.join
+            program = fused.lower_stages(
+                batch, self.stages,
+                probe_keys=None if j is None else j.probe_keys,
+                pack=None if j is None else j._pack)
+            self._programs[sig] = program
+        return program
+
     def add_input(self, batch):
-        program = None
-        if batch.validity.is_cuda:
-            sig = tuple((n, a.dtype, a.dim()) for n, a in batch.columns.items())
-            program = self._programs.get(sig)
-            if program is None:
-                program = fused.lower_stages(batch, self.stages)
-                self._programs[sig] = program
-        return [_fused_morsel(batch, self.stages, program)]
+        program = self._program(batch)
+        j = self.join
+        if j is None:
+            return [_fused_morsel(batch, self.stages, program)]
+        return [_fused_morsel_probe(batch, j._hash_state, self.stages,
+                                    j.probe_keys, j.build_payload,
+                                    j.join_type, j._max_probes, j._pack,
+                                    program)]
 
 
 def fuse_morsel_pipeline(pipe: Pipeline) -> None:
-    """Collapse the scan pipeline's runs of non-compacting FilterProjects
-    into ``FusedMorsel`` operators: one kernel launch per morsel instead of
-    one per stage, with no intermediate morsel materialised. A lone
-    FilterProject stays unfused (same launch count either way); compacting
-    stages keep their own operators."""
+    """Collapse the scan pipeline's runs of non-compacting FilterProjects,
+    optionally ending in a sealed ``HashJoin``'s probe, into
+    ``FusedMorsel`` operators: one kernel launch per morsel instead of one
+    per stage, with no intermediate morsel materialised. A lone
+    FilterProject stays unfused (same launch count either way), and so
+    does a join with no stage before it; compacting stages keep their own
+    operators."""
     new_ops: List[Operator] = []
     run: List[FilterProject] = []
 
+    def stages():
+        return [(fp.filter_expr, fp.projections) for fp in run]
+
     def flush():
         if len(run) >= 2:
-            new_ops.append(FusedMorsel(
-                [(fp.filter_expr, fp.projections) for fp in run]))
+            new_ops.append(FusedMorsel(stages()))
         else:
             new_ops.extend(run)
         run.clear()
@@ -336,6 +562,10 @@ def fuse_morsel_pipeline(pipe: Pipeline) -> None:
     for op in pipe.ops:
         if isinstance(op, FilterProject) and not op.compact:
             run.append(op)
+        elif (isinstance(op, HashJoin) and run
+                and op._hash_state is not None):
+            new_ops.append(FusedMorsel(stages(), join=op))
+            run.clear()
         else:
             flush()
             new_ops.append(op)

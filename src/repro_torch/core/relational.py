@@ -2,14 +2,16 @@
 ``repro.core.relational``): sorting, group-by and segmented aggregation.
 
 Sums and counts go through the segmented-sum kernels, as the reference's
-``pallas`` path sends them (``relational.py:226-250``). Hashing, joins and
-partitioning come with the join slice; min/max aggregation with the slice
-whose queries use it.
+``pallas`` path sends them (``relational.py:226-250``). The join keys of
+the open-addressing table are here (``join_key`` for one int-like column,
+``packed_key`` for a composite one); hashed keys and the sorted-key join
+come with the all-queries slice, partitioning with the distributed slice,
+min/max aggregation with the slice whose queries use it.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -33,6 +35,39 @@ def _sort_key(key: torch.Tensor) -> torch.Tensor:
         bits = x.view(torch.int32)
         return bits ^ ((bits >> 31) & INT32_MAX)
     return key.to(torch.int32)
+
+
+def join_key(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Single int32 join key: one integer column, as it is (exact).
+
+    The reference hashes any other key (``hash_combine``) and verifies
+    equality after the join; that path comes with the all-queries slice."""
+    if len(cols) == 1 and cols[0].dim() == 1 and not (
+            cols[0].is_floating_point() or cols[0].dtype == torch.bool):
+        return cols[0].to(torch.int32)
+    raise NotImplementedError(
+        "join_key: hashed (non-integer or multi-column) keys come with the "
+        "all-queries slice")
+
+
+def packed_key(cols: Sequence[torch.Tensor], pack: Sequence[Tuple[int, int]],
+               empty_key: int = -1) -> torch.Tensor:
+    """Injectively pack int columns into one nonnegative int32 key.
+
+    ``pack`` gives a ``(lo, span)`` window per column (the valid build
+    rows' range, ``operators._derive_pack``); rows inside every window map
+    to a unique key in ``[0, prod(spans))``, any other row to
+    ``empty_key``. Values are clipped before folding, so no product
+    overflows."""
+    n = cols[0].shape[0]
+    dev = cols[0].device
+    key = torch.zeros(n, dtype=torch.int32, device=dev)
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    for c, (lo, span) in zip(cols, pack):
+        c = c.to(torch.int32)
+        ok = ok & (c >= lo) & (c <= lo + span - 1)
+        key = key * span + torch.clamp(c - lo, 0, span - 1)
+    return torch.where(ok, key, torch.full_like(key, empty_key))
 
 
 def lexsort(keys: List[torch.Tensor], validity: torch.Tensor,

@@ -37,6 +37,10 @@ class TableSource:
     # column sets that uniquely identify a row (primary/candidate keys)
     unique_keys: tuple = ()
 
+    def num_rows(self) -> int:
+        """Total rows in the table (the statistic plans are sized from)."""
+        raise NotImplementedError
+
     def _host_morsels(self, columns, batch_rows: int,
                       stats: Optional[ScanStats] = None
                       ) -> Iterator[HostMorsel]:
@@ -63,6 +67,9 @@ class InMemoryTable(TableSource):
         self.schema = dict(schema)
         self.unique_keys = tuple(tuple(u) for u in unique_keys)
         self._n = len(next(iter(self.data.values()))) if self.data else 0
+
+    def num_rows(self) -> int:
+        return self._n
 
     def _host_morsels(self, columns, batch_rows: int,
                       stats: Optional[ScanStats] = None

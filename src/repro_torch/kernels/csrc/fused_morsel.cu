@@ -2,10 +2,11 @@
 // in one launch, as a fixed kernel that interprets a small typed register
 // program.
 //
-// Replaces: src/repro/core/fused.py, fused_morsel_program (:78), without its
-// probe variant. There the stages' expression trees were traced into one
-// Pallas kernel per query shape, and each 1024-row block flowed filter ->
-// project through VMEM. A CUDA kernel cannot be traced from Python, and
+// Replaces: src/repro/core/fused.py, fused_morsel_program (:78), with its
+// probe variant (probe_loop, src/repro/kernels/hash_probe.py:33). There the
+// stages' expression trees were traced into one Pallas kernel per query
+// shape, and each 1024-row block flowed filter -> project -> probe through
+// VMEM, with the join's table resident there. A CUDA kernel cannot be traced from Python, and
 // writing and compiling CUDA source per query would put nvcc on the query
 // path; so the host lowers the stages (repro_torch/core/fused.py,
 // lower_stages) into a flat list of typed instructions over 32-bit
@@ -14,7 +15,9 @@
 // Bound: bytes. Each row reads its input columns and validity once and
 // writes its output columns and validity once (Q1: 29 B in and 29 B out per
 // row; Q6: 13 B in and 5 B out); a few dozen register operations per row
-// are far below the card's arithmetic rate.
+// are far below the card's arithmetic rate. With a probe each row also
+// writes found and bidx (5 B) and walks its key's run in the table, which
+// stays in device memory (up to 2^25 slots; its hot part sits in the L2).
 //
 // Design:
 // * One thread per row, grid-stride. Loads and stores of neighbouring rows
@@ -28,12 +31,20 @@
 // * Float arithmetic uses the round-to-nearest intrinsics, so no multiply
 //   and add fuse into an FMA: results are bit-identical to the plain
 //   PyTorch version. Integer arithmetic is unsigned, so it wraps.
+// * The probe is the last instruction: the host lowers the probe key (the
+//   raw int column, or the injective pack of several) into registers, and
+//   PROBE walks that key's run (hash_probe.cuh, shared with the standalone
+//   probe) and stores found (masked by the row's final validity and by
+//   key != empty_key, as the reference masks it) and bidx. Every row is
+//   probed, dead ones too, so bidx equals the reference's everywhere.
 //
 // The opcode numbers and the limits below are mirrored in
 // repro_torch/core/fused.py; a test parses this file to hold them equal.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "hash_probe.cuh"
 
 namespace {
 
@@ -75,6 +86,7 @@ enum Op : int {
   OP_OR = 28,       // (r[a] != 0) | (r[b] != 0)
   OP_NOT = 29,      // r[a] == 0
   OP_I32_TO_F32 = 30,
+  OP_PROBE = 31,    // probe the join's table with key r[a]; store found, bidx
 };
 
 struct Program {
@@ -87,12 +99,22 @@ struct Columns {
   void* out[kMaxCols];
 };
 
+struct Probe {
+  const int32_t* tk;   // table keys and values, int32[mask + 1]
+  const int32_t* tv;
+  uint32_t mask;
+  int max_probes;
+  int32_t empty_key;
+  unsigned char* found;
+  int32_t* bidx;
+};
+
 __device__ __forceinline__ float f(uint32_t bits) { return __uint_as_float(bits); }
 __device__ __forceinline__ uint32_t u(float x) { return __float_as_uint(x); }
 __device__ __forceinline__ int32_t s(uint32_t bits) { return (int32_t)bits; }
 
 __global__ void __launch_bounds__(kThreads)
-fused_morsel_kernel(const Program prog, const Columns cols,
+fused_morsel_kernel(const Program prog, const Columns cols, const Probe probe,
                     const unsigned char* __restrict__ valid_in,
                     unsigned char* __restrict__ valid_out, long long n) {
   uint32_t r[kMaxRegs] = {};
@@ -138,6 +160,15 @@ fused_morsel_kernel(const Program prog, const Columns cols,
         case OP_OR: x = (a != 0) | (b != 0); break;
         case OP_NOT: x = a == 0; break;
         case OP_I32_TO_F32: x = u(__int2float_rn(s(a))); break;
+        case OP_PROBE: {
+          int32_t v;
+          const bool hit = repro_hash::probe_one(probe.tk, probe.tv, probe.mask,
+                                                 probe.max_probes,
+                                                 probe.empty_key, s(a), &v);
+          probe.found[i] = hit && valid && s(a) != probe.empty_key;
+          probe.bidx[i] = v;
+          continue;
+        }
         default: continue;
       }
       r[in.y] = x;
@@ -149,15 +180,25 @@ fused_morsel_kernel(const Program prog, const Columns cols,
 }  // namespace
 
 // prog: n_instr * 4 host int32s; in_ptrs/out_ptrs: host arrays of device
-// pointers. Returns cudaGetLastError() after the launch.
+// pointers. tk/tv/found/bidx are the probe's table and outputs, null when
+// the program has no PROBE. Returns cudaGetLastError() after the launch.
 extern "C" int fused_morsel_run(const int* prog, int n_instr,
                                 const unsigned long long* in_ptrs, int n_in,
                                 const unsigned long long* out_ptrs, int n_out,
                                 const void* valid_in, void* valid_out,
-                                long long n, void* stream) {
+                                long long n, const void* tk, const void* tv,
+                                int table_size, int max_probes, int empty_key,
+                                void* found, void* bidx, void* stream) {
   if (n_instr < 0 || n_instr > kMaxInstr || n_in < 0 || n_in > kMaxCols ||
       n_out < 0 || n_out > kMaxCols) {
     return (int)cudaErrorInvalidValue;
+  }
+  for (int k = 0; k < n_instr; ++k) {
+    if (prog[4 * k] == OP_PROBE &&
+        (tk == nullptr || tv == nullptr || found == nullptr || bidx == nullptr ||
+         table_size <= 0 || (table_size & (table_size - 1)) != 0)) {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   if (n <= 0) return 0;
   Program p;
@@ -168,10 +209,18 @@ extern "C" int fused_morsel_run(const int* prog, int n_instr,
   memset(&c, 0, sizeof(c));
   for (int k = 0; k < n_in; ++k) c.in[k] = reinterpret_cast<const void*>(in_ptrs[k]);
   for (int k = 0; k < n_out; ++k) c.out[k] = reinterpret_cast<void*>(out_ptrs[k]);
+  Probe pr;
+  pr.tk = static_cast<const int32_t*>(tk);
+  pr.tv = static_cast<const int32_t*>(tv);
+  pr.mask = table_size > 0 ? (uint32_t)table_size - 1u : 0u;
+  pr.max_probes = max_probes;
+  pr.empty_key = (int32_t)empty_key;
+  pr.found = static_cast<unsigned char*>(found);
+  pr.bidx = static_cast<int32_t*>(bidx);
   const long long want = (n + kThreads - 1) / kThreads;
   const int blocks = (int)(want < kMaxBlocks ? want : kMaxBlocks);
   fused_morsel_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, c, static_cast<const unsigned char*>(valid_in),
+      p, c, pr, static_cast<const unsigned char*>(valid_in),
       static_cast<unsigned char*>(valid_out), n);
   return (int)cudaGetLastError();
 }

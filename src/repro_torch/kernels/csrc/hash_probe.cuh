@@ -1,0 +1,49 @@
+// The join hash and the single-match linear probe, shared by the standalone
+// probe (hash_table.cu) and the probe variant of the fused morsel kernel
+// (fused_morsel.cu).
+//
+// Replaces: src/repro/kernels/hash_probe.py, _hash (:25) and probe_loop
+// (:33). There a block of 1024 probe keys advanced together through a
+// masked fori_loop over a table held in VMEM. On Hopper each thread walks
+// its own key's run and stops at its first hit or empty slot; the table
+// (up to 2^25 slots) stays in device memory and is read through the L2.
+#pragma once
+
+#include <stdint.h>
+
+namespace repro_hash {
+
+// Murmur3-style partial finalizer in uint32: x ^= x >> 16;
+// x *= 0x85EBCA6B; x ^= x >> 13. The home slot is this & (T - 1).
+__device__ __forceinline__ uint32_t hash32(int32_t key) {
+  uint32_t x = (uint32_t)key;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  return x;
+}
+
+// Linear probe of `key` over at most `max_probes` slots from its home slot.
+// A slot equal to `key` is a hit (its value goes to *val); a slot equal to
+// `empty_key` ends the run. A key equal to `empty_key` therefore reports a
+// hit on the first empty slot, as in the reference: callers mask it.
+__device__ __forceinline__ bool probe_one(const int32_t* __restrict__ tk,
+                                          const int32_t* __restrict__ tv,
+                                          uint32_t mask, int max_probes,
+                                          int32_t empty_key, int32_t key,
+                                          int32_t* val) {
+  const uint32_t home = hash32(key) & mask;
+  for (int i = 0; i < max_probes; ++i) {
+    const uint32_t s = (home + (uint32_t)i) & mask;
+    const int32_t k = __ldg(tk + s);
+    if (k == key) {
+      *val = __ldg(tv + s);
+      return true;
+    }
+    if (k == empty_key) break;
+  }
+  *val = 0;
+  return false;
+}
+
+}  // namespace repro_hash

@@ -1,0 +1,248 @@
+"""Open-addressing join table: the port of ``repro/kernels/hash_probe.py``.
+
+``build_table`` inserts (key, value) rows into a power-of-two table by the
+reference's round-synchronous linear probing, and ``hash_probe`` looks keys
+up in it (single match). For a CUDA tensor each launches its kernel in
+``csrc/hash_table.cu`` (the hash and the probe loop are in
+``csrc/hash_probe.cuh``, which the fused morsel kernel shares; the source
+says what bounds them and why the build keeps the reference's rounds). For
+a CPU tensor each runs its plain PyTorch version, which repeats the
+reference's arithmetic step by step.
+
+``longest_run`` and ``probe_bound`` size a probe's ``max_probes`` from a
+built table with a few torch operations on the table's device; only the
+scalar comes back to the host. ``hash_probe_multi`` comes with the
+all-queries slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ops
+
+_LIB = "hash_table"
+MAX_PROBES_DEFAULT = 64
+_INT32_MAX = 2 ** 31 - 1
+# (keys, vals, placed, n, table_size, empty_key, tk, tv, winner, unplaced,
+#  stream)
+_BUILD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+# (tk, tv, table_size, max_probes, empty_key, keys, n, found, vals, stream)
+_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+
+
+def hash_home(keys: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Home slot of each key (int64): the reference's ``_hash`` (uint32
+    ``x ^= x >> 16; x *= 0x85EBCA6B; x ^= x >> 13``), computed in int64
+    with ``& 0xFFFFFFFF``, masked to ``table_size - 1``."""
+    x = keys.to(torch.int64) & 0xFFFFFFFF
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & 0xFFFFFFFF
+    x = x ^ (x >> 13)
+    return x & (table_size - 1)
+
+
+def _check_table_size(table_size: int) -> None:
+    if table_size < 1 or table_size & (table_size - 1) or table_size > 1 << 30:
+        raise ValueError(f"table size {table_size} is not a power of two "
+                         "in [1, 2^30]")
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+def build_table_plain(keys: torch.Tensor, vals: torch.Tensor, table_size: int,
+                      empty_key: int = -1, valid: torch.Tensor = None):
+    """Plain version of ``build_table``: the reference's rounds, each a
+    ``scatter_reduce(..., "amin")`` of the bidding row indices onto their
+    slots, over the rows still unplaced."""
+    _check_table_size(table_size)
+    dev = keys.device
+    n = keys.shape[0]
+    tk = torch.full((table_size,), empty_key, dtype=torch.int32, device=dev)
+    tv = torch.zeros(table_size, dtype=torch.int32, device=dev)
+    if n == 0:
+        return tk, tv
+    keys = keys.to(torch.int32)
+    vals = vals.to(torch.int32)
+    home = hash_home(keys, table_size)
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    if valid is not None:
+        rows = rows[valid]
+    mask = table_size - 1
+    winner = torch.full((table_size,), n, dtype=torch.int64, device=dev)
+    i = 0
+    while rows.numel() and i < table_size:
+        slot = (home.index_select(0, rows) + i) & mask
+        want = tk.index_select(0, slot) == empty_key
+        bid = torch.where(want, rows, n)
+        winner.fill_(n)
+        winner.scatter_reduce_(0, slot, bid, "amin")
+        won = want & (winner.index_select(0, slot) == rows)
+        dst, src = slot[won], rows[won]
+        tk[dst] = keys.index_select(0, src)
+        tv[dst] = vals.index_select(0, src)
+        rows = rows[~won]
+        i += 1
+    return tk, tv
+
+
+def build_table(keys: torch.Tensor, vals: torch.Tensor, table_size: int,
+                empty_key: int = -1, valid: torch.Tensor = None):
+    """Insert (key, val) rows into an open-addressing table of
+    ``table_size`` slots (a power of two) -> ``(table_keys, table_vals)``,
+    int32[table_size] each, empty slots holding ``empty_key`` and 0.
+
+    Rows with ``valid`` False are never placed. A row whose key equals
+    ``empty_key`` is placed but leaves its slot looking empty; callers
+    detect it by comparing occupied slots with valid rows."""
+    ops.mark_kernel("build")
+    if not keys.is_cuda:
+        return build_table_plain(keys, vals, table_size, empty_key, valid)
+    _check_table_size(table_size)
+    n = keys.shape[0]
+    if keys.dim() != 1 or vals.shape != keys.shape:
+        raise ValueError(f"build_table: wants two 1-D tensors of one length, "
+                         f"got {tuple(keys.shape)} and {tuple(vals.shape)}")
+    if keys.dtype != torch.int32 or vals.dtype != torch.int32:
+        raise TypeError(f"build_table: wants int32 keys and values, got "
+                        f"{keys.dtype} and {vals.dtype}")
+    dev = keys.device
+    if vals.device != dev or (valid is not None and valid.device != dev):
+        raise ValueError("build_table: keys, values and validity must share "
+                         "one device")
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != keys.shape):
+        raise ValueError("build_table: validity must be bool of the keys' "
+                         "shape")
+    if n > _INT32_MAX:
+        raise ValueError(f"build_table: {n} rows is more than int32 indexes")
+    tk = torch.full((table_size,), empty_key, dtype=torch.int32, device=dev)
+    tv = torch.zeros(table_size, dtype=torch.int32, device=dev)
+    if n == 0:
+        return tk, tv
+    keys, vals = keys.contiguous(), vals.contiguous()
+    placed = (torch.zeros(n, dtype=torch.uint8, device=dev) if valid is None
+              else (~valid).to(torch.uint8))
+    winner = torch.full((table_size,), _INT32_MAX, dtype=torch.int32,
+                        device=dev)
+    unplaced = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = build.function(_LIB, "hash_table_build", _BUILD_ARGTYPES)
+    rc = fn(keys.data_ptr(), vals.data_ptr(), placed.data_ptr(), n,
+            table_size, empty_key, tk.data_ptr(), tv.data_ptr(),
+            winner.data_ptr(), unplaced.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(_LIB, rc, "build_table")
+    ops.count_launch("build_table")
+    return tk, tv
+
+
+# ---------------------------------------------------------------------------
+# probe
+# ---------------------------------------------------------------------------
+
+def hash_probe_plain(table_keys: torch.Tensor, table_vals: torch.Tensor,
+                     probe_keys: torch.Tensor, empty_key: int = -1,
+                     max_probes: int = MAX_PROBES_DEFAULT):
+    """Plain version of ``hash_probe``: the reference's ``probe_loop``,
+    all keys stepping together, stopping once every key is done."""
+    t = table_keys.shape[0]
+    _check_table_size(t)
+    keys = probe_keys.to(torch.int32)
+    home = hash_home(keys, t)
+    found = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    val = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    done = torch.zeros_like(found)
+    for i in range(min(max_probes, t)):
+        idx = (home + i) & (t - 1)
+        slot_keys = table_keys.index_select(0, idx)
+        hit = (slot_keys == keys) & ~done
+        miss = (slot_keys == empty_key) & ~done
+        found |= hit
+        val = torch.where(hit, table_vals.index_select(0, idx), val)
+        done |= hit | miss
+        if bool(done.all()):
+            break
+    return found, val
+
+
+def hash_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
+               probe_keys: torch.Tensor, empty_key: int = -1,
+               max_probes: int = MAX_PROBES_DEFAULT):
+    """Single-match probe -> ``(found bool[N], vals int32[N])``, ``vals`` 0
+    where not found; at most ``min(max_probes, T)`` slots per key. A probe
+    key equal to ``empty_key`` reports a hit on an empty slot, as in the
+    reference; callers mask it."""
+    ops.mark_kernel("probe")
+    if not probe_keys.is_cuda:
+        return hash_probe_plain(table_keys, table_vals, probe_keys,
+                                empty_key, max_probes)
+    t = table_keys.shape[0]
+    _check_table_size(t)
+    dev = probe_keys.device
+    for name, a in (("table_keys", table_keys), ("table_vals", table_vals),
+                    ("probe_keys", probe_keys)):
+        if a.dtype != torch.int32 or a.dim() != 1 or a.device != dev:
+            raise TypeError(f"hash_probe: {name} must be int32[...] on {dev}, "
+                            f"got {a.dtype}{tuple(a.shape)} on {a.device}")
+    if table_vals.shape != table_keys.shape:
+        raise ValueError("hash_probe: table keys and values differ in size")
+    n = probe_keys.shape[0]
+    found = torch.empty(n, dtype=torch.bool, device=dev)
+    vals = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return found, vals
+    tk, tv, keys = (table_keys.contiguous(), table_vals.contiguous(),
+                    probe_keys.contiguous())
+    fn = build.function(_LIB, "hash_table_probe", _PROBE_ARGTYPES)
+    rc = fn(tk.data_ptr(), tv.data_ptr(), t, min(max_probes, t), empty_key,
+            keys.data_ptr(), n, found.data_ptr(), vals.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(_LIB, rc, "hash_probe")
+    ops.count_launch("hash_probe")
+    return found, vals
+
+
+# ---------------------------------------------------------------------------
+# probe bound
+# ---------------------------------------------------------------------------
+
+def longest_run(table_keys: torch.Tensor, empty_key: int = -1
+                ) -> torch.Tensor:
+    """The longest circular run of occupied slots (0-d, on the table's
+    device, not synchronised). The free slots cut the table into runs:
+    slot i lies in run ``cumsum(free)[i]``, and one ``index_add_`` counts
+    each run's occupied slots. The run before the first free slot
+    continues the one after the last free slot. (``torch.cummax`` of the
+    last free slot would do it in one pass, but on the card it is a slow
+    scan with indices: tens of ms on 2^24 slots.)"""
+    t = table_keys.shape[0]
+    free = table_keys == empty_key
+    run = torch.cumsum(free, 0)
+    counts = torch.zeros(t + 1, dtype=torch.int64, device=table_keys.device)
+    counts.index_add_(0, run, (~free).to(torch.int64))
+    wrapped = counts[0] + counts.gather(0, run[-1:])[0]
+    return torch.clamp(torch.maximum(counts.max(), wrapped), max=t)
+
+
+def probe_bound_of_run(longest: int, table_size: int) -> int:
+    """``max_probes`` for a table whose longest occupied run is
+    ``longest``: run + 1 (a probe stops at the first empty slot), rounded
+    up to a power of two, capped at the table size."""
+    need = max(int(longest) + 1, 2)
+    return min(1 << (need - 1).bit_length(), table_size)
+
+
+def probe_bound(table_keys: torch.Tensor, empty_key: int = -1) -> int:
+    """The reference's ``operators._probe_bound`` of one table."""
+    return probe_bound_of_run(int(longest_run(table_keys, empty_key)),
+                              table_keys.shape[0])

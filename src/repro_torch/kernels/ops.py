@@ -9,9 +9,9 @@ Two kinds of counts are kept:
 
 * **Dispatch accounting** (``collect_dispatches`` / ``table_op``), as the
   reference's ``kernels/ops.py`` keeps it: each operator call adds one per
-  kernel *kind* it used (``fused``, ``agg``), whichever device it ran on,
+  kernel *kind* it used, whichever device it ran on,
   so ``executor_stats()['kernel_dispatch']`` compares with the reference's
-  ``pallas`` run.
+  ``pallas`` run (kinds ``fused``, ``agg``, ``build``, ``probe``).
 * **Launch counters** (``count_launch`` / ``launch_counts``): one plain
   integer per kernel wrapper, raised only where a CUDA kernel is actually
   launched. A run on the card reads them to show that its main path went
@@ -97,7 +97,8 @@ def table_op(fn):
 # launch counters (per CUDA kernel wrapper)
 # ---------------------------------------------------------------------------
 
-KERNELS = ("fused_morsel_program", "segmented_sum", "segmented_int_sum")
+KERNELS = ("fused_morsel_program", "segmented_sum", "segmented_int_sum",
+           "build_table", "hash_probe", "fused_morsel_probe")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
 

@@ -13,10 +13,12 @@ torch = pytest.importorskip("torch")
 from torch_diff import (SEEDED_SCHEMA, assert_tables_equal,  # noqa: E402
                         seeded_columns, stage_cases)
 
+from repro_torch.core import dtypes as port_dtypes  # noqa: E402
 from repro_torch.core import fused  # noqa: E402
 from repro_torch.core.expr import col, date_lit, lit  # noqa: E402
 from repro_torch.core.session import Session  # noqa: E402
 from repro_torch.core.table import TorchTable  # noqa: E402
+from repro_torch.kernels import hash_probe as hp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import segmented_agg as seg  # noqa: E402
 from repro_torch.tpch import dbgen, queries  # noqa: E402
@@ -90,3 +92,137 @@ def test_query_on_card_matches_cpu(cuda, q):
             np.testing.assert_allclose(got[c], w, rtol=2e-3)
         else:
             np.testing.assert_array_equal(got[c], w)
+
+
+# ---------------------------------------------------------------------------
+# the join kernels (build_table, hash_probe, the fused probe)
+# ---------------------------------------------------------------------------
+
+def _build_case(case, n=50_000):
+    rng = np.random.default_rng(len(case))
+    if case == "unique":
+        keys = rng.permutation(10 * n)[:n].astype(np.int32)
+        valid = np.ones(n, bool)
+    elif case == "duplicates":
+        keys = rng.integers(0, n // 16, n).astype(np.int32)
+        valid = np.ones(n, bool)
+    else:   # invalid rows and -1 keys, which leave their slots looking empty
+        keys = rng.integers(-2, n, n).astype(np.int32)
+        valid = rng.random(n) < 0.6
+    return keys, valid, 1 << (2 * n - 1).bit_length()
+
+
+@pytest.mark.parametrize("case", ["unique", "duplicates", "invalid_and_minus_one"])
+def test_build_table_on_card_is_bit_identical(cuda, case):
+    keys, valid, t = _build_case(case)
+    k, v, m = (torch.from_numpy(keys), torch.arange(len(keys), dtype=torch.int32),
+               torch.from_numpy(valid))
+    want = hp.build_table_plain(k, v, t, -1, m)
+    ops.reset_launch_counts()
+    got = hp.build_table(k.to(cuda), v.to(cuda), t, -1, m.to(cuda))
+    assert ops.launch_counts()["build_table"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("case", ["unique", "duplicates", "invalid_and_minus_one"])
+def test_hash_probe_on_card_matches_plain(cuda, case):
+    keys, valid, t = _build_case(case)
+    tk, tv = hp.build_table_plain(torch.from_numpy(keys),
+                                  torch.arange(len(keys), dtype=torch.int32), t,
+                                  -1, torch.from_numpy(valid))
+    rng = np.random.default_rng(3)
+    probe = np.concatenate([rng.choice(keys, 40_000),
+                            rng.integers(10 ** 7, 10 ** 8, 20_000),
+                            np.full(100, -1)]).astype(np.int32)
+    mp = hp.probe_bound(tk)
+    want = hp.hash_probe_plain(tk, tv, torch.from_numpy(probe), -1, mp)
+    ops.reset_launch_counts()
+    got = hp.hash_probe(tk.to(cuda), tv.to(cuda), torch.from_numpy(probe).to(cuda),
+                        -1, mp)
+    assert ops.launch_counts()["hash_probe"] == 1
+    assert hp.probe_bound(tk.to(cuda)) == mp
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("case", ["q3_lineitem", "packed"])
+def test_fused_probe_on_card_matches_plain(cuda, case):
+    data = seeded_columns(6000, seed=5)
+    host = TorchTable.from_numpy(data, SEEDED_SCHEMA, device="cpu")
+    rng = np.random.default_rng(8)
+    if case == "packed":
+        stages = [(col("j") >= lit(-3), (("i", col("i")), ("d", col("d")),
+                                         ("x", col("f") * lit(2.0))))]
+        keys, pack = ("i", "d"), ((-50, 100), (8000, 2000))
+        bcols = [torch.from_numpy(rng.integers(-50, 50, 3000).astype(np.int32)),
+                 torch.from_numpy(rng.integers(8000, 10000, 3000).astype(np.int32))]
+        from repro_torch.core import relational as rel
+        bkey = rel.packed_key(bcols, pack)
+    else:   # Q3's lineitem shape: a date filter, then the probe on a raw key
+        stages = [(col("d") > date_lit("1995-03-15"), None)]
+        keys, pack = ("i",), None
+        bkey = torch.from_numpy(rng.permutation(np.arange(-50, 50)).astype(np.int32))
+    n = bkey.shape[0]
+    t = 1 << (2 * n - 1).bit_length()
+    tk, tv = hp.build_table_plain(bkey, torch.arange(n, dtype=torch.int32), t)
+    probe = dict(tk=tk, tv=tv, probe_keys=keys, pack=pack, empty_key=-1,
+                 max_probes=hp.probe_bound(tk))
+    want, wf, wb = fused.fused_morsel_program(host, stages, probe=probe)
+    dev = TorchTable({n_: a.to(cuda) for n_, a in host.columns.items()},
+                     host.validity.to(cuda), host.schema)
+    ops.reset_launch_counts()
+    got, gf, gb = fused.fused_morsel_program(
+        dev, stages, probe=dict(probe, tk=tk.to(cuda), tv=tv.to(cuda)))
+    assert ops.launch_counts()["fused_morsel_probe"] == 1
+    assert ops.launch_counts()["fused_morsel_program"] == 0
+    assert bool(wf.any())
+    assert torch.equal(gf.cpu(), wf) and torch.equal(gb.cpu(), wb)
+    got = TorchTable({n_: a.cpu() for n_, a in got.columns.items()},
+                     got.validity.cpu(), got.schema)
+    assert_tables_equal(got, want)
+
+
+@pytest.mark.parametrize("q", [3, 10])
+def test_join_query_on_card_matches_cpu(cuda, q):
+    catalog = dbgen.load_catalog(sf=0.01)
+    plan = queries.QUERIES[q](catalog)
+    want = Session(catalog, device="cpu").execute(plan)
+    ops.reset_launch_counts()
+    session = Session(catalog)                 # device=None: the card
+    got = session.execute(plan)
+    counts = ops.launch_counts()
+    # 8 lineitem morsels, and for Q3 2 orders morsels, each one fused launch
+    assert counts["fused_morsel_probe"] == (10 if q == 3 else 8)
+    assert counts["build_table"] == (2 if q == 3 else 3)
+    assert counts["hash_probe"] == (0 if q == 3 else 2)
+    assert counts["fused_morsel_program"] == 0
+    assert session.executor_stats()["kernel_dispatch"] == (
+        {"build": 2, "fused": 10, "agg": 15} if q == 3 else
+        {"build": 3, "fused": 8, "agg": 15, "probe": 2})
+    assert list(got) == list(want)
+    for c, w in want.items():
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[c], w, rtol=2e-3)
+        else:
+            np.testing.assert_array_equal(got[c], w)
+
+
+def test_build_above_the_reference_cap_on_card(cuda):
+    """A table of 2^19 slots, above the reference's 2^18-slot VMEM cap:
+    the port builds and probes it on the card."""
+    from repro_torch.core import operators as port_ops
+    n = 200_000
+    keys = np.random.default_rng(4).permutation(10 * n)[:n].astype(np.int32)
+    sch = {"k": port_dtypes.INT32}
+    build = TorchTable.from_numpy({"k": keys}, sch, device=cuda)
+    probe = TorchTable.from_numpy({"k": keys[::3]}, sch, device=cuda)
+    j = port_ops.HashJoin(["k"], ["k"], build_rows=n)
+    j.add_build(build)
+    ops.reset_launch_counts()
+    j.seal_build()
+    (out,) = j.add_input(probe)
+    assert j._hash_state[1].shape[0] == 1 << 19
+    assert ops.launch_counts()["build_table"] == 1
+    assert ops.launch_counts()["hash_probe"] == 1
+    assert bool(out.validity.all())

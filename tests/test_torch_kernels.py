@@ -213,8 +213,14 @@ def test_lowering_refuses_what_the_kernel_cannot_run():
 
     with pytest.raises(NotImplementedError):
         fused.lower_stages(t, [(None, (("x", Opaque() + 1),))])
+    # a probe on a bytes key: the hashed join keys come later
+    probe = dict(tk=torch.full((8,), -1, dtype=torch.int32),
+                 tv=torch.zeros(8, dtype=torch.int32), probe_keys=("s",),
+                 pack=None, empty_key=-1, max_probes=8)
     with pytest.raises(NotImplementedError):
-        fused.fused_morsel_program(t, [], probe={})
+        fused.fused_morsel_program(t, [], probe=probe)
+    with pytest.raises(NotImplementedError):
+        fused.lower_stages(t, [], probe_keys=("s",))
 
 
 def test_opcodes_and_limits_match_cuda_source():

@@ -129,11 +129,10 @@ def test_session_without_device_needs_a_gpu(port_catalog):
 
 def test_unported_nodes_and_workers_raise(port_catalog):
     session = Session(port_catalog, device="cpu")
-    join = port_plan.Join(port_plan.TableScan("lineitem"),
-                          port_plan.TableScan("orders"),
-                          ["l_orderkey"], ["o_orderkey"])
-    with pytest.raises(NotImplementedError, match="join slice"):
-        session.execute(join)
+    distinct = port_plan.Distinct(port_plan.TableScan("lineitem"),
+                                  ["l_orderkey"])
+    with pytest.raises(NotImplementedError, match="all-queries slice"):
+        session.execute(distinct)
     with pytest.raises(NotImplementedError, match="one worker"):
         Session(port_catalog, device="cpu", num_workers=2).execute(
             queries.q6(port_catalog))

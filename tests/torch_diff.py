@@ -6,7 +6,9 @@
 * ``emulate`` runs a lowered fused-kernel program (``core.fused.Program``)
   on the CPU, one instruction at a time over whole columns, with the exact
   32-bit semantics of ``kernels/csrc/fused_morsel.cu``, so the lowering is
-  tested where the CUDA kernel cannot run.
+  tested where the CUDA kernel cannot run; ``emulate_probe`` runs a
+  program that ends in the join probe, with the linear probe of
+  ``kernels/csrc/hash_probe.cuh`` written in numpy.
 * ``seeded_columns`` makes a small morsel's worth of columns from a seed.
 """
 
@@ -115,7 +117,43 @@ _OP_NAMES = {v: k for k, v in port_fused.OPS.items()}
 
 
 def emulate(program: "port_fused.Program", table: TorchTable) -> TorchTable:
-    """Run ``program`` over a CPU ``table`` as the CUDA kernel would."""
+    """Run ``program`` (no probe) over a CPU ``table`` as the CUDA kernel
+    would."""
+    assert not program.probe, "use emulate_probe"
+    return _emulate(program, table, None)[0]
+
+
+def emulate_probe(program: "port_fused.Program", table: TorchTable,
+                  tk: np.ndarray, tv: np.ndarray, max_probes: int,
+                  empty_key: int = -1):
+    """Run a ``program`` that ends in PROBE over a CPU ``table`` against
+    the table ``(tk, tv)`` -> ``(out_table, found, bidx)`` as numpy."""
+    assert program.probe
+    return _emulate(program, table, (tk, tv, max_probes, empty_key))
+
+
+def probe_numpy(tk, tv, keys, max_probes, empty_key=-1):
+    """The kernel's linear probe over int32 numpy arrays: walk from the
+    home slot, stop at the first equal key (a hit) or empty slot."""
+    t = len(tk)
+    x = keys.astype(np.int32).view(np.uint32)
+    x = x ^ (x >> np.uint32(16))
+    x = (x.astype(np.uint64) * np.uint64(0x85EBCA6B)).astype(np.uint32)
+    x = x ^ (x >> np.uint32(13))
+    home = (x & np.uint32(t - 1)).astype(np.int64)
+    found = np.zeros(len(keys), bool)
+    val = np.zeros(len(keys), np.int32)
+    done = np.zeros(len(keys), bool)
+    for i in range(min(max_probes, t)):
+        idx = (home + i) & (t - 1)
+        hit = (tk[idx] == keys) & ~done
+        found |= hit
+        val[hit] = tv[idx][hit]
+        done |= hit | (tk[idx] == empty_key)
+    return found, val
+
+
+def _emulate(program, table, probe):
     n = table.capacity
     ins = [table.columns[name].numpy() for name in program.in_names]
     valid = table.validity.numpy().copy()
@@ -171,6 +209,11 @@ def emulate(program: "port_fused.Program", table: TorchTable) -> TorchTable:
                 regs[dst] = (regs[a] == 0).astype(np.uint32)
             elif op == "I32_TO_F32":
                 regs[dst] = bits(i32(a).astype(np.float32))
+            elif op == "PROBE":
+                tk, tv, max_probes, empty_key = probe
+                key = i32(a)
+                hit, bidx = probe_numpy(tk, tv, key, max_probes, empty_key)
+                found = hit & valid & (key != empty_key)
             else:
                 raise AssertionError(f"emulator: unknown op {op}")
     cols = {}
@@ -180,7 +223,10 @@ def emulate(program: "port_fused.Program", table: TorchTable) -> TorchTable:
         else:
             np_dtype = np.float32 if dtype == torch.float32 else np.int32
             cols[name] = torch.from_numpy(out.view(np_dtype).copy())
-    return TorchTable(cols, torch.from_numpy(valid), dict(program.out_schema))
+    out = TorchTable(cols, torch.from_numpy(valid), dict(program.out_schema))
+    if probe is None:
+        return out, None, None
+    return out, found, bidx
 
 
 def assert_tables_equal(got: TorchTable, want: TorchTable) -> None:
