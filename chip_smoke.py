@@ -13,21 +13,33 @@ In order it:
 3. checks each kernel against its plain PyTorch version on the card, on
    the shapes the main path gives it, with the tolerance stated beside each:
    the segmented sums, the fused program on Q1's and Q6's stages, and the
-   join kernels on the inputs that one run of Q3 and of Q10 at SF 1 gives
-   them (every ``build_table`` bit-identical, Q10's two standalone
-   ``hash_probe`` calls and the first morsel of each fused probe exact),
-   plus a build with many duplicate keys and 1 << 20 probe keys with hits,
-   misses and -1 keys;
+   kernels of one SF 1 run of Q3, Q10, Q2, Q9, Q20 and Q22 on the inputs
+   that run gives them, captured by wrapping the kernel functions: every
+   ``build_table`` of Q3 and Q10 bit-identical, Q10's two standalone
+   ``hash_probe`` calls and the first morsel of each fused probe exact;
+   ``block_prefix_sum`` on the first compaction mask of Q9 and of Q22,
+   ``segmented_minmax`` on Q2's grouped min, ``hash_probe_multi`` on the
+   first expansion probe of Q9 and of Q20, and the fused program on Q22's
+   ``PrefixCode`` stages, each exact; plus a build with many duplicate
+   keys, 1 << 20 probe keys with hits, misses and -1 keys, an expansion
+   probe of a table with up to 8 rows a key and -1 keys, and min/max over
+   values with inf, -inf and NaN;
 4. times each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``library_ms``), with CUDA events over warm
    runs, and computes each kernel's bound from its inputs (for the join
    kernels, from the table sectors this run's keys reach);
-5. generates TPC-H at SF 1 with the port's ``dbgen`` and runs Q6, Q1, Q3 and
-   Q10 through ``Session(device="cuda", batch_rows=1 << 20).execute``, with
-   the launch counters set to 0 just before each query and read just after,
-   each held to the launch counts its morsel counts imply; each result must
-   match the same plan run by ``Session(device="cpu")`` (exact for keys,
-   counts and bytes columns, rtol 2e-3 for floats);
+5. generates TPC-H at SF 1 with the port's ``dbgen`` and runs all 22
+   queries (``queries.build_query``) through
+   ``Session(device="cuda", batch_rows=1 << 20).execute``, with the launch
+   counters set to 0 just before each query and read just after: Q6, Q1, Q3
+   and Q10 are held to the launch counts their morsel counts imply, and
+   every query must launch exactly the all-queries kernels the reference's
+   pallas run reaches (``hash_probe_multi`` in Q9 and Q20,
+   ``block_prefix_sum`` in Q9, Q11, Q15, Q20 and Q22, ``segmented_minmax``
+   in Q2; Q15's max has no group key, so it is a plain reduction in both
+   engines) and Q22 the fused program; each result must match the same
+   plan run by ``Session(device="cpu")`` at SF 1 (exact for keys, counts
+   and bytes columns, rtol 2e-3 for floats);
 6. prints one ``{"kernels": [...]}`` line, then the card line again;
 7. prints as its last line ``{"ok": true, "device": {...}}``.
 
@@ -39,7 +51,8 @@ per launch at the main path's shapes and one ``torch.profiler`` run of each
 query, whose device time by kernel (and trace) it writes into DIR.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
-``library_ms`` is null.
+``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
+``segmented_minmax``'s one ``scatter_reduce``.
 """
 
 from __future__ import annotations
@@ -59,7 +72,17 @@ _MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 _F32_RATE = 67e12
 _MAIN_ROWS = 1 << 20
 _SF = 1.0
-_QUERIES = (6, 1, 3, 10)
+# the slices' first queries, then the rest of the 22
+_QUERIES = (6, 1, 3, 10) + tuple(q for q in range(1, 23)
+                                 if q not in (6, 1, 3, 10))
+# the queries whose kernel inputs phase 3 captures
+_CAPTURED = (3, 10, 2, 9, 20, 22)
+# the queries that reach each all-queries kernel, as the reference's pallas
+# runs do (block_prefix_sum: expansion outputs, compacting filters and the
+# scalar side of ScalarBroadcast)
+_REACHES = {"hash_probe_multi": (9, 20),
+            "block_prefix_sum": (9, 11, 15, 20, 22),
+            "segmented_minmax": (2,)}
 
 
 def fail(msg: str) -> None:
@@ -180,10 +203,10 @@ def check_segmented(torch, seg, rate, rows):
     return rows_out, launchers
 
 
-def fused_case(queries, morsel, q):
+def fused_case(queries, catalog, morsel, q):
     """The fused stages of query ``q`` as FusedMorsel receives them: the
     scan's pushed-down filter, then the projection."""
-    plan = queries.QUERIES[q](None)
+    plan = queries.build_query(q, catalog)
     while type(plan).__name__ != "Project":
         plan = plan.child
     scan = plan.child
@@ -192,13 +215,13 @@ def fused_case(queries, morsel, q):
     return table, stages
 
 
-def check_fused(torch, fused, queries, morsel, rate):
+def check_fused(torch, fused, queries, catalog, morsel, rate):
     """fused_morsel_program for Q1's and Q6's stages on one morsel: output
     columns and validity must be bit-identical to ``apply_stages`` (the
     kernel rounds every float op to nearest, like the plain version)."""
     rows_out, launchers = [], {}
     for q in (1, 6):
-        table, stages = fused_case(queries, morsel, q)
+        table, stages = fused_case(queries, catalog, morsel, q)
         program = fused.lower_stages(table, stages)
         got, _, _ = fused.fused_morsel_program(table, stages, program=program)
         want = fused.apply_stages(table, stages)
@@ -234,46 +257,90 @@ def check_fused(torch, fused, queries, morsel, rate):
     return rows_out, launchers
 
 
-def capture_join_calls(torch, hp, fused, catalog):
-    """The join kernels' inputs as the main path gives them: one run of Q3
-    and one of Q10 at SF 1 through the card's ``Session``, with
-    ``build_table``, ``hash_probe`` and ``fused_morsel_program`` wrapped so
-    that each call's arguments are kept (the first call of each fused
-    probe's join only) before the kernel runs on them."""
+def capture_calls(torch, hp, fused, catalog):
+    """The kernels' inputs as the main path gives them: one run of each
+    query of ``_CAPTURED`` at SF 1 through the card's ``Session``, with the
+    kernel functions wrapped so that each call's arguments are kept before
+    the kernel runs on them: every ``build_table`` and ``hash_probe`` call
+    of Q3 and Q10, the first call of each fused probe's join, the first
+    ``block_prefix_sum`` mask of Q9 and Q22, the first ``segmented_minmax``
+    input and ``hash_probe_multi`` call of each query, and Q22's fused
+    calls without a probe (its ``PrefixCode`` stages)."""
+    from repro_torch.core import table as table_mod
     from repro_torch.core.session import Session
+    from repro_torch.kernels import segmented_agg as seg
     from repro_torch.tpch import queries
-    calls = {"build": [], "probe": [], "fused": []}
+    calls = {"build": [], "probe": [], "fused": [], "compact": [],
+             "minmax": [], "multi": [], "fused_plain": []}
     now = {}
-    orig = hp.build_table, hp.hash_probe, fused.fused_morsel_program
+    orig = (hp.build_table, hp.hash_probe, fused.fused_morsel_program,
+            table_mod.block_prefix_sum, seg.segmented_minmax,
+            hp.hash_probe_multi)
+
+    def first(kind):
+        return not any(c["q"] == now["q"] for c in calls[kind])
 
     def build_table(keys, vals, table_size, empty_key=-1, valid=None):
-        calls["build"].append(dict(
-            q=now["q"], keys=keys.clone(), vals=vals.clone(), t=table_size,
-            empty=empty_key, valid=None if valid is None else valid.clone()))
+        if now["q"] in (3, 10):
+            calls["build"].append(dict(
+                q=now["q"], keys=keys.clone(), vals=vals.clone(),
+                t=table_size, empty=empty_key,
+                valid=None if valid is None else valid.clone()))
         return orig[0](keys, vals, table_size, empty_key, valid)
 
     def hash_probe(tk, tv, keys, empty_key=-1,
                    max_probes=hp.MAX_PROBES_DEFAULT):
-        calls["probe"].append(dict(q=now["q"], tk=tk, tv=tv, keys=keys.clone(),
-                                   empty=empty_key, max_probes=max_probes))
+        if now["q"] in (3, 10):
+            calls["probe"].append(dict(q=now["q"], tk=tk, tv=tv,
+                                       keys=keys.clone(), empty=empty_key,
+                                       max_probes=max_probes))
         return orig[1](tk, tv, keys, empty_key, max_probes)
 
     def fused_morsel_program(table, stages, probe=None, program=None):
-        if probe is not None and not any(
+        if probe is not None and now["q"] in (3, 10) and not any(
                 c["probe"]["tk"] is probe["tk"] for c in calls["fused"]):
             calls["fused"].append(dict(q=now["q"], table=table, stages=stages,
                                        probe=probe, program=program))
+        if probe is None and now["q"] == 22:
+            calls["fused_plain"].append(dict(q=22, table=table, stages=stages,
+                                             program=program))
         return orig[2](table, stages, probe=probe, program=program)
 
+    def block_prefix_sum(mask):
+        if now["q"] in (9, 22) and first("compact"):
+            calls["compact"].append(dict(q=now["q"], mask=mask.clone()))
+        return orig[3](mask)
+
+    def segmented_minmax(gids, values, num_groups, kind):
+        if first("minmax"):
+            calls["minmax"].append(dict(q=now["q"], gids=gids.clone(),
+                                        values=values.clone(), g=num_groups,
+                                        kind=kind))
+        return orig[4](gids, values, num_groups, kind)
+
+    def hash_probe_multi(tk, tv, keys, max_matches, empty_key=-1,
+                         max_probes=hp.MAX_PROBES_DEFAULT):
+        if first("multi"):
+            calls["multi"].append(dict(q=now["q"], tk=tk, tv=tv,
+                                       keys=keys.clone(), m=max_matches,
+                                       empty=empty_key,
+                                       max_probes=max_probes))
+        return orig[5](tk, tv, keys, max_matches, empty_key, max_probes)
+
     gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
-    hp.build_table, hp.hash_probe = build_table, hash_probe
-    fused.fused_morsel_program = fused_morsel_program
+    (hp.build_table, hp.hash_probe, fused.fused_morsel_program,
+     table_mod.block_prefix_sum, seg.segmented_minmax,
+     hp.hash_probe_multi) = (build_table, hash_probe, fused_morsel_program,
+                             block_prefix_sum, segmented_minmax,
+                             hash_probe_multi)
     try:
-        for q in (3, 10):
+        for q in _CAPTURED:
             now["q"] = q
-            gpu.execute(queries.QUERIES[q](catalog))
+            gpu.execute(queries.build_query(q, catalog))
     finally:
-        hp.build_table, hp.hash_probe, fused.fused_morsel_program = orig
+        (hp.build_table, hp.hash_probe, fused.fused_morsel_program,
+         table_mod.block_prefix_sum, seg.segmented_minmax,
+         hp.hash_probe_multi) = orig
     torch.cuda.synchronize()
     return calls
 
@@ -285,25 +352,28 @@ def _sectors(torch, mask, item_bytes):
     return int(torch.unique(idx).numel())
 
 
-def probe_table_bytes(torch, hp, tk, keys, max_probes, empty_key=-1):
+def probe_table_bytes(torch, hp, tk, keys, max_probes, empty_key=-1,
+                      max_matches=1):
     """Bytes of the table that a probe of ``keys`` must read: the 32-byte
-    sectors of the key array that the keys' runs visit (home slot to hit,
-    empty slot or ``max_probes``), and those of the value array only at
-    hits."""
+    sectors of the key array that the keys' runs visit (home slot to the
+    ``max_matches``-th hit, an empty slot or ``max_probes``), and those of
+    the value array only at hits."""
     t = tk.shape[0]
     seen_k = torch.zeros(t, dtype=torch.bool, device=tk.device)
     seen_v = torch.zeros_like(seen_k)
     home, key = hp.hash_home(keys, t), keys
+    count = torch.zeros_like(key)
     for i in range(min(max_probes, t)):
         idx = (home + i) & (t - 1)
         k = tk.index_select(0, idx)
         seen_k[idx] = True
         hit = k == key
         seen_v[idx[hit]] = True
-        go = ~(hit | (k == empty_key))
+        count = count + hit.to(count.dtype)
+        go = ~((count >= max_matches) | (k == empty_key))
         if not bool(go.any()):
             break
-        home, key = home[go], key[go]
+        home, key, count = home[go], key[go], count[go]
     return 32 * (_sectors(torch, seen_k, 4) + _sectors(torch, seen_v, 4))
 
 
@@ -339,10 +409,10 @@ def _largest(cs, q, size):
     return max((c for c in cs if c["q"] == q), key=size)
 
 
-def check_join(torch, hp, fused, catalog, rate):
+def check_join(torch, hp, fused, calls, rate):
     """build_table, hash_probe and the fused probe, each against its plain
     version on the card, exact, on the inputs the main path gives them at
-    SF 1 (``capture_join_calls``): Q3's and Q10's five builds, Q10's two
+    SF 1 (``capture_calls``): Q3's and Q10's five builds, Q10's two
     standalone probes of customer (into the 2^24-slot revenue aggregate
     and the nation table) and the first morsel of each fused probe. Then
     two synthetic cases: a build with many duplicate keys, and 1 << 20
@@ -350,7 +420,6 @@ def check_join(torch, hp, fused, catalog, rate):
     kernel is timed on its largest main-path input of Q3 and of Q10."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(13)
-    calls = capture_join_calls(torch, hp, fused, catalog)
     for c in calls["build"]:
         args = (c["keys"], c["vals"], c["t"], c["empty"], c["valid"])
         got = hp.build_table(*args)
@@ -496,6 +565,206 @@ def check_join(torch, hp, fused, catalog, rate):
     return rows_out, launchers
 
 
+def _bits_equal(torch, a, b):
+    """Same dtype and shape and the same bits (a NaN equals the same NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def check_compact(torch, bps, calls, rate):
+    """block_prefix_sum on the first compaction mask of Q9 (the expansion
+    join's P x 4 rows) and of Q22 (the 1-row scalar side of its
+    ScalarBroadcast), exact against the plain version (cumsum - mask);
+    timed on Q9's."""
+    for c in calls["compact"]:
+        if c["q"] not in (9, 22):
+            continue
+        got, want = bps.block_prefix_sum(c["mask"]), bps.block_prefix_sum_plain(c["mask"])
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"block_prefix_sum Q{c['q']} differs from the plain version")
+        print(f"check block_prefix_sum Q{c['q']}: rows={c['mask'].shape[0]} "
+              f"set={int(want[1])}: exact", flush=True)
+    c = next(c for c in calls["compact"] if c["q"] == 9)
+    mask = c["mask"]
+    n = mask.shape[0]
+    name = "block_prefix_sum[Q9]"
+    launchers = {name: lambda: bps.block_prefix_sum(mask)}
+    # the mask read once, the positions and the total written once
+    b, by = bound_ms(n * 1 + n * 4 + 4, n, rate)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/block_prefix_sum.cu",
+               replaces="src/repro/kernels/block_prefix_sum.py:40",
+               max_abs_err=0.0, ms=time_ms(torch, launchers[name]),
+               plain_ms=time_ms(torch, lambda: bps.block_prefix_sum_plain(mask)),
+               bound_ms=b, bound_by=by,
+               library_ms=time_ms(torch, lambda: torch.cumsum(
+                   mask, 0, dtype=torch.int32)))
+    return [row], launchers
+
+
+def check_minmax(torch, seg, calls, rate):
+    """segmented_minmax on Q2's grouped min (sorted ids, dead rows carrying
+    the identity), then min and max over 1 << 20 float32 values with inf,
+    -inf and NaN and over int32 extremes, G = 4096: bit-exact against the
+    plain version (order-free). Timed on Q2's input."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(17)
+    c = next(c for c in calls["minmax"] if c["q"] == 2)
+    got = seg.segmented_minmax(c["gids"], c["values"], c["g"], c["kind"])
+    want = seg.segmented_minmax_plain(c["gids"], c["values"], c["g"],
+                                      c["kind"])
+    torch.cuda.synchronize()
+    if not _bits_equal(torch, got, want):
+        fail("segmented_minmax Q2 differs from the plain version")
+    print(f"check segmented_minmax Q2 {c['kind']}({c['values'].dtype}): "
+          f"rows={c['gids'].shape[0]} G={c['g']}: bit-exact", flush=True)
+    n, g = _MAIN_ROWS, 4096
+    gids = torch.sort(torch.randint(0, g + 1, (n,), generator=gen, device=dev,
+                                    dtype=torch.int32)).values
+    fv = torch.randn(n, generator=gen, device=dev) * 100
+    r = torch.rand(n, generator=gen, device=dev)
+    fv = torch.where(r < 0.01, float("inf"), fv)
+    fv = torch.where(r > 0.99, float("-inf"), fv)
+    fv = torch.where((r > 0.5) & (r < 0.5001), float("nan"), fv)
+    iv = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    for vals in (fv, iv):
+        for kind in ("min", "max"):
+            got = seg.segmented_minmax(gids, vals, g, kind)
+            want = seg.segmented_minmax_plain(gids, vals, g, kind)
+            torch.cuda.synchronize()
+            if not _bits_equal(torch, got, want):
+                fail(f"segmented_minmax {kind}({vals.dtype}) G={g} differs "
+                     "from the plain version")
+    print(f"check segmented_minmax rows={n} G={g} min/max of float32 (inf, "
+          "-inf, NaN) and int32: bit-exact", flush=True)
+    gids, vals, g, kind = c["gids"], c["values"], c["g"], c["kind"]
+    n = gids.shape[0]
+    name = "segmented_minmax[Q2]"
+    launchers = {name: lambda: seg.segmented_minmax(gids, vals, g, kind)}
+    buf = torch.empty(g + 1, dtype=vals.dtype, device=dev)
+    seg_ids = gids.long()
+
+    def library():
+        buf.fill_(float("inf"))
+        buf.scatter_reduce_(0, seg_ids, vals, "amin", include_self=True)
+
+    b, by = bound_ms(n * 8 + g * vals.element_size(), n, rate)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/segmented_agg.cu",
+               replaces="src/repro/kernels/segmented_agg.py:188",
+               max_abs_err=0.0, ms=time_ms(torch, launchers[name]),
+               plain_ms=time_ms(torch, lambda: seg.segmented_minmax_plain(
+                   gids, vals, g, kind)),
+               bound_ms=b, bound_by=by, library_ms=time_ms(torch, library))
+    return [row], launchers
+
+
+def check_multi(torch, hp, calls, rate):
+    """hash_probe_multi on the first expansion probe of Q9 and of Q20
+    (lineitem's and partsupp's composite keys, packed, into the partsupp
+    and the aggregate's tables, m = 4), then 1 << 20 keys with hits,
+    misses and -1 into a table with up to 8 rows a key: counts and every
+    slot (zeros past the count) exact against the plain version."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for c in calls["multi"]:
+        args = (c["tk"], c["tv"], c["keys"], c["m"], c["empty"],
+                c["max_probes"])
+        got, want = hp.hash_probe_multi(*args), hp.hash_probe_multi_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"hash_probe_multi Q{c['q']} differs from the plain version")
+        c["count"] = got[0]
+        print(f"check hash_probe_multi Q{c['q']}: keys={c['keys'].shape[0]} "
+              f"slots={c['tk'].shape[0]} m={c['m']} max_probes="
+              f"{c['max_probes']} matches={int(got[0].sum())}: exact",
+              flush=True)
+    nb, np_ = 1 << 18, 1 << 20
+    bk = torch.randint(-1, 1 << 15, (nb,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    tk, tv = hp.build_table(bk, torch.arange(nb, dtype=torch.int32,
+                                             device=dev), 1 << 19)
+    mp = hp.probe_bound(tk)
+    pk = torch.randint(-1, 1 << 16, (np_,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    got = hp.hash_probe_multi(tk, tv, pk, 4, -1, mp)
+    want = hp.hash_probe_multi_plain(tk, tv, pk, 4, -1, mp)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("hash_probe_multi duplicates case differs from the plain version")
+    print(f"check hash_probe_multi duplicates: keys={np_} slots=2^19 m=4 "
+          f"max_probes={mp} matches={int(got[0].sum())}: exact", flush=True)
+    rows_out, launchers = [], {}
+    for c in calls["multi"]:
+        args = (c["tk"], c["tv"], c["keys"], c["m"], c["empty"],
+                c["max_probes"])
+        name = f"hash_probe_multi[Q{c['q']}]"
+        launchers[name] = lambda a=args: hp.hash_probe_multi(*a)
+        n = c["keys"].shape[0]
+        # keys in, counts and the n x m slots out, the table sectors the
+        # keys' runs visit
+        nbytes = n * (8 + 4 * c["m"]) + probe_table_bytes(
+            torch, hp, c["tk"], c["keys"], c["max_probes"], c["empty"],
+            c["m"])
+        b, by = bound_ms(nbytes, n * 8, rate)
+        rows_out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/hash_table.cu",
+            replaces="src/repro/kernels/hash_probe.py:209", max_abs_err=0.0,
+            ms=time_ms(torch, launchers[name]),
+            plain_ms=time_ms(torch, lambda a=args: hp.hash_probe_multi_plain(*a),
+                             reps=3, warm=1),
+            bound_ms=b, bound_by=by, library_ms=None))
+    return rows_out, launchers
+
+
+def check_prefix_code(torch, fused, calls, rate):
+    """The fused program on Q22's PrefixCode stages (the customer morsel
+    with its uint8[N, 15] c_phone): output columns and validity
+    bit-identical to ``apply_stages``."""
+    for c in calls["fused_plain"]:
+        table, stages, program = c["table"], c["stages"], c["program"]
+        got, _, _ = fused.fused_morsel_program(table, stages, program=program)
+        want = fused.apply_stages(table, stages)
+        torch.cuda.synchronize()
+        if not torch.equal(got.validity, want.validity):
+            fail("fused Q22: validity differs from apply_stages")
+        for col in want.column_names:
+            if not _bits_equal(torch, got.columns[col], want.columns[col]):
+                fail(f"fused Q22: column {col} differs")
+        print(f"check fused_morsel_program Q22 rows={table.capacity}: "
+              f"{program.code.shape[0]} instructions, widths "
+              f"{program.in_widths}, valid={int(want.validity.sum())}: "
+              "bit-identical", flush=True)
+    c = max(calls["fused_plain"], key=lambda c: c["program"].code.shape[0])
+    table, stages, program = c["table"], c["stages"], c["program"]
+    out = fused.apply_stages(table, stages)
+    name = "fused_morsel_program[Q22]"
+    launchers = {name: lambda: fused.fused_morsel_program(table, stages,
+                                                          program=program)}
+    n = table.capacity
+    nbytes = n * (sum(table.columns[x].element_size()
+                      * (w if w else 1)
+                      for x, w in zip(program.in_names, program.in_widths))
+                  + 1 + sum(out.columns[x].element_size()
+                            for x in program.out_names) + 1)
+    alu = sum(1 for op in program.code[:, 0].tolist()
+              if op >= fused.OPS["FILTER"] and op != fused.OPS["LOADB"])
+    b, by = bound_ms(nbytes, n * alu, rate)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_morsel.cu",
+               replaces="src/repro/core/fused.py:78", max_abs_err=0.0,
+               ms=time_ms(torch, launchers[name]),
+               plain_ms=time_ms(torch, lambda: fused.apply_stages(table, stages)),
+               bound_ms=b, bound_by=by, library_ms=None)
+    return [row], launchers
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
@@ -563,9 +832,9 @@ def expected_launches(ops, data):
 
 
 def run_main_path(torch, data, catalog):
-    """Q6, Q1, Q3 and Q10 through the port's Session on the card, each
-    against the same plan on the CPU; returns the launch counts of each
-    query's timed run and the card's session."""
+    """All 22 queries through the port's Session on the card, each against
+    the same plan on the CPU; returns the launch counts of each query's
+    timed run and the card's session."""
     from repro_torch.core.session import Session
     from repro_torch.kernels import ops
     from repro_torch.tpch import queries
@@ -575,7 +844,7 @@ def run_main_path(torch, data, catalog):
     expect = expected_launches(ops, data)
     launches = {}
     for q in _QUERIES:
-        plan = queries.QUERIES[q](catalog)
+        plan = queries.build_query(q, catalog)
         gpu.execute(plan)                       # warm: allocator, streams
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -599,8 +868,14 @@ def run_main_path(torch, data, catalog):
               f"{len(next(iter(got.values())))}, launches "
               f"{ {k: v for k, v in counts.items() if v} }, "
               f"kernel_dispatch {stats['kernel_dispatch']}", flush=True)
-        if counts != expect[q]:
+        if q in expect and counts != expect[q]:
             fail(f"Q{q}: launches {counts}, expected {expect[q]}")
+        for kernel, qs in _REACHES.items():
+            if (counts[kernel] > 0) != (q in qs):
+                fail(f"Q{q}: {counts[kernel]} launches of {kernel}; the "
+                     f"queries that reach it are {qs}")
+        if q == 22 and not counts["fused_morsel_program"]:
+            fail("Q22: its PrefixCode stages did not run in the fused kernel")
         launches[q] = counts
     for k in ops.KERNELS:
         if not any(c[k] for c in launches.values()):
@@ -610,7 +885,10 @@ def run_main_path(torch, data, catalog):
 
 _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "hash_build_claim_kernel", "hash_build_place_kernel",
-                 "hash_probe_kernel")
+                 "hash_probe_kernel", "segmented_minmax_kernel",
+                 "fill_kernel", "keys_to_f32_kernel", "block_count_kernel",
+                 "scan_block_sums_kernel", "positions_kernel",
+                 "hash_probe_multi_kernel")
 
 
 def _device_events(prof):
@@ -645,19 +923,32 @@ def profile_kernels(torch, launchers, reps: int = 20):
               "fused": ("fused_morsel_kernel",),
               "build_table": ("hash_build_claim_kernel",
                               "hash_build_place_kernel"),
-              "hash_probe": ("hash_probe_kernel",)}
+              "hash_probe": ("hash_probe_kernel",),
+              "block_prefix_sum": ("block_count_kernel",
+                                   "scan_block_sums_kernel",
+                                   "positions_kernel"),
+              "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel",
+                                   "keys_to_f32_kernel"),
+              "hash_probe_multi": ("hash_probe_multi_kernel",)}
     out = {}
     for name, fn in launchers.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
         key = name.partition("[")[0]
         keys = symbol["fused" if key.startswith("fused") else key]
-        hits = [r for r in _device_events(prof)
-                if any(k in r[0] for k in keys)]
+        fn()
+        torch.cuda.synchronize()
+        # a profile now and then comes back without the device's events
+        # (CUPTI); such a profile is taken again, at most twice
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            hits = [r for r in _device_events(prof)
+                    if any(k in r[0] for k in keys)]
+            if hits:
+                break
+            print(f"profile of {name}: no device events in attempt "
+                  f"{attempt + 1}", flush=True)
         launched = sum(r[1] for r in hits)
         if not hits or launched < reps or launched % reps:
             fail(f"profile of {name}: {launched} kernel events matching "
@@ -676,15 +967,22 @@ def profile_main_path(torch, gpu, catalog, out_dir):
 
     os.makedirs(out_dir, exist_ok=True)
     for q in _QUERIES:
-        plan = queries.QUERIES[q](catalog)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            gpu.execute(plan)
+        plan = queries.build_query(q, catalog)
+        for attempt in range(3):      # as in profile_kernels
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = _device_events(prof)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                gpu.execute(plan)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rows = _device_events(prof)
+            if rows:
+                break
+            print(f"profile of Q{q}: no device events in attempt "
+                  f"{attempt + 1}", flush=True)
+        if not rows:
+            fail(f"profile of Q{q}: no device events")
         busy_us = sum(r[2] for r in rows)
         h2d = [r for r in rows if r[0].startswith("Memcpy HtoD")]
         port = [r for r in rows if any(k in r[0] for k in _PORT_KERNELS)]
@@ -700,7 +998,8 @@ def profile_main_path(torch, gpu, catalog, out_dir):
                    "by_kernel": rows, "host_top": _host_events(prof)}
         with open(os.path.join(out_dir, f"profile_q{q}.json"), "w") as f:
             json.dump(summary, f, indent=1)
-        prof.export_chrome_trace(os.path.join(out_dir, f"trace_q{q}.json"))
+        prof.export_chrome_trace(os.path.join(out_dir,
+                                              f"trace_q{q}.json.gz"))
         print(json.dumps({"profile": dict(summary, by_kernel=rows[:8],
                                           host_top=summary["host_top"][:8])}),
               flush=True)
@@ -709,8 +1008,8 @@ def profile_main_path(torch, gpu, catalog, out_dir):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile Q6, Q1, Q3 and Q10 and write the "
-                         "summaries and traces into DIR")
+                    help="also profile the 22 queries and write the "
+                         "summaries and (gzipped) traces into DIR")
     args = ap.parse_args()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -725,6 +1024,7 @@ def main() -> None:
     from repro_torch.core import fused
     from repro_torch.core.session import Catalog
     from repro_torch.core.table import TorchTable
+    from repro_torch.kernels import block_prefix_sum as bps
     from repro_torch.kernels import build
     from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import segmented_agg as seg
@@ -757,13 +1057,20 @@ def main() -> None:
     morsel = TorchTable.from_numpy({c: v[:n] for c, v in lineitem.items()},
                                    dbgen.S.LINEITEM, capacity=_MAIN_ROWS,
                                    device="cuda")
-    fused_rows, fused_launchers = check_fused(torch, fused, queries, morsel,
-                                              rate)
+    fused_rows, fused_launchers = check_fused(torch, fused, queries, catalog,
+                                              morsel, rate)
     rows_out += fused_rows
     launchers.update(fused_launchers)
-    join_rows, join_launchers = check_join(torch, hp, fused, catalog, rate)
-    rows_out += join_rows
-    launchers.update(join_launchers)
+    calls = capture_calls(torch, hp, fused, catalog)
+    for more_rows, more_launchers in (
+            check_join(torch, hp, fused, calls, rate),
+            check_compact(torch, bps, calls, rate),
+            check_minmax(torch, seg, calls, rate),
+            check_multi(torch, hp, calls, rate),
+            check_prefix_code(torch, fused, calls, rate)):
+        rows_out += more_rows
+        launchers.update(more_launchers)
+    del calls
 
     launches, gpu = run_main_path(torch, data, catalog)
     if args.profile:

@@ -14,7 +14,8 @@ Entry point::
     from repro_torch.tpch import dbgen, queries
 
     catalog = dbgen.load_catalog(sf=1)
-    out = Session(catalog, batch_rows=1 << 20).execute(queries.q1(catalog))
+    out = Session(catalog, batch_rows=1 << 20).execute(
+        queries.build_query(1, catalog))
 
 ``Session(device=None)`` runs on ``"cuda"`` and raises when no GPU is
 present; pass ``device="cpu"`` to run the plain versions.

@@ -6,10 +6,12 @@ operators. Scans run as ``StreamingScan`` stages fed by a
 per-morsel pipeline, which ``operators.fuse_morsel_pipeline`` collapses
 into one fused kernel launch per morsel.
 
-The port runs TableScan, Filter, Project, Aggregation, Join (single-match
-hash joins; a probe straight off a scan fuses into the scan's morsel
-pipeline), OrderBy and Limit at ``num_workers == 1``. Any other node
-raises ``NotImplementedError`` naming the slice that brings it.
+The port runs TableScan, Filter (``compact=True`` stream-compacts the
+survivors), Project, Aggregation, Distinct, Join (hash joins; a
+single-match probe straight off a scan fuses into the scan's morsel
+pipeline), ScalarBroadcast, OrderBy and Limit at ``num_workers == 1``.
+Any other node raises ``NotImplementedError`` naming the slice that brings
+it.
 """
 
 from __future__ import annotations
@@ -29,9 +31,7 @@ from .table import TorchTable, concat_tables
 
 # node type -> the port slice that brings it (ROADMAP.md, queue A)
 _LATER = {
-    "Distinct": "the all-queries slice",
-    "ScalarBroadcast": "the all-queries slice",
-    "InMemorySource": "the all-queries slice",
+    "InMemorySource": "the SQL frontend slice",
     "Exchange": "the distributed slice",
     "Repartition": "the distributed slice",
     "Broadcast": "the distributed slice",
@@ -189,6 +189,19 @@ class Driver:
                                   node.max_groups)
         return Stream(self._run_pipeline(agg, child.batches))
 
+    def _exec_distinct(self, node: P.Distinct) -> Stream:
+        child = self._stream(node.child)
+        d = ops.Distinct(node.keys, node.max_groups)
+        return Stream(self._run_pipeline(d, child.batches))
+
+    def _exec_scalarbroadcast(self, node: P.ScalarBroadcast) -> Stream:
+        # the scalar side runs to its end first, as in the reference
+        scalar = self._materialize(self._stream(node.scalar).batches)
+        child = self._stream(node.child)
+        sb = ops.ScalarBroadcast(node.columns)
+        sb.set_scalar(scalar)
+        return Stream(self._run_pipeline(sb, child.batches))
+
     def _exec_join(self, node: P.Join) -> Stream:
         build = self._materialize(self._stream(node.build).batches)
         probe = self._stream(node.probe)
@@ -198,7 +211,7 @@ class Driver:
         join.open()
         join.add_build(build)
         join.seal_build()
-        if probe.scan is not None:
+        if probe.scan is not None and not join._multi:
             # fuse the probe into the scan's per-morsel pipeline, where the
             # iteration-start collapse folds it and the stages before it
             # into one fused launch per morsel; the join's time folds into

@@ -6,8 +6,10 @@ eagerly on tensors and reproduces the reference's type promotion for the
 physical dtypes (bool, int32, float32): int32 op float32 is float32, and
 ``div`` casts an integer numerator to float32 first.
 
-``BytesMatch``, ``Year`` and ``PrefixCode`` come with the slices whose
-queries use them.
+String predicates over fixed-width byte columns (``BytesMatch``), ``Year``
+and ``PrefixCode`` evaluate with plain tensor operations, as the reference's
+evaluate them with jnp outside any kernel; the fused kernel takes
+``PrefixCode`` (``core/fused.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +56,18 @@ class Expr:
     def between(self, lo, hi) -> "Expr":
         """SQL ``BETWEEN``: inclusive range predicate."""
         return (self >= lo) & (self <= hi)
+
+    def contains(self, *parts: str) -> "Expr":
+        """LIKE '%a%b%' over a bytes column (ordered substring match)."""
+        return BytesMatch(self, tuple(parts), "contains")
+
+    def startswith(self, prefix: str) -> "Expr":
+        """LIKE 'prefix%' over a bytes column."""
+        return BytesMatch(self, (prefix,), "startswith")
+
+    def endswith(self, suffix: str) -> "Expr":
+        """LIKE '%suffix' over a (space-padded) bytes column."""
+        return BytesMatch(self, (suffix,), "endswith")
 
     def evaluate(self, table) -> torch.Tensor:
         """Value of this expression over a ``TorchTable`` batch."""
@@ -216,6 +230,136 @@ class IsIn(Expr):
 
     def references(self):
         return self.operand.references()
+
+
+def _pattern(text: str, device) -> torch.Tensor:
+    return torch.tensor(list(text.encode()), dtype=torch.uint8, device=device)
+
+
+@dataclasses.dataclass(eq=False)
+class BytesMatch(Expr):
+    """Substring predicates over fixed-width uint8 columns.
+
+    contains('a','b') implements SQL LIKE '%a%b%': the parts must appear in
+    order, non-overlapping. Sliding-window equality over the row bytes, as
+    the reference evaluates it.
+    """
+
+    operand: Expr
+    parts: Tuple[str, ...]
+    mode: str  # contains | startswith | endswith
+
+    def evaluate(self, table):
+        data = self.operand.evaluate(table)  # uint8[N, W]
+        n, width = data.shape
+        if self.mode == "startswith":
+            pat = _pattern(self.parts[0], data.device)
+            return (data[:, :len(pat)] == pat).all(dim=1)
+        if self.mode == "endswith":
+            pat = _pattern(self.parts[0], data.device)
+            # rows are space padded; match against the trimmed end per row
+            lengths = _row_lengths(data)
+            idx = (lengths[:, None] - len(pat)
+                   + torch.arange(len(pat), device=data.device)[None, :])
+            ok = idx >= 0
+            gathered = torch.gather(data, 1, idx.clamp(0, width - 1))
+            return ((gathered == pat) & ok).all(dim=1)
+        # ordered multi-part contains
+        earliest = torch.zeros(n, dtype=torch.int32, device=data.device)
+        found_all = torch.ones(n, dtype=torch.bool, device=data.device)
+        for part in self.parts:
+            hits = _find_first(data, _pattern(part, data.device), earliest)
+            found_all = found_all & (hits >= 0)
+            earliest = torch.where(hits >= 0, hits + len(part), earliest)
+        return found_all
+
+    def out_dtype(self, schema):
+        return dt.BOOL
+
+    def references(self):
+        return self.operand.references()
+
+
+def _row_lengths(data: torch.Tensor) -> torch.Tensor:
+    """Length of each space-padded row = 1 + last non-space position."""
+    pos = torch.arange(1, data.shape[1] + 1, dtype=torch.int32,
+                       device=data.device)
+    return torch.where(data != ord(" "), pos[None, :], 0).amax(dim=1)
+
+
+def _find_first(data: torch.Tensor, pat: torch.Tensor,
+                earliest: torch.Tensor) -> torch.Tensor:
+    """First index >= earliest where ``pat`` occurs in each row, else -1."""
+    n, width = data.shape
+    m = pat.shape[0]
+    if m > width:
+        return torch.full((n,), -1, dtype=torch.int32, device=data.device)
+    nwin = width - m + 1
+    windows = data.unfold(1, m, 1)                          # [N, nwin, m]
+    match = (windows == pat).all(dim=2)
+    starts = torch.arange(nwin, dtype=torch.int32, device=data.device)
+    match = match & (starts[None, :] >= earliest[:, None])
+    first = torch.argmax(match.to(torch.uint8), dim=1).to(torch.int32)
+    return torch.where(match.any(dim=1), first, -1)
+
+
+# day number of each 1 January, 1970 to 2039 (the reference's table)
+_YEAR_STARTS = np.array(
+    [(np.datetime64(f"{y}-01-01") - np.datetime64("1970-01-01"))
+     .astype("timedelta64[D]").astype(np.int32) for y in range(1970, 2040)],
+    dtype=np.int32)
+
+
+@dataclasses.dataclass(eq=False)
+class Year(Expr):
+    """EXTRACT(YEAR FROM date32) via searchsorted on year-start days."""
+
+    operand: Expr
+
+    def evaluate(self, table):
+        days = self.operand.evaluate(table).to(torch.int32)
+        starts = torch.from_numpy(_YEAR_STARTS).to(days.device)
+        idx = torch.searchsorted(starts, days, right=True) - 1
+        return (idx + 1970).to(torch.int32)
+
+    def out_dtype(self, schema):
+        return dt.INT32
+
+    def references(self):
+        return self.operand.references()
+
+
+@dataclasses.dataclass(eq=False)
+class PrefixCode(Expr):
+    """First ``n`` bytes of a bytes column, decoded as a base-10 integer
+    (SQL: cast(substring(col, 1, n) as int); used by Q22 country codes)."""
+
+    operand: Expr
+    n: int
+
+    def evaluate(self, table):
+        data = self.operand.evaluate(table)   # uint8[N, W]
+        out = torch.zeros(data.shape[0], dtype=torch.int32,
+                          device=data.device)
+        for i in range(self.n):
+            out = out * 10 + (data[:, i].to(torch.int32) - ord("0"))
+        return out
+
+    def out_dtype(self, schema):
+        return dt.INT32
+
+    def references(self):
+        return self.operand.references()
+
+
+def year(e: Expr) -> Year:
+    """EXTRACT(YEAR) from a date32 expression."""
+    return Year(e)
+
+
+def prefix_code(e: Expr, n: int) -> PrefixCode:
+    """Integer decode of the first ``n`` bytes of a bytes column."""
+    return PrefixCode(e, n)
 
 
 def col(name: str) -> ColumnRef:

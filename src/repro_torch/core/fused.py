@@ -14,11 +14,15 @@ int column, or the injective composite pack), and the kernel probes the
 join's table (``kernels/csrc/hash_probe.cuh``) and stores ``found`` and
 ``bidx`` beside the stage outputs.
 
+A fixed-width bytes column (uint8[N, W]) enters the program only through
+``PrefixCode``: its input slot carries the row width, and a LOADB
+instruction reads one byte of the row.
+
 ``apply_stages`` (with ``kernels.hash_probe.hash_probe_plain`` for the
 probe) is the plain version, and it is what a CPU tensor runs. The lowering
-raises ``NotImplementedError`` for any node it cannot express (bytes
-columns, ``BytesMatch``, ``Year``, ...); it never runs the stages unfused
-instead.
+raises ``NotImplementedError`` for any node it cannot express (a bytes
+column stored or compared, ``BytesMatch``, ``Year``, ...); it never runs
+the stages unfused instead.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ..kernels import build
 from ..kernels import hash_probe as hp
 from ..kernels import ops as kernel_ops
 from . import relational as rel
-from .expr import BinaryOp, ColumnRef, IsIn, Literal, UnaryOp
+from .expr import BinaryOp, ColumnRef, IsIn, Literal, PrefixCode, UnaryOp
 from .plan import _canon
 from .table import TorchTable
 
@@ -53,17 +57,19 @@ OPS = {
     "EQ_F32": 21, "NE_F32": 22, "LT_F32": 23, "LE_F32": 24, "GT_F32": 25,
     "GE_F32": 26,
     "AND": 27, "OR": 28, "NOT": 29, "I32_TO_F32": 30, "PROBE": 31,
+    "LOADB": 32,
 }
 LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48}
 
 _LIB = "fused_morsel"
-# (program, n_instr, in_ptrs, n_in, out_ptrs, n_out, valid_in, valid_out, n,
-#  tk, tv, table_size, max_probes, empty_key, found, bidx, stream)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
+# (program, n_instr, in_ptrs, in_widths, n_in, out_ptrs, n_out, valid_in,
+#  valid_out, n, tk, tv, table_size, max_probes, empty_key, found, bidx,
+#  stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _CMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
 _ARITH_OPS = ("add", "sub", "mul")
 # register kinds: 'i32' (int32 bits), 'f32' (float32 bits), 'b' (0 or 1)
@@ -116,13 +122,15 @@ def apply_probe(table: TorchTable, probe: dict):
 class Program:
     """A lowered run of stages: ``code`` is int32[n_instr, 4] on the host,
     rows of (op, dst, a, b); ``in_names`` are the input columns in load-slot
-    order, with the ``in_dtypes`` the program reads them as; outputs are
+    order, with the ``in_dtypes`` the program reads them as and their
+    ``in_widths`` (the row width of a bytes column, else 0); outputs are
     ``out_names`` with their physical ``out_dtypes``. With ``probe`` set
     the program ends in a PROBE of the key register it computed."""
 
     code: torch.Tensor
     in_names: Tuple[str, ...]
     in_dtypes: Tuple[torch.dtype, ...]
+    in_widths: Tuple[int, ...]
     out_names: Tuple[str, ...]
     out_dtypes: Tuple[torch.dtype, ...]
     out_schema: Dict[str, object]
@@ -162,6 +170,12 @@ class _Lowering:
             self.consts[key] = self.emit("CONST", self.reg(), bits)
         return self.consts[key], kind
 
+    def slot(self, name: str) -> int:
+        slot = self.in_slots.setdefault(name, len(self.in_slots))
+        if slot >= LIMITS["kMaxCols"]:
+            raise NotImplementedError("fused lowering: too many columns")
+        return slot
+
     def column(self, name: str) -> Tuple[int, str]:
         if name not in self.loaded:
             t = self.table.columns[name]
@@ -169,13 +183,26 @@ class _Lowering:
             if t.dim() != 1 or kind is None:
                 raise NotImplementedError(
                     f"fused lowering: column {name!r} of dtype {t.dtype} and "
-                    f"shape {tuple(t.shape)} (bytes columns come later)")
-            slot = self.in_slots.setdefault(name, len(self.in_slots))
-            if slot >= LIMITS["kMaxCols"]:
-                raise NotImplementedError("fused lowering: too many columns")
+                    f"shape {tuple(t.shape)} (a bytes column enters the "
+                    "program only through PrefixCode)")
             op = "LOAD8" if kind == "b" else "LOAD32"
-            self.loaded[name] = (self.emit(op, self.reg(), slot), kind)
+            self.loaded[name] = (self.emit(op, self.reg(), self.slot(name)),
+                                 kind)
         return self.loaded[name]
+
+    def byte(self, name: str, i: int) -> int:
+        """Register holding byte ``i`` of the row of bytes column ``name``
+        (zero-extended)."""
+        key = f"{name}[{i}]"
+        if key not in self.loaded:
+            t = self.table.columns[name]
+            if t.dim() != 2 or t.dtype != torch.uint8 or i >= t.shape[1]:
+                raise NotImplementedError(
+                    f"fused lowering: byte {i} of column {name!r} of dtype "
+                    f"{t.dtype} and shape {tuple(t.shape)}")
+            self.loaded[key] = (self.emit("LOADB", self.reg(), self.slot(name),
+                                          i), "i32")
+        return self.loaded[key][0]
 
     # -- conversions -----------------------------------------------------------
     def to_f32(self, v):
@@ -247,6 +274,23 @@ class _Lowering:
                 op = "NEG_F32" if v[1] == "f32" else "NEG_I32"
                 return self.emit(op, self.reg(), v[0]), v[1]
             raise NotImplementedError(f"fused lowering: {e.op!r} on {v[1]}")
+        if isinstance(e, PrefixCode):
+            # the reference's decode in wrapping int32:
+            # out = out * 10 + (byte - '0'), byte by byte
+            if not (isinstance(e.operand, ColumnRef)
+                    and env[e.operand.name] is None):
+                raise NotImplementedError(
+                    "fused lowering: PrefixCode of a computed value")
+            ten = self.const(10, "i32")[0]
+            zero = self.const(ord("0"), "i32")[0]
+            acc = self.const(0, "i32")[0]
+            for i in range(e.n):
+                digit = self.emit("SUB_I32", self.reg(),
+                                  self.byte(e.operand.name, i), zero)
+                acc = self.emit("ADD_I32", self.reg(),
+                                self.emit("MUL_I32", self.reg(), acc, ten),
+                                digit)
+            return acc, "i32"
         if isinstance(e, IsIn):
             v = self.expr(e.operand, env, stage)
             acc = self.const(0, "b")
@@ -267,7 +311,8 @@ class _Lowering:
                 acc = self.emit("OR", self.reg(), acc[0], hit), "b"
             return acc
         raise NotImplementedError(
-            f"fused lowering: {type(e).__name__} comes with a later slice")
+            f"fused lowering: no instruction for {type(e).__name__}; a fused "
+            "BytesMatch or Year comes with the SQL frontend slice")
 
 
 def lower_stages(table: TorchTable, stages: Sequence[Stage],
@@ -312,7 +357,9 @@ def lower_stages(table: TorchTable, stages: Sequence[Stage],
     code = torch.tensor(lw.code, dtype=torch.int32).reshape(-1, 4)
     in_names = tuple(lw.in_slots)
     in_dtypes = tuple(table.columns[n].dtype for n in in_names)
-    return Program(code, in_names, in_dtypes, tuple(out_names),
+    in_widths = tuple(table.columns[n].shape[1] if table.columns[n].dim() == 2
+                      else 0 for n in in_names)
+    return Program(code, in_names, in_dtypes, in_widths, tuple(out_names),
                    tuple(out_dtypes), schema, lw.n_regs,
                    probe=probe_keys is not None)
 
@@ -332,7 +379,7 @@ def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
         if kind != "i32":
             raise NotImplementedError(
                 f"fused lowering: probe key {name!r} is not an integer "
-                "column (hashed keys come with the all-queries slice)")
+                "column (hashed keys come with the SQL frontend slice)")
         regs.append(r)
     if pack is None:
         if len(regs) != 1:
@@ -398,13 +445,15 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
     if table.validity.dtype != torch.bool or table.validity.dim() != 1:
         raise TypeError("fused_morsel_program: validity must be bool[n]")
     ins = []
-    for name, dtype in zip(program.in_names, program.in_dtypes):
+    for name, dtype, width in zip(program.in_names, program.in_dtypes,
+                                  program.in_widths):
         t = table.columns[name]
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != (n,):
+        shape = (n, width) if width else (n,)
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
                 f"fused_morsel_program: column {name!r} is {t.dtype}"
                 f"{tuple(t.shape)} on {t.device}; the program reads "
-                f"{dtype}[{n}] on {dev}")
+                f"{dtype}{list(shape)} on {dev}")
         ins.append(t.contiguous())
     valid_in = table.validity.contiguous()
     outs = [torch.empty(n, dtype=d, device=dev) for d in program.out_dtypes]
@@ -431,6 +480,7 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
         fn = build.function(_LIB, "fused_morsel_run", _ARGTYPES)
         in_ptrs = (ctypes.c_uint64 * max(len(ins), 1))(
             *[t.data_ptr() for t in ins])
+        in_widths = (ctypes.c_int * max(len(ins), 1))(*program.in_widths)
         out_ptrs = (ctypes.c_uint64 * max(len(outs), 1))(
             *[t.data_ptr() for t in outs])
         code = program.code.contiguous()
@@ -438,7 +488,7 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        rc = fn(code.data_ptr(), code.shape[0], in_ptrs, len(ins),
+        rc = fn(code.data_ptr(), code.shape[0], in_ptrs, in_widths, len(ins),
                 out_ptrs, len(outs), valid_in.data_ptr(),
                 valid_out.data_ptr(), n, ptr(tk), ptr(tv), table_size,
                 max_probes, empty_key, ptr(found), ptr(bidx),

@@ -8,11 +8,11 @@ Operators follow Velox's streaming contract, as in the reference::
 
 The port runs one worker on local ``[cap]`` tensors, eagerly; each operator
 body is wrapped in ``kernels.ops.table_op`` only for dispatch accounting.
-The port has FilterProject, HashAggregation (without spill), HashJoin on
-its open-addressing path (single-match probes), the fused per-morsel
-pipeline with its probe variant, OrderBy and Limit. Expansion probes, the
-sorted-key join, Distinct and ScalarBroadcast come with the all-queries
-slice.
+The port has FilterProject, HashAggregation (without spill), Distinct,
+HashJoin on its open-addressing path (single-match and expansion probes),
+the fused per-morsel pipeline with its probe variant, OrderBy, Limit and
+ScalarBroadcast. The sorted-key join comes with the SQL frontend slice
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -245,6 +245,26 @@ class HashAggregation(Operator):
         return [out]
 
 
+class Distinct(Operator):
+    """Row dedup on key columns (count(distinct ...) rewrites)."""
+
+    name = "Distinct"
+
+    def __init__(self, keys: Sequence[str], max_groups: int = 4096):
+        self.keys = tuple(keys)
+        self.max_groups = max_groups
+        self.agg = HashAggregation(keys, [], "single", max_groups)
+
+    def open(self):
+        self.agg.open()
+
+    def add_input(self, batch):
+        return self.agg.add_input(batch.select(list(self.keys)))
+
+    def finish(self):
+        return self.agg.finish()
+
+
 # ---------------------------------------------------------------------------
 # compaction
 # ---------------------------------------------------------------------------
@@ -295,7 +315,7 @@ def maybe_compact(table: TorchTable) -> TorchTable:
 MAX_HASH_TABLE_SLOTS = 1 << 25
 EMPTY_KEY = -1
 _PACKABLE_DTYPES = ("int32", "date32", "dict32")
-_ALL_QUERIES = "the all-queries slice"
+_SORTED_KEY_SLICE = "the SQL frontend slice"
 
 
 @table_op
@@ -380,22 +400,83 @@ def _probe_join_hash(probe: TorchTable, hash_state, probe_keys,
                                  join_type)
 
 
+@table_op
+def _probe_join_hash_multi(probe: TorchTable, hash_state, probe_keys,
+                           build_payload, join_type: str, max_probes: int,
+                           max_matches: int, pack):
+    """Expansion probe (the reference's ``_probe_join_pallas_multi``):
+    probe row i owns output rows ``[i*m, (i+1)*m)``, and its matches come
+    in build-row order. The kernel writes 0 into the slots past each
+    row's count, so the gather through every slot stays in bounds before
+    ``valid`` masks it."""
+    build, tk, tv = hash_state
+    key = fused.probe_key(probe, probe_keys, pack, EMPTY_KEY)
+    count, slots = hp.hash_probe_multi(tk, tv, key, max_matches,
+                                       empty_key=EMPTY_KEY,
+                                       max_probes=max_probes)
+    # sentinel mask, as in the single-match probe: an empty slot compares
+    # equal to a sentinel probe key and would report one bogus match
+    live = probe.validity & (key != EMPTY_KEY)
+    count = torch.where(live, count, torch.zeros_like(count))
+    p = key.shape[0]
+    j = torch.arange(p * max_matches, dtype=torch.int64, device=key.device)
+    probe_idx = j // max_matches
+    valid = (j % max_matches) < count.index_select(0, probe_idx)
+    build_idx = slots.reshape(-1).long()
+    return _expand_join_output(probe, build, probe_idx, build_idx, valid,
+                               build_payload, join_type)
+
+
+def _expand_join_output(probe: TorchTable, build: TorchTable, probe_idx,
+                        build_idx, valid, build_payload,
+                        join_type: str) -> TorchTable:
+    """Expansion-layout output (the reference's ``_expand_join_output``,
+    whose semi/anti branch only its sorted-key path reaches): gather both
+    sides for inner, append the unmatched probe rows for left_outer."""
+    dev = probe.device
+    cols, schema = {}, {}
+    for n in probe.column_names:
+        cols[n] = probe.columns[n].index_select(0, probe_idx)
+        schema[n] = probe.schema[n]
+    for n in build_payload:
+        cols[n] = build.columns[n].index_select(0, build_idx)
+        schema[n] = build.schema[n]
+    out_valid = valid
+    if join_type == "left_outer":
+        # append unmatched probe rows with zeroed build payload + match flag
+        hit = torch.zeros(probe.capacity, dtype=torch.int32, device=dev)
+        hit.scatter_reduce_(0, probe_idx, valid.to(torch.int32), "amax")
+        unmatched = probe.validity & (hit == 0)
+        for n in probe.column_names:
+            cols[n] = torch.cat([cols[n], probe.columns[n]])
+        for n in build_payload:
+            cols[n] = torch.cat([cols[n], torch.zeros(
+                (probe.capacity,) + tuple(cols[n].shape[1:]),
+                dtype=cols[n].dtype, device=dev)])
+        out_valid = torch.cat([out_valid, unmatched])
+        cols["__matched"] = torch.cat(
+            [valid, torch.zeros(probe.capacity, dtype=torch.bool,
+                                device=dev)])
+        schema["__matched"] = dt.BOOL
+    return TorchTable(cols, out_valid, schema)
+
+
 class HashJoin(Operator):
     """Streaming probe against a fully materialised build side, on the
     reference's ``pallas`` path: exact int-like keys (one column, or a
     composite packed injectively into one int32 lane by ``_derive_pack``)
     build an open-addressing table of ``2 * build_rows`` slots rounded up
-    to a power of two (``kernels.hash_probe.build_table``), and each probe
-    batch looks its keys up with ``hash_probe`` (or, fused into the scan,
-    with the fused morsel kernel). Semi/anti joins and joins against a
-    build side the planner proved unique (``max_matches == 1``) take this
-    path.
+    to a power of two (``kernels.hash_probe.build_table``). Semi/anti joins
+    and joins against a build side the planner proved unique
+    (``max_matches == 1``) look each probe batch's keys up with
+    ``hash_probe`` (or, fused into the scan, with the fused morsel kernel);
+    other inner and left-outer joins expand with ``hash_probe_multi`` into
+    ``P x max_matches`` rows, compacted after the probe.
 
     Where the reference falls back to its sorted-key path (a non-integer or
     too wide composite key, a valid build key equal to the empty sentinel
-    -1, a table above ``MAX_HASH_TABLE_SLOTS``) or probes with the
-    expansion kernel (``max_matches > 1``), the port raises
-    ``NotImplementedError``: those paths come with the all-queries slice.
+    -1, a table above ``MAX_HASH_TABLE_SLOTS``), the port raises
+    ``NotImplementedError``: that path comes with the SQL frontend slice.
     """
 
     name = "HashJoin"
@@ -415,6 +496,7 @@ class HashJoin(Operator):
         self._hash_state = None          # (build, table_keys, table_vals)
         self._max_probes = 0
         self._pack = None                # composite-key windows, or None
+        self._multi = False              # expansion probe (hash_probe_multi)
 
     def add_build(self, batch: TorchTable) -> None:
         """Accumulate one build-side batch (device-resident)."""
@@ -429,11 +511,6 @@ class HashJoin(Operator):
             raise RuntimeError("HashJoin: the build side is empty")
         build = concat_tables(self._build_batches)
         self._build_batches = []
-        if (self.join_type not in ("left_semi", "left_anti")
-                and self.max_matches != 1):
-            raise NotImplementedError(
-                f"HashJoin: the expansion probe (max_matches="
-                f"{self.max_matches}) comes with {_ALL_QUERIES}")
         kt = [build.schema[k] for k in self.build_keys]
         pack = None
         if not (len(kt) == 1 and kt[0].name in _PACKABLE_DTYPES):
@@ -443,7 +520,7 @@ class HashJoin(Operator):
                 raise NotImplementedError(
                     f"HashJoin: key {self.build_keys} is not integer or too "
                     f"wide to pack; the sorted-key join comes with "
-                    f"{_ALL_QUERIES}")
+                    f"{_SORTED_KEY_SLICE}")
         cap = build.capacity
         bound = min(self.build_rows or cap, cap)
         table_size = _pow2(max(2 * bound, 2))
@@ -451,7 +528,7 @@ class HashJoin(Operator):
             raise NotImplementedError(
                 f"HashJoin: a table of {table_size} slots is above the "
                 f"port's cap of {MAX_HASH_TABLE_SLOTS}; the sorted-key join "
-                f"comes with {_ALL_QUERIES}")
+                f"comes with {_SORTED_KEY_SLICE}")
         tk, tv = _build_hash_table(build, self.build_keys, table_size, pack)
         # every valid build row must occupy a slot: a shortfall means a key
         # equal to the empty sentinel, whose matches a probe would drop
@@ -462,14 +539,25 @@ class HashJoin(Operator):
         if short:
             raise NotImplementedError(
                 f"HashJoin: a valid build key equals the empty sentinel "
-                f"{EMPTY_KEY}; the sorted-key join comes with {_ALL_QUERIES}")
+                f"{EMPTY_KEY}; the sorted-key join comes with "
+                f"{_SORTED_KEY_SLICE}")
         self._hash_state = (build, tk, tv)
         self._max_probes = hp.probe_bound_of_run(longest, table_size)
         self._pack = pack
+        self._multi = not (self.join_type in ("left_semi", "left_anti")
+                           or self.max_matches == 1)
 
     def add_input(self, batch):
         if self._hash_state is None:
             raise RuntimeError("HashJoin: probe before the build was sealed")
+        if self._multi:
+            out = _probe_join_hash_multi(
+                batch, self._hash_state, self.probe_keys, self.build_payload,
+                self.join_type, self._max_probes, self.max_matches,
+                self._pack)
+            if self.join_type in ("inner", "left_outer"):
+                out = compact_table(out)
+            return [out]
         return [_probe_join_hash(batch, self._hash_state, self.probe_keys,
                                  self.build_payload, self.join_type,
                                  self._max_probes, self._pack)]
@@ -540,12 +628,12 @@ class FusedMorsel(Operator):
 
 def fuse_morsel_pipeline(pipe: Pipeline) -> None:
     """Collapse the scan pipeline's runs of non-compacting FilterProjects,
-    optionally ending in a sealed ``HashJoin``'s probe, into
+    optionally ending in a sealed ``HashJoin``'s single-match probe, into
     ``FusedMorsel`` operators: one kernel launch per morsel instead of one
     per stage, with no intermediate morsel materialised. A lone
     FilterProject stays unfused (same launch count either way), and so
-    does a join with no stage before it; compacting stages keep their own
-    operators."""
+    does a join with no stage before it; expansion probes and compacting
+    stages keep their own operators."""
     new_ops: List[Operator] = []
     run: List[FilterProject] = []
 
@@ -563,7 +651,7 @@ def fuse_morsel_pipeline(pipe: Pipeline) -> None:
         if isinstance(op, FilterProject) and not op.compact:
             run.append(op)
         elif (isinstance(op, HashJoin) and run
-                and op._hash_state is not None):
+                and op._hash_state is not None and not op._multi):
             new_ops.append(FusedMorsel(stages(), join=op))
             run.clear()
         else:
@@ -640,3 +728,36 @@ class Limit(Operator):
         self._batches = []
         return [_head(table, self.n)]
 
+
+
+# ---------------------------------------------------------------------------
+# Scalar broadcast (uncorrelated scalar subqueries: Q11, Q15, Q22)
+# ---------------------------------------------------------------------------
+
+@table_op
+def _attach_scalar(batch: TorchTable, scalar: TorchTable, columns):
+    s = scalar.compact()
+    out = batch
+    for n in columns:
+        v = s.columns[n][0]
+        out = out.with_column(n, v.expand(batch.capacity), s.schema[n])
+    return out
+
+
+class ScalarBroadcast(Operator):
+    """Attach the single row of a materialised table to every input row."""
+
+    name = "ScalarBroadcast"
+
+    def __init__(self, columns: Sequence[str]):
+        self.columns = tuple(columns)
+        self._scalar: Optional[TorchTable] = None
+
+    def set_scalar(self, table: TorchTable) -> None:
+        """Provide the materialised 1-row table to attach."""
+        self._scalar = table
+
+    def add_input(self, batch):
+        if self._scalar is None:
+            raise RuntimeError("ScalarBroadcast: no scalar was set")
+        return [_attach_scalar(batch, self._scalar, self.columns)]

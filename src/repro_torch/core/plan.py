@@ -8,8 +8,7 @@ A plan is a tree of PlanNodes. The Presto coordinator's role (split the plan
 into stages at exchange boundaries, hand fragments to workers) is played by
 ``driver.Driver``; the "driver adaptation" step (push predicates into scans,
 choose join distributions, derive operator capacities) is played by the
-reference's rule pipeline in ``optimizer.py``, which the port has not taken
-over yet (``tpch.queries`` spells out the optimized plans).
+rule pipeline in ``optimizer.py``, the port's copy of the reference's.
 
 ``fingerprint`` produces a canonical string key for a plan tree — two
 structurally identical queries fingerprint identically regardless of

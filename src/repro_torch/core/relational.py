@@ -1,12 +1,12 @@
 """Relational algorithms on capacity-plus-validity batches (the port of
 ``repro.core.relational``): sorting, group-by and segmented aggregation.
 
-Sums and counts go through the segmented-sum kernels, as the reference's
-``pallas`` path sends them (``relational.py:226-250``). The join keys of
-the open-addressing table are here (``join_key`` for one int-like column,
-``packed_key`` for a composite one); hashed keys and the sorted-key join
-come with the all-queries slice, partitioning with the distributed slice,
-min/max aggregation with the slice whose queries use it.
+Sums, counts, mins and maxes go through the segmented kernels, as the
+reference's ``pallas`` path sends them (``relational.py:226-257``). The
+join keys of the open-addressing table are here (``join_key`` for one
+int-like column, ``packed_key`` for a composite one); hashed keys and the
+sorted-key join come with the SQL frontend slice, partitioning with the
+distributed slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -41,13 +41,14 @@ def join_key(cols: Sequence[torch.Tensor]) -> torch.Tensor:
     """Single int32 join key: one integer column, as it is (exact).
 
     The reference hashes any other key (``hash_combine``) and verifies
-    equality after the join; that path comes with the all-queries slice."""
+    equality after the join; that path comes with the SQL frontend
+    slice."""
     if len(cols) == 1 and cols[0].dim() == 1 and not (
             cols[0].is_floating_point() or cols[0].dtype == torch.bool):
         return cols[0].to(torch.int32)
     raise NotImplementedError(
         "join_key: hashed (non-integer or multi-column) keys come with the "
-        "all-queries slice")
+        "SQL frontend slice")
 
 
 def packed_key(cols: Sequence[torch.Tensor], pack: Sequence[Tuple[int, int]],
@@ -155,13 +156,16 @@ def group_rows(key_cols: List[torch.Tensor], validity: torch.Tensor,
 def segment_agg(values: torch.Tensor, gids: torch.Tensor,
                 order: torch.Tensor, validity: torch.Tensor,
                 max_groups: int, kind: str) -> torch.Tensor:
-    """Aggregate ``values`` per group id; ``kind`` is sum or count.
+    """Aggregate ``values`` per group id; ``kind`` is sum, count, min or
+    max.
 
     The reference's kernel branch: counts and integer sums go to
     ``segmented_int_sum`` (exact, wrapping at 2^31), float sums to
-    ``segmented_sum``; dead rows are zeroed first. Unlike the Pallas
-    kernels, the CUDA kernels take any group count, so there is no capacity
-    fallback."""
+    ``segmented_sum`` (dead rows zeroed first), min and max to
+    ``segmented_minmax`` (dead rows carry the reduction identity, so
+    dead-lane NaN or inf cannot leak into a group). Unlike the Pallas
+    kernels, whose VMEM capped them at ``1 << 16`` groups, the CUDA
+    kernels take any group count, so there is no capacity fallback."""
     v = values.index_select(0, order)
     valid_sorted = validity.index_select(0, order)
     seg = torch.where(valid_sorted, gids, max_groups).to(torch.int32)
@@ -169,13 +173,16 @@ def segment_agg(values: torch.Tensor, gids: torch.Tensor,
         kernel_ops.mark_kernel("agg")
         return segmented_agg.segmented_int_sum(
             seg, valid_sorted.to(torch.int32), max_groups)
-    if kind != "sum":
-        raise NotImplementedError(
-            f"segment_agg: {kind!r} (segmented_minmax) comes with a later "
-            "slice")
+    if kind not in ("sum", "min", "max"):
+        raise ValueError(f"segment_agg: kind {kind!r}")
     if v.dim() != 1 or v.dtype not in (torch.int32, torch.float32):
         raise NotImplementedError(
-            f"segment_agg: sum over {v.dtype} {tuple(v.shape)}")
+            f"segment_agg: {kind} over {v.dtype} {tuple(v.shape)}")
+    if kind != "sum":
+        ident = _extreme(v.dtype, 1 if kind == "min" else -1).to(v.device)
+        kernel_ops.mark_kernel("agg")
+        return segmented_agg.segmented_minmax(
+            seg, torch.where(valid_sorted, v, ident), max_groups, kind)
     # zero dead rows: their values may be NaN/inf (dead-lane arithmetic)
     acc = torch.where(valid_sorted, v, torch.zeros((), dtype=v.dtype,
                                                    device=v.device))

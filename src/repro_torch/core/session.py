@@ -8,7 +8,9 @@ runs logical plans through the ``Driver``::
 
     catalog = dbgen.load_catalog(sf=0.01)
     session = Session(catalog)                  # device=None: the GPU
-    out = session.execute(queries.q6(catalog))  # name -> numpy column
+    out = session.execute(queries.build_query(6, catalog))  # name -> column
+    top = (session.table("orders").group_by("o_orderpriority")
+           .agg(n=("count", None)).collect())   # the fluent builder
 
 ``Session(device=None)`` means ``"cuda"`` and raises when no GPU is present;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels.
@@ -22,7 +24,9 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..device import resolve_device
+from .builder import QueryBuilder
 from .driver import Driver, ExecutionContext
+from .optimizer import OptimizerConfig, optimize
 from .plan import PlanNode
 from .streaming import HostMorsel, MorselPrefetcher, ScanStats
 
@@ -118,6 +122,10 @@ class Catalog:
         """Look up a table source; raises ``KeyError`` if unknown."""
         return self._tables[name]
 
+    def tables(self):
+        """Registered table names."""
+        return list(self._tables)
+
 
 @dataclasses.dataclass
 class Session:
@@ -142,6 +150,18 @@ class Session:
                                 num_workers=self.num_workers,
                                 batch_rows=self.batch_rows,
                                 prefetch_depth=self.prefetch_depth)
+
+    def table(self, name: str, columns=None) -> "QueryBuilder":
+        """Fluent builder over a catalog table, bound to this session."""
+        return QueryBuilder.scan(self.catalog, name, columns, session=self)
+
+    def optimizer_config(self) -> OptimizerConfig:
+        """The optimizer's configuration for this session's worker count."""
+        return OptimizerConfig(num_workers=self.num_workers)
+
+    def optimize(self, plan: PlanNode) -> PlanNode:
+        """Run the optimizer's rule pipeline over a logical plan."""
+        return optimize(plan, self.catalog, config=self.optimizer_config())
 
     def execute(self, plan: PlanNode) -> Dict[str, np.ndarray]:
         """Execute one plan; returns name -> numpy column of valid rows."""

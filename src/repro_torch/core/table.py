@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.block_prefix_sum import block_prefix_sum
 from .dtypes import DType
 
 Schema = Dict[str, DType]
@@ -124,11 +125,21 @@ class TorchTable:
 
     def compact(self) -> "TorchTable":
         """Stream compaction: move valid rows to the front (stable), keeping
-        the capacity. The reference's stable-argsort path; its
-        ``block_prefix_sum`` path comes with the slice that needs it."""
-        order = torch.argsort((~self.validity).to(torch.int32), stable=True)
-        cols = {n: a.index_select(0, order) for n, a in self.columns.items()}
-        return TorchTable(cols, self.validity.index_select(0, order),
+        the capacity. The reference's kernel path: the compaction addresses
+        come from ``block_prefix_sum``, and rows move with one scatter of
+        their indices (dead rows dropped) and one gather per column. Valid
+        rows land exactly where the reference puts them; the dead tail
+        gathers row 0. The valid count stays on the device."""
+        n = self.capacity
+        pos, total = block_prefix_sum(self.validity)
+        slot = torch.where(self.validity, pos, n).long()
+        rows = torch.zeros(n + 1, dtype=torch.int32, device=self.device)
+        rows.index_put_((slot,), torch.arange(n, dtype=torch.int32,
+                                              device=self.device))
+        rows = rows[:n].long()
+        cols = {name: a.index_select(0, rows)
+                for name, a in self.columns.items()}
+        return TorchTable(cols, torch.arange(n, device=self.device) < total,
                           self.schema)
 
     def pad_to(self, capacity: int) -> "TorchTable":

@@ -1,0 +1,61 @@
+"""Stream-compaction addresses: the port of
+``repro/kernels/block_prefix_sum.py``.
+
+``block_prefix_sum(mask)`` returns each row's exclusive prefix count of set
+rows (int32[N]) and the total (a 0-d int32 tensor on the mask's device, not
+synchronised). For a CUDA tensor it launches the three-pass scan in
+``csrc/block_prefix_sum.cu`` (its header says what bounds it); for a CPU
+tensor it runs the plain version, ``cumsum - mask``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ops
+
+_LIB = "block_prefix_sum"
+# (mask, n, pos, total, scratch, stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_ROWS_PER_BLOCK = 1024    # kThreads in the source: one block sum a block
+
+
+def block_prefix_sum_plain(mask: torch.Tensor):
+    """Plain version: ``cumsum(mask) - mask`` and the last inclusive sum."""
+    m = mask.to(torch.int32)
+    incl = torch.cumsum(m, 0, dtype=torch.int32)
+    total = (incl[-1] if m.numel() else
+             torch.zeros((), dtype=torch.int32, device=m.device))
+    return incl - m, total.reshape(())
+
+
+def block_prefix_sum(mask: torch.Tensor):
+    """mask bool[N] -> (exclusive positions int32[N], total int32 0-d)."""
+    ops.mark_kernel("compact")
+    if not mask.is_cuda:
+        return block_prefix_sum_plain(mask)
+    if mask.dtype != torch.bool or mask.dim() != 1:
+        raise TypeError(f"block_prefix_sum: wants bool[N], got "
+                        f"{mask.dtype}{tuple(mask.shape)}")
+    n = mask.shape[0]
+    if n > 2 ** 31 - 1:
+        raise ValueError(f"block_prefix_sum: {n} rows is more than int32 "
+                         "positions")
+    dev = mask.device
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    mask = mask.contiguous()
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(-(-n // _ROWS_PER_BLOCK), dtype=torch.int32,
+                          device=dev)
+    fn = build.function(_LIB, "block_prefix_sum_run", _ARGTYPES)
+    rc = fn(mask.data_ptr(), n, pos.data_ptr(), total.data_ptr(),
+            scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(_LIB, rc, "block_prefix_sum")
+    ops.count_launch("block_prefix_sum")
+    return pos, total

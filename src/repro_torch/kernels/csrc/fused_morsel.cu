@@ -37,6 +37,10 @@
 //   probe) and stores found (masked by the row's final validity and by
 //   key != empty_key, as the reference masks it) and bidx. Every row is
 //   probed, dead ones too, so bidx equals the reference's everywhere.
+// * A fixed-width bytes column (uint8[n, width], Q22's c_phone) is read one
+//   byte at a time: its slot carries its row width, and LOADB loads byte b
+//   of the row, zero-extended. The host lowers PrefixCode to LOADBs and
+//   int32 arithmetic.
 //
 // The opcode numbers and the limits below are mirrored in
 // repro_torch/core/fused.py; a test parses this file to hold them equal.
@@ -87,6 +91,7 @@ enum Op : int {
   OP_NOT = 29,      // r[a] == 0
   OP_I32_TO_F32 = 30,
   OP_PROBE = 31,    // probe the join's table with key r[a]; store found, bidx
+  OP_LOADB = 32,    // r[dst] = byte b of this row of bytes column a
 };
 
 struct Program {
@@ -97,6 +102,7 @@ struct Program {
 struct Columns {
   const void* in[kMaxCols];
   void* out[kMaxCols];
+  int width[kMaxCols];   // row width of a bytes input column, else 0
 };
 
 struct Probe {
@@ -124,14 +130,19 @@ fused_morsel_kernel(const Program prog, const Columns cols, const Probe probe,
     bool valid = valid_in[i] != 0;
     for (int pc = 0; pc < prog.n_instr; ++pc) {
       const int4 in = prog.ins[pc];
-      const uint32_t a = (in.x == OP_LOAD32 || in.x == OP_LOAD8 || in.x == OP_CONST)
-                             ? 0u : r[in.z];
-      const uint32_t b = r[in.w];
+      // loads and constants carry immediates in a and b, not registers
+      const bool imm = in.x == OP_LOAD32 || in.x == OP_LOAD8 ||
+                       in.x == OP_CONST || in.x == OP_LOADB;
+      const uint32_t a = imm ? 0u : r[in.z];
+      const uint32_t b = imm ? 0u : r[in.w];
       uint32_t x = 0;
       switch (in.x) {
         case OP_LOAD32: x = static_cast<const uint32_t*>(cols.in[in.z])[i]; break;
         case OP_LOAD8: x = static_cast<const unsigned char*>(cols.in[in.z])[i] != 0; break;
         case OP_CONST: x = (uint32_t)in.z; break;
+        case OP_LOADB:
+          x = static_cast<const unsigned char*>(cols.in[in.z])[i * cols.width[in.z] + in.w];
+          break;
         case OP_STORE32: static_cast<uint32_t*>(cols.out[in.y])[i] = a; continue;
         case OP_STORE8: static_cast<unsigned char*>(cols.out[in.y])[i] = a != 0; continue;
         case OP_FILTER: valid = valid && (a != 0); continue;
@@ -180,10 +191,12 @@ fused_morsel_kernel(const Program prog, const Columns cols, const Probe probe,
 }  // namespace
 
 // prog: n_instr * 4 host int32s; in_ptrs/out_ptrs: host arrays of device
-// pointers. tk/tv/found/bidx are the probe's table and outputs, null when
-// the program has no PROBE. Returns cudaGetLastError() after the launch.
+// pointers; in_widths: each input's row width if it is a bytes column, else
+// 0. tk/tv/found/bidx are the probe's table and outputs, null when the
+// program has no PROBE. Returns cudaGetLastError() after the launch.
 extern "C" int fused_morsel_run(const int* prog, int n_instr,
-                                const unsigned long long* in_ptrs, int n_in,
+                                const unsigned long long* in_ptrs,
+                                const int* in_widths, int n_in,
                                 const unsigned long long* out_ptrs, int n_out,
                                 const void* valid_in, void* valid_out,
                                 long long n, const void* tk, const void* tv,
@@ -194,6 +207,11 @@ extern "C" int fused_morsel_run(const int* prog, int n_instr,
     return (int)cudaErrorInvalidValue;
   }
   for (int k = 0; k < n_instr; ++k) {
+    const int* ins = prog + 4 * k;
+    if (ins[0] == OP_LOADB &&
+        (ins[2] < 0 || ins[2] >= n_in || ins[3] < 0 || ins[3] >= in_widths[ins[2]])) {
+      return (int)cudaErrorInvalidValue;
+    }
     if (prog[4 * k] == OP_PROBE &&
         (tk == nullptr || tv == nullptr || found == nullptr || bidx == nullptr ||
          table_size <= 0 || (table_size & (table_size - 1)) != 0)) {
@@ -207,7 +225,10 @@ extern "C" int fused_morsel_run(const int* prog, int n_instr,
   memcpy(p.ins, prog, sizeof(int4) * (size_t)n_instr);
   Columns c;
   memset(&c, 0, sizeof(c));
-  for (int k = 0; k < n_in; ++k) c.in[k] = reinterpret_cast<const void*>(in_ptrs[k]);
+  for (int k = 0; k < n_in; ++k) {
+    c.in[k] = reinterpret_cast<const void*>(in_ptrs[k]);
+    c.width[k] = in_widths[k];
+  }
   for (int k = 0; k < n_out; ++k) c.out[k] = reinterpret_cast<void*>(out_ptrs[k]);
   Probe pr;
   pr.tk = static_cast<const int32_t*>(tk);

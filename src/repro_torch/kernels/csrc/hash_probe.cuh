@@ -1,12 +1,14 @@
-// The join hash and the single-match linear probe, shared by the standalone
-// probe (hash_table.cu) and the probe variant of the fused morsel kernel
-// (fused_morsel.cu).
+// The join hash and the linear probes: the single-match probe, shared by
+// the standalone probe (hash_table.cu) and the probe variant of the fused
+// morsel kernel (fused_morsel.cu), and the expansion probe (hash_table.cu).
 //
-// Replaces: src/repro/kernels/hash_probe.py, _hash (:25) and probe_loop
-// (:33). There a block of 1024 probe keys advanced together through a
-// masked fori_loop over a table held in VMEM. On Hopper each thread walks
-// its own key's run and stops at its first hit or empty slot; the table
-// (up to 2^25 slots) stays in device memory and is read through the L2.
+// Replaces: src/repro/kernels/hash_probe.py, _hash (:25), probe_loop (:33)
+// and probe_loop_multi (:63). There a block of 1024 probe keys advanced
+// together through a masked fori_loop over a table held in VMEM. On Hopper
+// each thread walks its own key's run and stops at its first hit (or, for
+// the expansion probe, at its max_matches-th) or at an empty slot; the
+// table (up to 2^25 slots) stays in device memory and is read through the
+// L2.
 #pragma once
 
 #include <stdint.h>
@@ -44,6 +46,31 @@ __device__ __forceinline__ bool probe_one(const int32_t* __restrict__ tk,
   }
   *val = 0;
   return false;
+}
+
+// Expansion probe of `key`: walks the run from its home slot for at most
+// `max_probes` slots and appends the value of every slot whose key equals
+// `key` to out[0..max_matches), in run order (build_table places
+// duplicates along the run in ascending row order), stopping at the first
+// empty slot or once max_matches values are out. Returns the count and
+// writes 0 to out[count..max_matches), as the reference leaves its zero
+// initialisation there. As with probe_one, a key equal to `empty_key`
+// counts the first empty slot as one match: callers mask it.
+__device__ __forceinline__ int probe_multi(const int32_t* __restrict__ tk,
+                                           const int32_t* __restrict__ tv,
+                                           uint32_t mask, int max_probes,
+                                           int32_t empty_key, int32_t key,
+                                           int max_matches, int32_t* out) {
+  const uint32_t home = hash32(key) & mask;
+  int count = 0;
+  for (int i = 0; i < max_probes && count < max_matches; ++i) {
+    const uint32_t s = (home + (uint32_t)i) & mask;
+    const int32_t k = __ldg(tk + s);
+    if (k == key) out[count++] = __ldg(tv + s);
+    if (k == empty_key) break;
+  }
+  for (int c = count; c < max_matches; ++c) out[c] = 0;
+  return count;
 }
 
 }  // namespace repro_hash

@@ -1,9 +1,10 @@
-// The join's open-addressing hash table: its build (build_table) and its
-// single-match probe (hash_probe).
+// The join's open-addressing hash table: its build (build_table), its
+// single-match probe (hash_probe) and its expansion probe
+// (hash_probe_multi).
 //
 // Replaces: src/repro/kernels/hash_probe.py, build_table (:122, a jnp
-// while_loop, not Pallas) and hash_probe (:174, a pallas_call whose table
-// sat in VMEM, which capped it at 2^18 slots). On the H100 the table lives
+// while_loop, not Pallas), hash_probe (:174) and hash_probe_multi (:209),
+// two pallas_calls whose table sat in VMEM, which capped it at 2^18 slots. On the H100 the table lives
 // in device memory (2^22 slots = 32 MiB of keys and values at TPC-H SF 1)
 // and its random reads hit the 50 MB L2.
 //
@@ -28,6 +29,8 @@
 // displacement + 1: a few at the sparse loads the planner's row bounds
 // give, hundreds where many keys repeat), two launches each, and one
 // dependent random read of 4 B per probe step, which fetches a 32 B sector.
+// The expansion probe writes a count (4 B) and max_matches slots (4 B each)
+// a key, and reads on past its first hit to the end of the key's run.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -113,6 +116,22 @@ hash_probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+hash_probe_multi_kernel(const int32_t* __restrict__ tk,
+                        const int32_t* __restrict__ tv, uint32_t mask,
+                        int max_probes, int32_t empty_key,
+                        const int32_t* __restrict__ keys, long long n,
+                        int max_matches, int32_t* __restrict__ count,
+                        int32_t* __restrict__ slots) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    count[i] = repro_hash::probe_multi(tk, tv, mask, max_probes, empty_key,
+                                       keys[i], max_matches,
+                                       slots + i * max_matches);
+  }
+}
+
 }  // namespace
 
 // Inserts n (key, value) rows into a table of `table_size` slots (a power
@@ -178,6 +197,27 @@ extern "C" int hash_table_probe(const void* tk, const void* tv, int table_size,
       (uint32_t)table_size - 1u, max_probes, (int32_t)empty_key,
       static_cast<const int32_t*>(keys), n, static_cast<unsigned char*>(found),
       static_cast<int32_t*>(vals));
+  return (int)cudaGetLastError();
+}
+
+// count[i] = the matches of key i (at most max_matches), slots[i, :count[i]]
+// their values in run order, slots[i, count[i]:] = 0.
+extern "C" int hash_table_probe_multi(const void* tk, const void* tv,
+                                      int table_size, int max_probes,
+                                      int empty_key, const void* keys,
+                                      long long n, int max_matches, void* count,
+                                      void* slots, void* stream) {
+  if (table_size <= 0 || (table_size & (table_size - 1)) != 0 || n < 0 ||
+      max_probes < 0 || max_matches < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  hash_probe_multi_kernel<<<blocks_for(n), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(tk), static_cast<const int32_t*>(tv),
+      (uint32_t)table_size - 1u, max_probes, (int32_t)empty_key,
+      static_cast<const int32_t*>(keys), n, max_matches,
+      static_cast<int32_t*>(count), static_cast<int32_t*>(slots));
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """Open-addressing join table: the port of ``repro/kernels/hash_probe.py``.
 
 ``build_table`` inserts (key, value) rows into a power-of-two table by the
-reference's round-synchronous linear probing, and ``hash_probe`` looks keys
-up in it (single match). For a CUDA tensor each launches its kernel in
+reference's round-synchronous linear probing; ``hash_probe`` looks keys up
+in it (single match) and ``hash_probe_multi`` returns every match of each
+key up to a capacity (the expansion probe). For a CUDA tensor each launches its kernel in
 ``csrc/hash_table.cu`` (the hash and the probe loop are in
 ``csrc/hash_probe.cuh``, which the fused morsel kernel shares; the source
 says what bounds them and why the build keeps the reference's rounds). For
@@ -11,8 +12,7 @@ reference's arithmetic step by step.
 
 ``longest_run`` and ``probe_bound`` size a probe's ``max_probes`` from a
 built table with a few torch operations on the table's device; only the
-scalar comes back to the host. ``hash_probe_multi`` comes with the
-all-queries slice.
+scalar comes back to the host.
 """
 
 from __future__ import annotations
@@ -37,6 +37,12 @@ _PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
+# (tk, tv, table_size, max_probes, empty_key, keys, n, max_matches, count,
+#  slots, stream)
+_PROBE_MULTI_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p]
 
 
 def hash_home(keys: torch.Tensor, table_size: int) -> torch.Tensor:
@@ -186,16 +192,9 @@ def hash_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
     if not probe_keys.is_cuda:
         return hash_probe_plain(table_keys, table_vals, probe_keys,
                                 empty_key, max_probes)
+    _check_probe_args("hash_probe", table_keys, table_vals, probe_keys)
     t = table_keys.shape[0]
-    _check_table_size(t)
     dev = probe_keys.device
-    for name, a in (("table_keys", table_keys), ("table_vals", table_vals),
-                    ("probe_keys", probe_keys)):
-        if a.dtype != torch.int32 or a.dim() != 1 or a.device != dev:
-            raise TypeError(f"hash_probe: {name} must be int32[...] on {dev}, "
-                            f"got {a.dtype}{tuple(a.shape)} on {a.device}")
-    if table_vals.shape != table_keys.shape:
-        raise ValueError("hash_probe: table keys and values differ in size")
     n = probe_keys.shape[0]
     found = torch.empty(n, dtype=torch.bool, device=dev)
     vals = torch.empty(n, dtype=torch.int32, device=dev)
@@ -210,6 +209,91 @@ def hash_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
     build.check(_LIB, rc, "hash_probe")
     ops.count_launch("hash_probe")
     return found, vals
+
+
+def _check_probe_args(name, table_keys, table_vals, probe_keys):
+    t = table_keys.shape[0]
+    _check_table_size(t)
+    dev = probe_keys.device
+    for arg, a in (("table_keys", table_keys), ("table_vals", table_vals),
+                   ("probe_keys", probe_keys)):
+        if a.dtype != torch.int32 or a.dim() != 1 or a.device != dev:
+            raise TypeError(f"{name}: {arg} must be int32[...] on {dev}, "
+                            f"got {a.dtype}{tuple(a.shape)} on {a.device}")
+    if table_vals.shape != table_keys.shape:
+        raise ValueError(f"{name}: table keys and values differ in size")
+
+
+# ---------------------------------------------------------------------------
+# expansion probe
+# ---------------------------------------------------------------------------
+
+def hash_probe_multi_plain(table_keys: torch.Tensor, table_vals: torch.Tensor,
+                           probe_keys: torch.Tensor, max_matches: int,
+                           empty_key: int = -1,
+                           max_probes: int = MAX_PROBES_DEFAULT):
+    """Plain version of ``hash_probe_multi``: the reference's
+    ``probe_loop_multi``, all keys stepping together through the run with
+    a cursor, stopping once every key is done."""
+    t = table_keys.shape[0]
+    _check_table_size(t)
+    keys = probe_keys.to(torch.int32)
+    n = keys.shape[0]
+    dev = keys.device
+    home = hash_home(keys, t)
+    count = torch.zeros(n, dtype=torch.int32, device=dev)
+    slots = torch.zeros((n, max_matches), dtype=torch.int32, device=dev)
+    lane = torch.arange(max_matches, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    for i in range(min(max_probes, t)):
+        idx = (home + i) & (t - 1)
+        slot_keys = table_keys.index_select(0, idx)
+        hit = (slot_keys == keys) & ~done & (count < max_matches)
+        sel = hit[:, None] & (lane[None, :] == count[:, None])
+        slots = torch.where(sel, table_vals.index_select(0, idx)[:, None],
+                            slots)
+        count = count + hit.to(torch.int32)
+        done |= ((slot_keys == empty_key) & ~done) | (count >= max_matches)
+        if bool(done.all()):
+            break
+    return count, slots
+
+
+def hash_probe_multi(table_keys: torch.Tensor, table_vals: torch.Tensor,
+                     probe_keys: torch.Tensor, max_matches: int,
+                     empty_key: int = -1,
+                     max_probes: int = MAX_PROBES_DEFAULT):
+    """Expansion probe -> ``(count int32[N], slots int32[N, max_matches])``:
+    ``slots[i, :count[i]]`` are the values of every slot whose key equals
+    ``probe_keys[i]``, in run order (build-row order), at most
+    ``max_matches`` of them; ``slots[i, count[i]:]`` hold 0 (the kernel
+    writes them), so a gather through every slot stays in bounds. A probe
+    key equal to ``empty_key`` reports one bogus match, as in the
+    reference; callers mask it."""
+    ops.mark_kernel("probe")
+    if not probe_keys.is_cuda:
+        return hash_probe_multi_plain(table_keys, table_vals, probe_keys,
+                                      max_matches, empty_key, max_probes)
+    _check_probe_args("hash_probe_multi", table_keys, table_vals, probe_keys)
+    if not 1 <= max_matches < 2 ** 16:
+        raise ValueError(f"hash_probe_multi: max_matches {max_matches} out "
+                         "of range")
+    t = table_keys.shape[0]
+    dev = probe_keys.device
+    n = probe_keys.shape[0]
+    count = torch.empty(n, dtype=torch.int32, device=dev)
+    slots = torch.empty((n, max_matches), dtype=torch.int32, device=dev)
+    if n == 0:
+        return count, slots
+    tk, tv, keys = (table_keys.contiguous(), table_vals.contiguous(),
+                    probe_keys.contiguous())
+    fn = build.function(_LIB, "hash_table_probe_multi", _PROBE_MULTI_ARGTYPES)
+    rc = fn(tk.data_ptr(), tv.data_ptr(), t, min(max_probes, t), empty_key,
+            keys.data_ptr(), n, max_matches, count.data_ptr(),
+            slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(_LIB, rc, "hash_probe_multi")
+    ops.count_launch("hash_probe_multi")
+    return count, slots
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ Two kinds of counts are kept:
   reference's ``kernels/ops.py`` keeps it: each operator call adds one per
   kernel *kind* it used, whichever device it ran on,
   so ``executor_stats()['kernel_dispatch']`` compares with the reference's
-  ``pallas`` run (kinds ``fused``, ``agg``, ``build``, ``probe``).
+  ``pallas`` run (kinds ``fused``, ``agg``, ``build``, ``probe``,
+  ``compact``).
 * **Launch counters** (``count_launch`` / ``launch_counts``): one plain
   integer per kernel wrapper, raised only where a CUDA kernel is actually
   launched. A run on the card reads them to show that its main path went
@@ -98,7 +99,8 @@ def table_op(fn):
 # ---------------------------------------------------------------------------
 
 KERNELS = ("fused_morsel_program", "segmented_sum", "segmented_int_sum",
-           "build_table", "hash_probe", "fused_morsel_probe")
+           "build_table", "hash_probe", "fused_morsel_probe",
+           "segmented_minmax", "block_prefix_sum", "hash_probe_multi")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
 

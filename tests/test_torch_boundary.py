@@ -45,7 +45,7 @@ def test_query_runs_without_jax_in_the_process():
         "from repro_torch.core.session import Session\n"
         "from repro_torch.tpch import dbgen, queries\n"
         "cat = dbgen.load_catalog(sf=0.002)\n"
-        "out = Session(cat, device='cpu').execute(queries.q6(cat))\n"
+        "out = Session(cat, device='cpu').execute(queries.build_query(6, cat))\n"
         "assert out['revenue'].shape == (1,), out\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"

@@ -21,6 +21,8 @@ from repro_torch.core.table import TorchTable  # noqa: E402
 from repro_torch.kernels import hash_probe as hp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import segmented_agg as seg  # noqa: E402
+from repro_torch.kernels.block_prefix_sum import (  # noqa: E402
+    block_prefix_sum, block_prefix_sum_plain)
 from repro_torch.tpch import dbgen, queries  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -79,7 +81,7 @@ def test_fused_kernel_on_card(cuda, case):
 @pytest.mark.parametrize("q", [6, 1])
 def test_query_on_card_matches_cpu(cuda, q):
     catalog = dbgen.load_catalog(sf=0.01)
-    plan = queries.QUERIES[q](catalog)
+    plan = queries.build_query(q, catalog)
     want = Session(catalog, device="cpu").execute(plan)
     ops.reset_launch_counts()
     session = Session(catalog)                 # device=None: the card
@@ -186,7 +188,7 @@ def test_fused_probe_on_card_matches_plain(cuda, case):
 @pytest.mark.parametrize("q", [3, 10])
 def test_join_query_on_card_matches_cpu(cuda, q):
     catalog = dbgen.load_catalog(sf=0.01)
-    plan = queries.QUERIES[q](catalog)
+    plan = queries.build_query(q, catalog)
     want = Session(catalog, device="cpu").execute(plan)
     ops.reset_launch_counts()
     session = Session(catalog)                 # device=None: the card
@@ -226,3 +228,134 @@ def test_build_above_the_reference_cap_on_card(cuda):
     assert ops.launch_counts()["build_table"] == 1
     assert ops.launch_counts()["hash_probe"] == 1
     assert bool(out.validity.all())
+
+
+# ---------------------------------------------------------------------------
+# the all-queries kernels (block_prefix_sum, segmented_minmax,
+# hash_probe_multi), each exact against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,p", [(1 << 22, 0.3), (3001, 0.5), (5000, 1.0),
+                                 (1, 1.0), (0, 0.5)])
+def test_block_prefix_sum_on_card(cuda, n, p):
+    mask = torch.from_numpy(np.random.default_rng(n).random(n) < p)
+    want_pos, want_total = block_prefix_sum_plain(mask)
+    ops.reset_launch_counts()
+    pos, total = block_prefix_sum(mask.to(cuda))
+    # an empty mask launches nothing, and so counts nothing
+    assert ops.launch_counts()["block_prefix_sum"] == (1 if n else 0)
+    assert torch.equal(pos.cpu(), want_pos)
+    assert int(total) == int(want_total) == int(mask.sum())
+
+
+def test_compact_on_card_matches_cpu(cuda):
+    data = seeded_columns(300_000, seed=2)
+    host = TorchTable.from_numpy(data, SEEDED_SCHEMA, device="cpu")
+    host = host.filter(torch.from_numpy(data["j"] > 0))
+    want = host.compact()
+    dev = TorchTable({n: a.to(cuda) for n, a in host.columns.items()},
+                     host.validity.to(cuda), host.schema).compact()
+    got = TorchTable({n: a.cpu() for n, a in dev.columns.items()},
+                     dev.validity.cpu(), dev.schema)
+    assert_tables_equal(got, want)
+
+
+def test_compact_of_empty_table_on_card_launches_nothing(cuda):
+    host = TorchTable.from_numpy(seeded_columns(10, seed=2), SEEDED_SCHEMA,
+                                 device="cpu")
+    empty = TorchTable({n: a[:0].to(cuda) for n, a in host.columns.items()},
+                       host.validity[:0].to(cuda), host.schema)
+    ops.reset_launch_counts()
+    out = empty.compact()
+    assert ops.launch_counts()["block_prefix_sum"] == 0
+    assert out.capacity == 0 and out.validity.is_cuda
+
+
+@pytest.mark.parametrize("kind", ["min", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("n,g", [(1 << 20, 16), (300_000, 20_000), (0, 8)])
+def test_segmented_minmax_on_card(cuda, n, g, dtype, kind):
+    rng = np.random.default_rng(n + g)
+    gids = torch.from_numpy(np.sort(rng.integers(0, g + 1, n)).astype(np.int32))
+    if dtype == "float32":
+        v = rng.normal(0, 100, n).astype(np.float32)
+        v[::97] = np.inf
+        v[5::101] = -np.inf
+        v[7::1009] = np.nan
+    else:
+        v = rng.integers(-(1 << 31), (1 << 31) - 1, n,
+                         dtype=np.int64).astype(np.int32)
+    vals = torch.from_numpy(v)
+    want = seg.segmented_minmax_plain(gids, vals, g, kind)
+    ops.reset_launch_counts()
+    got = seg.segmented_minmax(gids.to(cuda), vals.to(cuda), g, kind).cpu()
+    assert ops.launch_counts()["segmented_minmax"] == 1
+    # order-free: bit for bit, NaN where the plain version has NaN
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("kind", ["min", "max"])
+def test_segmented_minmax_signed_zeros_on_card(cuda, kind):
+    rng = np.random.default_rng(3)
+    n, g = 1 << 20, 64
+    gids = torch.from_numpy(np.sort(rng.integers(0, g, n)).astype(np.int32))
+    vals = torch.from_numpy(np.where(rng.random(n) < 0.5, -0.0, 0.0)
+                            .astype(np.float32))
+    want = seg.segmented_minmax_plain(gids, vals, g, kind)
+    got = seg.segmented_minmax(gids.to(cuda), vals.to(cuda), g, kind).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.signbit(got).all()) == (kind == "min")
+
+
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("case", ["unique", "duplicates",
+                                  "invalid_and_minus_one"])
+def test_hash_probe_multi_on_card_matches_plain(cuda, case, m):
+    keys, valid, t = _build_case(case)
+    tk, tv = hp.build_table_plain(torch.from_numpy(keys),
+                                  torch.arange(len(keys), dtype=torch.int32), t,
+                                  -1, torch.from_numpy(valid))
+    rng = np.random.default_rng(m)
+    probe = torch.from_numpy(np.concatenate([
+        rng.choice(keys, 40_000), rng.integers(10 ** 7, 10 ** 8, 20_000),
+        np.full(100, -1)]).astype(np.int32))
+    mp = hp.probe_bound(tk)
+    want = hp.hash_probe_multi_plain(tk, tv, probe, m, -1, mp)
+    ops.reset_launch_counts()
+    got = hp.hash_probe_multi(tk.to(cuda), tv.to(cuda), probe.to(cuda), m,
+                              -1, mp)
+    assert ops.launch_counts()["hash_probe_multi"] == 1
+    # counts, and every slot: matches in run order, zeros past the count
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+# the queries that reach each all-queries kernel, as in the reference's
+# pallas runs: expansion joins, compactions, a grouped min (Q15's max has no
+# group key, so it is a plain reduction in both engines)
+_REACHES = {"hash_probe_multi": (9, 20),
+            "block_prefix_sum": (9, 11, 15, 20, 22),
+            "segmented_minmax": (2,)}
+
+
+@pytest.mark.parametrize("q", range(1, 23))
+def test_all_queries_on_card_match_cpu(cuda, q):
+    catalog = dbgen.load_catalog(sf=0.01)
+    plan = queries.build_query(q, catalog)
+    cpu = Session(catalog, device="cpu")
+    want = cpu.execute(plan)
+    ops.reset_launch_counts()
+    session = Session(catalog)                 # device=None: the card
+    got = session.execute(plan)
+    counts = ops.launch_counts()
+    for kernel, qs in _REACHES.items():
+        assert (counts[kernel] > 0) == (q in qs), kernel
+    assert (session.executor_stats()["kernel_dispatch"]
+            == cpu.executor_stats()["kernel_dispatch"])
+    assert sorted(got) == sorted(want)
+    for c, w in want.items():
+        assert got[c].shape == w.shape, c
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[c], w, rtol=2e-3, atol=1e-2)
+        else:
+            np.testing.assert_array_equal(got[c], w)

@@ -45,7 +45,7 @@ def port_runs(data):
     runs = {}
     for q in QUERIES:
         session = Session(catalog, batch_rows=BATCH_ROWS, device="cpu")
-        out = session.execute(queries.QUERIES[q](catalog))
+        out = session.execute(queries.build_query(q, catalog))
         runs[q] = (out, session.executor_stats())
     return runs
 
@@ -69,7 +69,7 @@ def test_plan_fingerprint_matches_optimized_reference(q, sf):
     ref_catalog = ref_dbgen.load_catalog(sf=sf)
     catalog = _port_catalog(ref_dbgen.generate(sf=sf))
     ref = ref_queries.build_query(q, ref_catalog)
-    assert (port_plan.fingerprint(queries.QUERIES[q](catalog))
+    assert (port_plan.fingerprint(queries.build_query(q, catalog))
             == ref_plan.fingerprint(ref))
 
 

@@ -47,7 +47,7 @@ def port_runs(port_catalog):
     runs = {}
     for q in QUERIES:
         session = Session(port_catalog, batch_rows=BATCH_ROWS, device="cpu")
-        out = session.execute(queries.QUERIES[q](port_catalog))
+        out = session.execute(queries.build_query(q, port_catalog))
         runs[q] = (out, session.executor_stats())
     return runs
 
@@ -88,7 +88,7 @@ def test_schemas_match_reference():
 def test_plan_fingerprint_matches_optimized_reference(q, ref_catalog,
                                                       port_catalog):
     ref = ref_queries.build_query(q, ref_catalog)
-    port = queries.QUERIES[q](port_catalog)
+    port = queries.build_query(q, port_catalog)
     assert port_plan.fingerprint(port) == ref_plan.fingerprint(ref)
     assert port_plan.fingerprint(to_port(ref)) == port_plan.fingerprint(port)
 
@@ -129,13 +129,17 @@ def test_session_without_device_needs_a_gpu(port_catalog):
 
 def test_unported_nodes_and_workers_raise(port_catalog):
     session = Session(port_catalog, device="cpu")
-    distinct = port_plan.Distinct(port_plan.TableScan("lineitem"),
-                                  ["l_orderkey"])
-    with pytest.raises(NotImplementedError, match="all-queries slice"):
-        session.execute(distinct)
+    exchange = port_plan.Repartition(port_plan.TableScan("lineitem"),
+                                     ["l_orderkey"])
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        session.execute(exchange)
+    source = port_plan.InMemorySource("t", {"x": np.arange(3)},
+                                      {"x": schema.LINEITEM["l_orderkey"]})
+    with pytest.raises(NotImplementedError, match="SQL frontend slice"):
+        session.execute(source)
     with pytest.raises(NotImplementedError, match="one worker"):
         Session(port_catalog, device="cpu", num_workers=2).execute(
-            queries.q6(port_catalog))
+            queries.build_query(6, port_catalog))
 
 
 def _edge_tables(case):
@@ -166,9 +170,9 @@ def test_edge_inputs_match_pallas_reference(q, case, batch_rows):
                                   (ref_schema.PRIMARY_KEYS[name],)))
     ref = RefSession(ref_cat, batch_rows=batch_rows, kernel_backend="pallas")
     want = ref.execute(ref_queries.build_query(q, ref_cat))
-    session = Session(Catalog.from_numpy(data, schema.SCHEMAS),
-                      batch_rows=batch_rows, device="cpu")
-    got = session.execute(queries.QUERIES[q](None))
+    catalog = Catalog.from_numpy(data, schema.SCHEMAS)
+    session = Session(catalog, batch_rows=batch_rows, device="cpu")
+    got = session.execute(queries.build_query(q, catalog))
     assert sorted(got) == sorted(want)
     for c in want:
         assert got[c].shape == want[c].shape, c

@@ -2,7 +2,9 @@
 (``repro_torch``) against the JAX reference (``repro``).
 
 * ``to_port`` translates a reference plan or expression tree, node by node,
-  into the port's classes of the same names.
+  into the port's classes of the same names (every dataclass of the port's
+  ``plan``, ``expr`` and ``dtypes``: ``BytesMatch``, ``Year`` and
+  ``PrefixCode`` too).
 * ``emulate`` runs a lowered fused-kernel program (``core.fused.Program``)
   on the CPU, one instruction at a time over whole columns, with the exact
   32-bit semantics of ``kernels/csrc/fused_morsel.cu``, so the lowering is
@@ -178,6 +180,8 @@ def _emulate(program, table, probe):
                 regs[dst] = (ins[a] != 0).astype(np.uint32)
             elif op == "CONST":
                 regs[dst] = np.full(n, np.int32(a)).view(np.uint32)
+            elif op == "LOADB":
+                regs[dst] = ins[a][:, b].astype(np.uint32)
             elif op == "STORE32":
                 outs[dst] = regs[a].copy()
             elif op == "STORE8":
@@ -237,3 +241,100 @@ def assert_tables_equal(got: TorchTable, want: TorchTable) -> None:
         a, b = got.columns[name], want.columns[name]
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# all 22 TPC-H queries, port against reference
+# ---------------------------------------------------------------------------
+
+TPCH_SF = 0.005
+TPCH_BATCH_ROWS = 8192
+
+
+def port_catalog(data: dict):
+    """The port's catalog over the reference's generated tables, with the
+    primary keys the planner's capacity derivation reads."""
+    from repro_torch.core.session import Catalog
+    from repro_torch.tpch import schema
+    return Catalog.from_numpy(
+        data, schema.SCHEMAS, {n: (k,) for n, k in schema.PRIMARY_KEYS.items()})
+
+
+def run_port_queries(qnums, data, batch_rows: int = TPCH_BATCH_ROWS):
+    """Each query's ``build_query`` plan through ``Session(device="cpu")``
+    -> ``{q: (plan, result, stats, fused_calls)}``. Every call of the fused
+    morsel program is kept (``(table, stages, probe)``), so a test can lower
+    and emulate each one the way the card would run it."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+    catalog = port_catalog(data)
+    orig = port_fused.fused_morsel_program
+    runs = {}
+    for q in qnums:
+        calls = []
+
+        def keep(table, stages, probe=None, program=None):
+            calls.append((table, stages, probe))
+            return orig(table, stages, probe=probe, program=program)
+
+        plan = queries.build_query(q, catalog)
+        session = Session(catalog, batch_rows=batch_rows, device="cpu")
+        port_fused.fused_morsel_program = keep
+        try:
+            out = session.execute(plan)
+        finally:
+            port_fused.fused_morsel_program = orig
+        runs[q] = (plan, out, session.executor_stats(), calls)
+    return runs
+
+
+def emulate_fused_call(table: TorchTable, stages, probe) -> None:
+    """Lower one fused call as the card's ``FusedMorsel`` lowers it, run
+    the program through the emulator, and assert it equals the plain
+    version (``apply_stages`` and ``apply_probe``) bit for bit."""
+    program = port_fused.lower_stages(
+        table, stages,
+        probe_keys=None if probe is None else probe["probe_keys"],
+        pack=None if probe is None else probe["pack"])
+    assert program.code.shape[0] <= port_fused.LIMITS["kMaxInstr"]
+    want = port_fused.apply_stages(table, stages)
+    if probe is None:
+        assert_tables_equal(emulate(program, table), want)
+        return
+    got, found, bidx = emulate_probe(
+        program, table, probe["tk"].numpy(), probe["tv"].numpy(),
+        probe["max_probes"], probe["empty_key"])
+    assert_tables_equal(got, want)
+    wf, wb = port_fused.apply_probe(want, probe)
+    np.testing.assert_array_equal(found, wf.numpy())
+    np.testing.assert_array_equal(bidx, wb.numpy())
+
+
+def run_ref_queries(qnums, sf: float = TPCH_SF,
+                    batch_rows: int = TPCH_BATCH_ROWS):
+    """The reference's optimized plan of each query under its ``pallas``
+    backend (kernels in interpret mode) -> ``{q: (plan, result, stats)}``."""
+    from repro.core.session import Session as RefSession
+    from repro.tpch import dbgen as ref_dbgen
+    from repro.tpch import queries as ref_queries
+    catalog = ref_dbgen.load_catalog(sf=sf)
+    runs = {}
+    for q in qnums:
+        plan = ref_queries.build_query(q, catalog)
+        session = RefSession(catalog, batch_rows=batch_rows,
+                             kernel_backend="pallas")
+        runs[q] = (plan, session.execute(plan), session.executor_stats())
+    return runs
+
+
+def assert_same_result(got: dict, want: dict, q: int) -> None:
+    """Same columns, dtypes and row shapes, and the rows of
+    ``tpch_util.assert_results_match`` (exact for keys and counts, rtol
+    2e-3 for floats)."""
+    from tpch_util import assert_results_match
+    # the reference's pytree flattening sorts columns by name
+    assert sorted(got) == sorted(want)
+    for c in want:
+        assert got[c].dtype == want[c].dtype, c
+        assert got[c].shape == want[c].shape, c
+    assert_results_match(got, want, q)
