@@ -40,19 +40,42 @@ In order it:
    engines) and Q22 the fused program; each result must match the same
    plan run by ``Session(device="cpu")`` at SF 1 (exact for keys, counts
    and bytes columns, rtol 2e-3 for floats);
-6. prints one ``{"kernels": [...]}`` line, then the card line again;
-7. prints as its last line ``{"ok": true, "device": {...}}``.
+6. captures the kernels' inputs of one W = 4 run of Q3 and Q7 with
+   ``ICIExchange`` (by wrapping the kernel functions, as phase 3 does) and
+   holds against their plain versions, exact, every ``build_table``,
+   ``hash_probe`` and fused probe call of both (the worker-local build and
+   probe sides that the exchange hands them) and
+   ``radix_histogram`` on the ids that Q3's first lineitem repartition
+   gives it, plus edge cases (no ids; ids -1, P and INT32_MAX; P of 1, 4,
+   16, 8192 and 8193; a count of ids that is no multiple of the block);
+   then times ``radix_histogram`` beside ``torch.bincount``;
+7. runs all 22 queries planned for four workers
+   (``queries.build_query(q, catalog, num_workers=4)``) through
+   ``Session(num_workers=4, batch_rows=1 << 20)`` with ``ICIExchange`` on
+   the same SF 1 catalog, the launch counters set to 0 just before each
+   query and read just after: each result must equal that query's W = 1
+   result of phase 5 (the comparison of phase 5), ``radix_histogram`` must
+   launch once per repartition of the query's ``exchanges`` stats, and no
+   byte may pass through the host; then Q1, Q3, Q5, Q6, Q13 and Q22 through
+   ``HostExchange``, each equal to its ICI result, with bytes staged
+   through the host and no ``radix_histogram`` launch. Each query prints
+   its wall times (three runs after one warm-up), its exchange rounds,
+   rows and bytes moved, and its launches;
+8. prints one ``{"kernels": [...]}`` line, then the card line again;
+9. prints as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without printing the last line. The script
 imports only the port, torch, numpy and the standard library; it fails when
 ``torch.cuda.is_available()`` is false or when ``src/repro_torch`` is not
 beside it. ``--profile DIR`` adds, after phase 5, each kernel's device time
 per launch at the main path's shapes and one ``torch.profiler`` run of each
-query, whose device time by kernel (and trace) it writes into DIR.
+query, whose device time by kernel (and trace) it writes into DIR, and
+after phase 7 one profiled W = 4 run of each query.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
-``segmented_minmax``'s one ``scatter_reduce``.
+``segmented_minmax``'s one ``scatter_reduce``, ``radix_histogram``'s one
+``torch.bincount`` of the in-range ids.
 """
 
 from __future__ import annotations
@@ -83,6 +106,13 @@ _CAPTURED = (3, 10, 2, 9, 20, 22)
 _REACHES = {"hash_probe_multi": (9, 20),
             "block_prefix_sum": (9, 11, 15, 20, 22),
             "segmented_minmax": (2,)}
+# phase 7: the workers on the one card, and the sample of the reference's
+# distributed oracle slice that also runs through the host-staged exchange
+_WORKERS = 4
+_HOST_QUERIES = (1, 3, 5, 6, 13, 22)
+# phase 6: the queries whose kernel inputs are captured at four workers (Q3
+# repartitions both join sides; Q7 keeps the fused probe)
+_CAPTURED_W = (3, 7)
 
 
 def fail(msg: str) -> None:
@@ -283,9 +313,8 @@ def capture_calls(torch, hp, fused, catalog):
     def build_table(keys, vals, table_size, empty_key=-1, valid=None):
         if now["q"] in (3, 10):
             calls["build"].append(dict(
-                q=now["q"], keys=keys.clone(), vals=vals.clone(),
-                t=table_size, empty=empty_key,
-                valid=None if valid is None else valid.clone()))
+            q=now["q"], keys=keys.clone(), vals=vals.clone(), t=table_size,
+            empty=empty_key, valid=None if valid is None else valid.clone()))
         return orig[0](keys, vals, table_size, empty_key, valid)
 
     def hash_probe(tk, tv, keys, empty_key=-1,
@@ -409,6 +438,58 @@ def _largest(cs, q, size):
     return max((c for c in cs if c["q"] == q), key=size)
 
 
+def check_build_call(torch, hp, c, what):
+    """One captured ``build_table`` call against its plain version,
+    bit-identical; keeps the table in ``c["table"]``."""
+    args = (c["keys"], c["vals"], c["t"], c["empty"], c["valid"])
+    got = hp.build_table(*args)
+    _same_table(torch, got, hp.build_table_plain(*args),
+                f"{what} {c['t']} slots")
+    c["table"] = got
+    nv = c["keys"].shape[0] if c["valid"] is None else int(c["valid"].sum())
+    print(f"check build_table {what}: rows={c['keys'].shape[0]} "
+          f"valid={nv} slots={c['t']} rounds={_rounds(torch, hp, got[0])} "
+          f"max_probes={hp.probe_bound(got[0])}: bit-identical", flush=True)
+
+
+def check_probe_call(torch, hp, c, what):
+    """One captured ``hash_probe`` call against its plain version, exact."""
+    args = (c["tk"], c["tv"], c["keys"], c["empty"], c["max_probes"])
+    got, want = hp.hash_probe(*args), hp.hash_probe_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"hash_probe {what} {c['tk'].shape[0]} slots differs from the "
+             "plain version")
+    print(f"check hash_probe {what}: keys={c['keys'].shape[0]} "
+          f"slots={c['tk'].shape[0]} max_probes={c['max_probes']} "
+          f"hits={int(got[0].sum())}: exact", flush=True)
+
+
+def check_fused_probe_call(torch, fused, c, what):
+    """One captured fused probe call against ``apply_stages`` +
+    ``apply_probe``, exact; keeps the probe key and the output in ``c``."""
+    table, stages, probe = c["table"], c["stages"], c["probe"]
+    got, gf, gb = fused.fused_morsel_program(table, stages, probe=probe,
+                                             program=c["program"])
+    want = fused.apply_stages(table, stages)
+    wf, wb = fused.apply_probe(want, probe)
+    torch.cuda.synchronize()
+    if not torch.equal(got.validity, want.validity):
+        fail(f"fused probe {what}: validity differs from apply_stages")
+    for col in want.column_names:
+        if not torch.equal(got.columns[col], want.columns[col]):
+            fail(f"fused probe {what}: column {col} differs")
+    if not (torch.equal(gf, wf) and torch.equal(gb, wb)):
+        fail(f"fused probe {what}: found/bidx differ from the plain version")
+    c["key"] = fused.probe_key(want, probe["probe_keys"], probe["pack"],
+                               probe["empty_key"])
+    c["out"] = got
+    print(f"check fused_morsel_probe {what} {probe['probe_keys']}: "
+          f"rows={table.capacity} slots={probe['tk'].shape[0]} "
+          f"{c['program'].code.shape[0]} instructions, found="
+          f"{int(gf.sum())}: exact", flush=True)
+
+
 def check_join(torch, hp, fused, calls, rate):
     """build_table, hash_probe and the fused probe, each against its plain
     version on the card, exact, on the inputs the main path gives them at
@@ -421,15 +502,7 @@ def check_join(torch, hp, fused, calls, rate):
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(13)
     for c in calls["build"]:
-        args = (c["keys"], c["vals"], c["t"], c["empty"], c["valid"])
-        got = hp.build_table(*args)
-        _same_table(torch, got, hp.build_table_plain(*args),
-                    f"Q{c['q']} {c['t']} slots")
-        c["table"] = got
-        nv = c["keys"].shape[0] if c["valid"] is None else int(c["valid"].sum())
-        print(f"check build_table Q{c['q']}: rows={c['keys'].shape[0]} "
-              f"valid={nv} slots={c['t']} rounds={_rounds(torch, hp, got[0])} "
-              f"max_probes={hp.probe_bound(got[0])}: bit-identical", flush=True)
+        check_build_call(torch, hp, c, f"Q{c['q']}")
     # many duplicates (16 a key on average), invalid rows and -1 keys
     nd = 1 << 18
     dk = torch.randint(-1, 1 << 14, (nd,), generator=gen, device=dev,
@@ -442,37 +515,9 @@ def check_join(torch, hp, fused, calls, rate):
     print(f"check build_table duplicates: rows={nd} keys<2^14 slots=2^19 "
           f"rounds={_rounds(torch, hp, got[0])}: bit-identical", flush=True)
     for c in calls["probe"]:
-        args = (c["tk"], c["tv"], c["keys"], c["empty"], c["max_probes"])
-        got, want = hp.hash_probe(*args), hp.hash_probe_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail(f"hash_probe Q{c['q']} {c['tk'].shape[0]} slots differs "
-                 "from the plain version")
-        print(f"check hash_probe Q{c['q']}: keys={c['keys'].shape[0]} "
-              f"slots={c['tk'].shape[0]} max_probes={c['max_probes']} "
-              f"hits={int(got[0].sum())}: exact", flush=True)
+        check_probe_call(torch, hp, c, f"Q{c['q']}")
     for c in calls["fused"]:
-        table, stages, probe = c["table"], c["stages"], c["probe"]
-        got, gf, gb = fused.fused_morsel_program(table, stages, probe=probe,
-                                                 program=c["program"])
-        want = fused.apply_stages(table, stages)
-        wf, wb = fused.apply_probe(want, probe)
-        torch.cuda.synchronize()
-        if not torch.equal(got.validity, want.validity):
-            fail(f"fused probe Q{c['q']}: validity differs from apply_stages")
-        for col in want.column_names:
-            if not torch.equal(got.columns[col], want.columns[col]):
-                fail(f"fused probe Q{c['q']}: column {col} differs")
-        if not (torch.equal(gf, wf) and torch.equal(gb, wb)):
-            fail(f"fused probe Q{c['q']}: found/bidx differ from the plain "
-                 "version")
-        c["key"] = fused.probe_key(want, probe["probe_keys"], probe["pack"],
-                                   probe["empty_key"])
-        c["out"] = got
-        print(f"check fused_morsel_probe Q{c['q']} {probe['probe_keys']}: "
-              f"rows={table.capacity} slots={probe['tk'].shape[0]} "
-              f"{c['program'].code.shape[0]} instructions, found="
-              f"{int(gf.sum())}: exact", flush=True)
+        check_fused_probe_call(torch, fused, c, f"Q{c['q']}")
 
     rows_out, launchers = [], {}
 
@@ -769,16 +814,16 @@ def check_prefix_code(torch, fused, calls, rate):
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def compare(q, got, want):
+def compare(q, got, want, what="the CPU run"):
     """Exact for integer and bytes columns (keys, counts, names), rtol 2e-3
     for floats. Rows are matched by sorting on the exact columns; a bytes
     column ([N, W] uint8) sorts by its row bytes."""
     import numpy as np
     if sorted(got) != sorted(want):
-        fail(f"Q{q}: columns {sorted(got)} vs {sorted(want)}")
+        fail(f"Q{q}: columns {sorted(got)} vs {sorted(want)} of {what}")
     n = len(next(iter(want.values())))
     if any(len(v) != n for v in got.values()):
-        fail(f"Q{q}: row count differs from the CPU run")
+        fail(f"Q{q}: row count differs from {what}")
     ints = [c for c in sorted(want) if want[c].dtype.kind in "iub"]
 
     def sort_key(a):
@@ -796,12 +841,12 @@ def compare(q, got, want):
         a, b = got[c][go], want[c][wo]
         if c in ints:
             if a.shape != b.shape or not np.array_equal(a, b):
-                fail(f"Q{q}: column {c} differs from the CPU run")
+                fail(f"Q{q}: column {c} differs from {what}")
         else:
             if not np.all(np.isfinite(a)):
                 fail(f"Q{q}: column {c} has non-finite values")
             if not np.allclose(a, b, rtol=2e-3, atol=1e-2):
-                fail(f"Q{q}: column {c} differs from the CPU run: {a} vs {b}")
+                fail(f"Q{q}: column {c} differs from {what}: {a} vs {b}")
 
 
 def expected_launches(ops, data):
@@ -834,7 +879,7 @@ def expected_launches(ops, data):
 def run_main_path(torch, data, catalog):
     """All 22 queries through the port's Session on the card, each against
     the same plan on the CPU; returns the launch counts of each query's
-    timed run and the card's session."""
+    timed run, the card's session and each query's result."""
     from repro_torch.core.session import Session
     from repro_torch.kernels import ops
     from repro_torch.tpch import queries
@@ -842,7 +887,7 @@ def run_main_path(torch, data, catalog):
     gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
     cpu = Session(catalog, device="cpu", batch_rows=_MAIN_ROWS)
     expect = expected_launches(ops, data)
-    launches = {}
+    launches, results = {}, {}
     for q in _QUERIES:
         plan = queries.build_query(q, catalog)
         gpu.execute(plan)                       # warm: allocator, streams
@@ -876,11 +921,223 @@ def run_main_path(torch, data, catalog):
                      f"queries that reach it are {qs}")
         if q == 22 and not counts["fused_morsel_program"]:
             fail("Q22: its PrefixCode stages did not run in the fused kernel")
-        launches[q] = counts
+        launches[q], results[q] = counts, got
+    # radix_histogram serves the exchange: phase 7 holds it
     for k in ops.KERNELS:
-        if not any(c[k] for c in launches.values()):
+        if k != "radix_histogram" and not any(c[k] for c in launches.values()):
             fail(f"kernel {k} was not launched by the main path")
-    return launches, gpu
+        if k == "radix_histogram" and any(c[k] for c in launches.values()):
+            fail("radix_histogram launched at W=1, where no exchange runs")
+    return launches, gpu, results
+
+
+# ---------------------------------------------------------------------------
+# phase 6 + 7: the exchange's kernel, then four workers on the card
+# ---------------------------------------------------------------------------
+
+def _repartitions(exchanges) -> int:
+    """Repartition rounds of a query's ``exchanges`` stats (a
+    repartition's fragment label names its keys, a broadcast's does not)."""
+    return sum(v["rounds"] for k, v in exchanges.items() if "(" in k)
+
+
+def capture_workers(torch, hp, fused, catalog):
+    """The kernels' inputs at ``_WORKERS`` workers: one run of each query
+    of ``_CAPTURED_W`` through the card's Session with ``ICIExchange``,
+    the kernel functions wrapped as in ``capture_calls``. Keeps the ids of
+    the first lineitem repartition of Q3 (its probe side: the lineitem
+    rows of four workers) and every ``build_table``, ``hash_probe`` and
+    fused probe call (each worker's repartitioned or broadcast build side,
+    its repartitioned probe batches, its morsels)."""
+    from repro_torch.core import exchange as ex_mod
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+    calls = {"radix": [], "build": [], "probe": [], "fused": []}
+    now = {}
+    orig = (ex_mod.ICIExchange.repartition, ex_mod.radix_histogram,
+            hp.build_table, hp.hash_probe, fused.fused_morsel_program)
+
+    def repartition(self, tables, key_names, num_workers):
+        now["cols"] = tables[0].column_names
+        return orig[0](self, tables, key_names, num_workers)
+
+    def radix_histogram(pids, num_partitions):
+        if (now["q"] == 3 and not calls["radix"]
+                and "l_extendedprice" in now["cols"]):
+            calls["radix"].append(dict(q=3, ids=pids.clone(),
+                                       p=num_partitions))
+        return orig[1](pids, num_partitions)
+
+    def build_table(keys, vals, table_size, empty_key=-1, valid=None):
+        calls["build"].append(dict(
+            q=now["q"], keys=keys.clone(), vals=vals.clone(), t=table_size,
+            empty=empty_key, valid=None if valid is None else valid.clone()))
+        return orig[2](keys, vals, table_size, empty_key, valid)
+
+    def hash_probe(tk, tv, keys, empty_key=-1,
+                   max_probes=hp.MAX_PROBES_DEFAULT):
+        calls["probe"].append(dict(q=now["q"], tk=tk, tv=tv,
+                                   keys=keys.clone(), empty=empty_key,
+                                   max_probes=max_probes))
+        return orig[3](tk, tv, keys, empty_key, max_probes)
+
+    def fused_morsel_program(table, stages, probe=None, program=None):
+        if probe is not None:
+            calls["fused"].append(dict(q=now["q"], table=table, stages=stages,
+                                       probe=probe, program=program))
+        return orig[4](table, stages, probe=probe, program=program)
+
+    gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                  num_workers=_WORKERS)
+    (ex_mod.ICIExchange.repartition, ex_mod.radix_histogram, hp.build_table,
+     hp.hash_probe, fused.fused_morsel_program) = (
+        repartition, radix_histogram, build_table, hash_probe,
+        fused_morsel_program)
+    try:
+        for q in _CAPTURED_W:
+            now["q"], now["cols"] = q, ()
+            gpu.execute(queries.build_query(q, catalog, num_workers=_WORKERS))
+    finally:
+        (ex_mod.ICIExchange.repartition, ex_mod.radix_histogram,
+         hp.build_table, hp.hash_probe, fused.fused_morsel_program) = orig
+    torch.cuda.synchronize()
+    for kind in calls:
+        if not calls[kind]:
+            fail(f"W={_WORKERS} runs of {_CAPTURED_W} made no {kind} call")
+    return calls
+
+
+def check_worker_joins(torch, hp, fused, calls):
+    """The join kernels against their plain versions, exact, on every
+    ``build_table``, ``hash_probe`` and fused probe call of the queries of
+    ``_CAPTURED_W`` at ``_WORKERS`` workers (``capture_workers``)."""
+    for c in calls["build"]:
+        check_build_call(torch, hp, c, f"Q{c['q']} W={_WORKERS}")
+    for c in calls["probe"]:
+        check_probe_call(torch, hp, c, f"Q{c['q']} W={_WORKERS}")
+    for c in calls["fused"]:
+        check_fused_probe_call(torch, fused, c, f"Q{c['q']} W={_WORKERS}")
+
+
+def check_radix(torch, rh, captured, rate):
+    """radix_histogram on Q3's lineitem repartition (P = W * W bins of
+    source and destination worker, the dead rows in the dropped bin W * W),
+    then on edge cases: no ids, ids -1, P and INT32_MAX, P of 1, 4, 16, 8192
+    (the largest shared-memory histogram) and 8193 (global atomics), counts
+    of ids that are no multiple of the 512-thread block. Integer counts:
+    exact. Timed on Q3's ids, beside one ``torch.bincount`` of the in-range
+    ids."""
+    ids, p = captured["ids"], captured["p"]
+    got, want = rh.radix_histogram(ids, p), rh.radix_histogram_plain(ids, p)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"radix_histogram Q3 W={_WORKERS}: {got.tolist()} vs plain "
+             f"{want.tolist()}")
+    print(f"check radix_histogram Q3 W={_WORKERS}: ids={ids.shape[0]} P={p} "
+          f"counts={got.tolist()}: exact", flush=True)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for n, bins in ((0, 4), (5, 1), (100_003, 4), (1 << 20, 16),
+                    (100_003, 8192), (100_003, 8193)):
+        e = torch.randint(-2, bins + 2, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        edge = torch.tensor([-1, bins, 2 ** 31 - 1], dtype=torch.int32,
+                            device=dev)[:min(n, 3)]
+        e[:edge.shape[0]] = edge
+        got = rh.radix_histogram(e, bins)
+        want = rh.radix_histogram_plain(e, bins)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"radix_histogram n={n} P={bins} differs from the plain "
+                 "version")
+    print("check radix_histogram n in {0, 5, 100003, 2^20}, P in "
+          "{1, 4, 16, 8192, 8193}, ids -1, P and INT32_MAX: exact",
+          flush=True)
+    n = ids.shape[0]
+    name = "radix_histogram"
+    launchers = {name: lambda: rh.radix_histogram(ids, p)}
+    in_range = ids[(ids >= 0) & (ids < p)]
+    # the ids read once, the counts written once; a compare and an add an id
+    b, by = bound_ms(n * 4 + p * 4, n, rate)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/radix_histogram.cu",
+               replaces="src/repro/kernels/radix_histogram.py:36",
+               max_abs_err=0.0, ms=time_ms(torch, launchers[name]),
+               plain_ms=time_ms(torch, lambda: rh.radix_histogram_plain(ids, p),
+                                reps=5, warm=1),
+               bound_ms=b, bound_by=by,
+               library_ms=time_ms(torch, lambda: torch.bincount(
+                   in_range, minlength=p)))
+    return [row], launchers
+
+
+def run_distributed(torch, catalog, w1_results):
+    """All 22 queries planned for ``_WORKERS`` workers through the card's
+    Session with ``ICIExchange``, each against its W = 1 result, then the
+    ``_HOST_QUERIES`` through ``HostExchange``, each against its ICI
+    result; returns the launch counts of each ICI query's first timed run
+    and the ICI session."""
+    from repro_torch import HostExchange, ICIExchange
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import queries
+
+    sessions = {proto: Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                               num_workers=_WORKERS, exchange=ex)
+                for proto, ex in (("ici", ICIExchange()),
+                                  ("host", HostExchange()))}
+    launches, ici = {}, {}
+    for proto, qs in (("ici", _QUERIES), ("host", _HOST_QUERIES)):
+        session = sessions[proto]
+        for q in qs:
+            plan = queries.build_query(q, catalog, num_workers=_WORKERS)
+            session.execute(plan)               # warm: allocator, streams
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = session.execute(plan)
+            torch.cuda.synchronize()
+            wall = [time.perf_counter() - t0]
+            counts = ops.launch_counts()
+            stats = session.executor_stats()
+            for _ in range(2):                  # two more timed runs
+                t0 = time.perf_counter()
+                session.execute(plan)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+            ex = stats["exchanges"]
+            reps = _repartitions(ex)
+            staged = sum(v["host_staged_bytes"] for v in ex.values())
+            print(f"Q{q} SF {_SF} W={_WORKERS} {proto}: gpu "
+                  f"{[round(t, 4) for t in wall]} s, rows "
+                  f"{len(next(iter(got.values())))}, exchanges {len(ex)} "
+                  f"({reps} repartitions), rows_moved "
+                  f"{sum(v['rows_moved'] for v in ex.values())}, bytes_moved "
+                  f"{sum(v['bytes_moved'] for v in ex.values())}, "
+                  f"host_staged_bytes {staged}, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+            if proto == "ici":
+                compare(q, got, w1_results[q], "its W=1 run on the card")
+                partition = stats["kernel_dispatch"].get("partition", 0)
+                if counts["radix_histogram"] != reps or partition != reps:
+                    fail(f"Q{q} W={_WORKERS}: {counts['radix_histogram']} "
+                         f"radix_histogram launches and {partition} partition "
+                         f"dispatches for {reps} repartitions")
+                if staged:
+                    fail(f"Q{q} W={_WORKERS} ici: {staged} bytes through the "
+                         "host")
+                launches[q], ici[q] = counts, got
+            else:
+                compare(q, got, ici[q], f"its W={_WORKERS} ICI run")
+                if counts["radix_histogram"] or not staged:
+                    fail(f"Q{q} W={_WORKERS} host: {counts['radix_histogram']}"
+                         f" radix_histogram launches, {staged} bytes staged")
+    if not any(c["radix_histogram"] for c in launches.values()):
+        fail("kernel radix_histogram was not launched by the main path")
+    totals = {k: sum(c[k] for c in launches.values()) for k in ops.KERNELS}
+    print(f"launches at W={_WORKERS} (22 queries, ici): {json.dumps(totals)}",
+          flush=True)
+    return launches, sessions["ici"]
 
 
 _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
@@ -888,7 +1145,8 @@ _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "hash_probe_kernel", "segmented_minmax_kernel",
                  "fill_kernel", "keys_to_f32_kernel", "block_count_kernel",
                  "scan_block_sums_kernel", "positions_kernel",
-                 "hash_probe_multi_kernel")
+                 "hash_probe_multi_kernel", "histogram_shared_kernel",
+                 "histogram_global_kernel")
 
 
 def _device_events(prof):
@@ -929,7 +1187,9 @@ def profile_kernels(torch, launchers, reps: int = 20):
                                    "positions_kernel"),
               "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel",
                                    "keys_to_f32_kernel"),
-              "hash_probe_multi": ("hash_probe_multi_kernel",)}
+              "hash_probe_multi": ("hash_probe_multi_kernel",),
+              "radix_histogram": ("histogram_shared_kernel",
+                                  "histogram_global_kernel")}
     out = {}
     for name, fn in launchers.items():
         key = name.partition("[")[0]
@@ -958,16 +1218,18 @@ def profile_kernels(torch, launchers, reps: int = 20):
     return out
 
 
-def profile_main_path(torch, gpu, catalog, out_dir):
-    """One profiled warm run of each query (``torch.profiler``): device
-    time by kernel, device busy time and idle share of the wall time. The
-    profiler's own overhead lengthens the wall time it is divided by."""
+def profile_main_path(torch, gpu, catalog, out_dir, workers=1):
+    """One profiled warm run of each query planned for ``workers`` workers
+    (``torch.profiler``) on the session ``gpu``: device time by kernel,
+    device busy time and idle share of the wall time. The profiler's own
+    overhead lengthens the wall time it is divided by."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.tpch import queries
 
     os.makedirs(out_dir, exist_ok=True)
+    tag = "" if workers == 1 else f"w{workers}_"
     for q in _QUERIES:
-        plan = queries.build_query(q, catalog)
+        plan = queries.build_query(q, catalog, num_workers=workers)
         for attempt in range(3):      # as in profile_kernels
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -987,7 +1249,8 @@ def profile_main_path(torch, gpu, catalog, out_dir):
         h2d = [r for r in rows if r[0].startswith("Memcpy HtoD")]
         port = [r for r in rows if any(k in r[0] for k in _PORT_KERNELS)]
         kernels = [r for r in rows if not r[0].startswith("Mem")]
-        summary = {"query": q, "wall_s": wall, "device_busy_us": busy_us,
+        summary = {"query": q, "workers": workers, "wall_s": wall,
+                   "device_busy_us": busy_us,
                    "idle_share": 1.0 - busy_us / (wall * 1e6),
                    "h2d_us": sum(r[2] for r in h2d),
                    "h2d_copies": sum(r[1] for r in h2d),
@@ -996,10 +1259,10 @@ def profile_main_path(torch, gpu, catalog, out_dir):
                    "other_kernels_us": (sum(r[2] for r in kernels)
                                         - sum(r[2] for r in port)),
                    "by_kernel": rows, "host_top": _host_events(prof)}
-        with open(os.path.join(out_dir, f"profile_q{q}.json"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_{tag}q{q}.json"), "w") as f:
             json.dump(summary, f, indent=1)
         prof.export_chrome_trace(os.path.join(out_dir,
-                                              f"trace_q{q}.json.gz"))
+                                              f"trace_{tag}q{q}.json.gz"))
         print(json.dumps({"profile": dict(summary, by_kernel=rows[:8],
                                           host_top=summary["host_top"][:8])}),
               flush=True)
@@ -1027,6 +1290,7 @@ def main() -> None:
     from repro_torch.kernels import block_prefix_sum as bps
     from repro_torch.kernels import build
     from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import radix_histogram as rh
     from repro_torch.kernels import segmented_agg as seg
     from repro_torch.tpch import dbgen, queries, schema
 
@@ -1072,15 +1336,26 @@ def main() -> None:
         launchers.update(more_launchers)
     del calls
 
-    launches, gpu = run_main_path(torch, data, catalog)
+    launches, gpu, results = run_main_path(torch, data, catalog)
+    w4_calls = capture_workers(torch, hp, fused, catalog)
+    check_worker_joins(torch, hp, fused, w4_calls)
+    radix_rows, radix_launchers = check_radix(torch, rh,
+                                              w4_calls["radix"][0], rate)
+    del w4_calls
+    rows_out += radix_rows
+    launchers.update(radix_launchers)
+    w4_launches, gpu4 = run_distributed(torch, catalog, results)
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:
             r["device_ms"] = device_ms[r["name"]]
         profile_main_path(torch, gpu, catalog, args.profile)
+        profile_main_path(torch, gpu4, catalog, args.profile, _WORKERS)
     for r in rows_out:
         key, _, q = r["name"].partition("[Q")
-        per_query = [launches[int(q[:-1])]] if q else launches.values()
+        # the exchange's kernel runs only with several workers
+        source = w4_launches if key == "radix_histogram" else launches
+        per_query = [source[int(q[:-1])]] if q else source.values()
         r["launches"] = sum(c[key] for c in per_query)
     print(json.dumps({"kernels": rows_out}))
     print(card)

@@ -18,9 +18,13 @@ Entry point::
         queries.build_query(1, catalog))
 
 ``Session(device=None)`` runs on ``"cuda"`` and raises when no GPU is
-present; pass ``device="cpu"`` to run the plain versions.
+present; pass ``device="cpu"`` to run the plain versions. W workers run
+on the one device with ``Session(catalog, num_workers=W,
+exchange=ICIExchange() | HostExchange())`` and a plan from
+``queries.build_query(q, catalog, num_workers=W)``.
 """
 
+from .core.exchange import HostExchange, ICIExchange
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["HostExchange", "ICIExchange", "resolve_device"]

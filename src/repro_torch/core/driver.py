@@ -1,4 +1,4 @@
-"""Query driver (the port of ``repro.core.driver``), one worker.
+"""Query driver (the port of ``repro.core.driver``).
 
 ``Driver`` walks a logical plan and streams batches through device
 operators. Scans run as ``StreamingScan`` stages fed by a
@@ -6,19 +6,29 @@ operators. Scans run as ``StreamingScan`` stages fed by a
 per-morsel pipeline, which ``operators.fuse_morsel_pipeline`` collapses
 into one fused kernel launch per morsel.
 
+W workers run on one device, one driver per worker as in Presto: a stage's
+stream advances all workers in lockstep, each step holding one batch per
+worker (the reference's ``[W, cap]`` batch as a list), and every worker
+has its own operator instances -- its own scan pipeline, hash-join build
+table and aggregation state, as the reference's ``vmap`` gives each worker
+slice. Exchanges (``core.exchange``) move rows between the workers' tables
+at ``Repartition``/``Broadcast`` nodes, two-phase aggregations, and the
+gathers before a global sort, limit or scalar subquery. At W = 1 every
+stream is a list of one and no exchange runs.
+
 The port runs TableScan, Filter (``compact=True`` stream-compacts the
 survivors), Project, Aggregation, Distinct, Join (hash joins; a
 single-match probe straight off a scan fuses into the scan's morsel
-pipeline), ScalarBroadcast, OrderBy and Limit at ``num_workers == 1``.
-Any other node raises ``NotImplementedError`` naming the slice that brings
-it.
+pipeline), ScalarBroadcast, OrderBy, Limit, Exchange, Repartition and
+Broadcast. ``InMemorySource`` raises ``NotImplementedError`` naming the
+slice that brings it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,16 +36,17 @@ import torch
 from ..kernels import ops as kernel_ops
 from . import operators as ops
 from . import plan as P
+from .exchange import ExchangeProtocol, ICIExchange, maybe_compact
 from .streaming import ScanStats
 from .table import TorchTable, concat_tables
 
 # node type -> the port slice that brings it (ROADMAP.md, queue A)
 _LATER = {
     "InMemorySource": "the SQL frontend slice",
-    "Exchange": "the distributed slice",
-    "Repartition": "the distributed slice",
-    "Broadcast": "the distributed slice",
 }
+
+# one batch per worker
+Step = List[TorchTable]
 
 
 @dataclasses.dataclass
@@ -45,51 +56,46 @@ class ExecutionContext:
     catalog: "object"                       # repro_torch.core.session.Catalog
     device: torch.device
     num_workers: int = 1
+    exchange: Optional[ExchangeProtocol] = None
     batch_rows: int = 8192
     prefetch_depth: int = 2
+
+    def __post_init__(self):
+        if self.exchange is None:
+            self.exchange = ICIExchange()
 
 
 @dataclasses.dataclass
 class Stream:
-    """A stage output. ``scan`` is set while the stream is still the raw
-    output of a ``StreamingScan``: Filter/Project nodes fuse into it."""
+    """A stage output: an iterator of steps (one batch per worker) and the
+    distribution of its rows, ``'partitioned'`` or ``'replicated'``.
+    ``scans`` is set while the stream is still the raw output of the
+    workers' ``StreamingScan``s: Filter/Project nodes fuse into them."""
 
-    batches: Iterator[TorchTable]
-    scan: Optional["StreamingScan"] = None
+    batches: Iterator[Step]
+    dist: str = "partitioned"
+    scans: Optional[List["StreamingScan"]] = None
 
 
 class StreamingScan:
-    """Morsel-driven scan stage: drains the prefetch queue and runs the
-    scan-fused operator pipeline on each morsel as it arrives."""
+    """One worker's morsel-driven scan stage: runs its scan-fused operator
+    pipeline on each of its morsels as the prefetch queue delivers them."""
 
-    def __init__(self, table: str, morsels: Iterator[TorchTable],
-                 stats: ScanStats, op_seconds: Dict[str, float]):
+    def __init__(self, table: str):
         self.table = table
-        self.morsels = morsels
-        self.stats = stats
         self.pipe = ops.Pipeline()
-        self._op_seconds = op_seconds
 
     def fuse(self, op: ops.Operator) -> None:
         """Append an operator to the per-morsel pipeline (before iteration)."""
         self.pipe.ops.append(op)
 
-    def batches(self) -> Iterator[TorchTable]:
-        """Drain the prefetch queue through the fused per-morsel pipeline."""
-        spent = 0.0
-        ops.fuse_morsel_pipeline(self.pipe)
-        self.pipe.open()
-        for morsel in self.morsels:
-            t0 = time.perf_counter()
-            outs = self.pipe.add_input(morsel)
-            spent += time.perf_counter() - t0
-            yield from outs
-        t0 = time.perf_counter()
-        outs = self.pipe.finish()
-        spent += time.perf_counter() - t0
-        self._op_seconds["StreamingScan"] = (
-            self._op_seconds.get("StreamingScan", 0.0) + spent)
-        yield from outs
+
+def _lockstep(outs: Sequence[List[TorchTable]]) -> Iterator[Step]:
+    """The workers' outputs for one input step, regrouped into steps."""
+    if len({len(o) for o in outs}) > 1:
+        raise RuntimeError(f"workers produced {[len(o) for o in outs]} "
+                           "batches for one step")
+    return (list(step) for step in zip(*outs))
 
 
 class Driver:
@@ -97,52 +103,139 @@ class Driver:
     instance per query."""
 
     def __init__(self, ctx: ExecutionContext):
-        if ctx.num_workers != 1:
-            raise NotImplementedError(
-                f"repro_torch runs one worker; num_workers={ctx.num_workers} "
-                "comes with the distributed slice")
         self.ctx = ctx
         self.op_seconds: Dict[str, float] = {}
         self.scan_stats: Dict[str, ScanStats] = {}
         # kind -> operator calls that used a kernel of that kind
         self.kernel_dispatch: Dict[str, int] = {}
+        # per-fragment exchange stats, in execution order
+        # ("#0 Repartition(l_orderkey)" -> counter deltas)
+        self.exchange_stats: Dict[str, Dict[str, float]] = {}
+        self._frag_seq = 0
 
     def executor_stats(self) -> Dict[str, object]:
         """Per-query stats: scan counters, operator seconds, the device,
-        and kernel dispatch counts (comparable with the reference's
-        ``pallas`` run)."""
+        kernel dispatch counts (comparable with the reference's ``pallas``
+        run), the exchange protocol and per-fragment exchange counters."""
         return {
             "tables": {t: s.summary() for t, s in self.scan_stats.items()},
             "op_seconds": dict(self.op_seconds),
             "device": str(self.ctx.device),
             "kernel_dispatch": dict(self.kernel_dispatch),
+            "exchange_protocol": self.ctx.exchange.name,
+            "exchanges": {k: dict(v) for k, v in self.exchange_stats.items()},
         }
 
     # -- public API ----------------------------------------------------------
-    def execute(self, node: P.PlanNode) -> TorchTable:
-        """Run the plan; return the result as one device-resident table."""
-        with kernel_ops.collect_dispatches(self.kernel_dispatch):
-            return self._materialize(self._stream(node).batches)
+    def execute(self, node: P.PlanNode) -> List[TorchTable]:
+        """Run the plan; return the result as one device-resident table per
+        worker."""
+        return self._run(node)[1]
 
     def collect(self, node: P.PlanNode) -> Dict[str, np.ndarray]:
-        """Run the plan; return valid rows as host numpy columns."""
-        return self.execute(node).to_numpy()
+        """Run the plan; return valid rows as host numpy columns (worker 0's
+        for a replicated result, every worker's in order otherwise)."""
+        stream, tables = self._run(node)
+        if stream.dist == "replicated":
+            return tables[0].to_numpy()
+        parts = [t.to_numpy() for t in tables]
+        return {n: np.concatenate([p[n] for p in parts]) for n in parts[0]}
+
+    def _run(self, node: P.PlanNode):
+        with kernel_ops.collect_dispatches(self.kernel_dispatch):
+            stream = self._stream(node)
+            return stream, self._materialize(stream.batches)
 
     # -- plumbing --------------------------------------------------------------
-    def _materialize(self, batches: Iterator[TorchTable]) -> TorchTable:
+    @property
+    def _w(self) -> int:
+        return self.ctx.num_workers
+
+    def _materialize(self, batches: Iterator[Step]) -> List[TorchTable]:
+        """Drain a stream into one table per worker."""
         got = list(batches)
         assert got, "empty stream"
-        return concat_tables(got)
+        return [concat_tables([step[k] for step in got])
+                for k in range(len(got[0]))]
 
-    def _run_pipeline(self, op: ops.Operator, stream: Iterator[TorchTable]
-                      ) -> Iterator[TorchTable]:
+    def _rebatch(self, tables: List[TorchTable]) -> Iterator[Step]:
+        """Split the workers' (equal-capacity) tables back into
+        ``batch_rows``-row steps."""
+        cap = tables[0].capacity
+        step = self.ctx.batch_rows
+        if cap <= step:
+            yield tables
+            return
+        for lo in range(0, cap, step):
+            hi = min(lo + step, cap)
+            yield [TorchTable({n: a[lo:hi] for n, a in t.columns.items()},
+                              t.validity[lo:hi], t.schema) for t in tables]
+
+    def _operators(self, make: Callable[[], ops.Operator]) -> List[ops.Operator]:
+        """One operator instance per worker."""
+        return [make() for _ in range(self._w)]
+
+    def _run_pipeline(self, workers: List[ops.Operator],
+                      stream: Iterator[Step]) -> Iterator[Step]:
+        """Each worker's operator on that worker's batch of every step."""
         t0 = time.perf_counter()
-        op.open()
-        for batch in stream:
-            yield from op.add_input(batch)
-        yield from op.finish()
-        self.op_seconds[op.name] = (self.op_seconds.get(op.name, 0.0)
-                                    + time.perf_counter() - t0)
+        for op in workers:
+            op.open()
+        for step in stream:
+            yield from _lockstep([op.add_input(b)
+                                  for op, b in zip(workers, step)])
+        yield from _lockstep([op.finish() for op in workers])
+        name = workers[0].name
+        self.op_seconds[name] = (self.op_seconds.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+
+    def _scan_steps(self, morsels: Iterator[Step],
+                    scans: List[StreamingScan]) -> Iterator[Step]:
+        """Drain the prefetch queue through each worker's fused per-morsel
+        pipeline."""
+        spent = 0.0
+        for scan in scans:
+            ops.fuse_morsel_pipeline(scan.pipe)
+            scan.pipe.open()
+        for step in morsels:
+            t0 = time.perf_counter()
+            outs = [s.pipe.add_input(m) for s, m in zip(scans, step)]
+            spent += time.perf_counter() - t0
+            yield from _lockstep(outs)
+        t0 = time.perf_counter()
+        outs = [s.pipe.finish() for s in scans]
+        spent += time.perf_counter() - t0
+        self.op_seconds["StreamingScan"] = (
+            self.op_seconds.get("StreamingScan", 0.0) + spent)
+        yield from _lockstep(outs)
+
+    def _repartition(self, tables: List[TorchTable], keys: Sequence[str],
+                     label: str = "repartition") -> List[TorchTable]:
+        return self._tracked(
+            f"{label}({','.join(keys)})",
+            lambda: self.ctx.exchange.repartition(tables, tuple(keys),
+                                                  self._w))
+
+    def _broadcast(self, tables: List[TorchTable],
+                   label: str = "broadcast") -> List[TorchTable]:
+        return self._tracked(
+            label, lambda: self.ctx.exchange.broadcast(tables, self._w))
+
+    def _tracked(self, label: str, fn):
+        """Run one exchange, recording its stats delta as a fragment entry."""
+        st = self.ctx.exchange.stats
+        before = dataclasses.replace(st)
+        out = fn()
+        self.exchange_stats[f"#{self._frag_seq} {label}"] = {
+            "rounds": st.rounds - before.rounds,
+            "rows_moved": st.rows_moved - before.rows_moved,
+            "bytes_moved": st.bytes_moved - before.bytes_moved,
+            "host_staged_bytes": (st.host_staged_bytes
+                                  - before.host_staged_bytes),
+            "seconds": st.seconds - before.seconds,
+        }
+        self._frag_seq += 1
+        return out
 
     # -- recursive plan execution ----------------------------------------------
     def _stream(self, node: P.PlanNode) -> Stream:
@@ -160,75 +253,171 @@ class Driver:
         morsels = src.stream(node.columns, self.ctx.batch_rows,
                              self.ctx.device,
                              prefetch_depth=self.ctx.prefetch_depth,
-                             stats=stats)
-        scan = StreamingScan(node.table, morsels, stats, self.op_seconds)
+                             stats=stats, num_workers=self._w)
+        scans = [StreamingScan(node.table) for _ in range(self._w)]
         if node.filter is not None:
-            scan.fuse(ops.FilterProject(node.filter))
-        return Stream(scan.batches(), scan=scan)
+            for scan in scans:
+                scan.fuse(ops.FilterProject(node.filter))
+        return Stream(self._scan_steps(morsels, scans), scans=scans)
+
+    def _fuse_or_run(self, child: Stream,
+                     make: Callable[[], ops.Operator]) -> Stream:
+        """Fuse a per-morsel operator into the child's scans, or run it
+        over the child's stream."""
+        if child.scans is not None:
+            for scan in child.scans:     # per-morsel, inside the scan stage
+                scan.fuse(make())
+            return child
+        return Stream(self._run_pipeline(self._operators(make),
+                                         child.batches), child.dist)
 
     def _exec_filter(self, node: P.Filter) -> Stream:
-        child = self._stream(node.child)
-        fp = ops.FilterProject(node.predicate, None, node.compact)
-        if child.scan is not None:
-            child.scan.fuse(fp)          # per-morsel, inside the scan stage
-            return child
-        return Stream(self._run_pipeline(fp, child.batches))
+        return self._fuse_or_run(
+            self._stream(node.child),
+            lambda: ops.FilterProject(node.predicate, None, node.compact))
 
     def _exec_project(self, node: P.Project) -> Stream:
-        child = self._stream(node.child)
-        fp = ops.FilterProject(None, node.projections)
-        if child.scan is not None:
-            child.scan.fuse(fp)          # per-morsel, inside the scan stage
-            return child
-        return Stream(self._run_pipeline(fp, child.batches))
+        return self._fuse_or_run(
+            self._stream(node.child),
+            lambda: ops.FilterProject(None, node.projections))
 
     def _exec_aggregation(self, node: P.Aggregation) -> Stream:
         child = self._stream(node.child)
-        mode = "single" if node.mode == "auto" else node.mode
-        agg = ops.HashAggregation(node.group_keys, node.aggs, mode,
-                                  node.max_groups)
-        return Stream(self._run_pipeline(agg, child.batches))
+        mode = node.mode
+        if mode == "auto":
+            mode = ("single" if self._w == 1 or child.dist == "replicated"
+                    else "two_phase")
+
+        def pipeline(agg_mode, batches):
+            return self._run_pipeline(
+                self._operators(lambda: ops.HashAggregation(
+                    node.group_keys, node.aggs, agg_mode, node.max_groups)),
+                batches)
+
+        if mode in ("single", "partial", "final"):
+            return Stream(pipeline(mode, child.batches), child.dist)
+
+        # two-phase: partial -> exchange on the keys -> final (Velox's
+        # Partial/Final modes with a Presto exchange between the stages)
+        table = self._materialize(pipeline("partial", child.batches))
+        if node.group_keys:
+            exchanged = self._repartition(table, node.group_keys, "agg")
+            dist = "partitioned"
+        else:
+            # a global aggregate: replicate the partials
+            exchanged = self._broadcast(table, "agg-broadcast")
+            dist = "replicated"
+        return Stream(pipeline("final", self._rebatch(exchanged)), dist)
 
     def _exec_distinct(self, node: P.Distinct) -> Stream:
         child = self._stream(node.child)
-        d = ops.Distinct(node.keys, node.max_groups)
-        return Stream(self._run_pipeline(d, child.batches))
+        local = self._run_pipeline(
+            self._operators(lambda: ops.Distinct(node.keys, node.max_groups)),
+            child.batches)
+        # explicit partial/final fragments (a planner-placed exchange between
+        # them) run the local dedup only; 'auto' keeps the runtime exchange
+        if (node.mode in ("partial", "final") or self._w == 1
+                or child.dist == "replicated"):
+            return Stream(local, child.dist)
+        exchanged = self._repartition(self._materialize(local), node.keys,
+                                      "distinct")
+        return Stream(self._run_pipeline(
+            self._operators(lambda: ops.Distinct(node.keys, node.max_groups)),
+            self._rebatch(exchanged)), "partitioned")
 
     def _exec_scalarbroadcast(self, node: P.ScalarBroadcast) -> Stream:
         # the scalar side runs to its end first, as in the reference
-        scalar = self._materialize(self._stream(node.scalar).batches)
+        scalar_stream = self._stream(node.scalar)
+        scalar = self._materialize(scalar_stream.batches)
+        if self._w > 1 and scalar_stream.dist != "replicated":
+            scalar = self._broadcast(scalar, "scalar-broadcast")
         child = self._stream(node.child)
-        sb = ops.ScalarBroadcast(node.columns)
-        sb.set_scalar(scalar)
-        return Stream(self._run_pipeline(sb, child.batches))
+        workers = self._operators(lambda: ops.ScalarBroadcast(node.columns))
+        for sb, s in zip(workers, scalar):
+            sb.set_scalar(s)
+        return Stream(self._run_pipeline(workers, child.batches), child.dist)
 
     def _exec_join(self, node: P.Join) -> Stream:
-        build = self._materialize(self._stream(node.build).batches)
+        build_stream = self._stream(node.build)
+        build = self._materialize(build_stream.batches)
         probe = self._stream(node.probe)
-        join = ops.HashJoin(node.build_keys, node.probe_keys,
-                            node.build_payload, node.join_type,
-                            node.max_matches, build_rows=node.build_rows)
-        join.open()
-        join.add_build(build)
-        join.seal_build()
-        if probe.scan is not None and not join._multi:
-            # fuse the probe into the scan's per-morsel pipeline, where the
-            # iteration-start collapse folds it and the stages before it
-            # into one fused launch per morsel; the join's time folds into
-            # the StreamingScan entry of op_seconds, and the returned stream
-            # drops the scan so later stages keep their own launches
-            probe.scan.fuse(join)
-            return Stream(probe.batches)
-        return Stream(self._run_pipeline(join, probe.batches))
+        dist, probe_batches, probe_scans = probe.dist, probe.batches, probe.scans
+        if self._w > 1:
+            if node.distribution == "broadcast":
+                if build_stream.dist != "replicated":
+                    build = self._broadcast(build, "join-build-broadcast")
+            elif node.distribution == "partitioned":
+                if build_stream.dist != "replicated":
+                    build = self._repartition(build, node.build_keys,
+                                              "join-build")
+                probe_tab = self._repartition(
+                    self._materialize(probe_batches), node.probe_keys,
+                    "join-probe")
+                probe_batches = self._rebatch(probe_tab)
+                probe_scans = None      # the scan is already drained
+                dist = "partitioned"
+            # 'local': co-partitioned already, no movement
+        joins = self._operators(lambda: ops.HashJoin(
+            node.build_keys, node.probe_keys, node.build_payload,
+            node.join_type, node.max_matches, build_rows=node.build_rows))
+        for join, b in zip(joins, build):
+            join.open()
+            join.add_build(b)
+            join.seal_build()
+        if probe_scans is not None and not joins[0]._multi:
+            # fuse the probe into each worker's per-morsel scan pipeline,
+            # where the iteration-start collapse folds it and the stages
+            # before it into one fused launch per morsel; the join's time
+            # folds into the StreamingScan entry of op_seconds, and the
+            # returned stream drops the scans so later stages keep their own
+            # launches
+            for scan, join in zip(probe_scans, joins):
+                scan.fuse(join)
+            return Stream(probe_batches, dist)
+        return Stream(self._run_pipeline(joins, probe_batches), dist)
 
     def _exec_orderby(self, node: P.OrderBy) -> Stream:
         child = self._stream(node.child)
         # compact away dead padding (e.g. max_groups slots) before sorting
-        table = ops.maybe_compact(self._materialize(child.batches))
-        ob = ops.OrderBy(node.keys, node.descending, node.limit)
-        return Stream(self._run_pipeline(ob, iter([table])))
+        table = maybe_compact(self._materialize(child.batches))
+        workers = self._operators(
+            lambda: ops.OrderBy(node.keys, node.descending, node.limit))
+        if node.local:
+            # distributed top-N partial: each worker sorts and truncates its
+            # own slice; the planner's Broadcast above gathers the candidates
+            return Stream(self._run_pipeline(workers, iter([table])),
+                          child.dist)
+        if self._w > 1 and child.dist != "replicated":
+            table = self._broadcast(table, "orderby-gather")  # global order
+        return Stream(self._run_pipeline(workers, iter([table])),
+                      "replicated")
 
     def _exec_limit(self, node: P.Limit) -> Stream:
         child = self._stream(node.child)
         table = self._materialize(child.batches)
-        return Stream(self._run_pipeline(ops.Limit(node.n), iter([table])))
+        if self._w > 1 and child.dist != "replicated":
+            table = self._broadcast(table, "limit-gather")
+        return Stream(self._run_pipeline(
+            self._operators(lambda: ops.Limit(node.n)), iter([table])),
+            "replicated")
+
+    def _exec_exchange(self, node, label: str = "exchange") -> Stream:
+        child = self._stream(node.child)
+        exchanged = self._repartition(self._materialize(child.batches),
+                                      node.keys, label)
+        return Stream(self._rebatch(exchanged), "partitioned")
+
+    def _exec_repartition(self, node: P.Repartition) -> Stream:
+        """Planner-placed hash exchange: the Exchange node's execution,
+        under its fragment label."""
+        return self._exec_exchange(node, label="Repartition")
+
+    def _exec_broadcast(self, node: P.Broadcast) -> Stream:
+        """Planner-placed replication: every worker receives all valid rows
+        of the child (a no-op for a stream already replicated, which would
+        otherwise multiply its rows)."""
+        child = self._stream(node.child)
+        table = self._materialize(child.batches)
+        if child.dist != "replicated":
+            table = self._broadcast(table, "Broadcast")
+        return Stream(self._rebatch(table), "replicated")

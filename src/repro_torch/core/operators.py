@@ -6,8 +6,9 @@ Operators follow Velox's streaming contract, as in the reference::
     out = op.add_input(batch)       # 0..n output batches, never blocks
     out = op.finish()               # flush blocking state at end of input
 
-The port runs one worker on local ``[cap]`` tensors, eagerly; each operator
-body is wrapped in ``kernels.ops.table_op`` only for dispatch accounting.
+Each worker has its own operator instances over its local ``[cap]``
+tensors (the driver runs one per worker), eagerly; each operator body is
+wrapped in ``kernels.ops.table_op`` only for dispatch accounting.
 The port has FilterProject, HashAggregation (without spill), Distinct,
 HashJoin on its open-addressing path (single-match and expansion probes),
 the fused per-morsel pipeline with its probe variant, OrderBy, Limit and
@@ -281,24 +282,6 @@ def compact_table(table: TorchTable) -> TorchTable:
 
 def _pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
-
-
-def maybe_compact(table: TorchTable) -> TorchTable:
-    """Vector compaction when it at least halves capacity (§3.3.2): move
-    valid rows to the front and trim to pow2(valid count) rows (the
-    reference's ``exchange.maybe_compact`` at W=1)."""
-    n_valid = int(table.num_valid())
-    cap = _pow2(max(n_valid, 1))
-    if cap * 2 > table.capacity:
-        return table
-    n = table.capacity
-    csum = torch.cumsum(table.validity.to(torch.int32), 0, dtype=torch.int32)
-    want = torch.arange(1, cap + 1, dtype=torch.int32, device=table.device)
-    gather = torch.searchsorted(csum, want, side="left")
-    out_valid = gather < n
-    idx = torch.clamp(gather, max=n - 1)
-    cols = {name: a.index_select(0, idx) for name, a in table.columns.items()}
-    return TorchTable(cols, out_valid, table.schema)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@
 Sums, counts, mins and maxes go through the segmented kernels, as the
 reference's ``pallas`` path sends them (``relational.py:226-257``). The
 join keys of the open-addressing table are here (``join_key`` for one
-int-like column, ``packed_key`` for a composite one); hashed keys and the
-sorted-key join come with the SQL frontend slice, partitioning with the
-distributed slice (``ROADMAP.md``).
+int-like column, ``packed_key`` for a composite one), and so is the
+exchange's hash partitioning (``hash32``, ``hash_combine``,
+``partition_ids``, bit-identical to the reference's). The sorted-key join
+comes with the SQL frontend slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,64 @@ from ..kernels import ops as kernel_ops
 from ..kernels import segmented_agg
 
 INT32_MAX = 2 ** 31 - 1
+_U32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# hashing (the reference computes in uint32; the port in int64, masked to
+# the low 32 bits, so that every shift is logical and nothing overflows)
+# ---------------------------------------------------------------------------
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` for ``x`` in [0, 2^32) held in int64: the
+    product is split at bit 16 so that no partial product passes 2^49."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _hash32_u(x: torch.Tensor) -> torch.Tensor:
+    """The reference's murmur3 finalizer on uint32 values held in int64
+    (before its final mask)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def hash32(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3-style finalizer of an int32 column, in [0, 2^31 - 1) (bit
+    for bit the reference's ``relational.hash32``)."""
+    u = x.to(torch.int32).to(torch.int64) & _U32
+    return (_hash32_u(u) & 0x7FFFFFFE).to(torch.int32)
+
+
+def hash_combine(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Combine >= 1 columns into a 31-bit hash key, as the reference does:
+    each column is hashed (a non-2-D column after a cast to int32; a bytes
+    column after folding its byte lanes as ``folded * 31 + byte``) and
+    mixed into ``h ^ (hc + 0x9E3779B9 + (h << 6) + (h >> 2))``, all in
+    wrapping uint32."""
+    n = cols[0].shape[0]
+    h = torch.zeros(n, dtype=torch.int64, device=cols[0].device)
+    for c in cols:
+        if c.dim() == 2:      # bytes column: fold the byte lanes
+            u = torch.zeros_like(h)
+            for j in range(c.shape[1]):
+                u = (u * 31 + c[:, j].to(torch.int64)) & _U32
+        else:
+            u = c.to(torch.int32).to(torch.int64) & _U32
+        hc = _hash32_u(u) & 0x7FFFFFFE
+        h = h ^ ((hc + 0x9E3779B9 + ((h << 6) & _U32) + (h >> 2)) & _U32)
+    return (h & 0x7FFFFFFE).to(torch.int32)
+
+
+def partition_ids(key_cols: Sequence[torch.Tensor], validity: torch.Tensor,
+                  num_partitions: int) -> torch.Tensor:
+    """Hash-partition rows for the exchange; invalid rows -> partition 0."""
+    pid = torch.remainder(hash_combine(list(key_cols)), num_partitions)
+    return torch.where(validity, pid, torch.zeros_like(pid))
 
 
 def _sort_key(key: torch.Tensor) -> torch.Tensor:

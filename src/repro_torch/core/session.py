@@ -19,13 +19,15 @@ runs logical plans through the ``Driver``::
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional
+import math
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from ..device import resolve_device
 from .builder import QueryBuilder
 from .driver import Driver, ExecutionContext
+from .exchange import ExchangeProtocol
 from .optimizer import OptimizerConfig, optimize
 from .plan import PlanNode
 from .streaming import HostMorsel, MorselPrefetcher, ScanStats
@@ -46,22 +48,32 @@ class TableSource:
         raise NotImplementedError
 
     def _host_morsels(self, columns, batch_rows: int,
-                      stats: Optional[ScanStats] = None
-                      ) -> Iterator[HostMorsel]:
-        """Host-side scan units (storage reads only, no device copy)."""
+                      stats: Optional[ScanStats] = None,
+                      num_workers: int = 1) -> Iterator[List[HostMorsel]]:
+        """Host-side scan steps (storage reads only, no device copy): each
+        step is a list of one morsel per worker."""
         raise NotImplementedError
 
     def stream(self, columns, batch_rows: int, device, prefetch_depth: int = 2,
-               stats: Optional[ScanStats] = None) -> MorselPrefetcher:
-        """Asynchronous scan: a background thread reads morsel N+1 and
-        copies it to ``device`` while morsel N computes."""
+               stats: Optional[ScanStats] = None,
+               num_workers: int = 1) -> MorselPrefetcher:
+        """Asynchronous scan: a background thread reads step N+1 and
+        copies its morsels to ``device`` while step N computes."""
         return MorselPrefetcher(self._host_morsels(columns, batch_rows,
-                                                   stats=stats),
+                                                   stats=stats,
+                                                   num_workers=num_workers),
                                 device, depth=prefetch_depth, stats=stats)
 
 
 class InMemoryTable(TableSource):
-    """Numpy-backed table, scanned in ``batch_rows`` morsels."""
+    """Numpy-backed table; rows are range-partitioned across workers and
+    scanned in ``batch_rows`` morsels.
+
+    Worker k owns rows ``[k * per_worker, (k + 1) * per_worker)`` with
+    ``per_worker = ceil(n / W)``; step b gives every worker its rows
+    ``[b * batch_rows, (b + 1) * batch_rows)`` of that range in a morsel of
+    the same capacity, a short worker's padded with dead rows (the
+    reference's split). At W = 1 the morsels are views of the arrays."""
 
     def __init__(self, name: str, data: Dict[str, np.ndarray], schema: dict,
                  unique_keys: tuple = ()):
@@ -76,21 +88,33 @@ class InMemoryTable(TableSource):
         return self._n
 
     def _host_morsels(self, columns, batch_rows: int,
-                      stats: Optional[ScanStats] = None
-                      ) -> Iterator[HostMorsel]:
+                      stats: Optional[ScanStats] = None,
+                      num_workers: int = 1) -> Iterator[List[HostMorsel]]:
         cols = list(columns) if columns else list(self.data.keys())
         schema = {c: self.schema[c] for c in cols}
-        if self._n == 0:   # one dead row keeps downstream shapes alive
-            yield HostMorsel(
-                {c: np.zeros(schema[c].storage_shape(1), schema[c].np_dtype())
-                 for c in cols}, np.zeros(1, dtype=bool), schema)
-            return
-        for lo in range(0, self._n, batch_rows):
-            hi = min(lo + batch_rows, self._n)
-            bufs = {c: self.data[c][lo:hi] for c in cols}
-            if stats is not None:
-                stats.bytes_read += sum(b.nbytes for b in bufs.values())
-            yield HostMorsel(bufs, np.ones(hi - lo, dtype=bool), schema)
+        n = self._n
+        per_worker = math.ceil(n / num_workers) if n else 1
+        for lo in range(0, per_worker, batch_rows):
+            hi = min(lo + batch_rows, per_worker)
+            cap = hi - lo
+            step = []
+            for wk in range(num_workers):
+                s = min(wk * per_worker + lo, n)
+                e = min(wk * per_worker + hi, n)
+                if e - s == cap:        # a whole morsel: views, no copy
+                    bufs = {c: self.data[c][s:e] for c in cols}
+                else:                   # a short worker: dead padding
+                    bufs = {}
+                    for c in cols:
+                        d = schema[c]
+                        bufs[c] = np.zeros(d.storage_shape(cap), d.np_dtype())
+                        bufs[c][:e - s] = self.data[c][s:e]
+                validity = np.zeros(cap, dtype=bool)
+                validity[:e - s] = True
+                if stats is not None:
+                    stats.bytes_read += sum(b.nbytes for b in bufs.values())
+                step.append(HostMorsel(bufs, validity, schema))
+            yield step
 
 
 class Catalog:
@@ -132,6 +156,16 @@ class Session:
     """The port's entry point: a catalog bound to an execution config.
 
     ``device=None`` means ``"cuda"`` and raises when there is no GPU.
+    ``num_workers`` workers run on the one device, each with its own
+    operators, and ``exchange`` moves rows between them (``None`` means
+    ``ICIExchange()``; ``HostExchange()`` stages through host memory). Plan
+    a query for the same worker count::
+
+        session = Session(catalog, num_workers=4, exchange=HostExchange())
+        out = session.execute(queries.build_query(5, catalog, num_workers=4))
+
+    Each ``execute`` runs with a ``clone()`` of the protocol (zeroed
+    stats); ``executor_stats()['exchanges']`` holds that query's counters.
     """
 
     catalog: Catalog
@@ -139,6 +173,7 @@ class Session:
     prefetch_depth: int = 2
     device: Optional[object] = None
     num_workers: int = 1
+    exchange: Optional[ExchangeProtocol] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -146,8 +181,10 @@ class Session:
 
     def context(self) -> ExecutionContext:
         """Snapshot this session's execution config for one Driver run."""
+        exchange = self.exchange.clone() if self.exchange is not None else None
         return ExecutionContext(catalog=self.catalog, device=self.device,
                                 num_workers=self.num_workers,
+                                exchange=exchange,
                                 batch_rows=self.batch_rows,
                                 prefetch_depth=self.prefetch_depth)
 
@@ -173,4 +210,3 @@ class Session:
         """Stats from the most recent ``execute`` ({} before any)."""
         return ({} if self.last_driver is None
                 else self.last_driver.executor_stats())
-

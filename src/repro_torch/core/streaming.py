@@ -1,9 +1,11 @@
 """Morsel-driven streaming scan (the port of ``repro.core.streaming``).
 
-* ``HostMorsel``       -- one scan unit in host memory, before the transfer.
+* ``HostMorsel``       -- one worker's scan unit in host memory, before the
+                          transfer.
 * ``MorselPrefetcher`` -- a bounded-queue background producer: while the
-                          consumer computes on morsel N, the prefetch thread
-                          reads morsel N+1 and copies it to the device.
+                          consumer computes on step N, the prefetch thread
+                          reads step N+1 (one morsel per worker) and copies
+                          it to the device.
 * ``ScanStats``        -- per-scan counters.
 
 On a CUDA device the copy runs from pinned host memory on a side stream,
@@ -20,7 +22,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -34,7 +36,7 @@ class ScanStats:
 
     bytes_read: int = 0          # bytes read from storage
     bytes_transferred: int = 0   # bytes placed into device memory
-    morsels: int = 0             # morsels produced
+    morsels: int = 0             # morsel steps produced (one morsel per worker)
     read_seconds: float = 0.0    # producer: storage read + host->device copy
     wait_seconds: float = 0.0    # consumer: blocked waiting on the queue
     compute_seconds: float = 0.0 # consumer: time between dequeues
@@ -102,13 +104,14 @@ _SENTINEL = object()
 class MorselPrefetcher:
     """Async double-buffered storage->device prefetcher.
 
-    A daemon thread drains ``host_morsels``, copies each to ``device`` and
-    pushes it into a bounded queue of ``depth`` slots. Iteration is
-    single-consumer; abandoning it early stops the producer, and producer
-    exceptions re-raise in the consumer.
+    A daemon thread drains ``host_morsels`` (each item one scan step: a list
+    of one ``HostMorsel`` per worker), copies the step's morsels to
+    ``device`` and pushes the list of tables into a bounded queue of
+    ``depth`` slots. Iteration is single-consumer; abandoning it early stops
+    the producer, and producer exceptions re-raise in the consumer.
     """
 
-    def __init__(self, host_morsels: Iterator[HostMorsel], device,
+    def __init__(self, host_morsels: Iterator[List[HostMorsel]], device,
                  depth: int = 2, stats: Optional[ScanStats] = None):
         self.stats = stats if stats is not None else ScanStats()
         self.device = torch.device(device)
@@ -136,18 +139,19 @@ class MorselPrefetcher:
             while not self._closed.is_set():
                 t0 = time.perf_counter()
                 try:
-                    host = next(it)
+                    hosts = next(it)
                 except StopIteration:
                     break
-                table = morsel_to_device(host, self.device, self._stream)
+                tables = [morsel_to_device(h, self.device, self._stream)
+                          for h in hosts]
                 event = None
                 if self._stream is not None:
                     event = torch.cuda.Event()
                     event.record(self._stream)
                 self.stats.read_seconds += time.perf_counter() - t0
-                self.stats.bytes_transferred += host.nbytes()
+                self.stats.bytes_transferred += sum(h.nbytes() for h in hosts)
                 self.stats.morsels += 1
-                if not self._put((table, event)):
+                if not self._put((tables, event)):
                     return
             self._put(_SENTINEL)
         except BaseException as exc:  # noqa: BLE001 -- re-raised by consumer
@@ -158,7 +162,7 @@ class MorselPrefetcher:
         """Stop the producer thread (also called when iteration ends)."""
         self._closed.set()
 
-    def __iter__(self) -> Iterator[TorchTable]:
+    def __iter__(self) -> Iterator[List[TorchTable]]:
         self._thread.start()
         try:
             last = None
@@ -174,12 +178,13 @@ class MorselPrefetcher:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                table, event = item
+                tables, event = item
                 if event is not None:
                     consumer = torch.cuda.current_stream(self.device)
                     consumer.wait_event(event)
-                    for t in list(table.columns.values()) + [table.validity]:
-                        t.record_stream(consumer)
-                yield table
+                    for table in tables:
+                        for t in list(table.columns.values()) + [table.validity]:
+                            t.record_stream(consumer)
+                yield tables
         finally:
             self.close()

@@ -100,7 +100,8 @@ def table_op(fn):
 
 KERNELS = ("fused_morsel_program", "segmented_sum", "segmented_int_sum",
            "build_table", "hash_probe", "fused_morsel_probe",
-           "segmented_minmax", "block_prefix_sum", "hash_probe_multi")
+           "segmented_minmax", "block_prefix_sum", "hash_probe_multi",
+           "radix_histogram")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
 

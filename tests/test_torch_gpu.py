@@ -12,7 +12,9 @@ torch = pytest.importorskip("torch")
 
 from torch_diff import (SEEDED_SCHEMA, assert_tables_equal,  # noqa: E402
                         seeded_columns, stage_cases)
+from tpch_util import assert_results_match  # noqa: E402
 
+from repro_torch import HostExchange  # noqa: E402
 from repro_torch.core import dtypes as port_dtypes  # noqa: E402
 from repro_torch.core import fused  # noqa: E402
 from repro_torch.core.expr import col, date_lit, lit  # noqa: E402
@@ -23,6 +25,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import segmented_agg as seg  # noqa: E402
 from repro_torch.kernels.block_prefix_sum import (  # noqa: E402
     block_prefix_sum, block_prefix_sum_plain)
+from repro_torch.kernels.radix_histogram import (  # noqa: E402
+    radix_histogram, radix_histogram_plain)
 from repro_torch.tpch import dbgen, queries  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -359,3 +363,61 @@ def test_all_queries_on_card_match_cpu(cuda, q):
             np.testing.assert_allclose(got[c], w, rtol=2e-3, atol=1e-2)
         else:
             np.testing.assert_array_equal(got[c], w)
+
+
+@pytest.mark.parametrize("n,p", [(0, 4), (1, 1), (5000, 4), (1 << 20, 16),
+                                 (3001, 64), (100_003, 8192),
+                                 (100_003, 8193)])
+def test_radix_histogram_on_card(cuda, n, p):
+    rng = np.random.default_rng(n + p)
+    ids = rng.integers(-2, p + 2, n).astype(np.int32)
+    ids[:3] = [-1, p, np.iinfo(np.int32).max][:min(n, 3)]
+    ops.reset_launch_counts()
+    got = radix_histogram(torch.from_numpy(ids).to(cuda), p).cpu()
+    assert ops.launch_counts()["radix_histogram"] == (1 if n else 0)
+    want = radix_histogram_plain(torch.from_numpy(ids), p)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_radix_histogram_rejects_wrong_inputs(cuda):
+    with pytest.raises(TypeError):
+        radix_histogram(torch.zeros(8, dtype=torch.int64, device=cuda), 4)
+    with pytest.raises(ValueError):
+        radix_histogram(torch.zeros(8, dtype=torch.int32, device=cuda), 0)
+
+
+@pytest.mark.parametrize("q", range(1, 23))
+def test_all_queries_at_four_workers_on_card_match_one_worker(cuda, q):
+    catalog = dbgen.load_catalog(sf=0.01)
+    one = Session(catalog).execute(queries.build_query(q, catalog))
+    ops.reset_launch_counts()
+    session = Session(catalog, num_workers=4)  # ICIExchange
+    got = session.execute(queries.build_query(q, catalog, num_workers=4))
+    counts = ops.launch_counts()
+    stats = session.executor_stats()
+    # a repartition's fragment label names its keys, a broadcast's does not
+    rounds = sum(v["rounds"] for k, v in stats["exchanges"].items()
+                 if "(" in k)
+    assert counts["radix_histogram"] == rounds
+    assert stats["kernel_dispatch"].get("partition", 0) == rounds
+    assert all(v["host_staged_bytes"] == 0
+               for v in stats["exchanges"].values())
+    assert sorted(got) == sorted(one)
+    for c, w in one.items():
+        assert got[c].dtype == w.dtype, c
+    assert_results_match(got, one, q)
+
+
+@pytest.mark.parametrize("q", [1, 3, 5, 6, 13, 22])
+def test_host_exchange_on_card_matches_ici(cuda, q):
+    catalog = dbgen.load_catalog(sf=0.01)
+    plan = queries.build_query(q, catalog, num_workers=2)
+    ici = Session(catalog, num_workers=2).execute(plan)
+    ops.reset_launch_counts()
+    host = Session(catalog, num_workers=2, exchange=HostExchange())
+    got = host.execute(plan)
+    assert ops.launch_counts()["radix_histogram"] == 0
+    exchanges = host.executor_stats()["exchanges"]
+    assert sum(v["host_staged_bytes"] for v in exchanges.values()) > 0
+    assert_results_match(got, ici, q)

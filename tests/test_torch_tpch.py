@@ -129,17 +129,28 @@ def test_session_without_device_needs_a_gpu(port_catalog):
 
 def test_unported_nodes_and_workers_raise(port_catalog):
     session = Session(port_catalog, device="cpu")
-    exchange = port_plan.Repartition(port_plan.TableScan("lineitem"),
-                                     ["l_orderkey"])
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        session.execute(exchange)
+    # a bare Repartition runs: at W=1 every row goes to the one worker, in
+    # scan order, through one metadata phase
+    scan = port_plan.TableScan("lineitem", ["l_orderkey", "l_quantity"])
+    want = session.execute(scan)
+    got = session.execute(port_plan.Repartition(scan, ["l_orderkey"]))
+    assert sorted(got) == sorted(want)
+    for c in want:
+        np.testing.assert_array_equal(got[c], want[c])
+    stats = session.executor_stats()
+    assert stats["kernel_dispatch"] == {"partition": 1}
+    assert list(stats["exchanges"]) == ["#0 Repartition(l_orderkey)"]
     source = port_plan.InMemorySource("t", {"x": np.arange(3)},
                                       {"x": schema.LINEITEM["l_orderkey"]})
     with pytest.raises(NotImplementedError, match="SQL frontend slice"):
         session.execute(source)
-    with pytest.raises(NotImplementedError, match="one worker"):
-        Session(port_catalog, device="cpu", num_workers=2).execute(
-            queries.build_query(6, port_catalog))
+    # two workers run Q6 planned for two workers, and match one worker
+    two = Session(port_catalog, device="cpu", num_workers=2)
+    q6 = two.execute(queries.build_query(6, port_catalog, num_workers=2))
+    one = session.execute(queries.build_query(6, port_catalog))
+    assert sorted(q6) == sorted(one) == ["revenue"]
+    np.testing.assert_allclose(q6["revenue"], one["revenue"], rtol=1e-5)
+    assert list(two.executor_stats()["exchanges"]) == ["#0 Broadcast"]
 
 
 def _edge_tables(case):

@@ -338,3 +338,61 @@ def assert_same_result(got: dict, want: dict, q: int) -> None:
         assert got[c].dtype == want[c].dtype, c
         assert got[c].shape == want[c].shape, c
     assert_results_match(got, want, q)
+
+
+# ---------------------------------------------------------------------------
+# distributed runs (W workers on one device), port against reference
+# ---------------------------------------------------------------------------
+
+DIST_SF = 0.002
+# the sample of the reference's distributed oracle slice
+HOST_SAMPLE = (1, 3, 5, 6, 13, 22)
+_EXCHANGE_COUNTERS = ("rounds", "rows_moved", "bytes_moved",
+                      "host_staged_bytes")
+
+
+def run_port_dist(qnums, data, num_workers: int, proto: str = "ici"):
+    """Each query's ``build_query(q, catalog, num_workers=W)`` plan through
+    ``Session(device="cpu", num_workers=W, exchange=...)`` ->
+    ``{q: (plan, result, stats)}``."""
+    from repro_torch import HostExchange, ICIExchange
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+    catalog = port_catalog(data)
+    runs = {}
+    for q in qnums:
+        plan = queries.build_query(q, catalog, num_workers=num_workers)
+        ex = ICIExchange() if proto == "ici" else HostExchange()
+        session = Session(catalog, batch_rows=TPCH_BATCH_ROWS, device="cpu",
+                          num_workers=num_workers, exchange=ex)
+        runs[q] = (plan, session.execute(plan), session.executor_stats())
+    return runs
+
+
+def run_ref_dist(qnums, num_workers: int, proto: str = "ici",
+                 pallas=(), sf: float = DIST_SF):
+    """The reference's distributed plan of each query at ``num_workers``
+    under ``proto`` -> ``{q: (plan, result, stats)}``; the queries in
+    ``pallas`` run under its ``pallas`` backend (kernels in interpret
+    mode), the others under ``jnp`` (the same results, faster)."""
+    from repro.core import HostExchange, ICIExchange
+    from repro.core.session import Session as RefSession
+    from repro.tpch import dbgen as ref_dbgen
+    from repro.tpch import queries as ref_queries
+    catalog = ref_dbgen.load_catalog(sf=sf)
+    runs = {}
+    for q in qnums:
+        plan = ref_queries.build_query(q, catalog, num_workers=num_workers)
+        ex = ICIExchange() if proto == "ici" else HostExchange()
+        session = RefSession(catalog, batch_rows=TPCH_BATCH_ROWS,
+                             num_workers=num_workers, exchange=ex,
+                             kernel_backend="pallas" if q in pallas else "jnp")
+        runs[q] = (plan, session.execute(plan), session.executor_stats())
+    return runs
+
+
+def exchange_counters(stats: dict) -> dict:
+    """Per-fragment exchange counters of ``executor_stats()`` (label ->
+    rounds, rows and bytes moved, bytes staged through the host)."""
+    return {label: {k: v[k] for k in _EXCHANGE_COUNTERS}
+            for label, v in stats["exchanges"].items()}
