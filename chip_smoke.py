@@ -61,8 +61,28 @@ In order it:
    through the host and no ``radix_histogram`` launch. Each query prints
    its wall times (three runs after one warm-up), its exchange rounds,
    rows and bytes moved, and its launches;
-8. prints one ``{"kernels": [...]}`` line, then the card line again;
-9. prints as its last line ``{"ok": true, "device": {...}}``.
+8. serving on the same SF 1 catalog: (a) ``fused_batch_program`` at 32
+   lanes, for the three small-query programs of
+   ``benchmarks/bench_concurrency.py`` (point lookup on orders, filtered
+   global aggregate with a projection and low-cardinality group-by on
+   lineitem, distinct literals a lane), against ``apply_batched_stages`` on
+   the first lineitem or orders morsel, exact (columns, validity, masks),
+   plus n = 0, one lane, 64 lanes and a morsel of 999,999 rows, then timed;
+   (b) eight client threads submit 96 such queries (32 a shape) to
+   ``Session(device="cuda").submit`` with ``SchedulerConfig(batching=True,
+   max_batch=32, max_concurrency=8, cache_results=False,
+   batch_window_ms=10, memory_budget=8 << 30)``: each result must equal the
+   same plan's solo ``execute`` on the card (six also its CPU run), at
+   least three stacked batches must form, none may fall back, and
+   ``fused_batch_program`` must launch once per stacked morsel step; it
+   prints the walls and q/s of the batched run, of the same workload with
+   ``batching=False`` and of a serial ``execute`` loop, p50 and p99
+   latency and the mean batch size; (c) four clients submit the dashboard
+   of ``examples/serve_queries.py`` (Q1, Q6, Q14, Q3, unoptimized) twice
+   each without batching: each result must equal its phase 5 result, and
+   every repeat must come from the result cache or coalesce;
+9. prints one ``{"kernels": [...]}`` line, then the card line again;
+10. prints as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without printing the last line. The script
 imports only the port, torch, numpy and the standard library; it fails when
@@ -70,12 +90,14 @@ imports only the port, torch, numpy and the standard library; it fails when
 beside it. ``--profile DIR`` adds, after phase 5, each kernel's device time
 per launch at the main path's shapes and one ``torch.profiler`` run of each
 query, whose device time by kernel (and trace) it writes into DIR, and
-after phase 7 one profiled W = 4 run of each query.
+after phase 7 one profiled W = 4 run of each query, and last one
+profiled run of phase 8's serving workload with and one without batching.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
 ``segmented_minmax``'s one ``scatter_reduce``, ``radix_histogram``'s one
-``torch.bincount`` of the in-range ids.
+``torch.bincount`` of the in-range ids; no PyTorch call evaluates a batch
+of predicate lanes, so ``fused_batch_program``'s is null.
 """
 
 from __future__ import annotations
@@ -113,6 +135,14 @@ _HOST_QUERIES = (1, 3, 5, 6, 13, 22)
 # phase 6: the queries whose kernel inputs are captured at four workers (Q3
 # repartitions both join sides; Q7 keeps the fused probe)
 _CAPTURED_W = (3, 7)
+# phase 8: the serving workload (three shapes, 32 distinct literals each),
+# its clients and stacked lanes, and the dashboard of
+# examples/serve_queries.py
+_SHAPES = ("point", "global", "group")
+_LANES = 32
+_SERVING_QUERIES = 96
+_CLIENTS = 8
+_DASHBOARD = (1, 6, 14, 3)
 
 
 def fail(msg: str) -> None:
@@ -819,6 +849,7 @@ def compare(q, got, want, what="the CPU run"):
     for floats. Rows are matched by sorting on the exact columns; a bytes
     column ([N, W] uint8) sorts by its row bytes."""
     import numpy as np
+    q = q if isinstance(q, int) else f" {q}"    # a label, not a query
     if sorted(got) != sorted(want):
         fail(f"Q{q}: columns {sorted(got)} vs {sorted(want)} of {what}")
     n = len(next(iter(want.values())))
@@ -922,12 +953,14 @@ def run_main_path(torch, data, catalog):
         if q == 22 and not counts["fused_morsel_program"]:
             fail("Q22: its PrefixCode stages did not run in the fused kernel")
         launches[q], results[q] = counts, got
-    # radix_histogram serves the exchange: phase 7 holds it
+    # radix_histogram serves the exchange (phase 7 holds it) and
+    # fused_batch_program the scheduler's stacked launches (phase 8)
     for k in ops.KERNELS:
-        if k != "radix_histogram" and not any(c[k] for c in launches.values()):
+        later = k in ("radix_histogram", "fused_batch_program")
+        if not later and not any(c[k] for c in launches.values()):
             fail(f"kernel {k} was not launched by the main path")
-        if k == "radix_histogram" and any(c[k] for c in launches.values()):
-            fail("radix_histogram launched at W=1, where no exchange runs")
+        if later and any(c[k] for c in launches.values()):
+            fail(f"{k} launched by a W=1 execute, which it does not serve")
     return launches, gpu, results
 
 
@@ -1140,7 +1173,369 @@ def run_distributed(torch, catalog, w1_results):
     return launches, sessions["ici"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serving -- the batched kernel, then the scheduler on the card
+# ---------------------------------------------------------------------------
+
+def small_query(QueryBuilder, col, catalog, keys, shape, j):
+    """Query ``j`` of a serving shape, as
+    ``benchmarks/bench_concurrency.py``'s ``_small_queries`` builds it, with
+    a literal of its own for each ``j < 32``."""
+    if shape == "point":
+        return (QueryBuilder.scan(catalog, "orders")
+                .filter(col("o_orderkey") == int(keys[(j * 37) % len(keys)]))
+                .project("o_orderkey", "o_totalprice"))
+    if shape == "global":
+        return (QueryBuilder.scan(catalog, "lineitem")
+                .filter(col("l_quantity") < float(2 + (j % 47)))
+                .project(rev=col("l_extendedprice") * col("l_discount"))
+                .agg(total=("sum", "rev"), n=("count", None)))
+    return (QueryBuilder.scan(catalog, "lineitem")
+            .filter(col("l_quantity") < float(3 + (j % 43)))
+            .group_by("l_returnflag")
+            .agg(total=("sum", "l_extendedprice"), n=("count", None)))
+
+
+def _batch_ops(fused, program, lanes):
+    """Register operations a row of a batch program: every lane runs each
+    loop body once."""
+    code = program.code.tolist()
+    ops, pc = 0, 0
+    while pc < len(code):
+        op, _, a, _ = code[pc]
+        if op == fused.OPS["LOOP"]:
+            ops += a * lanes
+            pc += a + 1
+            continue
+        ops += 1
+        pc += 1
+    return ops
+
+
+def check_batch(torch, fused, catalog, data, rate):
+    """fused_batch_program against apply_batched_stages on the card for the
+    three serving programs: 32 lanes on the first morsel of the program's
+    table, then n = 0, one lane, 64 lanes and a morsel of 999,999 rows;
+    columns, validity and masks exact. Then timed at 32 lanes."""
+    from repro_torch.core import batch
+    from repro_torch.core.builder import QueryBuilder
+    from repro_torch.core.expr import col
+    from repro_torch.core.table import TorchTable
+
+    keys = data["orders"]["o_orderkey"]
+    rows_out, launchers = [], {}
+    for shape in _SHAPES:
+        shapes = [batch.extract_shape(small_query(
+            QueryBuilder, col, catalog, keys, shape, j).optimized())
+            for j in range(64)]
+        prog = shapes[0].program
+        if any(s is None or s.program is not prog for s in shapes):
+            fail(f"fused_batch_program[{shape}]: the queries do not share "
+                 "one batch program")
+        src = data[prog.table]
+        schema = catalog.get(prog.table).schema
+        n_rows = min(len(src[prog.columns[0]]), _MAIN_ROWS)
+        full = TorchTable.from_numpy(
+            {c: src[c][:n_rows] for c in prog.columns},
+            {c: schema[c] for c in prog.columns}, capacity=_MAIN_ROWS,
+            device="cuda")
+        odd = TorchTable({c: a[:999_999] for c, a in full.columns.items()},
+                         full.validity[:999_999], full.schema)
+        empty = TorchTable({c: a[:0] for c, a in full.columns.items()},
+                           full.validity[:0], full.schema)
+
+        def run(table, lanes):
+            params = batch._params(prog, shapes[:lanes], lanes, table.device)
+            lowered = prog.lowered(table)
+            got, masks = fused.fused_batch_program(
+                table, prog.pre_stages, params, lanes, program=lowered)
+            want, want_masks = fused.apply_batched_stages(
+                table, prog.pre_stages, params, lanes)
+            torch.cuda.synchronize()
+            what = f"fused_batch_program[{shape}] n={table.capacity} " \
+                   f"B={lanes}"
+            if not torch.equal(masks, want_masks):
+                fail(f"{what}: masks differ from apply_batched_stages "
+                     f"({int((masks != want_masks).sum())} bytes)")
+            if got.validity is not table.validity:
+                fail(f"{what}: the validity is not the input's")
+            for c in want.column_names:
+                a, b = got.columns[c], want.columns[c]
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"{what}: column {c} differs")
+            return lowered, params, masks
+
+        for table, lanes in ((empty, _LANES), (full, 1), (full, 64),
+                             (odd, _LANES)):
+            run(table, lanes)
+        lowered, params, masks = run(full, _LANES)
+        live = float(masks.float().mean())
+        print(f"check fused_batch_program[{shape}] rows={full.capacity} "
+              f"lanes={_LANES}: {lowered.code.shape[0]} instructions, "
+              f"{lowered.n_regs} registers, live share {live:.5f}, exact "
+              f"(and n=0, B=1, B=64, n=999999)", flush=True)
+        name = f"fused_batch_program[{shape}]"
+        launchers[name] = (lambda t=full, p=params, lw=lowered, st=prog:
+                           fused.fused_batch_program(
+                               t, st.pre_stages, p, _LANES, program=lw))
+        ms = time_ms(torch, launchers[name])
+        plain_ms = time_ms(torch, lambda: fused.apply_batched_stages(
+            full, prog.pre_stages, params, _LANES), reps=5)
+        n = full.capacity
+        stored = [d for d, a in zip(lowered.out_dtypes, lowered.out_alias)
+                  if a is None]
+        nbytes = n * (sum(full.columns[c].element_size()
+                          for c in lowered.in_names) + 1
+                      + sum(torch.tensor([], dtype=d).element_size()
+                            for d in stored) + _LANES)
+        b, by = bound_ms(nbytes, n * _batch_ops(fused, lowered, _LANES), rate)
+        rows_out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/fused_batch.cu",
+            replaces="src/repro/core/fused.py:178", max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None))
+    return rows_out, launchers
+
+
+def _percentile(values, p):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(len(values) * p))]
+
+
+def _check_threads_exited(what):
+    """Fail if a scheduler worker or a scan's prefetch thread outlived
+    ``close()``: no later phase (a profile above all) may share the card
+    with one."""
+    import threading
+
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("query-sched-", "morsel-prefetch"))]
+    if left:
+        fail(f"{what}: threads alive after close(): {left}")
+
+
+def _serve(torch, catalog, builders, batching, profile_dir=None):
+    """``builders`` through a fresh card session's scheduler from
+    ``_CLIENTS`` client threads, each submitting its share and then waiting
+    for it; returns (results, handles, wall seconds, stats)."""
+    import threading
+
+    from repro_torch import SchedulerConfig, Session
+
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    # the queue holds the whole workload: every client submits all of its
+    # queries before it waits
+    session.scheduler_config = SchedulerConfig(
+        batching=batching, max_batch=32, max_concurrency=8,
+        cache_results=False, batch_window_ms=10, memory_budget=8 << 30,
+        max_queue=len(builders))
+    session.scheduler()
+    handles = [None] * len(builders)
+    errors = []
+
+    def client(c):
+        try:
+            mine = range(c, len(builders), _CLIENTS)
+            for i in mine:
+                handles[i] = session.submit(builders[i])
+            for i in mine:
+                handles[i].result(timeout=600)
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(_CLIENTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = session.scheduler().stats()
+    session.scheduler().close()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"serving (batching={batching}): {errors[:3]}")
+    _check_threads_exited(f"serving (batching={batching})")
+    return [h.result() for h in handles], handles, wall, stats
+
+
+def run_serving(torch, catalog, data):
+    """Phase 8 (b): the 96-query serving workload, batched, unbatched and
+    as a serial execute loop on the card; returns the launch counts of the
+    batched run and the workload's builders."""
+    from repro_torch.core.builder import QueryBuilder
+    from repro_torch.core.expr import col
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import ops
+
+    keys = data["orders"]["o_orderkey"]
+    labels = [(_SHAPES[i % 3], i // 3) for i in range(_SERVING_QUERIES)]
+    builders = [small_query(QueryBuilder, col, catalog, keys, shape, j)
+                for shape, j in labels]
+    plans = [b.optimized() for b in builders]
+    gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    for p in plans[:3]:                     # warm: allocator, streams
+        gpu.execute(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = [gpu.execute(p) for p in plans]
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    got, handles, wall, stats = _serve(torch, catalog, builders, True)
+    counts = ops.launch_counts()
+    for (shape, j), g, w in zip(labels, got, solo):
+        compare(f"{shape}#{j}", g, w, "its solo run on the card")
+    cpu = Session(catalog, device="cpu", batch_rows=_MAIN_ROWS)
+    for k in range(6):                      # two of each shape
+        compare(f"{labels[k][0]}#{labels[k][1]}", got[k],
+                cpu.execute(plans[k]), "its CPU run")
+    # members of one stacked launch share its driver's stats
+    batches, shape_of = {}, {}
+    for (shape, _), h in zip(labels, handles):
+        if "batch" in h.executor_stats:
+            batches[id(h.executor_stats["tables"])] = h.executor_stats
+            shape_of[id(h.executor_stats["tables"])] = shape
+    # stacked morsel steps of each program (one launch each, checked
+    # against the kernel's own count below)
+    by_shape = {shape: 0 for shape in _SHAPES}
+    for k, es in batches.items():
+        by_shape[shape_of[k]] += es["kernel_dispatch"].get("fused_batch", 0)
+    steps = sum(by_shape.values())
+    morsels = sum(t["morsels"] for es in batches.values()
+                  for t in es["tables"].values())
+    if stats["batches"] < 3 or stats["batch_fallbacks"]:
+        fail(f"serving: {stats['batches']} batches, "
+             f"{stats['batch_fallbacks']} fallbacks (want >= 3 and 0)")
+    if len(batches) != stats["batches"] or steps != morsels:
+        fail(f"serving: {len(batches)} batches in the handles against "
+             f"{stats['batches']}; {steps} fused_batch dispatches against "
+             f"{morsels} stacked morsel steps")
+    if counts["fused_batch_program"] != steps or not all(by_shape.values()):
+        fail(f"serving: {counts['fused_batch_program']} fused_batch_program "
+             f"launches for {steps} stacked morsel steps {by_shape}")
+    lat = [h.latency for h in handles]
+
+    ops.reset_launch_counts()
+    got_u, handles_u, wall_u, stats_u = _serve(torch, catalog, builders,
+                                               False)
+    if ops.launch_counts()["fused_batch_program"] or stats_u["batches"]:
+        fail("serving without batching launched a stacked batch")
+    for (shape, j), g, w in zip(labels, got_u, solo):
+        compare(f"{shape}#{j}", g, w, "its solo run on the card")
+    lat_u = [h.latency for h in handles_u]
+    n = _SERVING_QUERIES
+    print(f"serving SF {_SF}: {n} queries, {_CLIENTS} clients: batched "
+          f"{wall:.4f} s ({n / wall:.1f} q/s), unbatched {wall_u:.4f} s "
+          f"({n / wall_u:.1f} q/s), serial execute {serial_wall:.4f} s "
+          f"({n / serial_wall:.1f} q/s)", flush=True)
+    print(f"serving latency: batched p50 {_percentile(lat, 0.5):.4f} s p99 "
+          f"{_percentile(lat, 0.99):.4f} s; unbatched p50 "
+          f"{_percentile(lat_u, 0.5):.4f} s p99 "
+          f"{_percentile(lat_u, 0.99):.4f} s", flush=True)
+    print(f"serving batches: {stats['batches']} stacked launches of "
+          f"{stats['batched_queries']} queries (mean size "
+          f"{stats['batched_queries'] / stats['batches']:.2f}), "
+          f"{steps} fused_batch_program launches ({json.dumps(by_shape)}), "
+          f"launches { {k: v for k, v in counts.items() if v} }, stats "
+          f"{json.dumps(stats)}", flush=True)
+    return by_shape, builders
+
+
+def profile_serving(torch, catalog, builders, out_dir):
+    """One profiled run of the serving workload with and one without
+    batching: device busy time, idle share of the wall and device time by
+    kernel (all threads; the profiler lengthens the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    for batching in (True, False):
+        for attempt in range(3):      # as in profile_kernels
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, _, wall, stats = _serve(torch, catalog, builders,
+                                           batching)
+            rows = _device_events(prof)
+            if rows:
+                break
+            print(f"profile of serving: no device events in attempt "
+                  f"{attempt + 1}", flush=True)
+        if not rows:
+            fail("profile of serving: no device events")
+        busy_us = sum(r[2] for r in rows)
+        kernels = [r for r in rows if not r[0].startswith("Mem")]
+        summary = {"batching": batching, "queries": len(builders),
+                   "wall_s": wall, "device_busy_us": busy_us,
+                   "idle_share": 1.0 - busy_us / (wall * 1e6),
+                   "kernel_launches": sum(r[1] for r in kernels),
+                   "batches": stats["batches"], "by_kernel": rows,
+                   "host_top": _host_events(prof)}
+        tag = "batched" if batching else "unbatched"
+        with open(os.path.join(out_dir, f"profile_serving_{tag}.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=1)
+        print(json.dumps({"profile_serving": dict(
+            summary, by_kernel=rows[:8], host_top=summary["host_top"][:8])}),
+            flush=True)
+
+
+def run_dashboard(torch, catalog, w1_results):
+    """Phase 8 (c): four clients submit the dashboard twice each through
+    the scheduler without batching; every result equals its phase 5
+    result, and every repeat comes from the result cache or coalesces."""
+    import threading
+
+    from repro_torch import SchedulerConfig, Session
+    from repro_torch.tpch import queries
+
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    session.scheduler_config = SchedulerConfig(memory_budget=8 << 30,
+                                               max_concurrency=8)
+    out, errors = [], []
+
+    def client():
+        try:
+            handles = []
+            for _ in range(2):
+                for i, q in enumerate(_DASHBOARD):
+                    plan = queries.build_query(q, catalog, optimized=False)
+                    handles.append(
+                        (q, session.submit(plan,
+                                           priority=len(_DASHBOARD) - i)))
+            out.extend((q, h, h.result(timeout=600)) for q, h in handles)
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client) for _ in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    stats = session.scheduler().stats()
+    session.scheduler().close()
+    if errors or len(out) != 8 * len(_DASHBOARD):
+        fail(f"dashboard: {errors[:3]}")
+    _check_threads_exited("dashboard")
+    for q, _, res in out:
+        compare(q, res, w1_results[q], "its phase 5 run")
+    repeats = len(out) - len(_DASHBOARD)
+    served = stats["result_cache_hits"] + stats["coalesced"]
+    if served != repeats or stats["failed"]:
+        fail(f"dashboard: {served} repeats from the cache or coalesced of "
+             f"{repeats}; stats {stats}")
+    print(f"dashboard SF {_SF}: {len(out)} queries from 4 clients in "
+          f"{wall:.4f} s, footprints "
+          f"{ {q: h.footprint for q, h, _ in out if not h.cache_hit} }, "
+          f"stats {json.dumps(stats)}", flush=True)
+
+
 _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
+                 "fused_batch_kernel",
                  "hash_build_claim_kernel", "hash_build_place_kernel",
                  "hash_probe_kernel", "segmented_minmax_kernel",
                  "fill_kernel", "keys_to_f32_kernel", "block_count_kernel",
@@ -1189,27 +1584,30 @@ def profile_kernels(torch, launchers, reps: int = 20):
                                    "keys_to_f32_kernel"),
               "hash_probe_multi": ("hash_probe_multi_kernel",),
               "radix_histogram": ("histogram_shared_kernel",
-                                  "histogram_global_kernel")}
+                                  "histogram_global_kernel"),
+              "fused_batch_program": ("fused_batch_kernel",)}
     out = {}
     for name, fn in launchers.items():
         key = name.partition("[")[0]
-        keys = symbol["fused" if key.startswith("fused") else key]
+        keys = symbol[key] if key in symbol else symbol["fused"]
         fn()
         torch.cuda.synchronize()
-        # a profile now and then comes back without the device's events
-        # (CUPTI); such a profile is taken again, at most twice
+        # a profile now and then comes back without some or all of the
+        # device's events (CUPTI); such a profile is taken again, at most
+        # twice
         for attempt in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            hits = [r for r in _device_events(prof)
-                    if any(k in r[0] for k in keys)]
-            if hits:
+            events = _device_events(prof)
+            hits = [r for r in events if any(k in r[0] for k in keys)]
+            launched = sum(r[1] for r in hits)
+            if hits and launched >= reps and launched % reps == 0:
                 break
-            print(f"profile of {name}: no device events in attempt "
-                  f"{attempt + 1}", flush=True)
-        launched = sum(r[1] for r in hits)
+            print(f"profile of {name}: {launched} device events for {reps} "
+                  f"calls in attempt {attempt + 1}; all device events "
+                  f"{[(r[0][:60], r[1]) for r in events]}", flush=True)
         if not hits or launched < reps or launched % reps:
             fail(f"profile of {name}: {launched} kernel events matching "
                  f"{keys!r} for {reps} calls")
@@ -1345,13 +1743,29 @@ def main() -> None:
     rows_out += radix_rows
     launchers.update(radix_launchers)
     w4_launches, gpu4 = run_distributed(torch, catalog, results)
+    t0 = time.perf_counter()
+    batch_rows, batch_launchers = check_batch(torch, fused, catalog, data,
+                                              rate)
+    rows_out += batch_rows
+    launchers.update(batch_launchers)
+    batch_launches, serving_builders = run_serving(torch, catalog, data)
+    run_dashboard(torch, catalog, results)
+    print(f"phase 8 (serving): {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:
             r["device_ms"] = device_ms[r["name"]]
         profile_main_path(torch, gpu, catalog, args.profile)
         profile_main_path(torch, gpu4, catalog, args.profile, _WORKERS)
+        # last: after a profile of the multi-threaded serving run, every
+        # profile of 20 kernel launches on this thread records 19, even
+        # with every scheduler and prefetch thread joined
+        profile_serving(torch, catalog, serving_builders, args.profile)
     for r in rows_out:
+        if r["name"].startswith("fused_batch_program["):
+            # this program's stacked launches in the serving run
+            r["launches"] = batch_launches[r["name"][20:-1]]
+            continue
         key, _, q = r["name"].partition("[Q")
         # the exchange's kernel runs only with several workers
         source = w4_launches if key == "radix_histogram" else launches

@@ -22,9 +22,17 @@ present; pass ``device="cpu"`` to run the plain versions. W workers run
 on the one device with ``Session(catalog, num_workers=W,
 exchange=ICIExchange() | HostExchange())`` and a plan from
 ``queries.build_query(q, catalog, num_workers=W)``.
+
+Serving: ``session.submit(plan)`` returns a handle, ``session.gather(*h)``
+and ``session.run(plan)`` wait for results; the scheduler behind them
+(``SchedulerConfig(batching=True)`` stacks compatible small queries into
+one scan) runs on the session's device.
 """
 
 from .core.exchange import HostExchange, ICIExchange
+from .core.scheduler import QueryRejected, SchedulerConfig
+from .core.session import ExecutionOptions, Session
 from .device import resolve_device
 
-__all__ = ["HostExchange", "ICIExchange", "resolve_device"]
+__all__ = ["ExecutionOptions", "HostExchange", "ICIExchange", "QueryRejected",
+           "SchedulerConfig", "Session", "resolve_device"]

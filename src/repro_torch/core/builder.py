@@ -350,11 +350,23 @@ class QueryBuilder:
 
     execute = collect
 
-    def submit(self, priority: int = 0):
-        """Schedule this query concurrently: the scheduler comes with the
-        serving slice."""
-        raise NotImplementedError(
-            "QueryBuilder.submit: the scheduler comes with the serving slice")
+    def submit(self, priority: int = 0, options=None):
+        """Schedule this query concurrently; returns a ``QueryHandle``.
+
+        Routes through the session's ``QueryScheduler`` (admission control,
+        plan/result caches, batching); requires a session-bound builder::
+
+            h = session.table("orders").limit(10).submit()
+            rows = h.result()
+
+        ``options`` (an ``ExecutionOptions``) overrides priority, worker
+        count, optimize and batching for this query.
+        """
+        if self._session is None:
+            raise RuntimeError(
+                "submit() needs a session-bound builder; build via "
+                "session.table(...) or submit the plan to a session yourself")
+        return self._session.submit(self, priority=priority, options=options)
 
     def __repr__(self):
         return (f"QueryBuilder[{_fmt_cols(self.schema)}]\n"

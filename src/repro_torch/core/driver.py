@@ -22,6 +22,9 @@ single-match probe straight off a scan fuses into the scan's morsel
 pipeline), ScalarBroadcast, OrderBy, Limit, Exchange, Repartition and
 Broadcast. ``InMemorySource`` raises ``NotImplementedError`` naming the
 slice that brings it.
+
+``collect_batch`` runs a group of compatible small queries as one stacked
+scan (``core.batch``); the scheduler calls it for inter-query batching.
 """
 
 from __future__ import annotations
@@ -98,9 +101,23 @@ def _lockstep(outs: Sequence[List[TorchTable]]) -> Iterator[Step]:
     return (list(step) for step in zip(*outs))
 
 
+def empty_executor_stats() -> Dict[str, object]:
+    """The executor-stats dict shape before any query has run (the keys
+    of ``Driver.executor_stats``, empty), so a caller can index
+    ``stats['kernel_dispatch']`` before a scheduled query has run."""
+    return {
+        "tables": {},
+        "op_seconds": {},
+        "device": "",
+        "kernel_dispatch": {},
+        "exchange_protocol": "",
+        "exchanges": {},
+    }
+
+
 class Driver:
     """Executes one logical plan as streaming operator pipelines; one
-    instance per query."""
+    instance per query (or per stacked batch of queries)."""
 
     def __init__(self, ctx: ExecutionContext):
         self.ctx = ctx
@@ -140,6 +157,19 @@ class Driver:
             return tables[0].to_numpy()
         parts = [t.to_numpy() for t in tables]
         return {n: np.concatenate([p[n] for p in parts]) for n in parts[0]}
+
+    def collect_batch(self, shapes, lanes: Optional[int] = None) -> list:
+        """Run a group of compatible queries (``core.batch.BatchShape``s
+        sharing one interned program) as a single stacked execution;
+        returns one host-numpy result dict per member, in order. ``lanes``
+        pins the member-lane count of the stacked program; None sizes it
+        to the group. Batching is W = 1 only."""
+        from . import batch   # batch imports operators and fused
+        if self._w != 1:
+            raise ValueError(f"collect_batch: batching runs at W = 1, not "
+                             f"W = {self._w}")
+        with kernel_ops.collect_dispatches(self.kernel_dispatch):
+            return batch.run_batch(self, shapes, lanes=lanes)
 
     def _run(self, node: P.PlanNode):
         with kernel_ops.collect_dispatches(self.kernel_dispatch):

@@ -10,12 +10,19 @@ String predicates over fixed-width byte columns (``BytesMatch``), ``Year``
 and ``PrefixCode`` evaluate with plain tensor operations, as the reference's
 evaluate them with jnp outside any kernel; the fused kernel takes
 ``PrefixCode`` (``core/fused.py``).
+
+``ParamRef`` is the placeholder that inter-query batching (``core.batch``)
+puts where a filter literal was. It lives here, not in ``core.batch`` as in
+the reference, so that ``core.fused`` can lower it without importing the
+batching layer; ``core.batch`` re-exports it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Sequence, Tuple
+import threading
+from typing import Any, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -350,6 +357,51 @@ class PrefixCode(Expr):
 
     def references(self):
         return self.operand.references()
+
+
+_PARAMS = threading.local()
+
+
+@contextlib.contextmanager
+def param_values(values: Sequence[Any]) -> Iterator[None]:
+    """Install one batch member's parameter values (one per slot) for the
+    ``ParamRef``s evaluated on this thread inside the scope."""
+    prev = getattr(_PARAMS, "values", None)
+    _PARAMS.values = tuple(values)
+    try:
+        yield
+    finally:
+        _PARAMS.values = prev
+
+
+@dataclasses.dataclass(eq=False)
+class ParamRef(Expr):
+    """Placeholder for a filter literal in a shared batch program.
+
+    Evaluates to the current member's scalar from the thread-local
+    parameter environment that ``param_values`` installs, so one program
+    serves every member of every batch of its shape whatever the literal
+    values."""
+
+    idx: int
+    dtype: dt.DType
+
+    def evaluate(self, table):
+        values = getattr(_PARAMS, "values", None)
+        if values is None:
+            raise RuntimeError(
+                "ParamRef evaluated outside a batched program body")
+        return torch.as_tensor(values[self.idx], device=table.device).to(
+            self.dtype.torch_dtype())
+
+    def out_dtype(self, schema):
+        return self.dtype
+
+    def references(self):
+        return set()
+
+    def __repr__(self):
+        return f"par({self.idx}:{self.dtype.name})"
 
 
 def year(e: Expr) -> Year:

@@ -23,13 +23,23 @@ probe) is the plain version, and it is what a CPU tensor runs. The lowering
 raises ``NotImplementedError`` for any node it cannot express (a bytes
 column stored or compared, ``BytesMatch``, ``Year``, ...); it never runs
 the stages unfused instead.
+
+``fused_batch_program`` is the inter-query batched variant (the port of the
+reference's ``fused_batch_program``): B stacked queries share the stages'
+projections, and each filter ANDs one predicate lane per member into a
+``[B, n]`` mask stack instead of narrowing the validity. Its filters carry
+``ParamRef``s where the members' literals differ. The same lowering
+(``lower_stages(..., batch=True)``) turns each filter into a lane loop whose
+body reads the lane's parameters (PARAM), and ``kernels/csrc/fused_batch.cu``
+runs it with the interpreter it shares with the fused kernel
+(``fused_interp.cuh``). ``apply_batched_stages`` is its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,14 +48,15 @@ from ..kernels import build
 from ..kernels import hash_probe as hp
 from ..kernels import ops as kernel_ops
 from . import relational as rel
-from .expr import BinaryOp, ColumnRef, IsIn, Literal, PrefixCode, UnaryOp
+from .expr import (BinaryOp, ColumnRef, Expr, IsIn, Literal, ParamRef,
+                   PrefixCode, UnaryOp, param_values)
 from .plan import _canon
 from .table import TorchTable
 
 # one fused stage = one FilterProject's (filter_expr, projections)
 Stage = Tuple[object, Optional[Tuple[Tuple[str, object], ...]]]
 
-# opcode numbers and limits, mirrored from kernels/csrc/fused_morsel.cu
+# opcode numbers and limits, mirrored from kernels/csrc/fused_interp.cuh
 OPS = {
     "LOAD32": 0, "LOAD8": 1, "CONST": 2, "STORE32": 3, "STORE8": 4,
     "FILTER": 5,
@@ -57,9 +68,9 @@ OPS = {
     "EQ_F32": 21, "NE_F32": 22, "LT_F32": 23, "LE_F32": 24, "GT_F32": 25,
     "GE_F32": 26,
     "AND": 27, "OR": 28, "NOT": 29, "I32_TO_F32": 30, "PROBE": 31,
-    "LOADB": 32,
+    "LOADB": 32, "PARAM": 33, "LOOP": 34, "LFILTER": 35,
 }
-LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48}
+LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48, "kMaxLanes": 64}
 
 _LIB = "fused_morsel"
 # (program, n_instr, in_ptrs, in_widths, n_in, out_ptrs, n_out, valid_in,
@@ -70,6 +81,14 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_BATCH_LIB = "fused_batch"
+# (program, n_instr, in_ptrs, in_widths, n_in, out_ptrs, n_out, params,
+#  n_slots, lanes, valid_in, masks, n, stream)
+_BATCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
 _CMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
 _ARITH_OPS = ("add", "sub", "mul")
 # register kinds: 'i32' (int32 bits), 'f32' (float32 bits), 'b' (0 or 1)
@@ -125,7 +144,13 @@ class Program:
     order, with the ``in_dtypes`` the program reads them as and their
     ``in_widths`` (the row width of a bytes column, else 0); outputs are
     ``out_names`` with their physical ``out_dtypes``. With ``probe`` set
-    the program ends in a PROBE of the key register it computed."""
+    the program ends in a PROBE of the key register it computed.
+
+    A ``batch`` program (``lower_stages(..., batch=True)``) has lane loops
+    instead of FILTERs; ``param_dtypes`` holds each parameter slot's dtype
+    (None for a slot it never reads), and ``out_alias`` names, for each
+    output, the input column it passes through unchanged (the kernel does
+    not store it) or None (the kernel stores it, in output order)."""
 
     code: torch.Tensor
     in_names: Tuple[str, ...]
@@ -136,19 +161,40 @@ class Program:
     out_schema: Dict[str, object]
     n_regs: int
     probe: bool = False
+    batch: bool = False
+    param_dtypes: Tuple[Optional[torch.dtype], ...] = ()
+    out_alias: Tuple[Optional[str], ...] = ()
+
+
+def _has_param(e) -> bool:
+    if isinstance(e, ParamRef):
+        return True
+    return any(_has_param(c) for c in _children(e))
+
+
+def _children(e) -> List[Expr]:
+    if not dataclasses.is_dataclass(e):
+        return []
+    return [getattr(e, f.name) for f in dataclasses.fields(e)
+            if isinstance(getattr(e, f.name), Expr)]
 
 
 class _Lowering:
     """Expression trees -> register program (one instance per program)."""
 
-    def __init__(self, table: TorchTable):
+    def __init__(self, table: TorchTable, batch: bool = False):
         self.table = table
+        self.batch = batch
         self.code: List[Tuple[int, int, int, int]] = []
         self.n_regs = 0
         self.in_slots: Dict[str, int] = {}
         self.loaded: Dict[str, Tuple[int, str]] = {}
+        # register -> the input column a LOAD32/LOAD8 put there unchanged
+        self.load_of: Dict[int, str] = {}
         self.memo: Dict[str, Tuple[int, str]] = {}
         self.consts: Dict[Tuple[str, int], int] = {}
+        # parameter slot -> the dtype its ParamRef reads
+        self.params: Dict[int, torch.dtype] = {}
 
     # -- emission ------------------------------------------------------------
     def reg(self) -> int:
@@ -186,9 +232,15 @@ class _Lowering:
                     f"shape {tuple(t.shape)} (a bytes column enters the "
                     "program only through PrefixCode)")
             op = "LOAD8" if kind == "b" else "LOAD32"
-            self.loaded[name] = (self.emit(op, self.reg(), self.slot(name)),
-                                 kind)
+            r = self.emit(op, self.reg(), self.slot(name))
+            self.loaded[name] = (r, kind)
+            self.load_of[r] = name
         return self.loaded[name]
+
+    def value(self, v) -> Tuple[int, str]:
+        """The register of an env entry: an input column's name is loaded
+        on first use."""
+        return self.column(v) if isinstance(v, str) else v
 
     def byte(self, name: str, i: int) -> int:
         """Register holding byte ``i`` of the row of bytes column ``name``
@@ -224,6 +276,33 @@ class _Lowering:
             return self.const(np.float32(value).view(np.int32), "f32")
         return self.const(int(value), kind)
 
+    # -- lane loops (batch programs) -------------------------------------------
+    def hoist(self, e, env, stage: int) -> None:
+        """Emit every lane-invariant subtree of ``e`` (no ``ParamRef``
+        below it) before the lane loop, so the loop body recomputes only
+        what depends on the lane's parameters."""
+        if not _has_param(e):
+            self.expr(e, env, stage)
+            return
+        for c in _children(e):
+            self.hoist(c, env, stage)
+
+    def lane_filter(self, e, env, stage: int) -> None:
+        """LOOP, the body that evaluates ``e`` for one lane, LFILTER. The
+        kernel skips the body for lanes (or rows) already dead, so every
+        register the body defined is forgotten after it: nothing outside
+        the loop reads one."""
+        self.hoist(e, env, stage)
+        loop = len(self.code)
+        self.emit("LOOP")
+        first = self.n_regs
+        pred = self.truth(self.expr(e, env, stage))
+        self.emit("LFILTER", 0, pred[0])
+        self.code[loop] = (OPS["LOOP"], 0, len(self.code) - 1 - loop, 0)
+        self.memo = {k: v for k, v in self.memo.items() if v[0] < first}
+        self.consts = {k: r for k, r in self.consts.items() if r < first}
+        self.loaded = {k: v for k, v in self.loaded.items() if v[0] < first}
+
     # -- expressions -----------------------------------------------------------
     def expr(self, e, env, stage: int):
         key = f"{stage}:{_canon(e)}"
@@ -232,9 +311,16 @@ class _Lowering:
         return self.memo[key]
 
     def _expr(self, e, env, stage):
+        if isinstance(e, ParamRef):
+            # the register kind its dtype gives, as a Literal's does
+            kind = _param_kind(e)
+            if not self.batch or kind is None:
+                raise NotImplementedError(
+                    f"fused lowering: {e!r} outside a batch program")
+            self.params[e.idx] = e.dtype.torch_dtype()
+            return self.emit("PARAM", self.reg(), e.idx), kind
         if isinstance(e, ColumnRef):
-            v = env[e.name]
-            return self.column(e.name) if v is None else v
+            return self.value(env[e.name])
         if isinstance(e, Literal):
             if e.dtype.name in ("float32", "float64"):
                 return self.literal(e.value, "f32")
@@ -277,8 +363,9 @@ class _Lowering:
         if isinstance(e, PrefixCode):
             # the reference's decode in wrapping int32:
             # out = out * 10 + (byte - '0'), byte by byte
-            if not (isinstance(e.operand, ColumnRef)
-                    and env[e.operand.name] is None):
+            src = env[e.operand.name] if isinstance(e.operand,
+                                                    ColumnRef) else None
+            if not isinstance(src, str):
                 raise NotImplementedError(
                     "fused lowering: PrefixCode of a computed value")
             ten = self.const(10, "i32")[0]
@@ -286,7 +373,7 @@ class _Lowering:
             acc = self.const(0, "i32")[0]
             for i in range(e.n):
                 digit = self.emit("SUB_I32", self.reg(),
-                                  self.byte(e.operand.name, i), zero)
+                                  self.byte(src, i), zero)
                 acc = self.emit("ADD_I32", self.reg(),
                                 self.emit("MUL_I32", self.reg(), acc, ten),
                                 digit)
@@ -315,40 +402,76 @@ class _Lowering:
             "BytesMatch or Year comes with the SQL frontend slice")
 
 
+def _param_kind(e: ParamRef) -> Optional[str]:
+    name = e.dtype.name
+    if name in ("float32", "float64"):
+        return "f32"
+    if name == "bool":
+        return "b"
+    if name in ("int32", "int64", "date32", "dict32"):
+        return "i32"
+    return None
+
+
 def lower_stages(table: TorchTable, stages: Sequence[Stage],
                  probe_keys: Optional[Sequence[str]] = None,
-                 pack=None, empty_key: int = -1) -> Program:
+                 pack=None, empty_key: int = -1,
+                 batch: bool = False) -> Program:
     """Lower a run of FilterProject stages over ``table``'s columns into a
     register program for the fused kernel; with ``probe_keys`` the program
     ends in the probe of the key they make (packed by ``pack`` if set).
+    With ``batch`` the program is for ``fused_batch_program``: each filter
+    becomes a lane loop (``ParamRef``s read the lane's parameters) and
+    outputs that pass an input column through unchanged alias it.
     Raises ``NotImplementedError`` for any expression, dtype or size the
     kernel does not take."""
-    lw = _Lowering(table)
-    # env: column name -> (register, kind), or None for an input column
-    # that is loaded on first use
-    env: Dict[str, Optional[Tuple[int, str]]] = {
-        n: None for n in table.column_names}
+    if batch and probe_keys is not None:
+        raise ValueError("lower_stages: a batch program has no probe")
+    lw = _Lowering(table, batch=batch)
+    # env: column name -> (register, kind), or the name of the input
+    # column it is, loaded on first use
+    env: Dict[str, Union[str, Tuple[int, str]]] = {
+        n: n for n in table.column_names}
     schema = dict(table.schema)
     for stage, (filter_expr, projections) in enumerate(stages):
-        if filter_expr is not None:
+        if filter_expr is not None and batch:
+            lw.lane_filter(filter_expr, env, stage)
+        elif filter_expr is not None:
             pred = lw.truth(lw.expr(filter_expr, env, stage))
             lw.emit("FILTER", 0, pred[0])
         if projections is not None:
             new_env, new_schema = {}, {}
             for out_name, e in projections:
-                new_env[out_name] = lw.expr(e, env, stage)
+                if (batch and isinstance(e, ColumnRef)
+                        and isinstance(env[e.name], str)):
+                    # a pass-through: no load, the output aliases the input
+                    new_env[out_name] = env[e.name]
+                else:
+                    new_env[out_name] = lw.expr(e, env, stage)
                 new_schema[out_name] = e.out_dtype(schema)
             env, schema = new_env, new_schema
     if probe_keys is not None:
         key = _lower_probe_key(lw, env, probe_keys, pack, empty_key)
         lw.emit("PROBE", 0, key)
-    out_names, out_dtypes = [], []
-    for k, (name, v) in enumerate(env.items()):
-        r, kind = lw.column(name) if v is None else v
-        lw.emit("STORE8" if kind == "b" else "STORE32", k, r)
+    out_names, out_dtypes, out_alias = [], [], []
+    n_store = 0
+    for name, v in env.items():
+        alias = None
+        if batch:
+            # an input column passed through unchanged: the kernel stores
+            # nothing, the output is the input tensor (as the plain
+            # version's ColumnRef evaluates to it)
+            alias = v if isinstance(v, str) else lw.load_of.get(v[0])
         out_names.append(name)
+        out_alias.append(alias)
+        if alias is not None:
+            out_dtypes.append(table.columns[alias].dtype)
+            continue
+        r, kind = lw.value(v)
+        lw.emit("STORE8" if kind == "b" else "STORE32", n_store, r)
+        n_store += 1
         out_dtypes.append(_KIND_DTYPE[kind])
-    if len(out_names) > LIMITS["kMaxCols"]:
+    if n_store > LIMITS["kMaxCols"]:
         raise NotImplementedError("fused lowering: too many output columns")
     if len(lw.code) > LIMITS["kMaxInstr"]:
         raise NotImplementedError(
@@ -359,9 +482,13 @@ def lower_stages(table: TorchTable, stages: Sequence[Stage],
     in_dtypes = tuple(table.columns[n].dtype for n in in_names)
     in_widths = tuple(table.columns[n].shape[1] if table.columns[n].dim() == 2
                       else 0 for n in in_names)
+    n_params = max(lw.params, default=-1) + 1
     return Program(code, in_names, in_dtypes, in_widths, tuple(out_names),
                    tuple(out_dtypes), schema, lw.n_regs,
-                   probe=probe_keys is not None)
+                   probe=probe_keys is not None, batch=batch,
+                   param_dtypes=tuple(lw.params.get(i)
+                                      for i in range(n_params)),
+                   out_alias=tuple(out_alias) if batch else ())
 
 
 def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
@@ -374,8 +501,7 @@ def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
     ``relational.packed_key``."""
     regs = []
     for name in probe_keys:
-        v = env[name]
-        r, kind = lw.column(name) if v is None else v
+        r, kind = lw.value(env[name])
         if kind != "i32":
             raise NotImplementedError(
                 f"fused lowering: probe key {name!r} is not an integer "
@@ -500,3 +626,142 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
     out = TorchTable(dict(zip(program.out_names, outs)), valid_out,
                      dict(program.out_schema))
     return out, found, bidx
+
+
+# ---------------------------------------------------------------------------
+# inter-query batching: B member lanes over one morsel
+# ---------------------------------------------------------------------------
+
+def apply_batched_stages(table: TorchTable, stages: Sequence[Stage],
+                         params: Tuple, n_members: int):
+    """Evaluate the shared stage chain once plus one predicate lane per
+    member -- the plain version of ``fused_batch_program``. Filters AND
+    into per-member masks instead of narrowing the shared validity
+    (``TorchTable.filter`` only touches validity and projections are
+    validity-blind, so the shared table stays correct for every member);
+    projections run once for all members. ``params`` holds one ``[B]``
+    tensor per parameter slot; member ``b``'s ``ParamRef``s read element
+    ``b`` of each. Returns ``(projected table, bool masks [B, capacity])``.
+    """
+    masks = [table.validity] * n_members
+    cur = table
+    for filter_expr, projections in stages:
+        if filter_expr is not None:
+            for b in range(n_members):
+                with param_values(tuple(p[b] for p in params)):
+                    m = filter_expr.evaluate(cur)
+                masks[b] = masks[b] & m
+        if projections is not None:
+            cols, schema = {}, {}
+            for out_name, e in projections:
+                v = e.evaluate(cur)
+                if v.dim() == 0:   # literal: broadcast to rows
+                    v = v.expand(cur.capacity)
+                cols[out_name] = v
+                schema[out_name] = e.out_dtype(cur.schema)
+            cur = TorchTable(cols, cur.validity, schema)
+    return cur, torch.stack(masks)
+
+
+def fused_batch_program(table: TorchTable, stages: Sequence[Stage],
+                        params: Tuple, n_members: int,
+                        program: Optional[Program] = None):
+    """Run ``n_members`` stacked queries' predicate lanes plus their shared
+    projections over one morsel in one launch; returns ``(out_table,
+    masks bool[n_members, capacity])``. ``out_table``'s validity is the
+    input's, and columns the stages pass through are the input tensors.
+
+    ``stages`` are the batch program's (filters carry ``ParamRef``s);
+    ``params`` is a tuple of ``[n_members]`` tensors, one per parameter
+    slot, on the table's device. For a CUDA table this launches
+    ``kernels/csrc/fused_batch.cu`` with ``program`` (or the stages lowered
+    now with ``lower_stages(..., batch=True)``); for a CPU table it runs
+    ``apply_batched_stages``.
+    """
+    kernel_ops.mark_kernel("fused_batch")
+    if not table.validity.is_cuda:
+        return apply_batched_stages(table, stages, params, n_members)
+    if program is None:
+        program = lower_stages(table, stages, batch=True)
+    if not program.batch:
+        raise ValueError("fused_batch_program: the program is not a batch "
+                         "program (lower_stages(..., batch=True))")
+    return _launch_batch(program, table, params, n_members)
+
+
+def _param_bits(program: Program, params: Tuple, n_members: int,
+                dev: torch.device) -> Optional[torch.Tensor]:
+    """The kernel's parameter array: int32[slots, B], slot-major; int32,
+    date32 and bool values as int32, float32 values as their bits."""
+    if len(params) < len(program.param_dtypes):
+        raise ValueError(f"fused_batch_program: {len(params)} parameter "
+                         f"slots, the program reads "
+                         f"{len(program.param_dtypes)}")
+    rows = []
+    for slot, want in enumerate(program.param_dtypes):
+        p = params[slot]
+        if tuple(p.shape) != (n_members,) or p.device != dev:
+            raise ValueError(
+                f"fused_batch_program: parameter slot {slot} is "
+                f"{tuple(p.shape)} on {p.device}; the call wants "
+                f"[{n_members}] on {dev}")
+        if want is not None and p.dtype != want:
+            raise TypeError(f"fused_batch_program: parameter slot {slot} is "
+                            f"{p.dtype}; the program reads {want}")
+        rows.append(p.view(torch.int32) if p.dtype == torch.float32
+                    else p.to(torch.int32))
+    return torch.stack(rows).contiguous() if rows else None
+
+
+def _launch_batch(program: Program, table: TorchTable, params: Tuple,
+                  n_members: int):
+    dev = table.device
+    n = table.capacity
+    if not 1 <= n_members <= LIMITS["kMaxLanes"]:
+        raise ValueError(f"fused_batch_program: {n_members} lanes; the "
+                         f"kernel takes 1 to {LIMITS['kMaxLanes']}")
+    if table.validity.dtype != torch.bool or table.validity.dim() != 1:
+        raise TypeError("fused_batch_program: validity must be bool[n]")
+    ins = []
+    for name, dtype, width in zip(program.in_names, program.in_dtypes,
+                                  program.in_widths):
+        t = table.columns[name]
+        shape = (n, width) if width else (n,)
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"fused_batch_program: column {name!r} is {t.dtype}"
+                f"{tuple(t.shape)} on {t.device}; the program reads "
+                f"{dtype}{list(shape)} on {dev}")
+        ins.append(t.contiguous())
+    for name, alias in zip(program.out_names, program.out_alias):
+        if alias is not None and alias not in table.columns:
+            raise ValueError(f"fused_batch_program: output {name!r} passes "
+                             f"through column {alias!r}, which the table "
+                             "lacks")
+    bits = _param_bits(program, params, n_members, dev)
+    stored = [torch.empty(n, dtype=d, device=dev)
+              for d, a in zip(program.out_dtypes, program.out_alias)
+              if a is None]
+    valid_in = table.validity.contiguous()
+    masks = torch.empty((n_members, n), dtype=torch.bool, device=dev)
+    if n > 0:
+        fn = build.function(_BATCH_LIB, "fused_batch_run", _BATCH_ARGTYPES)
+        in_ptrs = (ctypes.c_uint64 * max(len(ins), 1))(
+            *[t.data_ptr() for t in ins])
+        in_widths = (ctypes.c_int * max(len(ins), 1))(*program.in_widths)
+        out_ptrs = (ctypes.c_uint64 * max(len(stored), 1))(
+            *[t.data_ptr() for t in stored])
+        code = program.code.contiguous()
+        rc = fn(code.data_ptr(), code.shape[0], in_ptrs, in_widths, len(ins),
+                out_ptrs, len(stored),
+                None if bits is None else bits.data_ptr(),
+                len(program.param_dtypes), n_members, valid_in.data_ptr(),
+                masks.data_ptr(), n,
+                torch.cuda.current_stream(dev).cuda_stream)
+        build.check(_BATCH_LIB, rc, "fused_batch_program")
+        kernel_ops.count_launch("fused_batch_program")
+    it = iter(stored)
+    cols = {name: (table.columns[alias] if alias is not None else next(it))
+            for name, alias in zip(program.out_names, program.out_alias)}
+    return (TorchTable(cols, table.validity, dict(program.out_schema)),
+            masks)

@@ -39,9 +39,10 @@ The port keeps the reference's static rule pipeline, so its plans
 fingerprint exactly like the reference's cold (no-feedback) plans. What the
 reference adds from a runtime-feedback store (rule 3a, ``reorder_joins``,
 and the observed-cardinality tightening of join distribution and
-capacities) comes with that store in the adaptive-execution slice; the
-device-memory estimates that admission control and spill read come with the
-serving and out-of-core slices.
+capacities) comes with that store in the adaptive-execution slice.
+``estimate_memory_breakdown`` is the device-memory estimate the scheduler
+admits queries by (``core.scheduler``); its feedback-priced branch comes
+with the same slice.
 """
 
 from __future__ import annotations
@@ -634,6 +635,172 @@ def place_exchanges(node: P.PlanNode, catalog,
             return dataclasses.replace(new, scalar=P.Broadcast(new.scalar, w))
 
     return new
+
+
+# ---------------------------------------------------------------------------
+# device-memory footprint estimation (admission control input)
+# ---------------------------------------------------------------------------
+
+_FEEDBACK_SLICE = ("the adaptive-execution slice (ROADMAP.md, queue A, "
+                   "slice 6)")
+
+
+def row_width(schema: Dict[str, dt.DType]) -> int:
+    """Bytes per row of a schema (+1 byte/row for the validity mask)."""
+    width = 1
+    for d in schema.values():
+        itemsize = int(d.np_dtype().itemsize)
+        width += itemsize * d.width if d.name == "bytes" else itemsize
+    return width
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryEstimate:
+    """Per-operator device-memory footprint breakdown for one plan.
+
+    ``per_node`` lists ``(label, bytes)`` in plan-walk order; ``total`` is
+    their sum (``estimate_memory``'s return value). The breakdown travels
+    with admission decisions so a ``QueryRejected`` is explainable from the
+    message alone.
+    """
+
+    total: int
+    per_node: tuple    # ((label, bytes), ...)
+
+    def spill_cost(self, device_budget: int,
+                   host_budget: int = 1 << 31) -> Dict[str, object]:
+        """Bytes expected to cross each memory tier when this plan runs
+        under ``device_budget``, plus a coarse slowdown multiplier: the
+        excess over the device budget lands in host buffers first and
+        overflows to disk past ``host_budget``; each spilled byte is priced
+        at the transfers it implies (host ~2x the in-memory touch, disk
+        ~8x)."""
+        excess = max(0, self.total - max(device_budget, 1))
+        host_bytes = min(excess, max(host_budget, 0))
+        disk_bytes = excess - host_bytes
+        denom = max(self.total, 1)
+        slowdown = 1.0 + 2.0 * host_bytes / denom + 8.0 * disk_bytes / denom
+        return {"excess_bytes": excess, "host_tier_bytes": host_bytes,
+                "disk_tier_bytes": disk_bytes,
+                "est_slowdown": round(slowdown, 2)}
+
+    def describe(self, device_budget: Optional[int] = None,
+                 host_budget: int = 1 << 31) -> str:
+        """Human-readable footprint breakdown (one line per operator),
+        optionally followed by the spill-cost estimate for a budget."""
+        lines = [f"estimated footprint: {self.total} B"]
+        for label, nbytes in self.per_node:
+            lines.append(f"  {label}: {nbytes} B")
+        if device_budget is not None:
+            cost = self.spill_cost(device_budget, host_budget)
+            lines.append(
+                f"  spill cost @ budget {device_budget} B: "
+                f"{cost['host_tier_bytes']} B host tier, "
+                f"{cost['disk_tier_bytes']} B disk tier, "
+                f"~{cost['est_slowdown']}x est. slowdown")
+        return "\n".join(lines)
+
+
+def estimate_memory(plan: P.PlanNode, catalog, num_workers: int = 1,
+                    batch_rows: int = 8192, prefetch_depth: int = 2,
+                    feedback=None) -> int:
+    """Estimated peak device-memory footprint of executing ``plan``, in
+    bytes: the sum of the device-resident state each node pins.
+
+    * ``TableScan``     -- ``prefetch_depth + 1`` in-flight morsel steps
+                           (the bounded prefetch queue plus the one
+                           computing), capped at the table's total size.
+    * ``Aggregation`` / ``Distinct``
+                        -- ``max_groups`` slots per worker (doubled when
+                           the two-phase lowering materializes partials).
+    * ``Join``          -- the materialized build side (replicated to every
+                           worker under a broadcast distribution) plus one
+                           ``max_matches``-expanded probe output batch.
+    * ``OrderBy`` / ``Limit`` / ``Exchange`` / ``Repartition`` /
+      ``Broadcast``     -- the child materialized (these are blocking).
+
+    An upper-bound-flavored estimate, byte for byte the reference's for
+    the same plan. ``feedback`` (an observation store) comes with
+    the adaptive-execution slice: anything but None raises
+    ``NotImplementedError``.
+    """
+    return estimate_memory_breakdown(plan, catalog, num_workers, batch_rows,
+                                     prefetch_depth, feedback).total
+
+
+def estimate_memory_breakdown(plan: P.PlanNode, catalog,
+                              num_workers: int = 1, batch_rows: int = 8192,
+                              prefetch_depth: int = 2,
+                              feedback=None) -> MemoryEstimate:
+    """``estimate_memory`` with the per-operator breakdown retained
+    (admission control attaches it to rejections)."""
+    if feedback is not None:
+        raise NotImplementedError(
+            f"estimate_memory_breakdown: feedback-priced estimates come "
+            f"with {_FEEDBACK_SLICE}")
+    parts: List = []
+    w = max(num_workers, 1)
+
+    def bounded_rows(node: P.PlanNode) -> int:
+        try:
+            return min(row_bound(node, catalog), 1 << 40)
+        except TypeError:
+            return 1 << 20
+
+    def visit(node: P.PlanNode) -> None:
+        if isinstance(node, P.TableScan):
+            width = row_width(infer_schema(node, catalog))
+            in_flight = batch_rows * w * (prefetch_depth + 1)
+            total_rows = bounded_rows(node)
+            parts.append((f"TableScan({node.table})",
+                          width * min(in_flight,
+                                      max(total_rows, batch_rows))))
+        elif isinstance(node, P.InMemorySource):
+            width = row_width(infer_schema(node, catalog))
+            parts.append(("InMemorySource", width * bounded_rows(node)))
+        elif isinstance(node, (P.Aggregation, P.Distinct)):
+            width = row_width(infer_schema(node, catalog))
+            phases = 2 if (isinstance(node, P.Aggregation)
+                           and node.mode in ("auto", "two_phase")
+                           and w > 1) else 1
+            key_cols = (node.group_keys if isinstance(node, P.Aggregation)
+                        else node.keys)
+            keys = ",".join(key_cols) if key_cols else "<global>"
+            parts.append((f"{type(node).__name__}({keys})",
+                          width * node.max_groups * w * phases))
+        elif isinstance(node, P.Join):
+            build_width = row_width(infer_schema(node.build, catalog))
+            build_rows = bounded_rows(node.build)
+            repl = w if node.distribution == "broadcast" else 1
+            out_width = row_width(infer_schema(node, catalog))
+            keys = ",".join(node.build_keys)
+            parts.append((f"Join({keys}) build", build_width * build_rows
+                          * repl))
+            parts.append((f"Join({keys}) probe-out",
+                          out_width * batch_rows
+                          * max(node.max_matches, 1) * w))
+        elif isinstance(node, (P.OrderBy, P.Limit, P.Exchange)):
+            width = row_width(infer_schema(node.children()[0], catalog))
+            parts.append((type(node).__name__,
+                          width * bounded_rows(node.children()[0])))
+        elif isinstance(node, P.Repartition):
+            # blocking: the child materialized for the send, then received
+            # into same-sized buffers
+            width = row_width(infer_schema(node.child, catalog))
+            parts.append(("Repartition",
+                          2 * width * bounded_rows(node.child)))
+        elif isinstance(node, P.Broadcast):
+            # every worker pins a replica of all rows, plus the input
+            width = row_width(infer_schema(node.child, catalog))
+            repl = max(node.num_workers, w)
+            parts.append(("Broadcast",
+                          width * bounded_rows(node.child) * (repl + 1)))
+        for c in node.children():
+            visit(c)
+
+    visit(plan)
+    return MemoryEstimate(total=sum(n for _, n in parts),
+                          per_node=tuple(parts))
 
 
 # ---------------------------------------------------------------------------

@@ -14,19 +14,31 @@ runs logical plans through the ``Driver``::
 
 ``Session(device=None)`` means ``"cuda"`` and raises when no GPU is present;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+
+Serving path (many queries, scheduled concurrently under a device-memory
+budget, with plan and result caches and, opt-in, inter-query batching)::
+
+    from repro_torch import SchedulerConfig
+
+    session.scheduler_config = SchedulerConfig(batching=True)
+    h1 = session.submit(queries.build_query(1, catalog))
+    h6 = session.submit(queries.build_query(6, catalog))
+    q1, q6 = session.gather(h1, h6)       # morsel pipelines interleave
+    out = session.run(queries.build_query(14, catalog))
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from ..device import resolve_device
 from .builder import QueryBuilder
-from .driver import Driver, ExecutionContext
+from .driver import Driver, ExecutionContext, empty_executor_stats
 from .exchange import ExchangeProtocol
 from .optimizer import OptimizerConfig, optimize
 from .plan import PlanNode
@@ -118,10 +130,17 @@ class InMemoryTable(TableSource):
 
 
 class Catalog:
-    """Named ``TableSource`` registry (a Presto connector catalog)."""
+    """Named ``TableSource`` registry (a Presto connector catalog).
+
+    Every (re-)registration bumps the table's *version*; the scheduler's
+    plan and result caches snapshot versions at insert time and treat any
+    bump as invalidation, so re-registering a table (new data under the
+    same name) never serves stale cached results.
+    """
 
     def __init__(self):
         self._tables: Dict[str, TableSource] = {}
+        self._versions: Dict[str, int] = {}
 
     @classmethod
     def from_numpy(cls, tables: Dict[str, Dict[str, np.ndarray]],
@@ -139,8 +158,14 @@ class Catalog:
         return cat
 
     def register(self, source: TableSource):
-        """Add or replace a table."""
+        """Add or replace a table; bumps its version."""
         self._tables[source.name] = source
+        self._versions[source.name] = self._versions.get(source.name, 0) + 1
+
+    def register_numpy(self, name: str, data: Dict[str, np.ndarray], schema,
+                       unique_keys: tuple = ()):
+        """Register a dict of numpy arrays as an ``InMemoryTable``."""
+        self.register(InMemoryTable(name, data, schema, unique_keys))
 
     def get(self, name: str) -> TableSource:
         """Look up a table source; raises ``KeyError`` if unknown."""
@@ -149,6 +174,40 @@ class Catalog:
     def tables(self):
         """Registered table names."""
         return list(self._tables)
+
+    def version(self, name: str) -> int:
+        """Monotonic registration counter for ``name`` (0 = never seen)."""
+        return self._versions.get(name, 0)
+
+    def versions(self, names) -> tuple:
+        """Sorted ``(name, version)`` snapshot for cache-validity checks."""
+        return tuple(sorted((n, self.version(n)) for n in names))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionOptions:
+    """Per-query options for the serving entry points
+    (``Session.submit``/``run``, ``QueryBuilder.submit``). ``None`` fields
+    inherit the session's defaults, so ``ExecutionOptions()`` is a no-op::
+
+        session.run(query, options=ExecutionOptions(priority=2))
+
+    The reference's ``kernel_backend`` field has no counterpart: the port
+    runs on the session's device.
+    """
+
+    # scheduler queue priority (higher dequeues first)
+    priority: Optional[int] = None
+    # worker count for this query only (the plan is optimized for it)
+    num_workers: Optional[int] = None
+    # run the logical optimizer before execution (default True)
+    optimize: Optional[bool] = None
+    # runtime-feedback override; anything but None or False raises
+    # NotImplementedError (the adaptive-execution slice brings it)
+    feedback: Optional[object] = None
+    # inter-query batching opt-out for this query only: ``False`` keeps it
+    # out of stacked launches even when ``SchedulerConfig.batching`` is on
+    batching: Optional[bool] = None
 
 
 @dataclasses.dataclass
@@ -166,6 +225,10 @@ class Session:
 
     Each ``execute`` runs with a ``clone()`` of the protocol (zeroed
     stats); ``executor_stats()['exchanges']`` holds that query's counters.
+
+    ``submit``/``gather``/``run`` route through a lazily created
+    ``QueryScheduler`` (``core.scheduler``); configure it by assigning
+    ``session.scheduler_config = SchedulerConfig(...)`` before first use.
     """
 
     catalog: Catalog
@@ -174,6 +237,9 @@ class Session:
     device: Optional[object] = None
     num_workers: int = 1
     exchange: Optional[ExchangeProtocol] = None
+    # scheduler knobs (core.scheduler.SchedulerConfig); None = defaults.
+    # Assign before the first submit()/run(): the scheduler is built lazily.
+    scheduler_config: Optional[object] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -207,6 +273,70 @@ class Session:
         return driver.collect(plan)
 
     def executor_stats(self) -> Dict[str, object]:
-        """Stats from the most recent ``execute`` ({} before any)."""
-        return ({} if self.last_driver is None
+        """Stats from the most recent ``execute``; before any, the same
+        keys with empty values (``driver.empty_executor_stats``)."""
+        return (empty_executor_stats() if self.last_driver is None
                 else self.last_driver.executor_stats())
+
+    # -- serving entry points (core.scheduler) ------------------------------
+    # guards lazy scheduler creation: N client threads whose first call is
+    # submit() must all get the same scheduler (one budget, one cache)
+    _scheduler_lock = threading.Lock()
+
+    def scheduler(self):
+        """The session's ``QueryScheduler`` (created on first use).
+
+        Configure with ``session.scheduler_config = SchedulerConfig(...)``
+        before the first call; later assignments need ``reset_scheduler``.
+        """
+        sched = getattr(self, "_scheduler", None)
+        if sched is None:
+            with Session._scheduler_lock:
+                sched = getattr(self, "_scheduler", None)
+                if sched is None:
+                    from .scheduler import QueryScheduler
+                    sched = QueryScheduler(self, self.scheduler_config)
+                    self._scheduler = sched
+        return sched
+
+    def reset_scheduler(self) -> None:
+        """Drop the current scheduler (and its caches and queue) if any."""
+        sched = getattr(self, "_scheduler", None)
+        if sched is not None:
+            sched.close(wait=False)
+            self._scheduler = None
+
+    def submit(self, query, priority: int = 0,
+               options: Optional[ExecutionOptions] = None):
+        """Submit a query for scheduled execution; returns a
+        ``QueryHandle``.
+
+        ``query`` is a ``PlanNode`` or a ``QueryBuilder`` (its plan is
+        taken as built; the scheduler optimizes through the plan cache).
+        ``options`` carries per-query overrides. Raises ``QueryRejected``
+        when admission control refuses it::
+
+            h = session.submit(session.table("lineitem").limit(5), priority=1)
+            rows = h.result()
+        """
+        plan = query.plan if hasattr(query, "plan") else query
+        opts = options or ExecutionOptions()
+        if opts.priority is not None:
+            priority = opts.priority
+        return self.scheduler().submit(
+            plan, priority=priority, num_workers=opts.num_workers,
+            optimize=opts.optimize, feedback=opts.feedback,
+            batching=opts.batching)
+
+    def gather(self, *handles) -> list:
+        """Wait for ``submit`` handles; results in argument order."""
+        return self.scheduler().gather(*handles)
+
+    def run(self, query, priority: int = 0,
+            options: Optional[ExecutionOptions] = None
+            ) -> Dict[str, np.ndarray]:
+        """Synchronous scheduled execution: ``submit`` + ``result``. Unlike
+        ``execute``, this path gets admission control and the plan and
+        result caches."""
+        return self.submit(query, priority=priority,
+                           options=options).result()

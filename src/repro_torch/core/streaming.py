@@ -159,8 +159,15 @@ class MorselPrefetcher:
 
     # -- consumer ------------------------------------------------------------
     def close(self) -> None:
-        """Stop the producer thread (also called when iteration ends)."""
+        """Stop the producer thread and wait until it has exited (also
+        called when iteration ends): it stops within one step's copy."""
         self._closed.set()
+        if (self._thread.is_alive()
+                and self._thread is not threading.current_thread()):
+            self._thread.join(timeout=30.0)
+            if self._thread.is_alive():
+                raise RuntimeError("MorselPrefetcher: the producer thread "
+                                   "did not stop within 30 s")
 
     def __iter__(self) -> Iterator[List[TorchTable]]:
         self._thread.start()

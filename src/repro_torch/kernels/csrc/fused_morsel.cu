@@ -42,68 +42,18 @@
 //   of the row, zero-extended. The host lowers PrefixCode to LOADBs and
 //   int32 arithmetic.
 //
-// The opcode numbers and the limits below are mirrored in
-// repro_torch/core/fused.py; a test parses this file to hold them equal.
+// The interpreter (opcodes, limits, loads and arithmetic) lives in
+// fused_interp.cuh, shared with the batched variant in fused_batch.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "fused_interp.cuh"
 #include "hash_probe.cuh"
 
+using namespace repro_fused;
+
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
-constexpr int kMaxInstr = 160;
-constexpr int kMaxCols = 24;
-constexpr int kMaxRegs = 48;
-
-enum Op : int {
-  OP_LOAD32 = 0,   // r[dst] = 32-bit column a at this row
-  OP_LOAD8 = 1,    // r[dst] = bool column a at this row (0 or 1)
-  OP_CONST = 2,    // r[dst] = bits a
-  OP_STORE32 = 3,  // 32-bit output column dst = r[a]
-  OP_STORE8 = 4,   // bool output column dst = r[a] != 0
-  OP_FILTER = 5,   // validity &= r[a] != 0
-  OP_ADD_I32 = 6,
-  OP_SUB_I32 = 7,
-  OP_MUL_I32 = 8,
-  OP_NEG_I32 = 9,
-  OP_ADD_F32 = 10,
-  OP_SUB_F32 = 11,
-  OP_MUL_F32 = 12,
-  OP_DIV_F32 = 13,
-  OP_NEG_F32 = 14,
-  OP_EQ_I32 = 15,
-  OP_NE_I32 = 16,
-  OP_LT_I32 = 17,
-  OP_LE_I32 = 18,
-  OP_GT_I32 = 19,
-  OP_GE_I32 = 20,
-  OP_EQ_F32 = 21,
-  OP_NE_F32 = 22,
-  OP_LT_F32 = 23,
-  OP_LE_F32 = 24,
-  OP_GT_F32 = 25,
-  OP_GE_F32 = 26,
-  OP_AND = 27,      // (r[a] != 0) & (r[b] != 0)
-  OP_OR = 28,       // (r[a] != 0) | (r[b] != 0)
-  OP_NOT = 29,      // r[a] == 0
-  OP_I32_TO_F32 = 30,
-  OP_PROBE = 31,    // probe the join's table with key r[a]; store found, bidx
-  OP_LOADB = 32,    // r[dst] = byte b of this row of bytes column a
-};
-
-struct Program {
-  int n_instr;
-  int4 ins[kMaxInstr];   // (op, dst, a, b)
-};
-
-struct Columns {
-  const void* in[kMaxCols];
-  void* out[kMaxCols];
-  int width[kMaxCols];   // row width of a bytes input column, else 0
-};
 
 struct Probe {
   const int32_t* tk;   // table keys and values, int32[mask + 1]
@@ -114,10 +64,6 @@ struct Probe {
   unsigned char* found;
   int32_t* bidx;
 };
-
-__device__ __forceinline__ float f(uint32_t bits) { return __uint_as_float(bits); }
-__device__ __forceinline__ uint32_t u(float x) { return __float_as_uint(x); }
-__device__ __forceinline__ int32_t s(uint32_t bits) { return (int32_t)bits; }
 
 __global__ void __launch_bounds__(kThreads)
 fused_morsel_kernel(const Program prog, const Columns cols, const Probe probe,
@@ -130,47 +76,16 @@ fused_morsel_kernel(const Program prog, const Columns cols, const Probe probe,
     bool valid = valid_in[i] != 0;
     for (int pc = 0; pc < prog.n_instr; ++pc) {
       const int4 in = prog.ins[pc];
-      // loads and constants carry immediates in a and b, not registers
-      const bool imm = in.x == OP_LOAD32 || in.x == OP_LOAD8 ||
-                       in.x == OP_CONST || in.x == OP_LOADB;
-      const uint32_t a = imm ? 0u : r[in.z];
-      const uint32_t b = imm ? 0u : r[in.w];
-      uint32_t x = 0;
+      if (is_load(in.x)) {
+        r[in.y] = load(in, cols, i);
+        continue;
+      }
+      const uint32_t a = r[in.z];
+      const uint32_t b = r[in.w];
       switch (in.x) {
-        case OP_LOAD32: x = static_cast<const uint32_t*>(cols.in[in.z])[i]; break;
-        case OP_LOAD8: x = static_cast<const unsigned char*>(cols.in[in.z])[i] != 0; break;
-        case OP_CONST: x = (uint32_t)in.z; break;
-        case OP_LOADB:
-          x = static_cast<const unsigned char*>(cols.in[in.z])[i * cols.width[in.z] + in.w];
-          break;
         case OP_STORE32: static_cast<uint32_t*>(cols.out[in.y])[i] = a; continue;
         case OP_STORE8: static_cast<unsigned char*>(cols.out[in.y])[i] = a != 0; continue;
         case OP_FILTER: valid = valid && (a != 0); continue;
-        case OP_ADD_I32: x = a + b; break;
-        case OP_SUB_I32: x = a - b; break;
-        case OP_MUL_I32: x = a * b; break;
-        case OP_NEG_I32: x = 0u - a; break;
-        case OP_ADD_F32: x = u(__fadd_rn(f(a), f(b))); break;
-        case OP_SUB_F32: x = u(__fsub_rn(f(a), f(b))); break;
-        case OP_MUL_F32: x = u(__fmul_rn(f(a), f(b))); break;
-        case OP_DIV_F32: x = u(__fdiv_rn(f(a), f(b))); break;
-        case OP_NEG_F32: x = a ^ 0x80000000u; break;
-        case OP_EQ_I32: x = s(a) == s(b); break;
-        case OP_NE_I32: x = s(a) != s(b); break;
-        case OP_LT_I32: x = s(a) < s(b); break;
-        case OP_LE_I32: x = s(a) <= s(b); break;
-        case OP_GT_I32: x = s(a) > s(b); break;
-        case OP_GE_I32: x = s(a) >= s(b); break;
-        case OP_EQ_F32: x = f(a) == f(b); break;
-        case OP_NE_F32: x = f(a) != f(b); break;
-        case OP_LT_F32: x = f(a) < f(b); break;
-        case OP_LE_F32: x = f(a) <= f(b); break;
-        case OP_GT_F32: x = f(a) > f(b); break;
-        case OP_GE_F32: x = f(a) >= f(b); break;
-        case OP_AND: x = (a != 0) & (b != 0); break;
-        case OP_OR: x = (a != 0) | (b != 0); break;
-        case OP_NOT: x = a == 0; break;
-        case OP_I32_TO_F32: x = u(__int2float_rn(s(a))); break;
         case OP_PROBE: {
           int32_t v;
           const bool hit = repro_hash::probe_one(probe.tk, probe.tv, probe.mask,
@@ -180,9 +95,11 @@ fused_morsel_kernel(const Program prog, const Columns cols, const Probe probe,
           probe.bidx[i] = v;
           continue;
         }
-        default: continue;
+        default: {
+          uint32_t x;
+          if (alu(in.x, a, b, &x)) r[in.y] = x;
+        }
       }
-      r[in.y] = x;
     }
     valid_out[i] = valid;
   }
@@ -202,17 +119,15 @@ extern "C" int fused_morsel_run(const int* prog, int n_instr,
                                 long long n, const void* tk, const void* tv,
                                 int table_size, int max_probes, int empty_key,
                                 void* found, void* bidx, void* stream) {
-  if (n_instr < 0 || n_instr > kMaxInstr || n_in < 0 || n_in > kMaxCols ||
-      n_out < 0 || n_out > kMaxCols) {
+  if (!valid_program(prog, n_instr, in_widths, n_in, n_out)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int k = 0; k < n_instr; ++k) {
-    const int* ins = prog + 4 * k;
-    if (ins[0] == OP_LOADB &&
-        (ins[2] < 0 || ins[2] >= n_in || ins[3] < 0 || ins[3] >= in_widths[ins[2]])) {
-      return (int)cudaErrorInvalidValue;
+    const int op = prog[4 * k];
+    if (op == OP_PARAM || op == OP_LOOP || op == OP_LFILTER) {
+      return (int)cudaErrorInvalidValue;   // the batched kernel's
     }
-    if (prog[4 * k] == OP_PROBE &&
+    if (op == OP_PROBE &&
         (tk == nullptr || tv == nullptr || found == nullptr || bidx == nullptr ||
          table_size <= 0 || (table_size & (table_size - 1)) != 0)) {
       return (int)cudaErrorInvalidValue;
@@ -238,9 +153,7 @@ extern "C" int fused_morsel_run(const int* prog, int n_instr,
   pr.empty_key = (int32_t)empty_key;
   pr.found = static_cast<unsigned char*>(found);
   pr.bidx = static_cast<int32_t*>(bidx);
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < kMaxBlocks ? want : kMaxBlocks);
-  fused_morsel_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_morsel_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       p, c, pr, static_cast<const unsigned char*>(valid_in),
       static_cast<unsigned char*>(valid_out), n);
   return (int)cudaGetLastError();

@@ -11,8 +11,8 @@ Two kinds of counts are kept:
   reference's ``kernels/ops.py`` keeps it: each operator call adds one per
   kernel *kind* it used, whichever device it ran on,
   so ``executor_stats()['kernel_dispatch']`` compares with the reference's
-  ``pallas`` run (kinds ``fused``, ``agg``, ``build``, ``probe``,
-  ``compact``).
+  ``pallas`` run (kinds ``fused``, ``fused_batch``, ``agg``, ``build``,
+  ``probe``, ``compact``).
 * **Launch counters** (``count_launch`` / ``launch_counts``): one plain
   integer per kernel wrapper, raised only where a CUDA kernel is actually
   launched. A run on the card reads them to show that its main path went
@@ -101,7 +101,7 @@ def table_op(fn):
 KERNELS = ("fused_morsel_program", "segmented_sum", "segmented_int_sum",
            "build_table", "hash_probe", "fused_morsel_probe",
            "segmented_minmax", "block_prefix_sum", "hash_probe_multi",
-           "radix_histogram")
+           "radix_histogram", "fused_batch_program")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
 

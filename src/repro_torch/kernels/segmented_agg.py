@@ -8,6 +8,9 @@ dropped. For a CUDA tensor each launches its kernel in
 are built); for a CPU tensor each runs its plain PyTorch version:
 ``index_add_`` (sums) or ``scatter_reduce`` (min/max) into a
 ``num_groups + 1`` buffer whose last slot takes the dropped rows.
+
+``STACKED_GROUP_LIMIT`` and ``stacked_group_capacity`` size inter-query
+batches (``core.batch``, ``core.scheduler``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,34 @@ _MINMAX_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_void_p]
 _INT32_MAX = 2 ** 31 - 1
+
+# Stacked group bound of inter-query batching, the reference's value. There
+# it is the Pallas kernels' dispatch bound (their one-hot slabs live in
+# VMEM); the CUDA kernels here take any group count, so in the port it is a
+# batch-size policy only. It stays so that the port's scheduler forms the
+# same batches as the reference's and their counters compare.
+STACKED_GROUP_LIMIT = 1 << 16
+
+
+def stacked_group_capacity(max_groups: int, limit: int = STACKED_GROUP_LIMIT
+                           ) -> int:
+    """How many queries can stack into one segmented aggregation.
+
+    Inter-query batching (``core.batch``) stacks B compatible aggregations
+    by remapping ``group_id = query_id * max_groups + local_group``, so the
+    kernels see one segmented problem of ``B * max_groups`` groups. The
+    scheduler caps batches at the largest power of two B with ``B *
+    max_groups <= limit`` (a power of two because member lanes pad up to
+    one); a query whose ``max_groups`` alone exceeds ``limit`` gets
+    capacity 1: solo execution. Raises ``ValueError`` for ``max_groups <=
+    0``.
+    """
+    if max_groups <= 0:
+        raise ValueError("max_groups must be positive")
+    cap = limit // max_groups
+    if cap <= 1:
+        return 1
+    return 1 << (cap.bit_length() - 1)
 
 
 def segmented_sum_plain(gids: torch.Tensor, values: torch.Tensor,

@@ -421,3 +421,154 @@ def test_host_exchange_on_card_matches_ici(cuda, q):
     exchanges = host.executor_stats()["exchanges"]
     assert sum(v["host_staged_bytes"] for v in exchanges.values()) > 0
     assert_results_match(got, ici, q)
+
+
+# ---------------------------------------------------------------------------
+# inter-query batching: fused_batch_program and the serving path
+# ---------------------------------------------------------------------------
+
+def _batch_case(n: int, lanes: int):
+    """A three-stage batch program over ``seeded_columns`` (parameters of
+    float32, int32, date32 and bool), every fifth row dead, with distinct
+    parameters per lane: ``(cpu table, stages, cpu params)``."""
+    from repro_torch.core import batch
+    rows = max(n, 4)
+    data = {k: v[:n] for k, v in seeded_columns(rows, seed=13).items()}
+    cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        SEEDED_SCHEMA[k].torch_dtype()) for k, v in data.items()}
+    host = TorchTable(cols, torch.from_numpy(np.arange(n) % 5 != 2),
+                      dict(SEEDED_SCHEMA))
+    raw = [(col("f") < lit(5.0), (("a", col("f") * lit(2.0)),
+                                  ("i", col("i")), ("d", col("d")),
+                                  ("b", col("b")))),
+           (col("i") > lit(-20), None),
+           ((col("d") >= date_lit("1995-01-01")) | (col("b") == lit(True)),
+            (("s", col("a") + col("i")), ("i", col("i")),
+             ("t", col("a") >= lit(1.0))))]
+    dtypes, values, stages = [], [], []
+    for f, projections in raw:
+        stages.append((batch._parameterize(f, dtypes, values), projections))
+    params = []
+    for d, v in zip(dtypes, values):
+        if d.name == "bool":
+            lane_vals = [bool(v) != bool(b % 2) for b in range(lanes)]
+        elif d.name == "float32":
+            lane_vals = [float(v) + 0.25 * b for b in range(lanes)]
+        else:
+            lane_vals = [int(v) + 7 * b for b in range(lanes)]
+        params.append(torch.tensor(lane_vals, dtype=d.torch_dtype()))
+    return host, stages, tuple(params)
+
+
+@pytest.mark.parametrize("n", [0, 1000, 1 << 20])
+@pytest.mark.parametrize("lanes", [1, 2, 32, 64])
+def test_fused_batch_kernel_on_card(cuda, lanes, n):
+    host, stages, params = _batch_case(n, lanes)
+    want, want_masks = fused.apply_batched_stages(host, stages, params, lanes)
+    dev = TorchTable({k: a.to(cuda) for k, a in host.columns.items()},
+                     host.validity.to(cuda), host.schema)
+    ops.reset_launch_counts()
+    got, masks = fused.fused_batch_program(
+        dev, stages, tuple(p.to(cuda) for p in params), lanes)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_batch_program"] == (1 if n else 0)
+    assert got.validity is dev.validity
+    np.testing.assert_array_equal(masks.cpu().numpy(), want_masks.numpy())
+    got = TorchTable({k: a.cpu() for k, a in got.columns.items()},
+                     got.validity.cpu(), got.schema)
+    assert_tables_equal(got, want)
+
+
+def test_fused_batch_kernel_rejects_wrong_inputs(cuda):
+    host, stages, params = _batch_case(100, 2)
+    dev = TorchTable({k: a.to(cuda) for k, a in host.columns.items()},
+                     host.validity.to(cuda), host.schema)
+    on_card = tuple(p.to(cuda) for p in params)
+    with pytest.raises(ValueError):     # 65 lanes: more than the kernel takes
+        fused.fused_batch_program(dev, stages, tuple(
+            p.repeat(33)[:65] for p in on_card), 65)
+    with pytest.raises(ValueError):     # parameters on the host
+        fused.fused_batch_program(dev, stages, params, 2)
+
+
+@pytest.mark.parametrize("kind", ["count", "sum", "min", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_stacked_segment_agg_on_card(cuda, kind, dtype):
+    """The stacked ids of ``_stacked_segment_agg`` as the batch gives them:
+    unsorted (member-dead rows break runs), sentinel gids between runs, a
+    member with no live row; the CUDA kernels against their plain versions."""
+    from repro_torch.core import batch
+    rng = np.random.default_rng(21)
+    n, lanes, groups = 300_000, 32, 16
+    gids = np.sort(rng.integers(0, groups + 1, n)).astype(np.int32)
+    member = (rng.random((lanes, n)) < 0.5) & (gids < groups)[None, :]
+    member[7] = False
+    vals = (rng.normal(0, 100, n).astype(np.float32) if dtype == "float32"
+            else rng.integers(-1000, 1000, n).astype(np.int32))
+    args = [torch.from_numpy(vals), torch.from_numpy(member),
+            torch.from_numpy(gids)]
+    want = batch._stacked_segment_agg(*args, groups, lanes, kind)
+    got = batch._stacked_segment_agg(*[a.to(cuda) for a in args], groups,
+                                     lanes, kind).cpu()
+    if kind == "sum" and dtype == "float32":
+        scale = batch._stacked_segment_agg(
+            torch.from_numpy(np.abs(vals)), *args[1:], groups, lanes, kind)
+        assert bool(((got - want).abs() <= 1e-4 * scale + 1e-3).all())
+    else:
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_serving_workload_on_card_matches_cpu(cuda):
+    """Twelve distinct-literal small queries of the three serving shapes
+    through the card's batching scheduler, each equal to its CPU run."""
+    import threading
+
+    from repro_torch import SchedulerConfig
+    from repro_torch.core.builder import QueryBuilder
+
+    catalog = dbgen.load_catalog(sf=0.01)
+    keys = catalog.get("orders").data["o_orderkey"]
+    builders = []
+    for i in range(12):
+        if i % 3 == 0:
+            builders.append(QueryBuilder.scan(catalog, "orders")
+                            .filter(col("o_orderkey") == int(keys[i * 31]))
+                            .project("o_orderkey", "o_totalprice"))
+        elif i % 3 == 1:
+            builders.append(QueryBuilder.scan(catalog, "lineitem")
+                            .filter(col("l_quantity") < float(2 + i))
+                            .project(rev=col("l_extendedprice")
+                                     * col("l_discount"))
+                            .agg(total=("sum", "rev"), n=("count", None)))
+        else:
+            builders.append(QueryBuilder.scan(catalog, "lineitem")
+                            .filter(col("l_quantity") < float(3 + i))
+                            .group_by("l_returnflag")
+                            .agg(total=("sum", "l_extendedprice"),
+                                 n=("count", None)))
+    cpu = Session(catalog, device="cpu")
+    want = [cpu.execute(b.optimized()) for b in builders]
+    session = Session(catalog)
+    session.scheduler_config = SchedulerConfig(
+        batching=True, max_batch=32, batch_window_ms=100.0,
+        cache_results=False)
+    ops.reset_launch_counts()
+    handles = [None] * len(builders)
+
+    def client(c):
+        for i in range(c, len(builders), 4):
+            handles[i] = session.submit(builders[i])
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    got = session.gather(*handles)
+    stats = session.scheduler().stats()
+    session.scheduler().close()
+    assert stats["batches"] >= 1 and stats["batch_fallbacks"] == 0
+    assert ops.launch_counts()["fused_batch_program"] >= 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert sorted(g) == sorted(w), i
+        assert_results_match(g, w, i)

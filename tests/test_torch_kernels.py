@@ -224,7 +224,8 @@ def test_lowering_refuses_what_the_kernel_cannot_run():
 
 
 def test_opcodes_and_limits_match_cuda_source():
-    src = (CSRC / "fused_morsel.cu").read_text()
+    # the interpreter both fused kernels run, opcodes and limits included
+    src = (CSRC / "fused_interp.cuh").read_text()
     enum = dict((k, int(v)) for k, v in
                 re.findall(r"OP_(\w+)\s*=\s*(\d+)", src))
     assert enum == fused.OPS

@@ -10,7 +10,12 @@
   32-bit semantics of ``kernels/csrc/fused_morsel.cu``, so the lowering is
   tested where the CUDA kernel cannot run; ``emulate_probe`` runs a
   program that ends in the join probe, with the linear probe of
-  ``kernels/csrc/hash_probe.cuh`` written in numpy.
+  ``kernels/csrc/hash_probe.cuh`` written in numpy; ``emulate_batch``
+  runs a batch program (``lower_stages(..., batch=True)``) as
+  ``kernels/csrc/fused_batch.cu`` does: PARAM reads the lane's parameter,
+  each LOOP ... LFILTER body runs once per lane, and every register the
+  body wrote is dropped after the loop (the kernel skips the body for dead
+  lanes, so nothing may read one).
 * ``seeded_columns`` makes a small morsel's worth of columns from a seed.
 """
 
@@ -155,6 +160,76 @@ def probe_numpy(tk, tv, keys, max_probes, empty_key=-1):
     return found, val
 
 
+def _bits(x):
+    return np.ascontiguousarray(x).view(np.uint32)
+
+
+def _step(op, dst, a, b, regs, ins, n) -> bool:
+    """One load or arithmetic/comparison/logic instruction over whole
+    columns (the kernel's ``load`` and ``alu``); False for any other op."""
+    def f32(r):
+        return regs[r].view(np.float32)
+
+    def i32(r):
+        return regs[r].view(np.int32)
+
+    if op == "LOAD32":
+        regs[dst] = _bits(ins[a]).copy()
+    elif op == "LOAD8":
+        regs[dst] = (ins[a] != 0).astype(np.uint32)
+    elif op == "CONST":
+        regs[dst] = np.full(n, np.int32(a)).view(np.uint32)
+    elif op == "LOADB":
+        regs[dst] = ins[a][:, b].astype(np.uint32)
+    elif op in ("ADD_I32", "SUB_I32", "MUL_I32"):
+        fn = {"ADD": np.add, "SUB": np.subtract, "MUL": np.multiply}
+        regs[dst] = fn[op[:3]](regs[a], regs[b]).astype(np.uint32)
+    elif op == "NEG_I32":
+        regs[dst] = (np.uint32(0) - regs[a]).astype(np.uint32)
+    elif op in ("ADD_F32", "SUB_F32", "MUL_F32", "DIV_F32"):
+        fn = {"ADD": np.add, "SUB": np.subtract, "MUL": np.multiply,
+              "DIV": np.divide}
+        regs[dst] = _bits(fn[op[:3]](f32(a), f32(b)).astype(np.float32))
+    elif op == "NEG_F32":
+        regs[dst] = regs[a] ^ np.uint32(0x80000000)
+    elif op[:2] in ("EQ", "NE", "LT", "LE", "GT", "GE"):
+        fn = {"EQ": np.equal, "NE": np.not_equal, "LT": np.less,
+              "LE": np.less_equal, "GT": np.greater,
+              "GE": np.greater_equal}[op[:2]]
+        view = f32 if op.endswith("F32") else i32
+        regs[dst] = fn(view(a), view(b)).astype(np.uint32)
+    elif op == "AND":
+        regs[dst] = ((regs[a] != 0) & (regs[b] != 0)).astype(np.uint32)
+    elif op == "OR":
+        regs[dst] = ((regs[a] != 0) | (regs[b] != 0)).astype(np.uint32)
+    elif op == "NOT":
+        regs[dst] = (regs[a] == 0).astype(np.uint32)
+    elif op == "I32_TO_F32":
+        regs[dst] = _bits(i32(a).astype(np.float32))
+    else:
+        return False
+    return True
+
+
+def _outputs(program, outs, table):
+    """Output columns: the stored registers, or the input tensors a batch
+    program's outputs pass through (``out_alias``)."""
+    alias = program.out_alias or (None,) * len(program.out_names)
+    stored = iter(outs)
+    cols = {}
+    for name, dtype, src in zip(program.out_names, program.out_dtypes, alias):
+        if src is not None:
+            cols[name] = table.columns[src]
+            continue
+        out = next(stored)
+        if dtype == torch.bool:
+            cols[name] = torch.from_numpy(out.astype(bool))
+        else:
+            np_dtype = np.float32 if dtype == torch.float32 else np.int32
+            cols[name] = torch.from_numpy(out.view(np_dtype).copy())
+    return cols
+
+
 def _emulate(program, table, probe):
     n = table.capacity
     ins = [table.columns[name].numpy() for name in program.in_names]
@@ -162,75 +237,90 @@ def _emulate(program, table, probe):
     regs = {}
     outs = [None] * len(program.out_names)
 
-    def f32(r):
-        return regs[r].view(np.float32)
-
-    def i32(r):
-        return regs[r].view(np.int32)
-
-    def bits(x):
-        return np.ascontiguousarray(x).view(np.uint32)
-
     with np.errstate(all="ignore"):
         for code, dst, a, b in program.code.tolist():
             op = _OP_NAMES[code]
-            if op == "LOAD32":
-                regs[dst] = bits(ins[a]).copy()
-            elif op == "LOAD8":
-                regs[dst] = (ins[a] != 0).astype(np.uint32)
-            elif op == "CONST":
-                regs[dst] = np.full(n, np.int32(a)).view(np.uint32)
-            elif op == "LOADB":
-                regs[dst] = ins[a][:, b].astype(np.uint32)
-            elif op == "STORE32":
+            if _step(op, dst, a, b, regs, ins, n):
+                continue
+            if op == "STORE32":
                 outs[dst] = regs[a].copy()
             elif op == "STORE8":
                 outs[dst] = regs[a] != 0
             elif op == "FILTER":
                 valid &= regs[a] != 0
-            elif op in ("ADD_I32", "SUB_I32", "MUL_I32"):
-                fn = {"ADD": np.add, "SUB": np.subtract, "MUL": np.multiply}
-                regs[dst] = fn[op[:3]](regs[a], regs[b]).astype(np.uint32)
-            elif op == "NEG_I32":
-                regs[dst] = (np.uint32(0) - regs[a]).astype(np.uint32)
-            elif op in ("ADD_F32", "SUB_F32", "MUL_F32", "DIV_F32"):
-                fn = {"ADD": np.add, "SUB": np.subtract, "MUL": np.multiply,
-                      "DIV": np.divide}
-                regs[dst] = bits(fn[op[:3]](f32(a), f32(b)).astype(np.float32))
-            elif op == "NEG_F32":
-                regs[dst] = regs[a] ^ np.uint32(0x80000000)
-            elif op[:2] in ("EQ", "NE", "LT", "LE", "GT", "GE"):
-                fn = {"EQ": np.equal, "NE": np.not_equal, "LT": np.less,
-                      "LE": np.less_equal, "GT": np.greater,
-                      "GE": np.greater_equal}[op[:2]]
-                view = f32 if op.endswith("F32") else i32
-                regs[dst] = fn(view(a), view(b)).astype(np.uint32)
-            elif op == "AND":
-                regs[dst] = ((regs[a] != 0) & (regs[b] != 0)).astype(np.uint32)
-            elif op == "OR":
-                regs[dst] = ((regs[a] != 0) | (regs[b] != 0)).astype(np.uint32)
-            elif op == "NOT":
-                regs[dst] = (regs[a] == 0).astype(np.uint32)
-            elif op == "I32_TO_F32":
-                regs[dst] = bits(i32(a).astype(np.float32))
             elif op == "PROBE":
                 tk, tv, max_probes, empty_key = probe
-                key = i32(a)
+                key = regs[a].view(np.int32)
                 hit, bidx = probe_numpy(tk, tv, key, max_probes, empty_key)
                 found = hit & valid & (key != empty_key)
             else:
                 raise AssertionError(f"emulator: unknown op {op}")
-    cols = {}
-    for name, dtype, out in zip(program.out_names, program.out_dtypes, outs):
-        if dtype == torch.bool:
-            cols[name] = torch.from_numpy(out.astype(bool))
-        else:
-            np_dtype = np.float32 if dtype == torch.float32 else np.int32
-            cols[name] = torch.from_numpy(out.view(np_dtype).copy())
-    out = TorchTable(cols, torch.from_numpy(valid), dict(program.out_schema))
+    out = TorchTable(_outputs(program, outs, table),
+                     torch.from_numpy(valid), dict(program.out_schema))
     if probe is None:
         return out, None, None
     return out, found, bidx
+
+
+def param_bits(params, n_members: int) -> list:
+    """Each slot's ``[B]`` parameter tensor as the kernel's int32 bits."""
+    rows = []
+    for p in params:
+        a = p.numpy()
+        a = a.astype(np.float32) if a.dtype.kind == "f" else a.astype(np.int32)
+        assert a.shape == (n_members,)
+        rows.append(a.view(np.uint32))
+    return rows
+
+
+def emulate_batch(program: "port_fused.Program", table: TorchTable, params,
+                  n_members: int):
+    """Run a batch program over a CPU ``table`` with one ``[B]`` tensor
+    per parameter slot as ``fused_batch.cu`` would -> ``(out_table, masks
+    bool[B, n])``; the output validity is the input's."""
+    assert program.batch
+    n = table.capacity
+    ins = [table.columns[name].numpy() for name in program.in_names]
+    bits = param_bits(params, n_members)
+    masks = np.tile(table.validity.numpy(), (n_members, 1))
+    regs = {}
+    outs = [None] * len(program.out_names)
+    code = program.code.tolist()
+    pc = 0
+    with np.errstate(all="ignore"):
+        while pc < len(code):
+            op, dst, a, b = _OP_NAMES[code[pc][0]], *code[pc][1:]
+            if op == "LOOP":
+                end = pc + a
+                assert _OP_NAMES[code[end][0]] == "LFILTER"
+                before = set(regs)
+                for lane in range(n_members):
+                    for c2, d2, a2, b2 in code[pc + 1:end]:
+                        op2 = _OP_NAMES[c2]
+                        if op2 == "PARAM":
+                            regs[d2] = np.full(n, bits[a2][lane], np.uint32)
+                        else:
+                            assert op2 not in ("LOOP", "LFILTER", "STORE32",
+                                               "STORE8", "FILTER", "PROBE")
+                            assert _step(op2, d2, a2, b2, regs, ins, n), op2
+                    masks[lane] &= regs[code[end][2]] != 0
+                for r in set(regs) - before:
+                    del regs[r]     # a read after the loop raises KeyError
+                pc = end + 1
+                continue
+            if _step(op, dst, a, b, regs, ins, n):
+                pass
+            elif op == "STORE32":
+                outs[dst] = regs[a].copy()
+            elif op == "STORE8":
+                outs[dst] = regs[a] != 0
+            else:
+                raise AssertionError(f"emulator: {op} in a batch program")
+            pc += 1
+    out = TorchTable(_outputs(program, [o for o in outs if o is not None],
+                              table),
+                     table.validity, dict(program.out_schema))
+    return out, torch.from_numpy(masks)
 
 
 def assert_tables_equal(got: TorchTable, want: TorchTable) -> None:
