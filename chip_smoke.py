@@ -67,7 +67,9 @@ In order it:
    global aggregate with a projection and low-cardinality group-by on
    lineitem, distinct literals a lane), against ``apply_batched_stages`` on
    the first lineitem or orders morsel, exact (columns, validity, masks),
-   plus n = 0, one lane, 64 lanes and a morsel of 999,999 rows, then timed;
+   plus n = 0, one lane, 64, 65 and 128 lanes (ceil(B / 64) launches, one
+   a run of the kernel's 64-lane word) and a morsel of 999,999 rows, then
+   timed;
    (b) eight client threads submit 96 such queries (32 a shape) to
    ``Session(device="cuda").submit`` with ``SchedulerConfig(batching=True,
    max_batch=32, max_concurrency=8, cache_results=False,
@@ -81,8 +83,22 @@ In order it:
    of ``examples/serve_queries.py`` (Q1, Q6, Q14, Q3, unoptimized) twice
    each without batching: each result must equal its phase 5 result, and
    every repeat must come from the result cache or coalesce;
-9. prints one ``{"kernels": [...]}`` line, then the card line again;
-10. prints as its last line ``{"ok": true, "device": {...}}``.
+9. attention: ``flash_attention`` against its plain version (TF32 off) on
+   edge cases (S = 128 with blocks 64 and 128, D = 40 and 1, B * H = 1 and
+   96, S = 96 and 1; S 192, block_q 96 and D 257 refused), then driven
+   through ``ops.flash_attention`` once a case, one launch each, at
+   qwen2-1.5B's attention width (``[1, 12, 4096, 128]`` causal in float32
+   and bfloat16, ``[1, 12, 32768, 128]`` causal in bfloat16, checked on
+   heads 0 and 11), ``[1, 16, 4096, 64]`` full in bfloat16 and ``[1, 2,
+   1024, D]`` causal for D = 160, 192 in both: float32 within 1e-4 at 4096
+   and 2e-5 at 1024, bfloat16 within 2e-2, and every case within
+   ``SCALED_ERROR_TOL`` of ``flash_attention.scaled_error``, the error in
+   units of each row's own size (a fixed limit is as large as the outputs
+   of a 32k row); then the kernel, the plain version and
+   ``scaled_dot_product_attention`` are timed, and the bound is operations
+   at the float32 rate or the card's dense bfloat16 rate;
+10. prints one ``{"kernels": [...]}`` line, then the card line again;
+11. prints as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without printing the last line. The script
 imports only the port, torch, numpy and the standard library; it fails when
@@ -92,17 +108,25 @@ per launch at the main path's shapes and one ``torch.profiler`` run of each
 query, whose device time by kernel (and trace) it writes into DIR, and
 after phase 7 one profiled W = 4 run of each query, and last one
 profiled run of phase 8's serving workload with and one without batching.
+``--attention`` runs phase 9 alone after the build and prints its kernels
+line and the card line, and no ok line. ``--faults`` runs it on the
+attention kernel as it is and then on copies, in a temporary directory,
+each with one fault planted (a K tile left out, early or late; V tiles
+not reloaded), and exits 0 only when the kernel passes and every fault
+is caught.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
 ``segmented_minmax``'s one ``scatter_reduce``, ``radix_histogram``'s one
 ``torch.bincount`` of the in-range ids; no PyTorch call evaluates a batch
-of predicate lanes, so ``fused_batch_program``'s is null.
+of predicate lanes, so ``fused_batch_program``'s is null;
+``flash_attention``'s is one ``scaled_dot_product_attention``.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -110,11 +134,16 @@ import subprocess
 import sys
 import time
 
-# memory rate of the card by name (bytes/s), from NVIDIA's data sheets; the
-# H100 SXM part is the default
-_MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+# memory rate of the card by name (bytes/s), from NVIDIA's data sheets,
+# then the H100 SXM part's for any other card
+_MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12),
+             ("", 3.35e12))
 # float32 rate outside the tensor cores (operations/s), H100 SXM data sheet
 _F32_RATE = 67e12
+# dense bfloat16 / float16 tensor-core rate of the card by name
+# (operations/s), from NVIDIA's data sheets, then the H100 SXM part's
+_BF16_RATE = (("H100 PCIe", 756e12), ("H100", 989.4e12), ("H200", 989.4e12),
+              ("", 989.4e12))
 _MAIN_ROWS = 1 << 20
 _SF = 1.0
 # the slices' first queries, then the rest of the 22
@@ -143,6 +172,22 @@ _LANES = 32
 _SERVING_QUERIES = 96
 _CLIENTS = 8
 _DASHBOARD = (1, 6, 14, 3)
+# phase 9: flash attention, (row, [B, H, S, D], dtype, causal, tolerance):
+# qwen2-1.5B's attention width (src/repro/configs/qwen2_1_5b.py: 12 heads
+# of 128) at the train_4k and prefill_32k shapes (src/repro/configs/base.py),
+# seamless_m4t_large_v2's encoder width (16 heads of 64, full), and the head
+# dims of pixtral_12b (160) and xlstm_125m (192)
+_ATTN_CASES = (
+    ("train_4k f32", (1, 12, 4096, 128), "float32", True, 1e-4),
+    ("train_4k bf16", (1, 12, 4096, 128), "bfloat16", True, 2e-2),
+    ("prefill_32k bf16", (1, 12, 32768, 128), "bfloat16", True, 2e-2),
+    ("encoder_4k bf16 full", (1, 16, 4096, 64), "bfloat16", False, 2e-2),
+    ("d160 f32", (1, 2, 1024, 160), "float32", True, 2e-5),
+    ("d160 bf16", (1, 2, 1024, 160), "bfloat16", True, 2e-2),
+    ("d192 f32", (1, 2, 1024, 192), "float32", True, 2e-5),
+    ("d192 bf16", (1, 2, 1024, 192), "bfloat16", True, 2e-2),
+)
+_ATTN_SEED = 2024
 
 
 def fail(msg: str) -> None:
@@ -159,11 +204,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def mem_rate(name: str) -> float:
-    for key, rate in _MEM_RATE:
-        if key in name:
-            return rate
-    return 3.35e12
+def by_name(table, name: str) -> float:
+    """The rate of the first entry of ``table`` whose key is in the card's
+    ``name`` (the last entry's key, "", is in every name)."""
+    return next(rate for key, rate in table if key in name)
 
 
 def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
@@ -181,9 +225,12 @@ def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float, rate: float):
+def bound_ms(nbytes: float, ops: float, rate: float, op_rate: float = _F32_RATE):
+    """The least time for ``nbytes`` at the memory ``rate`` and ``ops`` at
+    ``op_rate`` (the float32 rate unless a tensor-core kernel says
+    otherwise): (ms, "bytes" or "operations")."""
     t_bytes = nbytes / rate * 1e3
-    t_ops = ops / _F32_RATE * 1e3
+    t_ops = ops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -953,10 +1000,12 @@ def run_main_path(torch, data, catalog):
         if q == 22 and not counts["fused_morsel_program"]:
             fail("Q22: its PrefixCode stages did not run in the fused kernel")
         launches[q], results[q] = counts, got
-    # radix_histogram serves the exchange (phase 7 holds it) and
-    # fused_batch_program the scheduler's stacked launches (phase 8)
+    # radix_histogram serves the exchange (phase 7 holds it),
+    # fused_batch_program the scheduler's stacked launches (phase 8) and
+    # flash_attention no query (phase 9 drives it)
     for k in ops.KERNELS:
-        later = k in ("radix_histogram", "fused_batch_program")
+        later = k in ("radix_histogram", "fused_batch_program",
+                      "flash_attention")
         if not later and not any(c[k] for c in launches.values()):
             fail(f"kernel {k} was not launched by the main path")
         if later and any(c[k] for c in launches.values()):
@@ -1215,19 +1264,22 @@ def _batch_ops(fused, program, lanes):
 def check_batch(torch, fused, catalog, data, rate):
     """fused_batch_program against apply_batched_stages on the card for the
     three serving programs: 32 lanes on the first morsel of the program's
-    table, then n = 0, one lane, 64 lanes and a morsel of 999,999 rows;
-    columns, validity and masks exact. Then timed at 32 lanes."""
+    table, then n = 0, one lane, 64, 65 and 128 lanes and a morsel of
+    999,999 rows; columns, validity and masks exact, and ceil(B / 64)
+    launches (one a run of the kernel's 64-lane word). Then timed at 32
+    lanes."""
     from repro_torch.core import batch
     from repro_torch.core.builder import QueryBuilder
     from repro_torch.core.expr import col
     from repro_torch.core.table import TorchTable
+    from repro_torch.kernels import ops as kops
 
     keys = data["orders"]["o_orderkey"]
     rows_out, launchers = [], {}
     for shape in _SHAPES:
         shapes = [batch.extract_shape(small_query(
             QueryBuilder, col, catalog, keys, shape, j).optimized())
-            for j in range(64)]
+            for j in range(128)]
         prog = shapes[0].program
         if any(s is None or s.program is not prog for s in shapes):
             fail(f"fused_batch_program[{shape}]: the queries do not share "
@@ -1247,13 +1299,17 @@ def check_batch(torch, fused, catalog, data, rate):
         def run(table, lanes):
             params = batch._params(prog, shapes[:lanes], lanes, table.device)
             lowered = prog.lowered(table)
+            kops.reset_launch_counts()
             got, masks = fused.fused_batch_program(
                 table, prog.pre_stages, params, lanes, program=lowered)
+            launched = kops.launch_counts()["fused_batch_program"]
             want, want_masks = fused.apply_batched_stages(
                 table, prog.pre_stages, params, lanes)
             torch.cuda.synchronize()
             what = f"fused_batch_program[{shape}] n={table.capacity} " \
                    f"B={lanes}"
+            if launched != (-(-lanes // 64) if table.capacity else 0):
+                fail(f"{what}: {launched} launches")
             if not torch.equal(masks, want_masks):
                 fail(f"{what}: masks differ from apply_batched_stages "
                      f"({int((masks != want_masks).sum())} bytes)")
@@ -1266,14 +1322,15 @@ def check_batch(torch, fused, catalog, data, rate):
             return lowered, params, masks
 
         for table, lanes in ((empty, _LANES), (full, 1), (full, 64),
-                             (odd, _LANES)):
+                             (full, 65), (full, 128), (odd, _LANES)):
             run(table, lanes)
         lowered, params, masks = run(full, _LANES)
         live = float(masks.float().mean())
         print(f"check fused_batch_program[{shape}] rows={full.capacity} "
               f"lanes={_LANES}: {lowered.code.shape[0]} instructions, "
               f"{lowered.n_regs} registers, live share {live:.5f}, exact "
-              f"(and n=0, B=1, B=64, n=999999)", flush=True)
+              f"(and n=0, B=1, B=64, B=65 and B=128 in 2 launches, "
+              f"n=999999)", flush=True)
         name = f"fused_batch_program[{shape}]"
         launchers[name] = (lambda t=full, p=params, lw=lowered, st=prog:
                            fused.fused_batch_program(
@@ -1534,6 +1591,260 @@ def run_dashboard(torch, catalog, w1_results):
           f"stats {json.dumps(stats)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: flash attention at qwen2-1.5B's attention width
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(torch, shape, dtype, seed):
+    """q, k, v of ``shape`` drawn with numpy from ``seed``, on the card."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to("cuda", getattr(torch, dtype)) for _ in range(3)]
+
+
+def _attn_errs(fa, got, q, k, v, causal, heads=None):
+    """(max |kernel - plain|, ``scaled_error``) over all heads, or over
+    ``heads`` one at a time (the plain version of a 32k head holds 4.3 GB of
+    scores)."""
+    err = scaled = 0.0
+    for sl in ([slice(None)] if heads is None else
+               [slice(h, h + 1) for h in heads]):
+        want = fa.flash_attention_plain(q[:, sl], k[:, sl], v[:, sl], causal)
+        err = max(err, float((got[:, sl].float() - want.float()).abs().max()))
+        scaled = max(scaled, fa.scaled_error(got[:, sl], want, v[:, sl],
+                                             causal))
+    return err, scaled
+
+
+def _attn_verdict(fa, what, err, scaled, tol, failures):
+    """Holds one case's readings to both limits: ``tol`` on max |kernel -
+    plain| and ``SCALED_ERROR_TOL`` on ``scaled_error``, which a fixed
+    absolute limit cannot replace (PERF.md). A miss goes into
+    ``failures``."""
+    if not err <= tol:
+        failures.append(f"{what}: max |kernel - plain| {err:.3g} > {tol}")
+    if not scaled <= fa.SCALED_ERROR_TOL:
+        failures.append(f"{what}: scaled error {scaled:.3g} > "
+                        f"{fa.SCALED_ERROR_TOL}")
+
+
+def check_attention_edges(torch, fa, kops, failures):
+    """Edge cases of the attention kernel against its plain version, one
+    launch a call: S = 128 with blocks (64, 128); D = 40 and D = 1 (no
+    16-byte rows); B * H = 1 and 96; S = 96 and S = 1 (rows that fill no
+    tile); and what the wrapper refuses with no launch: S that does not
+    divide by the blocks, D = 257."""
+    cases = [((1, 2, 128, 64), True, dict(block_q=64, block_k=128)),
+             ((1, 2, 256, 40), True, {}), ((1, 2, 256, 1), False, {}),
+             ((1, 1, 256, 64), True, {}), ((8, 12, 256, 64), True, {}),
+             ((1, 2, 96, 64), True, dict(block_q=32, block_k=32)),
+             ((1, 3, 1, 64), False, {})]
+    worst = {}
+    for i, (shape, causal, blocks) in enumerate(cases):
+        for dtype, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+            q, k, v = _attn_inputs(torch, shape, dtype, 100 + i)
+            kops.reset_launch_counts()
+            got = fa.flash_attention(q, k, v, causal=causal, **blocks)
+            torch.cuda.synchronize()
+            launched = kops.launch_counts()["flash_attention"]
+            err, scaled = _attn_errs(fa, got, q, k, v, causal)
+            what = f"flash_attention {list(shape)} {dtype} causal={causal}"
+            if launched != 1:
+                failures.append(f"{what}: {launched} launches")
+            _attn_verdict(fa, what, err, scaled, tol, failures)
+            old = worst.get(dtype, (0.0, 0.0))
+            worst[dtype] = (max(old[0], err), max(old[1], scaled))
+    kops.reset_launch_counts()
+    for shape, blocks, want in (((1, 1, 192, 64), {}, "S 192, blocks 128"),
+                                ((1, 1, 256, 64), dict(block_q=96),
+                                 "S 256, block_q 96"),
+                                ((1, 1, 128, 257), {}, "D 257")):
+        q = torch.zeros(shape, device="cuda")
+        try:
+            fa.flash_attention(q, q, q, **blocks)
+        except ValueError:
+            continue
+        failures.append(f"flash_attention: {want} was not refused")
+    if kops.launch_counts()["flash_attention"]:
+        failures.append("flash_attention: a refused call launched")
+    print(f"check flash_attention edges: {len(cases)} shapes, one launch "
+          "each; worst (max |kernel - plain|, scaled error): " + ", ".join(
+              f"{dt} ({e:.3g}, {sc:.3g})" for dt, (e, sc) in worst.items())
+          + "; S 192, block_q 96 and D 257 refused", flush=True)
+
+
+def run_attention(torch, fa, kops, rate, name):
+    """Phase 9: ``ops.flash_attention`` at qwen2-1.5B's attention width
+    (12 heads of 128; K and V at 12 heads, as a GQA caller passes them
+    once it has expanded its 2 KV heads), seamless' encoder width and the
+    head dims 160 and 192. Each case is driven once through the entry point
+    with the launch counters set to 0 just before and read just after (one
+    launch of the kernel and nothing else), then held against the plain
+    version, then the kernel, the plain version and
+    ``scaled_dot_product_attention`` (``library_ms``, a yardstick the port
+    never calls) are timed. TF32 is off for the whole phase, edge cases
+    included, and set back after it. Every case is checked and printed
+    before the phase fails on any miss."""
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        failures = []
+        check_attention_edges(torch, fa, kops, failures)
+        rows_out, launchers = _attention_cases(torch, fa, kops, rate, name,
+                                               failures)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    if failures:
+        fail("; ".join(failures))
+    return rows_out, launchers
+
+
+def _attention_cases(torch, fa, kops, rate, name, failures):
+    """``_ATTN_CASES`` for ``run_attention``: (rows of the kernels line,
+    the timed launchers)."""
+    import torch.nn.functional as F
+    rows_out, launchers = [], {}
+    for i, (case, shape, dtype, causal, tol) in enumerate(_ATTN_CASES):
+        q, k, v = _attn_inputs(torch, shape, dtype, _ATTN_SEED + i)
+        row = f"flash_attention[{case}]"
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        got = kops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        if counts["flash_attention"] != 1 or sum(counts.values()) != 1:
+            failures.append(f"{row}: launches {counts}, want one "
+                            "flash_attention")
+        if got.shape != q.shape or got.dtype != q.dtype or \
+                not bool(torch.isfinite(got).all()):
+            fail(f"{row}: {got.dtype}{tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        heads = (0, shape[1] - 1) if shape[2] > 8192 else None
+        err, scaled = _attn_errs(fa, got, q, k, v, causal, heads)
+        _attn_verdict(fa, row, err, scaled, tol, failures)
+        del got
+        big = heads is not None
+        launchers[row] = (lambda q=q, k=k, v=v, c=causal:
+                          fa.flash_attention(q, k, v, causal=c))
+        ms = time_ms(torch, launchers[row], reps=5 if big else 20)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal), reps=2 if big else 5, warm=1)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), reps=5 if big else 20)
+        b, h, s, d = shape
+        elt = q.element_size()
+        flops = 4 * b * h * s * s * d / (2 if causal else 1)
+        op_rate = _F32_RATE if dtype == "float32" else by_name(_BF16_RATE,
+                                                               name)
+        bound, by = bound_ms(4 * b * h * s * d * elt, flops, rate, op_rate)
+        rows_out.append(dict(
+            name=row, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:71",
+            launches=counts["flash_attention"], max_abs_err=err,
+            scaled_err=scaled, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=library_ms))
+        over = f"heads {heads}" if heads else "all heads"
+        print(f"check {row} {list(shape)} causal={causal}: max |kernel - "
+              f"plain| {err:.3g} (tol {tol}), scaled error {scaled:.3g} "
+              f"(tol {fa.SCALED_ERROR_TOL}) over {over}, {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+              flush=True)
+    return rows_out, launchers
+
+
+# ---------------------------------------------------------------------------
+# --faults: planted faults in the attention kernel against phase 9's checks
+# ---------------------------------------------------------------------------
+
+def _skip_k_tile(t: int):
+    """K tile ``t`` is left out of every row that reads it."""
+    return [("const bool masked = k0 + BK > s",
+             f"const bool masked = kt == {t} || k0 + BK > s", 1),
+            ("if (col >= s || (causal && col > row)) x = kNegInf;",
+             f"if (kt == {t} || col >= s || (causal && col > row)) "
+             "x = kNegInf;", 2)]
+
+
+# fault -> (text, replacement, count) edits of csrc/flash_attention.cu;
+# each is planted in both the float32 and the mma kernel
+_FAULTS = {
+    "skip_k_tile_5": _skip_k_tile(5),
+    # only rows past 25,600 of a 32k head read it: their outputs are near
+    # 0.01, so the fault moves them by less than 2e-2
+    "skip_k_tile_400": _skip_k_tile(400),
+    # the V tiles after tile 8 are not loaded: they read tile 8's values
+    "stale_v_after_tile_8": [
+        ("if (kt + 1 < last) mma_tile<DP>(Vs, vh,",
+         "if (kt + 1 < last && kt < 8) mma_tile<DP>(Vs, vh,", 1),
+        ("f32_tile<DP>(KV, v + base, k0, s, d);",
+         "f32_tile<DP>(KV, v + base, min(k0, 8 * kF32Rows), s, d);", 1)],
+}
+_ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
+                        "flash_attention.cu")
+
+
+def _attention_only(root: str) -> dict:
+    """``chip_smoke.py --attention`` in ``root``: its exit code, each case's
+    [max |kernel - plain|, scaled error] and its failure message."""
+    import re
+    case = re.compile(r"^check (flash_attention\[[^\]]+\]) .*max \|kernel"
+                      r" - plain\| (\S+) \(tol .*scaled error (\S+) \(tol")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--attention"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=900)
+    cases = {}
+    for line in out.stdout.splitlines():
+        if line.startswith("check flash_attention"):
+            print(line, flush=True)
+        m = case.match(line)
+        if m:
+            cases[m.group(1)] = [float(m.group(2)), float(m.group(3))]
+    failed = [ln for ln in out.stderr.splitlines() if "FAILED" in ln]
+    print(f"rc {out.returncode} {failed[-1] if failed else ''}", flush=True)
+    return {"rc": out.returncode, "cases": cases,
+            "failed": failed[-1] if failed else None}
+
+
+def run_faults(here: str) -> int:
+    """``--faults``: phase 9 alone on the kernel as it is, then once for
+    each fault of ``_FAULTS`` in a copy of ``chip_smoke.py`` and
+    ``src/repro_torch`` in a temporary directory, with the fault planted in
+    the copy's ``flash_attention.cu``. Prints each run's check lines and,
+    last, ``{run: {"rc", "cases", "failed"}}``; returns 0 when the kernel
+    as it is passes and every fault fails."""
+    import shutil
+    import tempfile
+    print("== as it is", flush=True)
+    results = {"as_it_is": _attention_only(here)}
+    for fault, edits in _FAULTS.items():
+        tmp = tempfile.mkdtemp(prefix="attention_fault_")
+        try:
+            shutil.copy(os.path.join(here, "chip_smoke.py"), tmp)
+            shutil.copytree(os.path.join(here, "src", "repro_torch"),
+                            os.path.join(tmp, "src", "repro_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            path = os.path.join(tmp, _ATTN_CU)
+            with open(path) as f:
+                text = f.read()
+            for old, new, count in edits:
+                if text.count(old) != count:
+                    fail(f"{fault}: {old!r} occurs {text.count(old)} "
+                         f"times, want {count}")
+                text = text.replace(old, new)
+            with open(path, "w") as f:
+                f.write(text)
+            print(f"== {fault}", flush=True)
+            results[fault] = _attention_only(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps(results), flush=True)
+    caught = all(r["rc"] != 0 for k, r in results.items() if k != "as_it_is")
+    return 0 if results["as_it_is"]["rc"] == 0 and caught else 1
+
+
 _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "fused_batch_kernel",
                  "hash_build_claim_kernel", "hash_build_place_kernel",
@@ -1541,7 +1852,8 @@ _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "fill_kernel", "keys_to_f32_kernel", "block_count_kernel",
                  "scan_block_sums_kernel", "positions_kernel",
                  "hash_probe_multi_kernel", "histogram_shared_kernel",
-                 "histogram_global_kernel")
+                 "histogram_global_kernel", "attn_f32_kernel",
+                 "attn_mma_kernel")
 
 
 def _device_events(prof):
@@ -1585,7 +1897,8 @@ def profile_kernels(torch, launchers, reps: int = 20):
               "hash_probe_multi": ("hash_probe_multi_kernel",),
               "radix_histogram": ("histogram_shared_kernel",
                                   "histogram_global_kernel"),
-              "fused_batch_program": ("fused_batch_kernel",)}
+              "fused_batch_program": ("fused_batch_kernel",),
+              "flash_attention": ("attn_f32_kernel", "attn_mma_kernel")}
     out = {}
     for name, fn in launchers.items():
         key = name.partition("[")[0]
@@ -1671,6 +1984,15 @@ def main() -> None:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the 22 queries and write the "
                          "summaries and (gzipped) traces into DIR")
+    ap.add_argument("--attention", action="store_true",
+                    help="run phase 9 alone (the attention kernel's "
+                         "checks and times) and print its kernels line; "
+                         "prints no ok line")
+    ap.add_argument("--faults", action="store_true",
+                    help="run phase 9 alone on the attention kernel as it "
+                         "is and with each of three planted faults, in "
+                         "temporary copies; exits 0 when every fault is "
+                         "caught")
     args = ap.parse_args()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1678,6 +2000,8 @@ def main() -> None:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail("src/repro_torch is not beside chip_smoke.py; run it from a "
              "checkout of the repository")
+    if args.faults:
+        sys.exit(run_faults(here))
     sys.path.insert(0, src)
     import torch
     if not torch.cuda.is_available():
@@ -1688,6 +2012,7 @@ def main() -> None:
     from repro_torch.kernels import block_prefix_sum as bps
     from repro_torch.kernels import build
     from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import radix_histogram as rh
     from repro_torch.kernels import segmented_agg as seg
     from repro_torch.tpch import dbgen, queries, schema
@@ -1695,14 +2020,22 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
-    rate = mem_rate(name)
+    rate = by_name(_MEM_RATE, name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}"
-          f" memory rate {rate:.3g} B/s", flush=True)
+          f" memory rate {rate:.3g} B/s, dense bfloat16 rate "
+          f"{by_name(_BF16_RATE, name):.4g} op/s", flush=True)
 
     t0 = time.perf_counter()
     secs = build.build_all()
     print(f"build: {json.dumps(secs)} total {time.perf_counter() - t0:.3f} s",
           flush=True)
+    # the module (the package's attribute of that name is the function)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    if args.attention:
+        attn_rows, _ = run_attention(torch, fa, kops, rate, name)
+        print(json.dumps({"kernels": attn_rows}))
+        print(card)
+        return
 
     t0 = time.perf_counter()
     data = dbgen.generate(_SF)
@@ -1751,6 +2084,12 @@ def main() -> None:
     batch_launches, serving_builders = run_serving(torch, catalog, data)
     run_dashboard(torch, catalog, results)
     print(f"phase 8 (serving): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    attn_rows, attn_launchers = run_attention(torch, fa, kops, rate, name)
+    rows_out += attn_rows
+    launchers.update(attn_launchers)
+    print(f"phase 9 (attention): {time.perf_counter() - t0:.1f} s",
+          flush=True)
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:
@@ -1762,6 +2101,8 @@ def main() -> None:
         # with every scheduler and prefetch thread joined
         profile_serving(torch, catalog, serving_builders, args.profile)
     for r in rows_out:
+        if "launches" in r:   # phase 9 counted its own path
+            continue
         if r["name"].startswith("fused_batch_program["):
             # this program's stacked launches in the serving run
             r["launches"] = batch_launches[r["name"][20:-1]]

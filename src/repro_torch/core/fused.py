@@ -675,8 +675,9 @@ def fused_batch_program(table: TorchTable, stages: Sequence[Stage],
     ``params`` is a tuple of ``[n_members]`` tensors, one per parameter
     slot, on the table's device. For a CUDA table this launches
     ``kernels/csrc/fused_batch.cu`` with ``program`` (or the stages lowered
-    now with ``lower_stages(..., batch=True)``); for a CPU table it runs
-    ``apply_batched_stages``.
+    now with ``lower_stages(..., batch=True)``) once for each run of at most
+    ``kMaxLanes`` (64) lanes, the kernel's lane word; for a CPU table it
+    runs ``apply_batched_stages``. Any ``n_members >= 1`` is taken.
     """
     kernel_ops.mark_kernel("fused_batch")
     if not table.validity.is_cuda:
@@ -717,9 +718,9 @@ def _launch_batch(program: Program, table: TorchTable, params: Tuple,
                   n_members: int):
     dev = table.device
     n = table.capacity
-    if not 1 <= n_members <= LIMITS["kMaxLanes"]:
-        raise ValueError(f"fused_batch_program: {n_members} lanes; the "
-                         f"kernel takes 1 to {LIMITS['kMaxLanes']}")
+    if n_members < 1:
+        raise ValueError(f"fused_batch_program: {n_members} lanes; it "
+                         "takes at least one")
     if table.validity.dtype != torch.bool or table.validity.dim() != 1:
         raise TypeError("fused_batch_program: validity must be bool[n]")
     ins = []
@@ -752,14 +753,23 @@ def _launch_batch(program: Program, table: TorchTable, params: Tuple,
         out_ptrs = (ctypes.c_uint64 * max(len(stored), 1))(
             *[t.data_ptr() for t in stored])
         code = program.code.contiguous()
-        rc = fn(code.data_ptr(), code.shape[0], in_ptrs, in_widths, len(ins),
-                out_ptrs, len(stored),
-                None if bits is None else bits.data_ptr(),
-                len(program.param_dtypes), n_members, valid_in.data_ptr(),
-                masks.data_ptr(), n,
-                torch.cuda.current_stream(dev).cuda_stream)
-        build.check(_BATCH_LIB, rc, "fused_batch_program")
-        kernel_ops.count_launch("fused_batch_program")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # one launch per run of at most kMaxLanes lanes, each with its
+        # slice of the parameters and its rows of the masks; every launch
+        # computes the lane-invariant stored columns and writes the same
+        # values, so any one of them leaves them right
+        width = LIMITS["kMaxLanes"]
+        for lo in range(0, n_members, width):
+            lanes = min(width, n_members - lo)
+            part = None if bits is None else \
+                bits[:, lo:lo + lanes].contiguous()
+            rc = fn(code.data_ptr(), code.shape[0], in_ptrs, in_widths,
+                    len(ins), out_ptrs, len(stored),
+                    None if part is None else part.data_ptr(),
+                    len(program.param_dtypes), lanes, valid_in.data_ptr(),
+                    masks[lo:lo + lanes].data_ptr(), n, stream)
+            build.check(_BATCH_LIB, rc, "fused_batch_program")
+            kernel_ops.count_launch("fused_batch_program")
     it = iter(stored)
     cols = {name: (table.columns[alias] if alias is not None else next(it))
             for name, alias in zip(program.out_names, program.out_alias)}

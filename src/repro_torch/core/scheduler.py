@@ -57,7 +57,6 @@ from typing import Dict, List, Optional, Tuple
 
 from ..kernels import segmented_agg as _segagg
 from . import batch as _batch
-from . import fused as _fused
 from . import plan as P
 from .driver import Driver, empty_executor_stats
 from .optimizer import estimate_memory_breakdown, optimize
@@ -607,11 +606,11 @@ class QueryScheduler:
         return members
 
     def _batch_limit(self, program) -> int:
-        """Per-program member cap for one stacked launch: ``max_batch``
-        (at most the 64 lanes ``fused_batch_program`` takes), tightened
-        for keyed aggregations to ``stacked_group_capacity`` (the
-        reference's bound, a batch-size policy in the port)."""
-        limit = min(self.config.max_batch, _fused.LIMITS["kMaxLanes"])
+        """Per-program member cap for one stacked execution: ``max_batch``,
+        tightened for keyed aggregations to ``stacked_group_capacity`` (the
+        reference's bound, a batch-size policy in the port).
+        ``fused_batch_program`` takes any number of lanes."""
+        limit = self.config.max_batch
         if program.group_keys:
             limit = min(limit,
                         _segagg.stacked_group_capacity(program.max_groups))

@@ -25,7 +25,10 @@
 //   intermediate stays in the thread's registers; filters never narrow the
 //   validity (the shared projections are validity-blind), they AND into
 //   the row's lane mask.
-// * The row's live lanes are one 64-bit word (B <= 64). A filter stage is
+// * The row's live lanes are one 64-bit word, so a launch takes at most 64
+//   lanes; the host launches once per run of 64 lanes of a wider batch,
+//   each with its slice of the parameters and its rows of the masks (every
+//   launch writes the same lane-invariant stored columns). A filter stage is
 //   LOOP, a body, LFILTER: the lane-invariant parts of the predicate are
 //   computed once before the LOOP (the host hoists them), and the body,
 //   with its PARAM loads of the lane's parameters, runs only for the lanes

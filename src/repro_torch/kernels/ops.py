@@ -17,6 +17,10 @@ Two kinds of counts are kept:
   integer per kernel wrapper, raised only where a CUDA kernel is actually
   launched. A run on the card reads them to show that its main path went
   through the kernels.
+
+``flash_attention`` is the public entry point of the attention kernel, as
+the reference's ``ops.flash_attention`` is: it records the kind
+``attention`` and forwards to ``kernels.flash_attention``.
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ def table_op(fn):
 KERNELS = ("fused_morsel_program", "segmented_sum", "segmented_int_sum",
            "build_table", "hash_probe", "fused_morsel_probe",
            "segmented_minmax", "block_prefix_sum", "hash_probe_multi",
-           "radix_histogram", "fused_batch_program")
+           "radix_histogram", "fused_batch_program", "flash_attention")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
 
@@ -123,3 +127,16 @@ def launch_counts() -> Dict[str, int]:
     """Kernel name -> CUDA launches since the last reset."""
     with _launch_lock:
         return dict(_launches)
+
+
+# ---------------------------------------------------------------------------
+# public kernel entry points
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, causal=True, **kw):
+    """Blocked flash attention: [B, H, S, D] -> [B, H, S, D]; ``kw`` are
+    ``block_q`` and ``block_k`` (see ``kernels.flash_attention``)."""
+    from .flash_attention import flash_attention as _flash
+    mark_kernel("attention")
+    return _flash(q, k, v, causal=causal, **kw)

@@ -209,7 +209,9 @@ def test_stacked_group_capacity_bound():
 # the kernel's function: port (plain) against the reference (interpret)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("lanes", [1, 4, 16])
+# 65 and 128: more lanes than the CUDA kernel's 64-bit lane word, which
+# the card runs as ceil(B / 64) launches
+@pytest.mark.parametrize("lanes", [1, 4, 16, 65, 128])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_fused_batch_program_matches_reference(shape, lanes):
     ref_shapes, shapes = _shapes(shape, lanes)

@@ -461,7 +461,7 @@ def _batch_case(n: int, lanes: int):
 
 
 @pytest.mark.parametrize("n", [0, 1000, 1 << 20])
-@pytest.mark.parametrize("lanes", [1, 2, 32, 64])
+@pytest.mark.parametrize("lanes", [1, 2, 32, 64, 65, 128])
 def test_fused_batch_kernel_on_card(cuda, lanes, n):
     host, stages, params = _batch_case(n, lanes)
     want, want_masks = fused.apply_batched_stages(host, stages, params, lanes)
@@ -471,7 +471,9 @@ def test_fused_batch_kernel_on_card(cuda, lanes, n):
     got, masks = fused.fused_batch_program(
         dev, stages, tuple(p.to(cuda) for p in params), lanes)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_batch_program"] == (1 if n else 0)
+    # one launch per run of the kernel's 64 lanes
+    assert ops.launch_counts()["fused_batch_program"] == (
+        -(-lanes // 64) if n else 0)
     assert got.validity is dev.validity
     np.testing.assert_array_equal(masks.cpu().numpy(), want_masks.numpy())
     got = TorchTable({k: a.cpu() for k, a in got.columns.items()},
@@ -484,9 +486,9 @@ def test_fused_batch_kernel_rejects_wrong_inputs(cuda):
     dev = TorchTable({k: a.to(cuda) for k, a in host.columns.items()},
                      host.validity.to(cuda), host.schema)
     on_card = tuple(p.to(cuda) for p in params)
-    with pytest.raises(ValueError):     # 65 lanes: more than the kernel takes
+    with pytest.raises(ValueError):     # no lane
         fused.fused_batch_program(dev, stages, tuple(
-            p.repeat(33)[:65] for p in on_card), 65)
+            p[:0] for p in on_card), 0)
     with pytest.raises(ValueError):     # parameters on the host
         fused.fused_batch_program(dev, stages, params, 2)
 
@@ -572,3 +574,70 @@ def test_serving_workload_on_card_matches_cpu(cuda):
     for i, (g, w) in enumerate(zip(got, want)):
         assert sorted(g) == sorted(w), i
         assert_results_match(g, w, i)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# float32 within 2e-5 (FFMA, no TF32), bfloat16 and float16 within 2e-2 (P
+# rounds to the input dtype before P V, as the oracle's probs do); every
+# dtype also within SCALED_ERROR_TOL of scaled_error, which scales with each
+# row's own size where the fixed limit does not
+_ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
+_ATTN_CASES = (
+    # the CPU tests' grid (the reference's own)
+    [(1, 1, 128, 64, c) for c in (True, False)]
+    + [(2, 2, 256, 64, c) for c in (True, False)]
+    + [(1, 2, 256, 128, c) for c in (True, False)]
+    # the repository's head dims, and the kernel's widest tile
+    + [(1, 2, 256, d, True) for d in (64, 128, 160, 192, 256)]
+    # rows and head dims that fill no tile: S = 96, 1; D = 40, 1
+    + [(1, 2, 96, 64, True), (1, 3, 1, 64, False), (1, 2, 256, 40, True),
+       (1, 2, 256, 1, False), (8, 12, 256, 64, True)])
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("b,h,s,d,causal", _ATTN_CASES)
+def test_flash_attention_on_card(no_tf32, b, h, s, d, causal, dtype):
+    from repro_torch.kernels.flash_attention import (
+        SCALED_ERROR_TOL, flash_attention, flash_attention_plain,
+        scaled_error)
+    rng = np.random.default_rng(b * 1000 + s + d)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, h, s, d)).astype(
+        np.float32)).to(no_tf32, getattr(torch, dtype)) for _ in range(3))
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, block_q=min(s, 32),
+                          block_k=min(s, 32))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = flash_attention_plain(q, k, v, causal)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _ATTN_TOL[dtype], err
+    scaled = scaled_error(got, want, v, causal)
+    assert scaled <= SCALED_ERROR_TOL, scaled
+
+
+def test_flash_attention_rejects_wrong_inputs_on_card(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros((1, 1, 192, 64), device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError):     # S does not divide by the blocks
+        flash_attention(q, q, q)
+    wide = torch.zeros((1, 1, 128, 257), device=cuda)
+    with pytest.raises(ValueError):     # D above the kernel's 256
+        flash_attention(wide, wide, wide)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):     # k on the host
+        flash_attention(q, q.cpu(), q)
+    assert ops.launch_counts()["flash_attention"] == 0

@@ -19,6 +19,8 @@ import types
 import numpy as np
 import pytest
 
+from repro.core.scheduler import QueryScheduler as RefScheduler
+from repro.core.scheduler import SchedulerConfig as RefSchedulerConfig
 from repro.tpch import dbgen as ref_dbgen
 
 from torch_diff import port_catalog
@@ -206,9 +208,11 @@ def test_batch_limit_caps_keyed_programs(catalog):
                                  max_groups=segagg.STACKED_GROUP_LIMIT + 1)
     assert sch._batch_limit(over) == 1
     sch.close()
-    # at most the 64 lanes the CUDA kernel takes, whatever max_batch says
+    # max_batch, as in the reference, above the CUDA kernel's 64-lane word
+    # too (fused_batch_program launches once per run of 64 lanes)
     wide = _session(catalog, max_batch=128).scheduler()
-    assert wide._batch_limit(glob) == 64
+    ref = RefScheduler(None, RefSchedulerConfig(max_batch=128))
+    assert wide._batch_limit(glob) == 128 == ref._batch_limit(glob)
     wide.close()
 
 
