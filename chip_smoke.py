@@ -94,7 +94,10 @@ In order it:
    and 2e-5 at 1024, bfloat16 within 2e-2, and every case within
    ``SCALED_ERROR_TOL`` of ``flash_attention.scaled_error``, the error in
    units of each row's own size (a fixed limit is as large as the outputs
-   of a 32k row); then the kernel, the plain version and
+   of a 32k row); one profiled call of each case names the kernels it ran,
+   which must be ``attn_f32_kernel`` in float32 and ``attn_wgmma_kernel``
+   in bfloat16, with ``attn_combine_kernel`` at D = 160 and 192 (16 CTAs,
+   which the kernel splits over K); then the kernel, the plain version and
    ``scaled_dot_product_attention`` are timed, and the bound is operations
    at the float32 rate or the card's dense bfloat16 rate;
 10. prints one ``{"kernels": [...]}`` line, then the card line again;
@@ -104,16 +107,19 @@ Any failed phase exits non-zero without printing the last line. The script
 imports only the port, torch, numpy and the standard library; it fails when
 ``torch.cuda.is_available()`` is false or when ``src/repro_torch`` is not
 beside it. ``--profile DIR`` adds, after phase 5, each kernel's device time
-per launch at the main path's shapes and one ``torch.profiler`` run of each
+per launch at the main path's shapes and the kernels a call launches
+(``block_prefix_sum`` must be one, beside its memset), then one
+``torch.profiler`` run of each
 query, whose device time by kernel (and trace) it writes into DIR, and
 after phase 7 one profiled W = 4 run of each query, and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line. ``--faults`` runs it on the
-attention kernel as it is and then on copies, in a temporary directory,
-each with one fault planted (a K tile left out, early or late; V tiles
-not reloaded), and exits 0 only when the kernel passes and every fault
-is caught.
+attention kernels as they are and then on copies, in a temporary
+directory, each with one fault planted (a K tile left out, early or late;
+V tiles not reloaded; the split over K's combine dropping a split), and
+exits 0 only when the kernels pass and every fault is caught, the late K
+tile at ``prefill_32k`` and the dropped split at D = 160 and 192.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
@@ -172,20 +178,27 @@ _LANES = 32
 _SERVING_QUERIES = 96
 _CLIENTS = 8
 _DASHBOARD = (1, 6, 14, 3)
-# phase 9: flash attention, (row, [B, H, S, D], dtype, causal, tolerance):
-# qwen2-1.5B's attention width (src/repro/configs/qwen2_1_5b.py: 12 heads
-# of 128) at the train_4k and prefill_32k shapes (src/repro/configs/base.py),
-# seamless_m4t_large_v2's encoder width (16 heads of 64, full), and the head
-# dims of pixtral_12b (160) and xlstm_125m (192)
+# phase 9: flash attention, (row, [B, H, S, D], dtype, causal, tolerance,
+# the kernels a call runs): qwen2-1.5B's attention width
+# (src/repro/configs/qwen2_1_5b.py: 12 heads of 128) at the train_4k and
+# prefill_32k shapes (src/repro/configs/base.py), seamless_m4t_large_v2's
+# encoder width (16 heads of 64, full), and the head dims of pixtral_12b
+# (160) and xlstm_125m (192), whose 16 CTAs of 128 rows the 16-bit kernel
+# splits over K
+_F32 = ("attn_f32_kernel",)
+_WGMMA = ("attn_wgmma_kernel",)
+_SPLIT = ("attn_combine_kernel", "attn_wgmma_kernel")
 _ATTN_CASES = (
-    ("train_4k f32", (1, 12, 4096, 128), "float32", True, 1e-4),
-    ("train_4k bf16", (1, 12, 4096, 128), "bfloat16", True, 2e-2),
-    ("prefill_32k bf16", (1, 12, 32768, 128), "bfloat16", True, 2e-2),
-    ("encoder_4k bf16 full", (1, 16, 4096, 64), "bfloat16", False, 2e-2),
-    ("d160 f32", (1, 2, 1024, 160), "float32", True, 2e-5),
-    ("d160 bf16", (1, 2, 1024, 160), "bfloat16", True, 2e-2),
-    ("d192 f32", (1, 2, 1024, 192), "float32", True, 2e-5),
-    ("d192 bf16", (1, 2, 1024, 192), "bfloat16", True, 2e-2),
+    ("train_4k f32", (1, 12, 4096, 128), "float32", True, 1e-4, _F32),
+    ("train_4k bf16", (1, 12, 4096, 128), "bfloat16", True, 2e-2, _WGMMA),
+    ("prefill_32k bf16", (1, 12, 32768, 128), "bfloat16", True, 2e-2,
+     _WGMMA),
+    ("encoder_4k bf16 full", (1, 16, 4096, 64), "bfloat16", False, 2e-2,
+     _WGMMA),
+    ("d160 f32", (1, 2, 1024, 160), "float32", True, 2e-5, _F32),
+    ("d160 bf16", (1, 2, 1024, 160), "bfloat16", True, 2e-2, _SPLIT),
+    ("d192 f32", (1, 2, 1024, 192), "float32", True, 2e-5, _F32),
+    ("d192 bf16", (1, 2, 1024, 192), "bfloat16", True, 2e-2, _SPLIT),
 )
 _ATTN_SEED = 2024
 
@@ -1506,15 +1519,12 @@ def profile_serving(torch, catalog, builders, out_dir):
     """One profiled run of the serving workload with and one without
     batching: device busy time, idle share of the wall and device time by
     kernel (all threads; the profiler lengthens the wall)."""
-    from torch.profiler import ProfilerActivity, profile
-
     os.makedirs(out_dir, exist_ok=True)
     for batching in (True, False):
-        for attempt in range(3):      # as in profile_kernels
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _, _, wall, stats = _serve(torch, catalog, builders,
-                                           batching)
+        for attempt in range(_PROFILE_ATTEMPTS):  # as in profile_kernels
+            prof, (_, _, wall, stats) = _profiled(
+                torch, lambda: _serve(torch, catalog, builders, batching),
+                cpu=True)
             rows = _device_events(prof)
             if rows:
                 break
@@ -1681,7 +1691,8 @@ def run_attention(torch, fa, kops, rate, name):
     head dims 160 and 192. Each case is driven once through the entry point
     with the launch counters set to 0 just before and read just after (one
     launch of the kernel and nothing else), then held against the plain
-    version, then the kernel, the plain version and
+    version, then one profiled call names the kernels it ran
+    (``_ATTN_CASES``' last field), then the kernel, the plain version and
     ``scaled_dot_product_attention`` (``library_ms``, a yardstick the port
     never calls) are timed. TF32 is off for the whole phase, edge cases
     included, and set back after it. Every case is checked and printed
@@ -1705,7 +1716,8 @@ def _attention_cases(torch, fa, kops, rate, name, failures):
     the timed launchers)."""
     import torch.nn.functional as F
     rows_out, launchers = [], {}
-    for i, (case, shape, dtype, causal, tol) in enumerate(_ATTN_CASES):
+    for i, (case, shape, dtype, causal, tol, kernels) in enumerate(
+            _ATTN_CASES):
         q, k, v = _attn_inputs(torch, shape, dtype, _ATTN_SEED + i)
         row = f"flash_attention[{case}]"
         torch.cuda.synchronize()
@@ -1727,6 +1739,9 @@ def _attention_cases(torch, fa, kops, rate, name, failures):
         big = heads is not None
         launchers[row] = (lambda q=q, k=k, v=v, c=causal:
                           fa.flash_attention(q, k, v, causal=c))
+        ran = _kernels_seen(torch, launchers[row], _ATTN_KERNELS)
+        if tuple(ran) != kernels:
+            failures.append(f"{row}: ran {ran}, want {list(kernels)}")
         ms = time_ms(torch, launchers[row], reps=5 if big else 20)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal), reps=2 if big else 5, warm=1)
@@ -1744,15 +1759,36 @@ def _attention_cases(torch, fa, kops, rate, name, failures):
             replaces="src/repro/kernels/flash_attention.py:71",
             launches=counts["flash_attention"], max_abs_err=err,
             scaled_err=scaled, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=library_ms))
+            bound_by=by, library_ms=library_ms, kernels=ran))
         over = f"heads {heads}" if heads else "all heads"
         print(f"check {row} {list(shape)} causal={causal}: max |kernel - "
               f"plain| {err:.3g} (tol {tol}), scaled error {scaled:.3g} "
               f"(tol {fa.SCALED_ERROR_TOL}) over {over}, {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms ({by})",
-              flush=True)
+              f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"kernels {ran}", flush=True)
     return rows_out, launchers
+
+
+def _kernels_seen(torch, fn, names):
+    """The kernels of ``names`` that one call of ``fn`` ran on the card,
+    sorted, from ``torch.profiler``. Every call of ``fn`` runs one of
+    ``names``, so a profile in which none shows has lost the call's
+    events; it is taken again, at most ``_PROFILE_ATTEMPTS`` times in all,
+    and each such profile's device events are printed."""
+    fn()
+    torch.cuda.synchronize()
+    ran = []
+    for attempt in range(_PROFILE_ATTEMPTS):
+        prof, _ = _profiled(torch, fn)
+        events = _device_events(prof)
+        ran = sorted(n for n in names if any(n in r[0] for r in events))
+        if ran:
+            break
+        print(f"profile: none of {list(names)} in attempt {attempt + 1}; "
+              f"all device events {[(r[0][:60], r[1]) for r in events]}",
+              flush=True)
+    return ran
 
 
 # ---------------------------------------------------------------------------
@@ -1762,26 +1798,39 @@ def _attention_cases(torch, fa, kops, rate, name, failures):
 def _skip_k_tile(t: int):
     """K tile ``t`` is left out of every row that reads it."""
     return [("const bool masked = k0 + BK > s",
-             f"const bool masked = kt == {t} || k0 + BK > s", 1),
+             f"const bool masked = kt == {t} || k0 + BK > s", 2),
             ("if (col >= s || (causal && col > row)) x = kNegInf;",
              f"if (kt == {t} || col >= s || (causal && col > row)) "
-             "x = kNegInf;", 2)]
+             "x = kNegInf;", 3)]
 
 
 # fault -> (text, replacement, count) edits of csrc/flash_attention.cu;
-# each is planted in both the float32 and the mma kernel
+# the K-tile faults are planted in the float32, wgmma and mma.sync kernels,
+# the stale V tiles in the float32 and wgmma kernels, the dropped split in
+# the wgmma kernel's combine
 _FAULTS = {
     "skip_k_tile_5": _skip_k_tile(5),
-    # only rows past 25,600 of a 32k head read it: their outputs are near
-    # 0.01, so the fault moves them by less than 2e-2
-    "skip_k_tile_400": _skip_k_tile(400),
+    # keys 25,600-25,727 at the wgmma kernel's 128-key tiles: only rows past
+    # 25,600 of a 32k head read it; their outputs are near 0.01, so the
+    # fault moves them by less than 2e-2
+    "skip_k_tile_200": _skip_k_tile(200),
     # the V tiles after tile 8 are not loaded: they read tile 8's values
     "stale_v_after_tile_8": [
-        ("if (kt + 1 < last) mma_tile<DP>(Vs, vh,",
-         "if (kt + 1 < last && kt < 8) mma_tile<DP>(Vs, vh,", 1),
+        ("tma_load(vb + c * BK * 128, &tv, v_full + 8 * st, c * kChunk, "
+         "kt * BK, head);",
+         "tma_load(vb + c * BK * 128, &tv, v_full + 8 * st, c * kChunk, "
+         "min(kt, 8) * BK, head);", 1),
         ("f32_tile<DP>(KV, v + base, k0, s, d);",
          "f32_tile<DP>(KV, v + base, min(k0, 8 * kF32Rows), s, d);", 1)],
+    # the split over K's combine weighs split 1 as 0 (only (d) splits)
+    "combine_drops_split_1": [
+        ("const float w = exp2f(pm[sp * rows + row] - mx);",
+         "const float w = sp == 1 ? 0.f : exp2f(pm[sp * rows + row] - mx);",
+         1)],
 }
+# the cases of phase 9 that must fail under a fault, beyond the run's exit
+_FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
+                "combine_drops_split_1": ("d160 bf16", "d192 bf16")}
 _ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                         "flash_attention.cu")
 
@@ -1814,7 +1863,8 @@ def run_faults(here: str) -> int:
     ``src/repro_torch`` in a temporary directory, with the fault planted in
     the copy's ``flash_attention.cu``. Prints each run's check lines and,
     last, ``{run: {"rc", "cases", "failed"}}``; returns 0 when the kernel
-    as it is passes and every fault fails."""
+    as it is passes and every fault fails, at the cases ``_FAULT_CASES``
+    names where it names them."""
     import shutil
     import tempfile
     print("== as it is", flush=True)
@@ -1841,7 +1891,9 @@ def run_faults(here: str) -> int:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps(results), flush=True)
-    caught = all(r["rc"] != 0 for k, r in results.items() if k != "as_it_is")
+    caught = all(r["rc"] != 0 and all(
+        f"[{case}]" in (r["failed"] or "") for case in _FAULT_CASES.get(k, ()))
+        for k, r in results.items() if k != "as_it_is")
     return 0 if results["as_it_is"]["rc"] == 0 and caught else 1
 
 
@@ -1849,11 +1901,56 @@ _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "fused_batch_kernel",
                  "hash_build_claim_kernel", "hash_build_place_kernel",
                  "hash_probe_kernel", "segmented_minmax_kernel",
-                 "fill_kernel", "keys_to_f32_kernel", "block_count_kernel",
-                 "scan_block_sums_kernel", "positions_kernel",
-                 "hash_probe_multi_kernel", "histogram_shared_kernel",
-                 "histogram_global_kernel", "attn_f32_kernel",
-                 "attn_mma_kernel")
+                 "fill_kernel", "keys_to_f32_kernel",
+                 "block_prefix_sum_kernel", "hash_probe_multi_kernel",
+                 "histogram_shared_kernel", "histogram_global_kernel",
+                 "attn_f32_kernel", "attn_wgmma_kernel",
+                 "attn_combine_kernel", "attn_mma_kernel")
+# the kernel symbols each launcher of profile_kernels runs (the build is two
+# kernels a round, so its launches are a multiple of the calls; attention
+# at (d) is the wgmma kernel and its combine)
+_KERNEL_SYMBOLS = {
+    "segmented_sum": ("segmented_sum_kernel<float",),
+    "segmented_int_sum": ("segmented_sum_kernel<int",),
+    "fused": ("fused_morsel_kernel",),
+    "build_table": ("hash_build_claim_kernel", "hash_build_place_kernel"),
+    "hash_probe": ("hash_probe_kernel",),
+    "block_prefix_sum": ("block_prefix_sum_kernel",),
+    "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel",
+                         "keys_to_f32_kernel"),
+    "hash_probe_multi": ("hash_probe_multi_kernel",),
+    "radix_histogram": ("histogram_shared_kernel", "histogram_global_kernel"),
+    "fused_batch_program": ("fused_batch_kernel",),
+    "flash_attention": ("attn_f32_kernel", "attn_mma_kernel",
+                        "attn_wgmma_kernel", "attn_combine_kernel")}
+# the attention kernels, for phase 9's account of what each case ran
+_ATTN_KERNELS = _KERNEL_SYMBOLS["flash_attention"]
+
+
+# a profile that comes back without the device events it should hold is
+# taken again, up to this many times in all
+_PROFILE_ATTEMPTS = 5
+# seconds of idle card at each end of a profile's window
+_PROFILE_MARGIN_S = 0.02
+
+
+def _profiled(torch, body, cpu=False):
+    """(``torch.profiler`` profile, ``body()``'s result) of one run of
+    ``body``, device events only unless ``cpu``. The card is synchronised
+    and left idle for ``_PROFILE_MARGIN_S`` at each end of the window: the
+    profiler drops a device event whose times, put on the host's clock,
+    fall outside its window, and without the margins a kernel that ends
+    just before the closing synchronize lies within microseconds of its
+    edge."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        time.sleep(_PROFILE_MARGIN_S)
+        out = body()
+        torch.cuda.synchronize()
+        time.sleep(_PROFILE_MARGIN_S)
+    return prof, out
 
 
 def _device_events(prof):
@@ -1879,40 +1976,19 @@ def _host_events(prof, top: int = 15):
 
 def profile_kernels(torch, launchers, reps: int = 20):
     """Device milliseconds per launch of each kernel at the main path's
-    shapes, from ``torch.profiler`` (launch overhead on the host excluded)."""
-    from torch.profiler import ProfilerActivity, profile
-    # the build is two kernels a round, so its launches are a multiple
-    # of the calls
-    symbol = {"segmented_sum": ("segmented_sum_kernel<float",),
-              "segmented_int_sum": ("segmented_sum_kernel<int",),
-              "fused": ("fused_morsel_kernel",),
-              "build_table": ("hash_build_claim_kernel",
-                              "hash_build_place_kernel"),
-              "hash_probe": ("hash_probe_kernel",),
-              "block_prefix_sum": ("block_count_kernel",
-                                   "scan_block_sums_kernel",
-                                   "positions_kernel"),
-              "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel",
-                                   "keys_to_f32_kernel"),
-              "hash_probe_multi": ("hash_probe_multi_kernel",),
-              "radix_histogram": ("histogram_shared_kernel",
-                                  "histogram_global_kernel"),
-              "fused_batch_program": ("fused_batch_kernel",),
-              "flash_attention": ("attn_f32_kernel", "attn_mma_kernel")}
-    out = {}
+    shapes, from ``torch.profiler`` (launch overhead on the host excluded),
+    and the kernels each call launches; fails unless ``block_prefix_sum``
+    is one kernel a call."""
+    out, per_call = {}, {}
     for name, fn in launchers.items():
         key = name.partition("[")[0]
-        keys = symbol[key] if key in symbol else symbol["fused"]
+        keys = _KERNEL_SYMBOLS.get(key, _KERNEL_SYMBOLS["fused"])
         fn()
         torch.cuda.synchronize()
         # a profile now and then comes back without some or all of the
-        # device's events (CUPTI); such a profile is taken again, at most
-        # twice
-        for attempt in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
+        # device's events (CUPTI); such a profile is taken again
+        for attempt in range(_PROFILE_ATTEMPTS):
+            prof, _ = _profiled(torch, lambda: [fn() for _ in range(reps)])
             events = _device_events(prof)
             hits = [r for r in events if any(k in r[0] for k in keys)]
             launched = sum(r[1] for r in hits)
@@ -1925,7 +2001,16 @@ def profile_kernels(torch, launchers, reps: int = 20):
             fail(f"profile of {name}: {launched} kernel events matching "
                  f"{keys!r} for {reps} calls")
         out[name] = sum(r[2] for r in hits) / reps / 1e3
+        per_call[name] = launched // reps
+        if key == "block_prefix_sum":
+            # one pass: one kernel and one memset of its scratch a call
+            print(f"profile of {name}: device events a call "
+                  f"{[(r[0][:60], r[1] / reps) for r in events]}", flush=True)
+            if launched != reps:
+                fail(f"profile of {name}: {launched / reps} kernel launches "
+                     "a call, want 1")
     print(f"device_ms per launch: {json.dumps(out)}", flush=True)
+    print(f"kernel launches a call: {json.dumps(per_call)}", flush=True)
     return out
 
 
@@ -1934,21 +2019,21 @@ def profile_main_path(torch, gpu, catalog, out_dir, workers=1):
     (``torch.profiler``) on the session ``gpu``: device time by kernel,
     device busy time and idle share of the wall time. The profiler's own
     overhead lengthens the wall time it is divided by."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.tpch import queries
 
     os.makedirs(out_dir, exist_ok=True)
     tag = "" if workers == 1 else f"w{workers}_"
     for q in _QUERIES:
         plan = queries.build_query(q, catalog, num_workers=workers)
-        for attempt in range(3):      # as in profile_kernels
+
+        def run():
+            t0 = time.perf_counter()
+            gpu.execute(plan)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                gpu.execute(plan)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
+            return time.perf_counter() - t0
+
+        for attempt in range(_PROFILE_ATTEMPTS):  # as in profile_kernels
+            prof, wall = _profiled(torch, run, cpu=True)
             rows = _device_events(prof)
             if rows:
                 break

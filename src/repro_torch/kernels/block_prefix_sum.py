@@ -3,9 +3,9 @@
 
 ``block_prefix_sum(mask)`` returns each row's exclusive prefix count of set
 rows (int32[N]) and the total (a 0-d int32 tensor on the mask's device, not
-synchronised). For a CUDA tensor it launches the three-pass scan in
-``csrc/block_prefix_sum.cu`` (its header says what bounds it); for a CPU
-tensor it runs the plain version, ``cumsum - mask``.
+synchronised). For a CUDA tensor it launches the one-pass decoupled
+look-back scan in ``csrc/block_prefix_sum.cu`` (its header says what bounds
+it); for a CPU tensor it runs the plain version, ``cumsum - mask``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ _LIB = "block_prefix_sum"
 # (mask, n, pos, total, scratch, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-_ROWS_PER_BLOCK = 1024    # kThreads in the source: one block sum a block
+_TILE_ROWS = 16384    # kTileRows in the source: one status word a tile
 
 
 def block_prefix_sum_plain(mask: torch.Tensor):
@@ -51,7 +51,9 @@ def block_prefix_sum(mask: torch.Tensor):
     mask = mask.contiguous()
     pos = torch.empty(n, dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(-(-n // _ROWS_PER_BLOCK), dtype=torch.int32,
+    # the tile counter, then one status word a tile (the C function
+    # zeroes them)
+    scratch = torch.empty(-(-n // _TILE_ROWS) + 1, dtype=torch.int64,
                           device=dev)
     fn = build.function(_LIB, "block_prefix_sum_run", _ARGTYPES)
     rc = fn(mask.data_ptr(), n, pos.data_ptr(), total.data_ptr(),

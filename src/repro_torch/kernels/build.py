@@ -125,13 +125,14 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+def function(name: str, symbol: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """C entry point ``symbol`` of library ``name`` with its ``argtypes``
-    declared (pointers and the stream as ``c_void_p``) and an int return,
-    the CUDA error code."""
+    declared (pointers and the stream as ``c_void_p``) and its ``restype``:
+    by default an int, the CUDA error code."""
     fn = getattr(library(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.argtypes, fn.restype = argtypes, restype
     return fn
 
 

@@ -5,9 +5,11 @@
 ``flash_attention(q, k, v, causal)`` maps ``[B, H, S, D]`` query, key and
 value tensors of one dtype (float32, bfloat16 or float16) to the softmax
 attention output of the same shape and dtype. For a CUDA tensor it
-launches the kernel in ``csrc/flash_attention.cu`` (its header says what
-bounds it), which picks its own tiles and takes ``D`` up to 256; for a CPU
-tensor it runs the plain version. ``block_q`` and ``block_k`` are validated
+launches the kernels in ``csrc/flash_attention.cu`` (its header says what
+bounds them), which pick their own tiles, split a small grid over K on
+their own (a second launch combines the splits; one call counts one
+launch) and take ``D`` up to 256; for a CPU tensor it runs the plain
+version. ``block_q`` and ``block_k`` are validated
 as the reference validates them, so both devices refuse the same inputs,
 and change nothing else: the result depends on them only through float
 order.
@@ -22,10 +24,14 @@ import torch
 from . import build, ops
 
 _LIB = "flash_attention"
-# (q, k, v, o, bh, s, d, dtype, causal, scale, stream)
+# (q, k, v, o, bh, s, d, dtype, causal, scale, scratch, scratch_bytes,
+# stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p]
+# (bh, s, d, dtype) -> bytes of the split over K's partials
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -126,9 +132,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    dtype = _DTYPES[q.dtype]
+    # float32 partials when the 16-bit kernel splits its CTAs over K
+    nbytes = build.function(_LIB, "flash_attention_scratch_bytes",
+                            _SCRATCH_ARGTYPES, ctypes.c_longlong)(
+                                b * h, s, d, dtype)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+               if nbytes else None)
     fn = build.function(_LIB, "flash_attention_run", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
-            s, d, _DTYPES[q.dtype], int(bool(causal)), d ** -0.5,
+            s, d, dtype, int(bool(causal)), d ** -0.5,
+            None if scratch is None else scratch.data_ptr(), nbytes,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(_LIB, rc, "flash_attention")
     ops.count_launch("flash_attention")

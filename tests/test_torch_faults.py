@@ -1,0 +1,57 @@
+"""``chip_smoke.py``'s card-only tooling against the CUDA sources, on the
+CPU: every planted fault of ``--faults`` must still find its text in
+``csrc/flash_attention.cu`` as often as it says, and every kernel symbol
+that ``--profile`` and phase 9 look for must name a ``__global__``
+function of ``csrc/``. A kernel edit that breaks either shows here, not at
+the next run on the card."""
+
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+chip_smoke = _chip_smoke()
+
+
+def _global_functions():
+    """Names of the ``__global__`` functions of every ``csrc/*.cu``."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)"
+                     r"\s*)?(\w+)\s*\(")
+    return {m.group(1) for p in CSRC.glob("*.cu")
+            for m in pat.finditer(p.read_text())}
+
+
+@pytest.mark.parametrize("fault", sorted(chip_smoke._FAULTS))
+def test_fault_edits_occur_as_often_as_they_say(fault):
+    text = (ROOT / chip_smoke._ATTN_CU).read_text()
+    for old, new, count in chip_smoke._FAULTS[fault]:
+        assert text.count(old) == count, (fault, old)
+        assert old != new
+
+
+@pytest.mark.parametrize("fault", sorted(chip_smoke._FAULT_CASES))
+def test_fault_cases_name_phase_9_cases(fault):
+    assert fault in chip_smoke._FAULTS
+    cases = {c[0] for c in chip_smoke._ATTN_CASES}
+    assert set(chip_smoke._FAULT_CASES[fault]) <= cases
+
+
+@pytest.mark.parametrize("symbol", sorted(
+    {s for syms in chip_smoke._KERNEL_SYMBOLS.values() for s in syms}
+    | set(chip_smoke._PORT_KERNELS)
+    | {k for case in chip_smoke._ATTN_CASES for k in case[-1]}))
+def test_kernel_symbol_names_a_global_function(symbol):
+    assert symbol.partition("<")[0] in _global_functions(), symbol

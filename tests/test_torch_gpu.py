@@ -5,6 +5,8 @@ imports no JAX, so it runs on a machine that has only PyTorch::
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -250,6 +252,53 @@ def test_block_prefix_sum_on_card(cuda, n, p):
     assert ops.launch_counts()["block_prefix_sum"] == (1 if n else 0)
     assert torch.equal(pos.cpu(), want_pos)
     assert int(total) == int(want_total) == int(mask.sum())
+
+
+# the one-pass scan's tiles (16,384 rows, four sections of 4,096): masks
+# that end one row short of, on and one row past a tile or section
+# boundary, or inside a section's last word; all zeros and all ones; a
+# mask whose look-back chain crosses 1024 tiles, more than the card has SMs
+_TILE = 16384
+
+
+@pytest.mark.parametrize("n,p", [(_TILE - 1, 0.5), (_TILE, 0.5),
+                                 (_TILE + 1, 0.5), (_TILE // 4 - 1, 0.9),
+                                 (_TILE // 4 + 1, 0.9), (_TILE // 4 + 2, 0.9),
+                                 (2 * _TILE - 1, 0.7), (2 * _TILE + 1, 0.2),
+                                 (3 * _TILE, 0.5), (100_003, 0.0),
+                                 (100_003, 1.0), (1 << 24, 0.4)])
+def test_block_prefix_sum_tiles_on_card(cuda, n, p):
+    mask = torch.from_numpy(np.random.default_rng(n + 7).random(n) < p)
+    want_pos, want_total = block_prefix_sum_plain(mask)
+    ops.reset_launch_counts()
+    pos, total = block_prefix_sum(mask.to(cuda))
+    assert ops.launch_counts()["block_prefix_sum"] == 1
+    assert torch.equal(pos.cpu(), want_pos)
+    assert int(total) == int(want_total) == int(mask.sum())
+
+
+def test_block_prefix_sum_unaligned_mask_on_card(cuda):
+    # a view one byte into its storage: the mask is read byte by byte
+    full = torch.from_numpy(np.random.default_rng(5).random(3 * _TILE + 2)
+                            < 0.5)
+    mask = full.to(cuda)[1:]
+    assert mask.data_ptr() % 16 != 0
+    want_pos, want_total = block_prefix_sum_plain(full[1:])
+    pos, total = block_prefix_sum(mask)
+    assert torch.equal(pos.cpu(), want_pos)
+    assert int(total) == int(want_total)
+
+
+def test_block_prefix_sum_repeated_on_card(cuda):
+    # the same mask 50 times in a row: a race in the status words would
+    # show as one call that differs
+    mask = torch.from_numpy(np.random.default_rng(50).random(1 << 22) < 0.3)
+    want_pos, want_total = block_prefix_sum_plain(mask)
+    dev = mask.to(cuda)
+    got = [block_prefix_sum(dev) for _ in range(50)]
+    for i, (pos, total) in enumerate(got):
+        assert torch.equal(pos.cpu(), want_pos), i
+        assert int(total) == int(want_total), i
 
 
 def test_compact_on_card_matches_cpu(cuda):
@@ -620,6 +669,78 @@ def test_flash_attention_on_card(no_tf32, b, h, s, d, causal, dtype):
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 1
     assert got.shape == q.shape and got.dtype == q.dtype
+    want = flash_attention_plain(q, k, v, causal)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _ATTN_TOL[dtype], err
+    scaled = scaled_error(got, want, v, causal)
+    assert scaled <= SCALED_ERROR_TOL, scaled
+
+
+def _device_kernels(fn):
+    """Names of the kernels one call of ``fn`` ran on the card, from
+    ``torch.profiler``, with the card idle for 20 ms at each end of the
+    window (the profiler drops a device event that it places outside its
+    window); a profile that comes back without device events is taken
+    again, at most five times in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            return names
+    return names
+
+
+# (shape [B, H, S, D], causal, offset of the bases in elements, kernels):
+# the split over K (B*H * S / 128 CTAs below the card's 132 SMs), with
+# rows whose split lies past their diagonal (64-key tiles at D > 128); the
+# widest tile without a split; and a base one element off 16 bytes, which
+# TMA cannot address, on the mma.sync kernel
+_ATTN_PATHS = {
+    "split_d192_dead_rows": ((1, 2, 1024, 192), True, 0,
+                             {"attn_wgmma_kernel", "attn_combine_kernel"}),
+    "split_d160_full": ((1, 2, 1024, 160), False, 0,
+                        {"attn_wgmma_kernel", "attn_combine_kernel"}),
+    "split_d256": ((1, 1, 1024, 256), True, 0,
+                   {"attn_wgmma_kernel", "attn_combine_kernel"}),
+    "split_d64": ((1, 1, 1024, 64), True, 0,
+                  {"attn_wgmma_kernel", "attn_combine_kernel"}),
+    "d256": ((2, 12, 1024, 256), True, 0, {"attn_wgmma_kernel"}),
+    "unaligned": ((1, 2, 256, 64), True, 1, {"attn_mma_kernel"}),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", sorted(_ATTN_PATHS))
+def test_flash_attention_paths_on_card(no_tf32, case, dtype):
+    from repro_torch.kernels.flash_attention import (
+        SCALED_ERROR_TOL, flash_attention, flash_attention_plain,
+        scaled_error)
+    shape, causal, offset, kernels = _ATTN_PATHS[case]
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(sum(shape) + offset)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, n + offset).astype(
+        np.float32)).to(no_tf32, getattr(torch, dtype))[offset:].view(shape)
+        for _ in range(3))
+    assert (q.data_ptr() % 16 != 0) == (offset != 0)
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    ran = _device_kernels(lambda: flash_attention(q, k, v, causal=causal))
+    assert {want for want in kernels if any(want in r for r in ran)} == \
+        kernels, ran
+    assert not any(x in r for r in ran for x in (
+        "attn_wgmma_kernel", "attn_combine_kernel", "attn_mma_kernel",
+        "attn_f32_kernel") if x not in kernels), ran
     want = flash_attention_plain(q, k, v, causal)
     err = float((got.float() - want.float()).abs().max())
     assert err <= _ATTN_TOL[dtype], err
