@@ -20,10 +20,18 @@ In order it:
    ``block_prefix_sum`` on the first compaction mask of Q9 and of Q22,
    ``segmented_minmax`` on Q2's grouped min, ``hash_probe_multi`` on the
    first expansion probe of Q9 and of Q20, and the fused program on Q22's
-   ``PrefixCode`` stages, each exact; plus a build with many duplicate
-   keys, 1 << 20 probe keys with hits, misses and -1 keys, an expansion
-   probe of a table with up to 8 rows a key and -1 keys, and min/max over
-   values with inf, -inf and NaN;
+   ``PrefixCode`` stages, each exact; plus builds of synthetic keys, each
+   bit-identical and naming its route (the passes below ``table_size``
+   rows, the rounds from it): many duplicate keys with invalid rows and
+   -1 keys, unique keys at the same size, an all-ghost cluster, ghosts
+   inside the run of a key of 200 rows, a cluster that wraps slot T - 1
+   -> 0, one home of 1,000 rows, and ``n >= table_size`` with the valid
+   rows below and above it (after phase 9, so that no profile precedes
+   its own: the unique and the duplicate build must launch the same
+   kernels, ``ceil(log2 T / 8) + 3``, copy nothing back and not wait for
+   the card); 1 << 20 probe keys with hits, misses and -1 keys, an
+   expansion probe of a table with up to 8 rows a key and -1 keys, and
+   min/max over values with inf, -inf and NaN;
 4. times each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``library_ms``), with CUDA events over warm
    runs, and computes each kernel's bound from its inputs (for the join
@@ -95,11 +103,13 @@ In order it:
    ``SCALED_ERROR_TOL`` of ``flash_attention.scaled_error``, the error in
    units of each row's own size (a fixed limit is as large as the outputs
    of a 32k row); one profiled call of each case names the kernels it ran,
-   which must be ``attn_f32_kernel`` in float32 and ``attn_wgmma_kernel``
-   in bfloat16, with ``attn_combine_kernel`` at D = 160 and 192 (16 CTAs,
-   which the kernel splits over K); then the kernel, the plain version and
-   ``scaled_dot_product_attention`` are timed, and the bound is operations
-   at the float32 rate or the card's dense bfloat16 rate;
+   which must be ``attn_tf32x3_kernel`` in float32 and
+   ``attn_wgmma_kernel`` in bfloat16, with ``attn_combine_kernel`` at D =
+   160 and 192 (32 and 16 CTAs, which the kernels split over K); then the
+   kernel, the plain version and ``scaled_dot_product_attention`` are
+   timed, and the bound is operations at the card's dense bfloat16 rate,
+   or in float32 three times the operations at its TF32 rate (3xTF32),
+   with the FFMA bound printed beside it;
 10. prints one ``{"kernels": [...]}`` line, then the card line again;
 11. prints as its last line ``{"ok": true, "device": {...}}``.
 
@@ -108,18 +118,22 @@ imports only the port, torch, numpy and the standard library; it fails when
 ``torch.cuda.is_available()`` is false or when ``src/repro_torch`` is not
 beside it. ``--profile DIR`` adds, after phase 5, each kernel's device time
 per launch at the main path's shapes and the kernels a call launches
-(``block_prefix_sum`` must be one, beside its memset), then one
+(``block_prefix_sum`` must be one, beside its memset; ``build_table``
+must show no ``cudaStreamSynchronize`` and no ``Memcpy DtoH``), then one
 ``torch.profiler`` run of each
 query, whose device time by kernel (and trace) it writes into DIR, and
 after phase 7 one profiled W = 4 run of each query, and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
-line and the card line, and no ok line. ``--faults`` runs it on the
-attention kernels as they are and then on copies, in a temporary
-directory, each with one fault planted (a K tile left out, early or late;
-V tiles not reloaded; the split over K's combine dropping a split), and
-exits 0 only when the kernels pass and every fault is caught, the late K
-tile at ``prefill_32k`` and the dropped split at D = 160 and 192.
+line and the card line, and no ok line; ``--build`` runs phase 3's
+synthetic builds alone. ``--faults`` runs both on the kernels as they are
+and then on copies, in a temporary directory, each with one fault planted
+(a K tile left out, early or late; V tiles not reloaded; the split over
+K's combine dropping a split; float32 by one TF32 product; a ghost pop
+that ends its slot's turn in the build), and exits 0 only when the kernels
+pass and every fault is caught, the late K tile at ``prefill_32k``, the
+dropped split at D = 160 and 192, the one TF32 product at (a) and (d) in
+float32 and the ghost pop at ``ghosts_over_a_run``.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
@@ -150,6 +164,11 @@ _F32_RATE = 67e12
 # (operations/s), from NVIDIA's data sheets, then the H100 SXM part's
 _BF16_RATE = (("H100 PCIe", 756e12), ("H100", 989.4e12), ("H200", 989.4e12),
               ("", 989.4e12))
+# dense TF32 tensor-core rate of the card by name (operations/s), from
+# NVIDIA's data sheets, then the H100 SXM part's; a float32 product costs
+# three TF32 products in the 3xTF32 kernel
+_TF32_RATE = (("H100 PCIe", 378e12), ("H100", 494.7e12), ("H200", 494.7e12),
+              ("", 494.7e12))
 _MAIN_ROWS = 1 << 20
 _SF = 1.0
 # the slices' first queries, then the rest of the 22
@@ -184,8 +203,9 @@ _DASHBOARD = (1, 6, 14, 3)
 # prefill_32k shapes (src/repro/configs/base.py), seamless_m4t_large_v2's
 # encoder width (16 heads of 64, full), and the head dims of pixtral_12b
 # (160) and xlstm_125m (192), whose 16 CTAs of 128 rows the 16-bit kernel
-# splits over K
-_F32 = ("attn_f32_kernel",)
+# splits over K, as the float32 kernel splits its 32 CTAs of 64 rows
+_F32 = ("attn_tf32x3_kernel",)
+_F32_SPLIT = ("attn_combine_kernel", "attn_tf32x3_kernel")
 _WGMMA = ("attn_wgmma_kernel",)
 _SPLIT = ("attn_combine_kernel", "attn_wgmma_kernel")
 _ATTN_CASES = (
@@ -195,9 +215,9 @@ _ATTN_CASES = (
      _WGMMA),
     ("encoder_4k bf16 full", (1, 16, 4096, 64), "bfloat16", False, 2e-2,
      _WGMMA),
-    ("d160 f32", (1, 2, 1024, 160), "float32", True, 2e-5, _F32),
+    ("d160 f32", (1, 2, 1024, 160), "float32", True, 2e-5, _F32_SPLIT),
     ("d160 bf16", (1, 2, 1024, 160), "bfloat16", True, 2e-2, _SPLIT),
-    ("d192 f32", (1, 2, 1024, 192), "float32", True, 2e-5, _F32),
+    ("d192 f32", (1, 2, 1024, 192), "float32", True, 2e-5, _F32_SPLIT),
     ("d192 bf16", (1, 2, 1024, 192), "bfloat16", True, 2e-2, _SPLIT),
 )
 _ATTN_SEED = 2024
@@ -537,8 +557,10 @@ def check_build_call(torch, hp, c, what):
                 f"{what} {c['t']} slots")
     c["table"] = got
     nv = c["keys"].shape[0] if c["valid"] is None else int(c["valid"].sum())
+    route = "rounds" if c["keys"].shape[0] >= c["t"] else "passes"
     print(f"check build_table {what}: rows={c['keys'].shape[0]} "
-          f"valid={nv} slots={c['t']} rounds={_rounds(torch, hp, got[0])} "
+          f"valid={nv} slots={c['t']} route={route} "
+          f"rounds={_rounds(torch, hp, got[0])} "
           f"max_probes={hp.probe_bound(got[0])}: bit-identical", flush=True)
 
 
@@ -580,6 +602,189 @@ def check_fused_probe_call(torch, fused, c, what):
           f"{int(gf.sum())}: exact", flush=True)
 
 
+def _build_case(torch, hp, case, gen):
+    """(keys, vals, table_size, empty_key, valid) of a synthetic build case
+    on the card: ``duplicates`` (16 rows a key on average, invalid rows and
+    -1 keys, 671 rounds of the reference) and ``unique`` at the same rows
+    and slots; an all-ghost cluster (40 rows of key -1 among sparse unique
+    keys); 30 ghosts whose home lies inside the run of a key of 200 rows,
+    so that the run's rows pop into the slots the ghosts leave empty; a
+    cluster that wraps slot T - 1 -> 0; one home holding 1,000 rows; and n
+    >= table_size with the valid rows below and above the table's size
+    (the round kernels)."""
+    dev = "cuda"
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def unique(n, span):
+        return (torch.randperm(span, generator=gen, device=dev)[:n]
+                .to(torch.int32))
+
+    valid = None
+    if case == "duplicates":
+        n, t = 1 << 18, 1 << 19
+        keys = ints(-1, 1 << 14, n)
+        valid = torch.rand(n, generator=gen, device=dev) < 0.9
+    elif case == "unique":
+        n, t = 1 << 18, 1 << 19
+        keys = unique(n, 1 << 24)
+    elif case == "all_ghost_cluster":
+        n, t = 2000, 1 << 13
+        keys = unique(n, 1 << 24)
+        keys[torch.randperm(n, generator=gen, device=dev)[:40]] = -1
+    elif case == "ghosts_over_a_run":
+        n, t = 1000, 1 << 12
+        pool = torch.arange(1 << 20, dtype=torch.int32, device=dev)
+        ghost = int(hp.hash_home(pool[:1] - 1, t))
+        run = pool[hp.hash_home(pool, t) == (ghost - 20) % t][0]
+        keys = unique(n, 1 << 24) + (1 << 20)
+        keys[:200], keys[200:230] = run, -1
+        keys = keys[torch.randperm(n, generator=gen, device=dev)]
+    elif case == "wrap_through_last_slot":
+        n, t = 300, 1 << 12
+        pool = torch.arange(1 << 20, dtype=torch.int32, device=dev)
+        pool = pool[hp.hash_home(pool, t) >= t - 8]
+        keys = pool[torch.randint(0, pool.shape[0], (n,), generator=gen,
+                                  device=dev)]
+    elif case == "one_home_1000_rows":
+        n, t = 4000, 1 << 13
+        keys = unique(n, 1 << 24) + 1
+        keys[torch.randperm(n, generator=gen, device=dev)[:1000]] = 0
+    else:   # rounds_below_t, rounds_above_t
+        n, t = 1 << 13, 1 << 12
+        keys = ints(-1, 1 << 20, n)
+        share = 0.3 if case == "rounds_below_t" else 0.9
+        valid = torch.rand(n, generator=gen, device=dev) < share
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    return keys, vals, t, -1, valid
+
+
+_BUILD_CASES = ("duplicates", "unique", "all_ghost_cluster",
+                "ghosts_over_a_run", "wrap_through_last_slot",
+                "one_home_1000_rows", "rounds_below_t", "rounds_above_t")
+
+
+def _build_profile(torch, fn):
+    """(build kernel -> launches, every device event name) of one call of
+    ``fn``, from a profile of the device (retried as ``_kernels_seen``
+    retries)."""
+    fn()
+    torch.cuda.synchronize()
+    kernels, names = {}, set()
+    for attempt in range(_PROFILE_ATTEMPTS):
+        prof, _ = _profiled(torch, fn)
+        names = {e.key for e in prof.key_averages()}
+        kernels = {}
+        for row in _device_events(prof):
+            for sym in _KERNEL_SYMBOLS["build_table"]:
+                if sym in row[0]:
+                    kernels[sym] = kernels.get(sym, 0) + row[1]
+        if kernels:
+            break
+        print(f"profile of build_table: no build kernel in attempt "
+              f"{attempt + 1}", flush=True)
+    return kernels, names
+
+
+def _syncs(names):
+    """The events of a build's profile that read back or synchronise
+    (``torch.cuda.synchronize`` at the window's end aside)."""
+    return sorted(n for n in names
+                  if "Memcpy DtoH" in n or "cudaStreamSynchronize" in n)
+
+
+# cycles of the spin that ``_waits_ms`` queues ahead of a call (~0.1 s)
+_SPIN_CYCLES = 200_000_000
+
+
+def _waits_ms(torch, fn):
+    """Host milliseconds of one call of ``fn`` made while the card runs a
+    spin of ``_SPIN_CYCLES`` (``torch.cuda._sleep``) queued ahead of it: a
+    call that synchronises or reads a result back waits for the spin, one
+    that only queues its work returns at once. ``fn`` runs once before,
+    so that its allocations are cached."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(_SPIN_CYCLES)
+    t0 = time.perf_counter()
+    fn()
+    waited = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return waited
+
+
+def _build_inputs(torch, hp):
+    """``_BUILD_CASES``' inputs, from one seed."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return {case: _build_case(torch, hp, case, gen) for case in _BUILD_CASES}
+
+
+def check_build_cases(torch, hp, failures):
+    """``_BUILD_CASES`` on the card, each bit-identical to
+    ``build_table_plain``, with the route it took (the passes below
+    ``table_size`` rows, the rounds from it). Misses go into
+    ``failures``."""
+    for case, (keys, vals, t, empty, valid) in _build_inputs(torch,
+                                                             hp).items():
+        got = hp.build_table(keys, vals, t, empty, valid)
+        want = hp.build_table_plain(keys, vals, t, empty, valid)
+        torch.cuda.synchronize()
+        bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        n = keys.shape[0]
+        nv = n if valid is None else int(valid.sum())
+        route = "rounds" if n >= t else "passes"
+        if bad:
+            failures.append(f"build_table[{case}]: {bad} slots differ from "
+                            "the plain version")
+        print(f"check build_table[{case}]: rows={n} valid={nv} slots={t} "
+              f"route={route} rounds={_rounds(torch, hp, got[0])}: "
+              + ("bit-identical" if not bad else f"{bad} slots differ"),
+              flush=True)
+
+
+def check_build_launches(torch, hp, failures):
+    """The kernels a ``build_table`` call launches, by profile, for the
+    unique and the duplicate keys of ``_BUILD_CASES`` (the same rows and
+    slots): they must be the same kernels the same number of times,
+    ``ceil(log2 T / 8) + 3``, with no read-back or stream synchronisation:
+    no ``Memcpy DtoH`` in the profile, and a call queued behind a 0.1 s
+    spin returns within 20 ms (``_waits_ms``). It runs after phase 9: a
+    process whose first profile comes before the threads and streams of
+    phases 5-8 loses the device events of later profiles (PERF.md §7).
+    Misses go into ``failures``."""
+    inputs = _build_inputs(torch, hp)
+    seen = {}
+    for case in ("unique", "duplicates"):
+        kernels, names = _build_profile(
+            torch, lambda a=inputs[case]: hp.build_table(*a))
+        seen[case] = kernels
+        t = inputs[case][2]
+        want = (t.bit_length() - 1 + 7) // 8 + 3
+        waited = _waits_ms(torch, lambda a=inputs[case]: hp.build_table(*a))
+        print(f"check build_table[{case}] launches: {json.dumps(kernels)} "
+              f"({sum(kernels.values())}, want {want}); read-backs "
+              f"{_syncs(names)}; {waited:.3f} ms on the host behind a 0.1 s "
+              "spin", flush=True)
+        if sum(kernels.values()) != want or _syncs(names) or waited > 20:
+            failures.append(f"build_table[{case}]: launched {kernels}, "
+                            f"read back {_syncs(names)}, waited {waited} ms")
+    if seen["unique"] != seen["duplicates"]:
+        failures.append(f"build_table: duplicates launched "
+                        f"{seen['duplicates']}, unique {seen['unique']}")
+
+
+def run_build(torch, hp):
+    """``--build``: the build checks alone (``check_build_cases`` and
+    ``check_build_launches``)."""
+    failures = []
+    check_build_cases(torch, hp, failures)
+    check_build_launches(torch, hp, failures)
+    if failures:
+        fail("; ".join(failures))
+
+
 def check_join(torch, hp, fused, calls, rate):
     """build_table, hash_probe and the fused probe, each against its plain
     version on the card, exact, on the inputs the main path gives them at
@@ -590,20 +795,13 @@ def check_join(torch, hp, fused, calls, rate):
     probe keys with hits, misses and -1 into Q3's orders table. Each
     kernel is timed on its largest main-path input of Q3 and of Q10."""
     dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(13)
+    gen = torch.Generator(device=dev).manual_seed(14)
     for c in calls["build"]:
         check_build_call(torch, hp, c, f"Q{c['q']}")
-    # many duplicates (16 a key on average), invalid rows and -1 keys
-    nd = 1 << 18
-    dk = torch.randint(-1, 1 << 14, (nd,), generator=gen, device=dev,
-                       dtype=torch.int32)
-    dvalid = torch.rand(nd, generator=gen, device=dev) < 0.9
-    drows = torch.arange(nd, dtype=torch.int32, device=dev)
-    got = hp.build_table(dk, drows, 1 << 19, -1, dvalid)
-    _same_table(torch, got, hp.build_table_plain(dk, drows, 1 << 19, -1,
-                                                 dvalid), "duplicates")
-    print(f"check build_table duplicates: rows={nd} keys<2^14 slots=2^19 "
-          f"rounds={_rounds(torch, hp, got[0])}: bit-identical", flush=True)
+    failures = []
+    check_build_cases(torch, hp, failures)
+    if failures:
+        fail("; ".join(failures))
     for c in calls["probe"]:
         check_probe_call(torch, hp, c, f"Q{c['q']}")
     for c in calls["fused"]:
@@ -1750,23 +1948,36 @@ def _attention_cases(torch, fa, kops, rate, name, failures):
         b, h, s, d = shape
         elt = q.element_size()
         flops = 4 * b * h * s * s * d / (2 if causal else 1)
-        op_rate = _F32_RATE if dtype == "float32" else by_name(_BF16_RATE,
-                                                               name)
-        bound, by = bound_ms(4 * b * h * s * d * elt, flops, rate, op_rate)
+        nbytes = 4 * b * h * s * d * elt
+        extra = {}
+        if dtype == "float32":
+            # three TF32 products a float32 one; the FFMA bound beside it,
+            # the yardstick of the kernel it replaced
+            bound, by = bound_ms(nbytes, 3 * flops, rate,
+                                 by_name(_TF32_RATE, name))
+            extra["bound_ffma_ms"] = bound_ms(nbytes, flops, rate)[0]
+            if not bound <= ms:
+                failures.append(f"{row}: {ms:.4f} ms is below its bound "
+                                f"{bound:.4f} ms")
+        else:
+            bound, by = bound_ms(nbytes, flops, rate,
+                                 by_name(_BF16_RATE, name))
         rows_out.append(dict(
             name=row, route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:71",
             launches=counts["flash_attention"], max_abs_err=err,
             scaled_err=scaled, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=library_ms, kernels=ran))
+            bound_by=by, library_ms=library_ms, kernels=ran, **extra))
         over = f"heads {heads}" if heads else "all heads"
+        ffma = (f", FFMA bound {extra['bound_ffma_ms']:.4f} ms"
+                if extra else "")
         print(f"check {row} {list(shape)} causal={causal}: max |kernel - "
               f"plain| {err:.3g} (tol {tol}), scaled error {scaled:.3g} "
               f"(tol {fa.SCALED_ERROR_TOL}) over {over}, {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-              f"kernels {ran}", flush=True)
+              f"sdpa {library_ms:.4f} ms, bound {bound:.4f} ms ({by})"
+              f"{ffma}, kernels {ran}", flush=True)
     return rows_out, launchers
 
 
@@ -1792,22 +2003,23 @@ def _kernels_seen(torch, fn, names):
 
 
 # ---------------------------------------------------------------------------
-# --faults: planted faults in the attention kernel against phase 9's checks
+# --faults: planted faults in the attention and build kernels against the
+# checks of phase 9 and of the build
 # ---------------------------------------------------------------------------
 
 def _skip_k_tile(t: int):
     """K tile ``t`` is left out of every row that reads it."""
     return [("const bool masked = k0 + BK > s",
-             f"const bool masked = kt == {t} || k0 + BK > s", 2),
+             f"const bool masked = kt == {t} || k0 + BK > s", 3),
             ("if (col >= s || (causal && col > row)) x = kNegInf;",
              f"if (kt == {t} || col >= s || (causal && col > row)) "
              "x = kNegInf;", 3)]
 
 
-# fault -> (text, replacement, count) edits of csrc/flash_attention.cu;
-# the K-tile faults are planted in the float32, wgmma and mma.sync kernels,
-# the stale V tiles in the float32 and wgmma kernels, the dropped split in
-# the wgmma kernel's combine
+# fault -> (text, replacement, count) edits of csrc/flash_attention.cu, or
+# of the source _FAULT_TARGETS names; the K-tile faults are planted in the
+# float32 (3xTF32), wgmma and mma.sync kernels, the stale V tiles in the
+# float32 and wgmma kernels, the dropped split in the combine of both
 _FAULTS = {
     "skip_k_tile_5": _skip_k_tile(5),
     # keys 25,600-25,727 at the wgmma kernel's 128-key tiles: only rows past
@@ -1820,33 +2032,58 @@ _FAULTS = {
          "kt * BK, head);",
          "tma_load(vb + c * BK * 128, &tv, v_full + 8 * st, c * kChunk, "
          "min(kt, 8) * BK, head);", 1),
-        ("f32_tile<DP>(KV, v + base, k0, s, d);",
-         "f32_tile<DP>(KV, v + base, min(k0, 8 * kF32Rows), s, d);", 1)],
+        ("tf_tile<DP, BK>(Vs + stage * BK * LD, vh, tile * BK, s, d, vec);",
+         "tf_tile<DP, BK>(Vs + stage * BK * LD, vh, min(tile, 8) * BK, s, d, "
+         "vec);", 1)],
     # the split over K's combine weighs split 1 as 0 (only (d) splits)
     "combine_drops_split_1": [
         ("const float w = exp2f(pm[sp * rows + row] - mx);",
          "const float w = sp == 1 ? 0.f : exp2f(pm[sp * rows + row] - mx);",
          1)],
+    # float32 by one TF32 product: the two products of the small parts are
+    # left out (about 5e-4 relative an operand)
+    "tf32x3_drops_small": [
+        ("mma_tf32(cs, as, bb0, bb1);   // small * big", "// dropped", 1),
+        ("mma_tf32(cs, ab, bs0, bs1);   // big * small", "// dropped", 1)],
+    # the build: a ghost pop ends the slot's turn, so no group below pops
+    # into the slot the ghost left looking empty
+    "ghost_pop_ends_turn": [
+        ("if (key != empty_key) break;", "break;", 1)],
 }
-# the cases of phase 9 that must fail under a fault, beyond the run's exit
+# the cases that must fail under a fault, beyond the run's exit
 _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
-                "combine_drops_split_1": ("d160 bf16", "d192 bf16")}
+                "combine_drops_split_1": ("d160 bf16", "d192 bf16",
+                                          "d160 f32", "d192 f32"),
+                "tf32x3_drops_small": ("train_4k f32", "d160 f32",
+                                       "d192 f32"),
+                "ghost_pop_ends_turn": ("ghosts_over_a_run",)}
 _ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                         "flash_attention.cu")
+_TABLE_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
+                         "hash_table.cu")
+# fault -> (source it edits, the run that must catch it); the rest edit
+# the attention kernels and run phase 9 alone
+_FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build")}
 
 
-def _attention_only(root: str) -> dict:
-    """``chip_smoke.py --attention`` in ``root``: its exit code, each case's
-    [max |kernel - plain|, scaled error] and its failure message."""
+def fault_target(fault: str):
+    """(source, ``chip_smoke.py`` option) of a planted fault."""
+    return _FAULT_TARGETS.get(fault, (_ATTN_CU, "--attention"))
+
+
+def _run_alone(root: str, option: str) -> dict:
+    """``chip_smoke.py OPTION`` (``--attention`` or ``--build``) in
+    ``root``: its exit code, each attention case's [max |kernel - plain|,
+    scaled error] and its failure message."""
     import re
     case = re.compile(r"^check (flash_attention\[[^\]]+\]) .*max \|kernel"
                       r" - plain\| (\S+) \(tol .*scaled error (\S+) \(tol")
-    out = subprocess.run([sys.executable, "chip_smoke.py", "--attention"],
+    out = subprocess.run([sys.executable, "chip_smoke.py", option],
                          cwd=root, capture_output=True, text=True,
                          timeout=900)
     cases = {}
     for line in out.stdout.splitlines():
-        if line.startswith("check flash_attention"):
+        if line.startswith(("check flash_attention", "check build_table")):
             print(line, flush=True)
         m = case.match(line)
         if m:
@@ -1858,25 +2095,28 @@ def _attention_only(root: str) -> dict:
 
 
 def run_faults(here: str) -> int:
-    """``--faults``: phase 9 alone on the kernel as it is, then once for
-    each fault of ``_FAULTS`` in a copy of ``chip_smoke.py`` and
-    ``src/repro_torch`` in a temporary directory, with the fault planted in
-    the copy's ``flash_attention.cu``. Prints each run's check lines and,
-    last, ``{run: {"rc", "cases", "failed"}}``; returns 0 when the kernel
-    as it is passes and every fault fails, at the cases ``_FAULT_CASES``
-    names where it names them."""
+    """``--faults``: phase 9 alone and the build checks alone on the
+    kernels as they are, then once for each fault of ``_FAULTS`` in a copy
+    of ``chip_smoke.py`` and ``src/repro_torch`` in a temporary directory,
+    with the fault planted in the copy's source (``fault_target``). Prints
+    each run's check lines and, last, ``{run: {"rc", "cases", "failed"}}``;
+    returns 0 when the kernels as they are pass and every fault fails, at
+    the cases ``_FAULT_CASES`` names."""
     import shutil
     import tempfile
-    print("== as it is", flush=True)
-    results = {"as_it_is": _attention_only(here)}
+    results = {}
+    for option in ("--attention", "--build"):
+        print(f"== as it is {option}", flush=True)
+        results[f"as_it_is {option}"] = _run_alone(here, option)
     for fault, edits in _FAULTS.items():
-        tmp = tempfile.mkdtemp(prefix="attention_fault_")
+        source, option = fault_target(fault)
+        tmp = tempfile.mkdtemp(prefix="kernel_fault_")
         try:
             shutil.copy(os.path.join(here, "chip_smoke.py"), tmp)
             shutil.copytree(os.path.join(here, "src", "repro_torch"),
                             os.path.join(tmp, "src", "repro_torch"),
                             ignore=shutil.ignore_patterns("__pycache__"))
-            path = os.path.join(tmp, _ATTN_CU)
+            path = os.path.join(tmp, source)
             with open(path) as f:
                 text = f.read()
             for old, new, count in edits:
@@ -1887,33 +2127,39 @@ def run_faults(here: str) -> int:
             with open(path, "w") as f:
                 f.write(text)
             print(f"== {fault}", flush=True)
-            results[fault] = _attention_only(tmp)
+            results[fault] = _run_alone(tmp, option)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps(results), flush=True)
+    clean = all(r["rc"] == 0 for k, r in results.items()
+                if k.startswith("as_it_is"))
     caught = all(r["rc"] != 0 and all(
         f"[{case}]" in (r["failed"] or "") for case in _FAULT_CASES.get(k, ()))
-        for k, r in results.items() if k != "as_it_is")
-    return 0 if results["as_it_is"]["rc"] == 0 and caught else 1
+        for k, r in results.items() if not k.startswith("as_it_is"))
+    return 0 if clean and caught else 1
 
 
 _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "fused_batch_kernel",
                  "hash_build_claim_kernel", "hash_build_place_kernel",
+                 "build_compact_kernel", "build_sort_kernel",
+                 "build_levels_kernel", "build_resolve_kernel",
                  "hash_probe_kernel", "segmented_minmax_kernel",
                  "fill_kernel", "keys_to_f32_kernel",
                  "block_prefix_sum_kernel", "hash_probe_multi_kernel",
                  "histogram_shared_kernel", "histogram_global_kernel",
-                 "attn_f32_kernel", "attn_wgmma_kernel",
+                 "attn_tf32x3_kernel", "attn_wgmma_kernel",
                  "attn_combine_kernel", "attn_mma_kernel")
-# the kernel symbols each launcher of profile_kernels runs (the build is two
-# kernels a round, so its launches are a multiple of the calls; attention
-# at (d) is the wgmma kernel and its combine)
+# the kernel symbols each launcher of profile_kernels runs (the build below
+# table_size rows is ceil(log2 T / 8) + 3 kernels, from table_size rows two
+# a round; attention at (d) is the float32 or wgmma kernel and its combine)
 _KERNEL_SYMBOLS = {
     "segmented_sum": ("segmented_sum_kernel<float",),
     "segmented_int_sum": ("segmented_sum_kernel<int",),
     "fused": ("fused_morsel_kernel",),
-    "build_table": ("hash_build_claim_kernel", "hash_build_place_kernel"),
+    "build_table": ("build_compact_kernel", "build_sort_kernel",
+                    "build_levels_kernel", "build_resolve_kernel",
+                    "hash_build_claim_kernel", "hash_build_place_kernel"),
     "hash_probe": ("hash_probe_kernel",),
     "block_prefix_sum": ("block_prefix_sum_kernel",),
     "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel",
@@ -1921,7 +2167,7 @@ _KERNEL_SYMBOLS = {
     "hash_probe_multi": ("hash_probe_multi_kernel",),
     "radix_histogram": ("histogram_shared_kernel", "histogram_global_kernel"),
     "fused_batch_program": ("fused_batch_kernel",),
-    "flash_attention": ("attn_f32_kernel", "attn_mma_kernel",
+    "flash_attention": ("attn_tf32x3_kernel", "attn_mma_kernel",
                         "attn_wgmma_kernel", "attn_combine_kernel")}
 # the attention kernels, for phase 9's account of what each case ran
 _ATTN_KERNELS = _KERNEL_SYMBOLS["flash_attention"]
@@ -1988,7 +2234,8 @@ def profile_kernels(torch, launchers, reps: int = 20):
         # a profile now and then comes back without some or all of the
         # device's events (CUPTI); such a profile is taken again
         for attempt in range(_PROFILE_ATTEMPTS):
-            prof, _ = _profiled(torch, lambda: [fn() for _ in range(reps)])
+            prof, _ = _profiled(torch, lambda: [fn() for _ in range(reps)],
+                                cpu=key == "build_table")
             events = _device_events(prof)
             hits = [r for r in events if any(k in r[0] for k in keys)]
             launched = sum(r[1] for r in hits)
@@ -2009,6 +2256,17 @@ def profile_kernels(torch, launchers, reps: int = 20):
             if launched != reps:
                 fail(f"profile of {name}: {launched / reps} kernel launches "
                      "a call, want 1")
+        if key == "build_table":
+            # a fixed number of passes: the build's kernels, its memset and
+            # the table's two fills, and nothing read back or waited for
+            syncs = _syncs({e.key for e in prof.key_averages()})
+            breakdown = [(r[0][:60], r[1] / reps, r[2] / reps)
+                         for r in events]
+            print(f"profile of {name}: device events a call (name, count, "
+                  f"us) {breakdown}; read-backs and syncs {syncs}",
+                  flush=True)
+            if syncs:
+                fail(f"profile of {name}: {syncs} inside the build")
     print(f"device_ms per launch: {json.dumps(out)}", flush=True)
     print(f"kernel launches a call: {json.dumps(per_call)}", flush=True)
     return out
@@ -2073,11 +2331,15 @@ def main() -> None:
                     help="run phase 9 alone (the attention kernel's "
                          "checks and times) and print its kernels line; "
                          "prints no ok line")
+    ap.add_argument("--build", action="store_true",
+                    help="run the build checks of phase 3 alone (the "
+                         "synthetic cases, the route and the launches); "
+                         "prints no ok line")
     ap.add_argument("--faults", action="store_true",
-                    help="run phase 9 alone on the attention kernel as it "
-                         "is and with each of three planted faults, in "
-                         "temporary copies; exits 0 when every fault is "
-                         "caught")
+                    help="run phase 9 alone and the build checks alone on "
+                         "the kernels as they are and with each planted "
+                         "fault, in temporary copies; exits 0 when every "
+                         "fault is caught")
     args = ap.parse_args()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2119,6 +2381,10 @@ def main() -> None:
     if args.attention:
         attn_rows, _ = run_attention(torch, fa, kops, rate, name)
         print(json.dumps({"kernels": attn_rows}))
+        print(card)
+        return
+    if args.build:
+        run_build(torch, hp)
         print(card)
         return
 
@@ -2175,6 +2441,11 @@ def main() -> None:
     launchers.update(attn_launchers)
     print(f"phase 9 (attention): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # phase 3's build launches, profiled after phase 9's profiles
+    failures = []
+    check_build_launches(torch, hp, failures)
+    if failures:
+        fail("; ".join(failures))
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:

@@ -21,10 +21,25 @@
 //     192, 256} (the kernels' template width), and rows past S up to the
 //     tile; columns past S are masked. D > 256 is refused.
 //
-// float32 (attn_f32_kernel): FFMA only, no TF32 and no tensor cores (the
-// reference's 2e-5 tolerance rules TF32 out). 256 threads, a 64 x 64 score
-// tile, each thread 4 rows x 4 columns of it; Q, K (then V, in the same
-// buffer) and P in shared memory, read as float4.
+// float32 (attn_tf32x3_kernel): 3xTF32 on the tensor cores. One TF32
+// product (10 mantissa bits, about 5e-4 relative) misses the reference's
+// 2e-5; three do not: each float32 operand x is split once into TF32 parts
+// big = rna(x) and small = rna(x - big), and every product of Q K^T and of
+// P V is small*big + big*small + big*big on mma.sync m16n8k8 (tf32) with
+// float32 accumulators, small*small (2^-22 relative) left out, the order
+// of CUTLASS's OpMultiplyAddFastF32 (PyTorch's float32 memory-efficient
+// SDPA). FlashAttention-2's layout: four warps, 16 Q rows each, a 64-row
+// Q tile; the row statistics stay in a quad of lanes. The m16n8 score
+// accumulator gives a lane keys 2t, 2t + 1 where P V's A fragment wants
+// k = t, t + 4; since P V sums over keys, the accumulator serves as A as it
+// lies when V's B fragment reads keys 2t (k = t) and 2t + 1 (k = t + 4).
+// K/V tiles of 32 keys come through a ring of two stages by cp.async (16
+// bytes when d % 4 == 0 and the bases allow, else 4), rows padded by 4
+// floats so that every fragment read is free of bank conflicts; tile j + 1
+// loads while tile j computes. Q's fragments stay in registers up to DP =
+// 128 (split once at DP = 64, at each use at 128) and in shared memory
+// above. Small grids split over K as the wgmma kernel's do (below), with a
+// float32 combine.
 //
 // bfloat16 / float16 on Hopper (attn_wgmma_kernel), every 16-bit input
 // that TMA can address (d % 8 == 0, 16-byte-aligned bases): a CTA holds a
@@ -65,7 +80,7 @@
 //
 // Bound: at the repository's shapes (S >= 1024, D >= 64) operations:
 // 4 * S^2 * D per (b, h), halved when causal, against 4 * S * D elements
-// of memory. In bfloat16 the exponentials (S^2 / 2 per head with causal)
+// of memory; in float32 three TF32 products make one. In bfloat16 the exponentials (S^2 / 2 per head with causal)
 // also cost SFU time, about half the tensor-core bound at qwen2-1.5B's
 // train_4k shape and as much as it at D = 64; the wgmma kernel overlaps
 // them with the products.
@@ -94,163 +109,335 @@ __device__ __forceinline__ int k_tiles(int q0, int bq, int bk, int s, int causal
 }
 
 // ---------------------------------------------------------------------------
-// float32: FFMA
+// float32: 3xTF32 on mma.sync m16n8k8
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Rows = 64;      // Q rows and K columns of a tile
-constexpr int kF32Threads = 256;  // 16 x 16: 4 x 4 scores each
+constexpr int kTfRows = 64;      // Q rows of a CTA: 16 a warp
+constexpr int kTfThreads = 128;
+constexpr int kTfBK = 32;        // keys of a K/V tile
 
+// Q's A fragments stay in registers up to DP = 128: split once at DP = 64
+// (the compiler keeps both parts across the K loop), raw and split at each
+// use at DP = 128, where both parts beside O's DP / 2 accumulators spill.
+// Above, Q stays in shared memory
 template <int DP>
-__host__ __device__ constexpr int f32_smem_bytes() {
-  return (2 * kF32Rows * (DP + 4) + kF32Rows * (kF32Rows + 4)) * 4;
+__host__ __device__ constexpr bool tf_qreg() { return DP <= 128; }
+template <int DP>
+__host__ __device__ constexpr bool tf_qsplit_once() { return DP <= 64; }
+// row stride in floats: 4 floats of padding make the fragment reads of Q
+// and K (8 rows by 4 columns) and of V (keys 2t, 2t + 1 by 8 columns) fall
+// in 32 distinct banks
+template <int DP>
+__host__ __device__ constexpr int tf_ld() { return DP + 4; }
+// two stages of K and of V, and Q when it is not in registers
+template <int DP>
+__host__ __device__ constexpr int tf_smem_bytes() {
+  return (4 * kTfBK + (tf_qreg<DP>() ? 0 : kTfRows)) * tf_ld<DP>() * 4;
 }
 
-// rows [r0, r0 + kF32Rows) of src [s, d] into dst [kF32Rows, DP + 4],
-// zero past s and past d
-template <int DP>
-__device__ __forceinline__ void f32_tile(float* dst, const float* __restrict__ src,
-                                         int r0, int s, int d) {
-  for (int idx = threadIdx.x; idx < kF32Rows * DP; idx += kF32Threads) {
-    const int r = idx / DP, c = idx - r * DP, gr = r0 + r;
-    dst[r * (DP + 4) + c] = (gr < s && c < d) ? src[(long long)gr * d + c] : 0.f;
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as a .b32
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the same, as a volatile instruction, which the compiler does not hoist
+// out of a loop (a split of loop-invariant registers kept whole would
+// double them)
+__device__ __forceinline__ uint32_t to_tf32_here(float x) {
+  uint32_t r;
+  asm volatile("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small + O(2^-22 |x|), each a TF32 value
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b in float32 from the TF32 parts of both: the small products first,
+// into `cs`, then the big one, into `c` (CUTLASS's OpMultiplyAddFastF32
+// order; `cs` may be `c`); small * small (2^-22 relative) is left out
+__device__ __forceinline__ void mma_3xtf32(float* c, float* cs, const uint32_t* ab,
+                                           const uint32_t* as, float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(cs, as, bb0, bb1);   // small * big
+  mma_tf32(cs, ab, bs0, bs1);   // big * small
+  mma_tf32(c, ab, bb0, bb1);    // big * big
+}
+
+template <bool kHere = false>
+__device__ __forceinline__ void split4(const float* a, uint32_t* big, uint32_t* small) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (kHere) {
+      big[i] = to_tf32_here(a[i]);
+      small[i] = to_tf32_here(a[i] - __uint_as_float(big[i]));
+    } else {
+      split_tf32(a[i], big[i], small[i]);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows [r0, r0 + ROWS) of src [s, d] into dst [ROWS, LD] by cp.async, zero
+// past s and past d: 16-byte pieces when `vec` (d % 4 == 0, 16-byte-aligned
+// bases), else 4 bytes an element
+template <int DP, int ROWS>
+__device__ __forceinline__ void tf_tile(float* dst, const float* __restrict__ src, int r0, int s,
+                                        int d, int vec) {
+  constexpr int LD = tf_ld<DP>();
+  if (vec) {
+    for (int idx = threadIdx.x; idx < ROWS * (DP / 4); idx += kTfThreads) {
+      const int r = idx / (DP / 4), c = (idx - r * (DP / 4)) * 4, gr = r0 + r;
+      const bool in = gr < s && c < d;
+      cp_async16(dst + r * LD + c, in ? src + (long long)gr * d + c : src, in ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * DP; idx += kTfThreads) {
+      const int r = idx / DP, c = idx - r * DP, gr = r0 + r;
+      const bool in = gr < s && c < d;
+      cp_async4(dst + r * LD + c, in ? src + (long long)gr * d + c : src, in ? 4 : 0);
+    }
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kF32Threads)
-attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int bh,
-                int s, int d, int causal, float scale) {
-  constexpr int LD = DP + 4, LP = kF32Rows + 4, NC = DP / 64;
-  extern __shared__ float4 f32_smem[];
-  float* Qs = reinterpret_cast<float*>(f32_smem);
-  float* KV = Qs + kF32Rows * LD;   // the K tile, then the V tile
-  float* Ps = KV + kF32Rows * LD;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int nq = ceil_div(s, kF32Rows);
+__global__ void __launch_bounds__(kTfThreads)
+attn_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ part, int bh, int s, int d, int causal,
+                   float scale_log2, int nsplit, int vec) {
+  constexpr int BK = kTfBK, LD = tf_ld<DP>();
+  constexpr int NT = BK / 8;   // score n-tiles (and P V k-steps) of a warp
+  constexpr int DT = DP / 8;   // output n-tiles (and Q K^T k-steps)
+  constexpr bool QREG = tf_qreg<DP>();
+  extern __shared__ float4 tf_smem[];
+  float* Ks = reinterpret_cast<float*>(tf_smem);   // [2][BK][LD]
+  float* Vs = Ks + 2 * BK * LD;                    // [2][BK][LD]
+  float* Qs = Vs + 2 * BK * LD;                    // [kTfRows][LD] unless QREG
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = ceil_div(s, kTfRows);
   const int head = blockIdx.x % bh;
-  const int q0 = (nq - 1 - (int)(blockIdx.x / bh)) * kF32Rows;
+  const int rest = blockIdx.x / bh;
+  const int split = rest % nsplit;
+  const int q0 = (nq - 1 - rest / nsplit) * kTfRows;
+  const int nkt = k_tiles(q0, kTfRows, BK, s, causal);
+  const int per = ceil_div(nkt, nsplit);
+  const int kt_begin = min(split * per, nkt), kt_end = min(kt_begin + per, nkt);
   const long long base = (long long)head * s * d;
+  const float* qh = q + base;
+  const float* kh = k + base;
+  const float* vh = v + base;
+  const int rw = q0 + warp * 16;              // the warp's first row
+  const int row0 = rw + g, row1 = row0 + 8;   // this lane's rows
 
-  f32_tile<DP>(Qs, q + base, q0, s, d);
-  // rows ty + 16 i; scores of columns tx + 16 j; outputs of columns
-  // 64 c + 4 tx + e
-  float m[4], l[4], acc[4][NC][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  auto load_kv = [&](int tile, int stage) {
+    tf_tile<DP, BK>(Ks + stage * BK * LD, kh, tile * BK, s, d, vec);
+    tf_tile<DP, BK>(Vs + stage * BK * LD, vh, tile * BK, s, d, vec);
+  };
+  if (kt_begin < kt_end) {
+    if (!QREG) tf_tile<DP, kTfRows>(Qs, qh, q0, s, d, vec);
+    load_kv(kt_begin, 0);
+    cp_async_commit();
   }
-  const int last = k_tiles(q0, kF32Rows, kF32Rows, s, causal);
-  for (int kt = 0; kt < last; ++kt) {
-    const int k0 = kt * kF32Rows;
-    __syncthreads();   // the previous P V is done with KV and Ps
-    f32_tile<DP>(KV, k + base, k0, s, d);
-    __syncthreads();
-    float sc[4][4];
+  // Q's A fragments of k-step kk: rows g, g + 8 by columns 8 kk + t, + 4
+  float qf[QREG ? DT : 1][4];
+  if (QREG) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < DP; dd += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + dd]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&KV[(tx + 16 * j) * LD + dd]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = sc[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          sc[i][j] = a;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = sc[i][j] * scale;
-        if (col >= s || (causal && col > row)) x = kNegInf;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      // the row's 16 threads are one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        sum += p;
-        Ps[(ty + 16 * i) * LP + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + sum;   // this thread's part of the row sum
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
-    }
-    __syncthreads();   // K read, P written
-    f32_tile<DP>(KV, v + base, k0, s, d);
-    __syncthreads();
-#pragma unroll 2
-    for (int kc = 0; kc < kF32Rows; kc += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * LP + kc]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(&KV[(kc + u) * LD + 64 * c + 4 * tx]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
-            acc[i][c][0] = fmaf(p, vv.x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(p, vv.y, acc[i][c][1]);
-            acc[i][c][2] = fmaf(p, vv.z, acc[i][c][2]);
-            acc[i][c][3] = fmaf(p, vv.w, acc[i][c][3]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const float denom = fmaxf(li, 1e-30f);
-    const int row = q0 + ty + 16 * i;
-    if (row >= s) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int kk = 0; kk < (QREG ? DT : 1); ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 64 * c + 4 * tx + e;
-        if (col < d) o[base + (long long)row * d + col] = acc[i][c][e] / denom;
+        const int row = e & 1 ? row1 : row0, col = 8 * kk + t + (e & 2) * 2;
+        qf[kk][e] = row < s && col < d ? qh[(long long)row * d + col] : 0.f;
       }
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {
+      load_kv(kt + 1, st ^ 1);   // the next tile arrives while this one computes
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // this tile (and Q) are in for every warp
+    const float* kb = Ks + st * BK * LD;
+    const float* vb = Vs + st * BK * LD;
+
+    // S = Q K^T: the score tile n holds keys 8 n + 2 t, + 1 of rows g, g + 8.
+    // The small products go into accumulators of their own, added at the
+    // end: twice the independent chains of mma (a tile has only NT), and
+    // the big products' sum is not rounded at the small ones' scale
+    float sc[NT][4], sl[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = sl[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      float a[4];
+      if (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[QREG ? kk : 0][e];
+      } else {
+        const float* qa = Qs + (warp * 16 + g) * LD + 8 * kk + t;
+        a[0] = qa[0];
+        a[1] = qa[8 * LD];
+        a[2] = qa[4];
+        a[3] = qa[8 * LD + 4];
+      }
+      uint32_t ab[4], as[4];
+      split4<QREG && !tf_qsplit_once<DP>()>(a, ab, as);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* kp = kb + (n * 8 + g) * LD + 8 * kk + t;
+        mma_3xtf32(sc[n], sl[n], ab, as, kp[0], kp[4]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] += sl[n][e];
+
+    // scale, mask, online softmax; a row's scores are in its quad of lanes
+    const int k0 = kt * BK;
+    const bool masked = k0 + BK > s || (causal && k0 + BK - 1 > rw);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale_log2;
+        if (masked) {
+          const int col = k0 + n * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (col >= s || (causal && col > row)) x = kNegInf;
+        }
+        sc[n][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      sc[n][0] = exp2f(sc[n][0] - mn0);
+      sc[n][1] = exp2f(sc[n][1] - mn0);
+      sc[n][2] = exp2f(sc[n][2] - mn1);
+      sc[n][3] = exp2f(sc[n][3] - mn1);
+      rs0 += sc[n][0] + sc[n][1];
+      rs1 += sc[n][2] + sc[n][3];
+    }
+    l0 = l0 * alpha0 + rs0;   // this lane's part of the row sums
+    l1 = l1 * alpha1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+
+    // O += P V. The k-step j of P V is score tile j with its keys in the
+    // order k = t <-> key 2 t, k = t + 4 <-> key 2 t + 1: P's accumulators
+    // are its A fragment as they lie, and V's B fragment reads keys 2 t and
+    // 2 t + 1 of column 8 n + g
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float a[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+      uint32_t ab[4], as[4];
+      split4(a, ab, as);
+      const float* vp = vb + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) mma_3xtf32(acc[n], acc[n], ab, as, vp[8 * n], vp[LD + 8 * n]);
+    }
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (nsplit == 1) {
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    float* oh = o + base;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        if (row < s && col < d) oh[(long long)row * d + col] = acc[n][e] / (e < 2 ? d0 : d1);
+      }
+  } else {
+    // float32 partials for attn_combine_kernel, laid out as the wgmma
+    // kernel's; a row that saw only masked columns writes l = 0, acc = 0
+    const float w0 = m0 == kNegInf ? 0.f : 1.f, w1 = m1 == kNegInf ? 0.f : 1.f;
+    const long long rows = (long long)bh * s;
+    const long long r0 = ((long long)split * bh + head) * s + row0, r1 = r0 + 8;
+    float* pm = part + nsplit * rows * d;
+    float* pl = pm + nsplit * rows;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        if (col >= d) continue;
+        if (e < 2 && row0 < s) part[r0 * d + col] = acc[n][e] * w0;
+        if (e >= 2 && row1 < s) part[r1 * d + col] = acc[n][e] * w1;
+      }
+    if (t == 0) {
+      if (row0 < s) { pm[r0] = m0; pl[r0] = l0 * w0; }
+      if (row1 < s) { pm[r1] = m1; pl[r1] = l1 * w1; }
+    }
   }
 }
 
@@ -879,52 +1066,58 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // the split over K: out = sum_i 2^(m_i - M) acc_i / max(sum_i 2^(m_i - M)
 // l_i, 1e-30), M = max_i m_i, over the nsplit partials of a row; a thread
-// for two columns of a row
+// for Out::kCols columns of a row, stored in the output dtype
 constexpr int kCombineThreads = 256;
 
 template <typename Tr>
+struct Pack2 {   // 16-bit output, two columns a thread (d % 8 == 0)
+  using T = uint16_t;
+  static constexpr int kCols = 2;
+  __device__ static __forceinline__ void store(T* o, const float* a) {
+    *reinterpret_cast<uint32_t*>(o) = Tr::pack(a[0], a[1]);
+  }
+};
+
+struct F32Out {  // float32 output, a column a thread (any d)
+  using T = float;
+  static constexpr int kCols = 1;
+  __device__ static __forceinline__ void store(T* o, const float* a) { o[0] = a[0]; }
+};
+
+template <typename Out>
 __global__ void __launch_bounds__(kCombineThreads)
-attn_combine_kernel(const float* __restrict__ part, uint16_t* __restrict__ o, int bh,
+attn_combine_kernel(const float* __restrict__ part, typename Out::T* __restrict__ o, int bh,
                     int s, int d, int nsplit) {
+  constexpr int C = Out::kCols;
   const long long rows = (long long)bh * s;
-  const int half = d / 2;
+  const int per_row = d / C;
   const long long idx = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
-  if (idx >= rows * half) return;
-  const long long row = idx / half;
-  const int col = (int)(idx - row * half) * 2;
+  if (idx >= rows * per_row) return;
+  const long long row = idx / per_row;
+  const int col = (int)(idx - row * per_row) * C;
   const float* pm = part + nsplit * rows * d;
   const float* pl = pm + nsplit * rows;
   float mx = kNegInf;
   for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, pm[sp * rows + row]);
-  float l = 0.f, a0 = 0.f, a1 = 0.f;
+  float l = 0.f, a[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] = 0.f;
   for (int sp = 0; sp < nsplit; ++sp) {
     const float w = exp2f(pm[sp * rows + row] - mx);
-    const float2 a = *reinterpret_cast<const float2*>(part + (sp * rows + row) * d + col);
+    const float* ap = part + (sp * rows + row) * d + col;
     l += w * pl[sp * rows + row];
-    a0 += w * a.x;
-    a1 += w * a.y;
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[c] += w * ap[c];
   }
   const float den = fmaxf(l, 1e-30f);
-  *reinterpret_cast<uint32_t*>(o + row * d + col) = Tr::pack(a0 / den, a1 / den);
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] /= den;
+  Out::store(o + row * d + col, a);
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-template <int DP>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-                       int s, int d, int causal, float scale, unsigned blocks,
-                       cudaStream_t st) {
-  constexpr int smem = f32_smem_bytes<DP>();
-  cudaError_t rc = cudaFuncSetAttribute(
-      attn_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) return rc;
-  attn_f32_kernel<DP><<<blocks, kF32Threads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), bh, s, d, causal, scale);
-  return cudaGetLastError();
-}
 
 template <typename Tr, int DP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
@@ -1003,31 +1196,83 @@ bool wgmma_shape(const void* q, const void* k, const void* v, const void* o, int
   return dtype != 0 && d % 8 == 0 && bases % 16 == 0;
 }
 
-// splits of each (head, Q tile) of the wgmma kernel over its K tiles: 1
-// when the B*H * ceil(S / 128) CTAs fill the card's SMs, else as many as
-// fill them, at most the K tiles of the longest Q tile. nsplit * CTAs <=
-// SMs, so the partials stay small
-int wgmma_splits(int bh, int s, int d) {
-  static int sms_of[64];   // per device, read once
+// the card's SMs (per device, read once), or 0
+int sm_count() {
+  static int sms_of[64];
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   int sms = dev < 64 ? sms_of[dev] : 0;
   if (sms == 0) {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      return 1;
+      return 0;
     }
     if (dev < 64) sms_of[dev] = sms;
   }
-  const long long ctas = (long long)bh * ceil_div(s, kWgRows);
-  if (ctas >= sms) return 1;
-  const int bk = d <= 128 ? wg_bk<128>() : wg_bk<256>();
-  const int most = ceil_div(s, bk);
+  return sms;
+}
+
+// splits of each (head, Q tile) over its K tiles: 1 when the `ctas` CTAs
+// fill the card's SMs, else as many as fill them, at most `most` (the K
+// tiles of the longest Q tile). nsplit * CTAs <= SMs, so the partials stay
+// small
+int splits(long long ctas, int most) {
+  const int sms = sm_count();
+  if (sms == 0 || ctas >= sms) return 1;
   const int n = (int)(sms / ctas);
   return n < most ? n : most;
 }
 
+// the wgmma kernel's: 128-row Q tiles
+int wgmma_splits(int bh, int s, int d) {
+  const int bk = d <= 128 ? wg_bk<128>() : wg_bk<256>();
+  return splits((long long)bh * ceil_div(s, kWgRows), ceil_div(s, bk));
+}
+
+// the float32 kernel's: 64-row Q tiles, 32-key K tiles
+int tf_splits(int bh, int s) {
+  return splits((long long)bh * ceil_div(s, kTfRows), ceil_div(s, kTfBK));
+}
+
 long long wgmma_scratch_bytes(int bh, int s, int d, int nsplit) {
   return nsplit > 1 ? (long long)nsplit * bh * s * (d + 2) * 4 : 0;
+}
+
+template <int DP>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                          int d, int causal, float scale, void* scratch, int nsplit,
+                          cudaStream_t st) {
+  constexpr int smem = tf_smem_bytes<DP>();
+  static_assert(smem <= kSmemMax, "the float32 kernel's shared memory");
+  cudaError_t rc = cudaFuncSetAttribute(
+      attn_tf32x3_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  const int vec = d % 4 == 0 && bases % 16 == 0;
+  const long long blocks = (long long)bh * ceil_div(s, kTfRows) * nsplit;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attn_tf32x3_kernel<DP><<<(unsigned)blocks, kTfThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(scratch), bh,
+      s, d, causal, scale * kLog2e, nsplit, vec);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess || nsplit == 1) return rc;
+  const long long elems = (long long)bh * s * d;
+  attn_combine_kernel<F32Out><<<(unsigned)((elems + kCombineThreads - 1) / kCombineThreads),
+                                kCombineThreads, 0, st>>>(
+      static_cast<const float*>(scratch), static_cast<float*>(o), bh, s, d, nsplit);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32x3_d(const void* q, const void* k, const void* v, void* o, int bh,
+                            int s, int d, int causal, float scale, void* scratch, int nsplit,
+                            cudaStream_t st) {
+  if (d <= 64) return launch_tf32x3<64>(q, k, v, o, bh, s, d, causal, scale, scratch, nsplit, st);
+  if (d <= 128)
+    return launch_tf32x3<128>(q, k, v, o, bh, s, d, causal, scale, scratch, nsplit, st);
+  if (d <= 192)
+    return launch_tf32x3<192>(q, k, v, o, bh, s, d, causal, scale, scratch, nsplit, st);
+  return launch_tf32x3<256>(q, k, v, o, bh, s, d, causal, scale, scratch, nsplit, st);
 }
 
 template <typename Tr, int DP>
@@ -1053,8 +1298,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   rc = cudaGetLastError();
   if (rc != cudaSuccess || nsplit == 1) return rc;
   const long long pairs = (long long)bh * s * (d / 2);
-  attn_combine_kernel<Tr><<<(unsigned)((pairs + kCombineThreads - 1) / kCombineThreads),
-                            kCombineThreads, 0, st>>>(
+  attn_combine_kernel<Pack2<Tr>><<<(unsigned)((pairs + kCombineThreads - 1) / kCombineThreads),
+                                   kCombineThreads, 0, st>>>(
       static_cast<const float*>(scratch), static_cast<uint16_t*>(o), bh, s, d, nsplit);
   return cudaGetLastError();
 }
@@ -1074,11 +1319,13 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Bytes of float32 scratch that flash_attention_run needs for a 16-bit
-// [bh, s, d] whose CTAs are split over K (0 when they are not): the
+// Bytes of float32 scratch that flash_attention_run needs for a [bh, s,
+// d] of `dtype` whose CTAs are split over K (0 when they are not): the
 // wrapper allocates them and passes them in.
 extern "C" long long flash_attention_scratch_bytes(int bh, int s, int d, int dtype) {
-  if (bh < 1 || s < 1 || d < 1 || d > kMaxD || d % 8 || dtype < 1 || dtype > 2) return 0;
+  if (bh < 1 || s < 1 || d < 1 || d > kMaxD || dtype < 0 || dtype > 2) return 0;
+  if (dtype == 0) return wgmma_scratch_bytes(bh, s, d, tf_splits(bh, s));
+  if (d % 8) return 0;
   return wgmma_scratch_bytes(bh, s, d, wgmma_splits(bh, s, d));
 }
 
@@ -1097,6 +1344,11 @@ extern "C" int flash_attention_run(const void* q, const void* k, const void* v, 
   }
   if (bh == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const int nsplit = tf_splits(bh, s);
+    if (scratch_bytes < wgmma_scratch_bytes(bh, s, d, nsplit)) return (int)cudaErrorInvalidValue;
+    return (int)launch_tf32x3_d(q, k, v, o, bh, s, d, causal, scale, scratch, nsplit, st);
+  }
   if (wgmma_shape(q, k, v, o, d, dtype)) {
     const int nsplit = wgmma_splits(bh, s, d);
     if (scratch_bytes < wgmma_scratch_bytes(bh, s, d, nsplit)) return (int)cudaErrorInvalidValue;
@@ -1106,22 +1358,11 @@ extern "C" int flash_attention_run(const void* q, const void* k, const void* v, 
                      : launch_wgmma_d<F16>(q, k, v, o, bh, s, d, dtype, causal, scale,
                                            scratch, nsplit, st));
   }
-  const int rows = dtype == 0 ? kF32Rows : kMmaRows;
-  const long long blocks = (long long)bh * ((s + rows - 1) / rows);
+  const long long blocks = (long long)bh * ((s + kMmaRows - 1) / kMmaRows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const unsigned nb = (unsigned)blocks;
-  cudaError_t rc;
-  if (dtype == 0) {
-    if (d <= 64) rc = launch_f32<64>(q, k, v, o, bh, s, d, causal, scale, nb, st);
-    else if (d <= 128) rc = launch_f32<128>(q, k, v, o, bh, s, d, causal, scale, nb, st);
-    else if (d <= 192) rc = launch_f32<192>(q, k, v, o, bh, s, d, causal, scale, nb, st);
-    else rc = launch_f32<256>(q, k, v, o, bh, s, d, causal, scale, nb, st);
-  } else if (dtype == 1) {
-    rc = launch_mma_d<Bf16>(q, k, v, o, bh, s, d, causal, scale, nb, st);
-  } else {
-    rc = launch_mma_d<F16>(q, k, v, o, bh, s, d, causal, scale, nb, st);
-  }
-  return (int)rc;
+  return (int)(dtype == 1 ? launch_mma_d<Bf16>(q, k, v, o, bh, s, d, causal, scale, nb, st)
+                          : launch_mma_d<F16>(q, k, v, o, bh, s, d, causal, scale, nb, st));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -3,12 +3,17 @@
 ``build_table`` inserts (key, value) rows into a power-of-two table by the
 reference's round-synchronous linear probing; ``hash_probe`` looks keys up
 in it (single match) and ``hash_probe_multi`` returns every match of each
-key up to a capacity (the expansion probe). For a CUDA tensor each launches its kernel in
+key up to a capacity (the expansion probe). For a CUDA tensor each launches its kernels in
 ``csrc/hash_table.cu`` (the hash and the probe loop are in
 ``csrc/hash_probe.cuh``, which the fused morsel kernel shares; the source
-says what bounds them and why the build keeps the reference's rounds). For
-a CPU tensor each runs its plain PyTorch version, which repeats the
-reference's arithmetic step by step.
+says what bounds them and how the build reaches the reference's table
+without its rounds: a compaction, a radix sort by home, a scan of the
+levels and a walk of each cluster, in a number of launches fixed by the
+shape, with no read-back). A build of ``n >= table_size`` rows, which can
+fill the table, takes the round kernels instead (a shape rule: the
+planner sizes tables at twice the rows). For a CPU tensor each runs its
+plain PyTorch version, which repeats the reference's arithmetic step by
+step.
 
 ``longest_run`` and ``probe_bound`` size a probe's ``max_probes`` from a
 built table with a few torch operations on the table's device; only the
@@ -26,12 +31,18 @@ from . import build, ops
 _LIB = "hash_table"
 MAX_PROBES_DEFAULT = 64
 _INT32_MAX = 2 ** 31 - 1
-# (keys, vals, placed, n, table_size, empty_key, tk, tv, winner, unplaced,
-#  stream)
+# (keys, vals, valid, n, table_size, empty_key, tk, tv, scratch,
+#  scratch_bytes, stream)
 _BUILD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_void_p]
+# (keys, vals, placed, n, table_size, empty_key, tk, tv, winner, unplaced,
+#  stream): the round build, for n >= table_size
+_ROUNDS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p]
 # (tk, tv, table_size, max_probes, empty_key, keys, n, found, vals, stream)
 _PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -137,19 +148,40 @@ def build_table(keys: torch.Tensor, vals: torch.Tensor, table_size: int,
     if n == 0:
         return tk, tv
     keys, vals = keys.contiguous(), vals.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if n >= table_size:
+        rc = _build_rounds(keys, vals, valid, n, table_size, empty_key, tk,
+                           tv, stream)
+    else:
+        valid = None if valid is None else valid.contiguous()
+        nbytes = build.function(_LIB, "hash_table_build_scratch_bytes",
+                                [ctypes.c_longlong], ctypes.c_longlong)(n)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        fn = build.function(_LIB, "hash_table_build", _BUILD_ARGTYPES)
+        rc = fn(keys.data_ptr(), vals.data_ptr(),
+                None if valid is None else valid.data_ptr(), n, table_size,
+                empty_key, tk.data_ptr(), tv.data_ptr(), scratch.data_ptr(),
+                nbytes, stream)
+    build.check(_LIB, rc, "build_table")
+    ops.count_launch("build_table")
+    return tk, tv
+
+
+def _build_rounds(keys, vals, valid, n, table_size, empty_key, tk, tv,
+                  stream):
+    """The round kernels, for ``n >= table_size`` rows: the host reads the
+    unplaced count back every 8 rounds and stops at 0 or after
+    ``table_size`` rounds, as the reference does."""
+    dev = keys.device
     placed = (torch.zeros(n, dtype=torch.uint8, device=dev) if valid is None
               else (~valid).to(torch.uint8))
     winner = torch.full((table_size,), _INT32_MAX, dtype=torch.int32,
                         device=dev)
     unplaced = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.function(_LIB, "hash_table_build", _BUILD_ARGTYPES)
-    rc = fn(keys.data_ptr(), vals.data_ptr(), placed.data_ptr(), n,
-            table_size, empty_key, tk.data_ptr(), tv.data_ptr(),
-            winner.data_ptr(), unplaced.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(_LIB, rc, "build_table")
-    ops.count_launch("build_table")
-    return tk, tv
+    fn = build.function(_LIB, "hash_table_build_rounds", _ROUNDS_ARGTYPES)
+    return fn(keys.data_ptr(), vals.data_ptr(), placed.data_ptr(), n,
+              table_size, empty_key, tk.data_ptr(), tv.data_ptr(),
+              winner.data_ptr(), unplaced.data_ptr(), stream)
 
 
 # ---------------------------------------------------------------------------

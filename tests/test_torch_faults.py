@@ -1,9 +1,10 @@
 """``chip_smoke.py``'s card-only tooling against the CUDA sources, on the
-CPU: every planted fault of ``--faults`` must still find its text in
-``csrc/flash_attention.cu`` as often as it says, and every kernel symbol
-that ``--profile`` and phase 9 look for must name a ``__global__``
-function of ``csrc/``. A kernel edit that breaks either shows here, not at
-the next run on the card."""
+CPU: every planted fault of ``--faults`` must still find its text in the
+source it edits (``csrc/flash_attention.cu`` or ``csrc/hash_table.cu``)
+as often as it says, and every kernel symbol that ``--profile``, phase 3
+and phase 9 look for must name a ``__global__`` function of ``csrc/``. A
+kernel edit that breaks either shows here, not at the next run on the
+card."""
 
 import importlib.util
 import re
@@ -36,7 +37,8 @@ def _global_functions():
 
 @pytest.mark.parametrize("fault", sorted(chip_smoke._FAULTS))
 def test_fault_edits_occur_as_often_as_they_say(fault):
-    text = (ROOT / chip_smoke._ATTN_CU).read_text()
+    source, _ = chip_smoke.fault_target(fault)
+    text = (ROOT / source).read_text()
     for old, new, count in chip_smoke._FAULTS[fault]:
         assert text.count(old) == count, (fault, old)
         assert old != new
@@ -44,8 +46,12 @@ def test_fault_edits_occur_as_often_as_they_say(fault):
 
 @pytest.mark.parametrize("fault", sorted(chip_smoke._FAULT_CASES))
 def test_fault_cases_name_phase_9_cases(fault):
+    """A fault's cases are cases of the run that must catch it: phase 9's
+    for the attention faults, the build checks' for the build's."""
     assert fault in chip_smoke._FAULTS
-    cases = {c[0] for c in chip_smoke._ATTN_CASES}
+    _, option = chip_smoke.fault_target(fault)
+    cases = ({c[0] for c in chip_smoke._ATTN_CASES}
+             if option == "--attention" else set(chip_smoke._BUILD_CASES))
     assert set(chip_smoke._FAULT_CASES[fault]) <= cases
 
 

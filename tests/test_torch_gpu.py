@@ -106,21 +106,60 @@ def test_query_on_card_matches_cpu(cuda, q):
 # the join kernels (build_table, hash_probe, the fused probe)
 # ---------------------------------------------------------------------------
 
+def _homes(keys, t):
+    x = keys.astype(np.int64) & 0xFFFFFFFF
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & 0xFFFFFFFF
+    x ^= x >> 13
+    return x & (t - 1)
+
+
 def _build_case(case, n=50_000):
     rng = np.random.default_rng(len(case))
+    t = 1 << (2 * n - 1).bit_length()
+    valid = np.ones(n, bool)
     if case == "unique":
         keys = rng.permutation(10 * n)[:n].astype(np.int32)
-        valid = np.ones(n, bool)
     elif case == "duplicates":
         keys = rng.integers(0, n // 16, n).astype(np.int32)
-        valid = np.ones(n, bool)
-    else:   # invalid rows and -1 keys, which leave their slots looking empty
+    elif case == "invalid_and_minus_one":
+        # invalid rows and -1 keys, which leave their slots looking empty
         keys = rng.integers(-2, n, n).astype(np.int32)
         valid = rng.random(n) < 0.6
-    return keys, valid, 1 << (2 * n - 1).bit_length()
+    elif case == "all_ghost_cluster":
+        # runs of -1 rows (ghosts) among keys that share their homes
+        keys = np.where(rng.random(n) < 0.3, -1,
+                        rng.integers(0, n // 4, n)).astype(np.int32)
+    elif case == "ghosts_over_a_run":
+        # 30 ghosts whose home lies inside the run of a key of 200 rows
+        pool = np.arange(1 << 22, dtype=np.int32)
+        ghost = int(_homes(np.array([-1], np.int32), t)[0])
+        run = pool[_homes(pool, t) == (ghost - 20) % t][0]
+        keys = np.concatenate([np.full(200, run), np.full(30, -1),
+                               rng.permutation(10 * n)[:n - 230] + (1 << 22)])
+        keys = rng.permutation(keys).astype(np.int32)
+    elif case == "wrap_through_last_slot":
+        pool = np.arange(1 << 22, dtype=np.int32)
+        keys = rng.choice(pool[_homes(pool, t) >= t - 64], n).astype(np.int32)
+    elif case == "one_home_1000_rows":
+        keys = np.concatenate([np.full(1000, 777),
+                               rng.permutation(10 * n)[:n - 1000] + 1000])
+        keys = rng.permutation(keys).astype(np.int32)
+    else:
+        # n >= T (the round kernels), valid rows below and above T
+        t = 1 << 14
+        keys = rng.integers(-1, 1 << 20, n).astype(np.int32)
+        valid = rng.random(n) < (0.2 if case == "rounds_below_t" else 0.9)
+    return keys, valid, t
 
 
-@pytest.mark.parametrize("case", ["unique", "duplicates", "invalid_and_minus_one"])
+_BUILD_CASES = ["unique", "duplicates", "invalid_and_minus_one",
+                "all_ghost_cluster", "ghosts_over_a_run",
+                "wrap_through_last_slot",
+                "one_home_1000_rows", "rounds_below_t", "rounds_above_t"]
+
+
+@pytest.mark.parametrize("case", _BUILD_CASES)
 def test_build_table_on_card_is_bit_identical(cuda, case):
     keys, valid, t = _build_case(case)
     k, v, m = (torch.from_numpy(keys), torch.arange(len(keys), dtype=torch.int32),
@@ -629,8 +668,9 @@ def test_serving_workload_on_card_matches_cpu(cuda):
 # flash attention
 # ---------------------------------------------------------------------------
 
-# float32 within 2e-5 (FFMA, no TF32), bfloat16 and float16 within 2e-2 (P
-# rounds to the input dtype before P V, as the oracle's probs do); every
+# float32 within 2e-5 (3xTF32; one TF32 product misses it), bfloat16 and
+# float16 within 2e-2 (P rounds to the input dtype before P V, as the
+# oracle's probs do); every
 # dtype also within SCALED_ERROR_TOL of scaled_error, which scales with each
 # row's own size where the fixed limit does not
 _ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
@@ -740,12 +780,56 @@ def test_flash_attention_paths_on_card(no_tf32, case, dtype):
         kernels, ran
     assert not any(x in r for r in ran for x in (
         "attn_wgmma_kernel", "attn_combine_kernel", "attn_mma_kernel",
-        "attn_f32_kernel") if x not in kernels), ran
+        "attn_tf32x3_kernel") if x not in kernels), ran
     want = flash_attention_plain(q, k, v, causal)
     err = float((got.float() - want.float()).abs().max())
     assert err <= _ATTN_TOL[dtype], err
     scaled = scaled_error(got, want, v, causal)
     assert scaled <= SCALED_ERROR_TOL, scaled
+
+
+# float32 (shape, causal, offset of the bases in elements, kernels): the
+# split over K (B*H * S / 64 CTAs below the card's SMs) with rows whose
+# split lies past their diagonal; no split at the widest tile; 4-byte
+# copies where a base is off 16 bytes or D % 4 != 0
+_F32_PATHS = {
+    "split_d192_dead_rows": ((1, 2, 1024, 192), True, 0,
+                             {"attn_tf32x3_kernel", "attn_combine_kernel"}),
+    "split_d160_full": ((1, 2, 1024, 160), False, 0,
+                        {"attn_tf32x3_kernel", "attn_combine_kernel"}),
+    "split_d1": ((1, 1, 512, 1), True, 0,
+                 {"attn_tf32x3_kernel", "attn_combine_kernel"}),
+    "d256": ((2, 12, 1024, 256), True, 0, {"attn_tf32x3_kernel"}),
+    "d128_full": ((1, 12, 2048, 128), False, 0, {"attn_tf32x3_kernel"}),
+    "unaligned": ((2, 12, 512, 64), True, 1, {"attn_tf32x3_kernel"}),
+    "d40": ((3, 12, 512, 40), True, 0, {"attn_tf32x3_kernel"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_F32_PATHS))
+def test_flash_attention_f32_paths_on_card(no_tf32, case):
+    from repro_torch.kernels.flash_attention import (
+        SCALED_ERROR_TOL, flash_attention, flash_attention_plain,
+        scaled_error)
+    shape, causal, offset, kernels = _F32_PATHS[case]
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(sum(shape) + offset)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, n + offset).astype(
+        np.float32)).to(no_tf32)[offset:].view(shape) for _ in range(3))
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    ran = _device_kernels(lambda: flash_attention(q, k, v, causal=causal))
+    assert {want for want in kernels if any(want in r for r in ran)} == \
+        kernels, ran
+    assert not any(x in r for r in ran for x in (
+        "attn_wgmma_kernel", "attn_combine_kernel", "attn_mma_kernel",
+        "attn_tf32x3_kernel") if x not in kernels), ran
+    want = flash_attention_plain(q, k, v, causal)
+    err = float((got - want).abs().max())
+    assert err <= _ATTN_TOL["float32"], err
+    assert scaled_error(got, want, v, causal) <= SCALED_ERROR_TOL
 
 
 def test_flash_attention_rejects_wrong_inputs_on_card(cuda):
@@ -762,3 +846,52 @@ def test_flash_attention_rejects_wrong_inputs_on_card(cuda):
     with pytest.raises(ValueError):     # k on the host
         flash_attention(q, q.cpu(), q)
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+def _build_events(fn):
+    """(kernel name -> launches, every device event name) of one call of
+    ``fn``, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        events = prof.key_averages()
+        kernels = {e.key: e.count for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and "build_" in e.key and "_kernel" in e.key}
+        if kernels:
+            return kernels, {e.key for e in events}
+    return {}, set()
+
+
+def test_build_table_launches_depend_on_shape_only(cuda):
+    """Below table_size rows the build's launches are fixed by the shape:
+    duplicate keys (long clusters) launch what unique keys launch, nothing
+    is copied back, and a call queued behind a 0.1 s spin on the card
+    returns at once (it does not synchronise). Last in the file: a process
+    whose first profile comes before the threads and streams of the
+    serving and multi-worker tests loses the device events of later
+    profiles."""
+    seen = []
+    for case in ("unique", "duplicates"):
+        keys, valid, t = _build_case(case)
+        k, v = (torch.from_numpy(keys).to(cuda),
+                torch.arange(len(keys), dtype=torch.int32, device=cuda))
+        kernels, names = _build_events(lambda: hp.build_table(k, v, t, -1))
+        assert kernels, case
+        assert not any("DtoH" in n for n in names), names
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        hp.build_table(k, v, t, -1)
+        waited = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        assert waited < 0.02, waited
+        seen.append(kernels)
+    assert seen[0] == seen[1]
+    assert sum(seen[0].values()) == 3 + -(-17 // 8)   # T = 2^17
