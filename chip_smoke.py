@@ -10,13 +10,20 @@ In order it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, all started together) and prints the seconds;
+   beside the build, compiles ``fused_morsel.cu`` and ``fused_batch.cu``
+   with ``-Xptxas -v`` and fails unless ``fused_morsel_kernel`` and
+   ``fused_batch_kernel`` have a 0-byte stack frame and no spill (their
+   registers are shared memory);
 3. checks each kernel against its plain PyTorch version on the card, on
    the shapes the main path gives it, with the tolerance stated beside each:
-   the segmented sums, the fused program on Q1's and Q6's stages, and the
-   kernels of one SF 1 run of Q3, Q10, Q2, Q9, Q20 and Q22 on the inputs
-   that run gives them, captured by wrapping the kernel functions: every
-   ``build_table`` of Q3 and Q10 bit-identical, Q10's two standalone
-   ``hash_probe`` calls and the first morsel of each fused probe exact;
+   the segmented sums, the fused program on Q1's and Q6's stages (on a
+   1M-row lineitem morsel and on its views ``_FUSED_VIEWS``: 999,999 rows,
+   3 rows, and a one-row offset that leaves every column base unaligned),
+   and the kernels of one SF 1 run of Q3, Q10, Q2, Q9, Q20 and Q22 on the
+   inputs that run gives them, captured by wrapping the kernel functions:
+   every ``build_table`` of Q3 and Q10 bit-identical, Q10's two standalone
+   ``hash_probe`` calls and the first morsel of each fused probe exact
+   (the first also on the views of ``_FUSED_VIEWS``);
    ``block_prefix_sum`` on the first compaction mask of Q9 and of Q22,
    ``segmented_minmax`` on Q2's grouped min, ``hash_probe_multi`` on the
    first expansion probe of Q9 and of Q20, and the fused program on Q22's
@@ -76,8 +83,8 @@ In order it:
    lineitem, distinct literals a lane), against ``apply_batched_stages`` on
    the first lineitem or orders morsel, exact (columns, validity, masks),
    plus n = 0, one lane, 64, 65 and 128 lanes (ceil(B / 64) launches, one
-   a run of the kernel's 64-lane word) and a morsel of 999,999 rows, then
-   timed;
+   a run of the kernel's 64-lane word), a morsel of 999,999 rows and one at
+   a one-row offset, then timed;
    (b) eight client threads submit 96 such queries (32 a shape) to
    ``Session(device="cuda").submit`` with ``SchedulerConfig(batching=True,
    max_batch=32, max_concurrency=8, cache_results=False,
@@ -126,14 +133,17 @@ after phase 7 one profiled W = 4 run of each query, and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line; ``--build`` runs phase 3's
-synthetic builds alone. ``--faults`` runs both on the kernels as they are
-and then on copies, in a temporary directory, each with one fault planted
-(a K tile left out, early or late; V tiles not reloaded; the split over
-K's combine dropping a split; float32 by one TF32 product; a ghost pop
-that ends its slot's turn in the build), and exits 0 only when the kernels
-pass and every fault is caught, the late K tile at ``prefill_32k``, the
-dropped split at D = 160 and 192, the one TF32 product at (a) and (d) in
-float32 and the ghost pop at ``ghosts_over_a_run``.
+synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
+and their views) and phase 8(a) alone. ``--faults`` runs the three on the
+kernels as they are and then on copies, in a temporary directory, each
+with one fault planted (a K tile left out, early or late; V tiles not
+reloaded; the split over K's combine dropping a split; float32 by one
+TF32 product; a ghost pop that ends its slot's turn in the build; the
+fused kernels' copies of the tail tile's last partial group of four rows
+dropped), and exits 0 only when the kernels pass and every fault is
+caught, the late K tile at ``prefill_32k``, the dropped split at D = 160
+and 192, the one TF32 product at (a) and (d) in float32, the ghost pop at
+``ghosts_over_a_run`` and the dropped group at Q1's 999,999 rows.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
@@ -150,8 +160,10 @@ import importlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # memory rate of the card by name (bytes/s), from NVIDIA's data sheets,
@@ -267,6 +279,76 @@ def bound_ms(nbytes: float, ops: float, rate: float, op_rate: float = _F32_RATE)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the kernels whose ptxas report (-Xptxas -v) the run prints and holds to
+# a 0-byte stack frame and no spill: their registers are shared memory
+_NO_LOCAL = {"fused_morsel": "fused_morsel_kernel",
+             "fused_batch": "fused_batch_kernel"}
+
+
+def start_ptxas(build, out_dir):
+    """nvcc of each source of ``_NO_LOCAL`` with ``-Xptxas -v`` into
+    ``out_dir``, started (to run beside the build)."""
+    procs = {}
+    for name in _NO_LOCAL:
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               os.path.join(out_dir, f"lib{name}-ptxas.so"),
+               str(build.CSRC / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel: {"stack", "spill_stores", "spill_loads",
+    "registers"}} from nvcc's ``-Xptxas -v`` output."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def check_ptxas(procs) -> dict:
+    """Waits for ``start_ptxas``'s nvcc runs, prints each fused kernel's
+    stack frame, spills and registers, and fails unless the stack frame
+    and the spills are 0 bytes."""
+    seen = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v {name}.cu:\n{err}")
+        kernel = _NO_LOCAL[name]
+        info = next((v for k, v in ptxas_report(err).items()
+                     if kernel in k), None)
+        if info is None or "stack" not in info:
+            fail(f"ptxas printed no stack frame for {kernel}:\n{err}")
+        print(f"ptxas {kernel}: {info['stack']} bytes stack frame, "
+              f"{info['spill_stores']} bytes spill stores, "
+              f"{info['spill_loads']} bytes spill loads, "
+              f"{info.get('registers')} registers", flush=True)
+        if info["stack"] or info["spill_stores"] or info["spill_loads"]:
+            fail(f"{kernel}: a stack frame or spills in local memory")
+        seen[kernel] = info
+    return seen
+
+
 # ---------------------------------------------------------------------------
 # phase 3 + 4: each kernel against its plain version, then timed
 # ---------------------------------------------------------------------------
@@ -355,27 +437,58 @@ def fused_case(queries, catalog, morsel, q):
     return table, stages
 
 
+# views of a main-path morsel that every fused check also runs: a ragged
+# tail (n no multiple of the 1024-row tile nor of a thread's four rows),
+# fewer rows than one thread's four, and a one-row offset (column bases
+# that are not 16-byte, or for bools 4-byte, aligned)
+_FUSED_VIEWS = (("n=999999", slice(0, 999_999)), ("n=3", slice(0, 3)),
+                ("offset 1", slice(1, None)))
+
+
+def view(table, sl):
+    """The rows ``sl`` of a TorchTable, as views of its tensors."""
+    return type(table)({c: a[sl] for c, a in table.columns.items()},
+                       table.validity[sl], table.schema)
+
+
+def _check_fused_case(torch, fused, table, stages, program, what):
+    """One fused call (no probe) against ``apply_stages``: validity and
+    every column bit-identical."""
+    got, _, _ = fused.fused_morsel_program(table, stages, program=program)
+    want = fused.apply_stages(table, stages)
+    torch.cuda.synchronize()
+    if not torch.equal(got.validity, want.validity):
+        fail(f"{what}: validity differs from apply_stages")
+    for name in want.column_names:
+        if not _bits_equal(torch, got.columns[name], want.columns[name]):
+            a, b = got.columns[name], want.columns[name]
+            d = (a.double() - b.double()).abs().max() if len(a) else 0
+            fail(f"{what}: column {name} differs (max {float(d)})")
+    return got
+
+
 def check_fused(torch, fused, queries, catalog, morsel, rate):
-    """fused_morsel_program for Q1's and Q6's stages on one morsel: output
-    columns and validity must be bit-identical to ``apply_stages`` (the
-    kernel rounds every float op to nearest, like the plain version)."""
+    """fused_morsel_program for Q1's and Q6's stages on one morsel and on
+    the views of ``_FUSED_VIEWS``: output columns and validity must be
+    bit-identical to ``apply_stages`` (the kernel rounds every float op to
+    nearest, like the plain version)."""
     rows_out, launchers = [], {}
     for q in (1, 6):
         table, stages = fused_case(queries, catalog, morsel, q)
         program = fused.lower_stages(table, stages)
-        got, _, _ = fused.fused_morsel_program(table, stages, program=program)
-        want = fused.apply_stages(table, stages)
-        torch.cuda.synchronize()
-        if not torch.equal(got.validity, want.validity):
-            fail(f"fused Q{q}: validity differs from apply_stages")
-        for name in want.column_names:
-            a, b = got.columns[name], want.columns[name]
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                d = (a.double() - b.double()).abs().max()
-                fail(f"fused Q{q}: column {name} differs (max {float(d)})")
+        got = _check_fused_case(torch, fused, table, stages, program,
+                                f"fused_morsel_program[Q{q}]")
+        for label, sl in _FUSED_VIEWS:
+            part = view(table, sl)
+            _check_fused_case(torch, fused, part, stages, program,
+                              f"fused_morsel_program[Q{q} {label}]")
         print(f"check fused_morsel_program Q{q} rows={table.capacity}: "
               f"{program.code.shape[0]} instructions, {program.n_regs} "
-              f"registers, bit-identical")
+              f"registers ({program.n_vec} vector slots, "
+              f"{program.n_uniform} uniform), {program.plan.stages} load "
+              f"stages, {program.plan.smem_bytes()} B of shared memory, "
+              f"bit-identical (and {', '.join(v for v, _ in _FUSED_VIEWS)})",
+              flush=True)
         name = f"fused_morsel_program[Q{q}]"
         launchers[name] = (lambda t=table, st=stages, p=program:
                            fused.fused_morsel_program(t, st, program=p))
@@ -806,6 +919,11 @@ def check_join(torch, hp, fused, calls, rate):
         check_probe_call(torch, hp, c, f"Q{c['q']}")
     for c in calls["fused"]:
         check_fused_probe_call(torch, fused, c, f"Q{c['q']}")
+    # the probe variant on the views of _FUSED_VIEWS of Q3's first call
+    c = calls["fused"][0]
+    for label, sl in _FUSED_VIEWS:
+        check_fused_probe_call(torch, fused, dict(c, table=view(c["table"], sl)),
+                               f"Q{c['q']} {label}")
 
     rows_out, launchers = [], {}
 
@@ -1502,10 +1620,9 @@ def check_batch(torch, fused, catalog, data, rate):
             {c: src[c][:n_rows] for c in prog.columns},
             {c: schema[c] for c in prog.columns}, capacity=_MAIN_ROWS,
             device="cuda")
-        odd = TorchTable({c: a[:999_999] for c, a in full.columns.items()},
-                         full.validity[:999_999], full.schema)
-        empty = TorchTable({c: a[:0] for c, a in full.columns.items()},
-                           full.validity[:0], full.schema)
+        odd, empty, shifted = (view(full, slice(0, 999_999)),
+                               view(full, slice(0, 0)),
+                               view(full, slice(1, None)))
 
         def run(table, lanes):
             params = batch._params(prog, shapes[:lanes], lanes, table.device)
@@ -1533,7 +1650,8 @@ def check_batch(torch, fused, catalog, data, rate):
             return lowered, params, masks
 
         for table, lanes in ((empty, _LANES), (full, 1), (full, 64),
-                             (full, 65), (full, 128), (odd, _LANES)):
+                             (full, 65), (full, 128), (odd, _LANES),
+                             (shifted, _LANES)):
             run(table, lanes)
         lowered, params, masks = run(full, _LANES)
         live = float(masks.float().mean())
@@ -1541,7 +1659,7 @@ def check_batch(torch, fused, catalog, data, rate):
               f"lanes={_LANES}: {lowered.code.shape[0]} instructions, "
               f"{lowered.n_regs} registers, live share {live:.5f}, exact "
               f"(and n=0, B=1, B=64, B=65 and B=128 in 2 launches, "
-              f"n=999999)", flush=True)
+              f"n=999999, offset 1)", flush=True)
         name = f"fused_batch_program[{shape}]"
         launchers[name] = (lambda t=full, p=params, lw=lowered, st=prog:
                            fused.fused_batch_program(
@@ -2049,6 +2167,12 @@ _FAULTS = {
     # into the slot the ghost left looking empty
     "ghost_pop_ends_turn": [
         ("if (key != empty_key) break;", "break;", 1)],
+    # the fused kernels: the copies of the tail tile's last partial group
+    # of four rows are dropped (its rows read as rows past n: zero)
+    "tail_group_dropped": [
+        ("  const int v = group_rows(r0, n);\n  copy8(",
+         "  const int v = group_rows(r0, n) == kRowsPerThread ? "
+         "kRowsPerThread : 0;\n  copy8(", 1)],
 }
 # the cases that must fail under a fault, beyond the run's exit
 _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
@@ -2056,14 +2180,21 @@ _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
                                           "d160 f32", "d192 f32"),
                 "tf32x3_drops_small": ("train_4k f32", "d160 f32",
                                        "d192 f32"),
-                "ghost_pop_ends_turn": ("ghosts_over_a_run",)}
+                "ghost_pop_ends_turn": ("ghosts_over_a_run",),
+                "tail_group_dropped": ("Q1 n=999999",)}
 _ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                         "flash_attention.cu")
 _TABLE_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                          "hash_table.cu")
+_INTERP_CUH = os.path.join("src", "repro_torch", "kernels", "csrc",
+                           "fused_interp.cuh")
 # fault -> (source it edits, the run that must catch it); the rest edit
 # the attention kernels and run phase 9 alone
-_FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build")}
+_FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build"),
+                  "tail_group_dropped": (_INTERP_CUH, "--fused")}
+# the cases of the fused checks a fault may name (check_fused's views)
+_FUSED_CASES = tuple(f"Q{q}{label}" for q in (1, 6) for label in (
+    "", *(f" {v}" for v, _ in _FUSED_VIEWS)))
 
 
 def fault_target(fault: str):
@@ -2072,9 +2203,9 @@ def fault_target(fault: str):
 
 
 def _run_alone(root: str, option: str) -> dict:
-    """``chip_smoke.py OPTION`` (``--attention`` or ``--build``) in
-    ``root``: its exit code, each attention case's [max |kernel - plain|,
-    scaled error] and its failure message."""
+    """``chip_smoke.py OPTION`` (``--attention``, ``--build`` or
+    ``--fused``) in ``root``: its exit code, each attention case's [max
+    |kernel - plain|, scaled error] and its failure message."""
     import re
     case = re.compile(r"^check (flash_attention\[[^\]]+\]) .*max \|kernel"
                       r" - plain\| (\S+) \(tol .*scaled error (\S+) \(tol")
@@ -2083,7 +2214,8 @@ def _run_alone(root: str, option: str) -> dict:
                          timeout=900)
     cases = {}
     for line in out.stdout.splitlines():
-        if line.startswith(("check flash_attention", "check build_table")):
+        if line.startswith(("check flash_attention", "check build_table",
+                            "check fused")):
             print(line, flush=True)
         m = case.match(line)
         if m:
@@ -2095,17 +2227,16 @@ def _run_alone(root: str, option: str) -> dict:
 
 
 def run_faults(here: str) -> int:
-    """``--faults``: phase 9 alone and the build checks alone on the
-    kernels as they are, then once for each fault of ``_FAULTS`` in a copy
+    """``--faults``: phase 9 alone, the build checks alone and the fused
+    checks alone on the kernels as they are, then once for each fault of
+    ``_FAULTS`` in a copy
     of ``chip_smoke.py`` and ``src/repro_torch`` in a temporary directory,
     with the fault planted in the copy's source (``fault_target``). Prints
     each run's check lines and, last, ``{run: {"rc", "cases", "failed"}}``;
     returns 0 when the kernels as they are pass and every fault fails, at
     the cases ``_FAULT_CASES`` names."""
-    import shutil
-    import tempfile
     results = {}
-    for option in ("--attention", "--build"):
+    for option in ("--attention", "--build", "--fused"):
         print(f"== as it is {option}", flush=True)
         results[f"as_it_is {option}"] = _run_alone(here, option)
     for fault, edits in _FAULTS.items():
@@ -2335,6 +2466,10 @@ def main() -> None:
                     help="run the build checks of phase 3 alone (the "
                          "synthetic cases, the route and the launches); "
                          "prints no ok line")
+    ap.add_argument("--fused", action="store_true",
+                    help="run the fused kernels' checks alone (Q1's and Q6's "
+                         "stages on a lineitem morsel and its views, the "
+                         "three serving batch programs); prints no ok line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9 alone and the build checks alone on "
                          "the kernels as they are and with each planted "
@@ -2373,9 +2508,13 @@ def main() -> None:
           f"{by_name(_BF16_RATE, name):.4g} op/s", flush=True)
 
     t0 = time.perf_counter()
+    ptxas_dir = tempfile.mkdtemp(prefix="ptxas_")
+    ptxas = start_ptxas(build, ptxas_dir)
     secs = build.build_all()
     print(f"build: {json.dumps(secs)} total {time.perf_counter() - t0:.3f} s",
           flush=True)
+    check_ptxas(ptxas)
+    shutil.rmtree(ptxas_dir, ignore_errors=True)
     # the module (the package's attribute of that name is the function)
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     if args.attention:
@@ -2397,12 +2536,17 @@ def main() -> None:
     catalog = Catalog.from_numpy(
         data, schema.SCHEMAS, {t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
 
-    rows_out, launchers = check_segmented(torch, seg, rate, _MAIN_ROWS)
     # the fused kernel on one main-path morsel of real lineitem rows
     n = min(n, _MAIN_ROWS)
     morsel = TorchTable.from_numpy({c: v[:n] for c, v in lineitem.items()},
                                    dbgen.S.LINEITEM, capacity=_MAIN_ROWS,
                                    device="cuda")
+    if args.fused:
+        check_fused(torch, fused, queries, catalog, morsel, rate)
+        check_batch(torch, fused, catalog, data, rate)
+        print(card)
+        return
+    rows_out, launchers = check_segmented(torch, seg, rate, _MAIN_ROWS)
     fused_rows, fused_launchers = check_fused(torch, fused, queries, catalog,
                                               morsel, rate)
     rows_out += fused_rows

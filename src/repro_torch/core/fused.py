@@ -4,9 +4,10 @@
 in one launch. The reference traced the stages' expression trees into one
 Pallas kernel; the port lowers them on the host (``lower_stages``) into a
 flat program of typed instructions over 32-bit registers, and a fixed CUDA
-kernel (``kernels/csrc/fused_morsel.cu``) interprets that program with one
-thread per row. The kernel is built once from the repository's source: no
-query writes or compiles CUDA code.
+kernel (``kernels/csrc/fused_morsel.cu``) interprets that program one
+instruction at a time over a tile of 1024 rows held in shared memory
+(``assign_slots`` lays the tile out on the host). The kernel is built once
+from the repository's source: no query writes or compiles CUDA code.
 
 The probe variant ends the program with the join's single-match probe:
 the program computes the probe key from the post-stage registers (the raw
@@ -70,10 +71,18 @@ OPS = {
     "AND": 27, "OR": 28, "NOT": 29, "I32_TO_F32": 30, "PROBE": 31,
     "LOADB": 32, "PARAM": 33, "LOOP": 34, "LFILTER": 35,
 }
-LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48, "kMaxLanes": 64}
+LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48, "kMaxLanes": 64,
+          # the tile kernels: 256 threads, four rows each, over a tile of
+          # 1024 rows; uniform slots from kUniformBase; two load stages when
+          # they fit in the block's shared memory (kMaxSmem, sm_90); an
+          # operand is (kind << kKindShift) | byte offset or uniform index
+          "kThreads": 256, "kRowsPerThread": 4, "kTileRows": 1024,
+          "kUniformBase": 64, "kStages": 2, "kMaxSmem": 232448,
+          "kKindShift": 24, "kKindComp": 0, "kKindRing32": 1,
+          "kKindRing8": 2, "kKindUniform": 3, "kPlanHeader": 8}
 
 _LIB = "fused_morsel"
-# (program, n_instr, in_ptrs, in_widths, n_in, out_ptrs, n_out, valid_in,
+# (plan, plan_len, in_ptrs, in_widths, n_in, out_ptrs, n_out, valid_in,
 #  valid_out, n, tk, tv, table_size, max_probes, empty_key, found, bidx,
 #  stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -82,7 +91,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _BATCH_LIB = "fused_batch"
-# (program, n_instr, in_ptrs, in_widths, n_in, out_ptrs, n_out, params,
+# (plan, plan_len, in_ptrs, in_widths, n_in, out_ptrs, n_out, params,
 #  n_slots, lanes, valid_in, masks, n, stream)
 _BATCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -150,7 +159,13 @@ class Program:
     instead of FILTERs; ``param_dtypes`` holds each parameter slot's dtype
     (None for a slot it never reads), and ``out_alias`` names, for each
     output, the input column it passes through unchanged (the kernel does
-    not store it) or None (the kernel stores it, in output order)."""
+    not store it) or None (the kernel stores it, in output order).
+
+    ``lower_registers`` numbers the registers 0..n_regs-1, one definition
+    each; ``assign_slots`` (which ``lower_stages`` applies last) renumbers
+    them into the kernels' slots, ``n_vec`` vector slots from 0 and
+    ``n_uniform`` uniform slots from ``kUniformBase``, and lays out the
+    kernels' ``plan``."""
 
     code: torch.Tensor
     in_names: Tuple[str, ...]
@@ -164,6 +179,9 @@ class Program:
     batch: bool = False
     param_dtypes: Tuple[Optional[torch.dtype], ...] = ()
     out_alias: Tuple[Optional[str], ...] = ()
+    n_vec: int = 0
+    n_uniform: int = 0
+    plan: Optional["TilePlan"] = None
 
 
 def _has_param(e) -> bool:
@@ -418,13 +436,25 @@ def lower_stages(table: TorchTable, stages: Sequence[Stage],
                  pack=None, empty_key: int = -1,
                  batch: bool = False) -> Program:
     """Lower a run of FilterProject stages over ``table``'s columns into a
-    register program for the fused kernel; with ``probe_keys`` the program
-    ends in the probe of the key they make (packed by ``pack`` if set).
-    With ``batch`` the program is for ``fused_batch_program``: each filter
-    becomes a lane loop (``ParamRef``s read the lane's parameters) and
-    outputs that pass an input column through unchanged alias it.
+    program for the fused kernels (``lower_registers``, then
+    ``assign_slots``). Raises ``NotImplementedError`` for any expression,
+    dtype or size the kernels do not take."""
+    return assign_slots(lower_registers(table, stages, probe_keys, pack,
+                                        empty_key, batch))
+
+
+def lower_registers(table: TorchTable, stages: Sequence[Stage],
+                    probe_keys: Optional[Sequence[str]] = None,
+                    pack=None, empty_key: int = -1,
+                    batch: bool = False) -> Program:
+    """Lower a run of FilterProject stages over ``table``'s columns into a
+    register program, one register a definition; with ``probe_keys`` the
+    program ends in the probe of the key they make (packed by ``pack`` if
+    set). With ``batch`` the program is for ``fused_batch_program``: each
+    filter becomes a lane loop (``ParamRef``s read the lane's parameters)
+    and outputs that pass an input column through unchanged alias it.
     Raises ``NotImplementedError`` for any expression, dtype or size the
-    kernel does not take."""
+    kernels do not take."""
     if batch and probe_keys is not None:
         raise ValueError("lower_stages: a batch program has no probe")
     lw = _Lowering(table, batch=batch)
@@ -489,6 +519,210 @@ def lower_stages(table: TorchTable, stages: Sequence[Stage],
                    param_dtypes=tuple(lw.params.get(i)
                                       for i in range(n_params)),
                    out_alias=tuple(out_alias) if batch else ())
+
+
+# -- slots and the tile kernels' plan ------------------------------------------
+
+_ALU = frozenset(range(OPS["ADD_I32"], OPS["I32_TO_F32"] + 1))
+_UNARY = frozenset(OPS[k] for k in ("NEG_I32", "NEG_F32", "NOT",
+                                    "I32_TO_F32"))
+_LOADS = frozenset((OPS["LOAD32"], OPS["LOAD8"]))
+# instructions whose field a is a register (the ALU ops' b too)
+_READS_A = frozenset((OPS["STORE32"], OPS["STORE8"], OPS["FILTER"],
+                      OPS["PROBE"], OPS["LFILTER"])) | _ALU
+_DEFINES = _ALU | _LOADS | frozenset((OPS["CONST"], OPS["LOADB"],
+                                      OPS["PARAM"]))
+
+
+def _reads(op: int) -> Tuple[int, ...]:
+    """The fields (2: a, 3: b) of an instruction that name registers."""
+    if op in _ALU and op not in _UNARY:
+        return (2, 3)
+    return (2,) if op in _READS_A else ()
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """What the tile kernels run, laid out on the host (``assign_slots``).
+
+    A CTA's dynamic shared memory holds, in order: the tile code
+    (``16 * len(code)`` bytes), the computed vector slots (``comp_bytes``,
+    4 KB a slot: ``[slot][kTileRows]`` uint32), ``stages`` load stages of
+    ``stage_bytes`` each (the tile's validity at offset 0, 1 KB, then each
+    loaded column at its offset: 1 KB a bool column, 4 KB a 32-bit one)
+    and the uniform table (``lanes * n_uniform`` words). ``code`` is the
+    program without its loads and uniform instructions, operands encoded
+    as ``kind << kKindShift | offset`` (``operand``); ``uniform`` the
+    CONST, PARAM and uniform ALU instructions, which the kernel evaluates
+    once per CTA and lane into the uniform table; ``loads`` (column,
+    width, offset) each loaded column's copy. ``packed`` is the int32
+    array the kernels' entry points take."""
+
+    code: Tuple[Tuple[int, int, int, int], ...]
+    uniform: Tuple[Tuple[int, int, int, int], ...]
+    loads: Tuple[Tuple[int, int, int], ...]
+    n_uniform: int
+    stages: int
+    stage_bytes: int
+    comp_bytes: int
+    packed: torch.Tensor
+
+    def smem_bytes(self, lanes: int = 1) -> int:
+        """Dynamic shared memory of a CTA running ``lanes`` lanes."""
+        return (16 * len(self.code) + self.comp_bytes
+                + self.stages * self.stage_bytes + 4 * lanes * self.n_uniform)
+
+
+def _dead_after(code) -> Dict[int, int]:
+    """Register -> the index of the instruction after which it is dead:
+    its last read, or the LFILTER of a lane loop whose body reads it when it
+    was defined before the loop (the body runs once a lane)."""
+    defined: Dict[int, int] = {}
+    dead: Dict[int, int] = {}
+    loop = None
+    for k, row in enumerate(code):
+        op = row[0]
+        if op == OPS["LOOP"]:
+            loop = (k, k + row[2])
+        for f in _reads(op):
+            r = row[f]
+            outer = loop is not None and defined[r] < loop[0]
+            dead[r] = max(dead.get(r, -1), loop[1] if outer else k)
+        if op in _DEFINES:
+            defined[row[1]] = k
+        if op == OPS["LFILTER"]:
+            loop = None
+    return dead
+
+
+def assign_slots(program: Program) -> Program:
+    """Renumber a ``lower_registers`` program's registers into the tile
+    kernels' slots and lay out their ``plan``.
+
+    A register is uniform (one word for the whole tile) when its one
+    definition is a CONST, a PARAM, or an ALU instruction whose operands
+    are all uniform; every other register is a vector slot (one word a
+    row). Uniform slots are numbered from ``kUniformBase``, vector slots
+    from 0. A computed vector slot is reused once its register is dead
+    (``_dead_after``; an instruction may write the slot of an operand it
+    reads last), but a lane loop's body takes no slot freed before the
+    loop and frees its own at its LFILTER: a body's slots are its own,
+    and a kernel that skips the body leaves no other register stale.
+    Loaded columns keep their slots (they live in the load stage). Raises
+    ``NotImplementedError`` if the plan does not fit in a CTA's shared
+    memory even with one load stage."""
+    base = LIMITS["kUniformBase"]
+    raw = program.code.tolist()
+    dead = _dead_after(raw)
+    slot: Dict[int, int] = {}
+    computed = set()          # registers in computed vector slots
+    free: List[int] = []      # computed slots free for reuse
+    held: List[int] = []      # the free slots of before an open loop
+    n_vec = n_uniform = 0
+    code = []
+    for k, row in enumerate(raw):
+        op = row[0]
+        fields = _reads(op)
+        for r in {row[f] for f in fields}:
+            if r in computed and dead[r] == k:
+                free.append(slot[r])
+        for f in fields:
+            row[f] = slot[row[f]]
+        if op in _UNARY:
+            row[3] = 0
+        if op == OPS["LOOP"]:
+            held, free = free, []
+        elif op == OPS["LFILTER"]:
+            free = held + free
+        if op in _DEFINES:
+            if op in (OPS["CONST"], OPS["PARAM"]) or (
+                    op in _ALU and all(row[f] >= base for f in fields)):
+                s, n_uniform = base + n_uniform, n_uniform + 1
+            elif op not in _LOADS and free:
+                s = free.pop()
+                computed.add(row[1])
+            else:
+                s, n_vec = n_vec, n_vec + 1
+                if op not in _LOADS:
+                    computed.add(row[1])
+            slot[row[1]] = row[1] = s
+        code.append(tuple(row))
+    plan = _tile_plan(code, n_vec, n_uniform, program.batch)
+    return dataclasses.replace(
+        program, code=torch.tensor(code, dtype=torch.int32).reshape(-1, 4),
+        n_vec=n_vec, n_uniform=n_uniform, plan=plan)
+
+
+def _tile_plan(code, n_vec: int, n_uniform: int, batch: bool) -> TilePlan:
+    """The shared-memory layout and the encoded tile and uniform code of a
+    slot-numbered program (``assign_slots``)."""
+    base, shift = LIMITS["kUniformBase"], LIMITS["kKindShift"]
+    rows = LIMITS["kTileRows"]
+    width = {}          # loaded vector slot -> (column, bytes a row)
+    for op, dst, a, _ in code:
+        if op in _LOADS:
+            width[dst] = (a, 4 if op == OPS["LOAD32"] else 1)
+    # the stage: validity, then the bool columns, then the 32-bit ones, so
+    # every offset is a multiple of 1 KB
+    ring, off = {}, rows
+    for w in (1, 4):
+        for s in sorted(width):
+            if width[s][1] == w:
+                ring[s], off = off, off + rows * w
+    stage_bytes = off
+    comp = {s: 4 * rows * k for k, s in enumerate(
+        s for s in range(n_vec) if s not in width)}
+    comp_bytes = 4 * rows * len(comp)
+
+    def operand(s: int) -> int:
+        if s >= base:
+            return (LIMITS["kKindUniform"] << shift) | (s - base)
+        if s in comp:
+            return (LIMITS["kKindComp"] << shift) | comp[s]
+        kind = "kKindRing32" if width[s][1] == 4 else "kKindRing8"
+        return (LIMITS[kind] << shift) | ring[s]
+
+    tile, uniform, loop = [], [], None
+    for op, dst, a, b in code:
+        if op in _LOADS:
+            continue
+        if op in (OPS["CONST"], OPS["PARAM"]):
+            uniform.append((op, dst - base, a, 0))
+        elif op in _ALU and dst >= base:
+            uniform.append((op, dst - base, a - base,
+                            (a if op in _UNARY else b) - base))
+        elif op in _ALU:
+            tile.append((op, operand(dst), operand(a),
+                         operand(a if op in _UNARY else b)))
+        elif op == OPS["LOADB"]:
+            tile.append((op, operand(dst), a, b))
+        elif op == OPS["LOOP"]:
+            loop = len(tile)
+            tile.append((op, 0, 0, 0))
+        elif op == OPS["LFILTER"]:
+            tile[loop] = (OPS["LOOP"], 0, len(tile) - loop, 0)
+            tile.append((op, 0, operand(a), 0))
+        else:   # STORE32, STORE8 (dst: the output), FILTER, PROBE
+            tile.append((op, dst, operand(a), 0))
+    loads = tuple((width[s][0], width[s][1], ring[s]) for s in sorted(
+        ring, key=ring.get))
+    lanes = LIMITS["kMaxLanes"] if batch else 1
+    fixed = 16 * len(tile) + comp_bytes + 4 * lanes * n_uniform
+    stages = LIMITS["kStages"]
+    if fixed + stages * stage_bytes > LIMITS["kMaxSmem"]:
+        stages = 1
+    if fixed + stage_bytes > LIMITS["kMaxSmem"]:
+        raise NotImplementedError(
+            f"fused lowering: {fixed + stage_bytes} bytes of shared memory, "
+            f"more than {LIMITS['kMaxSmem']}")
+    header = [len(tile), len(uniform), len(loads), n_uniform, stages,
+              stage_bytes, comp_bytes]
+    header += [0] * (LIMITS["kPlanHeader"] - len(header))
+    flat = header + [x for r in tile + uniform for x in r] + [
+        x for c, w, o in loads for x in (c, w, o, 0)]
+    return TilePlan(tuple(tile), tuple(uniform), loads, n_uniform, stages,
+                    stage_bytes, comp_bytes,
+                    torch.tensor(flat, dtype=torch.int32))
 
 
 def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
@@ -565,6 +799,15 @@ def fused_morsel_program(table: TorchTable, stages: Sequence[Stage],
     return _launch(program, table, probe)
 
 
+def _packed(program: Program, what: str) -> torch.Tensor:
+    """The kernels' int32 plan of a program (``assign_slots``)."""
+    if program.plan is None:
+        raise ValueError(f"{what}: the program has no slots "
+                         "(lower_stages, or assign_slots after "
+                         "lower_registers)")
+    return program.plan.packed
+
+
 def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
     dev = table.device
     n = table.capacity
@@ -609,12 +852,12 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
         in_widths = (ctypes.c_int * max(len(ins), 1))(*program.in_widths)
         out_ptrs = (ctypes.c_uint64 * max(len(outs), 1))(
             *[t.data_ptr() for t in outs])
-        code = program.code.contiguous()
+        plan = _packed(program, "fused_morsel_program")
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        rc = fn(code.data_ptr(), code.shape[0], in_ptrs, in_widths, len(ins),
+        rc = fn(plan.data_ptr(), plan.shape[0], in_ptrs, in_widths, len(ins),
                 out_ptrs, len(outs), valid_in.data_ptr(),
                 valid_out.data_ptr(), n, ptr(tk), ptr(tv), table_size,
                 max_probes, empty_key, ptr(found), ptr(bidx),
@@ -752,7 +995,7 @@ def _launch_batch(program: Program, table: TorchTable, params: Tuple,
         in_widths = (ctypes.c_int * max(len(ins), 1))(*program.in_widths)
         out_ptrs = (ctypes.c_uint64 * max(len(stored), 1))(
             *[t.data_ptr() for t in stored])
-        code = program.code.contiguous()
+        plan = _packed(program, "fused_batch_program")
         stream = torch.cuda.current_stream(dev).cuda_stream
         # one launch per run of at most kMaxLanes lanes, each with its
         # slice of the parameters and its rows of the masks; every launch
@@ -763,7 +1006,7 @@ def _launch_batch(program: Program, table: TorchTable, params: Tuple,
             lanes = min(width, n_members - lo)
             part = None if bits is None else \
                 bits[:, lo:lo + lanes].contiguous()
-            rc = fn(code.data_ptr(), code.shape[0], in_ptrs, in_widths,
+            rc = fn(plan.data_ptr(), plan.shape[0], in_ptrs, in_widths,
                     len(ins), out_ptrs, len(stored),
                     None if part is None else part.data_ptr(),
                     len(program.param_dtypes), lanes, valid_in.data_ptr(),

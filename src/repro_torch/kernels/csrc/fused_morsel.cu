@@ -1,16 +1,17 @@
 // Fused per-morsel pipeline: a run of FilterProject stages over one morsel
 // in one launch, as a fixed kernel that interprets a small typed register
-// program.
+// program over tiles of rows held in shared memory.
 //
 // Replaces: src/repro/core/fused.py, fused_morsel_program (:78), with its
 // probe variant (probe_loop, src/repro/kernels/hash_probe.py:33). There the
 // stages' expression trees were traced into one Pallas kernel per query
 // shape, and each 1024-row block flowed filter -> project -> probe through
-// VMEM, with the join's table resident there. A CUDA kernel cannot be traced from Python, and
-// writing and compiling CUDA source per query would put nvcc on the query
-// path; so the host lowers the stages (repro_torch/core/fused.py,
-// lower_stages) into a flat list of typed instructions over 32-bit
-// registers, and this kernel, built once from this source, runs that list.
+// VMEM, with the join's table resident there. A CUDA kernel cannot be
+// traced from Python, and writing and compiling CUDA source per query
+// would put nvcc on the query path; so the host lowers the stages
+// (repro_torch/core/fused.py, lower_stages) into a flat list of typed
+// instructions over 32-bit registers, and this kernel, built once from
+// this source, runs that list.
 //
 // Bound: bytes. Each row reads its input columns and validity once and
 // writes its output columns and validity once (Q1: 29 B in and 29 B out per
@@ -19,31 +20,28 @@
 // writes found and bidx (5 B) and walks its key's run in the table, which
 // stays in device memory (up to 2^25 slots; its hot part sits in the L2).
 //
-// Design:
-// * One thread per row, grid-stride. Loads and stores of neighbouring rows
-//   are neighbouring addresses, so they coalesce.
-// * Every intermediate stays in the thread's registers (the array `r`),
-//   as the TPU kernel kept it in VMEM: nothing between stages touches
-//   device memory.
-// * The program and the column pointers travel in the launch's parameter
-//   space (constant memory). Every thread reads the same instruction at the
-//   same time, which the constant cache broadcasts.
-// * Float arithmetic uses the round-to-nearest intrinsics, so no multiply
-//   and add fuse into an FMA: results are bit-identical to the plain
-//   PyTorch version. Integer arithmetic is unsigned, so it wraps.
+// Design: the tile interpreter of fused_interp.cuh, as the reference's
+// 1024-row block: a CTA of 256 threads takes a tile of 1024 rows, four a
+// thread, copies the tile's input columns and validity into shared memory
+// with cp.async (the next tile's in flight while this one computes), and
+// runs the program one instruction at a time over the tile, its registers
+// slots of shared memory and its constants one word for the whole tile.
+// It replaced one thread a row walking the whole program, which decoded
+// every instruction for every row, kept its registers in local memory and
+// had one load in flight at a time.
+// * FILTER ANDs into the validity of the thread's four rows, held in its
+//   registers; STORE32 writes 16 bytes a thread, STORE8 and the validity 4.
 // * The probe is the last instruction: the host lowers the probe key (the
-//   raw int column, or the injective pack of several) into registers, and
-//   PROBE walks that key's run (hash_probe.cuh, shared with the standalone
-//   probe) and stores found (masked by the row's final validity and by
-//   key != empty_key, as the reference masks it) and bidx. Every row is
-//   probed, dead ones too, so bidx equals the reference's everywhere.
+//   raw int column, or the injective pack of several) into a slot, and
+//   PROBE walks the four keys' runs one after another (hash_probe.cuh's
+//   probe_one, shared with the standalone probe) and stores found (masked
+//   by the row's final validity and by key != empty_key, as the reference
+//   masks it; 4 bytes a thread) and bidx (16 bytes). Every row is probed,
+//   dead ones too, so bidx equals the reference's everywhere.
 // * A fixed-width bytes column (uint8[n, width], Q22's c_phone) is read one
-//   byte at a time: its slot carries its row width, and LOADB loads byte b
-//   of the row, zero-extended. The host lowers PrefixCode to LOADBs and
-//   int32 arithmetic.
-//
-// The interpreter (opcodes, limits, loads and arithmetic) lives in
-// fused_interp.cuh, shared with the batched variant in fused_batch.cu.
+//   byte a row: its slot carries its row width, and LOADB loads byte b of
+//   the row, zero-extended. The host lowers PrefixCode to LOADBs and int32
+//   arithmetic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -66,52 +64,62 @@ struct Probe {
 };
 
 __global__ void __launch_bounds__(kThreads)
-fused_morsel_kernel(const Program prog, const Columns cols, const Probe probe,
+fused_morsel_kernel(const __grid_constant__ Plan p, const __grid_constant__ Columns cols,
+                    const __grid_constant__ Probe probe,
                     const unsigned char* __restrict__ valid_in,
                     unsigned char* __restrict__ valid_out, long long n) {
-  uint32_t r[kMaxRegs] = {};
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    bool valid = valid_in[i] != 0;
-    for (int pc = 0; pc < prog.n_instr; ++pc) {
-      const int4 in = prog.ins[pc];
-      if (is_load(in.x)) {
-        r[in.y] = load(in, cols, i);
-        continue;
-      }
-      const uint32_t a = r[in.z];
-      const uint32_t b = r[in.w];
-      switch (in.x) {
-        case OP_STORE32: static_cast<uint32_t*>(cols.out[in.y])[i] = a; continue;
-        case OP_STORE8: static_cast<unsigned char*>(cols.out[in.y])[i] = a != 0; continue;
-        case OP_FILTER: valid = valid && (a != 0); continue;
-        case OP_PROBE: {
-          int32_t v;
-          const bool hit = repro_hash::probe_one(probe.tk, probe.tv, probe.mask,
-                                                 probe.max_probes,
-                                                 probe.empty_key, s(a), &v);
-          probe.found[i] = hit && valid && s(a) != probe.empty_key;
-          probe.bidx[i] = v;
-          continue;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
+  prologue(p, cols, valid_in, smem, nullptr, 1, n_tiles, n);
+  const Smem m = carve(p, smem);
+  int it = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const unsigned char* stage = next_stage(p, cols, valid_in, m.ring, tile, n_tiles, n, it);
+    const long long r0 = tile * kTileRows + kRowsPerThread * threadIdx.x;
+    const int v = group_rows(r0, n);
+    // bit k: row k of the thread's four is valid
+    uint32_t valid = nonzero(fetch(kKindRing8 << kKindShift, m, stage, m.uni));
+    for (int pc = 0; pc < p.n_tile; ++pc) {
+      const int4 in = m.code[pc];
+      if (exec_store(in, m, stage, m.uni, cols, r0, v)) continue;
+      if (in.x == OP_FILTER) {
+        valid &= nonzero(fetch(in.z, m, stage, m.uni));
+      } else if (in.x == OP_PROBE) {
+        const uint4 key4 = fetch(in.z, m, stage, m.uni);
+        const int32_t key[kRowsPerThread] = {s(key4.x), s(key4.y), s(key4.z), s(key4.w)};
+        int32_t val[kRowsPerThread];
+        uint32_t hit = 0;
+#pragma unroll
+        for (int k = 0; k < kRowsPerThread; ++k) {
+          int32_t x = 0;
+          const bool h = k < v && repro_hash::probe_one(probe.tk, probe.tv, probe.mask,
+                                                        probe.max_probes, probe.empty_key,
+                                                        key[k], &x);
+          val[k] = x;
+          if (h && key[k] != probe.empty_key) hit |= 1u << k;
         }
-        default: {
-          uint32_t x;
-          if (alu(in.x, a, b, &x)) r[in.y] = x;
-        }
+        store8(probe.found, r0, v, bytes_of(hit & valid));
+        store32(probe.bidx, r0, v,
+                make_uint4((uint32_t)val[0], (uint32_t)val[1], (uint32_t)val[2],
+                           (uint32_t)val[3]));
+      } else {
+        exec_vec(in, m, stage, m.uni, cols, r0, v);
       }
     }
-    valid_out[i] = valid;
+    store8(valid_out, r0, v, bytes_of(valid));
+    after_tile(p, cols, valid_in, m.ring, tile, n_tiles, n);
   }
 }
 
 }  // namespace
 
-// prog: n_instr * 4 host int32s; in_ptrs/out_ptrs: host arrays of device
-// pointers; in_widths: each input's row width if it is a bytes column, else
-// 0. tk/tv/found/bidx are the probe's table and outputs, null when the
-// program has no PROBE. Returns cudaGetLastError() after the launch.
-extern "C" int fused_morsel_run(const int* prog, int n_instr,
+// plan: the packed TilePlan (repro_torch/core/fused.py), plan_len int32s;
+// in_ptrs/out_ptrs: host arrays of device pointers; in_widths: each
+// input's row width if it is a bytes column, else 0. tk/tv/found/bidx are
+// the probe's table and outputs, null when the program has no PROBE.
+// Returns cudaErrorInvalidValue for a bad plan or a plan larger than the
+// card's shared memory, else cudaGetLastError() after the launch.
+extern "C" int fused_morsel_run(const int* plan, int plan_len,
                                 const unsigned long long* in_ptrs,
                                 const int* in_widths, int n_in,
                                 const unsigned long long* out_ptrs, int n_out,
@@ -119,25 +127,18 @@ extern "C" int fused_morsel_run(const int* prog, int n_instr,
                                 long long n, const void* tk, const void* tv,
                                 int table_size, int max_probes, int empty_key,
                                 void* found, void* bidx, void* stream) {
-  if (!valid_program(prog, n_instr, in_widths, n_in, n_out)) {
+  Plan p;
+  if (!read_plan(plan, plan_len, in_widths, n_in, n_out, false, 0, &p)) {
     return (int)cudaErrorInvalidValue;
   }
-  for (int k = 0; k < n_instr; ++k) {
-    const int op = prog[4 * k];
-    if (op == OP_PARAM || op == OP_LOOP || op == OP_LFILTER) {
-      return (int)cudaErrorInvalidValue;   // the batched kernel's
-    }
-    if (op == OP_PROBE &&
+  for (int k = 0; k < p.n_tile; ++k) {
+    if (p.ins[k].x == OP_PROBE &&
         (tk == nullptr || tv == nullptr || found == nullptr || bidx == nullptr ||
          table_size <= 0 || (table_size & (table_size - 1)) != 0)) {
       return (int)cudaErrorInvalidValue;
     }
   }
   if (n <= 0) return 0;
-  Program p;
-  memset(&p, 0, sizeof(p));
-  p.n_instr = n_instr;
-  memcpy(p.ins, prog, sizeof(int4) * (size_t)n_instr);
   Columns c;
   memset(&c, 0, sizeof(c));
   for (int k = 0; k < n_in; ++k) {
@@ -153,7 +154,14 @@ extern "C" int fused_morsel_run(const int* prog, int n_instr,
   pr.empty_key = (int32_t)empty_key;
   pr.found = static_cast<unsigned char*>(found);
   pr.bidx = static_cast<int32_t*>(bidx);
-  fused_morsel_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long smem = smem_bytes(p, 1);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
+  int blocks = 0;
+  const cudaError_t err = grid_for(reinterpret_cast<const void*>(fused_morsel_kernel),
+                                   (int)smem, n_tiles, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  fused_morsel_kernel<<<blocks, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       p, c, pr, static_cast<const unsigned char*>(valid_in),
       static_cast<unsigned char*>(valid_out), n);
   return (int)cudaGetLastError();

@@ -84,6 +84,91 @@ def test_fused_kernel_on_card(cuda, case):
     assert_tables_equal(got, want)
 
 
+def _to(table, device, rows=slice(None)):
+    """The rows ``rows`` of ``table`` on ``device``, as views of one copy
+    (a one-row offset leaves every column base unaligned)."""
+    cols = {k: a.to(device)[rows] for k, a in table.columns.items()}
+    return TorchTable(cols, table.validity.to(device)[rows], table.schema)
+
+
+def _host(table):
+    return TorchTable({k: a.cpu() for k, a in table.columns.items()},
+                      table.validity.cpu(), table.schema)
+
+
+# (rows, offset): fewer rows than a thread's four, one tile plus a ragged
+# group, and column views at a one-row offset
+_RAGGED = [(1, 0), (3, 0), (1027, 0), (5001, 1), (4096, 1), (3, 1)]
+
+
+@pytest.mark.parametrize("n,offset", _RAGGED)
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_fused_kernel_on_card_ragged_and_offset(cuda, case, n, offset):
+    data = seeded_columns(n + offset + 4, seed=11)
+    host = TorchTable.from_numpy(data, SEEDED_SCHEMA, device="cpu")
+    host = host.filter(torch.from_numpy(np.arange(host.capacity) % 7 != 3))
+    rows = slice(offset, offset + n)
+    want = fused.apply_stages(_to(host, "cpu", rows), _CASES[case])
+    ops.reset_launch_counts()
+    got, _, _ = fused.fused_morsel_program(_to(host, cuda, rows), _CASES[case])
+    assert ops.launch_counts()["fused_morsel_program"] == 1
+    assert_tables_equal(_host(got), want)
+
+
+def _wide_case(n_cols: int, n: int):
+    """n_cols int32 columns, each projected plus the next behind a filter:
+    2 * n_cols registers (48 at 24 columns, the lowering's kMaxRegs)."""
+    rng = np.random.default_rng(n_cols)
+    data = {f"c{k}": rng.integers(-1000, 1000, n).astype(np.int32)
+            for k in range(n_cols)}
+    host = TorchTable.from_numpy(data, {k: port_dtypes.INT32 for k in data},
+                                 device="cpu")
+    stages = [(None, tuple((f"s{k}", col(f"c{k}") + col(f"c{(k + 1) % n_cols}"))
+                           for k in range(n_cols)))]
+    return host, stages
+
+
+@pytest.mark.parametrize("n", [5001, 1 << 20])
+def test_fused_kernel_on_card_at_max_registers(cuda, n):
+    """A program at 48 registers: more than 48 KB of shared memory, one
+    load stage."""
+    host, stages = _wide_case(24, n)
+    program = fused.lower_stages(host, stages)
+    assert program.n_regs == fused.LIMITS["kMaxRegs"]
+    assert program.plan.smem_bytes() > 48 * 1024 and program.plan.stages == 1
+    want = fused.apply_stages(host, stages)
+    for rows in (slice(None), slice(1, None)):
+        ops.reset_launch_counts()
+        got, _, _ = fused.fused_morsel_program(_to(host, cuda, rows), stages)
+        assert ops.launch_counts()["fused_morsel_program"] == 1
+        assert_tables_equal(_host(got), fused.apply_stages(
+            _to(host, "cpu", rows), stages) if rows.start else want)
+
+
+def test_fused_kernels_refuse_a_bad_plan(cuda):
+    """A plan whose operand lies outside its shared memory, or that asks
+    for more shared memory than a block has, is refused by the entry
+    point (the wrapper raises); nothing falls back to the plain version."""
+    import dataclasses
+    host = TorchTable.from_numpy(seeded_columns(3000, seed=2), SEEDED_SCHEMA,
+                                 device="cpu")
+    dev = _to(host, cuda)
+    stages = _CASES["arith_f32"]
+    program = fused.lower_stages(host, stages)
+    plan = program.plan
+    head = fused.LIMITS["kPlanHeader"]
+    outside = plan.packed.clone()
+    outside[head + 2] = plan.comp_bytes     # first ALU's operand a
+    too_big = plan.packed.clone()
+    too_big[5] = fused.LIMITS["kMaxSmem"]   # stage_bytes
+    assert fused.OPS["LOAD32"] not in [r[0] for r in plan.code]
+    for bad in (outside, too_big):
+        broken = dataclasses.replace(
+            program, plan=dataclasses.replace(plan, packed=bad))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fused.fused_morsel_program(dev, stages, program=broken)
+
+
 @pytest.mark.parametrize("q", [6, 1])
 def test_query_on_card_matches_cpu(cuda, q):
     catalog = dbgen.load_catalog(sf=0.01)
@@ -228,6 +313,34 @@ def test_fused_probe_on_card_matches_plain(cuda, case):
     got = TorchTable({n_: a.cpu() for n_, a in got.columns.items()},
                      got.validity.cpu(), got.schema)
     assert_tables_equal(got, want)
+
+
+@pytest.mark.parametrize("n,offset", _RAGGED + [(1 << 20, 0)])
+def test_fused_probe_on_card_ragged_and_offset(cuda, n, offset):
+    """The probe variant on the sizes and offsets of the program's test:
+    every row probed, found and bidx exact."""
+    data = seeded_columns(n + offset + 4, seed=6)
+    host = TorchTable.from_numpy(data, SEEDED_SCHEMA, device="cpu")
+    host = host.filter(torch.from_numpy(np.arange(host.capacity) % 5 != 1))
+    keys = np.arange(-50, 50, 3).astype(np.int32)
+    keys[0] = -1
+    tk, tv = hp.build_table_plain(torch.from_numpy(keys),
+                                  torch.arange(len(keys), dtype=torch.int32),
+                                  128)
+    probe = dict(tk=tk, tv=tv, probe_keys=("i",), pack=None, empty_key=-1,
+                 max_probes=hp.probe_bound(tk))
+    stages = [(col("f") < lit(5.0), (("i", col("i")),
+                                     ("a", col("f") * lit(2.0))))]
+    rows = slice(offset, offset + n)
+    want, wf, wb = fused.fused_morsel_program(_to(host, "cpu", rows), stages,
+                                              probe=probe)
+    ops.reset_launch_counts()
+    got, gf, gb = fused.fused_morsel_program(
+        _to(host, cuda, rows), stages,
+        probe=dict(probe, tk=tk.to(cuda), tv=tv.to(cuda)))
+    assert ops.launch_counts()["fused_morsel_probe"] == 1
+    assert torch.equal(gf.cpu(), wf) and torch.equal(gb.cpu(), wb)
+    assert_tables_equal(_host(got), want)
 
 
 @pytest.mark.parametrize("q", [3, 10])
@@ -567,6 +680,45 @@ def test_fused_batch_kernel_on_card(cuda, lanes, n):
     got = TorchTable({k: a.cpu() for k, a in got.columns.items()},
                      got.validity.cpu(), got.schema)
     assert_tables_equal(got, want)
+
+
+@pytest.mark.parametrize("n,offset", [(3, 0), (4097, 0), (4097, 1),
+                                      (999_999, 1)])
+@pytest.mark.parametrize("lanes", [64, 65])
+def test_fused_batch_kernel_on_card_ragged_and_offset(cuda, lanes, n, offset):
+    host, stages, params = _batch_case(n + offset, lanes)
+    rows = slice(offset, offset + n)
+    want, want_masks = fused.apply_batched_stages(_to(host, "cpu", rows),
+                                                  stages, params, lanes)
+    dev = _to(host, cuda, rows)
+    ops.reset_launch_counts()
+    got, masks = fused.fused_batch_program(
+        dev, stages, tuple(p.to(cuda) for p in params), lanes)
+    assert ops.launch_counts()["fused_batch_program"] == -(-lanes // 64)
+    np.testing.assert_array_equal(masks.cpu().numpy(), want_masks.numpy())
+    assert_tables_equal(_host(got), want)
+
+
+def test_fused_batch_kernel_on_card_at_max_registers(cuda):
+    """The 48-register program as a batch program (its filter a lane loop
+    over a parameter), 40 lanes, at a one-row offset."""
+    from repro_torch.core import batch
+    host, stages = _wide_case(23, 5001)
+    dtypes, values = [], []
+    pred = batch._parameterize(col("c0") < lit(0), dtypes, values)
+    stages = [(pred, stages[0][1])]
+    params = (torch.arange(-1000, 1000, 50, dtype=torch.int32),)
+    lanes = params[0].shape[0]
+    program = fused.lower_stages(host, stages, batch=True)
+    assert program.plan.smem_bytes(lanes) > 48 * 1024
+    rows = slice(1, None)
+    want, want_masks = fused.apply_batched_stages(_to(host, "cpu", rows),
+                                                  stages, params, lanes)
+    got, masks = fused.fused_batch_program(
+        _to(host, cuda, rows), stages, tuple(p.to(cuda) for p in params),
+        lanes)
+    np.testing.assert_array_equal(masks.cpu().numpy(), want_masks.numpy())
+    assert_tables_equal(_host(got), want)
 
 
 def test_fused_batch_kernel_rejects_wrong_inputs(cuda):

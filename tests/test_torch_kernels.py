@@ -231,3 +231,9 @@ def test_opcodes_and_limits_match_cuda_source():
     assert enum == fused.OPS
     for name, value in fused.LIMITS.items():
         assert re.search(rf"constexpr int {name} = {value};", src), name
+    # and every constant of the header is mirrored (the tile layout's too)
+    consts = dict((k, int(v)) for k, v in
+                  re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert consts == fused.LIMITS
+    assert consts["kTileRows"] == consts["kThreads"] * consts["kRowsPerThread"]
+    assert consts["kUniformBase"] >= consts["kMaxRegs"]

@@ -16,6 +16,12 @@
   each LOOP ... LFILTER body runs once per lane, and every register the
   body wrote is dropped after the loop (the kernel skips the body for dead
   lanes, so nothing may read one).
+* ``emulate_tiles`` runs a program's ``plan`` (``fused.assign_slots``) as
+  the tile kernels of ``kernels/csrc/fused_interp.cuh`` do: the tiles of
+  1024 rows, four a thread, the load stage and the computed slots as bytes
+  at the plan's offsets, zero fill past n, the uniform table a lane, the
+  per-warp lane skip (a skipped body's slots poisoned), and stores masked
+  to the rows below n.
 * ``seeded_columns`` makes a small morsel's worth of columns from a seed.
 """
 
@@ -321,6 +327,129 @@ def emulate_batch(program: "port_fused.Program", table: TorchTable, params,
                               table),
                      table.validity, dict(program.out_schema))
     return out, torch.from_numpy(masks)
+
+
+# a word the tile model writes where the kernel leaves shared memory
+# unwritten: a read of it shows in the results
+POISON = np.uint32(0xDEADBEEF)
+_WARP_ROWS = 32 * port_fused.LIMITS["kRowsPerThread"]
+
+
+def emulate_tiles(program: "port_fused.Program", table: TorchTable,
+                  params=(), lanes: int = 1, probe=None):
+    """Run ``program.plan`` over a CPU ``table`` as the tile kernels would,
+    all tiles at once -> ``(out_table, masks bool[lanes, n] or None,
+    found, bidx)`` (the probe's as numpy, else None). A batch program's
+    output validity is the input's. ``probe``: ``(tk, tv, max_probes,
+    empty_key)`` as numpy."""
+    lim = port_fused.LIMITS
+    plan = program.plan
+    rows = lim["kTileRows"]
+    shift, low = lim["kKindShift"], (1 << lim["kKindShift"]) - 1
+    n = table.capacity
+    n_tiles = -(-n // rows)
+    size = n_tiles * rows
+    ins = [table.columns[name].numpy() for name in program.in_names]
+
+    def padded(a):
+        out = np.zeros((size,) + a.shape[1:], a.dtype)
+        out[:n] = a
+        return out
+
+    # the load stage of every tile: validity at 0, each column at its
+    # offset, zero past n
+    stage = np.zeros((n_tiles, plan.stage_bytes), np.uint8)
+    stage[:, :rows] = padded(table.validity.numpy().view(np.uint8)).reshape(
+        n_tiles, rows)
+    for c, width, off in plan.loads:
+        raw = np.ascontiguousarray(padded(ins[c])).view(np.uint8)
+        stage[:, off:off + rows * width] = raw.reshape(n_tiles, rows * width)
+    comp = np.full((n_tiles, plan.comp_bytes // 4), POISON, np.uint32)
+    # the uniform table, a row a lane
+    bits = param_bits(params, lanes)
+    uni = np.zeros((lanes, plan.n_uniform), np.uint32)
+    for lane in range(lanes):
+        for op, dst, a, b in plan.uniform:
+            name = _OP_NAMES[op]
+            if name == "CONST":
+                uni[lane, dst] = np.int32(a).view(np.uint32)
+            elif name == "PARAM":
+                uni[lane, dst] = bits[a][lane]
+            else:
+                regs = {0: uni[lane, a:a + 1], 1: uni[lane, b:b + 1]}
+                with np.errstate(all="ignore"):
+                    assert _step(name, 2, 0, 1, regs, [], 1), name
+                uni[lane, dst] = regs[2][0]
+
+    def fetch(e, lane):
+        kind, off = e >> shift, e & low
+        if kind == lim["kKindComp"]:
+            return comp[:, off // 4:off // 4 + rows].copy()
+        if kind == lim["kKindRing32"]:
+            return stage[:, off:off + 4 * rows].copy().view(np.uint32)
+        if kind == lim["kKindRing8"]:
+            return (stage[:, off:off + rows] != 0).astype(np.uint32)
+        assert kind == lim["kKindUniform"], e
+        return np.full((n_tiles, rows), uni[lane, off], np.uint32)
+
+    def vec(op, dst, a, b, lane, skipped=None):
+        name = _OP_NAMES[op]
+        if name == "LOADB":
+            x = padded(ins[a][:, b].astype(np.uint32)).reshape(n_tiles, rows)
+        else:
+            regs = {0: fetch(a, lane), 1: fetch(b, lane)}
+            with np.errstate(all="ignore"):
+                assert _step(name, 2, 0, 1, regs, [], None), name
+            x = regs[2]
+        if skipped is not None:
+            x = np.where(skipped, POISON, x)
+        off = (dst & low) // 4
+        comp[:, off:off + rows] = x
+
+    valid = stage[:, :rows] != 0
+    live = np.repeat(valid[None], lanes, axis=0)
+    stored, found, bidx = {}, None, None
+    code = plan.code
+    pc = 0
+    while pc < len(code):
+        op, dst, a, b = code[pc]
+        name = _OP_NAMES[op]
+        if name in ("STORE32", "STORE8"):
+            x = fetch(a, 0).reshape(-1)[:n]
+            stored[dst] = x.copy() if name == "STORE32" else x != 0
+        elif name == "FILTER":
+            valid &= fetch(a, 0) != 0
+        elif name == "PROBE":
+            tk, tv, max_probes, empty_key = probe
+            key = fetch(a, 0).reshape(-1)[:n].view(np.int32)
+            hit, bidx = probe_numpy(tk, tv, key, max_probes, empty_key)
+            found = hit & valid.reshape(-1)[:n] & (key != empty_key)
+        elif name == "LOOP":
+            end = pc + a
+            assert _OP_NAMES[code[end][0]] == "LFILTER"
+            for lane in range(lanes):
+                # a warp's 128 rows skip the lane when none is live in it
+                warp = live[lane].reshape(n_tiles, rows // _WARP_ROWS,
+                                          _WARP_ROWS).any(axis=2)
+                skipped = ~np.repeat(warp, _WARP_ROWS, axis=1)
+                for op2, dst2, a2, b2 in code[pc + 1:end]:
+                    vec(op2, dst2, a2, b2, lane, skipped)
+                keep = fetch(code[end][2], lane) != 0
+                live[lane] &= keep | skipped
+            pc = end
+        else:
+            vec(op, dst, a, b, 0)
+        pc += 1
+    outs = [stored[k] for k in sorted(stored)]
+    if program.batch:
+        out = TorchTable(_outputs(program, outs, table), table.validity,
+                         dict(program.out_schema))
+        return out, torch.from_numpy(live.reshape(lanes, -1)[:, :n].copy()), \
+            None, None
+    out = TorchTable(_outputs(program, outs, table),
+                     torch.from_numpy(valid.reshape(-1)[:n].copy()),
+                     dict(program.out_schema))
+    return out, None, found, bidx
 
 
 def assert_tables_equal(got: TorchTable, want: TorchTable) -> None:

@@ -1,34 +1,44 @@
 #!/usr/bin/env python3
-"""Time the attention kernels and ``build_table`` against an earlier
-version of their CUDA sources, in one process on one card.
+"""Time the attention kernels, ``build_table`` and the fused kernels
+against an earlier version of their CUDA sources, in one process on one
+card.
 
 Run from the repository root on a machine with the card::
 
     mkdir -p build/parent
-    for f in flash_attention hash_table; do
-        git show <commit>:src/repro_torch/kernels/csrc/$f.cu \\
-            > build/parent/$f.cu
+    for f in fused_morsel.cu fused_batch.cu fused_interp.cuh hash_probe.cuh; do
+        git show <commit>:src/repro_torch/kernels/csrc/$f > build/parent/$f
     done
     python3 tools/time_against_parent.py build/parent
 
-The earlier sources are built with nvcc (the port's flags) into a temporary
-directory and called through ctypes with the C signatures they had at
-``5e32784``: ``flash_attention_run(q, k, v, o, bh, s, d, dtype, causal,
-scale, scratch, scratch_bytes, stream)`` with its
-``flash_attention_scratch_bytes(bh, s, d, dtype)``, and the round build
+Each earlier source found in DIR (``flash_attention.cu``, ``hash_table.cu``,
+``fused_morsel.cu``, ``fused_batch.cu``) is timed; the others are skipped.
+The earlier sources are built with nvcc (the port's flags, DIR's headers
+before the current ones) into a temporary directory and called through
+ctypes with the C signatures they had at ``28729f2``:
+``flash_attention_run(q, k, v, o, bh, s, d, dtype, causal, scale,
+scratch, scratch_bytes, stream)`` with its
+``flash_attention_scratch_bytes(bh, s, d, dtype)``, the round build
 ``hash_table_build(keys, vals, placed, n, table_size, empty_key, tk, tv,
-winner, unplaced, stream)``. The current ones go through the port's
-wrappers. Both sources of each pair are also compiled with ``-Xptxas
--v``, and each kernel's registers and spills are printed.
+winner, unplaced, stream)``, and the fused kernels' ``fused_morsel_run``
+and ``fused_batch_run``, which took the program as ``lower_registers``
+gives it (``prog, n_instr`` in place of the packed plan). The current ones
+go through the port's wrappers. Both sources of each pair are also
+compiled with ``-Xptxas -v``, and each kernel's registers, stack frame and
+spills are printed.
 
 Inputs: every case of phase 9 of ``chip_smoke.py`` (its shapes and seeds;
 float32 and bfloat16), the largest ``build_table`` call of TPC-H Q3 and of
-Q10 at SF 1 as the card's ``Session`` gives them, and ``chip_smoke.py``'s
-duplicate-key build. Each pair is timed in turns, earlier, current,
-current, earlier, with CUDA events over warm runs, then once each under
-``torch.profiler`` for device time; the two outputs are compared (max
-|current - earlier| for attention; the tables must be equal). Prints one
-JSON line per input, then the card line.
+Q10 at SF 1 as the card's ``Session`` gives them, ``chip_smoke.py``'s
+duplicate-key build, and the fused cases of ``chip_smoke.py``: Q1's and
+Q6's stages on the first lineitem morsel, Q22's ``PrefixCode`` stages and
+the first lineitem morsel of the Q3 and Q10 probes as a run at SF 1 gives
+them, and the three serving batch programs at 32 lanes. Each pair is timed
+in turns, earlier, current, current, earlier, with CUDA events over warm
+runs, then once each under ``torch.profiler`` for device time (the fused
+cases: the fused kernels' events only); the two outputs are compared (max
+|current - earlier| for attention; the tables and the fused outputs must
+be equal). Prints one JSON line per input, then the card line.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
-_SOURCES = ("flash_attention", "hash_table")
+_SOURCES = ("flash_attention", "hash_table", "fused_morsel",
+            "fused_batch")
 
 
 def _chip_smoke():
@@ -59,35 +70,33 @@ cs = _chip_smoke()
 
 
 def compile_all(parent: Path, out: Path):
-    """Build the earlier sources into ``out`` and compile both versions of
-    each with ``-Xptxas -v``, all nvcc processes at once; returns the
-    loaded earlier libraries and prints each kernel's registers."""
+    """Build the earlier sources found in ``parent`` into ``out`` and
+    compile both versions of each with ``-Xptxas -v``, all nvcc processes
+    at once; returns the loaded earlier libraries and prints each kernel's
+    registers, stack frame and spills."""
     from repro_torch.kernels import build
     nvcc = build.nvcc_path()
     jobs = {}
     for name in _SOURCES:
-        for who, src in (("earlier", parent / f"{name}.cu"),
-                         ("current", build.CSRC / f"{name}.cu")):
+        if not (parent / f"{name}.cu").exists():
+            continue
+        for who, src, inc in (("earlier", parent / f"{name}.cu", [parent]),
+                              ("current", build.CSRC / f"{name}.cu", [])):
             lib = out / f"lib{name}-{who}.so"
-            cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-                   str(build.CSRC), "-o", str(lib), str(src)]
+            cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v",
+                   *[x for d in inc + [build.CSRC] for x in ("-I", str(d))],
+                   "-o", str(lib), str(src)]
             jobs[(name, who)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True), lib)
     libs = {}
-    entry = re.compile(r"Compiling entry function '(\S+)'")
     for (name, who), (proc, lib) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             cs.fail(f"nvcc {who} {name}.cu:\n{err}")
-        kernel = None
-        for line in err.splitlines():
-            m = entry.search(line)
-            if m:
-                kernel = m.group(1)
-            elif kernel and ("registers" in line or "spill" in line):
-                print(f"ptxas {who} {_label(kernel)}: "
-                      f"{line.split(':', 1)[-1].strip()}", flush=True)
+        for kernel, info in cs.ptxas_report(err).items():
+            print(f"ptxas {who} {_label(kernel)}: {json.dumps(info)}",
+                  flush=True)
         if who == "earlier":
             libs[name] = ctypes.CDLL(str(lib))
     return libs
@@ -138,22 +147,20 @@ def captured_builds(torch):
             for q in (3, 10)}
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
-    """Device milliseconds a call, all device events summed
-    (``torch.profiler``; a profile without them is taken again, at most
-    twice)."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, fn, reps: int = 10, key: str = "") -> float:
+    """Device milliseconds a call, the device events whose name holds
+    ``key`` summed (all of them by default; ``torch.profiler`` through
+    ``chip_smoke._profiled``; a profile without them is taken again, at
+    most twice)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = cs._device_events(prof)
+        prof, _ = cs._profiled(torch, lambda: [fn() for _ in range(reps)])
+        events = [r for r in cs._device_events(prof) if key in r[0]]
         if events:
             return sum(r[2] for r in events) / reps / 1e3
-    cs.fail("no device events in three profiles")
+    cs.fail(f"no device events{' of ' + key if key else ''} in three "
+            "profiles")
 
 
 def in_turns(torch, fns, reps):
@@ -255,10 +262,196 @@ def time_builds(torch, hp, lib):
             "equal": True}), flush=True)
 
 
+def _ptrs(ctypes_type, tensors):
+    return (ctypes_type * max(len(tensors), 1))(*tensors)
+
+
+def earlier_morsel(torch, fused, lib, table, stages, probe):
+    """A launch of the earlier ``fused_morsel_run`` on the program as
+    ``lower_registers`` gives it -> a function returning (out table,
+    found, bidx)."""
+    run = lib.fused_morsel_run
+    run.argtypes, run.restype = fused._ARGTYPES, ctypes.c_int
+    raw = fused.lower_registers(
+        table, stages, probe_keys=None if probe is None else probe["probe_keys"],
+        pack=None if probe is None else probe["pack"],
+        empty_key=-1 if probe is None else probe["empty_key"])
+    code = raw.code.contiguous()
+    n = table.capacity
+    ins = [table.columns[c].contiguous() for c in raw.in_names]
+    in_ptrs = _ptrs(ctypes.c_uint64, [t.data_ptr() for t in ins])
+    in_widths = _ptrs(ctypes.c_int, list(raw.in_widths))
+    valid_in = table.validity.contiguous()
+    tk = tv = None
+    if probe is not None:
+        tk, tv = probe["tk"], probe["tv"]
+        mp = min(int(probe["max_probes"]), tk.shape[0])
+
+    def call():
+        outs = [torch.empty(n, dtype=d, device="cuda") for d in raw.out_dtypes]
+        valid_out = torch.empty(n, dtype=torch.bool, device="cuda")
+        found = bidx = None
+        if probe is not None:
+            found = torch.empty(n, dtype=torch.bool, device="cuda")
+            bidx = torch.empty(n, dtype=torch.int32, device="cuda")
+        rc = run(code.data_ptr(), code.shape[0], in_ptrs, in_widths, len(ins),
+                 _ptrs(ctypes.c_uint64, [t.data_ptr() for t in outs]),
+                 len(outs), valid_in.data_ptr(), valid_out.data_ptr(), n,
+                 None if tk is None else tk.data_ptr(),
+                 None if tv is None else tv.data_ptr(),
+                 0 if tk is None else tk.shape[0], 0 if tk is None else mp,
+                 -1 if probe is None else int(probe["empty_key"]),
+                 None if found is None else found.data_ptr(),
+                 None if bidx is None else bidx.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if rc:
+            cs.fail(f"earlier fused_morsel_run: CUDA error {rc}")
+        return (type(table)(dict(zip(raw.out_names, outs)), valid_out,
+                            dict(raw.out_schema)), found, bidx)
+    return call
+
+
+def earlier_batch(torch, fused, lib, table, stages, params, lanes):
+    """A launch of the earlier ``fused_batch_run`` (lanes <= 64) on the
+    program as ``lower_registers`` gives it -> a function returning
+    (stored columns, masks)."""
+    run = lib.fused_batch_run
+    run.argtypes, run.restype = fused._BATCH_ARGTYPES, ctypes.c_int
+    raw = fused.lower_registers(table, stages, batch=True)
+    code = raw.code.contiguous()
+    n = table.capacity
+    ins = [table.columns[c].contiguous() for c in raw.in_names]
+    in_ptrs = _ptrs(ctypes.c_uint64, [t.data_ptr() for t in ins])
+    in_widths = _ptrs(ctypes.c_int, list(raw.in_widths))
+    bits = fused._param_bits(raw, params, lanes, table.device)
+    valid_in = table.validity.contiguous()
+    stored = [d for d, a in zip(raw.out_dtypes, raw.out_alias) if a is None]
+
+    def call():
+        outs = [torch.empty(n, dtype=d, device="cuda") for d in stored]
+        masks = torch.empty((lanes, n), dtype=torch.bool, device="cuda")
+        rc = run(code.data_ptr(), code.shape[0], in_ptrs, in_widths, len(ins),
+                 _ptrs(ctypes.c_uint64, [t.data_ptr() for t in outs]),
+                 len(outs), None if bits is None else bits.data_ptr(),
+                 len(raw.param_dtypes), lanes, valid_in.data_ptr(),
+                 masks.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            cs.fail(f"earlier fused_batch_run: CUDA error {rc}")
+        return outs, masks
+    return call
+
+
+def _fused_inputs(torch, hp, fused):
+    """The fused cases: name -> (table, stages, probe or None, program),
+    and the serving programs: name -> (table, stages, params)."""
+    from repro_torch.core import batch
+    from repro_torch.core.builder import QueryBuilder
+    from repro_torch.core.expr import col
+    from repro_torch.core.session import Catalog
+    from repro_torch.core.table import TorchTable
+    from repro_torch.tpch import dbgen, queries, schema
+    data = dbgen.generate(cs._SF)
+    catalog = Catalog.from_numpy(data, schema.SCHEMAS, {
+        t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
+    li = data["lineitem"]
+    n = min(len(li["l_orderkey"]), cs._MAIN_ROWS)
+    morsel = TorchTable.from_numpy({c: v[:n] for c, v in li.items()},
+                                   dbgen.S.LINEITEM, capacity=cs._MAIN_ROWS,
+                                   device="cuda")
+    cases = {}
+    for q in (1, 6):
+        table, stages = cs.fused_case(queries, catalog, morsel, q)
+        cases[f"fused_morsel_program[Q{q}]"] = (
+            table, stages, None, fused.lower_stages(table, stages))
+    calls = cs.capture_calls(torch, hp, fused, catalog)
+    c = max(calls["fused_plain"], key=lambda c: c["program"].code.shape[0])
+    cases["fused_morsel_program[Q22]"] = (c["table"], c["stages"], None,
+                                          c["program"])
+    for q in (3, 10):
+        c = next(c for c in calls["fused"] if c["q"] == q
+                 and c["probe"]["probe_keys"] == ("l_orderkey",))
+        cases[f"fused_morsel_probe[Q{q}]"] = (c["table"], c["stages"],
+                                              c["probe"], c["program"])
+    serving = {}
+    keys = data["orders"]["o_orderkey"]
+    for shape in cs._SHAPES:
+        shapes = [batch.extract_shape(cs.small_query(
+            QueryBuilder, col, catalog, keys, shape, j).optimized())
+            for j in range(cs._LANES)]
+        prog = shapes[0].program
+        src = data[prog.table]
+        sch = catalog.get(prog.table).schema
+        rows = min(len(src[prog.columns[0]]), cs._MAIN_ROWS)
+        full = TorchTable.from_numpy(
+            {c: src[c][:rows] for c in prog.columns},
+            {c: sch[c] for c in prog.columns}, capacity=cs._MAIN_ROWS,
+            device="cuda")
+        serving[f"fused_batch_program[{shape}]"] = (
+            full, prog.pre_stages,
+            batch._params(prog, shapes, cs._LANES, full.device))
+    return cases, serving
+
+
+def time_fused(torch, hp, libs):
+    """The fused cases, earlier against current, outputs equal."""
+    from repro_torch.core import fused
+    cases, serving = _fused_inputs(torch, hp, fused)
+    if "fused_morsel" in libs:
+        for name, (table, stages, probe, program) in cases.items():
+            earlier = earlier_morsel(torch, fused, libs["fused_morsel"], table,
+                                     stages, probe)
+
+            def current(t=table, st=stages, pr=probe, p=program):
+                return fused.fused_morsel_program(t, st, probe=pr, program=p)
+
+            (e, ef, eb), (c, cf, cb) = earlier(), current()
+            torch.cuda.synchronize()
+            same = (torch.equal(e.validity, c.validity)
+                    and all(cs._bits_equal(torch, e.columns[k], c.columns[k])
+                            for k in c.column_names)
+                    and (probe is None or (torch.equal(ef, cf)
+                                           and torch.equal(eb, cb))))
+            if not same:
+                cs.fail(f"{name}: the two versions differ")
+            _print_pair(torch, name, table.capacity, earlier, current,
+                        "fused_morsel_kernel")
+    if "fused_batch" in libs:
+        for name, (table, stages, params) in serving.items():
+            earlier = earlier_batch(torch, fused, libs["fused_batch"], table,
+                                    stages, params, cs._LANES)
+            program = fused.lower_stages(table, stages, batch=True)
+
+            def current(t=table, st=stages, pr=params, p=program):
+                return fused.fused_batch_program(t, st, pr, cs._LANES,
+                                                 program=p)
+
+            (eo, em), (c, cm) = earlier(), current()
+            torch.cuda.synchronize()
+            stored = [c.columns[k] for k, a in zip(program.out_names,
+                                                  program.out_alias)
+                      if a is None]
+            if not (torch.equal(em, cm) and all(
+                    cs._bits_equal(torch, a, b) for a, b in zip(eo, stored))):
+                cs.fail(f"{name}: the two versions differ")
+            _print_pair(torch, name, table.capacity, earlier, current,
+                        "fused_batch_kernel")
+
+
+def _print_pair(torch, name, rows, earlier, current, kernel):
+    times = in_turns(torch, {"earlier": earlier, "current": current}, 20)
+    print(json.dumps({
+        "case": name, "rows": rows,
+        "earlier_ms": times["earlier"], "current_ms": times["current"],
+        "earlier_device_ms": device_ms(torch, earlier, 20, kernel),
+        "current_device_ms": device_ms(torch, current, 20, kernel),
+        "equal": True}), flush=True)
+
+
 def main() -> None:
     if len(sys.argv) != 2:
         cs.fail("usage: tools/time_against_parent.py DIR (the earlier "
-                "flash_attention.cu and hash_table.cu)")
+                "sources: flash_attention.cu, hash_table.cu, fused_morsel.cu "
+                "and fused_batch.cu with their headers, any of them)")
     import torch
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False")
@@ -271,13 +464,17 @@ def main() -> None:
     build.build_all()
     out = Path(tempfile.mkdtemp(prefix="parent_kernels_"))
     libs = compile_all(Path(sys.argv[1]), out)
-    old_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        time_attention(torch, fa, libs["flash_attention"])
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old_tf32
-    time_builds(torch, hp, libs["hash_table"])
+    if "flash_attention" in libs:
+        old_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            time_attention(torch, fa, libs["flash_attention"])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    if "hash_table" in libs:
+        time_builds(torch, hp, libs["hash_table"])
+    if "fused_morsel" in libs or "fused_batch" in libs:
+        time_fused(torch, hp, libs)
     print(card, flush=True)
 
 
