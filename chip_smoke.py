@@ -10,17 +10,25 @@ In order it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, all started together) and prints the seconds;
-   beside the build, compiles ``fused_morsel.cu`` and ``fused_batch.cu``
-   with ``-Xptxas -v`` and fails unless ``fused_morsel_kernel`` and
-   ``fused_batch_kernel`` have a 0-byte stack frame and no spill (their
-   registers are shared memory);
+   beside the build, compiles ``fused_morsel.cu``, ``fused_batch.cu`` and
+   ``segmented_agg.cu`` with ``-Xptxas -v`` and fails unless every variant
+   of ``fused_morsel_kernel``, ``fused_batch_kernel`` and
+   ``segmented_sum_kernel`` has a 0-byte stack frame and no spill;
 3. checks each kernel against its plain PyTorch version on the card, on
    the shapes the main path gives it, with the tolerance stated beside each:
-   the segmented sums, the fused program on Q1's and Q6's stages (on a
+   the segmented sums on ``_SEG_CASES`` (sorted and unsorted 1M-row
+   morsels, counts, every id dead, n % 4 of 1-3, bases 1-3 rows past a
+   16-byte boundary, G = 8192 and 8193, 2^24 sorted rows with a dead tail;
+   int32 bit-exact, float32 within 1e-4 * sum(|v|) + 1e-6) and on the
+   calls a run makes (Q1's first of each at G = 16, Q3's first part and
+   first merge, Q17's first int merge, captured with the other kernels'
+   inputs below, and the stacked float call of one serving batch at 32
+   lanes), the fused program on Q1's and Q6's stages (on a
    1M-row lineitem morsel and on its views ``_FUSED_VIEWS``: 999,999 rows,
    3 rows, and a one-row offset that leaves every column base unaligned),
-   and the kernels of one SF 1 run of Q3, Q10, Q2, Q9, Q20 and Q22 on the
-   inputs that run gives them, captured by wrapping the kernel functions:
+   and the kernels of one SF 1 run of Q3, Q10, Q2, Q9, Q20, Q22, Q1 and
+   Q17 on the inputs that run gives them, captured by wrapping the kernel
+   functions:
    every ``build_table`` of Q3 and Q10 bit-identical, Q10's two standalone
    ``hash_probe`` calls and the first morsel of each fused probe exact
    (the first also on the views of ``_FUSED_VIEWS``);
@@ -42,7 +50,11 @@ In order it:
 4. times each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``library_ms``), with CUDA events over warm
    runs, and computes each kernel's bound from its inputs (for the join
-   kernels, from the table sectors this run's keys reach);
+   kernels, from the table sectors this run's keys reach; for the
+   segmented sums, every id, the values of the rows with a live id and the
+   G results); after phase 9, the segmented rows' device time from
+   ``torch.profiler``: the kernel's (``device_ms``) and the whole call's,
+   the wrapper's zero fill included (``call_device_ms``);
 5. generates TPC-H at SF 1 with the port's ``dbgen`` and runs all 22
    queries (``queries.build_query``) through
    ``Session(device="cuda", batch_rows=1 << 20).execute``, with the launch
@@ -134,19 +146,24 @@ profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line; ``--build`` runs phase 3's
 synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
-and their views) and phase 8(a) alone. ``--faults`` runs the three on the
-kernels as they are and then on copies, in a temporary directory, each
-with one fault planted (a K tile left out, early or late; V tiles not
-reloaded; the split over K's combine dropping a split; float32 by one
-TF32 product; a ghost pop that ends its slot's turn in the build; the
-fused kernels' copies of the tail tile's last partial group of four rows
-dropped), and exits 0 only when the kernels pass and every fault is
-caught, the late K tile at ``prefill_32k``, the dropped split at D = 160
-and 192, the one TF32 product at (a) and (d) in float32, the ghost pop at
-``ghosts_over_a_run`` and the dropped group at Q1's 999,999 rows.
+and their views) and phase 8(a) alone; ``--segmented`` the segmented
+sums' ``_SEG_CASES`` alone. ``--faults`` runs the four on the kernels as
+they are and then on copies, in a temporary directory, each with one
+fault planted (a K tile left out, early or late; V tiles not reloaded;
+the split over K's combine dropping a split; float32 by one TF32
+product; a ghost pop that ends its slot's turn in the build; the fused
+kernels' copies of the tail tile's last partial group of four rows
+dropped; the segmented sums' scalar tail read as absent; a run that
+crosses a warp step joined without its earlier part), and exits 0 only
+when the kernels pass and every fault is caught, the late K tile at
+``prefill_32k``, the dropped split at D = 160 and 192, the one TF32
+product at (a) and (d) in float32, the ghost pop at
+``ghosts_over_a_run``, the dropped group at Q1's 999,999 rows, the tail
+at n % 4 of 1, 2 and 3 and the join at sorted G = 16 and its counts.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
-``library_ms`` is null; ``block_prefix_sum``'s is one ``torch.cumsum``,
+``library_ms`` is null; the segmented sums' is one ``index_add_`` into a
+G + 1 buffer; ``block_prefix_sum``'s is one ``torch.cumsum``,
 ``segmented_minmax``'s one ``scatter_reduce``, ``radix_histogram``'s one
 ``torch.bincount`` of the in-range ids; no PyTorch call evaluates a batch
 of predicate lanes, so ``fused_batch_program``'s is null;
@@ -187,7 +204,7 @@ _SF = 1.0
 _QUERIES = (6, 1, 3, 10) + tuple(q for q in range(1, 23)
                                  if q not in (6, 1, 3, 10))
 # the queries whose kernel inputs phase 3 captures
-_CAPTURED = (3, 10, 2, 9, 20, 22)
+_CAPTURED = (3, 10, 2, 9, 20, 22, 1, 17)
 # the queries that reach each all-queries kernel, as the reference's pallas
 # runs do (block_prefix_sum: expansion outputs, compacting filters and the
 # scalar side of ScalarBroadcast)
@@ -280,9 +297,12 @@ def bound_ms(nbytes: float, ops: float, rate: float, op_rate: float = _F32_RATE)
 
 
 # the kernels whose ptxas report (-Xptxas -v) the run prints and holds to
-# a 0-byte stack frame and no spill: their registers are shared memory
+# a 0-byte stack frame and no spill, every template variant of each (the
+# fused kernels' registers are shared memory; the segmented sums keep a
+# thread's two chunks in registers)
 _NO_LOCAL = {"fused_morsel": "fused_morsel_kernel",
-             "fused_batch": "fused_batch_kernel"}
+             "fused_batch": "fused_batch_kernel",
+             "segmented_agg": "segmented_sum_kernel"}
 
 
 def start_ptxas(build, out_dir):
@@ -326,26 +346,26 @@ def ptxas_report(text: str) -> dict:
 
 
 def check_ptxas(procs) -> dict:
-    """Waits for ``start_ptxas``'s nvcc runs, prints each fused kernel's
-    stack frame, spills and registers, and fails unless the stack frame
-    and the spills are 0 bytes."""
+    """Waits for ``start_ptxas``'s nvcc runs, prints the stack frame, spills
+    and registers of each variant of each kernel of ``_NO_LOCAL``, and fails
+    unless the stack frames and the spills are 0 bytes."""
     seen = {}
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             fail(f"nvcc -Xptxas -v {name}.cu:\n{err}")
         kernel = _NO_LOCAL[name]
-        info = next((v for k, v in ptxas_report(err).items()
-                     if kernel in k), None)
-        if info is None or "stack" not in info:
+        infos = {k: v for k, v in ptxas_report(err).items() if kernel in k}
+        if not infos or any("stack" not in v for v in infos.values()):
             fail(f"ptxas printed no stack frame for {kernel}:\n{err}")
-        print(f"ptxas {kernel}: {info['stack']} bytes stack frame, "
-              f"{info['spill_stores']} bytes spill stores, "
-              f"{info['spill_loads']} bytes spill loads, "
-              f"{info.get('registers')} registers", flush=True)
-        if info["stack"] or info["spill_stores"] or info["spill_loads"]:
-            fail(f"{kernel}: a stack frame or spills in local memory")
-        seen[kernel] = info
+        for mangled, info in sorted(infos.items()):
+            print(f"ptxas {kernel} ({mangled}): {info['stack']} bytes stack "
+                  f"frame, {info['spill_stores']} bytes spill stores, "
+                  f"{info['spill_loads']} bytes spill loads, "
+                  f"{info.get('registers')} registers", flush=True)
+            if info["stack"] or info["spill_stores"] or info["spill_loads"]:
+                fail(f"{kernel}: a stack frame or spills in local memory")
+            seen[mangled] = info
     return seen
 
 
@@ -353,76 +373,262 @@ def check_ptxas(procs) -> dict:
 # phase 3 + 4: each kernel against its plain version, then timed
 # ---------------------------------------------------------------------------
 
-def check_segmented(torch, seg, rate, rows):
-    """segmented_sum / segmented_int_sum at the main path's shapes (sorted
-    ids, dead rows carrying id G, G = 16) plus G = 4096 (unsorted) and an
-    int32 wrap case."""
-    gen = torch.Generator(device="cuda").manual_seed(7)
+# the segmented sums' cases on synthetic ids (``--segmented`` runs them
+# alone): sorted and unsorted at the main path's morsel, counts, every id
+# dead, n % 4 of 1-3 (the scalar tail), bases 1-3 rows past a 16-byte
+# boundary with ids and values misaligned differently or alike (the scalar
+# head; values row by row), the largest shared-partials G and the first
+# global one, and a merge's shape: 2^24 sorted rows, most of them a dead tail
+_SEG_CASES = ("sorted G=16", "unsorted G=4096", "counts G=16", "all dead",
+              "tail n%4=1", "tail n%4=2", "tail n%4=3",
+              "offset ids 1 values 2", "offset ids 3 values 0",
+              "offset ids 2 values 2", "G=8192", "G=8193",
+              "n=2^24 dead tail")
+_SEG_REPLACES = {"segmented_sum": "src/repro/kernels/segmented_agg.py:80",
+                 "segmented_int_sum": "src/repro/kernels/segmented_agg.py:131"}
+
+
+def _seg_inputs(torch, case, gen):
+    """(ids, float32 values, int32 values, G) of a ``_SEG_CASES`` case on the
+    card; the int values lie near 2^30, so every group's sum wraps."""
     dev = "cuda"
-    results = {}
 
-    def inputs(n, g, sort):
-        gids = torch.randint(0, g + 1, (n,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        if sort:
-            gids = torch.sort(gids).values
-        return gids
+    def ids(n, lo, hi, sort=False):
+        x = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        return torch.sort(x).values if sort else x
 
-    # float sums: |kernel - plain| <= 1e-4 * sum(|v|) of the group + 1e-6,
-    # the reordering error of ~10^3 float32 partial sums added by atomics
-    for g, sort in ((16, True), (4096, False)):
-        gids = inputs(rows, g, sort)
-        vals = torch.randn(rows, generator=gen, device=dev)
-        got = seg.segmented_sum(gids, vals, g)
-        want = seg.segmented_sum_plain(gids, vals, g)
-        scale = seg.segmented_sum_plain(gids, vals.abs(), g)
+    def values(n):
+        return (torch.randn(n, generator=gen, device=dev),
+                torch.randint(1 << 29, 1 << 30, (n,), generator=gen,
+                              device=dev, dtype=torch.int32))
+
+    rows = _MAIN_ROWS
+    if case in ("sorted G=16", "unsorted G=4096", "counts G=16"):
+        g = 4096 if case.startswith("unsorted") else 16
+        gids = ids(rows, 0, g + 1, sort=not case.startswith("unsorted"))
+        fv, iv = values(rows)
+        if case == "counts G=16":
+            iv = (gids < g).to(torch.int32)
+        return gids, fv, iv, g
+    if case == "all dead":
+        n, g = 100_003, 1000
+        pick = torch.tensor([-1, -5, g, g + 7, 2 ** 31 - 1], dtype=torch.int32,
+                            device=dev)
+        return (pick[ids(n, 0, 5).long()], *values(n), g)
+    if case.startswith("tail"):
+        n, g = 100_000 + int(case[-1]), 500
+        gids = ids(n, -1, g + 2)
+        gids[-3:] = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+        return (gids, *values(n), g)
+    if case.startswith("offset"):
+        # views 1-3 rows into their buffers: the wrapper's .contiguous()
+        # keeps them, so the kernel sees the unaligned bases
+        n, g = 100_001, 700
+        _, _, oi, _, ov = case.split()
+        fv, iv = values(n + 8)
+        gids = ids(n + 8, 0, g)[int(oi):int(oi) + n]
+        return (gids, fv[int(ov):int(ov) + n], iv[int(ov):int(ov) + n], g)
+    if case in ("G=8192", "G=8193"):
+        g = int(case[2:])
+        return (ids(rows, -1, g + 2), *values(rows), g)
+    if case == "n=2^24 dead tail":
+        n, g, live = 1 << 24, 1 << 23, 40_000
+        gids = torch.full((n,), g, dtype=torch.int32, device=dev)
+        gids[:live] = ids(live, 0, g, sort=True)
+        return (gids, *values(n), g)
+    raise ValueError(case)
+
+
+def _seg_check(torch, seg, gids, vals, g):
+    """(error, whether it is within the tolerance) of the kernel against
+    the plain version: int32 bit-exact (the error: the groups that
+    differ); float32 within 1e-4 * sum(|v|) of the group + 1e-6, the
+    reordering error of float32 partial sums added by atomics in any order
+    (the error: max |kernel - plain|)."""
+    if vals.dtype == torch.int32:
+        got = seg.segmented_int_sum(gids, vals, g)
+        want = seg.segmented_int_sum_plain(gids, vals, g)
         torch.cuda.synchronize()
-        err = (got - want).abs()
-        if not bool((err <= 1e-4 * scale + 1e-6).all()):
-            fail(f"segmented_sum G={g}: max err {float(err.max())}")
-        print(f"check segmented_sum rows={rows} G={g}: max_abs_err="
-              f"{float(err.max())} (tol 1e-4*sum|v|)")
-        results.setdefault("segmented_sum", (gids, vals, g, float(err.max())))
-    # int sums: bit-exact, counts at the main path's shape, then a wrap case
-    gids = inputs(rows, 16, True)
-    ones = (gids < 16).to(torch.int32)
-    got = seg.segmented_int_sum(gids, ones, 16)
-    want = seg.segmented_int_sum_plain(gids, ones, 16)
+        bad = int((got != want).sum())
+        return float(bad), bad == 0
+    got = seg.segmented_sum(gids, vals, g)
+    want = seg.segmented_sum_plain(gids, vals, g)
+    scale = seg.segmented_sum_plain(gids, vals.abs(), g)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("segmented_int_sum counts differ from the plain version")
-    results["segmented_int_sum"] = (gids, ones, 16, 0.0)
-    big = torch.randint(1 << 29, 1 << 30, (rows,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    wrap_ids = inputs(rows, 16, True)
-    got = seg.segmented_int_sum(wrap_ids, big, 16)
-    want = seg.segmented_int_sum_plain(wrap_ids, big, 16)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("segmented_int_sum wrap case differs from the plain version")
-    print(f"check segmented_int_sum rows={rows} G=16 counts and int32 wrap: "
-          "bit-exact")
+    err = (got - want).abs()
+    return float(err.max()) if g else 0.0, bool(
+        (err <= 1e-4 * scale + 1e-6).all())
 
+
+def check_segmented_cases(torch, seg, failures):
+    """``_SEG_CASES`` on the card, each with float32 and int32 values
+    against the plain versions; misses go into ``failures``. Returns the
+    G = 16 inputs (the float sums of "sorted G=16", the counts of "counts
+    G=16") for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    kept = {}
+    for case in _SEG_CASES:
+        gids, fv, iv, g = _seg_inputs(torch, case, gen)
+        live = int(((gids >= 0) & (gids < g)).sum())
+        ferr, fok = _seg_check(torch, seg, gids, fv, g)
+        ibad, iok = _seg_check(torch, seg, gids, iv, g)
+        if not fok:
+            failures.append(f"segmented_sum[{case}]: max err {ferr}")
+        if not iok:
+            failures.append(f"segmented_int_sum[{case}]: {int(ibad)} groups "
+                            "differ")
+        print(f"check segmented[{case}] rows={gids.shape[0]} live={live} "
+              f"G={g} ids at +{gids.data_ptr() % 16 // 4} values at "
+              f"+{fv.data_ptr() % 16 // 4} rows: float32 max_abs_err={ferr} "
+              f"({'within' if fok else 'OUTSIDE'} 1e-4*sum|v|), int32 "
+              + ("bit-exact" if iok else f"{int(ibad)} groups differ"),
+              flush=True)
+        if case == "sorted G=16":
+            kept["segmented_sum"] = (gids, fv, g, ferr)
+        if case == "counts G=16":
+            kept["segmented_int_sum"] = (gids, iv, g, 0.0)
+    return kept
+
+
+def run_segmented(torch, seg):
+    """``--segmented``: the segmented sums' cases alone."""
+    failures = []
+    check_segmented_cases(torch, seg, failures)
+    if failures:
+        fail("; ".join(failures))
+
+
+def seg_bound_ms(gids, g, rate):
+    """The segmented sums' bound from their inputs: every id read, the value
+    of every row whose id is in [0, G) read, the G results written once (the
+    wrapper's fill and the adds), over the memory rate; an add a row never
+    bounds it. (ms, "bytes" or "operations", the live rows)."""
+    n = gids.shape[0]
+    live = int(((gids >= 0) & (gids < g)).sum())
+    b, by = bound_ms(n * 4 + live * 4 + g * 4, n, rate)
+    return b, by, live
+
+
+def segmented_row(torch, seg, name, gids, vals, g, err, rate):
+    """The kernels line's row of one segmented call and its launcher:
+    ``ms`` (CUDA events, the wrapper's fill included), the plain version's
+    and one ``index_add_`` into a G + 1 buffer (``library_ms``)."""
+    key = name.partition("[")[0]
+    kernel, plain = ((seg.segmented_sum, seg.segmented_sum_plain)
+                     if key == "segmented_sum" else
+                     (seg.segmented_int_sum, seg.segmented_int_sum_plain))
+    launcher = (lambda: kernel(gids, vals, g))
+    lib_ids = torch.where((gids >= 0) & (gids < g), gids, g)
+    buf = torch.zeros(g + 1, dtype=vals.dtype, device=gids.device)
+    b, by, live = seg_bound_ms(gids, g, rate)
+    n = gids.shape[0]
+    sorted_ids = bool((gids[1:] >= gids[:-1]).all()) if n > 1 else True
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/segmented_agg.cu",
+               replaces=_SEG_REPLACES[key], max_abs_err=err,
+               ms=time_ms(torch, launcher),
+               plain_ms=time_ms(torch, lambda: plain(gids, vals, g),
+                                reps=5, warm=1),
+               bound_ms=b, bound_by=by,
+               library_ms=time_ms(torch, lambda: buf.index_add_(0, lib_ids,
+                                                                vals)),
+               rows=n, live_rows=live, groups=g, sorted=sorted_ids)
+    print(f"check {name} rows={n} live={live} G={g} sorted={sorted_ids}: "
+          f"max_abs_err={err}; ms {row['ms']:.4f}, bound {b:.4f} ({by}), "
+          f"plain {row['plain_ms']:.4f}, index_add_ {row['library_ms']:.4f}",
+          flush=True)
+    return row, launcher
+
+
+def stacked_call(torch, fused, catalog, data):
+    """The float ``segmented_sum`` call of one stacked aggregation as
+    batched serving makes it (``batch._stacked_segment_agg``): the "group"
+    serving program at ``_LANES`` lanes over the first lineitem morsel,
+    through ``batch_morsel_op`` and ``_stacked_aggregate``, its ids
+    unsorted (a member-dead row breaks a lane's runs): (ids, values, G)."""
+    from repro_torch.core import batch
+    from repro_torch.kernels import segmented_agg as seg
+
+    prog, shapes, full = serving_morsel(catalog, data, "group", _LANES)
+    params = batch._params(prog, shapes, _LANES, full.device)
+    table, masks = batch.batch_morsel_op(prog, _LANES, full, params)
+    got = []
+    orig = seg.segmented_sum
+
+    def segmented_sum(gids, values, num_groups):
+        if not got:
+            got.append((gids.clone(), values.clone(), num_groups))
+        return orig(gids, values, num_groups)
+
+    seg.segmented_sum = segmented_sum
+    try:
+        batch._stacked_aggregate(table, masks, prog, _LANES)
+    finally:
+        seg.segmented_sum = orig
+    if not got:
+        fail("stacked aggregation: no segmented_sum call")
+    return got[0]
+
+
+def check_segmented(torch, seg, rate, calls, stacked):
+    """segmented_sum / segmented_int_sum: ``_SEG_CASES``, then the calls
+    the main path makes, captured by ``capture_calls`` (Q1's first call of
+    each, G = 16; Q3's first part and first merge, G = 2^23; Q17's first
+    int merge) and ``stacked_call``; each against its plain version and
+    timed. Returns the kernels line's rows and their launchers."""
+    failures = []
+    kept = check_segmented_cases(torch, seg, failures)
     rows_out, launchers = [], {}
-    for name, kernel, plain in (
-            ("segmented_sum", seg.segmented_sum, seg.segmented_sum_plain),
-            ("segmented_int_sum", seg.segmented_int_sum,
-             seg.segmented_int_sum_plain)):
-        gids, vals, g, err = results[name]
-        launchers[name] = (lambda k=kernel, a=gids, v=vals, n=g: k(a, v, n))
-        buf = torch.zeros(g + 1, dtype=vals.dtype, device=dev)
-        ms = time_ms(torch, launchers[name])
-        plain_ms = time_ms(torch, lambda: plain(gids, vals, g))
-        lib_ms = time_ms(torch, lambda: buf.index_add_(0, gids, vals))
-        b, by = bound_ms(rows * 8 + g * 4, rows, rate)
-        rows_out.append(dict(name=name, route="cuda",
-                             source="src/repro_torch/kernels/csrc/segmented_agg.cu",
-                             replaces=("src/repro/kernels/segmented_agg.py:80"
-                                       if name == "segmented_sum" else
-                                       "src/repro/kernels/segmented_agg.py:131"),
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b, bound_by=by, library_ms=lib_ms))
+    for name, (gids, vals, g, err) in kept.items():
+        row, launchers[name] = segmented_row(torch, seg, name, gids, vals, g,
+                                             err, rate)
+        rows_out.append(row)
+    cases = [(f"{c['kernel']}[{c['case']}]", c["gids"], c["values"], c["g"])
+             for c in calls]
+    cases.append(("segmented_sum[stacked]", *stacked))
+    for name, gids, vals, g in cases:
+        err, ok = _seg_check(torch, seg, gids, vals, g)
+        if not ok:
+            failures.append(f"{name}: error {err}")
+            continue
+        row, launchers[name] = segmented_row(torch, seg, name, gids, vals, g,
+                                             err, rate)
+        rows_out.append(row)
+    if failures:
+        fail("; ".join(failures))
     return rows_out, launchers
+
+
+def segmented_device_ms(torch, rows, launchers, reps: int = 10):
+    """Device ms a call of each segmented row from ``torch.profiler``: the
+    kernel's events (``device_ms``) and every device event of the call
+    (``call_device_ms``: the wrapper's zero fill and the kernel). After
+    phase 9, as every profile of the run."""
+    for r in rows:
+        key = r["name"].partition("[")[0]
+        if key not in ("segmented_sum", "segmented_int_sum"):
+            continue
+        fn, syms = launchers[r["name"]], _KERNEL_SYMBOLS[key]
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(_PROFILE_ATTEMPTS):
+            prof, _ = _profiled(torch, lambda: [fn() for _ in range(reps)])
+            events = _device_events(prof)
+            hits = [e for e in events if any(s in e[0] for s in syms)]
+            if sum(e[1] for e in hits) == reps:
+                break
+            print(f"profile of {r['name']}: {sum(e[1] for e in hits)} kernel "
+                  f"events for {reps} calls in attempt {attempt + 1}",
+                  flush=True)
+        else:
+            fail(f"profile of {r['name']}: no {reps} kernel events")
+        r["device_ms"] = sum(e[2] for e in hits) / reps / 1e3
+        r["call_device_ms"] = sum(e[2] for e in events) / reps / 1e3
+        print(f"device {r['name']}: kernel {r['device_ms']:.5f} ms, call "
+              f"{r['call_device_ms']:.5f} ms (bound {r['bound_ms']:.5f}); "
+              f"events {[(e[0][:50], e[1] / reps) for e in events]}",
+              flush=True)
 
 
 def fused_case(queries, catalog, morsel, q):
@@ -517,18 +723,22 @@ def capture_calls(torch, hp, fused, catalog):
     the kernel runs on them: every ``build_table`` and ``hash_probe`` call
     of Q3 and Q10, the first call of each fused probe's join, the first
     ``block_prefix_sum`` mask of Q9 and Q22, the first ``segmented_minmax``
-    input and ``hash_probe_multi`` call of each query, and Q22's fused
-    calls without a probe (its ``PrefixCode`` stages)."""
+    input and ``hash_probe_multi`` call of each query, Q22's fused
+    calls without a probe (its ``PrefixCode`` stages), and the segmented
+    sums' calls ``check_segmented`` holds: Q1's first call of each (G =
+    16), Q3's first part (a batch's aggregation) and first merge (the
+    accumulator and a part, n = 2G) and Q17's first ``segmented_int_sum``
+    merge."""
     from repro_torch.core import table as table_mod
     from repro_torch.core.session import Session
     from repro_torch.kernels import segmented_agg as seg
     from repro_torch.tpch import queries
     calls = {"build": [], "probe": [], "fused": [], "compact": [],
-             "minmax": [], "multi": [], "fused_plain": []}
+             "minmax": [], "multi": [], "fused_plain": [], "seg": []}
     now = {}
     orig = (hp.build_table, hp.hash_probe, fused.fused_morsel_program,
             table_mod.block_prefix_sum, seg.segmented_minmax,
-            hp.hash_probe_multi)
+            hp.hash_probe_multi, seg.segmented_sum, seg.segmented_int_sum)
 
     def first(kind):
         return not any(c["q"] == now["q"] for c in calls[kind])
@@ -579,12 +789,32 @@ def capture_calls(torch, hp, fused, catalog):
                                        max_probes=max_probes))
         return orig[5](tk, tv, keys, max_matches, empty_key, max_probes)
 
+    def segmented(kernel, run):
+        def call(gids, values, num_groups):
+            merge = gids.shape[0] == 2 * num_groups
+            case = {1: "Q1",
+                    3: f"Q3 {'merge' if merge else 'part'}"
+                    if kernel == "segmented_sum" else None,
+                    17: "Q17 merge"
+                    if merge and kernel == "segmented_int_sum" else None
+                    }.get(now["q"])
+            if case and not any(c["kernel"] == kernel and c["case"] == case
+                                for c in calls["seg"]):
+                calls["seg"].append(dict(q=now["q"], kernel=kernel, case=case,
+                                         gids=gids.clone(),
+                                         values=values.clone(),
+                                         g=num_groups))
+            return run(gids, values, num_groups)
+        return call
+
     gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
     (hp.build_table, hp.hash_probe, fused.fused_morsel_program,
      table_mod.block_prefix_sum, seg.segmented_minmax,
-     hp.hash_probe_multi) = (build_table, hash_probe, fused_morsel_program,
-                             block_prefix_sum, segmented_minmax,
-                             hash_probe_multi)
+     hp.hash_probe_multi, seg.segmented_sum, seg.segmented_int_sum) = (
+        build_table, hash_probe, fused_morsel_program, block_prefix_sum,
+        segmented_minmax, hash_probe_multi,
+        segmented("segmented_sum", orig[6]),
+        segmented("segmented_int_sum", orig[7]))
     try:
         for q in _CAPTURED:
             now["q"] = q
@@ -592,7 +822,7 @@ def capture_calls(torch, hp, fused, catalog):
     finally:
         (hp.build_table, hp.hash_probe, fused.fused_morsel_program,
          table_mod.block_prefix_sum, seg.segmented_minmax,
-         hp.hash_probe_multi) = orig
+         hp.hash_probe_multi, seg.segmented_sum, seg.segmented_int_sum) = orig
     torch.cuda.synchronize()
     return calls
 
@@ -1590,6 +1820,34 @@ def _batch_ops(fused, program, lanes):
     return ops
 
 
+def serving_morsel(catalog, data, shape, lanes):
+    """The batch program of ``lanes`` serving queries of ``shape`` (query
+    ``j`` of ``small_query``), the shapes, and the first morsel of its
+    table on the card: (program, shapes, table). Fails unless the queries
+    share one program."""
+    from repro_torch.core import batch
+    from repro_torch.core.builder import QueryBuilder
+    from repro_torch.core.expr import col
+    from repro_torch.core.table import TorchTable
+
+    keys = data["orders"]["o_orderkey"]
+    shapes = [batch.extract_shape(small_query(
+        QueryBuilder, col, catalog, keys, shape, j).optimized())
+        for j in range(lanes)]
+    prog = shapes[0].program
+    if any(s is None or s.program is not prog for s in shapes):
+        fail(f"fused_batch_program[{shape}]: the queries do not share one "
+             "batch program")
+    src = data[prog.table]
+    schema = catalog.get(prog.table).schema
+    n_rows = min(len(src[prog.columns[0]]), _MAIN_ROWS)
+    full = TorchTable.from_numpy(
+        {c: src[c][:n_rows] for c in prog.columns},
+        {c: schema[c] for c in prog.columns}, capacity=_MAIN_ROWS,
+        device="cuda")
+    return prog, shapes, full
+
+
 def check_batch(torch, fused, catalog, data, rate):
     """fused_batch_program against apply_batched_stages on the card for the
     three serving programs: 32 lanes on the first morsel of the program's
@@ -1598,28 +1856,11 @@ def check_batch(torch, fused, catalog, data, rate):
     launches (one a run of the kernel's 64-lane word). Then timed at 32
     lanes."""
     from repro_torch.core import batch
-    from repro_torch.core.builder import QueryBuilder
-    from repro_torch.core.expr import col
-    from repro_torch.core.table import TorchTable
     from repro_torch.kernels import ops as kops
 
-    keys = data["orders"]["o_orderkey"]
     rows_out, launchers = [], {}
     for shape in _SHAPES:
-        shapes = [batch.extract_shape(small_query(
-            QueryBuilder, col, catalog, keys, shape, j).optimized())
-            for j in range(128)]
-        prog = shapes[0].program
-        if any(s is None or s.program is not prog for s in shapes):
-            fail(f"fused_batch_program[{shape}]: the queries do not share "
-                 "one batch program")
-        src = data[prog.table]
-        schema = catalog.get(prog.table).schema
-        n_rows = min(len(src[prog.columns[0]]), _MAIN_ROWS)
-        full = TorchTable.from_numpy(
-            {c: src[c][:n_rows] for c in prog.columns},
-            {c: schema[c] for c in prog.columns}, capacity=_MAIN_ROWS,
-            device="cuda")
+        prog, shapes, full = serving_morsel(catalog, data, shape, 128)
         odd, empty, shifted = (view(full, slice(0, 999_999)),
                                view(full, slice(0, 0)),
                                view(full, slice(1, None)))
@@ -1828,7 +2069,7 @@ def run_serving(torch, catalog, data):
           f"{steps} fused_batch_program launches ({json.dumps(by_shape)}), "
           f"launches { {k: v for k, v in counts.items() if v} }, stats "
           f"{json.dumps(stats)}", flush=True)
-    return by_shape, builders
+    return by_shape, builders, counts
 
 
 def profile_serving(torch, catalog, builders, out_dir):
@@ -2173,6 +2414,14 @@ _FAULTS = {
         ("  const int v = group_rows(r0, n);\n  copy8(",
          "  const int v = group_rows(r0, n) == kRowsPerThread ? "
          "kRowsPerThread : 0;\n  copy8(", 1)],
+    # the segmented sums: the scalar tail's 1-3 rows read as absent
+    "seg_tail_dropped": [
+        ("const long long hi = n - r0;",
+         "const long long hi = r0 > 0 ? 0 : n - r0;", 1)],
+    # the segmented sums: a run that crosses a warp step is joined without
+    # its part in the steps before
+    "seg_join_drops_carry": [("const A joined = acc.ls + next.fs;",
+                              "const A joined = next.fs;", 1)],
 }
 # the cases that must fail under a fault, beyond the run's exit
 _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
@@ -2181,17 +2430,24 @@ _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
                 "tf32x3_drops_small": ("train_4k f32", "d160 f32",
                                        "d192 f32"),
                 "ghost_pop_ends_turn": ("ghosts_over_a_run",),
-                "tail_group_dropped": ("Q1 n=999999",)}
+                "tail_group_dropped": ("Q1 n=999999",),
+                "seg_tail_dropped": ("tail n%4=1", "tail n%4=2",
+                                     "tail n%4=3"),
+                "seg_join_drops_carry": ("sorted G=16", "counts G=16")}
 _ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                         "flash_attention.cu")
 _TABLE_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                          "hash_table.cu")
 _INTERP_CUH = os.path.join("src", "repro_torch", "kernels", "csrc",
                            "fused_interp.cuh")
+_SEG_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
+                       "segmented_agg.cu")
 # fault -> (source it edits, the run that must catch it); the rest edit
 # the attention kernels and run phase 9 alone
 _FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build"),
-                  "tail_group_dropped": (_INTERP_CUH, "--fused")}
+                  "tail_group_dropped": (_INTERP_CUH, "--fused"),
+                  "seg_tail_dropped": (_SEG_CU, "--segmented"),
+                  "seg_join_drops_carry": (_SEG_CU, "--segmented")}
 # the cases of the fused checks a fault may name (check_fused's views)
 _FUSED_CASES = tuple(f"Q{q}{label}" for q in (1, 6) for label in (
     "", *(f" {v}" for v, _ in _FUSED_VIEWS)))
@@ -2203,8 +2459,8 @@ def fault_target(fault: str):
 
 
 def _run_alone(root: str, option: str) -> dict:
-    """``chip_smoke.py OPTION`` (``--attention``, ``--build`` or
-    ``--fused``) in ``root``: its exit code, each attention case's [max
+    """``chip_smoke.py OPTION`` (``--attention``, ``--build``, ``--fused``
+    or ``--segmented``) in ``root``: its exit code, each attention case's [max
     |kernel - plain|, scaled error] and its failure message."""
     import re
     case = re.compile(r"^check (flash_attention\[[^\]]+\]) .*max \|kernel"
@@ -2215,7 +2471,7 @@ def _run_alone(root: str, option: str) -> dict:
     cases = {}
     for line in out.stdout.splitlines():
         if line.startswith(("check flash_attention", "check build_table",
-                            "check fused")):
+                            "check fused", "check segmented")):
             print(line, flush=True)
         m = case.match(line)
         if m:
@@ -2227,8 +2483,9 @@ def _run_alone(root: str, option: str) -> dict:
 
 
 def run_faults(here: str) -> int:
-    """``--faults``: phase 9 alone, the build checks alone and the fused
-    checks alone on the kernels as they are, then once for each fault of
+    """``--faults``: phase 9 alone, the build checks alone, the fused
+    checks alone and the segmented sums' cases alone on the kernels as they
+    are, then once for each fault of
     ``_FAULTS`` in a copy
     of ``chip_smoke.py`` and ``src/repro_torch`` in a temporary directory,
     with the fault planted in the copy's source (``fault_target``). Prints
@@ -2236,7 +2493,7 @@ def run_faults(here: str) -> int:
     returns 0 when the kernels as they are pass and every fault fails, at
     the cases ``_FAULT_CASES`` names."""
     results = {}
-    for option in ("--attention", "--build", "--fused"):
+    for option in ("--attention", "--build", "--fused", "--segmented"):
         print(f"== as it is {option}", flush=True)
         results[f"as_it_is {option}"] = _run_alone(here, option)
     for fault, edits in _FAULTS.items():
@@ -2470,9 +2727,15 @@ def main() -> None:
                     help="run the fused kernels' checks alone (Q1's and Q6's "
                          "stages on a lineitem morsel and its views, the "
                          "three serving batch programs); prints no ok line")
+    ap.add_argument("--segmented", action="store_true",
+                    help="run the segmented sums' cases alone (synthetic "
+                         "ids: sorted, unsorted, dead, ragged, offset, "
+                         "G=8192/8193, a merge's 2^24 rows); prints no ok "
+                         "line")
     ap.add_argument("--faults", action="store_true",
-                    help="run phase 9 alone and the build checks alone on "
-                         "the kernels as they are and with each planted "
+                    help="run phase 9, the build checks, the fused checks "
+                         "and the segmented cases alone on the kernels as "
+                         "they are and with each planted "
                          "fault, in temporary copies; exits 0 when every "
                          "fault is caught")
     args = ap.parse_args()
@@ -2526,6 +2789,10 @@ def main() -> None:
         run_build(torch, hp)
         print(card)
         return
+    if args.segmented:
+        run_segmented(torch, seg)
+        print(card)
+        return
 
     t0 = time.perf_counter()
     data = dbgen.generate(_SF)
@@ -2546,13 +2813,12 @@ def main() -> None:
         check_batch(torch, fused, catalog, data, rate)
         print(card)
         return
-    rows_out, launchers = check_segmented(torch, seg, rate, _MAIN_ROWS)
-    fused_rows, fused_launchers = check_fused(torch, fused, queries, catalog,
-                                              morsel, rate)
-    rows_out += fused_rows
-    launchers.update(fused_launchers)
+    rows_out, launchers = check_fused(torch, fused, queries, catalog, morsel,
+                                      rate)
     calls = capture_calls(torch, hp, fused, catalog)
     for more_rows, more_launchers in (
+            check_segmented(torch, seg, rate, calls["seg"],
+                            stacked_call(torch, fused, catalog, data)),
             check_join(torch, hp, fused, calls, rate),
             check_compact(torch, bps, calls, rate),
             check_minmax(torch, seg, calls, rate),
@@ -2576,7 +2842,8 @@ def main() -> None:
                                               rate)
     rows_out += batch_rows
     launchers.update(batch_launchers)
-    batch_launches, serving_builders = run_serving(torch, catalog, data)
+    batch_launches, serving_builders, serving_counts = run_serving(
+        torch, catalog, data)
     run_dashboard(torch, catalog, results)
     print(f"phase 8 (serving): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -2590,6 +2857,7 @@ def main() -> None:
     check_build_launches(torch, hp, failures)
     if failures:
         fail("; ".join(failures))
+    segmented_device_ms(torch, rows_out, launchers)
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:
@@ -2607,10 +2875,14 @@ def main() -> None:
             # this program's stacked launches in the serving run
             r["launches"] = batch_launches[r["name"][20:-1]]
             continue
+        if r["name"] == "segmented_sum[stacked]":
+            r["launches"] = serving_counts["segmented_sum"]
+            continue
         key, _, q = r["name"].partition("[Q")
         # the exchange's kernel runs only with several workers
         source = w4_launches if key == "radix_histogram" else launches
-        per_query = [source[int(q[:-1])]] if q else source.values()
+        per_query = ([source[int(q.rstrip("]").split()[0])]] if q
+                     else source.values())
         r["launches"] = sum(c[key] for c in per_query)
     print(json.dumps({"kernels": rows_out}))
     print(card)

@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s card-only tooling against the CUDA sources, on the
 CPU: every planted fault of ``--faults`` must still find its text in the
-source it edits (``csrc/flash_attention.cu``, ``csrc/hash_table.cu`` or
-``csrc/fused_interp.cuh``) as often as it says, and every kernel symbol that ``--profile``, phase 3
+source it edits (``csrc/flash_attention.cu``, ``csrc/hash_table.cu``,
+``csrc/fused_interp.cuh`` or ``csrc/segmented_agg.cu``) as often as it says, and every kernel symbol that ``--profile``, phase 3
 and phase 9 look for must name a ``__global__`` function of ``csrc/``. A
 kernel edit that breaks either shows here, not at the next run on the
 card."""
@@ -48,12 +48,14 @@ def test_fault_edits_occur_as_often_as_they_say(fault):
 def test_fault_cases_name_phase_9_cases(fault):
     """A fault's cases are cases of the run that must catch it: phase 9's
     for the attention faults, the build checks' for the build's, the fused
-    checks' for the fused kernels'."""
+    checks' for the fused kernels', the segmented cases' for the segmented
+    sums'."""
     assert fault in chip_smoke._FAULTS
     _, option = chip_smoke.fault_target(fault)
     cases = {"--attention": {c[0] for c in chip_smoke._ATTN_CASES},
              "--build": set(chip_smoke._BUILD_CASES),
-             "--fused": set(chip_smoke._FUSED_CASES)}[option]
+             "--fused": set(chip_smoke._FUSED_CASES),
+             "--segmented": set(chip_smoke._SEG_CASES)}[option]
     assert set(chip_smoke._FAULT_CASES[fault]) <= cases
 
 

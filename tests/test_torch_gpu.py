@@ -60,6 +60,58 @@ def test_segmented_kernels_on_card(cuda, n, g):
     assert np.all(np.abs(got.numpy() - want) <= 1e-4 * scale + 1e-6)
 
 
+# (case, n, G, ids' row offset, values' row offset): every id dead, the
+# scalar tail (n % 4 of 1-3), bases 1-3 rows past a 16-byte boundary (ids
+# and values misaligned differently, or alike), the largest shared-partials
+# G and the first global one, a merge's 2^24 sorted rows with a dead tail
+_SEG_EDGES = [("all_dead", 100_003, 1000, 0, 0),
+              ("tail", 100_001, 500, 0, 0), ("tail", 100_002, 500, 0, 0),
+              ("tail", 100_003, 500, 0, 0),
+              ("offset", 100_001, 700, 1, 2), ("offset", 100_001, 700, 3, 0),
+              ("offset", 100_001, 700, 2, 2), ("offset", 5, 700, 1, 3),
+              ("unsorted", 1 << 20, 8192, 0, 0),
+              ("unsorted", 1 << 20, 8193, 0, 0),
+              ("dead_tail", 1 << 24, 1 << 23, 0, 0)]
+
+
+@pytest.mark.parametrize("case,n,g,id_off,val_off", _SEG_EDGES)
+def test_segmented_kernels_on_card_edges(cuda, case, n, g, id_off, val_off):
+    rng = np.random.default_rng(n + g + id_off + 4 * val_off)
+    if case == "all_dead":
+        gids = rng.choice(np.array([-1, -5, g, g + 7, 2 ** 31 - 1]), n)
+    elif case == "dead_tail":
+        gids = np.full(n, g)
+        gids[:40_000] = np.sort(rng.integers(0, g, 40_000))
+    else:
+        gids = rng.integers(-1, g + 2, n)
+        gids[-3:] = [1, 2, 3]               # the tail's rows live
+    gids = gids.astype(np.int32)
+    vals = rng.normal(0, 1, n).astype(np.float32)
+    ivals = rng.integers(1 << 29, 1 << 30, n).astype(np.int32)
+
+    def at(a, off):
+        """``a`` on the card, its base ``off`` rows past a 16-byte boundary."""
+        buf = torch.empty(n + 4, dtype=torch.from_numpy(a).dtype, device=cuda)
+        view = buf[off:off + n]
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    ops.reset_launch_counts()
+    got = seg.segmented_sum(at(gids, id_off), at(vals, val_off), g).cpu()
+    igot = seg.segmented_int_sum(at(gids, id_off), at(ivals, val_off),
+                                 g).cpu()
+    counts = ops.launch_counts()
+    assert counts["segmented_sum"] == 1 and counts["segmented_int_sum"] == 1
+    t_ids = torch.from_numpy(gids)
+    np.testing.assert_array_equal(
+        igot.numpy(),
+        seg.segmented_int_sum_plain(t_ids, torch.from_numpy(ivals), g).numpy())
+    want = seg.segmented_sum_plain(t_ids, torch.from_numpy(vals), g).numpy()
+    scale = seg.segmented_sum_plain(t_ids, torch.from_numpy(np.abs(vals)),
+                                    g).numpy()
+    assert np.all(np.abs(got.numpy() - want) <= 1e-4 * scale + 1e-6)
+
+
 def test_segmented_kernels_reject_wrong_inputs(cuda):
     gids = torch.zeros(8, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Time the attention kernels, ``build_table`` and the fused kernels
-against an earlier version of their CUDA sources, in one process on one
-card.
+"""Time the attention kernels, ``build_table``, the fused kernels and the
+segmented sums against an earlier version of their CUDA sources, in one
+process on one card.
 
 Run from the repository root on a machine with the card::
 
     mkdir -p build/parent
-    for f in fused_morsel.cu fused_batch.cu fused_interp.cuh hash_probe.cuh; do
+    for f in segmented_agg.cu; do
         git show <commit>:src/repro_torch/kernels/csrc/$f > build/parent/$f
     done
     python3 tools/time_against_parent.py build/parent
 
 Each earlier source found in DIR (``flash_attention.cu``, ``hash_table.cu``,
-``fused_morsel.cu``, ``fused_batch.cu``) is timed; the others are skipped.
+``fused_morsel.cu``, ``fused_batch.cu``, ``segmented_agg.cu``) is timed;
+the others are skipped.
 The earlier sources are built with nvcc (the port's flags, DIR's headers
 before the current ones) into a temporary directory and called through
 ctypes with the C signatures they had at ``28729f2``:
@@ -22,7 +23,9 @@ scratch, scratch_bytes, stream)`` with its
 ``hash_table_build(keys, vals, placed, n, table_size, empty_key, tk, tv,
 winner, unplaced, stream)``, and the fused kernels' ``fused_morsel_run``
 and ``fused_batch_run``, which took the program as ``lower_registers``
-gives it (``prog, n_instr`` in place of the packed plan). The current ones
+gives it (``prog, n_instr`` in place of the packed plan), and
+``segmented_sum_f32`` / ``segmented_sum_i32(gids, vals, n, num_groups,
+out, stream)``, unchanged since then. The current ones
 go through the port's wrappers. Both sources of each pair are also
 compiled with ``-Xptxas -v``, and each kernel's registers, stack frame and
 spills are printed.
@@ -33,12 +36,19 @@ Q10 at SF 1 as the card's ``Session`` gives them, ``chip_smoke.py``'s
 duplicate-key build, and the fused cases of ``chip_smoke.py``: Q1's and
 Q6's stages on the first lineitem morsel, Q22's ``PrefixCode`` stages and
 the first lineitem morsel of the Q3 and Q10 probes as a run at SF 1 gives
-them, and the three serving batch programs at 32 lanes. Each pair is timed
-in turns, earlier, current, current, earlier, with CUDA events over warm
-runs, then once each under ``torch.profiler`` for device time (the fused
-cases: the fused kernels' events only); the two outputs are compared (max
-|current - earlier| for attention; the tables and the fused outputs must
-be equal). Prints one JSON line per input, then the card line.
+them, the three serving batch programs at 32 lanes, and the segmented
+sums' calls of ``chip_smoke.py``'s phase 3 (Q1's first call of each at G =
+16, Q3's first part and first merge and Q17's first int merge at SF 1, the
+stacked serving call, and the synthetic sorted G = 16 and unsorted G =
+4096). Each pair is timed in turns, earlier, current, current, earlier,
+with CUDA events over warm runs, then once each under ``torch.profiler``
+for device time (the fused and segmented cases: their kernels' events
+only; the segmented kernels also alone, on an output zeroed once, with no
+fill before each call); the two outputs are compared (max |current -
+earlier| for attention; the tables, the fused outputs and the int sums
+must be equal, the float sums within twice the tolerance of
+``chip_smoke._seg_check`` of each other). Prints one JSON line per input,
+then the card line.
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 _SOURCES = ("flash_attention", "hash_table", "fused_morsel",
-            "fused_batch")
+            "fused_batch", "segmented_agg")
 
 
 def _chip_smoke():
@@ -109,6 +119,10 @@ def _label(mangled: str) -> str:
     name = re.search(r"attn_(?:f32|tf32x3|mma|wgmma|combine)_kernel"
                      r"|[a-z_]+_kernel", mangled)
     width = re.search(r"Li(\d+)E", mangled)
+    sums = re.search(r"segmented_sum_kernelI([fi])Lb([01])E", mangled)
+    if sums:
+        return (f"segmented_sum_kernel<{'float' if sums.group(1) == 'f' else 'int'}"
+                f", {'shared' if sums.group(2) == '1' else 'global'}>")
     kind = ("Bf16" if "Bf16" in mangled else "F16" if "F16" in mangled
             else "F32Out" if "F32Out" in mangled else "")
     args = ", ".join(a for a in (kind, width and width.group(1)) if a)
@@ -447,11 +461,95 @@ def _print_pair(torch, name, rows, earlier, current, kernel):
         "equal": True}), flush=True)
 
 
+def _segmented_inputs(torch):
+    """The segmented cases: name -> (ids, values, G)."""
+    from repro_torch.core import fused
+    from repro_torch.core.session import Catalog
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.tpch import dbgen, schema
+    data = dbgen.generate(cs._SF)
+    catalog = Catalog.from_numpy(data, schema.SCHEMAS, {
+        t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
+    cases = {f"{c['kernel']}[{c['case']}]": (c["gids"], c["values"], c["g"])
+             for c in cs.capture_calls(torch, hp, fused, catalog)["seg"]}
+    cases["segmented_sum[stacked]"] = cs.stacked_call(torch, fused, catalog,
+                                                      data)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for case in ("sorted G=16", "unsorted G=4096"):
+        gids, fv, _, g = cs._seg_inputs(torch, case, gen)
+        cases[f"segmented_sum[{case}]"] = (gids, fv, g)
+    return cases
+
+
+def time_segmented(torch, lib):
+    """The segmented cases, earlier against current: through the wrappers
+    (the current one's zero fill, and the same fill before the earlier
+    kernel), then each kernel alone."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segmented_agg as seg
+    rate = cs.by_name(cs._MEM_RATE, torch.cuda.get_device_name(0))
+    fns = {"segmented_sum": (lib.segmented_sum_f32, seg.segmented_sum),
+           "segmented_int_sum": (lib.segmented_sum_i32,
+                                 seg.segmented_int_sum)}
+    for run, _ in fns.values():
+        run.argtypes, run.restype = seg._ARGTYPES, ctypes.c_int
+    for name, (gids, vals, g) in _segmented_inputs(torch).items():
+        run, kernel = fns[name.partition("[")[0]]
+
+        def earlier(gids=gids, vals=vals, g=g, run=run):
+            out = torch.zeros(g, dtype=vals.dtype, device="cuda")
+            rc = run(gids.data_ptr(), vals.data_ptr(), gids.shape[0], g,
+                     out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                cs.fail(f"earlier {name}: CUDA error {rc}")
+            return out
+
+        def current(gids=gids, vals=vals, g=g, kernel=kernel):
+            return kernel(gids, vals, g)
+
+        e, c = earlier(), current()
+        torch.cuda.synchronize()
+        if vals.dtype == torch.int32:
+            diff, same = float((e != c).sum()), torch.equal(e, c)
+        else:
+            scale = seg.segmented_sum_plain(gids, vals.abs(), g)
+            diff = float((e - c).abs().max())
+            same = bool(((e - c).abs() <= 2 * (1e-4 * scale + 1e-6)).all())
+        if not same:
+            cs.fail(f"{name}: the two versions differ ({diff})")
+        bound, _, live = cs.seg_bound_ms(gids, g, rate)
+        times = in_turns(torch, {"earlier": earlier, "current": current}, 20)
+        # each kernel alone: its C entry point on one output zeroed once,
+        # with no fill before each call whose dirty lines the kernel's
+        # reads would write back (the sums pile up; only the time is kept)
+        out = torch.zeros(g, dtype=vals.dtype, device="cuda")
+        symbol = ("segmented_sum_i32" if vals.dtype == torch.int32
+                  else "segmented_sum_f32")
+        alone = {"earlier": run, "current": build.function(
+            seg._LIB, symbol, seg._ARGTYPES)}
+        alone_ms = {who: device_ms(torch, lambda f=f: f(
+            gids.data_ptr(), vals.data_ptr(), gids.shape[0], g,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream), 20,
+            "segmented_sum_kernel") for who, f in alone.items()}
+        print(json.dumps({
+            "case": name, "rows": gids.shape[0], "live_rows": live,
+            "groups": g, "earlier_ms": times["earlier"],
+            "current_ms": times["current"],
+            "earlier_device_ms": device_ms(torch, earlier, 20,
+                                           "segmented_sum_kernel"),
+            "current_device_ms": device_ms(torch, current, 20,
+                                           "segmented_sum_kernel"),
+            "earlier_alone_device_ms": alone_ms["earlier"],
+            "current_alone_device_ms": alone_ms["current"],
+            "bound_ms": bound, "max_diff": diff}), flush=True)
+
+
 def main() -> None:
     if len(sys.argv) != 2:
         cs.fail("usage: tools/time_against_parent.py DIR (the earlier "
-                "sources: flash_attention.cu, hash_table.cu, fused_morsel.cu "
-                "and fused_batch.cu with their headers, any of them)")
+                "sources: flash_attention.cu, hash_table.cu, fused_morsel.cu, "
+                "fused_batch.cu with their headers and segmented_agg.cu, any "
+                "of them)")
     import torch
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False")
@@ -475,6 +573,8 @@ def main() -> None:
         time_builds(torch, hp, libs["hash_table"])
     if "fused_morsel" in libs or "fused_batch" in libs:
         time_fused(torch, hp, libs)
+    if "segmented_agg" in libs:
+        time_segmented(torch, libs["segmented_agg"])
     print(card, flush=True)
 
 
