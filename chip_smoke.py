@@ -10,10 +10,11 @@ In order it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, all started together) and prints the seconds;
-   beside the build, compiles ``fused_morsel.cu``, ``fused_batch.cu`` and
-   ``segmented_agg.cu`` with ``-Xptxas -v`` and fails unless every variant
-   of ``fused_morsel_kernel``, ``fused_batch_kernel`` and
-   ``segmented_sum_kernel`` has a 0-byte stack frame and no spill;
+   beside the build, compiles ``fused_morsel.cu``, ``fused_batch.cu``,
+   ``segmented_agg.cu`` and ``radix_histogram.cu`` with ``-Xptxas -v`` and
+   fails unless every variant of ``fused_morsel_kernel``,
+   ``fused_batch_kernel``, ``segmented_sum_kernel`` and
+   ``partition_histogram_kernel`` has a 0-byte stack frame and no spill;
 3. checks each kernel against its plain PyTorch version on the card, on
    the shapes the main path gives it, with the tolerance stated beside each:
    the segmented sums on ``_SEG_CASES`` (sorted and unsorted 1M-row
@@ -26,12 +27,12 @@ In order it:
    lanes), the fused program on Q1's and Q6's stages (on a
    1M-row lineitem morsel and on its views ``_FUSED_VIEWS``: 999,999 rows,
    3 rows, and a one-row offset that leaves every column base unaligned),
-   and the kernels of one SF 1 run of Q3, Q10, Q2, Q9, Q20, Q22, Q1 and
-   Q17 on the inputs that run gives them, captured by wrapping the kernel
-   functions:
-   every ``build_table`` of Q3 and Q10 bit-identical, Q10's two standalone
-   ``hash_probe`` calls and the first morsel of each fused probe exact
-   (the first also on the views of ``_FUSED_VIEWS``);
+   and the kernels of one SF 1 run of the 22 queries on the inputs that
+   run gives them, captured by wrapping the kernel functions:
+   every ``build_table`` of Q3 and Q10 bit-identical, every standalone
+   ``hash_probe`` call of the 22 queries and the first morsel of each
+   fused probe of Q3 and Q10 exact (the first also on the views of
+   ``_FUSED_VIEWS``);
    ``block_prefix_sum`` on the first compaction mask of Q9 and of Q22,
    ``segmented_minmax`` on Q2's grouped min, ``hash_probe_multi`` on the
    first expansion probe of Q9 and of Q20, and the fused program on Q22's
@@ -44,9 +45,11 @@ In order it:
    rows below and above it (after phase 9, so that no profile precedes
    its own: the unique and the duplicate build must launch the same
    kernels, ``ceil(log2 T / 8) + 3``, copy nothing back and not wait for
-   the card); 1 << 20 probe keys with hits, misses and -1 keys, an
-   expansion probe of a table with up to 8 rows a key and -1 keys, and
-   min/max over values with inf, -inf and NaN;
+   the card); the probes of ``_PROBE_CASES`` (tables of 1-8 slots, runs
+   across 32-byte sectors and wrapping at T, max_probes ending inside a
+   sector, keys -1, views) and 1 << 20 probe keys with hits, misses and
+   -1 keys, each exact; an expansion probe of a table with up to 8 rows a
+   key and -1 keys, and min/max over values with inf, -inf and NaN;
 4. times each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``library_ms``), with CUDA events over warm
    runs, and computes each kernel's bound from its inputs (for the join
@@ -67,15 +70,20 @@ In order it:
    engines) and Q22 the fused program; each result must match the same
    plan run by ``Session(device="cpu")`` at SF 1 (exact for keys, counts
    and bytes columns, rtol 2e-3 for floats);
-6. captures the kernels' inputs of one W = 4 run of Q3 and Q7 with
+6. captures the kernels' inputs of one W = 4 run of the 22 queries with
    ``ICIExchange`` (by wrapping the kernel functions, as phase 3 does) and
-   holds against their plain versions, exact, every ``build_table``,
-   ``hash_probe`` and fused probe call of both (the worker-local build and
-   probe sides that the exchange hands them) and
-   ``radix_histogram`` on the ids that Q3's first lineitem repartition
-   gives it, plus edge cases (no ids; ids -1, P and INT32_MAX; P of 1, 4,
-   16, 8192 and 8193; a count of ids that is no multiple of the block);
-   then times ``radix_histogram`` beside ``torch.bincount``;
+   holds against their plain versions, exact, every ``build_table`` and
+   fused probe call of Q3 and Q7 (the worker-local build and probe sides
+   that the exchange hands them), every standalone ``hash_probe`` call,
+   and the exchange's metadata pass (``partition_histogram``: pids and
+   counts) on every repartition's inputs and on ``_PART_CASES`` (each W
+   of 1-8 at n of 0, 5, 100,003 and 2^22 rows a source, a bytes key,
+   three keys, views 1-3 rows off, bool, int64 and float keys, every row
+   dead, one row, sources of unequal sizes); then the standalone
+   ``radix_histogram`` on the bins of Q3's first ``l_orderkey``
+   repartition, plus edge cases (no ids; ids -1, P and INT32_MAX; P of 1,
+   4, 16, 8192 and 8193; a count of ids that is no multiple of the
+   block);
 7. runs all 22 queries planned for four workers
    (``queries.build_query(q, catalog, num_workers=4)``) through
    ``Session(num_workers=4, batch_rows=1 << 20)`` with ``ICIExchange`` on
@@ -129,8 +137,16 @@ In order it:
    timed, and the bound is operations at the card's dense bfloat16 rate,
    or in float32 three times the operations at its TF32 rate (3xTF32),
    with the FFMA bound printed beside it;
-10. prints one ``{"kernels": [...]}`` line, then the card line again;
-11. prints as its last line ``{"ok": true, "device": {...}}``.
+10. the main path's shapes: every captured standalone probe (W = 1 and
+   W = 4) once in one profile, a line each (keys, slots, max_probes, hit
+   rate, whether the table fits the L2, bound, device µs) and the sums;
+   every repartition's metadata pass profiled alone, a line each (rows a
+   source, key dtypes and widths, bound, device µs); the heaviest group
+   of probe calls and the heaviest repartition are the ``hash_probe`` and
+   ``radix_histogram`` rows of the kernels line, with the wrapper's host
+   µs a call (``host_us``) and the device ms (``device_ms``);
+11. prints one ``{"kernels": [...]}`` line, then the card line again;
+12. prints as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without printing the last line. The script
 imports only the port, torch, numpy and the standard library; it fails when
@@ -147,26 +163,32 @@ profiled run of phase 8's serving workload with and one without batching.
 line and the card line, and no ok line; ``--build`` runs phase 3's
 synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
 and their views) and phase 8(a) alone; ``--segmented`` the segmented
-sums' ``_SEG_CASES`` alone. ``--faults`` runs the four on the kernels as
-they are and then on copies, in a temporary directory, each with one
-fault planted (a K tile left out, early or late; V tiles not reloaded;
-the split over K's combine dropping a split; float32 by one TF32
-product; a ghost pop that ends its slot's turn in the build; the fused
-kernels' copies of the tail tile's last partial group of four rows
-dropped; the segmented sums' scalar tail read as absent; a run that
-crosses a warp step joined without its earlier part), and exits 0 only
+sums' ``_SEG_CASES`` alone; ``--probe`` the probe's ``_PROBE_CASES``
+alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone.
+``--faults`` runs the six on the kernels as they are and then on copies,
+in a temporary directory, each with one fault planted (a K tile left
+out, early or late; V tiles not reloaded; the split over K's combine
+dropping a split; float32 by one TF32 product; a ghost pop that ends its
+slot's turn in the build; the fused kernels' copies of the tail tile's
+last partial group of four rows dropped; the segmented sums' scalar tail
+read as absent; a run that crosses a warp step joined without its
+earlier part; a bytes key's first lane left out of the partition hash; a
+probe run ended at the end of a 32-byte sector of slots), and exits 0 only
 when the kernels pass and every fault is caught, the late K tile at
 ``prefill_32k``, the dropped split at D = 160 and 192, the one TF32
 product at (a) and (d) in float32, the ghost pop at
 ``ghosts_over_a_run``, the dropped group at Q1's 999,999 rows, the tail
-at n % 4 of 1, 2 and 3 and the join at sorted G = 16 and its counts.
+at n % 4 of 1, 2 and 3, the join at sorted G = 16 and its counts, the
+bytes lane at ``bytes W=4`` and ``views W=4`` and the cut run at
+``dense T=1024``.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; the segmented sums' is one ``index_add_`` into a
 G + 1 buffer; ``block_prefix_sum``'s is one ``torch.cumsum``,
 ``segmented_minmax``'s one ``scatter_reduce``, ``radix_histogram``'s one
-``torch.bincount`` of the in-range ids; no PyTorch call evaluates a batch
-of predicate lanes, so ``fused_batch_program``'s is null;
+``torch.bincount`` of the call's in-range (source, destination) bins, the
+histogram alone (no PyTorch call hashes the rows too); no PyTorch call
+evaluates a batch of predicate lanes, so ``fused_batch_program``'s is null;
 ``flash_attention``'s is one ``scaled_dot_product_attention``.
 """
 
@@ -203,8 +225,6 @@ _SF = 1.0
 # the slices' first queries, then the rest of the 22
 _QUERIES = (6, 1, 3, 10) + tuple(q for q in range(1, 23)
                                  if q not in (6, 1, 3, 10))
-# the queries whose kernel inputs phase 3 captures
-_CAPTURED = (3, 10, 2, 9, 20, 22, 1, 17)
 # the queries that reach each all-queries kernel, as the reference's pallas
 # runs do (block_prefix_sum: expansion outputs, compacting filters and the
 # scalar side of ScalarBroadcast)
@@ -299,10 +319,11 @@ def bound_ms(nbytes: float, ops: float, rate: float, op_rate: float = _F32_RATE)
 # the kernels whose ptxas report (-Xptxas -v) the run prints and holds to
 # a 0-byte stack frame and no spill, every template variant of each (the
 # fused kernels' registers are shared memory; the segmented sums keep a
-# thread's two chunks in registers)
+# thread's two chunks in registers; the metadata pass its W counts)
 _NO_LOCAL = {"fused_morsel": "fused_morsel_kernel",
              "fused_batch": "fused_batch_kernel",
-             "segmented_agg": "segmented_sum_kernel"}
+             "segmented_agg": "segmented_sum_kernel",
+             "radix_histogram": "partition_histogram_kernel"}
 
 
 def start_ptxas(build, out_dir):
@@ -718,17 +739,17 @@ def check_fused(torch, fused, queries, catalog, morsel, rate):
 
 def capture_calls(torch, hp, fused, catalog):
     """The kernels' inputs as the main path gives them: one run of each
-    query of ``_CAPTURED`` at SF 1 through the card's ``Session``, with the
+    of the 22 queries at SF 1 through the card's ``Session``, with the
     kernel functions wrapped so that each call's arguments are kept before
-    the kernel runs on them: every ``build_table`` and ``hash_probe`` call
-    of Q3 and Q10, the first call of each fused probe's join, the first
-    ``block_prefix_sum`` mask of Q9 and Q22, the first ``segmented_minmax``
-    input and ``hash_probe_multi`` call of each query, Q22's fused
-    calls without a probe (its ``PrefixCode`` stages), and the segmented
-    sums' calls ``check_segmented`` holds: Q1's first call of each (G =
-    16), Q3's first part (a batch's aggregation) and first merge (the
-    accumulator and a part, n = 2G) and Q17's first ``segmented_int_sum``
-    merge."""
+    the kernel runs on them: every ``hash_probe`` call of every query,
+    every ``build_table`` call of Q3 and Q10, the first call of each fused
+    probe's join of Q3 and Q10, the first ``block_prefix_sum`` mask of Q9
+    and Q22, the first ``segmented_minmax`` input and ``hash_probe_multi``
+    call of each query, Q22's fused calls without a probe (its
+    ``PrefixCode`` stages), and the segmented sums' calls
+    ``check_segmented`` holds: Q1's first call of each (G = 16), Q3's
+    first part (a batch's aggregation) and first merge (the accumulator
+    and a part, n = 2G) and Q17's first ``segmented_int_sum`` merge."""
     from repro_torch.core import table as table_mod
     from repro_torch.core.session import Session
     from repro_torch.kernels import segmented_agg as seg
@@ -752,10 +773,9 @@ def capture_calls(torch, hp, fused, catalog):
 
     def hash_probe(tk, tv, keys, empty_key=-1,
                    max_probes=hp.MAX_PROBES_DEFAULT):
-        if now["q"] in (3, 10):
-            calls["probe"].append(dict(q=now["q"], tk=tk, tv=tv,
-                                       keys=keys.clone(), empty=empty_key,
-                                       max_probes=max_probes))
+        calls["probe"].append(dict(q=now["q"], w=1, tk=tk, tv=tv,
+                                   keys=keys.clone(), empty=empty_key,
+                                   max_probes=max_probes))
         return orig[1](tk, tv, keys, empty_key, max_probes)
 
     def fused_morsel_program(table, stages, probe=None, program=None):
@@ -816,7 +836,7 @@ def capture_calls(torch, hp, fused, catalog):
         segmented("segmented_sum", orig[6]),
         segmented("segmented_int_sum", orig[7]))
     try:
-        for q in _CAPTURED:
+        for q in _QUERIES:
             now["q"] = q
             gpu.execute(queries.build_query(q, catalog))
     finally:
@@ -915,9 +935,10 @@ def check_probe_call(torch, hp, c, what):
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         fail(f"hash_probe {what} {c['tk'].shape[0]} slots differs from the "
              "plain version")
+    c["hits"] = int(got[0].sum())
     print(f"check hash_probe {what}: keys={c['keys'].shape[0]} "
           f"slots={c['tk'].shape[0]} max_probes={c['max_probes']} "
-          f"hits={int(got[0].sum())}: exact", flush=True)
+          f"hits={c['hits']}: exact", flush=True)
 
 
 def check_fused_probe_call(torch, fused, c, what):
@@ -1128,15 +1149,200 @@ def run_build(torch, hp):
         fail("; ".join(failures))
 
 
+# the standalone probe's cases on synthetic tables (``--probe`` runs them
+# alone): tables of 1, 2, 4 and 8 slots, tables of 1,024 slots 95% full
+# (random slots, and a build of 972 rows of 300 keys) whose runs cross
+# 32-byte sectors and wrap at T, max_probes of 1-7 ending inside a
+# sector, every probe key -1, keys at a view 1-3 rows past a 16-byte
+# boundary, the table at a view one slot off, and 1-5 keys
+_PROBE_CASES = ("T=1", "T=2", "T=4", "T=8", "dense T=1024",
+                "max_probes 1-7", "keys -1", "keys view +1..3",
+                "table view +1", "n=1..5")
+
+
+def _probe_inputs(torch, hp, case, gen):
+    """[(tk, tv, keys, max_probes), ...] of a probe case on the card: a
+    table of ``t`` slots a ``full`` share occupied by keys of a small pool
+    (duplicates along runs), probed by pool keys, absent keys and -1."""
+    dev = "cuda"
+
+    def table(t, full, off=0):
+        occ = torch.rand(t + off, generator=gen, device=dev) < full
+        tk = torch.randint(0, max(t // 2, 2), (t + off,), generator=gen,
+                           device=dev, dtype=torch.int32)
+        tk = torch.where(occ, tk, torch.full_like(tk, -1))
+        tv = torch.randint(-2 ** 31, 2 ** 31 - 1, (t + off,), generator=gen,
+                           device=dev, dtype=torch.int32)
+        return tk[off:], tv[off:]
+
+    def keys(n, t, off=0):
+        k = torch.randint(-1, t, (n + off,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        return k[off:]
+
+    if case.startswith("T="):
+        t = int(case[2:])
+        tk, tv = table(t, 0.7)
+        return [(tk, tv, keys(1000, t), mp) for mp in (1, t)]
+    if case == "dense T=1024":
+        tk, tv = table(1024, 0.95)
+        # and a table the build filled to 95%: 972 rows of 300 keys, so
+        # each key's rows lie along its run, runs long and clustered
+        bk = torch.randint(0, 300, (972,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        btk, btv = hp.build_table_plain(bk, torch.arange(
+            972, dtype=torch.int32, device=dev), 1024)
+        return ([(tk, tv, keys(1 << 16, 1024), mp) for mp in (64, 1024)]
+                + [(btk, btv, keys(1 << 16, 400), mp) for mp in (64, 1024)])
+    if case == "max_probes 1-7":
+        tk, tv = table(1024, 0.95)
+        return [(tk, tv, keys(1 << 16, 1024), mp) for mp in range(1, 8)]
+    if case == "keys -1":
+        tk, tv = table(256, 0.6)
+        return [(tk, tv, torch.full((4099,), -1, dtype=torch.int32,
+                                    device=dev), 256)]
+    if case == "keys view +1..3":
+        tk, tv = table(4096, 0.5)
+        return [(tk, tv, keys(10_001, 4096, off), 64) for off in (1, 2, 3)]
+    if case == "table view +1":
+        tk, tv = table(4096, 0.9, 1)
+        return [(tk, tv, keys(10_001, 4096), 4096)]
+    if case == "n=1..5":
+        tk, tv = table(64, 0.8)
+        return [(tk, tv, keys(n, 64), 64) for n in range(1, 6)]
+    raise ValueError(case)
+
+
+def check_probe_cases(torch, hp, failures):
+    """``_PROBE_CASES`` on the card, found and values each exactly the
+    plain version's. Misses go into ``failures``."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for case in _PROBE_CASES:
+        bad = 0
+        hits = 0
+        for tk, tv, pk, mp in _probe_inputs(torch, hp, case, gen):
+            got = hp.hash_probe(tk, tv, pk, -1, mp)
+            want = hp.hash_probe_plain(tk, tv, pk, -1, mp)
+            torch.cuda.synchronize()
+            bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+            hits += int(want[0].sum())
+        if bad:
+            failures.append(f"hash_probe[{case}]: {bad} found/values differ "
+                            "from the plain version")
+        print(f"check hash_probe[{case}]: hits={hits}: "
+              + ("exact" if not bad else f"{bad} differ"), flush=True)
+
+
+def run_probe(torch, hp):
+    """``--probe``: the standalone probe's synthetic cases alone."""
+    failures = []
+    check_probe_cases(torch, hp, failures)
+    if failures:
+        fail("; ".join(failures))
+
+
+# the exchange's metadata pass on synthetic sources (``--partition`` runs
+# them alone): n of 0, 5, 100,003 and 2^22 rows a source at each W of 1-8
+# (one int32 key, 70% live), then at W = 4 a bytes key (18 lanes) beside
+# an int32 one, three int32 keys, every column and validity at views 1-3
+# rows off their boundaries (the bytes column too), bool, int64 and
+# float32 keys (cast to int32), every row dead, one row a source, and
+# sources of unequal sizes
+_PART_NS = (0, 5, 100_003, 1 << 22)
+_PART_CASES = tuple(f"n={n} W={w}" for n in _PART_NS for w in range(1, 9)) + (
+    "bytes W=4", "three cols W=4", "views W=4", "cast W=4", "dead W=4",
+    "one row W=4", "ragged W=4")
+
+
+def _partition_inputs(torch, case, gen):
+    """(key columns a source, validity a source, W) of a partition case."""
+    dev = "cuda"
+
+    def ints(n, off=0):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (n + off,), generator=gen,
+                             device=dev, dtype=torch.int32)[off:]
+
+    def valid(n, off=0, share=0.7):
+        return (torch.rand(n + off, generator=gen, device=dev) < share)[off:]
+
+    def lanes(n, width=18, off=0):
+        return torch.randint(0, 256, (n + off, width), generator=gen,
+                             device=dev, dtype=torch.uint8)[off:]
+
+    if case.startswith("n="):
+        n, w = (int(x.split("=")[1]) for x in case.split())
+        return [[ints(n)] for _ in range(w)], [valid(n) for _ in range(w)], w
+    w, n = 4, 100_003
+    if case == "bytes W=4":
+        return ([[lanes(n), ints(n)] for _ in range(w)],
+                [valid(n) for _ in range(w)], w)
+    if case == "three cols W=4":
+        return ([[ints(n), ints(n), ints(n)] for _ in range(w)],
+                [valid(n) for _ in range(w)], w)
+    if case == "views W=4":
+        return ([[ints(n, 1 + s % 3), lanes(n, 7, s), ints(n, 3 - s % 3)]
+                 for s in range(w)],
+                [valid(n, (s + 2) % 4) for s in range(w)], w)
+    if case == "cast W=4":
+        return ([[valid(n), ints(n).to(torch.int64) * 3 - 7,
+                  torch.randn(n, generator=gen, device=dev) * 1e6]
+                 for _ in range(w)], [valid(n) for _ in range(w)], w)
+    if case == "dead W=4":
+        return ([[ints(n)] for _ in range(w)],
+                [valid(n, 0, 0.0) for _ in range(w)], w)
+    if case == "one row W=4":
+        return [[ints(1)] for _ in range(w)], [valid(1, 0, 1.0)
+                                               for _ in range(w)], w
+    if case == "ragged W=4":
+        ns = (0, 3, 1 << 20, 77_777)
+        return [[ints(k)] for k in ns], [valid(k) for k in ns], w
+    raise ValueError(case)
+
+
+def check_partition_call(torch, rh, keys, valid, w, what, failures):
+    """One metadata pass against ``partition_histogram_plain``: pids and
+    counts exactly equal. A miss goes into ``failures``."""
+    pids, counts = rh.partition_histogram(keys, valid, w)
+    want_pids, want_counts = rh.partition_histogram_plain(keys, valid, w)
+    torch.cuda.synchronize()
+    bad = int((pids != want_pids).sum())
+    same = not bad and torch.equal(counts, want_counts)
+    if not same:
+        failures.append(f"partition_histogram[{what}]: {bad} pids differ, "
+                        f"counts {counts.tolist()} vs plain "
+                        f"{want_counts.tolist()}")
+    print(f"check partition_histogram[{what}]: rows "
+          f"{[v.shape[0] for v in valid]} live {int(counts.sum())}: "
+          + ("exact" if same else "differs"), flush=True)
+    return pids, counts
+
+
+def check_partition_cases(torch, rh, failures):
+    """``_PART_CASES`` on the card (``check_partition_call`` each)."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for case in _PART_CASES:
+        keys, valid, w = _partition_inputs(torch, case, gen)
+        check_partition_call(torch, rh, keys, valid, w, case, failures)
+
+
+def run_partition(torch, rh):
+    """``--partition``: the metadata pass's synthetic cases alone."""
+    failures = []
+    check_partition_cases(torch, rh, failures)
+    if failures:
+        fail("; ".join(failures))
+
+
 def check_join(torch, hp, fused, calls, rate):
     """build_table, hash_probe and the fused probe, each against its plain
     version on the card, exact, on the inputs the main path gives them at
-    SF 1 (``capture_calls``): Q3's and Q10's five builds, Q10's two
-    standalone probes of customer (into the 2^24-slot revenue aggregate
-    and the nation table) and the first morsel of each fused probe. Then
-    two synthetic cases: a build with many duplicate keys, and 1 << 20
-    probe keys with hits, misses and -1 into Q3's orders table. Each
-    kernel is timed on its largest main-path input of Q3 and of Q10."""
+    SF 1 (``capture_calls``): Q3's and Q10's five builds, every standalone
+    probe of the 22 queries and the first morsel of each fused probe. Then
+    synthetic cases: the builds of ``_BUILD_CASES``, the probes of
+    ``_PROBE_CASES``, and 1 << 20 probe keys with hits, misses and -1 into
+    Q3's orders table. The builds and the fused probe are timed on their
+    largest main-path input of Q3 and of Q10 (the standalone probe after
+    phase 9, on its heaviest main-path calls: ``probe_row``)."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(14)
     for c in calls["build"]:
@@ -1147,6 +1353,9 @@ def check_join(torch, hp, fused, calls, rate):
         fail("; ".join(failures))
     for c in calls["probe"]:
         check_probe_call(torch, hp, c, f"Q{c['q']}")
+    check_probe_cases(torch, hp, failures)
+    if failures:
+        fail("; ".join(failures))
     for c in calls["fused"]:
         check_fused_probe_call(torch, fused, c, f"Q{c['q']}")
     # the probe variant on the views of _FUSED_VIEWS of Q3's first call
@@ -1176,18 +1385,6 @@ def check_join(torch, hp, fused, calls, rate):
             time_ms(torch, lambda a=args: hp.build_table_plain(*a), reps=3,
                     warm=1),
             build_bytes(torch, c), c["keys"].shape[0] * 8)
-
-    # the standalone probe: Q10's customer keys into the revenue aggregate
-    c = _largest(calls["probe"], 10, lambda c: c["tk"].shape[0])
-    args = (c["tk"], c["tv"], c["keys"], c["empty"], c["max_probes"])
-    launchers["hash_probe[Q10]"] = lambda a=args: hp.hash_probe(*a)
-    n = c["keys"].shape[0]
-    # keys in, found and value out, the table sectors the runs visit
-    row("hash_probe[Q10]", table_cu, "src/repro/kernels/hash_probe.py:174",
-        time_ms(torch, launchers["hash_probe[Q10]"]),
-        time_ms(torch, lambda: hp.hash_probe_plain(*args)),
-        n * 9 + probe_table_bytes(torch, hp, c["tk"], c["keys"],
-                                  c["max_probes"], c["empty"]), n * 8)
 
     # an extra case off the main path: 1 << 20 keys into Q3's orders table,
     # hits, keys of orders the build filtered out, absent keys and -1
@@ -1583,68 +1780,82 @@ def _repartitions(exchanges) -> int:
 
 
 def capture_workers(torch, hp, fused, catalog):
-    """The kernels' inputs at ``_WORKERS`` workers: one run of each query
-    of ``_CAPTURED_W`` through the card's Session with ``ICIExchange``,
-    the kernel functions wrapped as in ``capture_calls``. Keeps the ids of
-    the first lineitem repartition of Q3 (its probe side: the lineitem
-    rows of four workers) and every ``build_table``, ``hash_probe`` and
-    fused probe call (each worker's repartitioned or broadcast build side,
-    its repartitioned probe batches, its morsels)."""
+    """The kernels' inputs at ``_WORKERS`` workers: one run of each of the
+    22 queries through the card's Session with ``ICIExchange``, the kernel
+    functions wrapped as in ``capture_calls``. Keeps the inputs of every
+    repartition (each source worker's key columns and validity, as the
+    metadata phase reads them), every ``hash_probe`` call, and every
+    ``build_table`` and fused probe call of the queries of ``_CAPTURED_W``
+    (each worker's repartitioned or broadcast build side, its
+    repartitioned probe batches, its morsels)."""
     from repro_torch.core import exchange as ex_mod
     from repro_torch.core.session import Session
     from repro_torch.tpch import queries
-    calls = {"radix": [], "build": [], "probe": [], "fused": []}
+    calls = {"repartition": [], "build": [], "probe": [], "fused": []}
     now = {}
-    orig = (ex_mod.ICIExchange.repartition, ex_mod.radix_histogram,
-            hp.build_table, hp.hash_probe, fused.fused_morsel_program)
+    orig = (ex_mod.ICIExchange.repartition, hp.build_table, hp.hash_probe,
+            fused.fused_morsel_program)
+    orig_data = ex_mod.ICIExchange.__dict__["_repartition_fused"]
 
     def repartition(self, tables, key_names, num_workers):
-        now["cols"] = tables[0].column_names
+        ts = self._ensure_rows(tables)
+        calls["repartition"].append(dict(
+            q=now["q"], w=num_workers, names=tuple(key_names),
+            keys=[[t.columns[k].clone() for k in key_names] for t in ts],
+            valid=[t.validity.clone() for t in ts]))
         return orig[0](self, tables, key_names, num_workers)
 
-    def radix_histogram(pids, num_partitions):
-        if (now["q"] == 3 and not calls["radix"]
-                and "l_extendedprice" in now["cols"]):
-            calls["radix"].append(dict(q=3, ids=pids.clone(),
-                                       p=num_partitions))
-        return orig[1](pids, num_partitions)
+    def data_phase(tables, pids, per_dst, out_cap):
+        # CUDA events around the data phase (its host work between the
+        # kernels included): the lead after the metadata pass
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_data.__func__(tables, pids, per_dst, out_cap)
+        end.record()
+        end.synchronize()
+        calls["repartition"][-1]["data_ms"] = start.elapsed_time(end)
+        return out
 
     def build_table(keys, vals, table_size, empty_key=-1, valid=None):
-        calls["build"].append(dict(
-            q=now["q"], keys=keys.clone(), vals=vals.clone(), t=table_size,
-            empty=empty_key, valid=None if valid is None else valid.clone()))
-        return orig[2](keys, vals, table_size, empty_key, valid)
+        if now["q"] in _CAPTURED_W:
+            calls["build"].append(dict(
+                q=now["q"], keys=keys.clone(), vals=vals.clone(),
+                t=table_size, empty=empty_key,
+                valid=None if valid is None else valid.clone()))
+        return orig[1](keys, vals, table_size, empty_key, valid)
 
     def hash_probe(tk, tv, keys, empty_key=-1,
                    max_probes=hp.MAX_PROBES_DEFAULT):
-        calls["probe"].append(dict(q=now["q"], tk=tk, tv=tv,
+        calls["probe"].append(dict(q=now["q"], w=_WORKERS, tk=tk, tv=tv,
                                    keys=keys.clone(), empty=empty_key,
                                    max_probes=max_probes))
-        return orig[3](tk, tv, keys, empty_key, max_probes)
+        return orig[2](tk, tv, keys, empty_key, max_probes)
 
     def fused_morsel_program(table, stages, probe=None, program=None):
-        if probe is not None:
+        if probe is not None and now["q"] in _CAPTURED_W:
             calls["fused"].append(dict(q=now["q"], table=table, stages=stages,
                                        probe=probe, program=program))
-        return orig[4](table, stages, probe=probe, program=program)
+        return orig[3](table, stages, probe=probe, program=program)
 
     gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
                   num_workers=_WORKERS)
-    (ex_mod.ICIExchange.repartition, ex_mod.radix_histogram, hp.build_table,
-     hp.hash_probe, fused.fused_morsel_program) = (
-        repartition, radix_histogram, build_table, hash_probe,
-        fused_morsel_program)
+    (ex_mod.ICIExchange.repartition, hp.build_table, hp.hash_probe,
+     fused.fused_morsel_program) = (repartition, build_table, hash_probe,
+                                    fused_morsel_program)
+    ex_mod.ICIExchange._repartition_fused = staticmethod(data_phase)
     try:
-        for q in _CAPTURED_W:
-            now["q"], now["cols"] = q, ()
+        for q in _QUERIES:
+            now["q"] = q
             gpu.execute(queries.build_query(q, catalog, num_workers=_WORKERS))
     finally:
-        (ex_mod.ICIExchange.repartition, ex_mod.radix_histogram,
-         hp.build_table, hp.hash_probe, fused.fused_morsel_program) = orig
+        (ex_mod.ICIExchange.repartition, hp.build_table, hp.hash_probe,
+         fused.fused_morsel_program) = orig
+        ex_mod.ICIExchange._repartition_fused = orig_data
     torch.cuda.synchronize()
     for kind in calls:
         if not calls[kind]:
-            fail(f"W={_WORKERS} runs of {_CAPTURED_W} made no {kind} call")
+            fail(f"W={_WORKERS} runs of the 22 queries made no {kind} call")
     return calls
 
 
@@ -1660,15 +1871,42 @@ def check_worker_joins(torch, hp, fused, calls):
         check_fused_probe_call(torch, fused, c, f"Q{c['q']} W={_WORKERS}")
 
 
-def check_radix(torch, rh, captured, rate):
-    """radix_histogram on Q3's lineitem repartition (P = W * W bins of
-    source and destination worker, the dead rows in the dropped bin W * W),
-    then on edge cases: no ids, ids -1, P and INT32_MAX, P of 1, 4, 16, 8192
-    (the largest shared-memory histogram) and 8193 (global atomics), counts
-    of ids that are no multiple of the 512-thread block. Integer counts:
-    exact. Timed on Q3's ids, beside one ``torch.bincount`` of the in-range
-    ids."""
-    ids, p = captured["ids"], captured["p"]
+def _bins(torch, pids, valid, w):
+    """The (source, destination) bin of each row of a metadata pass's flat
+    pids (``source * W + pid``; a dead row's pid W goes to the dropped bin
+    W * W), as the exchange's former histogram took them."""
+    src = torch.repeat_interleave(
+        torch.arange(w, device=pids.device, dtype=torch.int32),
+        torch.tensor([v.shape[0] for v in valid], device=pids.device))
+    return torch.where(pids < w, pids + src * w,
+                       torch.full_like(pids, w * w)).to(torch.int32)
+
+
+def check_exchange(torch, rh, calls):
+    """The exchange's metadata pass against ``partition_histogram_plain``,
+    exact (pids and counts), on every repartition of the 22 queries at
+    ``_WORKERS`` workers (``capture_workers``: each source's key columns and
+    validity) and on ``_PART_CASES``; then the standalone
+    ``radix_histogram`` on the bins of Q3's first repartition on
+    ``l_orderkey`` (at SF 1 its lineitem rows: P = W * W bins of source and
+    destination worker, the dead rows in the dropped bin W * W) and on
+    edge cases: no ids, ids -1, P and INT32_MAX, P of 1, 4, 16, 8192 (the
+    largest shared-memory histogram) and 8193 (global atomics), counts of
+    ids that are no multiple of the 512-thread block. Integer counts:
+    exact."""
+    failures, ids = [], None
+    for c in calls:
+        pids, _ = check_partition_call(torch, rh, c["keys"], c["valid"], c["w"],
+                                       f"Q{c['q']} W={c['w']} {c['names']}",
+                                       failures)
+        if ids is None and c["q"] == 3 and c["names"] == ("l_orderkey",):
+            ids = _bins(torch, pids, c["valid"], c["w"])
+    check_partition_cases(torch, rh, failures)
+    if failures:
+        fail("; ".join(failures))
+    if ids is None:
+        fail(f"W={_WORKERS}: Q3 made no repartition on l_orderkey")
+    p = _WORKERS * _WORKERS
     got, want = rh.radix_histogram(ids, p), rh.radix_histogram_plain(ids, p)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
@@ -1694,22 +1932,6 @@ def check_radix(torch, rh, captured, rate):
     print("check radix_histogram n in {0, 5, 100003, 2^20}, P in "
           "{1, 4, 16, 8192, 8193}, ids -1, P and INT32_MAX: exact",
           flush=True)
-    n = ids.shape[0]
-    name = "radix_histogram"
-    launchers = {name: lambda: rh.radix_histogram(ids, p)}
-    in_range = ids[(ids >= 0) & (ids < p)]
-    # the ids read once, the counts written once; a compare and an add an id
-    b, by = bound_ms(n * 4 + p * 4, n, rate)
-    row = dict(name=name, route="cuda",
-               source="src/repro_torch/kernels/csrc/radix_histogram.cu",
-               replaces="src/repro/kernels/radix_histogram.py:36",
-               max_abs_err=0.0, ms=time_ms(torch, launchers[name]),
-               plain_ms=time_ms(torch, lambda: rh.radix_histogram_plain(ids, p),
-                                reps=5, warm=1),
-               bound_ms=b, bound_by=by,
-               library_ms=time_ms(torch, lambda: torch.bincount(
-                   in_range, minlength=p)))
-    return [row], launchers
 
 
 def run_distributed(torch, catalog, w1_results):
@@ -1779,6 +2001,209 @@ def run_distributed(torch, catalog, w1_results):
     print(f"launches at W={_WORKERS} (22 queries, ici): {json.dumps(totals)}",
           flush=True)
     return launches, sessions["ici"]
+
+
+# ---------------------------------------------------------------------------
+# the main path's shapes: every captured probe and repartition, timed after
+# phase 9 (no profile may precede it)
+# ---------------------------------------------------------------------------
+
+# the card's L2 cache (NVIDIA's H100 data sheet: 50 MB)
+_L2_BYTES = 50 * 2 ** 20
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (the wrapper's
+    checks, allocations and launch), over ``reps`` calls with no
+    synchronisation between them; the card runs them behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def per_call_device_us(torch, fns, symbols, per_profile: int = 100):
+    """Device microseconds of each call of ``fns``, each of which launches
+    one kernel named in ``symbols``: profiles of ``per_profile`` calls in
+    turn, their kernel events taken in order of their start."""
+    from torch.autograd import DeviceType
+    out = []
+    for lo in range(0, len(fns), per_profile):
+        part = fns[lo:lo + per_profile]
+        for fn in part:
+            fn()
+        torch.cuda.synchronize()
+        for attempt in range(_PROFILE_ATTEMPTS):
+            prof, _ = _profiled(torch, lambda: [fn() for fn in part])
+            events = sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA
+                             and any(k in e.name for k in symbols)),
+                            key=lambda e: e.time_range.start)
+            if len(events) == len(part):
+                out += [e.time_range.elapsed_us() for e in events]
+                break
+            print(f"profile of {len(part)} calls: {len(events)} kernel "
+                  f"events in attempt {attempt + 1}", flush=True)
+        else:
+            fail(f"profile of {len(part)} calls: no kernel event a call")
+    return out
+
+
+def call_device_us(torch, fn, reps: int = 5) -> float:
+    """Device microseconds of one call of ``fn``: every device event of
+    ``reps`` calls (kernels, fills and copies), over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(_PROFILE_ATTEMPTS):
+        prof, _ = _profiled(torch, lambda: [fn() for _ in range(reps)])
+        events = _device_events(prof)
+        if events:
+            return sum(e[2] for e in events) / reps
+    fail("profile of a call: no device event")
+
+
+def probe_bound(torch, hp, c, rate):
+    """(ms, by) of one probe call: its keys in, found and value out, and
+    the table sectors its keys' runs visit; a hash and a compare a key."""
+    n = c["keys"].shape[0]
+    return bound_ms(n * 9 + probe_table_bytes(torch, hp, c["tk"], c["keys"],
+                                              c["max_probes"], c["empty"]),
+                    n * 8, rate)
+
+
+def report_probes(torch, hp, calls, rate):
+    """Every captured ``hash_probe`` call (``capture_calls`` at W = 1,
+    ``capture_workers`` at W = 4), each launched once in profiles of 100:
+    prints a line a call (keys, table slots, ``max_probes``, hit rate,
+    whether the table's 8 bytes a slot fit the L2, the bound, device µs)
+    and the sums at each W; returns the heaviest group of calls, those of
+    one query, W and shape with the most device time in all."""
+    fns = [lambda c=c: hp.hash_probe(c["tk"], c["tv"], c["keys"], c["empty"],
+                                     c["max_probes"]) for c in calls]
+    us = per_call_device_us(torch, fns, _KERNEL_SYMBOLS["hash_probe"])
+    groups, sums = {}, {}
+    for c, u in zip(calls, us):
+        n, t = c["keys"].shape[0], c["tk"].shape[0]
+        b, _ = probe_bound(torch, hp, c, rate)
+        c["device_us"], c["bound_us"] = u, b * 1e3
+        print(f"shape hash_probe Q{c['q']} W={c['w']}: n={n} T={t} "
+              f"max_probes={c['max_probes']} hit_rate="
+              f"{c['hits'] / max(n, 1):.4f} fits_l2={8 * t <= _L2_BYTES} "
+              f"bound_us={c['bound_us']:.3f} device_us={u:.3f}", flush=True)
+        groups.setdefault((c["q"], c["w"], t, n), []).append(c)
+        s = sums.setdefault(c["w"], [0, 0.0, 0.0])
+        s[0], s[1], s[2] = s[0] + 1, s[1] + u, s[2] + c["bound_us"]
+    for w, (k, u, b) in sorted(sums.items()):
+        print(f"shape hash_probe W={w}: {k} calls, device_us {u:.3f}, "
+              f"bound_us {b:.3f}", flush=True)
+    return max(groups.values(), key=lambda g: sum(c["device_us"] for c in g))
+
+
+def partition_bound(torch, c, rate):
+    """(ms, by) of one repartition's metadata pass: 1 B of validity and 4 B
+    of pid a row, the W x W counts, and the key bytes of the live rows as
+    the kernel reads them (an int32 column's 32-byte sectors that hold a
+    live row, a bytes column's lanes of each live row); some ten integer
+    operations a key column and row."""
+    nbytes, ops = 4 * c["w"] ** 2, 0
+    for cols, v in zip(c["keys"], c["valid"]):
+        live = int(v.sum())
+        nbytes += 5 * v.shape[0]
+        ops += 10 * len(cols) * v.shape[0]
+        for k in cols:
+            nbytes += (32 * _sectors(torch, v, 4) if k.dim() == 1
+                       else live * k.shape[1])
+    return bound_ms(nbytes, ops, rate)
+
+
+def report_partitions(torch, calls, run, rate):
+    """Every captured repartition's metadata phase, ``run(c)`` of it: a
+    line a call (rows a source, the key columns' dtypes and widths, the
+    bound, device µs of every event of the call, and the data phase's ms
+    in the capture run) and the sums; returns the heaviest call."""
+    total = [0.0, 0.0, 0.0]
+    for c in calls:
+        u = call_device_us(torch, lambda c=c: run(c))
+        b, _ = partition_bound(torch, c, rate)
+        c["device_us"], c["bound_us"] = u, b * 1e3
+        total[0] += u
+        total[1] += c["bound_us"]
+        total[2] += c.get("data_ms", 0.0)
+        keys = [(name, str(k.dtype).replace("torch.", ""),
+                 1 if k.dim() == 1 else k.shape[1])
+                for name, k in zip(c["names"], c["keys"][0])]
+        print(f"shape repartition Q{c['q']} W={c['w']}: rows "
+              f"{[v.shape[0] for v in c['valid']]} keys {keys} bound_us="
+              f"{c['bound_us']:.3f} device_us={u:.3f} data_phase_ms="
+              f"{c.get('data_ms', 0.0):.4f}", flush=True)
+    print(f"shape repartition: {len(calls)} calls, device_us {total[0]:.3f}, "
+          f"bound_us {total[1]:.3f}, data_phase_ms {total[2]:.4f}",
+          flush=True)
+    return max(calls, key=lambda c: c["device_us"])
+
+
+def probe_row(torch, hp, calls, rate):
+    """The standalone probe's row of the kernels line, on the heaviest
+    group of main-path calls (``report_probes``): its first call timed
+    (CUDA events; the wrapper's host µs a call), its plain version, its
+    bound; ``device_ms`` the group's mean."""
+    group = report_probes(torch, hp, calls, rate)
+    c = group[0]
+    args = (c["tk"], c["tv"], c["keys"], c["empty"], c["max_probes"])
+    name = (f"hash_probe[Q{c['q']}]" if c["w"] == 1
+            else f"hash_probe[Q{c['q']} W={c['w']}]")
+    launcher = lambda a=args: hp.hash_probe(*a)  # noqa: E731
+    b, by = probe_bound(torch, hp, c, rate)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/hash_table.cu",
+               replaces="src/repro/kernels/hash_probe.py:174",
+               max_abs_err=0.0, ms=time_ms(torch, launcher),
+               plain_ms=time_ms(torch, lambda: hp.hash_probe_plain(*args),
+                                reps=3, warm=1),
+               bound_ms=b, bound_by=by, library_ms=None,
+               device_ms=sum(x["device_us"] for x in group) / len(group) / 1e3,
+               host_us=host_us(torch, launcher), calls=len(group),
+               keys=c["keys"].shape[0], slots=c["tk"].shape[0])
+    print(f"row {json.dumps(row)}", flush=True)
+    return [row], {name: launcher}
+
+
+def partition_row(torch, rh, calls, rate):
+    """The exchange's metadata pass's row of the kernels line, on the
+    heaviest repartition (``report_partitions``): timed (CUDA events; the
+    wrapper's host µs a call), its plain version, its bound; beside it one
+    ``torch.bincount`` of the call's in-range (source, destination) bins,
+    the histogram alone (no PyTorch call hashes the rows too)."""
+    def run(c):
+        return rh.partition_histogram(c["keys"], c["valid"], c["w"])
+
+    c = report_partitions(torch, calls, run, rate)
+    w = c["w"]
+    pids, _ = rh.partition_histogram_plain(c["keys"], c["valid"], w)
+    bins = _bins(torch, pids, c["valid"], w)
+    in_range = bins[bins < w * w]
+    b, by = partition_bound(torch, c, rate)
+    launcher = lambda: run(c)  # noqa: E731
+    name = f"radix_histogram[Q{c['q']} W={w}]"
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/radix_histogram.cu",
+               replaces="src/repro/kernels/radix_histogram.py:36",
+               max_abs_err=0.0, ms=time_ms(torch, launcher),
+               plain_ms=time_ms(torch, lambda: rh.partition_histogram_plain(
+                   c["keys"], c["valid"], w), reps=3, warm=1),
+               bound_ms=b, bound_by=by,
+               library_ms=time_ms(torch, lambda: torch.bincount(
+                   in_range, minlength=w * w)),
+               device_ms=c["device_us"] / 1e3,
+               host_us=host_us(torch, launcher, 50),
+               rows=sum(v.shape[0] for v in c["valid"]),
+               keys=list(c["names"]))
+    print(f"row {json.dumps(row)}", flush=True)
+    return [row], {name: launcher}
 
 
 # ---------------------------------------------------------------------------
@@ -2422,6 +2847,19 @@ _FAULTS = {
     # its part in the steps before
     "seg_join_drops_carry": [("const A joined = acc.ls + next.fs;",
                               "const A joined = next.fs;", 1)],
+    # the exchange's metadata pass: a bytes key's first lane is left out of
+    # its fold
+    "partition_bytes_lane_skipped": [
+        ("for (int b = 0; b < width; ++b) folded = folded * 31u + "
+         "__ldg(row + b);",
+         "for (int b = 1; b < width; ++b) folded = folded * 31u + "
+         "__ldg(row + b);", 1)],
+    # the single-match probe: a run that reaches the end of a 32-byte
+    # sector of slots ends there as a miss
+    "probe_run_cut_short": [
+        ("      return true;\n    }\n    if (k == empty_key) break;",
+         "      return true;\n    }\n    if (k == empty_key || (s & 7) == 7) "
+         "break;", 1)],
 }
 # the cases that must fail under a fault, beyond the run's exit
 _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
@@ -2433,7 +2871,9 @@ _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
                 "tail_group_dropped": ("Q1 n=999999",),
                 "seg_tail_dropped": ("tail n%4=1", "tail n%4=2",
                                      "tail n%4=3"),
-                "seg_join_drops_carry": ("sorted G=16", "counts G=16")}
+                "seg_join_drops_carry": ("sorted G=16", "counts G=16"),
+                "partition_bytes_lane_skipped": ("bytes W=4", "views W=4"),
+                "probe_run_cut_short": ("dense T=1024",)}
 _ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                         "flash_attention.cu")
 _TABLE_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
@@ -2442,12 +2882,18 @@ _INTERP_CUH = os.path.join("src", "repro_torch", "kernels", "csrc",
                            "fused_interp.cuh")
 _SEG_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                        "segmented_agg.cu")
+_RADIX_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
+                         "radix_histogram.cu")
+_PROBE_CUH = os.path.join("src", "repro_torch", "kernels", "csrc",
+                          "hash_probe.cuh")
 # fault -> (source it edits, the run that must catch it); the rest edit
 # the attention kernels and run phase 9 alone
 _FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build"),
                   "tail_group_dropped": (_INTERP_CUH, "--fused"),
                   "seg_tail_dropped": (_SEG_CU, "--segmented"),
-                  "seg_join_drops_carry": (_SEG_CU, "--segmented")}
+                  "seg_join_drops_carry": (_SEG_CU, "--segmented"),
+                  "partition_bytes_lane_skipped": (_RADIX_CU, "--partition"),
+                  "probe_run_cut_short": (_PROBE_CUH, "--probe")}
 # the cases of the fused checks a fault may name (check_fused's views)
 _FUSED_CASES = tuple(f"Q{q}{label}" for q in (1, 6) for label in (
     "", *(f" {v}" for v, _ in _FUSED_VIEWS)))
@@ -2459,9 +2905,10 @@ def fault_target(fault: str):
 
 
 def _run_alone(root: str, option: str) -> dict:
-    """``chip_smoke.py OPTION`` (``--attention``, ``--build``, ``--fused``
-    or ``--segmented``) in ``root``: its exit code, each attention case's [max
-    |kernel - plain|, scaled error] and its failure message."""
+    """``chip_smoke.py OPTION`` (``--attention``, ``--build``, ``--fused``,
+    ``--segmented``, ``--probe`` or ``--partition``) in ``root``: its exit
+    code, each attention case's [max |kernel - plain|, scaled error] and
+    its failure message."""
     import re
     case = re.compile(r"^check (flash_attention\[[^\]]+\]) .*max \|kernel"
                       r" - plain\| (\S+) \(tol .*scaled error (\S+) \(tol")
@@ -2471,7 +2918,8 @@ def _run_alone(root: str, option: str) -> dict:
     cases = {}
     for line in out.stdout.splitlines():
         if line.startswith(("check flash_attention", "check build_table",
-                            "check fused", "check segmented")):
+                            "check fused", "check segmented",
+                            "check partition_histogram", "check hash_probe")):
             print(line, flush=True)
         m = case.match(line)
         if m:
@@ -2484,16 +2932,17 @@ def _run_alone(root: str, option: str) -> dict:
 
 def run_faults(here: str) -> int:
     """``--faults``: phase 9 alone, the build checks alone, the fused
-    checks alone and the segmented sums' cases alone on the kernels as they
-    are, then once for each fault of
-    ``_FAULTS`` in a copy
+    checks alone, the segmented sums' cases alone, the probe's cases alone
+    and the metadata pass's cases alone on the kernels as they are, then
+    once for each fault of ``_FAULTS`` in a copy
     of ``chip_smoke.py`` and ``src/repro_torch`` in a temporary directory,
     with the fault planted in the copy's source (``fault_target``). Prints
     each run's check lines and, last, ``{run: {"rc", "cases", "failed"}}``;
     returns 0 when the kernels as they are pass and every fault fails, at
     the cases ``_FAULT_CASES`` names."""
     results = {}
-    for option in ("--attention", "--build", "--fused", "--segmented"):
+    for option in ("--attention", "--build", "--fused", "--segmented",
+                   "--probe", "--partition"):
         print(f"== as it is {option}", flush=True)
         results[f"as_it_is {option}"] = _run_alone(here, option)
     for fault, edits in _FAULTS.items():
@@ -2536,6 +2985,7 @@ _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "fill_kernel", "keys_to_f32_kernel",
                  "block_prefix_sum_kernel", "hash_probe_multi_kernel",
                  "histogram_shared_kernel", "histogram_global_kernel",
+                 "partition_histogram_kernel",
                  "attn_tf32x3_kernel", "attn_wgmma_kernel",
                  "attn_combine_kernel", "attn_mma_kernel")
 # the kernel symbols each launcher of profile_kernels runs (the build below
@@ -2553,7 +3003,8 @@ _KERNEL_SYMBOLS = {
     "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel",
                          "keys_to_f32_kernel"),
     "hash_probe_multi": ("hash_probe_multi_kernel",),
-    "radix_histogram": ("histogram_shared_kernel", "histogram_global_kernel"),
+    "radix_histogram": ("partition_histogram_kernel",
+                        "histogram_shared_kernel", "histogram_global_kernel"),
     "fused_batch_program": ("fused_batch_kernel",),
     "flash_attention": ("attn_tf32x3_kernel", "attn_mma_kernel",
                         "attn_wgmma_kernel", "attn_combine_kernel")}
@@ -2732,6 +3183,15 @@ def main() -> None:
                          "ids: sorted, unsorted, dead, ragged, offset, "
                          "G=8192/8193, a merge's 2^24 rows); prints no ok "
                          "line")
+    ap.add_argument("--probe", action="store_true",
+                    help="run the standalone probe's synthetic cases alone "
+                         "(small tables, runs across sectors and wrapping, "
+                         "max_probes inside a sector, views); prints no ok "
+                         "line")
+    ap.add_argument("--partition", action="store_true",
+                    help="run the exchange's metadata pass's synthetic "
+                         "cases alone (each W, n of 0 to 2^22, bytes and "
+                         "cast keys, views); prints no ok line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9, the build checks, the fused checks "
                          "and the segmented cases alone on the kernels as "
@@ -2793,6 +3253,14 @@ def main() -> None:
         run_segmented(torch, seg)
         print(card)
         return
+    if args.probe:
+        run_probe(torch, hp)
+        print(card)
+        return
+    if args.partition:
+        run_partition(torch, rh)
+        print(card)
+        return
 
     t0 = time.perf_counter()
     data = dbgen.generate(_SF)
@@ -2826,16 +3294,16 @@ def main() -> None:
             check_prefix_code(torch, fused, calls, rate)):
         rows_out += more_rows
         launchers.update(more_launchers)
+    probe_calls = calls["probe"]
     del calls
 
     launches, gpu, results = run_main_path(torch, data, catalog)
     w4_calls = capture_workers(torch, hp, fused, catalog)
     check_worker_joins(torch, hp, fused, w4_calls)
-    radix_rows, radix_launchers = check_radix(torch, rh,
-                                              w4_calls["radix"][0], rate)
+    check_exchange(torch, rh, w4_calls["repartition"])
+    probe_calls += w4_calls["probe"]
+    repartitions = w4_calls["repartition"]
     del w4_calls
-    rows_out += radix_rows
-    launchers.update(radix_launchers)
     w4_launches, gpu4 = run_distributed(torch, catalog, results)
     t0 = time.perf_counter()
     batch_rows, batch_launchers = check_batch(torch, fused, catalog, data,
@@ -2858,6 +3326,13 @@ def main() -> None:
     if failures:
         fail("; ".join(failures))
     segmented_device_ms(torch, rows_out, launchers)
+    # the main path's probe and repartition shapes, each call timed
+    for more_rows, more_launchers in (
+            probe_row(torch, hp, probe_calls, rate),
+            partition_row(torch, rh, repartitions, rate)):
+        rows_out += more_rows
+        launchers.update(more_launchers)
+    del probe_calls, repartitions
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:
@@ -2880,7 +3355,8 @@ def main() -> None:
             continue
         key, _, q = r["name"].partition("[Q")
         # the exchange's kernel runs only with several workers
-        source = w4_launches if key == "radix_histogram" else launches
+        source = (w4_launches if key == "radix_histogram" or "W=" in q
+                  else launches)
         per_query = ([source[int(q.rstrip("]").split()[0])]] if q
                      else source.values())
         r["launches"] = sum(c[key] for c in per_query)

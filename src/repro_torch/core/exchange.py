@@ -7,12 +7,13 @@ same device (the reference's off-mesh path, "degenerate SPMD").
 
 Two protocols, the paper's UcxExchange / HttpExchange contrast:
 
-* ``ICIExchange``  -- device-native. A metadata phase counts the rows each
-  source worker holds for each destination (the ``radix_histogram``
-  kernel, one launch per repartition) and reads the ``[W_src, W_dst]``
-  matrix back in one sync to size the receive buffers; the data phase moves
-  every column once, with one gather, straight into the compacted
-  destination tables. Data never leaves device memory.
+* ``ICIExchange``  -- device-native. A metadata phase hashes every row to
+  its destination and counts the rows each source worker holds for each
+  destination (``partition_histogram``, one launch of the
+  ``radix_histogram`` kernel per repartition) and reads the
+  ``[W_src, W_dst]`` matrix back in one sync to size the receive buffers;
+  the data phase moves every column once, with one gather, straight into
+  the compacted destination tables. Data never leaves device memory.
 * ``HostExchange`` -- host-staged: device -> numpy, partitioned by a numpy
   hash, serialized into pickle pages, deserialized, and copied back to the
   device. It launches no kernel.
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
-from ..kernels.radix_histogram import radix_histogram
+from ..kernels.radix_histogram import partition_histogram
 from . import relational as rel
 from .table import TorchTable
 
@@ -150,24 +151,18 @@ class ICIExchange(ExchangeProtocol):
         tables = self._ensure_rows(tables)
         w = num_workers
         assert len(tables) == w, (len(tables), w)
-        # metadata phase (rendezvous handshake): one histogram over every
-        # source row's (source, destination) bin; invalid rows fall in the
-        # dropped bin W*W. One read-back sizes the receive buffers.
-        pids, bins = [], []
-        for src, t in enumerate(tables):
-            pid = rel.partition_ids([t.columns[k] for k in key_names],
-                                    t.validity, w)
-            pid = torch.where(t.validity, pid, torch.full_like(pid, w))
-            pids.append(pid)
-            bins.append(torch.where(pid < w, pid + src * w,
-                                    torch.full_like(pid, w * w)))
-        counts = radix_histogram(torch.cat(bins), w * w)
-        counts = counts.reshape(w, w).cpu().numpy()
+        # metadata phase (rendezvous handshake): one pass hashes every
+        # source row to its destination (W for an invalid row) and counts
+        # the (source, destination) rows. One read-back sizes the receive
+        # buffers.
+        pids, counts = partition_histogram(
+            [[t.columns[k] for k in key_names] for t in tables],
+            [t.validity for t in tables], w)
+        counts = counts.cpu().numpy()
         kernel_ops.count_dispatch("partition")
         per_dst = counts.sum(axis=0)
         out_cap = _pow2(int(per_dst.max()))
-        out = self._repartition_fused(tables, torch.cat(pids), per_dst,
-                                      out_cap)
+        out = self._repartition_fused(tables, pids, per_dst, out_cap)
         self.stats.rounds += 1
         moved = int(counts.sum() - np.trace(counts))  # off-diagonal rows move
         self.stats.rows_moved += moved

@@ -641,8 +641,7 @@ def place_exchanges(node: P.PlanNode, catalog,
 # device-memory footprint estimation (admission control input)
 # ---------------------------------------------------------------------------
 
-_FEEDBACK_SLICE = ("the adaptive-execution slice (ROADMAP.md, queue A, "
-                   "slice 6)")
+_FEEDBACK_SLICE = "the adaptive-execution slice (ROADMAP.md, queue A)"
 
 
 def row_width(schema: Dict[str, dt.DType]) -> int:

@@ -14,9 +14,9 @@ fixed device-memory budget. This module is that layer:
   rejected (``QueryRejected``), with the per-operator breakdown in the
   message. A footprint over the budget but under the ceiling is admitted
   with a priced spill plan (``QueryHandle.spill_plan``), as in the
-  reference; running it needs the out-of-core slice (ROADMAP.md, queue A,
-  slice 4), so its handle completes with ``NotImplementedError`` naming
-  that slice and the query never runs unbudgeted.
+  reference; running it needs the out-of-core slice (ROADMAP.md, queue
+  A), so its handle completes with ``NotImplementedError`` naming that
+  slice and the query never runs unbudgeted.
 
 * **Interleaved execution** -- admitted queries run on a pool of
   ``max_concurrency`` worker threads, each driving its own ``Driver`` on
@@ -41,7 +41,7 @@ fixed device-memory budget. This module is that layer:
 
 Where the reference keys on the kernel backend, the port keys on the
 session device's type (``"cuda"`` or ``"cpu"``). Feedback-driven planning
-comes with the adaptive-execution slice (ROADMAP.md, queue A, slice 6): a
+comes with the adaptive-execution slice (ROADMAP.md, queue A): a
 ``feedback`` other than None or False raises ``NotImplementedError``.
 """
 
@@ -61,8 +61,8 @@ from . import plan as P
 from .driver import Driver, empty_executor_stats
 from .optimizer import estimate_memory_breakdown, optimize
 
-_SPILL_SLICE = "the out-of-core slice (ROADMAP.md, queue A, slice 4)"
-_FEEDBACK_SLICE = "the adaptive-execution slice (ROADMAP.md, queue A, slice 6)"
+_SPILL_SLICE = "the out-of-core slice (ROADMAP.md, queue A)"
+_FEEDBACK_SLICE = "the adaptive-execution slice (ROADMAP.md, queue A)"
 
 
 class QueryRejected(RuntimeError):

@@ -60,11 +60,13 @@
 // once (1 B) and each valid row's key and value, and writes the table once
 // (8 B a slot); its sort moves 8 B a valid row a pass. The probe reads
 // each key (4 B) and the table, and writes found (1 B) and the value (4
-// B) a key; one dependent random read of 4 B per probe step fetches a 32 B
-// sector. The expansion probe writes a count (4 B) and max_matches slots
-// (4 B each) a key, and reads on past its first hit to the end of the
-// key's run. The build's latency is set by its launches (ceil(log2 T / 8)
-// + 3 and a memset) and by its longest cluster, walked by one thread.
+// B) a key; its table reads are scattered, one request a slot walked and
+// one a hit, and at the main path's shapes those requests, not the bytes,
+// set its time. The expansion probe writes a count (4 B) and max_matches
+// slots (4 B each) a key, and reads on past its first hit to the end of
+// the key's run. The build's latency is set by its launches
+// (ceil(log2 T / 8) + 3 and a memset) and by its longest cluster, walked
+// by one thread.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -632,6 +634,19 @@ hash_build_place_kernel(const int32_t* __restrict__ keys,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the single-match probe
+// ---------------------------------------------------------------------------
+
+// A key a thread, its run walked slot by slot from its home slot
+// (probe_one, shared with the fused probe). The main path hands it batches
+// of up to 2^20 keys, most of whose runs end at the first slot, against
+// tables from 2^6 to 2^24 slots: the cost is the number of scattered
+// requests (one for tk a slot, one for tv a hit), and reading the home
+// slot's 16- or 32-byte group whole, or four keys a thread, only added
+// requests (PERF.md). The keys are read and found and vals written with
+// the evict-first hint (__ldcs/__stcs): streamed once, they leave the L2
+// to the table.
 __global__ void __launch_bounds__(kThreads)
 hash_probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
                   uint32_t mask, int max_probes, int32_t empty_key,
@@ -642,9 +657,10 @@ hash_probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     int32_t v;
-    found[i] = repro_hash::probe_one(tk, tv, mask, max_probes, empty_key,
-                                     keys[i], &v);
-    vals[i] = v;
+    const bool hit = repro_hash::probe_one(tk, tv, mask, max_probes,
+                                           empty_key, __ldcs(keys + i), &v);
+    __stcs(found + i, (unsigned char)hit);
+    __stcs(vals + i, v);
   }
 }
 

@@ -219,26 +219,45 @@ def hash_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
     """Single-match probe -> ``(found bool[N], vals int32[N])``, ``vals`` 0
     where not found; at most ``min(max_probes, T)`` slots per key. A probe
     key equal to ``empty_key`` reports a hit on an empty slot, as in the
-    reference; callers mask it."""
+    reference; callers mask it.
+
+    On the card the join calls this once per probe batch, so the wrapper
+    does per call only what the call needs: its checks read the tensors'
+    attributes without building device objects, both outputs are views of
+    one allocation, and the stream is PyTorch's raw current stream."""
     ops.mark_kernel("probe")
     if not probe_keys.is_cuda:
         return hash_probe_plain(table_keys, table_vals, probe_keys,
                                 empty_key, max_probes)
-    _check_probe_args("hash_probe", table_keys, table_vals, probe_keys)
     t = table_keys.shape[0]
-    dev = probe_keys.device
     n = probe_keys.shape[0]
-    found = torch.empty(n, dtype=torch.bool, device=dev)
-    vals = torch.empty(n, dtype=torch.int32, device=dev)
+    index = probe_keys.get_device()
+    if (table_keys.dtype != torch.int32 or table_vals.dtype != torch.int32
+            or probe_keys.dtype != torch.int32 or table_keys.dim() != 1
+            or probe_keys.dim() != 1 or table_vals.shape != table_keys.shape
+            or table_keys.get_device() != index
+            or table_vals.get_device() != index):
+        # raises, naming the argument at fault
+        _check_probe_args("hash_probe", table_keys, table_vals, probe_keys)
+    if t & (t - 1) or not 0 < t <= 1 << 30:
+        _check_table_size(t)   # raises
+    out = torch.empty(5 * n, dtype=torch.uint8, device=probe_keys.device)
+    vals = out[:4 * n].view(torch.int32)
+    found = out[4 * n:].view(torch.bool)
     if n == 0:
         return found, vals
-    tk, tv, keys = (table_keys.contiguous(), table_vals.contiguous(),
-                    probe_keys.contiguous())
+    if not (table_keys.is_contiguous() and table_vals.is_contiguous()
+            and probe_keys.is_contiguous()):
+        table_keys, table_vals, probe_keys = (
+            table_keys.contiguous(), table_vals.contiguous(),
+            probe_keys.contiguous())
     fn = build.function(_LIB, "hash_table_probe", _PROBE_ARGTYPES)
-    rc = fn(tk.data_ptr(), tv.data_ptr(), t, min(max_probes, t), empty_key,
-            keys.data_ptr(), n, found.data_ptr(), vals.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(_LIB, rc, "hash_probe")
+    rc = fn(table_keys.data_ptr(), table_vals.data_ptr(), t,
+            min(max_probes, t), empty_key, probe_keys.data_ptr(), n,
+            found.data_ptr(), vals.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        build.check(_LIB, rc, "hash_probe")
     ops.count_launch("hash_probe")
     return found, vals
 

@@ -1,7 +1,10 @@
 """``chip_smoke.py``'s card-only tooling against the CUDA sources, on the
 CPU: every planted fault of ``--faults`` must still find its text in the
 source it edits (``csrc/flash_attention.cu``, ``csrc/hash_table.cu``,
-``csrc/fused_interp.cuh`` or ``csrc/segmented_agg.cu``) as often as it says, and every kernel symbol that ``--profile``, phase 3
+``csrc/fused_interp.cuh``, ``csrc/segmented_agg.cu``,
+``csrc/radix_histogram.cu`` or ``csrc/hash_probe.cuh``) as often as it
+says, and every kernel symbol
+that ``--profile``, phase 3
 and phase 9 look for must name a ``__global__`` function of ``csrc/``. A
 kernel edit that breaks either shows here, not at the next run on the
 card."""
@@ -49,13 +52,16 @@ def test_fault_cases_name_phase_9_cases(fault):
     """A fault's cases are cases of the run that must catch it: phase 9's
     for the attention faults, the build checks' for the build's, the fused
     checks' for the fused kernels', the segmented cases' for the segmented
-    sums'."""
+    sums', the probe's cases for the probe's, the metadata pass's for its
+    own."""
     assert fault in chip_smoke._FAULTS
     _, option = chip_smoke.fault_target(fault)
     cases = {"--attention": {c[0] for c in chip_smoke._ATTN_CASES},
              "--build": set(chip_smoke._BUILD_CASES),
              "--fused": set(chip_smoke._FUSED_CASES),
-             "--segmented": set(chip_smoke._SEG_CASES)}[option]
+             "--segmented": set(chip_smoke._SEG_CASES),
+             "--probe": set(chip_smoke._PROBE_CASES),
+             "--partition": set(chip_smoke._PART_CASES)}[option]
     assert set(chip_smoke._FAULT_CASES[fault]) <= cases
 
 

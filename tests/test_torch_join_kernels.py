@@ -153,6 +153,71 @@ def test_hash_probe_matches_reference_exactly(case, max_probes):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
 
 
+# the standalone probe's edge cases: tables of 1, 2, 4 and 8 slots, a
+# table of 64 slots 95% full (runs that cross 32-byte sectors of slots and
+# wrap at T), max_probes of 1-7 (ending inside a sector), every key -1,
+# and the keys and the table at views 1-3 elements past their bases
+_EDGE_CASES = ("T=1", "T=2", "T=4", "T=8", "dense T=64", "max_probes 1-7",
+               "keys -1", "views")
+
+
+def _edge_inputs(case, seed):
+    """[(tk, tv, probe keys, max_probes), ...] of an edge case: tables of
+    keys from a small pool (duplicates along runs) and -1, probed by pool
+    keys, absent keys and -1."""
+    rng = np.random.default_rng(seed)
+
+    def table(t, full, off=0):
+        tk = rng.integers(0, max(t // 2, 2), t + off).astype(np.int32)
+        tk[rng.random(t + off) >= full] = -1
+        tv = rng.integers(I32.min, I32.max, t + off, dtype=np.int64)
+        return tk[off:], tv.astype(np.int32)[off:]
+
+    def keys(n, t, off=0):
+        return rng.integers(-1, t, n + off).astype(np.int32)[off:]
+
+    if case.startswith("T="):
+        t = int(case[2:])
+        tk, tv = table(t, 0.7)
+        return [(tk, tv, keys(300, t), mp) for mp in (1, t)]
+    if case == "dense T=64":
+        tk, tv = table(64, 0.95)
+        # and a table the build filled to 95%: 61 rows of 20 keys along
+        # their runs
+        btk, btv = _ref_table(rng.integers(0, 20, 61).astype(np.int32),
+                              np.ones(61, bool), 64)
+        return ([(tk, tv, keys(700, 64), mp) for mp in (9, 64)]
+                + [(btk, btv, keys(700, 24), mp) for mp in (9, 64)])
+    if case == "max_probes 1-7":
+        tk, tv = table(64, 0.95)
+        return [(tk, tv, keys(500, 64), mp) for mp in range(1, 8)]
+    if case == "keys -1":
+        tk, tv = table(32, 0.6)
+        return [(tk, tv, np.full(99, -1, np.int32), 32)]
+    if case == "views":
+        return [(*table(256, 0.9, off), keys(501, 256, 3 - off), 256)
+                for off in (1, 2, 3)]
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", _EDGE_CASES)
+def test_hash_probe_edge_cases_match_reference(case):
+    for tk, tv, probe, mp in _edge_inputs(case, seed=len(case)):
+        want_f, want_v = ref_hp.hash_probe(
+            jnp.asarray(tk), jnp.asarray(tv), jnp.asarray(probe),
+            empty_key=-1, max_probes=mp, interpret=True)
+        got_f, got_v = hp.hash_probe(torch.from_numpy(tk),
+                                     torch.from_numpy(tv),
+                                     torch.from_numpy(probe), empty_key=-1,
+                                     max_probes=mp)
+        np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+        plain = hp.hash_probe_plain(torch.from_numpy(tk), torch.from_numpy(tv),
+                                    torch.from_numpy(probe), -1, mp)
+        np.testing.assert_array_equal(plain[0].numpy(), np.asarray(want_f))
+        np.testing.assert_array_equal(plain[1].numpy(), np.asarray(want_v))
+
+
 def _bound_tables():
     rng = np.random.default_rng(5)
     full = np.arange(16, dtype=np.int32)

@@ -22,6 +22,12 @@
   at the plan's offsets, zero fill past n, the uniform table a lane, the
   per-warp lane skip (a skipped body's slots poisoned), and stores masked
   to the rows below n.
+* ``emulate_partition`` is the exchange's metadata pass of
+  ``kernels/csrc/radix_histogram.cu`` (``partition_histogram_run`` and its
+  kernel) on CPU tensors at their real addresses: each source's chunk grid
+  on the first int32 key column's 16-byte boundaries (else the pids'), the
+  arrays it loads whole checked to be aligned, every row covered once, no
+  key read for a chunk of dead rows, and the hash in uint32.
 * ``seeded_columns`` makes a small morsel's worth of columns from a seed.
 """
 
@@ -615,3 +621,69 @@ def exchange_counters(stats: dict) -> dict:
     rounds, rows and bytes moved, bytes staged through the host)."""
     return {label: {k: v[k] for k in _EXCHANGE_COUNTERS}
             for label, v in stats["exchanges"].items()}
+
+
+# ---------------------------------------------------------------------------
+# the exchange's metadata pass, as the kernel walks it
+# ---------------------------------------------------------------------------
+
+def _fmix_masked(x):
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    x = x ^ (x >> np.uint32(16))
+    return x & np.uint32(0x7FFFFFFE)
+
+
+def emulate_partition(key_cols_per_source, validity_per_source, w,
+                      pids_addr=0):
+    """``partition_histogram_run`` on CPU tensors (1-D int32 or 2-D uint8
+    key columns, bool validity) -> (pids int32[sum n], counts int32[W, W])
+    as numpy, the flat pids at ``pids_addr``. Asserts what the kernel
+    relies on: each array it loads or stores whole (an int4, the validity's
+    4-byte word) is aligned at every full chunk, and the chunks cover each
+    row once."""
+    pids, counts, at = [], np.zeros((w, w), np.int64), 0
+    for src, (cols, valid) in enumerate(zip(key_cols_per_source,
+                                            validity_per_source)):
+        n = valid.shape[0]
+        ints = [c for c in cols if c.dim() == 1]
+        base = (ints[0].data_ptr() if ints else pids_addr + 4 * at)
+        head = (base & 15) >> 2 if n else 0
+        chunks = (n + head + 3) // 4
+        r0 = np.arange(chunks, dtype=np.int64) * 4 - head
+        full = (r0 >= 0) & (r0 + 4 <= n)
+        rows = (r0[:, None] + np.arange(4)[None, :]).ravel()
+        rows = rows[(rows >= 0) & (rows < n)]
+        assert np.array_equal(rows, np.arange(n)), "chunks miss or repeat rows"
+        for c in ints:
+            if (c.data_ptr() - 4 * head) % 16 == 0:
+                assert all((c.data_ptr() + 4 * r) % 16 == 0 for r in r0[full])
+        if (valid.data_ptr() - head) % 4 == 0:
+            assert all((valid.data_ptr() + r) % 4 == 0 for r in r0[full])
+        if (pids_addr + 4 * (at - head)) % 16 == 0:
+            assert all((pids_addr + 4 * (at + r)) % 16 == 0 for r in r0[full])
+        live = valid.numpy().astype(bool)
+        chunk_live = np.zeros(chunks, bool)
+        np.logical_or.at(chunk_live, (np.arange(n) + head) // 4, live)
+        read = chunk_live[(np.arange(n) + head) // 4]
+        h = np.zeros(n, np.uint32)
+        for c in cols:
+            a = c.numpy()
+            if a.ndim == 1:
+                u = a.astype(np.int32).view(np.uint32)
+            else:
+                u = np.zeros(n, np.uint32)
+                for j in range(a.shape[1]):
+                    u = u * np.uint32(31) + a[:, j].astype(np.uint32)
+            u = np.where(read, u, np.uint32(0))
+            h = h ^ (_fmix_masked(u) + np.uint32(0x9E3779B9)
+                     + (h << np.uint32(6)) + (h >> np.uint32(2)))
+        pid = np.where(live, (h & np.uint32(0x7FFFFFFE)) % np.uint32(w),
+                       w).astype(np.int32)
+        counts[src] = np.bincount(pid[live], minlength=w)[:w]
+        pids.append(pid)
+        at += n
+    return np.concatenate(pids) if pids else np.zeros(0, np.int32), \
+        counts.astype(np.int32)

@@ -31,11 +31,18 @@ FAMILIES = {
     "build_table": r"::(build_\w+|hash_build_\w+)_kernel\(",
     "hash_probe_kernel": r"::hash_probe_kernel\(",
     "fused_morsel_kernel": r"::fused_morsel_kernel\(",
-    "radix_histogram": r"::histogram_(shared|global)_kernel\(",
+    "radix_histogram": r"::histogram_(shared|global)_kernel\("
+                       r"|partition_histogram_kernel<",
     "hash_probe_multi_kernel": r"::hash_probe_multi_kernel\(",
     "segmented_minmax": r"segmented_minmax_kernel<|::fill_kernel\(int\*"
                         r"|::keys_to_f32_kernel\(",
     "block_prefix_sum_kernel": r"::block_prefix_sum_kernel\(",
+    # torch's int64 arithmetic, bitwise and shift kernels (the exchange's
+    # former partition hash ran some twenty of them a key column and
+    # source); gathers and scatters with int64 indices are not among them
+    "int64 elementwise (torch)": r"elementwise_kernel<(\d+, )?at::native::"
+                                 r"(\w+Functor<long, long, long"
+                                 r"|CUDAFunctor_add<long>)",
 }
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the attention kernels, ``build_table``, the fused kernels and the
-segmented sums against an earlier version of their CUDA sources, in one
-process on one card.
+"""Time the attention kernels, ``build_table``, the fused kernels, the
+segmented sums, the standalone probe and the exchange's metadata phase
+against an earlier version of their CUDA sources, in one process on one
+card.
 
 Run from the repository root on a machine with the card::
 
@@ -12,8 +13,8 @@ Run from the repository root on a machine with the card::
     python3 tools/time_against_parent.py build/parent
 
 Each earlier source found in DIR (``flash_attention.cu``, ``hash_table.cu``,
-``fused_morsel.cu``, ``fused_batch.cu``, ``segmented_agg.cu``) is timed;
-the others are skipped.
+``fused_morsel.cu``, ``fused_batch.cu``, ``segmented_agg.cu``,
+``radix_histogram.cu``) is timed; the others are skipped.
 The earlier sources are built with nvcc (the port's flags, DIR's headers
 before the current ones) into a temporary directory and called through
 ctypes with the C signatures they had at ``28729f2``:
@@ -25,7 +26,11 @@ winner, unplaced, stream)``, and the fused kernels' ``fused_morsel_run``
 and ``fused_batch_run``, which took the program as ``lower_registers``
 gives it (``prog, n_instr`` in place of the packed plan), and
 ``segmented_sum_f32`` / ``segmented_sum_i32(gids, vals, n, num_groups,
-out, stream)``, unchanged since then. The current ones
+out, stream)``, unchanged since then; a ``hash_table.cu`` with
+``hash_table_build_scratch_bytes`` (``456033b`` on) is built through
+the fixed passes' signature instead. ``hash_table_probe`` and
+``radix_histogram_run`` have the signatures of ``hash_probe._PROBE_ARGTYPES``
+and ``radix_histogram._ARGTYPES``. The current ones
 go through the port's wrappers. Both sources of each pair are also
 compiled with ``-Xptxas -v``, and each kernel's registers, stack frame and
 spills are printed.
@@ -40,7 +45,12 @@ them, the three serving batch programs at 32 lanes, and the segmented
 sums' calls of ``chip_smoke.py``'s phase 3 (Q1's first call of each at G =
 16, Q3's first part and first merge and Q17's first int merge at SF 1, the
 stacked serving call, and the synthetic sorted G = 16 and unsorted G =
-4096). Each pair is timed in turns, earlier, current, current, earlier,
+4096), and with ``hash_table.cu`` or ``radix_histogram.cu`` every
+standalone probe call and every repartition of one run of the 22 queries
+at W = 1 and W = 4 (``chip_smoke.capture_calls``, ``capture_workers``,
+taken before any profile), the earlier metadata phase being the
+exchange's former torch hash, bins and ``torch.cat`` before the earlier
+histogram. Each pair is timed in turns, earlier, current, current, earlier,
 with CUDA events over warm runs, then once each under ``torch.profiler``
 for device time (the fused and segmented cases: their kernels' events
 only; the segmented kernels also alone, on an output zeroed once, with no
@@ -65,7 +75,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 _SOURCES = ("flash_attention", "hash_table", "fused_morsel",
-            "fused_batch", "segmented_agg")
+            "fused_batch", "segmented_agg", "radix_histogram")
 
 
 def _chip_smoke():
@@ -230,11 +240,43 @@ def time_attention(torch, fa, lib):
         del q, k, v, got, earlier_out, scratch
 
 
-def time_builds(torch, hp, lib):
+def _earlier_passes(torch, hp, lib):
+    """The earlier ``hash_table_build`` of the fixed passes (``456033b``
+    on: the signature of ``hash_probe._BUILD_ARGTYPES``, scratch from its
+    ``hash_table_build_scratch_bytes``) -> a build function, or None for a
+    source from before them."""
+    try:
+        nbytes_of = lib.hash_table_build_scratch_bytes
+    except AttributeError:
+        return None
+    nbytes_of.argtypes, nbytes_of.restype = [ctypes.c_longlong], \
+        ctypes.c_longlong
     build = lib.hash_table_build
-    build.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                      + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
-    build.restype = ctypes.c_int
+    build.argtypes, build.restype = hp._BUILD_ARGTYPES, ctypes.c_int
+
+    def run(keys, vals, t, empty, valid):
+        n = keys.shape[0]
+        tk = torch.full((t,), empty, dtype=torch.int32, device="cuda")
+        tv = torch.zeros(t, dtype=torch.int32, device="cuda")
+        nbytes = nbytes_of(n)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        rc = build(keys.data_ptr(), vals.data_ptr(),
+                   None if valid is None else valid.data_ptr(), n, t, empty,
+                   tk.data_ptr(), tv.data_ptr(), scratch.data_ptr(), nbytes,
+                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            cs.fail(f"earlier build_table: CUDA error {rc}")
+        return tk, tv
+    return run
+
+
+def time_builds(torch, hp, lib):
+    passes = _earlier_passes(torch, hp, lib)
+    build = lib.hash_table_build if passes is None else None
+    if build is not None:
+        build.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
+        build.restype = ctypes.c_int
     inputs = captured_builds(torch)
     gen = torch.Generator(device="cuda").manual_seed(13)
     inputs["duplicates"] = cs._build_case(torch, hp, "duplicates", gen)
@@ -243,6 +285,10 @@ def time_builds(torch, hp, lib):
 
         def earlier(keys=keys, vals=vals, t=t, empty=empty, valid=valid,
                     n=n):
+            if passes is not None and n < t:
+                return passes(keys, vals, t, empty, valid)
+            if passes is not None:
+                return hp.build_table(keys, vals, t, empty, valid)
             tk = torch.full((t,), empty, dtype=torch.int32, device="cuda")
             tv = torch.zeros(t, dtype=torch.int32, device="cuda")
             placed = (torch.zeros(n, dtype=torch.uint8, device="cuda")
@@ -544,6 +590,158 @@ def time_segmented(torch, lib):
             "bound_ms": bound, "max_diff": diff}), flush=True)
 
 
+def _main_path_calls(torch):
+    """Every standalone probe call and every repartition of the 22 queries
+    at SF 1 (``chip_smoke.capture_calls`` at W = 1, ``capture_workers`` at
+    W = 4): (probe calls, repartitions)."""
+    from repro_torch.core import fused
+    from repro_torch.core.session import Catalog
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.tpch import dbgen, schema
+    data = dbgen.generate(cs._SF)
+    catalog = Catalog.from_numpy(data, schema.SCHEMAS, {
+        t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
+    probes = cs.capture_calls(torch, hp, fused, catalog)["probe"]
+    w4 = cs.capture_workers(torch, hp, fused, catalog)
+    return probes + w4["probe"], w4["repartition"]
+
+
+def time_probes(torch, lib, calls):
+    """Every main-path probe call, the earlier ``hash_table_probe`` against
+    the current wrapper, outputs equal: the device µs of each call from
+    one profile of all of them, in turns (earlier, current, current,
+    earlier); prints the sums at each W and each group of calls (one
+    query, W and shape), and the wrapper's host µs on the heaviest."""
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import ops
+    run = lib.hash_table_probe
+    run.argtypes, run.restype = hp._PROBE_ARGTYPES, ctypes.c_int
+
+    def earlier_of(c):
+        # the earlier wrapper (``344cee8``) step for step, on the earlier
+        # entry point: its checks, two allocations, three contiguous
+        # copies, the stream object, the launch, the check and the count
+        def call(tk=c["tk"], tv=c["tv"], keys=c["keys"], empty=c["empty"],
+                 max_probes=c["max_probes"]):
+            ops.mark_kernel("probe")
+            hp._check_probe_args("hash_probe", tk, tv, keys)
+            t = tk.shape[0]
+            dev = keys.device
+            n = keys.shape[0]
+            found = torch.empty(n, dtype=torch.bool, device=dev)
+            vals = torch.empty(n, dtype=torch.int32, device=dev)
+            tk, tv, keys = tk.contiguous(), tv.contiguous(), keys.contiguous()
+            rc = run(tk.data_ptr(), tv.data_ptr(), t, min(max_probes, t),
+                     empty, keys.data_ptr(), n, found.data_ptr(),
+                     vals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            if rc:
+                cs.fail(f"earlier hash_probe: CUDA error {rc}")
+            ops.count_launch("hash_probe")
+            return found, vals
+        return call
+
+    def current_of(c):
+        return lambda: hp.hash_probe(c["tk"], c["tv"], c["keys"], c["empty"],
+                                     c["max_probes"])
+
+    fns = {"earlier": [earlier_of(c) for c in calls],
+           "current": [current_of(c) for c in calls]}
+    for c, e, k in zip(calls, fns["earlier"], fns["current"]):
+        a, b = e(), k()
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            cs.fail(f"hash_probe Q{c['q']} W={c['w']}: the two versions "
+                    "differ")
+    us = {"earlier": [], "current": []}
+    for who in ("earlier", "current", "current", "earlier"):
+        us[who].append(cs.per_call_device_us(torch, fns[who],
+                                             ("hash_probe_kernel",)))
+    groups = {}
+    for i, c in enumerate(calls):
+        g = groups.setdefault((c["q"], c["w"], c["tk"].shape[0],
+                               c["max_probes"]), [0, [0.0, 0.0], [0.0, 0.0],
+                                                  i])
+        g[0] += 1
+        for who, at in (("earlier", 1), ("current", 2)):
+            for k in range(2):
+                g[at][k] += us[who][k][i]
+    for w in sorted({c["w"] for c in calls}):
+        sel = [i for i, c in enumerate(calls) if c["w"] == w]
+        print(json.dumps({
+            "case": f"hash_probe[W={w}]", "calls": len(sel),
+            "earlier_device_us": [sum(u[i] for i in sel)
+                                  for u in us["earlier"]],
+            "current_device_us": [sum(u[i] for i in sel)
+                                  for u in us["current"]]}), flush=True)
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1][1][0])
+    for (q, w, t, mp), (k, e, c, first) in ranked:
+        print(json.dumps({
+            "case": f"hash_probe[Q{q} W={w}]", "slots": t, "max_probes": mp,
+            "keys": calls[first]["keys"].shape[0], "calls": k,
+            "earlier_device_us": e, "current_device_us": c}), flush=True)
+    first = ranked[0][1][3]
+    print(json.dumps({
+        "case": "hash_probe host_us", "query": calls[first]["q"],
+        "earlier_host_us": cs.host_us(torch, fns["earlier"][first]),
+        "current_host_us": cs.host_us(torch, fns["current"][first])}),
+        flush=True)
+
+
+def time_partitions(torch, lib, calls):
+    """Every repartition's metadata phase, earlier against current, pids
+    and counts equal: earlier is the exchange's former torch code (the
+    partition hash in int64 torch ops, the bins, a ``torch.cat``) and the
+    earlier ``radix_histogram_run``; current is ``partition_histogram``.
+    Device µs of every event of each call, in turns; prints each call and
+    the sums."""
+    from repro_torch.core import relational as rel
+    from repro_torch.kernels import radix_histogram as rh
+    run = lib.radix_histogram_run
+    run.argtypes, run.restype = rh._ARGTYPES, ctypes.c_int
+
+    def earlier(c):
+        w = c["w"]
+        pids, bins = [], []
+        for src, (keys, valid) in enumerate(zip(c["keys"], c["valid"])):
+            pid = rel.partition_ids(keys, valid, w)
+            pid = torch.where(valid, pid, torch.full_like(pid, w))
+            pids.append(pid)
+            bins.append(torch.where(pid < w, pid + src * w,
+                                    torch.full_like(pid, w * w)))
+        ids = torch.cat(bins)
+        counts = torch.empty(w * w, dtype=torch.int32, device="cuda")
+        rc = run(ids.data_ptr(), ids.shape[0], w * w, counts.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if rc:
+            cs.fail(f"earlier radix_histogram: CUDA error {rc}")
+        return torch.cat(pids), counts.reshape(w, w)
+
+    def current(c):
+        return rh.partition_histogram(c["keys"], c["valid"], c["w"])
+
+    total = {"earlier": 0.0, "current": 0.0}
+    for c in calls:
+        a, b = earlier(c), current(c)
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            cs.fail(f"repartition Q{c['q']} {c['names']}: the two versions "
+                    "differ")
+        us = {"earlier": [], "current": []}
+        for who in ("earlier", "current", "current", "earlier"):
+            fn = earlier if who == "earlier" else current
+            us[who].append(cs.call_device_us(torch, lambda: fn(c)))
+        for who in total:
+            total[who] += sum(us[who]) / len(us[who])
+        print(json.dumps({
+            "case": f"partition[Q{c['q']} W={c['w']}]",
+            "rows": [v.shape[0] for v in c["valid"]], "keys": c["names"],
+            "earlier_device_us": us["earlier"],
+            "current_device_us": us["current"]}), flush=True)
+    print(json.dumps({"case": "partition[all]", "calls": len(calls),
+                      "earlier_device_us": total["earlier"],
+                      "current_device_us": total["current"]}), flush=True)
+
+
 def main() -> None:
     if len(sys.argv) != 2:
         cs.fail("usage: tools/time_against_parent.py DIR (the earlier "
@@ -562,6 +760,12 @@ def main() -> None:
     build.build_all()
     out = Path(tempfile.mkdtemp(prefix="parent_kernels_"))
     libs = compile_all(Path(sys.argv[1]), out)
+    # the main-path captures run sessions (with their prefetch threads)
+    # before any profile: a profile taken before such a run makes later
+    # profiles lose events
+    probes = repartitions = None
+    if "hash_table" in libs or "radix_histogram" in libs:
+        probes, repartitions = _main_path_calls(torch)
     if "flash_attention" in libs:
         old_tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -575,6 +779,10 @@ def main() -> None:
         time_fused(torch, hp, libs)
     if "segmented_agg" in libs:
         time_segmented(torch, libs["segmented_agg"])
+    if "hash_table" in libs:
+        time_probes(torch, libs["hash_table"], probes)
+    if "radix_histogram" in libs:
+        time_partitions(torch, libs["radix_histogram"], repartitions)
     print(card, flush=True)
 
 
