@@ -11,10 +11,12 @@ In order it:
 2. builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, all started together) and prints the seconds;
    beside the build, compiles ``fused_morsel.cu``, ``fused_batch.cu``,
-   ``segmented_agg.cu`` and ``radix_histogram.cu`` with ``-Xptxas -v`` and
-   fails unless every variant of ``fused_morsel_kernel``,
-   ``fused_batch_kernel``, ``segmented_sum_kernel`` and
-   ``partition_histogram_kernel`` has a 0-byte stack frame and no spill;
+   ``segmented_agg.cu``, ``radix_histogram.cu`` and ``hash_table.cu``
+   with ``-Xptxas -v`` and fails unless every variant of
+   ``fused_morsel_kernel``, ``fused_batch_kernel``,
+   ``segmented_sum_kernel``, ``segmented_minmax_kernel``,
+   ``partition_histogram_kernel`` and ``hash_probe_multi_kernel`` (the
+   whole-row expansion probe) has a 0-byte stack frame and no spill;
 3. checks each kernel against its plain PyTorch version on the card, on
    the shapes the main path gives it, with the tolerance stated beside each:
    the segmented sums on ``_SEG_CASES`` (sorted and unsorted 1M-row
@@ -34,9 +36,10 @@ In order it:
    fused probe of Q3 and Q10 exact (the first also on the views of
    ``_FUSED_VIEWS``);
    ``block_prefix_sum`` on the first compaction mask of Q9 and of Q22,
-   ``segmented_minmax`` on Q2's grouped min, ``hash_probe_multi`` on the
-   first expansion probe of Q9 and of Q20, and the fused program on Q22's
-   ``PrefixCode`` stages, each exact; plus builds of synthetic keys, each
+   every ``segmented_minmax`` call (Q2's grouped min) and every
+   ``hash_probe_multi`` call (Q9's and Q20's expansion probes), and the
+   fused program on Q22's ``PrefixCode`` stages, each exact; plus builds
+   of synthetic keys, each
    bit-identical and naming its route (the passes below ``table_size``
    rows, the rounds from it): many duplicate keys with invalid rows and
    -1 keys, unique keys at the same size, an all-ghost cluster, ghosts
@@ -48,8 +51,14 @@ In order it:
    the card); the probes of ``_PROBE_CASES`` (tables of 1-8 slots, runs
    across 32-byte sectors and wrapping at T, max_probes ending inside a
    sector, keys -1, views) and 1 << 20 probe keys with hits, misses and
-   -1 keys, each exact; an expansion probe of a table with up to 8 rows a
-   key and -1 keys, and min/max over values with inf, -inf and NaN;
+   -1 keys, each exact; the expansion probe's ``_MULTI_CASES`` (a table
+   with some 8 rows a key probed at m of 1, 2, 3, 4, 8, 9 and 300, each
+   route of the row store; runs that wrap; max_probes 1-7; keys -1;
+   views) and min/max's ``_MINMAX_CASES`` (NaNs of both signs, +-inf,
+   +-0 and subnormals; random float bit patterns; int32 extremes; Q2's
+   shape at G = 2^20; G of 1, 8192 and 8193; views), each through the
+   wrapper and through the C entry on outputs filled with a pattern
+   first (a count, slot or group left unwritten shows), exact;
 4. times each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``library_ms``), with CUDA events over warm
    runs, and computes each kernel's bound from its inputs (for the join
@@ -74,8 +83,9 @@ In order it:
    ``ICIExchange`` (by wrapping the kernel functions, as phase 3 does) and
    holds against their plain versions, exact, every ``build_table`` and
    fused probe call of Q3 and Q7 (the worker-local build and probe sides
-   that the exchange hands them), every standalone ``hash_probe`` call,
-   and the exchange's metadata pass (``partition_histogram``: pids and
+   that the exchange hands them), every standalone ``hash_probe``,
+   ``hash_probe_multi`` and ``segmented_minmax`` call, and the exchange's
+   metadata pass (``partition_histogram``: pids and
    counts) on every repartition's inputs and on ``_PART_CASES`` (each W
    of 1-8 at n of 0, 5, 100,003 and 2^22 rows a source, a bytes key,
    three keys, views 1-3 rows off, bool, int64 and float keys, every row
@@ -140,11 +150,18 @@ In order it:
 10. the main path's shapes: every captured standalone probe (W = 1 and
    W = 4) once in one profile, a line each (keys, slots, max_probes, hit
    rate, whether the table fits the L2, bound, device µs) and the sums;
-   every repartition's metadata pass profiled alone, a line each (rows a
-   source, key dtypes and widths, bound, device µs); the heaviest group
-   of probe calls and the heaviest repartition are the ``hash_probe`` and
-   ``radix_histogram`` rows of the kernels line, with the wrapper's host
-   µs a call (``host_us``) and the device ms (``device_ms``);
+   every captured expansion probe the same way (keys, slots, m,
+   max_probes, matches, the slots walked a key, L2 fit, bound, device
+   µs); every captured ``segmented_minmax`` call profiled alone (rows,
+   G, live rows and groups, dtype, whether the live ids are sorted, the
+   bound (no value read for a dead row) and the bound with every row's
+   value read, device µs of the call's kernels); every repartition's metadata pass profiled alone,
+   a line each (rows a source, key dtypes and widths, bound, device µs);
+   the heaviest group of probe calls, of expansion probes of each query,
+   of min/max calls and the heaviest repartition are the ``hash_probe``,
+   ``hash_probe_multi``, ``segmented_minmax`` and ``radix_histogram``
+   rows of the kernels line, with the wrapper's host µs a call
+   (``host_us``) and the device ms (``device_ms``);
 11. prints one ``{"kernels": [...]}`` line, then the card line again;
 12. prints as its last line ``{"ok": true, "device": {...}}``.
 
@@ -163,7 +180,8 @@ profiled run of phase 8's serving workload with and one without batching.
 line and the card line, and no ok line; ``--build`` runs phase 3's
 synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
 and their views) and phase 8(a) alone; ``--segmented`` the segmented
-sums' ``_SEG_CASES`` alone; ``--probe`` the probe's ``_PROBE_CASES``
+sums' ``_SEG_CASES`` and min/max's ``_MINMAX_CASES`` alone; ``--probe``
+the probe's ``_PROBE_CASES`` and the expansion probe's ``_MULTI_CASES``
 alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone.
 ``--faults`` runs the six on the kernels as they are and then on copies,
 in a temporary directory, each with one fault planted (a K tile left
@@ -173,14 +191,17 @@ slot's turn in the build; the fused kernels' copies of the tail tile's
 last partial group of four rows dropped; the segmented sums' scalar tail
 read as absent; a run that crosses a warp step joined without its
 earlier part; a bytes key's first lane left out of the partition hash; a
-probe run ended at the end of a 32-byte sector of slots), and exits 0 only
+probe run ended at the end of a 32-byte sector of slots; a NaN folded as
+the min/max key that loses; the expansion probe's whole-row store writing
+the matches only, the zeros past the count left unwritten), and exits 0 only
 when the kernels pass and every fault is caught, the late K tile at
 ``prefill_32k``, the dropped split at D = 160 and 192, the one TF32
 product at (a) and (d) in float32, the ghost pop at
 ``ghosts_over_a_run``, the dropped group at Q1's 999,999 rows, the tail
 at n % 4 of 1, 2 and 3, the join at sorted G = 16 and its counts, the
-bytes lane at ``bytes W=4`` and ``views W=4`` and the cut run at
-``dense T=1024``.
+bytes lane at ``bytes W=4`` and ``views W=4``, the cut run at
+``dense T=1024``, the losing NaN at ``specials f32 G=4096`` and the
+unwritten zeros at ``duplicates m=4``.
 
 No PyTorch call builds or probes a hash table, so the join kernels'
 ``library_ms`` is null; the segmented sums' is one ``index_add_`` into a
@@ -318,12 +339,15 @@ def bound_ms(nbytes: float, ops: float, rate: float, op_rate: float = _F32_RATE)
 
 # the kernels whose ptxas report (-Xptxas -v) the run prints and holds to
 # a 0-byte stack frame and no spill, every template variant of each (the
-# fused kernels' registers are shared memory; the segmented sums keep a
-# thread's two chunks in registers; the metadata pass its W counts)
-_NO_LOCAL = {"fused_morsel": "fused_morsel_kernel",
-             "fused_batch": "fused_batch_kernel",
-             "segmented_agg": "segmented_sum_kernel",
-             "radix_histogram": "partition_histogram_kernel"}
+# fused kernels' registers are shared memory; the segmented reductions keep
+# a thread's two chunks in registers; the metadata pass its W counts; the
+# expansion probe a row of up to 8 matches)
+_NO_LOCAL = {"fused_morsel": ("fused_morsel_kernel",),
+             "fused_batch": ("fused_batch_kernel",),
+             "segmented_agg": ("segmented_sum_kernel",
+                               "segmented_minmax_kernel"),
+             "radix_histogram": ("partition_histogram_kernel",),
+             "hash_table": ("hash_probe_multi_kernel",)}
 
 
 def start_ptxas(build, out_dir):
@@ -375,19 +399,26 @@ def check_ptxas(procs) -> dict:
         _, err = proc.communicate()
         if proc.returncode != 0:
             fail(f"nvcc -Xptxas -v {name}.cu:\n{err}")
-        kernel = _NO_LOCAL[name]
-        infos = {k: v for k, v in ptxas_report(err).items() if kernel in k}
-        if not infos or any("stack" not in v for v in infos.values()):
-            fail(f"ptxas printed no stack frame for {kernel}:\n{err}")
-        for mangled, info in sorted(infos.items()):
-            print(f"ptxas {kernel} ({mangled}): {info['stack']} bytes stack "
-                  f"frame, {info['spill_stores']} bytes spill stores, "
-                  f"{info['spill_loads']} bytes spill loads, "
-                  f"{info.get('registers')} registers", flush=True)
-            if info["stack"] or info["spill_stores"] or info["spill_loads"]:
-                fail(f"{kernel}: a stack frame or spills in local memory")
-            seen[mangled] = info
+        report = ptxas_report(err)
+        for kernel in _NO_LOCAL[name]:
+            infos = {k: v for k, v in report.items() if kernel in k}
+            if not infos or any("stack" not in v for v in infos.values()):
+                fail(f"ptxas printed no stack frame for {kernel}:\n{err}")
+            seen.update(_check_no_local(kernel, infos))
     return seen
+
+
+def _check_no_local(kernel, infos) -> dict:
+    """Prints each variant's ptxas report and fails on a stack frame or a
+    spill; returns ``infos``."""
+    for mangled, info in sorted(infos.items()):
+        print(f"ptxas {kernel} ({mangled}): {info['stack']} bytes stack "
+              f"frame, {info['spill_stores']} bytes spill stores, "
+              f"{info['spill_loads']} bytes spill loads, "
+              f"{info.get('registers')} registers", flush=True)
+        if info["stack"] or info["spill_stores"] or info["spill_loads"]:
+            fail(f"{kernel}: a stack frame or spills in local memory")
+    return infos
 
 
 # ---------------------------------------------------------------------------
@@ -513,9 +544,10 @@ def check_segmented_cases(torch, seg, failures):
 
 
 def run_segmented(torch, seg):
-    """``--segmented``: the segmented sums' cases alone."""
+    """``--segmented``: the segmented sums' and min/max's cases alone."""
     failures = []
     check_segmented_cases(torch, seg, failures)
+    check_minmax_cases(torch, seg, failures)
     if failures:
         fail("; ".join(failures))
 
@@ -744,8 +776,8 @@ def capture_calls(torch, hp, fused, catalog):
     the kernel runs on them: every ``hash_probe`` call of every query,
     every ``build_table`` call of Q3 and Q10, the first call of each fused
     probe's join of Q3 and Q10, the first ``block_prefix_sum`` mask of Q9
-    and Q22, the first ``segmented_minmax`` input and ``hash_probe_multi``
-    call of each query, Q22's fused calls without a probe (its
+    and Q22, every ``segmented_minmax`` and ``hash_probe_multi`` call of
+    every query, Q22's fused calls without a probe (its
     ``PrefixCode`` stages), and the segmented sums' calls
     ``check_segmented`` holds: Q1's first call of each (G = 16), Q3's
     first part (a batch's aggregation) and first merge (the accumulator
@@ -793,21 +825,8 @@ def capture_calls(torch, hp, fused, catalog):
             calls["compact"].append(dict(q=now["q"], mask=mask.clone()))
         return orig[3](mask)
 
-    def segmented_minmax(gids, values, num_groups, kind):
-        if first("minmax"):
-            calls["minmax"].append(dict(q=now["q"], gids=gids.clone(),
-                                        values=values.clone(), g=num_groups,
-                                        kind=kind))
-        return orig[4](gids, values, num_groups, kind)
-
-    def hash_probe_multi(tk, tv, keys, max_matches, empty_key=-1,
-                         max_probes=hp.MAX_PROBES_DEFAULT):
-        if first("multi"):
-            calls["multi"].append(dict(q=now["q"], tk=tk, tv=tv,
-                                       keys=keys.clone(), m=max_matches,
-                                       empty=empty_key,
-                                       max_probes=max_probes))
-        return orig[5](tk, tv, keys, max_matches, empty_key, max_probes)
+    segmented_minmax = _keep_minmax(calls["minmax"], now, 1, orig[4])
+    hash_probe_multi = _keep_multi(hp, calls["multi"], now, 1, orig[5])
 
     def segmented(kernel, run):
         def call(gids, values, num_groups):
@@ -845,6 +864,27 @@ def capture_calls(torch, hp, fused, catalog):
          hp.hash_probe_multi, seg.segmented_sum, seg.segmented_int_sum) = orig
     torch.cuda.synchronize()
     return calls
+
+
+def _keep_minmax(kept, now, w, run):
+    """A ``segmented_minmax`` that keeps each call's inputs in ``kept``
+    (query ``now["q"]``, ``w`` workers) before ``run`` takes them."""
+    def segmented_minmax(gids, values, num_groups, kind):
+        kept.append(dict(q=now["q"], w=w, gids=gids.clone(),
+                         values=values.clone(), g=num_groups, kind=kind))
+        return run(gids, values, num_groups, kind)
+    return segmented_minmax
+
+
+def _keep_multi(hp, kept, now, w, run):
+    """A ``hash_probe_multi`` that keeps each call's inputs in ``kept``."""
+    def hash_probe_multi(tk, tv, keys, max_matches, empty_key=-1,
+                         max_probes=hp.MAX_PROBES_DEFAULT):
+        kept.append(dict(q=now["q"], w=w, tk=tk, tv=tv, keys=keys.clone(),
+                         m=max_matches, empty=empty_key,
+                         max_probes=max_probes))
+        return run(tk, tv, keys, max_matches, empty_key, max_probes)
+    return hash_probe_multi
 
 
 def _sectors(torch, mask, item_bytes):
@@ -1234,9 +1274,11 @@ def check_probe_cases(torch, hp, failures):
 
 
 def run_probe(torch, hp):
-    """``--probe``: the standalone probe's synthetic cases alone."""
+    """``--probe``: the standalone and expansion probes' synthetic cases
+    alone."""
     failures = []
     check_probe_cases(torch, hp, failures)
+    check_multi_cases(torch, hp, failures)
     if failures:
         fail("; ".join(failures))
 
@@ -1484,120 +1526,467 @@ def check_compact(torch, bps, calls, rate):
     return [row], launchers
 
 
-def check_minmax(torch, seg, calls, rate):
-    """segmented_minmax on Q2's grouped min (sorted ids, dead rows carrying
-    the identity), then min and max over 1 << 20 float32 values with inf,
-    -inf and NaN and over int32 extremes, G = 4096: bit-exact against the
-    plain version (order-free). Timed on Q2's input."""
+# segmented_minmax's cases on synthetic inputs (``--segmented`` runs them
+# beside the sums'), each min and max, through the wrapper and through the
+# C entry on an output filled with a pattern first (every group must be
+# written): float32 with NaNs of both signs, +-inf, +-0 and subnormals
+# (sorted ids, shared partials); random float32 bit patterns (unsorted
+# ids, the first G of global updates); int32 extremes at the largest
+# shared G; Q2's shape (sorted live ids, a dead tail carrying the
+# identity, G = 2^20); unsorted ids with ids out of range; G = 1; ids and
+# values at views 1-3 rows past a 16-byte boundary; 1-5 rows
+_MINMAX_CASES = ("specials f32 G=4096", "random bits f32 G=8193",
+                 "int32 extremes G=8192", "dead tail G=2^20",
+                 "unsorted G=16", "G=1", "views +1..3", "n=1..5")
+# what an output holds before a patterned check: a value or slot the
+# kernel leaves unwritten keeps it
+_POISON = 0x5A5A5A5A
+
+
+def _minmax_inputs(torch, case, gen):
+    """[(ids, values, G), ...] of a ``_MINMAX_CASES`` case on the card."""
     dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(17)
-    c = next(c for c in calls["minmax"] if c["q"] == 2)
+
+    def ids(n, lo, hi, sort=False):
+        x = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        return torch.sort(x).values if sort else x
+
+    def bits(n):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def floats(n):
+        return torch.randn(n, generator=gen, device=dev) * 100
+
+    rows = _MAIN_ROWS
+    if case == "specials f32 G=4096":
+        g = 4096
+        gids = ids(rows, 0, g + 1, sort=True)
+        v = floats(rows)
+        r = torch.rand(rows, generator=gen, device=dev)
+        nan = torch.tensor([0x7FC00000, -0x00400000, 0x7F800001, -1],
+                           dtype=torch.int32, device=dev).view(torch.float32)
+        sub = (bits(rows) & -0x7F800001).view(torch.float32)  # subnormals
+        v = torch.where(r < 0.01, float("inf"), v)
+        v = torch.where(r > 0.99, float("-inf"), v)
+        v = torch.where((r > 0.5) & (r < 0.5004),
+                        nan[ids(rows, 0, 4).long()], v)
+        v = torch.where((r > 0.3) & (r < 0.32), sub, v)
+        # every fifth group holds only zeros of both signs
+        zero = torch.where(r < 0.5, 0.0, -0.0)
+        v = torch.where(gids % 5 == 0, zero, v)
+        return [(gids, v, g)]
+    if case == "random bits f32 G=8193":
+        g = 8193
+        return [(ids(rows, -2, g + 4), bits(rows).view(torch.float32), g)]
+    if case == "int32 extremes G=8192":
+        g = 8192
+        v = bits(rows)
+        r = torch.rand(rows, generator=gen, device=dev)
+        v = torch.where(r < 0.01, 2 ** 31 - 1, v)
+        v = torch.where(r > 0.99, -2 ** 31, v).to(torch.int32)
+        return [(ids(rows, 0, g + 1, sort=True), v, g)]
+    if case == "dead tail G=2^20":
+        n, live, g = 800_000, 600_000, 1 << 20
+        gids = torch.full((n,), g, dtype=torch.int32, device=dev)
+        gids[:live] = ids(live, 0, g, sort=True)
+        v = torch.where(gids < g, floats(n).abs() + 1.0, float("inf"))
+        return [(gids, v, g), (gids, bits(n), g)]
+    if case == "unsorted G=16":
+        n, g = 100_003, 16
+        gids = ids(n, -2, g + 4)
+        return [(gids, floats(n), g), (gids, bits(n), g)]
+    if case == "G=1":
+        n = 5_001
+        pick = torch.tensor([0, 1, -1, 0], dtype=torch.int32, device=dev)
+        return [(pick[ids(n, 0, 4).long()], floats(n), 1)]
+    if case == "views +1..3":
+        n, g = 100_001, 700
+        out = []
+        for oi, ov in ((1, 2), (3, 0), (2, 2)):
+            gids = ids(n + 8, 0, g, sort=True)[oi:oi + n]
+            out += [(gids, floats(n + 8)[ov:ov + n], g),
+                    (gids, bits(n + 8)[ov:ov + n], g)]
+        return out
+    if case == "n=1..5":
+        return [(ids(n, -1, 4), floats(n), 3) for n in range(1, 6)]
+    raise ValueError(case)
+
+
+def _minmax_entry(torch, seg, gids, vals, g, kind):
+    """``segmented_minmax`` through its C entry onto an output filled with
+    ``_POISON`` first."""
+    from repro_torch.kernels import build
+    symbol = ("segmented_minmax_f32" if vals.dtype == torch.float32
+              else "segmented_minmax_i32")
+    out = torch.full((g,), _POISON, dtype=torch.int32, device=gids.device)
+    fn = build.function(seg._LIB, symbol, seg._MINMAX_ARGTYPES)
+    rc = fn(gids.data_ptr(), vals.data_ptr(), gids.shape[0], g,
+            int(kind == "min"), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(seg._LIB, rc, "segmented_minmax")
+    return out.view(vals.dtype)
+
+
+def check_minmax_cases(torch, seg, failures):
+    """``_MINMAX_CASES`` on the card, min and max, the wrapper's output and
+    the entry's on a patterned output each bit-exact against the plain
+    version. Misses go into ``failures``."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for case in _MINMAX_CASES:
+        bad = 0
+        for gids, vals, g in _minmax_inputs(torch, case, gen):
+            for kind in ("min", "max"):
+                want = seg.segmented_minmax_plain(gids, vals, g, kind)
+                for got in (seg.segmented_minmax(gids, vals, g, kind),
+                            _minmax_entry(torch, seg, gids, vals, g, kind)):
+                    torch.cuda.synchronize()
+                    bad += int((got.view(torch.int32)
+                                != want.view(torch.int32)).sum())
+        if bad:
+            failures.append(f"segmented_minmax[{case}]: {bad} groups differ "
+                            "from the plain version")
+        print(f"check segmented_minmax[{case}]: min and max, wrapper and "
+              "patterned output: "
+              + ("bit-exact" if not bad else f"{bad} groups differ"),
+              flush=True)
+
+
+def check_minmax_call(torch, seg, c, what):
+    """One captured ``segmented_minmax`` call against its plain version,
+    bit-exact."""
     got = seg.segmented_minmax(c["gids"], c["values"], c["g"], c["kind"])
     want = seg.segmented_minmax_plain(c["gids"], c["values"], c["g"],
                                       c["kind"])
     torch.cuda.synchronize()
     if not _bits_equal(torch, got, want):
-        fail("segmented_minmax Q2 differs from the plain version")
-    print(f"check segmented_minmax Q2 {c['kind']}({c['values'].dtype}): "
+        fail(f"segmented_minmax {what} differs from the plain version")
+    print(f"check segmented_minmax {what} {c['kind']}({c['values'].dtype}): "
           f"rows={c['gids'].shape[0]} G={c['g']}: bit-exact", flush=True)
-    n, g = _MAIN_ROWS, 4096
-    gids = torch.sort(torch.randint(0, g + 1, (n,), generator=gen, device=dev,
-                                    dtype=torch.int32)).values
-    fv = torch.randn(n, generator=gen, device=dev) * 100
-    r = torch.rand(n, generator=gen, device=dev)
-    fv = torch.where(r < 0.01, float("inf"), fv)
-    fv = torch.where(r > 0.99, float("-inf"), fv)
-    fv = torch.where((r > 0.5) & (r < 0.5001), float("nan"), fv)
-    iv = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
-                       device=dev, dtype=torch.int32)
-    for vals in (fv, iv):
-        for kind in ("min", "max"):
-            got = seg.segmented_minmax(gids, vals, g, kind)
-            want = seg.segmented_minmax_plain(gids, vals, g, kind)
-            torch.cuda.synchronize()
-            if not _bits_equal(torch, got, want):
-                fail(f"segmented_minmax {kind}({vals.dtype}) G={g} differs "
-                     "from the plain version")
-    print(f"check segmented_minmax rows={n} G={g} min/max of float32 (inf, "
-          "-inf, NaN) and int32: bit-exact", flush=True)
-    gids, vals, g, kind = c["gids"], c["values"], c["g"], c["kind"]
+
+
+def check_minmax(torch, seg, calls):
+    """segmented_minmax on every main-path call at one worker (Q2's grouped
+    min: sorted ids, dead rows carrying the identity), then
+    ``_MINMAX_CASES``: bit-exact against the plain version (order-free)."""
+    for c in calls:
+        check_minmax_call(torch, seg, c, f"Q{c['q']}")
+    failures = []
+    check_minmax_cases(torch, seg, failures)
+    if failures:
+        fail("; ".join(failures))
+
+
+def minmax_shape(torch, c, rate):
+    """The shape of a captured ``segmented_minmax`` call and its bound:
+    every id read, the value of every row whose id is in [0, G) read and
+    the G results written once (``bound_us``), as the sums' bound counts
+    them; beside it the bound with every row's value read
+    (``full_bound_us``)."""
+    gids, g = c["gids"], c["g"]
     n = gids.shape[0]
-    name = "segmented_minmax[Q2]"
-    launchers = {name: lambda: seg.segmented_minmax(gids, vals, g, kind)}
-    buf = torch.empty(g + 1, dtype=vals.dtype, device=dev)
-    seg_ids = gids.long()
+    live = (gids >= 0) & (gids < g)
+    ids = gids[live]
+    nlive = int(live.sum())
+    size = c["values"].element_size()
+    b, by = bound_ms(n * 4 + nlive * size + g * size, n, rate)
+    fb, _ = bound_ms(n * 4 + n * size + g * size, n, rate)
+    return dict(rows=n, groups=g, live_rows=nlive,
+                live_groups=int(torch.unique(ids).numel()),
+                dtype=str(c["values"].dtype).replace("torch.", ""),
+                sorted=bool((ids[1:] >= ids[:-1]).all()),
+                bound_us=b * 1e3, full_bound_us=fb * 1e3, bound_by=by)
+
+
+def report_minmax(torch, seg, calls, rate):
+    """Every captured ``segmented_minmax`` call (``capture_calls`` at W = 1,
+    ``capture_workers`` at W = 4): device µs of every event of a call
+    (``call_device_us``: its kernels, a fill among them); a line a call
+    and the sums at each W. Returns the heaviest group of calls (one
+    query, W and shape)."""
+    groups, sums = {}, {}
+    for c in calls:
+        c["shape"] = minmax_shape(torch, c, rate)
+        c["device_us"] = call_device_us(torch, lambda c=c: seg.segmented_minmax(
+            c["gids"], c["values"], c["g"], c["kind"]))
+        print(f"shape segmented_minmax Q{c['q']} W={c['w']}: "
+              f"{json.dumps(c['shape'])} device_us={c['device_us']:.3f}",
+              flush=True)
+        groups.setdefault((c["q"], c["w"], c["g"], c["gids"].shape[0]),
+                          []).append(c)
+        s = sums.setdefault(c["w"], [0, 0.0, 0.0])
+        s[0], s[1], s[2] = (s[0] + 1, s[1] + c["device_us"],
+                            s[2] + c["shape"]["bound_us"])
+    for w, (k, u, b) in sorted(sums.items()):
+        print(f"shape segmented_minmax W={w}: {k} calls, device_us {u:.3f}, "
+              f"bound_us {b:.3f}", flush=True)
+    return max(groups.values(), key=lambda g: sum(c["device_us"] for c in g))
+
+
+def minmax_row(torch, seg, calls, rate):
+    """segmented_minmax's row of the kernels line, on the heaviest group of
+    main-path calls (``report_minmax``): its first call timed (CUDA
+    events; the wrapper's host µs a call), its plain version, one
+    ``scatter_reduce_`` into a G + 1 buffer (``library_ms``);
+    ``device_ms`` the group's mean."""
+    group = report_minmax(torch, seg, calls, rate)
+    c = group[0]
+    gids, vals, g, kind = c["gids"], c["values"], c["g"], c["kind"]
+    name = (f"segmented_minmax[Q{c['q']}]" if c["w"] == 1
+            else f"segmented_minmax[Q{c['q']} W={c['w']}]")
+    launcher = lambda: seg.segmented_minmax(gids, vals, g, kind)  # noqa: E731
+    buf = torch.empty(g + 1, dtype=vals.dtype, device=gids.device)
+    lib_ids = torch.where((gids >= 0) & (gids < g), gids, g).long()
+    ident = seg._identity(vals.dtype, kind)
 
     def library():
-        buf.fill_(float("inf"))
-        buf.scatter_reduce_(0, seg_ids, vals, "amin", include_self=True)
+        buf.fill_(ident)
+        buf.scatter_reduce_(0, lib_ids, vals,
+                            "amin" if kind == "min" else "amax",
+                            include_self=True)
 
-    b, by = bound_ms(n * 8 + g * vals.element_size(), n, rate)
     row = dict(name=name, route="cuda",
                source="src/repro_torch/kernels/csrc/segmented_agg.cu",
                replaces="src/repro/kernels/segmented_agg.py:188",
-               max_abs_err=0.0, ms=time_ms(torch, launchers[name]),
+               max_abs_err=0.0, ms=time_ms(torch, launcher),
                plain_ms=time_ms(torch, lambda: seg.segmented_minmax_plain(
                    gids, vals, g, kind)),
-               bound_ms=b, bound_by=by, library_ms=time_ms(torch, library))
-    return [row], launchers
+               bound_ms=c["shape"]["bound_us"] / 1e3,
+               bound_by=c["shape"]["bound_by"],
+               library_ms=time_ms(torch, library),
+               device_ms=sum(x["device_us"] for x in group) / len(group) / 1e3,
+               host_us=host_us(torch, launcher), calls=len(group),
+               **{k: v for k, v in c["shape"].items()
+                  if k not in ("bound_us", "bound_by")})
+    print(f"row {json.dumps(row)}", flush=True)
+    return [row], {name: launcher}
 
 
-def check_multi(torch, hp, calls, rate):
-    """hash_probe_multi on the first expansion probe of Q9 and of Q20
-    (lineitem's and partsupp's composite keys, packed, into the partsupp
-    and the aggregate's tables, m = 4), then 1 << 20 keys with hits,
-    misses and -1 into a table with up to 8 rows a key: counts and every
-    slot (zeros past the count) exact against the plain version."""
+# hash_probe_multi's cases on synthetic tables (``--probe`` runs them
+# beside the single probe's), each through the wrapper and through the C
+# entry on outputs filled with a pattern first (every count and every slot
+# must be written): a build of 2^18 rows over 2^15 keys (some 8 rows a
+# key, past m) probed by hits, misses and -1 at m = 4 (the run read in
+# 16-byte groups of slots, a row one 16-byte store) and m = 3 (rows staged
+# in shared memory), then m of 1, 2, 8, 9 and 300 (past shared memory: a
+# store a slot); runs that wrap at T = 64; tables of 1-8 slots (below 4
+# the rows are staged); a table one slot off its 16-byte boundary (the
+# same); max_probes 1-7 cutting runs; every key -1; keys at views 1-3
+# rows past a 16-byte boundary; 1-5 keys
+_MULTI_CASES = ("duplicates m=4", "duplicates m=3", "m=1", "m=2", "m=8",
+                "m=9", "m=300", "wrap T=64", "T=1..8", "table view +1",
+                "max_probes 1-7", "keys -1", "keys view +1..3", "n=1..5")
+
+
+def _multi_inputs(torch, hp, case, gen):
+    """[(tk, tv, keys, m, max_probes), ...] of a ``_MULTI_CASES`` case."""
     dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(19)
-    for c in calls["multi"]:
-        args = (c["tk"], c["tv"], c["keys"], c["m"], c["empty"],
-                c["max_probes"])
-        got, want = hp.hash_probe_multi(*args), hp.hash_probe_multi_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail(f"hash_probe_multi Q{c['q']} differs from the plain version")
-        c["count"] = got[0]
-        print(f"check hash_probe_multi Q{c['q']}: keys={c['keys'].shape[0]} "
-              f"slots={c['tk'].shape[0]} m={c['m']} max_probes="
-              f"{c['max_probes']} matches={int(got[0].sum())}: exact",
-              flush=True)
-    nb, np_ = 1 << 18, 1 << 20
-    bk = torch.randint(-1, 1 << 15, (nb,), generator=gen, device=dev,
-                       dtype=torch.int32)
-    tk, tv = hp.build_table(bk, torch.arange(nb, dtype=torch.int32,
-                                             device=dev), 1 << 19)
-    mp = hp.probe_bound(tk)
-    pk = torch.randint(-1, 1 << 16, (np_,), generator=gen, device=dev,
-                       dtype=torch.int32)
-    got = hp.hash_probe_multi(tk, tv, pk, 4, -1, mp)
-    want = hp.hash_probe_multi_plain(tk, tv, pk, 4, -1, mp)
+
+    def keys(n, hi, off=0):
+        return torch.randint(-1, hi, (n + off,), generator=gen, device=dev,
+                             dtype=torch.int32)[off:]
+
+    def built(nb, pool, t):
+        bk = torch.randint(-1, pool, (nb,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        tk, tv = hp.build_table(bk, torch.arange(nb, dtype=torch.int32,
+                                                 device=dev), t)
+        return tk, tv, hp.probe_bound(tk)
+
+    if case.startswith("duplicates") or case in ("m=1", "m=2", "m=8", "m=9"):
+        tk, tv, mp = built(1 << 18, 1 << 15, 1 << 19)
+        n = 1 << 20 if case.startswith("duplicates") else 1 << 16
+        return [(tk, tv, keys(n, 1 << 16), int(case.split("=")[1]), mp)]
+    if case == "m=300":
+        # 3,000 rows of 10 keys: some 300 rows a key along one cluster
+        tk, tv, mp = built(3000, 10, 4096)
+        return [(tk, tv, keys(2048, 12), 300, mp)]
+    if case == "wrap T=64":
+        tk, tv, _ = built(50, 20, 64)
+        return [(tk, tv, keys(1000, 24), m, 64) for m in (4, 3)]
+    if case == "T=1..8":
+        out = []
+        for t in (1, 2, 4, 8):
+            tk, tv, _ = built(t - 1 if t > 1 else 0, 3, t)
+            out += [(tk, tv, keys(500, 4), m, t) for m in (4, 1, 3)]
+        return out
+    if case == "table view +1":
+        tk, tv, mp = built(2000, 500, 4096)
+        tk2 = torch.empty(4097, dtype=torch.int32, device=dev)
+        tv2 = torch.empty(4097, dtype=torch.int32, device=dev)
+        tk2[1:], tv2[1:] = tk, tv
+        return [(tk2[1:], tv2[1:], keys(10_001, 600), m, mp) for m in (4, 3)]
+    if case == "max_probes 1-7":
+        tk, tv, _ = built(900, 300, 1024)
+        k = keys(1 << 14, 400)
+        return [(tk, tv, k, m, mp) for mp in range(1, 8) for m in (4, 3)]
+    if case == "keys -1":
+        tk, tv, mp = built(150, 100, 256)
+        return [(tk, tv, torch.full((4099,), -1, dtype=torch.int32,
+                                    device=dev), m, mp) for m in (4, 3)]
+    if case == "keys view +1..3":
+        tk, tv, mp = built(2000, 500, 4096)
+        return [(tk, tv, keys(10_001, 600, off), 4, mp) for off in (1, 2, 3)]
+    if case == "n=1..5":
+        tk, tv, mp = built(40, 10, 64)
+        return [(tk, tv, keys(n, 12), m, mp) for n in range(1, 6)
+                for m in (4, 3)]
+    raise ValueError(case)
+
+
+def _multi_entry(torch, hp, tk, tv, pk, m, mp):
+    """``hash_probe_multi`` through its C entry onto a count and slots
+    filled with ``_POISON`` first."""
+    from repro_torch.kernels import build
+    n = pk.shape[0]
+    count = torch.full((n,), _POISON, dtype=torch.int32, device=pk.device)
+    slots = torch.full((n, m), _POISON, dtype=torch.int32, device=pk.device)
+    fn = build.function(hp._LIB, "hash_table_probe_multi",
+                        hp._PROBE_MULTI_ARGTYPES)
+    rc = fn(tk.data_ptr(), tv.data_ptr(), tk.shape[0], min(mp, tk.shape[0]),
+            -1, pk.data_ptr(), n, m, count.data_ptr(), slots.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(hp._LIB, rc, "hash_probe_multi")
+    return count, slots
+
+
+def check_multi_cases(torch, hp, failures):
+    """``_MULTI_CASES`` on the card, counts and every slot of the wrapper's
+    output and of the entry's on patterned outputs each exactly the plain
+    version's. Misses go into ``failures``."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for case in _MULTI_CASES:
+        bad = matches = 0
+        for tk, tv, pk, m, mp in _multi_inputs(torch, hp, case, gen):
+            want = hp.hash_probe_multi_plain(tk, tv, pk, m, -1, mp)
+            matches += int(want[0].sum())
+            for got in (hp.hash_probe_multi(tk, tv, pk, m, -1, mp),
+                        _multi_entry(torch, hp, tk, tv, pk, m, mp)):
+                torch.cuda.synchronize()
+                bad += int((got[0] != want[0]).sum()
+                           + (got[1] != want[1]).sum())
+        if bad:
+            failures.append(f"hash_probe_multi[{case}]: {bad} counts/slots "
+                            "differ from the plain version")
+        print(f"check hash_probe_multi[{case}]: matches={matches}, wrapper "
+              "and patterned outputs: "
+              + ("exact" if not bad else f"{bad} differ"), flush=True)
+
+
+def _multi_args(c):
+    return (c["tk"], c["tv"], c["keys"], c["m"], c["empty"], c["max_probes"])
+
+
+def check_multi_call(torch, hp, c, what):
+    """One captured ``hash_probe_multi`` call against its plain version:
+    counts and every slot (zeros past the count) exact."""
+    got = hp.hash_probe_multi(*_multi_args(c))
+    want = hp.hash_probe_multi_plain(*_multi_args(c))
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        fail("hash_probe_multi duplicates case differs from the plain version")
-    print(f"check hash_probe_multi duplicates: keys={np_} slots=2^19 m=4 "
-          f"max_probes={mp} matches={int(got[0].sum())}: exact", flush=True)
+        fail(f"hash_probe_multi {what} differs from the plain version")
+    print(f"check hash_probe_multi {what}: keys={c['keys'].shape[0]} "
+          f"slots={c['tk'].shape[0]} m={c['m']} max_probes="
+          f"{c['max_probes']} matches={int(got[0].sum())}: exact",
+          flush=True)
+
+
+def check_multi(torch, hp, calls):
+    """hash_probe_multi on every main-path call at one worker (Q9's and
+    Q20's expansion probes: lineitem's and partsupp's composite keys,
+    packed, into the partsupp and the aggregate's tables, m = 4), then
+    ``_MULTI_CASES``."""
+    for c in calls:
+        check_multi_call(torch, hp, c, f"Q{c['q']}")
+    failures = []
+    check_multi_cases(torch, hp, failures)
+    if failures:
+        fail("; ".join(failures))
+
+
+def multi_shape(torch, hp, c, rate):
+    """The shape of a captured expansion probe: its matches, the slots its
+    keys' runs walk a key (home slot to the m-th match, an empty slot or
+    max_probes), whether the table's 8 B a slot fit the L2, and its bound:
+    the keys in, counts and rows out, the table sectors the runs visit."""
+    tk, keys, m = c["tk"], c["keys"], c["m"]
+    t, n = tk.shape[0], keys.shape[0]
+    home, key = hp.hash_home(keys, t), keys
+    count = torch.zeros_like(key)
+    walked = matches = 0
+    for i in range(min(c["max_probes"], t)):
+        walked += key.shape[0]
+        k = tk.index_select(0, (home + i) & (t - 1))
+        count = count + (k == key).to(count.dtype)
+        go = ~((count >= m) | (k == c["empty"]))
+        matches += int(count[~go].sum())
+        home, key, count = home[go], key[go], count[go]
+        if not key.numel():
+            break
+    matches += int(count.sum())
+    b, by = bound_ms(n * (8 + 4 * m) + probe_table_bytes(
+        torch, hp, tk, keys, c["max_probes"], c["empty"], m), n * 8, rate)
+    return dict(keys=n, slots=t, m=m, max_probes=c["max_probes"],
+                matches=matches, mean_walk=walked / max(n, 1),
+                fits_l2=8 * t <= _L2_BYTES, bound_us=b * 1e3, bound_by=by)
+
+
+def report_multi(torch, hp, calls, rate):
+    """Every captured ``hash_probe_multi`` call (``capture_calls`` at W =
+    1, ``capture_workers`` at W = 4), each launched once in profiles of
+    100: a line a call and the sums at each W. Returns the heaviest group
+    of calls (one query, W and shape) of each query."""
+    fns = [lambda c=c: hp.hash_probe_multi(*_multi_args(c)) for c in calls]
+    us = per_call_device_us(torch, fns, _KERNEL_SYMBOLS["hash_probe_multi"])
+    groups, sums = {}, {}
+    for c, u in zip(calls, us):
+        c["shape"], c["device_us"] = multi_shape(torch, hp, c, rate), u
+        print(f"shape hash_probe_multi Q{c['q']} W={c['w']}: "
+              f"{json.dumps(c['shape'])} device_us={u:.3f}", flush=True)
+        groups.setdefault((c["q"], c["w"], c["tk"].shape[0],
+                           c["keys"].shape[0]), []).append(c)
+        s = sums.setdefault(c["w"], [0, 0.0, 0.0])
+        s[0], s[1], s[2] = s[0] + 1, s[1] + u, s[2] + c["shape"]["bound_us"]
+    for w, (k, u, b) in sorted(sums.items()):
+        print(f"shape hash_probe_multi W={w}: {k} calls, device_us {u:.3f}, "
+              f"bound_us {b:.3f}", flush=True)
+    heaviest = {}
+    for key, g in groups.items():
+        best = heaviest.get(key[0])
+        if best is None or (sum(c["device_us"] for c in g)
+                            > sum(c["device_us"] for c in best)):
+            heaviest[key[0]] = g
+    return [heaviest[q] for q in sorted(heaviest)]
+
+
+def multi_rows(torch, hp, calls, rate):
+    """hash_probe_multi's rows of the kernels line, one a query on its
+    heaviest group of main-path calls (``report_multi``): the first call
+    timed (CUDA events; the wrapper's host µs a call), its plain version,
+    its bound; ``device_ms`` the group's mean."""
     rows_out, launchers = [], {}
-    for c in calls["multi"]:
-        args = (c["tk"], c["tv"], c["keys"], c["m"], c["empty"],
-                c["max_probes"])
-        name = f"hash_probe_multi[Q{c['q']}]"
+    for group in report_multi(torch, hp, calls, rate):
+        c = group[0]
+        args = _multi_args(c)
+        name = (f"hash_probe_multi[Q{c['q']}]" if c["w"] == 1
+                else f"hash_probe_multi[Q{c['q']} W={c['w']}]")
         launchers[name] = lambda a=args: hp.hash_probe_multi(*a)
-        n = c["keys"].shape[0]
-        # keys in, counts and the n x m slots out, the table sectors the
-        # keys' runs visit
-        nbytes = n * (8 + 4 * c["m"]) + probe_table_bytes(
-            torch, hp, c["tk"], c["keys"], c["max_probes"], c["empty"],
-            c["m"])
-        b, by = bound_ms(nbytes, n * 8, rate)
-        rows_out.append(dict(
+        row = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/hash_table.cu",
             replaces="src/repro/kernels/hash_probe.py:209", max_abs_err=0.0,
             ms=time_ms(torch, launchers[name]),
-            plain_ms=time_ms(torch, lambda a=args: hp.hash_probe_multi_plain(*a),
-                             reps=3, warm=1),
-            bound_ms=b, bound_by=by, library_ms=None))
+            plain_ms=time_ms(torch, lambda a=args: hp.hash_probe_multi_plain(
+                *a), reps=3, warm=1),
+            bound_ms=c["shape"]["bound_us"] / 1e3,
+            bound_by=c["shape"]["bound_by"], library_ms=None,
+            device_ms=sum(x["device_us"] for x in group) / len(group) / 1e3,
+            host_us=host_us(torch, launchers[name]), calls=len(group),
+            **{k: v for k, v in c["shape"].items()
+               if k not in ("bound_us", "bound_by")})
+        print(f"row {json.dumps(row)}", flush=True)
+        rows_out.append(row)
     return rows_out, launchers
 
 
@@ -1787,14 +2176,18 @@ def capture_workers(torch, hp, fused, catalog):
     metadata phase reads them), every ``hash_probe`` call, and every
     ``build_table`` and fused probe call of the queries of ``_CAPTURED_W``
     (each worker's repartitioned or broadcast build side, its
-    repartitioned probe batches, its morsels)."""
+    repartitioned probe batches, its morsels), and every
+    ``hash_probe_multi`` and ``segmented_minmax`` call."""
     from repro_torch.core import exchange as ex_mod
     from repro_torch.core.session import Session
+    from repro_torch.kernels import segmented_agg as seg
     from repro_torch.tpch import queries
-    calls = {"repartition": [], "build": [], "probe": [], "fused": []}
+    calls = {"repartition": [], "build": [], "probe": [], "fused": [],
+             "multi": [], "minmax": []}
     now = {}
     orig = (ex_mod.ICIExchange.repartition, hp.build_table, hp.hash_probe,
-            fused.fused_morsel_program)
+            fused.fused_morsel_program, hp.hash_probe_multi,
+            seg.segmented_minmax)
     orig_data = ex_mod.ICIExchange.__dict__["_repartition_fused"]
 
     def repartition(self, tables, key_names, num_workers):
@@ -1841,8 +2234,11 @@ def capture_workers(torch, hp, fused, catalog):
     gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
                   num_workers=_WORKERS)
     (ex_mod.ICIExchange.repartition, hp.build_table, hp.hash_probe,
-     fused.fused_morsel_program) = (repartition, build_table, hash_probe,
-                                    fused_morsel_program)
+     fused.fused_morsel_program, hp.hash_probe_multi,
+     seg.segmented_minmax) = (
+        repartition, build_table, hash_probe, fused_morsel_program,
+        _keep_multi(hp, calls["multi"], now, _WORKERS, orig[4]),
+        _keep_minmax(calls["minmax"], now, _WORKERS, orig[5]))
     ex_mod.ICIExchange._repartition_fused = staticmethod(data_phase)
     try:
         for q in _QUERIES:
@@ -1850,7 +2246,8 @@ def capture_workers(torch, hp, fused, catalog):
             gpu.execute(queries.build_query(q, catalog, num_workers=_WORKERS))
     finally:
         (ex_mod.ICIExchange.repartition, hp.build_table, hp.hash_probe,
-         fused.fused_morsel_program) = orig
+         fused.fused_morsel_program, hp.hash_probe_multi,
+         seg.segmented_minmax) = orig
         ex_mod.ICIExchange._repartition_fused = orig_data
     torch.cuda.synchronize()
     for kind in calls:
@@ -1861,12 +2258,19 @@ def capture_workers(torch, hp, fused, catalog):
 
 def check_worker_joins(torch, hp, fused, calls):
     """The join kernels against their plain versions, exact, on every
-    ``build_table``, ``hash_probe`` and fused probe call of the queries of
-    ``_CAPTURED_W`` at ``_WORKERS`` workers (``capture_workers``)."""
+    ``build_table`` and fused probe call of the queries of
+    ``_CAPTURED_W`` and every ``hash_probe``, ``hash_probe_multi`` and
+    ``segmented_minmax`` call at ``_WORKERS`` workers
+    (``capture_workers``)."""
+    from repro_torch.kernels import segmented_agg as seg
     for c in calls["build"]:
         check_build_call(torch, hp, c, f"Q{c['q']} W={_WORKERS}")
     for c in calls["probe"]:
         check_probe_call(torch, hp, c, f"Q{c['q']} W={_WORKERS}")
+    for c in calls["multi"]:
+        check_multi_call(torch, hp, c, f"Q{c['q']} W={_WORKERS}")
+    for c in calls["minmax"]:
+        check_minmax_call(torch, seg, c, f"Q{c['q']} W={_WORKERS}")
     for c in calls["fused"]:
         check_fused_probe_call(torch, fused, c, f"Q{c['q']} W={_WORKERS}")
 
@@ -2029,7 +2433,8 @@ def host_us(torch, fn, reps: int = 200) -> float:
 def per_call_device_us(torch, fns, symbols, per_profile: int = 100):
     """Device microseconds of each call of ``fns``, each of which launches
     one kernel named in ``symbols``: profiles of ``per_profile`` calls in
-    turn, their kernel events taken in order of their start."""
+    turn, their kernel events taken in order of their start. A part whose
+    profiles keep missing an event is profiled again in halves."""
     from torch.autograd import DeviceType
     out = []
     for lo in range(0, len(fns), per_profile):
@@ -2049,7 +2454,10 @@ def per_call_device_us(torch, fns, symbols, per_profile: int = 100):
             print(f"profile of {len(part)} calls: {len(events)} kernel "
                   f"events in attempt {attempt + 1}", flush=True)
         else:
-            fail(f"profile of {len(part)} calls: no kernel event a call")
+            if len(part) == 1:
+                fail(f"profile of {len(part)} calls: no kernel event a call")
+            half = (len(part) + 1) // 2
+            out += per_call_device_us(torch, part, symbols, half)
     return out
 
 
@@ -2845,8 +3253,21 @@ _FAULTS = {
          "const long long hi = r0 > 0 ? 0 : n - r0;", 1)],
     # the segmented sums: a run that crosses a warp step is joined without
     # its part in the steps before
-    "seg_join_drops_carry": [("const A joined = acc.ls + next.fs;",
+    "seg_join_drops_carry": [("const A joined = Op::combine(acc.ls, next.fs);",
                               "const A joined = next.fs;", 1)],
+    # min/max: a NaN folds as the key that loses, so it no longer
+    # propagates
+    "minmax_nan_loses": [("if (x != x) return kMin ? INT_MIN : INT_MAX;",
+                          "if (x != x) return kMin ? INT_MAX : INT_MIN;", 1)],
+    # the expansion probe's whole-row route: only the matches are stored,
+    # the zeros past the count left unwritten
+    "multi_zeros_unwritten": [
+        ("    store_row(slots + i * M, row);",
+         "    for (int j = 0; j < c; ++j) slots[i * M + j] = row[j];", 1)],
+    # the expansion probe's group walk: the first group is read from its
+    # base, not from the home slot (slots before the home visited)
+    "multi_walk_from_group_base": [
+        ("      if (go && j >= (int)(s & 3u)) {", "      if (go) {", 1)],
     # the exchange's metadata pass: a bytes key's first lane is left out of
     # its fold
     "partition_bytes_lane_skipped": [
@@ -2872,6 +3293,10 @@ _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
                 "seg_tail_dropped": ("tail n%4=1", "tail n%4=2",
                                      "tail n%4=3"),
                 "seg_join_drops_carry": ("sorted G=16", "counts G=16"),
+                "minmax_nan_loses": ("specials f32 G=4096",),
+                "multi_zeros_unwritten": ("duplicates m=4",),
+                "multi_walk_from_group_base": ("duplicates m=4",
+                                               "wrap T=64"),
                 "partition_bytes_lane_skipped": ("bytes W=4", "views W=4"),
                 "probe_run_cut_short": ("dense T=1024",)}
 _ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
@@ -2892,8 +3317,11 @@ _FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build"),
                   "tail_group_dropped": (_INTERP_CUH, "--fused"),
                   "seg_tail_dropped": (_SEG_CU, "--segmented"),
                   "seg_join_drops_carry": (_SEG_CU, "--segmented"),
+                  "minmax_nan_loses": (_SEG_CU, "--segmented"),
+                  "multi_zeros_unwritten": (_TABLE_CU, "--probe"),
                   "partition_bytes_lane_skipped": (_RADIX_CU, "--partition"),
-                  "probe_run_cut_short": (_PROBE_CUH, "--probe")}
+                  "probe_run_cut_short": (_PROBE_CUH, "--probe"),
+                  "multi_walk_from_group_base": (_PROBE_CUH, "--probe")}
 # the cases of the fused checks a fault may name (check_fused's views)
 _FUSED_CASES = tuple(f"Q{q}{label}" for q in (1, 6) for label in (
     "", *(f" {v}" for v, _ in _FUSED_VIEWS)))
@@ -2982,8 +3410,9 @@ _PORT_KERNELS = ("segmented_sum_kernel", "fused_morsel_kernel",
                  "build_compact_kernel", "build_sort_kernel",
                  "build_levels_kernel", "build_resolve_kernel",
                  "hash_probe_kernel", "segmented_minmax_kernel",
-                 "fill_kernel", "keys_to_f32_kernel",
-                 "block_prefix_sum_kernel", "hash_probe_multi_kernel",
+                 "fill_kernel", "block_prefix_sum_kernel",
+                 "hash_probe_multi_kernel", "hash_probe_multi_staged_kernel",
+                 "hash_probe_multi_slots_kernel",
                  "histogram_shared_kernel", "histogram_global_kernel",
                  "partition_histogram_kernel",
                  "attn_tf32x3_kernel", "attn_wgmma_kernel",
@@ -3000,9 +3429,10 @@ _KERNEL_SYMBOLS = {
                     "hash_build_claim_kernel", "hash_build_place_kernel"),
     "hash_probe": ("hash_probe_kernel",),
     "block_prefix_sum": ("block_prefix_sum_kernel",),
-    "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel",
-                         "keys_to_f32_kernel"),
-    "hash_probe_multi": ("hash_probe_multi_kernel",),
+    "segmented_minmax": ("segmented_minmax_kernel", "fill_kernel"),
+    "hash_probe_multi": ("hash_probe_multi_kernel",
+                         "hash_probe_multi_staged_kernel",
+                         "hash_probe_multi_slots_kernel"),
     "radix_histogram": ("partition_histogram_kernel",
                         "histogram_shared_kernel", "histogram_global_kernel"),
     "fused_batch_program": ("fused_batch_kernel",),
@@ -3289,12 +3719,13 @@ def main() -> None:
                             stacked_call(torch, fused, catalog, data)),
             check_join(torch, hp, fused, calls, rate),
             check_compact(torch, bps, calls, rate),
-            check_minmax(torch, seg, calls, rate),
-            check_multi(torch, hp, calls, rate),
             check_prefix_code(torch, fused, calls, rate)):
         rows_out += more_rows
         launchers.update(more_launchers)
-    probe_calls = calls["probe"]
+    check_minmax(torch, seg, calls["minmax"])
+    check_multi(torch, hp, calls["multi"])
+    probe_calls, multi_calls, minmax_calls = (calls["probe"], calls["multi"],
+                                              calls["minmax"])
     del calls
 
     launches, gpu, results = run_main_path(torch, data, catalog)
@@ -3302,6 +3733,8 @@ def main() -> None:
     check_worker_joins(torch, hp, fused, w4_calls)
     check_exchange(torch, rh, w4_calls["repartition"])
     probe_calls += w4_calls["probe"]
+    multi_calls += w4_calls["multi"]
+    minmax_calls += w4_calls["minmax"]
     repartitions = w4_calls["repartition"]
     del w4_calls
     w4_launches, gpu4 = run_distributed(torch, catalog, results)
@@ -3326,13 +3759,16 @@ def main() -> None:
     if failures:
         fail("; ".join(failures))
     segmented_device_ms(torch, rows_out, launchers)
-    # the main path's probe and repartition shapes, each call timed
+    # the main path's probe, expansion probe, min/max and repartition
+    # shapes, each call timed
     for more_rows, more_launchers in (
             probe_row(torch, hp, probe_calls, rate),
+            multi_rows(torch, hp, multi_calls, rate),
+            minmax_row(torch, seg, minmax_calls, rate),
             partition_row(torch, rh, repartitions, rate)):
         rows_out += more_rows
         launchers.update(more_launchers)
-    del probe_calls, repartitions
+    del probe_calls, multi_calls, minmax_calls, repartitions
     if args.profile:
         device_ms = profile_kernels(torch, launchers)
         for r in rows_out:

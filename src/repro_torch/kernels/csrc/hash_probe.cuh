@@ -73,4 +73,48 @@ __device__ __forceinline__ int probe_multi(const int32_t* __restrict__ tk,
   return count;
 }
 
+// probe_multi with max_matches = M, the row in registers: row[0..count)
+// the matches in run order, row[count..M) 0. A match goes to the register
+// its index names by an unrolled select, so the row stays out of local
+// memory. The run's keys are read a 16-byte group of 4 slots at a time
+// (tk 16-byte aligned, T >= 4), from the group that holds the home slot:
+// an expansion probe walks on past its match to the run's end (3.4 slots
+// a key at TPC-H Q9), so a group load replaces several scattered ones.
+// The slots are visited in the same order, and the walk stops where
+// probe_multi stops.
+template <int M>
+__device__ __forceinline__ int probe_multi_row(const int32_t* __restrict__ tk,
+                                               const int32_t* __restrict__ tv,
+                                               uint32_t mask, int max_probes,
+                                               int32_t empty_key, int32_t key,
+                                               int32_t (&row)[M]) {
+#pragma unroll
+  for (int j = 0; j < M; ++j) row[j] = 0;
+  const uint32_t home = hash32(key) & mask;
+  int count = 0;
+  int i = 0;
+  bool go = max_probes > 0;
+  while (go) {
+    const uint32_t s = (home + (uint32_t)i) & mask;
+    const uint32_t base = s & ~3u;
+    const int4 q = __ldg(reinterpret_cast<const int4*>(tk + base));
+    const int32_t ks[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (go && j >= (int)(s & 3u)) {
+        if (ks[j] == key) {
+          const int32_t v = __ldg(tv + base + j);
+#pragma unroll
+          for (int c = 0; c < M; ++c)
+            if (c == count) row[c] = v;
+          ++count;
+        }
+        ++i;
+        go = ks[j] != empty_key && i < max_probes && count < M;
+      }
+    }
+  }
+  return count;
+}
+
 }  // namespace repro_hash

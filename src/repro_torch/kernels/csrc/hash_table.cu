@@ -78,6 +78,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 132 * 16;
+// the expansion probe's staged rows: a CTA's shared memory without the
+// opt-in, and the most a block may opt in to on the H100
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
+constexpr size_t kMaxStagedBytes = 227 * 1024;
 constexpr int kChunk = 8;   // rounds between two reads of the unplaced count
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -664,19 +668,100 @@ hash_probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv
   }
 }
 
+// ---------------------------------------------------------------------------
+// the expansion probe
+// ---------------------------------------------------------------------------
+
+// A key a thread, in probe_multi's order. At the main path's shapes (m =
+// 4, up to 2^20 keys; at TPC-H Q9 every key matches and walks on to its
+// run's end, 3.4 slots a key) the cost is in the scattered table reads and
+// the stores. Stored a slot at a time, one warp store instruction writes
+// 32 words 4 m bytes apart (16 sectors, 8 useful bytes each, at m = 4). So
+// the row is built whole before it is stored:
+//   * m = 2, 4, 8 with T >= 4 and tk on a 16-byte boundary
+//     (hash_probe_multi_kernel<M>): the run read a 16-byte group of 4
+//     slots at a time (probe_multi_row<M>), the row in registers, stored
+//     zeros included as one 8- or 16-byte store (two 16-byte stores of one
+//     32-byte sector at m = 8);
+//   * other m, or tables under 4 slots or off their 16-byte boundary,
+//     whose rows fit a CTA's shared memory
+//     (hash_probe_multi_staged_kernel): each thread writes its row (the
+//     matches, then zeros) into the CTA's tile of kThreads rows, and the
+//     CTA stores the tile's words in order;
+//   * wider rows (hash_probe_multi_slots_kernel): a store a slot.
+// Keys are read and counts and rows written with the evict-first hint:
+// streamed once, they leave the L2 to the table.
+
+__device__ __forceinline__ void store_row(int32_t* p, const int32_t (&r)[2]) {
+  __stcs(reinterpret_cast<int2*>(p), make_int2(r[0], r[1]));
+}
+
+__device__ __forceinline__ void store_row(int32_t* p, const int32_t (&r)[4]) {
+  __stcs(reinterpret_cast<int4*>(p), make_int4(r[0], r[1], r[2], r[3]));
+}
+
+__device__ __forceinline__ void store_row(int32_t* p, const int32_t (&r)[8]) {
+  __stcs(reinterpret_cast<int4*>(p), make_int4(r[0], r[1], r[2], r[3]));
+  __stcs(reinterpret_cast<int4*>(p) + 1, make_int4(r[4], r[5], r[6], r[7]));
+}
+
+template <int M>
 __global__ void __launch_bounds__(kThreads)
 hash_probe_multi_kernel(const int32_t* __restrict__ tk,
                         const int32_t* __restrict__ tv, uint32_t mask,
                         int max_probes, int32_t empty_key,
                         const int32_t* __restrict__ keys, long long n,
-                        int max_matches, int32_t* __restrict__ count,
+                        int32_t* __restrict__ count,
                         int32_t* __restrict__ slots) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    count[i] = repro_hash::probe_multi(tk, tv, mask, max_probes, empty_key,
-                                       keys[i], max_matches,
-                                       slots + i * max_matches);
+    int32_t row[M];
+    const int c = repro_hash::probe_multi_row<M>(
+        tk, tv, mask, max_probes, empty_key, __ldcs(keys + i), row);
+    store_row(slots + i * M, row);
+    __stcs(count + i, c);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+hash_probe_multi_staged_kernel(const int32_t* __restrict__ tk,
+                               const int32_t* __restrict__ tv, uint32_t mask,
+                               int max_probes, int32_t empty_key,
+                               const int32_t* __restrict__ keys, long long n,
+                               int max_matches, int32_t* __restrict__ count,
+                               int32_t* __restrict__ slots) {
+  extern __shared__ __align__(16) int32_t staged_rows[];
+  for (long long base = (long long)blockIdx.x * kThreads; base < n;
+       base += (long long)gridDim.x * kThreads) {
+    const long long i = base + threadIdx.x;
+    if (i < n) {
+      __stcs(count + i, repro_hash::probe_multi(
+                            tk, tv, mask, max_probes, empty_key, __ldcs(keys + i),
+                            max_matches, staged_rows + threadIdx.x * max_matches));
+    }
+    __syncthreads();
+    const long long rows = n - base < kThreads ? n - base : kThreads;
+    int32_t* dst = slots + base * max_matches;
+    for (long long w = threadIdx.x; w < rows * max_matches; w += kThreads)
+      __stcs(dst + w, staged_rows[w]);
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+hash_probe_multi_slots_kernel(const int32_t* __restrict__ tk,
+                              const int32_t* __restrict__ tv, uint32_t mask,
+                              int max_probes, int32_t empty_key,
+                              const int32_t* __restrict__ keys, long long n,
+                              int max_matches, int32_t* __restrict__ count,
+                              int32_t* __restrict__ slots) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    __stcs(count + i, repro_hash::probe_multi(tk, tv, mask, max_probes, empty_key,
+                                              __ldcs(keys + i), max_matches,
+                                              slots + i * max_matches));
   }
 }
 
@@ -845,7 +930,9 @@ extern "C" int hash_table_probe(const void* tk, const void* tv, int table_size,
 }
 
 // count[i] = the matches of key i (at most max_matches), slots[i, :count[i]]
-// their values in run order, slots[i, count[i]:] = 0.
+// their values in run order, slots[i, count[i]:] = 0. The route is set by
+// max_matches and, for the whole-row stores, by the alignment of slots and
+// tk and the table's size.
 extern "C" int hash_table_probe_multi(const void* tk, const void* tv,
                                       int table_size, int max_probes,
                                       int empty_key, const void* keys,
@@ -856,12 +943,42 @@ extern "C" int hash_table_probe_multi(const void* tk, const void* tv,
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
-  hash_probe_multi_kernel<<<blocks_for(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tk), static_cast<const int32_t*>(tv),
-      (uint32_t)table_size - 1u, max_probes, (int32_t)empty_key,
-      static_cast<const int32_t*>(keys), n, max_matches,
-      static_cast<int32_t*>(count), static_cast<int32_t*>(slots));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = blocks_for(n);
+  const int32_t* k = static_cast<const int32_t*>(tk);
+  const int32_t* v = static_cast<const int32_t*>(tv);
+  const uint32_t mask = (uint32_t)table_size - 1u;
+  const int32_t* pk = static_cast<const int32_t*>(keys);
+  int32_t* c = static_cast<int32_t*>(count);
+  int32_t* out = static_cast<int32_t*>(slots);
+  // a whole row is one aligned store of 4 m or 16 bytes, the run read in
+  // 16-byte groups of slots
+  const bool rows = (max_matches == 2 || max_matches == 4 || max_matches == 8) &&
+                    reinterpret_cast<uintptr_t>(slots) % (max_matches == 2 ? 8 : 16) == 0 &&
+                    table_size >= 4 && reinterpret_cast<uintptr_t>(tk) % 16 == 0;
+  const size_t staged = (size_t)kThreads * max_matches * sizeof(int32_t);
+  if (rows && max_matches == 2) {
+    hash_probe_multi_kernel<2><<<grid, kThreads, 0, st>>>(
+        k, v, mask, max_probes, empty_key, pk, n, c, out);
+  } else if (rows && max_matches == 4) {
+    hash_probe_multi_kernel<4><<<grid, kThreads, 0, st>>>(
+        k, v, mask, max_probes, empty_key, pk, n, c, out);
+  } else if (rows) {
+    hash_probe_multi_kernel<8><<<grid, kThreads, 0, st>>>(
+        k, v, mask, max_probes, empty_key, pk, n, c, out);
+  } else if (staged <= kMaxStagedBytes) {
+    if (staged > kDefaultSharedBytes) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          hash_probe_multi_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)staged);
+      if (rc != cudaSuccess) return (int)rc;
+    }
+    hash_probe_multi_staged_kernel<<<grid, kThreads, staged, st>>>(
+        k, v, mask, max_probes, empty_key, pk, n, max_matches, c, out);
+  } else {
+    hash_probe_multi_slots_kernel<<<grid, kThreads, 0, st>>>(
+        k, v, mask, max_probes, empty_key, pk, n, max_matches, c, out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -320,29 +320,50 @@ def hash_probe_multi(table_keys: torch.Tensor, table_vals: torch.Tensor,
     ``max_matches`` of them; ``slots[i, count[i]:]`` hold 0 (the kernel
     writes them), so a gather through every slot stays in bounds. A probe
     key equal to ``empty_key`` reports one bogus match, as in the
-    reference; callers mask it."""
+    reference; callers mask it.
+
+    On the card, as ``hash_probe``'s: checks that read the tensors'
+    attributes, one allocation (``slots`` first, so that its rows are
+    aligned for the kernel's whole-row stores, then ``count``), and
+    PyTorch's raw current stream."""
     ops.mark_kernel("probe")
     if not probe_keys.is_cuda:
         return hash_probe_multi_plain(table_keys, table_vals, probe_keys,
                                       max_matches, empty_key, max_probes)
-    _check_probe_args("hash_probe_multi", table_keys, table_vals, probe_keys)
+    t = table_keys.shape[0]
+    n = probe_keys.shape[0]
+    index = probe_keys.get_device()
+    if (table_keys.dtype != torch.int32 or table_vals.dtype != torch.int32
+            or probe_keys.dtype != torch.int32 or table_keys.dim() != 1
+            or probe_keys.dim() != 1 or table_vals.shape != table_keys.shape
+            or table_keys.get_device() != index
+            or table_vals.get_device() != index):
+        # raises, naming the argument at fault
+        _check_probe_args("hash_probe_multi", table_keys, table_vals,
+                          probe_keys)
+    if t & (t - 1) or not 0 < t <= 1 << 30:
+        _check_table_size(t)   # raises
     if not 1 <= max_matches < 2 ** 16:
         raise ValueError(f"hash_probe_multi: max_matches {max_matches} out "
                          "of range")
-    t = table_keys.shape[0]
-    dev = probe_keys.device
-    n = probe_keys.shape[0]
-    count = torch.empty(n, dtype=torch.int32, device=dev)
-    slots = torch.empty((n, max_matches), dtype=torch.int32, device=dev)
+    out = torch.empty(n * (max_matches + 1), dtype=torch.int32,
+                      device=probe_keys.device)
+    slots = out[:n * max_matches].view(n, max_matches)
+    count = out[n * max_matches:]
     if n == 0:
         return count, slots
-    tk, tv, keys = (table_keys.contiguous(), table_vals.contiguous(),
-                    probe_keys.contiguous())
+    if not (table_keys.is_contiguous() and table_vals.is_contiguous()
+            and probe_keys.is_contiguous()):
+        table_keys, table_vals, probe_keys = (
+            table_keys.contiguous(), table_vals.contiguous(),
+            probe_keys.contiguous())
     fn = build.function(_LIB, "hash_table_probe_multi", _PROBE_MULTI_ARGTYPES)
-    rc = fn(tk.data_ptr(), tv.data_ptr(), t, min(max_probes, t), empty_key,
-            keys.data_ptr(), n, max_matches, count.data_ptr(),
-            slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(_LIB, rc, "hash_probe_multi")
+    rc = fn(table_keys.data_ptr(), table_vals.data_ptr(), t,
+            min(max_probes, t), empty_key, probe_keys.data_ptr(), n,
+            max_matches, count.data_ptr(), slots.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        build.check(_LIB, rc, "hash_probe_multi")
     ops.count_launch("hash_probe_multi")
     return count, slots
 

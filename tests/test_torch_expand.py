@@ -1,5 +1,6 @@
 """The port's expansion probe (``repro_torch.kernels.hash_probe``
-``hash_probe_multi``), the expansion join built on it, the expressions the
+``hash_probe_multi``) and a numpy model of its kernel's row store, the
+expansion join built on it, the expressions the
 remaining TPC-H queries add (``BytesMatch``, ``Year``, ``PrefixCode``) and
 the fused kernel's ``PrefixCode`` lowering, against the reference, on
 inputs made from a seed with numpy.
@@ -13,6 +14,8 @@ which follows the CUDA kernel's 32-bit semantics.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -112,6 +115,202 @@ def test_cpu_expansion_probe_marks_probe_and_launches_nothing():
                             torch.arange(5, dtype=torch.int32), 4)
     assert used == {"probe"}
     assert all(v == 0 for v in kernel_ops.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the kernel's row store, as a numpy model
+# ---------------------------------------------------------------------------
+
+_TABLE_SOURCE = (Path(hp.__file__).resolve().parent / "csrc"
+                 / "hash_table.cu").read_text()
+_THREADS = int(re.search(r"constexpr int kThreads = (\d+);",
+                         _TABLE_SOURCE).group(1))
+_MAX_STAGED = eval(re.search(  # noqa: S307
+    r"constexpr size_t kMaxStagedBytes = ([^;]+);", _TABLE_SOURCE).group(1))
+_POISON = np.int32(0x5A5A5A5A)
+
+
+def _homes(keys, t):
+    x = keys.astype(np.int32).view(np.uint32)
+    x = x ^ (x >> np.uint32(16))
+    x = (x.astype(np.uint64) * np.uint64(0x85EBCA6B)).astype(np.uint32)
+    x = x ^ (x >> np.uint32(13))
+    return (x & np.uint32(t - 1)).astype(np.int64)
+
+
+def _walk(tk, tv, key, home, max_probes, empty_key, m):
+    """``probe_multi``'s walk of one key: its matches in run order."""
+    t, out = len(tk), []
+    for i in range(min(max_probes, t)):
+        if len(out) >= m:
+            break
+        s = (home + i) & (t - 1)
+        if tk[s] == key:
+            out.append(int(tv[s]))
+        if tk[s] == empty_key:
+            break
+    return out
+
+
+def _walk_groups(tk, tv, key, home, max_probes, empty_key, m):
+    """``probe_multi_row``'s walk of one key: the run read a 16-byte group
+    of 4 slots at a time from the group that holds the home slot, the
+    slots before the home skipped; its matches in run order."""
+    t, out = len(tk), []
+    i, go = 0, min(max_probes, t) > 0
+    while go:
+        s = (home + i) & (t - 1)
+        base = s & ~3
+        for j in range(4):
+            if go and j >= (s & 3):
+                k = tk[base + j]
+                if k == key:
+                    out.append(int(tv[base + j]))
+                i += 1
+                go = k != empty_key and i < min(max_probes, t) and len(out) < m
+    return out
+
+
+def multi_model(tk, tv, keys, m, max_probes, empty_key=-1, slots_addr=0,
+                tk_addr=0):
+    """``hash_table_probe_multi`` on numpy arrays, onto a count and slots
+    that hold ``_POISON`` first, the route chosen as the entry chooses it
+    (``slots_addr`` the slots' address, ``tk_addr`` the table keys'):
+    (count, slots, route). "row": m of 2, 4, 8 with rows aligned for one
+    store of min(4 m, 16) bytes and a table of 4 slots or more on a 16-byte
+    boundary, the run walked in groups of 4 slots and the row (matches,
+    then zeros) stored whole; "staged": a CTA's rows written into a tile of
+    shared memory (matches, then zeros), the tile's words stored in order;
+    "slots": a store a slot, the matches, then zeros."""
+    n = len(keys)
+    count = np.full(n, _POISON, np.int32)
+    slots = np.full((n, m), _POISON, np.int32)
+    aligned = slots_addr % min(4 * m, 16) == 0
+    if (aligned and m in (2, 4, 8) and len(tk) >= 4
+            and tk_addr % 16 == 0):
+        route = "row"
+    elif _THREADS * m * 4 <= _MAX_STAGED:
+        route = "staged"
+    else:
+        route = "slots"
+    home = _homes(keys, len(tk))
+    walk = _walk_groups if route == "row" else _walk
+    rows = [walk(tk, tv, keys[i], home[i], max_probes, empty_key, m)
+            for i in range(n)]
+    flat = slots.reshape(-1)
+    if route == "staged":
+        for base in range(0, n, _THREADS):
+            tile = np.full(_THREADS * m, _POISON, np.int32)
+            for j, row in enumerate(rows[base:base + _THREADS]):
+                tile[j * m:(j + 1) * m] = row + [0] * (m - len(row))
+                count[base + j] = len(row)
+            words = min(_THREADS, n - base) * m
+            flat[base * m:base * m + words] = tile[:words]
+    else:
+        for i, row in enumerate(rows):
+            slots[i] = row + [0] * (m - len(row))
+            count[i] = len(row)
+    return count, slots, route
+
+
+def _model_table(case, seed):
+    """(table keys, table values, probe keys, max_probes) of a model case:
+    "duplicates" (up to 12 rows a key, past m; hits, misses, -1),
+    "wrapping" (a 64-slot table 80% full whose runs wrap at T),
+    "cut" (a full run cut by max_probes 3), "empty_key" (every probe key
+    -1)."""
+    rng = np.random.default_rng(seed)
+    nb, pool, t, probe_hi = {"duplicates": (700, 120, 2048, 160),
+                             "wrapping": (51, 30, 64, 40),
+                             "cut": (900, 200, 1024, 260),
+                             "empty_key": (100, 50, 256, 0)}[case]
+    while True:
+        bk = rng.integers(-1 if case in ("duplicates", "wrapping") else 0,
+                          pool, nb).astype(np.int32)
+        tk, tv = ref_hp.build_table(jnp.asarray(bk),
+                                    jnp.arange(nb, dtype=jnp.int32), t,
+                                    empty_key=-1)
+        tk, tv = np.array(tk), np.array(tv)
+        # the wrapping case's table has a run across slot 0
+        if case != "wrapping" or (tk[0] != -1 and tk[-1] != -1):
+            break
+    probe = (rng.integers(-1, probe_hi, 1500).astype(np.int32) if probe_hi
+             else np.full(1500, -1, np.int32))
+    mp = 3 if case == "cut" else ref_ops._probe_bound(tk)
+    return tk, tv, probe, mp
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 9])
+@pytest.mark.parametrize("case", ["duplicates", "wrapping", "cut",
+                                  "empty_key"])
+def test_row_store_model_matches_reference(case, m):
+    tk, tv, probe, mp = _model_table(case, seed=len(case) + m)
+    count, slots, route = multi_model(tk, tv, probe, m, mp)
+    assert route == ("row" if m in (4, 8) else "staged")
+    want_c, want_s = ref_hp.hash_probe_multi(
+        jnp.asarray(tk), jnp.asarray(tv), jnp.asarray(probe), m,
+        empty_key=-1, max_probes=mp, interpret=True)
+    want_c, want_s = np.asarray(want_c), np.asarray(want_s)
+    np.testing.assert_array_equal(count, want_c)
+    live = np.arange(m)[None, :] < want_c[:, None]
+    np.testing.assert_array_equal(slots[live], want_s[live])
+    # every slot past the count is written, with 0
+    assert (slots[~live] == 0).all()
+    if case == "duplicates":
+        assert (count == m).any() and (count == 0).any()
+    if case == "empty_key":
+        assert (count == 1).all()          # the first empty slot, a match
+    # the plain version agrees, zeros included
+    pc, ps = hp.hash_probe_multi_plain(torch.from_numpy(tk),
+                                       torch.from_numpy(tv),
+                                       torch.from_numpy(probe), m, -1, mp)
+    np.testing.assert_array_equal(pc.numpy(), count)
+    np.testing.assert_array_equal(ps.numpy(), slots)
+
+
+@pytest.mark.parametrize("m,addr,route", [
+    (4, 0, "row"), (4, 8, "staged"), (2, 4, "staged"), (8, 16, "row"),
+    (3, 0, "staged"), (_MAX_STAGED // (4 * _THREADS), 0, "staged"),
+    (_MAX_STAGED // (4 * _THREADS) + 1, 0, "slots")])
+def test_row_store_routes(m, addr, route):
+    """Each route writes the same rows: a misaligned base leaves the
+    whole-row store for the staged one; rows past a CTA's shared memory
+    take a store a slot."""
+    tk, tv, probe, mp = _model_table("duplicates", seed=m)
+    probe = probe[:300]
+    count, slots, got = multi_model(tk, tv, probe, m, mp, slots_addr=addr)
+    assert got == route
+    pc, ps = hp.hash_probe_multi_plain(torch.from_numpy(tk),
+                                       torch.from_numpy(tv),
+                                       torch.from_numpy(probe), m, -1, mp)
+    np.testing.assert_array_equal(pc.numpy(), count)
+    np.testing.assert_array_equal(ps.numpy(), slots)
+
+
+@pytest.mark.parametrize("t,tk_addr,route", [
+    (1, 0, "staged"), (2, 0, "staged"), (4, 0, "row"), (8, 0, "row"),
+    (64, 4, "staged"), (64, 0, "row")])
+def test_group_walk_route_needs_the_table(t, tk_addr, route):
+    """The group walk takes a table of 4 slots or more on a 16-byte
+    boundary; a smaller table or one off its boundary stages its rows.
+    Either walk gives the plain version's rows, runs that wrap at T and
+    max_probes cut short included."""
+    rng = np.random.default_rng(t + tk_addr)
+    bk = rng.integers(-1, max(t // 2, 2), max(t - 1, 0)).astype(np.int32)
+    tk, tv = ref_hp.build_table(jnp.asarray(bk),
+                                jnp.arange(len(bk), dtype=jnp.int32), t,
+                                empty_key=-1)
+    tk, tv = np.array(tk), np.array(tv)
+    probe = rng.integers(-1, max(t // 2, 2) + 2, 400).astype(np.int32)
+    for mp in range(1, t + 1):
+        count, slots, got = multi_model(tk, tv, probe, 4, mp,
+                                        tk_addr=tk_addr)
+        assert got == route
+        pc, ps = hp.hash_probe_multi_plain(torch.from_numpy(tk),
+                                           torch.from_numpy(tv),
+                                           torch.from_numpy(probe), 4, -1, mp)
+        np.testing.assert_array_equal(pc.numpy(), count)
+        np.testing.assert_array_equal(ps.numpy(), slots)
 
 
 # ---------------------------------------------------------------------------

@@ -51,16 +51,18 @@ def test_fault_edits_occur_as_often_as_they_say(fault):
 def test_fault_cases_name_phase_9_cases(fault):
     """A fault's cases are cases of the run that must catch it: phase 9's
     for the attention faults, the build checks' for the build's, the fused
-    checks' for the fused kernels', the segmented cases' for the segmented
-    sums', the probe's cases for the probe's, the metadata pass's for its
-    own."""
+    checks' for the fused kernels', the segmented sums' and min/max's
+    cases for theirs, the two probes' cases for theirs, the metadata
+    pass's for its own."""
     assert fault in chip_smoke._FAULTS
     _, option = chip_smoke.fault_target(fault)
     cases = {"--attention": {c[0] for c in chip_smoke._ATTN_CASES},
              "--build": set(chip_smoke._BUILD_CASES),
              "--fused": set(chip_smoke._FUSED_CASES),
-             "--segmented": set(chip_smoke._SEG_CASES),
-             "--probe": set(chip_smoke._PROBE_CASES),
+             "--segmented": (set(chip_smoke._SEG_CASES)
+                             | set(chip_smoke._MINMAX_CASES)),
+             "--probe": (set(chip_smoke._PROBE_CASES)
+                         | set(chip_smoke._MULTI_CASES)),
              "--partition": set(chip_smoke._PART_CASES)}[option]
     assert set(chip_smoke._FAULT_CASES[fault]) <= cases
 

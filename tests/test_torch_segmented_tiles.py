@@ -1,5 +1,6 @@
 """The segmented sums' partition (``csrc/segmented_agg.cu``,
-``segmented_sum_kernel``) as a numpy model on the CPU, against the plain
+``segmented_sum_kernel``) as a numpy model on the CPU
+(``torch_diff.emulate_segmented`` with ``SumOp``), against the plain
 versions (``segmented_sum_plain``, ``segmented_int_sum_plain``) and the
 reference's Pallas kernels in interpret mode.
 
@@ -21,261 +22,28 @@ Int sums are exact (unsigned arithmetic, wrapping); float sums are held
 to the tolerance of ``tests/test_torch_kernels.py``.
 """
 
-import re
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
+import torch_diff as td
 
 import jax.numpy as jnp
 
 from repro.kernels import segmented_agg as ref_seg
 from repro_torch.kernels import segmented_agg as seg
 
-SOURCE = (Path(seg.__file__).resolve().parent / "csrc"
-          / "segmented_agg.cu").read_text()
-
-
-def _const(name, **earlier):
-    """A ``constexpr int`` of the source, in C's integer arithmetic over the
-    constants ``earlier`` names."""
-    m = re.search(rf"constexpr int {name} = ([^;]+);", SOURCE)
-    return eval(m.group(1).replace("/", "//"), earlier)  # noqa: S307
-
-
-THREADS = _const("kThreads")
-CHUNK = _const("kChunkRows")
-WARPS = _const("kWarps", kThreads=THREADS)
-STEPS_AHEAD = _const("kStepsAhead")
-RANGE_STEPS = _const("kRangeSteps")
-SHARED_GROUPS = _const("kSharedGroups")
-TILE = THREADS * CHUNK
-
-
-class Trace:
-    """What a model run did: the adds (("fold" for a run's add, "flush"
-    for a shared partial's; the range, or the CTA for a flush; the group;
-    the sum)), the chunks whose values were loaded, and the chunks with a
-    live id."""
-
-    def __init__(self):
-        self.adds = []
-        self.value_chunks = []
-        self.live_chunks = []
-
-
-def _shfl_up(x, d):
-    return [x[i - d] if i >= d else x[i] for i in range(32)]
-
-
-def _warp_sum(xs, acc):
-    """``warp_sum``: the xor butterfly for floats, a plain wrapping sum
-    (``__reduce_add_sync``) for ints."""
-    if acc is np.uint32:
-        return acc(sum(int(x) for x in xs) & 0xFFFFFFFF)
-    xs = list(xs)
-    for off in (16, 8, 4, 2, 1):
-        xs = [acc(xs[i] + xs[i ^ off]) for i in range(32)]
-    return xs[0]
-
-
-def _add(a, b, acc):
-    if acc is np.uint32:
-        return acc((int(a) + int(b)) & 0xFFFFFFFF)
-    return acc(a + b)
-
-
-def fold_chunk(g, v, acc, add):
-    """``fold_chunk``: (have, [fk, fs, lk, ls, one])."""
-    have, fk, lk, fs, ls, one = False, -1, -1, acc(0), acc(0), True
-    for k in range(CHUNK):
-        if g[k] < 0:
-            continue
-        if not have:
-            have, fk, lk, ls = True, g[k], g[k], v[k]
-        elif g[k] == lk:
-            ls = _add(ls, v[k], acc)
-        else:
-            if one:
-                fs, one = ls, False
-            else:
-                add(lk, ls)
-            lk, ls = g[k], v[k]
-    if one:
-        fs = ls
-    return have, [fk, fs, lk, ls, one]
-
-
-def fold_warp(have, lanes, acc, add):
-    """``fold_warp`` over 32 lanes' runs ([fk, fs, lk, ls, one] each):
-    None when no lane has a live row, else the joined [fk, fs, lk, ls,
-    one]."""
-    live = [i for i in range(32) if have[i]]
-    if not live:
-        return None
-    fk, fs, lk, ls, one = (list(x) for x in zip(*lanes))
-    if len(live) < 32:
-        src = {i: (lk[max(j for j in live if j < i)] if any(j < i for j in live)
-                   else fk[min(j for j in live if j > i)])
-               for i in range(32) if not have[i]}
-        for i, k in src.items():
-            fk[i] = lk[i] = k
-            fs[i] = ls[i] = acc(0)
-            one[i] = True
-    k0 = fk[0]
-    if all(one[i] and fk[i] == k0 for i in range(32)):
-        s = _warp_sum(ls, acc)
-        return [k0, s, k0, s, True]
-    prev_lk = _shfl_up(lk, 1)
-    next_fk = fk[1:] + [fk[31]]
-    joins = [i > 0 and prev_lk[i] == fk[i] for i in range(32)]
-    heads = [not (joins[i] and one[i]) for i in range(32)]
-    start = [max(j for j in range(i + 1) if heads[j]) for i in range(32)]
-    s = list(ls)
-    for off in (1, 2, 4, 8, 16):
-        o = _shfl_up(s, off)
-        s = [_add(s[i], o[i], acc) if i - off >= start[i] else s[i]
-             for i in range(32)]
-    s_prev, start_prev, one0 = _shfl_up(s, 1), _shfl_up(start, 1), one[0]
-    ends = [i == 31 or next_fk[i] != lk[i] for i in range(32)]
-    holders = []
-    for i in range(32):
-        if not one[i]:
-            e = _add(fs[i], s_prev[i], acc) if joins[i] else fs[i]
-            if i == 0 or (joins[i] and start_prev[i] == 0 and one0):
-                holders.append((i, e))
-            else:
-                add(fk[i], e)
-            if i != 31 and ends[i]:
-                add(lk[i], s[i])
-        elif ends[i]:
-            if start[i] == 0 and one0:
-                holders.append((i, s[i]))
-            elif i != 31:
-                add(lk[i], s[i])
-    assert len(holders) == 1, holders
-    i, first = holders[0]
-    assert i != 31 or not one[31]
-    return [fk[i], first, lk[31], s[31], False]
-
-
-def join_runs(state, nxt, acc, add):
-    """``join_runs``: ``state`` = [open, [fk, fs, lk, ls, one]] followed by
-    the runs ``nxt``."""
-    if not state[0]:
-        state[:] = [True, list(nxt)]
-        return
-    a = state[1]
-    afk, afs, alk, als, aone = a
-    nfk, nfs, nlk, nls, none = nxt
-    if alk == nfk:
-        joined = _add(als, nfs, acc)
-        if aone and none:
-            a[1] = a[3] = joined
-        elif aone:
-            a[:] = [afk, joined, nlk, nls, False]
-        elif none:
-            a[3] = joined
-        else:
-            add(alk, joined)
-            a[2], a[3] = nlk, nls
-    else:
-        if not aone:
-            add(alk, als)
-        if not none:
-            add(nfk, nfs)
-        a[2], a[3], a[4] = nlk, nls, False
-
-
-def _model_range(gids, vals, num_groups, n, a, vec, s_begin, s_end, acc,
-                 trace, k, dest):
-    """One warp's range of steps: its adds go to ``dest`` (the CTA's shared
-    partials, or the output)."""
-    def add(key, s):
-        assert 0 <= key < num_groups
-        trace.adds.append(("fold", k, key, s))
-        dest[key] = _add(dest[key], s, acc)
-
-    state = [False, [-1, acc(0), -1, acc(0), True]]
-    for st in range(s_begin, s_end, STEPS_AHEAD):
-        loaded = []
-        for u in range(STEPS_AHEAD):
-            step = []
-            for lane in range(32):
-                r0 = ((st + u) * 32 + lane) * CHUNK - a
-                g = [int(gids[r]) if st + u < s_end and 0 <= r < n else -1
-                     for r in range(r0, r0 + CHUNK)]
-                step.append((r0, [x if 0 <= x < num_groups else -1
-                                  for x in g]))
-            loaded.append(step)
-        if all(x < 0 for step in loaded for _, g in step for x in g):
-            continue        # no live id in the warp's steps
-        values = []
-        for u, step in enumerate(loaded):
-            vs = []
-            for lane, (r0, g) in enumerate(step):
-                v = [acc(0)] * CHUNK
-                if any(x >= 0 for x in g):
-                    chunk = (st + u) * 32 + lane
-                    trace.live_chunks.append(chunk)
-                    trace.value_chunks.append(chunk)
-                    full = vec and r0 >= 0 and r0 + CHUNK <= n
-                    v = [vals[r0 + j] if (full or g[j] >= 0) else acc(0)
-                         for j in range(CHUNK)]
-                vs.append(v)
-            values.append(vs)
-        for u in range(STEPS_AHEAD):
-            have, lanes = [], []
-            for lane in range(32):
-                h, r = fold_chunk(loaded[u][lane][1], values[u][lane], acc,
-                                  add)
-                have.append(h)
-                lanes.append(r)
-            w = fold_warp(have, lanes, acc, add)
-            if w is not None:
-                join_runs(state, w, acc, add)
-    if state[0]:
-        fk, fs, lk, ls, one = state[1]
-        add(fk, fs)
-        if not one:
-            add(lk, ls)
+CHUNK = td.SEG_CHUNK
+RANGE_STEPS = td.SEG_RANGE_STEPS
+TILE = td.SEG_THREADS * CHUNK
 
 
 def model(gids, vals, num_groups, grid, id_offset=0, val_offset=0):
     """One launch of ``segmented_sum_kernel`` on ``grid`` CTAs (the launch
     takes min(resident CTAs, tiles)), with the ids' base ``id_offset`` and
-    the values' ``val_offset`` rows past a 16-byte boundary: (out, Trace)."""
-    acc = np.uint32 if vals.dtype == np.int32 else np.float32
-    vals = vals.view(np.uint32) if acc is np.uint32 else vals
-    n = len(gids)
-    out = np.zeros(num_groups, acc)
-    trace = Trace()
-    if n == 0 or num_groups == 0:
-        return out.view(np.int32) if acc is np.uint32 else out, trace
-    a = id_offset % CHUNK
-    vec = val_offset % CHUNK == a
-    chunks = -(-(n + a) // CHUNK)
-    steps = -(-chunks // 32)
-    grid = min(grid, -(-chunks // THREADS))
-    warps = grid * WARPS
-    rng = -(-steps // warps)
-    rng = min(-(-rng // STEPS_AHEAD) * STEPS_AHEAD, RANGE_STEPS)
-    shared = num_groups <= SHARED_GROUPS
-    for b in range(grid):
-        part = np.zeros(num_groups, acc) if shared else None
-        for warp in range(WARPS):
-            k = b * WARPS + warp
-            while k * rng < steps:
-                _model_range(gids, vals, num_groups, n, a, vec, k * rng,
-                             min((k + 1) * rng, steps), acc, trace, k,
-                             part if shared else out)
-                k += warps
-        if shared:
-            for g in np.nonzero(part)[0]:
-                trace.adds.append(("flush", b, int(g), part[g]))
-                out[g] = _add(out[g], part[g], acc)
-    return (out.view(np.int32) if acc is np.uint32 else out), trace
+    the values' ``val_offset`` rows past a 16-byte boundary: (out, trace),
+    ``torch_diff.emulate_segmented`` with the sums' ``SumOp``."""
+    return td.emulate_segmented(gids, vals, num_groups, grid,
+                                td.SumOp(vals.dtype), id_offset, val_offset)
 
 
 # ---------------------------------------------------------------------------

@@ -28,12 +28,22 @@
   on the first int32 key column's 16-byte boundaries (else the pids'), the
   arrays it loads whole checked to be aligned, every row covered once, no
   key read for a chunk of dead rows, and the hash in uint32.
+* ``emulate_segmented`` runs the segmented reductions of
+  ``kernels/csrc/segmented_agg.cu`` (``reduce_rows``, one template over
+  the combining operation) step by step: the 4-row chunks on the ids'
+  16-byte grid, no value load for a dead chunk, warp steps, ranges dealt
+  to the warps, the folds and joins of runs with the shuffles' semantics,
+  the shared partials, and the output's updates (``SumOp``'s adds, or
+  ``MinMaxOp``'s sign-split integer atomics on the float bits), applied in
+  a shuffled order on request.
 * ``seeded_columns`` makes a small morsel's worth of columns from a seed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -687,3 +697,353 @@ def emulate_partition(key_cols_per_source, validity_per_source, w,
         at += n
     return np.concatenate(pids) if pids else np.zeros(0, np.int32), \
         counts.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the segmented reductions, as the kernel walks them
+# ---------------------------------------------------------------------------
+
+_SEG_SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+               / "kernels" / "csrc" / "segmented_agg.cu")
+
+
+def _seg_const(name, **earlier):
+    """A ``constexpr int`` of ``csrc/segmented_agg.cu``, in C's integer
+    arithmetic over the constants ``earlier`` names."""
+    m = re.search(rf"constexpr int {name} = ([^;]+);", _SEG_SOURCE.read_text())
+    return eval(m.group(1).replace("/", "//"), earlier)  # noqa: S307
+
+
+SEG_THREADS = _seg_const("kThreads")
+SEG_CHUNK = _seg_const("kChunkRows")
+SEG_WARPS = _seg_const("kWarps", kThreads=SEG_THREADS)
+SEG_STEPS_AHEAD = _seg_const("kStepsAhead")
+SEG_RANGE_STEPS = _seg_const("kRangeSteps")
+SEG_SHARED_GROUPS = _seg_const("kSharedGroups")
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+class SumOp:
+    """``SumOp<T>``: float32 sums (the xor butterfly for a warp), or int32
+    sums in uint32, wrapping."""
+
+    def __init__(self, dtype):
+        self.acc = np.uint32 if np.dtype(dtype) == np.int32 else np.float32
+        self.identity = self.acc(0)
+
+    def of(self, vals):
+        return vals.view(np.uint32) if self.acc is np.uint32 else vals
+
+    def combine(self, a, b):
+        if self.acc is np.uint32:
+            return self.acc((int(a) + int(b)) & 0xFFFFFFFF)
+        return self.acc(a + b)
+
+    def warp_all(self, xs):
+        if self.acc is np.uint32:
+            return self.acc(sum(int(x) for x in xs) & 0xFFFFFFFF)
+        xs = list(xs)
+        for off in (16, 8, 4, 2, 1):
+            xs = [self.acc(xs[i] + xs[i ^ off]) for i in range(32)]
+        return xs[0]
+
+    def out_init(self, g):
+        return np.zeros(g, self.acc)
+
+    def to_out(self, out, g, v):
+        out[g] = self.combine(out[g], v)
+
+    def result(self, out):
+        return out.view(np.int32) if self.acc is np.uint32 else out
+
+
+def f32_keys(vals, kind):
+    """The kernel's int32 key of each float32: signed order = the IEEE
+    total order; a NaN is the key that wins (INT_MIN for min, INT_MAX for
+    max)."""
+    b = vals.view(np.int32).astype(np.int64)
+    k = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return np.where(np.isnan(vals), _I32_MIN if kind == "min" else _I32_MAX,
+                    k).astype(np.int64)
+
+
+def key_bits(k):
+    """A key's float bits as an int32 (the map is its own inverse)."""
+    k = int(k)
+    return k ^ ((k >> 31) & 0x7FFFFFFF)
+
+
+class MinMaxOp:
+    """``MinMaxOp<T, kMin>``: int32 keys (float32 values by ``f32_keys``),
+    min or max; the output updated by the sign-split integer atomics on the
+    float bits (int32 by plain min/max)."""
+
+    def __init__(self, dtype, kind):
+        self.float = np.dtype(dtype) == np.float32
+        self.min = kind == "min"
+        self.kind = kind
+        pick = min if self.min else max
+        self.combine = lambda a, b: pick(a, b)
+        if self.float:
+            inf = np.array([np.inf if self.min else -np.inf], np.float32)
+            self.identity = int(f32_keys(inf, kind)[0])
+            self.out_identity = int(inf.view(np.int32)[0])
+        else:
+            self.identity = _I32_MAX if self.min else _I32_MIN
+            self.out_identity = self.identity
+
+    def of(self, vals):
+        if self.float:
+            return f32_keys(vals, self.kind)
+        return vals.astype(np.int64)
+
+    def warp_all(self, xs):
+        return min(xs) if self.min else max(xs)
+
+    def out_init(self, g):
+        return np.full(g, self.out_identity, np.int64)
+
+    def to_out(self, out, g, v):
+        if not self.float:
+            out[g] = self.combine(int(out[g]), int(v))
+            return
+        bits, cur = key_bits(v), int(out[g])
+        if bits >= 0:
+            # atomicMin / atomicMax on int
+            out[g] = min(cur, bits) if self.min else max(cur, bits)
+        else:
+            # atomicMax / atomicMin on unsigned
+            u, ucur = bits & 0xFFFFFFFF, cur & 0xFFFFFFFF
+            w = max(ucur, u) if self.min else min(ucur, u)
+            out[g] = w - (1 << 32) if w >= 1 << 31 else w
+
+    def result(self, out):
+        o = out.astype(np.int32)
+        return o.view(np.float32) if self.float else o
+
+
+class SegTrace:
+    """What a model run did: the updates ("fold" for a run's, "flush" for a
+    shared partial's; the range, or the CTA for a flush; the group; the
+    value), the chunks whose values were loaded, and the chunks with a live
+    id."""
+
+    def __init__(self):
+        self.adds = []
+        self.value_chunks = []
+        self.live_chunks = []
+
+
+def _shfl_up(x, d):
+    return [x[i - d] if i >= d else x[i] for i in range(32)]
+
+
+def seg_fold_chunk(g, v, op, add):
+    """``fold_chunk``: (have, [fk, fs, lk, ls, one])."""
+    have, fk, lk, fs, ls, one = (False, -1, -1, op.identity, op.identity,
+                                 True)
+    for k in range(SEG_CHUNK):
+        if g[k] < 0:
+            continue
+        if not have:
+            have, fk, lk, ls = True, g[k], g[k], v[k]
+        elif g[k] == lk:
+            ls = op.combine(ls, v[k])
+        else:
+            if one:
+                fs, one = ls, False
+            else:
+                add(lk, ls)
+            lk, ls = g[k], v[k]
+    if one:
+        fs = ls
+    return have, [fk, fs, lk, ls, one]
+
+
+def seg_fold_warp(have, lanes, op, add):
+    """``fold_warp`` over 32 lanes' runs ([fk, fs, lk, ls, one] each):
+    None when no lane has a live row, else the joined [fk, fs, lk, ls,
+    one]."""
+    live = [i for i in range(32) if have[i]]
+    if not live:
+        return None
+    fk, fs, lk, ls, one = (list(x) for x in zip(*lanes))
+    if len(live) < 32:
+        src = {i: (lk[max(j for j in live if j < i)] if any(j < i for j in live)
+                   else fk[min(j for j in live if j > i)])
+               for i in range(32) if not have[i]}
+        for i, k in src.items():
+            fk[i] = lk[i] = k
+            fs[i] = ls[i] = op.identity
+            one[i] = True
+    k0 = fk[0]
+    if all(one[i] and fk[i] == k0 for i in range(32)):
+        s = op.warp_all(ls)
+        return [k0, s, k0, s, True]
+    prev_lk = _shfl_up(lk, 1)
+    next_fk = fk[1:] + [fk[31]]
+    joins = [i > 0 and prev_lk[i] == fk[i] for i in range(32)]
+    heads = [not (joins[i] and one[i]) for i in range(32)]
+    start = [max(j for j in range(i + 1) if heads[j]) for i in range(32)]
+    s = list(ls)
+    for off in (1, 2, 4, 8, 16):
+        o = _shfl_up(s, off)
+        s = [op.combine(s[i], o[i]) if i - off >= start[i] else s[i]
+             for i in range(32)]
+    s_prev, start_prev, one0 = _shfl_up(s, 1), _shfl_up(start, 1), one[0]
+    ends = [i == 31 or next_fk[i] != lk[i] for i in range(32)]
+    holders = []
+    for i in range(32):
+        if not one[i]:
+            e = op.combine(fs[i], s_prev[i]) if joins[i] else fs[i]
+            if i == 0 or (joins[i] and start_prev[i] == 0 and one0):
+                holders.append((i, e))
+            else:
+                add(fk[i], e)
+            if i != 31 and ends[i]:
+                add(lk[i], s[i])
+        elif ends[i]:
+            if start[i] == 0 and one0:
+                holders.append((i, s[i]))
+            elif i != 31:
+                add(lk[i], s[i])
+    assert len(holders) == 1, holders
+    i, first = holders[0]
+    assert i != 31 or not one[31]
+    return [fk[i], first, lk[31], s[31], False]
+
+
+def seg_join_runs(state, nxt, op, add):
+    """``join_runs``: ``state`` = [open, [fk, fs, lk, ls, one]] followed by
+    the runs ``nxt``."""
+    if not state[0]:
+        state[:] = [True, list(nxt)]
+        return
+    a = state[1]
+    afk, afs, alk, als, aone = a
+    nfk, nfs, nlk, nls, none = nxt
+    if alk == nfk:
+        joined = op.combine(als, nfs)
+        if aone and none:
+            a[1] = a[3] = joined
+        elif aone:
+            a[:] = [afk, joined, nlk, nls, False]
+        elif none:
+            a[3] = joined
+        else:
+            add(alk, joined)
+            a[2], a[3] = nlk, nls
+    else:
+        if not aone:
+            add(alk, als)
+        if not none:
+            add(nfk, nfs)
+        a[2], a[3], a[4] = nlk, nls, False
+
+
+def _seg_range(gids, vals, num_groups, n, a, vec, s_begin, s_end, op, trace,
+               k, add):
+    """One warp's range of steps; ``add(key, v)`` takes its updates."""
+    def fold_add(key, v):
+        assert 0 <= key < num_groups
+        trace.adds.append(("fold", k, key, v))
+        add(key, v)
+
+    state = [False, [-1, op.identity, -1, op.identity, True]]
+    for st in range(s_begin, s_end, SEG_STEPS_AHEAD):
+        loaded = []
+        for u in range(SEG_STEPS_AHEAD):
+            step = []
+            for lane in range(32):
+                r0 = ((st + u) * 32 + lane) * SEG_CHUNK - a
+                g = [int(gids[r]) if st + u < s_end and 0 <= r < n else -1
+                     for r in range(r0, r0 + SEG_CHUNK)]
+                step.append((r0, [x if 0 <= x < num_groups else -1
+                                  for x in g]))
+            loaded.append(step)
+        if all(x < 0 for step in loaded for _, g in step for x in g):
+            continue        # no live id in the warp's steps
+        values = []
+        for u, step in enumerate(loaded):
+            vs = []
+            for lane, (r0, g) in enumerate(step):
+                v = [op.identity] * SEG_CHUNK
+                if any(x >= 0 for x in g):
+                    chunk = (st + u) * 32 + lane
+                    trace.live_chunks.append(chunk)
+                    trace.value_chunks.append(chunk)
+                    full = vec and r0 >= 0 and r0 + SEG_CHUNK <= n
+                    v = [vals[r0 + j] if (full or g[j] >= 0) else op.identity
+                         for j in range(SEG_CHUNK)]
+                vs.append(v)
+            values.append(vs)
+        for u in range(SEG_STEPS_AHEAD):
+            have, lanes = [], []
+            for lane in range(32):
+                h, r = seg_fold_chunk(loaded[u][lane][1], values[u][lane], op,
+                                      fold_add)
+                have.append(h)
+                lanes.append(r)
+            w = seg_fold_warp(have, lanes, op, fold_add)
+            if w is not None:
+                seg_join_runs(state, w, op, fold_add)
+    if state[0]:
+        fk, fs, lk, ls, one = state[1]
+        fold_add(fk, fs)
+        if not one:
+            fold_add(lk, ls)
+
+
+def emulate_segmented(gids, vals, num_groups, grid, op, id_offset=0,
+                      val_offset=0, rng=None):
+    """One launch of ``reduce_rows<Op, ...>`` (``segmented_sum_kernel`` or
+    ``segmented_minmax_kernel``) on ``grid`` CTAs (the launch takes
+    min(resident CTAs, tiles)), with the ids' base ``id_offset`` and the
+    values' ``val_offset`` rows past a 16-byte boundary, the combining
+    operation ``op`` (``SumOp`` or ``MinMaxOp``): (result, SegTrace). The
+    output starts from ``op.out_init`` (the wrapper's zeros, or the fill
+    kernel's identity); its updates are applied in the order the model
+    makes them, or, with ``rng``, in a random order, as atomics from
+    concurrent warps and CTAs land."""
+    n = len(gids)
+    out = op.out_init(num_groups)
+    trace = SegTrace()
+    if n == 0 or num_groups == 0:
+        return op.result(out), trace
+    vals = op.of(vals)
+    a = id_offset % SEG_CHUNK
+    vec = val_offset % SEG_CHUNK == a
+    chunks = -(-(n + a) // SEG_CHUNK)
+    steps = -(-chunks // 32)
+    grid = min(grid, -(-chunks // SEG_THREADS))
+    warps = grid * SEG_WARPS
+    rng_steps = -(-steps // warps)
+    rng_steps = min(-(-rng_steps // SEG_STEPS_AHEAD) * SEG_STEPS_AHEAD,
+                    SEG_RANGE_STEPS)
+    shared = num_groups <= SEG_SHARED_GROUPS
+    updates = []
+    for b in range(grid):
+        part = [op.identity] * num_groups if shared else None
+
+        def add(key, v, part=part):
+            if shared:
+                part[key] = op.combine(part[key], v)
+            else:
+                updates.append((key, v))
+
+        for warp in range(SEG_WARPS):
+            k = b * SEG_WARPS + warp
+            while k * rng_steps < steps:
+                _seg_range(gids, vals, num_groups, n, a, vec, k * rng_steps,
+                           min((k + 1) * rng_steps, steps), op, trace, k, add)
+                k += warps
+        if shared:
+            for g in range(num_groups):
+                if part[g] != op.identity:
+                    trace.adds.append(("flush", b, g, part[g]))
+                    updates.append((g, part[g]))
+    order = (rng.permutation(len(updates)) if rng is not None
+             else range(len(updates)))
+    for i in order:
+        op.to_out(out, *updates[i])
+    return op.result(out), trace

@@ -33,7 +33,10 @@ FAMILIES = {
     "fused_morsel_kernel": r"::fused_morsel_kernel\(",
     "radix_histogram": r"::histogram_(shared|global)_kernel\("
                        r"|partition_histogram_kernel<",
-    "hash_probe_multi_kernel": r"::hash_probe_multi_kernel\(",
+    "hash_probe_multi_kernel": r"::hash_probe_multi_(staged_|slots_)?"
+                               r"kernel[<(]",
+    # the fill and the reduction, and an earlier tree's key map-back
+    # kernel, so that its profiles sum alike
     "segmented_minmax": r"segmented_minmax_kernel<|::fill_kernel\(int\*"
                         r"|::keys_to_f32_kernel\(",
     "block_prefix_sum_kernel": r"::block_prefix_sum_kernel\(",

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the attention kernels, ``build_table``, the fused kernels, the
-segmented sums, the standalone probe and the exchange's metadata phase
-against an earlier version of their CUDA sources, in one process on one
-card.
+segmented sums and min/max, the standalone and expansion probes and the
+exchange's metadata phase against an earlier version of their CUDA
+sources, in one process on one card.
 
 Run from the repository root on a machine with the card::
 
@@ -28,9 +28,12 @@ gives it (``prog, n_instr`` in place of the packed plan), and
 ``segmented_sum_f32`` / ``segmented_sum_i32(gids, vals, n, num_groups,
 out, stream)``, unchanged since then; a ``hash_table.cu`` with
 ``hash_table_build_scratch_bytes`` (``456033b`` on) is built through
-the fixed passes' signature instead. ``hash_table_probe`` and
-``radix_histogram_run`` have the signatures of ``hash_probe._PROBE_ARGTYPES``
-and ``radix_histogram._ARGTYPES``. The current ones
+the fixed passes' signature instead. ``hash_table_probe``,
+``hash_table_probe_multi``, ``segmented_minmax_f32`` / ``_i32`` and
+``radix_histogram_run`` have the signatures of
+``hash_probe._PROBE_ARGTYPES``, ``_PROBE_MULTI_ARGTYPES``,
+``segmented_agg._MINMAX_ARGTYPES`` and ``radix_histogram._ARGTYPES``,
+each called behind the earlier wrapper's steps. The current ones
 go through the port's wrappers. Both sources of each pair are also
 compiled with ``-Xptxas -v``, and each kernel's registers, stack frame and
 spills are printed.
@@ -45,10 +48,15 @@ them, the three serving batch programs at 32 lanes, and the segmented
 sums' calls of ``chip_smoke.py``'s phase 3 (Q1's first call of each at G =
 16, Q3's first part and first merge and Q17's first int merge at SF 1, the
 stacked serving call, and the synthetic sorted G = 16 and unsorted G =
-4096), and with ``hash_table.cu`` or ``radix_histogram.cu`` every
-standalone probe call and every repartition of one run of the 22 queries
-at W = 1 and W = 4 (``chip_smoke.capture_calls``, ``capture_workers``,
-taken before any profile), the earlier metadata phase being the
+4096), and with ``hash_table.cu``, ``segmented_agg.cu`` or
+``radix_histogram.cu`` every standalone probe, expansion probe and
+``segmented_minmax`` call and every repartition of one run of the 22
+queries at W = 1 and W = 4 (``chip_smoke.capture_calls``,
+``capture_workers``, taken before any profile; the probes and expansion
+probes each launched once in profiles of up to 100 calls, each min/max
+call profiled alone with every device event of the call, in turns; a
+line a call with its shape, the sums at each W and both wrappers' host
+µs), the earlier metadata phase being the
 exchange's former torch hash, bins and ``torch.cat`` before the earlier
 histogram. Each pair is timed in turns, earlier, current, current, earlier,
 with CUDA events over warm runs, then once each under ``torch.profiler``
@@ -507,17 +515,13 @@ def _print_pair(torch, name, rows, earlier, current, kernel):
         "equal": True}), flush=True)
 
 
-def _segmented_inputs(torch):
-    """The segmented cases: name -> (ids, values, G)."""
+def _segmented_inputs(torch, seg_calls, catalog, data):
+    """The segmented cases: name -> (ids, values, G), from the captured
+    calls ``seg_calls``, the stacked serving call and the synthetic
+    ones."""
     from repro_torch.core import fused
-    from repro_torch.core.session import Catalog
-    from repro_torch.kernels import hash_probe as hp
-    from repro_torch.tpch import dbgen, schema
-    data = dbgen.generate(cs._SF)
-    catalog = Catalog.from_numpy(data, schema.SCHEMAS, {
-        t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
     cases = {f"{c['kernel']}[{c['case']}]": (c["gids"], c["values"], c["g"])
-             for c in cs.capture_calls(torch, hp, fused, catalog)["seg"]}
+             for c in seg_calls}
     cases["segmented_sum[stacked]"] = cs.stacked_call(torch, fused, catalog,
                                                       data)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -527,7 +531,7 @@ def _segmented_inputs(torch):
     return cases
 
 
-def time_segmented(torch, lib):
+def time_segmented(torch, lib, cases):
     """The segmented cases, earlier against current: through the wrappers
     (the current one's zero fill, and the same fill before the earlier
     kernel), then each kernel alone."""
@@ -539,7 +543,7 @@ def time_segmented(torch, lib):
                                  seg.segmented_int_sum)}
     for run, _ in fns.values():
         run.argtypes, run.restype = seg._ARGTYPES, ctypes.c_int
-    for name, (gids, vals, g) in _segmented_inputs(torch).items():
+    for name, (gids, vals, g) in cases.items():
         run, kernel = fns[name.partition("[")[0]]
 
         def earlier(gids=gids, vals=vals, g=g, run=run):
@@ -591,9 +595,10 @@ def time_segmented(torch, lib):
 
 
 def _main_path_calls(torch):
-    """Every standalone probe call and every repartition of the 22 queries
-    at SF 1 (``chip_smoke.capture_calls`` at W = 1, ``capture_workers`` at
-    W = 4): (probe calls, repartitions)."""
+    """Every standalone probe, expansion probe and min/max call and every
+    repartition of the 22 queries at SF 1 (``chip_smoke.capture_calls`` at
+    W = 1, ``capture_workers`` at W = 4): {"probe", "multi", "minmax",
+    "repartition": [call, ...]}."""
     from repro_torch.core import fused
     from repro_torch.core.session import Catalog
     from repro_torch.kernels import hash_probe as hp
@@ -601,9 +606,12 @@ def _main_path_calls(torch):
     data = dbgen.generate(cs._SF)
     catalog = Catalog.from_numpy(data, schema.SCHEMAS, {
         t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
-    probes = cs.capture_calls(torch, hp, fused, catalog)["probe"]
+    w1 = cs.capture_calls(torch, hp, fused, catalog)
     w4 = cs.capture_workers(torch, hp, fused, catalog)
-    return probes + w4["probe"], w4["repartition"]
+    calls = {k: w1[k] + w4[k] for k in ("probe", "multi", "minmax")}
+    calls["repartition"] = w4["repartition"]
+    calls["seg"] = _segmented_inputs(torch, w1["seg"], catalog, data)
+    return calls
 
 
 def time_probes(torch, lib, calls):
@@ -687,6 +695,141 @@ def time_probes(torch, lib, calls):
         flush=True)
 
 
+def _print_turns(torch, what, calls, us, shapes, earlier, current):
+    """One line a call (its shape, the device µs of each turn), the sums at
+    each W, and the host µs of both versions on the heaviest call."""
+    for i, c in enumerate(calls):
+        print(json.dumps({
+            "case": f"{what}[Q{c['q']} W={c['w']}]", **shapes[i],
+            "earlier_device_us": [u[i] for u in us["earlier"]],
+            "current_device_us": [u[i] for u in us["current"]]}), flush=True)
+    for w in sorted({c["w"] for c in calls}):
+        sel = [i for i, c in enumerate(calls) if c["w"] == w]
+        print(json.dumps({
+            "case": f"{what}[W={w}]", "calls": len(sel),
+            "bound_us": sum(shapes[i]["bound_us"] for i in sel),
+            "earlier_device_us": [sum(u[i] for i in sel)
+                                  for u in us["earlier"]],
+            "current_device_us": [sum(u[i] for i in sel)
+                                  for u in us["current"]]}), flush=True)
+    first = max(range(len(calls)), key=lambda i: us["earlier"][0][i])
+    print(json.dumps({
+        "case": f"{what} host_us", "query": calls[first]["q"],
+        "w": calls[first]["w"],
+        "earlier_host_us": cs.host_us(torch, earlier[first]),
+        "current_host_us": cs.host_us(torch, current[first])}), flush=True)
+
+
+def time_multi(torch, lib, calls):
+    """Every main-path expansion probe, the earlier ``hash_table_probe_multi``
+    behind the earlier wrapper's steps against the current wrapper, counts
+    and slots equal: each call's device µs from profiles of all of them,
+    in turns (earlier, current, current, earlier); a line a call with its
+    shape (``chip_smoke.multi_shape``), the sums at each W, and both
+    wrappers' host µs on the heaviest call."""
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import ops
+    rate = cs.by_name(cs._MEM_RATE, torch.cuda.get_device_name(0))
+    run = lib.hash_table_probe_multi
+    run.argtypes, run.restype = hp._PROBE_MULTI_ARGTYPES, ctypes.c_int
+
+    def earlier_of(c):
+        # the earlier wrapper (``c6619de``) step for step: its checks, two
+        # allocations, three contiguous copies, the stream object, the
+        # launch, the check and the count
+        def call(tk=c["tk"], tv=c["tv"], keys=c["keys"], m=c["m"],
+                 empty=c["empty"], max_probes=c["max_probes"]):
+            ops.mark_kernel("probe")
+            hp._check_probe_args("hash_probe_multi", tk, tv, keys)
+            if not 1 <= m < 2 ** 16:
+                cs.fail(f"hash_probe_multi: max_matches {m} out of range")
+            t = tk.shape[0]
+            dev = keys.device
+            n = keys.shape[0]
+            count = torch.empty(n, dtype=torch.int32, device=dev)
+            slots = torch.empty((n, m), dtype=torch.int32, device=dev)
+            tk, tv, keys = tk.contiguous(), tv.contiguous(), keys.contiguous()
+            rc = run(tk.data_ptr(), tv.data_ptr(), t, min(max_probes, t),
+                     empty, keys.data_ptr(), n, m, count.data_ptr(),
+                     slots.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+            if rc:
+                cs.fail(f"earlier hash_probe_multi: CUDA error {rc}")
+            ops.count_launch("hash_probe_multi")
+            return count, slots
+        return call
+
+    fns = {"earlier": [earlier_of(c) for c in calls],
+           "current": [lambda c=c: hp.hash_probe_multi(*cs._multi_args(c))
+                       for c in calls]}
+    for c, e, k in zip(calls, fns["earlier"], fns["current"]):
+        a, b = e(), k()
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            cs.fail(f"hash_probe_multi Q{c['q']} W={c['w']}: the two "
+                    "versions differ")
+    us = {"earlier": [], "current": []}
+    for who in ("earlier", "current", "current", "earlier"):
+        us[who].append(cs.per_call_device_us(torch, fns[who],
+                                             ("hash_probe_multi",)))
+    shapes = [cs.multi_shape(torch, hp, c, rate) for c in calls]
+    _print_turns(torch, "hash_probe_multi", calls, us, shapes,
+                 fns["earlier"], fns["current"])
+
+
+def time_minmax(torch, lib, calls):
+    """Every main-path ``segmented_minmax`` call, the earlier entry behind
+    the earlier wrapper's steps against the current wrapper, bit for bit
+    equal: each call's device µs (every device event of the call: the
+    earlier version's fill, kernel and key map-back), in turns; a line a
+    call with its shape (``chip_smoke.minmax_shape``), the sums at each W,
+    and both wrappers' host µs on the heaviest call."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_agg as seg
+    rate = cs.by_name(cs._MEM_RATE, torch.cuda.get_device_name(0))
+    runs = {torch.float32: lib.segmented_minmax_f32,
+            torch.int32: lib.segmented_minmax_i32}
+    for run in runs.values():
+        run.argtypes, run.restype = seg._MINMAX_ARGTYPES, ctypes.c_int
+
+    def earlier_of(c):
+        # the earlier wrapper (``c6619de``) step for step
+        def call(gids=c["gids"], vals=c["values"], g=c["g"], kind=c["kind"]):
+            if gids.dtype != torch.int32 or vals.dtype not in runs:
+                cs.fail("segmented_minmax: dtypes")
+            if gids.dim() != 1 or vals.shape != gids.shape:
+                cs.fail("segmented_minmax: shapes")
+            if vals.device != gids.device or not 0 <= g < 2 ** 31:
+                cs.fail("segmented_minmax: devices or groups")
+            gids, vals = gids.contiguous(), vals.contiguous()
+            out = torch.empty(g, dtype=vals.dtype, device=gids.device)
+            rc = runs[vals.dtype](
+                gids.data_ptr(), vals.data_ptr(), gids.numel(), g,
+                int(kind == "min"), out.data_ptr(),
+                torch.cuda.current_stream(gids.device).cuda_stream)
+            if rc:
+                cs.fail(f"earlier segmented_minmax: CUDA error {rc}")
+            ops.count_launch("segmented_minmax")
+            return out
+        return call
+
+    fns = {"earlier": [earlier_of(c) for c in calls],
+           "current": [lambda c=c: seg.segmented_minmax(
+               c["gids"], c["values"], c["g"], c["kind"]) for c in calls]}
+    for c, e, k in zip(calls, fns["earlier"], fns["current"]):
+        a, b = e(), k()
+        torch.cuda.synchronize()
+        if not cs._bits_equal(torch, a, b):
+            cs.fail(f"segmented_minmax Q{c['q']} W={c['w']}: the two "
+                    "versions differ")
+    us = {"earlier": [], "current": []}
+    for who in ("earlier", "current", "current", "earlier"):
+        us[who].append([cs.call_device_us(torch, f) for f in fns[who]])
+    shapes = [cs.minmax_shape(torch, c, rate) for c in calls]
+    _print_turns(torch, "segmented_minmax", calls, us, shapes,
+                 fns["earlier"], fns["current"])
+
+
 def time_partitions(torch, lib, calls):
     """Every repartition's metadata phase, earlier against current, pids
     and counts equal: earlier is the exchange's former torch code (the
@@ -763,9 +906,9 @@ def main() -> None:
     # the main-path captures run sessions (with their prefetch threads)
     # before any profile: a profile taken before such a run makes later
     # profiles lose events
-    probes = repartitions = None
-    if "hash_table" in libs or "radix_histogram" in libs:
-        probes, repartitions = _main_path_calls(torch)
+    calls = None
+    if {"hash_table", "radix_histogram", "segmented_agg"} & set(libs):
+        calls = _main_path_calls(torch)
     if "flash_attention" in libs:
         old_tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -775,14 +918,15 @@ def main() -> None:
             torch.backends.cuda.matmul.allow_tf32 = old_tf32
     if "hash_table" in libs:
         time_builds(torch, hp, libs["hash_table"])
+        time_probes(torch, libs["hash_table"], calls["probe"])
+        time_multi(torch, libs["hash_table"], calls["multi"])
+    if "segmented_agg" in libs:
+        time_segmented(torch, libs["segmented_agg"], calls["seg"])
+        time_minmax(torch, libs["segmented_agg"], calls["minmax"])
     if "fused_morsel" in libs or "fused_batch" in libs:
         time_fused(torch, hp, libs)
-    if "segmented_agg" in libs:
-        time_segmented(torch, libs["segmented_agg"])
-    if "hash_table" in libs:
-        time_probes(torch, libs["hash_table"], probes)
     if "radix_histogram" in libs:
-        time_partitions(torch, libs["radix_histogram"], repartitions)
+        time_partitions(torch, libs["radix_histogram"], calls["repartition"])
     print(card, flush=True)
 
 
