@@ -105,7 +105,37 @@ In order it:
    ``HostExchange``, each equal to its ICI result, with bytes staged
    through the host and no ``radix_histogram`` launch. Each query prints
    its wall times (three runs after one warm-up), its exchange rounds,
-   rows and bytes moved, and its launches;
+   rows and bytes moved, and its launches. Then the storage phase
+   (``--storage`` runs it alone, with the build, and prints no ok line):
+   (a) ``dbgen.write_dataset`` at SF 1 (seed 19940729,
+   ``chunks=8``: lineitem chunks of 750,079 rows) into a temporary
+   directory, removed when the script exits, with its seconds and bytes on
+   disk; ``storage_catalog`` over the files and ``Catalog.from_numpy`` over
+   the rows it wrote, in their order; (b) the 22 queries at W = 1 from the
+   files through ``Session(device="cuda", batch_rows=1 << 20)``, each equal
+   to the same plan over the in-memory rows on the card, with a line per
+   query and table (chunks, chunks skipped, ``bytes_read``,
+   ``bytes_transferred``, ``read_seconds``, ``wait_seconds``,
+   ``prefetch_overlap``), the walls of both runs (three after a warm-up
+   each) and the launches of the files' first timed run, the counters set
+   to 0 just before it: the
+   all-queries kernels of phase 5 reached by the same queries,
+   ``bytes_read`` equal to the sizes of the chunk files each scan's zone
+   maps leave, Q6 skipping a lineitem chunk and launching the fused
+   program once per surviving chunk; (c) ``storage_catalog(...,
+   skip_with_stats=False)`` and ``Session(streaming=False)``, each of the
+   22 equal to (b), skipping nothing, the synchronous walls beside the
+   streaming ones; (d) Q1, Q3, Q5 and Q6 planned for four workers, each
+   equal to its W = 1 result, no byte through the host; (e) lineitem
+   written by ``write_paged_table(row_groups=8)``: Q6 on a catalog whose
+   lineitem is a ``PagedTableSource`` equal to (b), and one full
+   synchronous scan of Q6's lineitem columns (read and copied to the card)
+   in each format, in turns, its seconds and GB/s; (f) Q1 and Q3 with
+   ``host_only_ops={"HashAggregation"}``: equal results and bytes through
+   the host round trip; (g) one step of a lineitem chunk read into
+   pinned buffers by ``readinto`` (as the scan reads) and by a memmap copy,
+   host seconds, then copied by ``morsel_to_device``, timed with CUDA
+   events, from those pinned buffers and from pageable ones;
 8. serving on the same SF 1 catalog: (a) ``fused_batch_program`` at 32
    lanes, for the three small-query programs of
    ``benchmarks/bench_concurrency.py`` (point lookup on orders, filtered
@@ -174,7 +204,9 @@ per launch at the main path's shapes and the kernels a call launches
 must show no ``cudaStreamSynchronize`` and no ``Memcpy DtoH``), then one
 ``torch.profiler`` run of each
 query, whose device time by kernel (and trace) it writes into DIR, and
-after phase 7 one profiled W = 4 run of each query, and last one
+after phase 7 one profiled W = 4 run of each query, then one profiled
+W = 1 run of Q1 and of Q6 from the storage phase's files and from the
+same rows in memory (their ``Memcpy HtoD`` copies and ms), and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line; ``--build`` runs phase 3's
@@ -182,7 +214,8 @@ synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
 and their views) and phase 8(a) alone; ``--segmented`` the segmented
 sums' ``_SEG_CASES`` and min/max's ``_MINMAX_CASES`` alone; ``--probe``
 the probe's ``_PROBE_CASES`` and the expansion probe's ``_MULTI_CASES``
-alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone.
+alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone;
+``--storage`` the storage phase alone.
 ``--faults`` runs the six on the kernels as they are and then on copies,
 in a temporary directory, each with one fault planted (a K tile left
 out, early or late; V tiles not reloaded; the split over K's combine
@@ -216,6 +249,7 @@ evaluates a batch of predicate lanes, so ``fused_batch_program``'s is null;
 from __future__ import annotations
 
 import argparse
+import atexit
 import importlib
 import json
 import math
@@ -256,6 +290,14 @@ _REACHES = {"hash_probe_multi": (9, 20),
 # distributed oracle slice that also runs through the host-staged exchange
 _WORKERS = 4
 _HOST_QUERIES = (1, 3, 5, 6, 13, 22)
+# the storage phase: write_dataset's seed (dbgen's default) and chunks a
+# column of the chunked tables (lineitem chunks of 750,079 rows), the
+# queries run at four workers from the files, and those run behind the
+# host round trip of a host-only HashAggregation
+_SEED = 19940729
+_STORAGE_CHUNKS = 8
+_STORAGE_W4 = (1, 3, 5, 6)
+_ROUND_TRIP = (1, 3)
 # phase 6: the queries whose kernel inputs are captured at four workers (Q3
 # repartitions both join sides; Q7 keeps the fused probe)
 _CAPTURED_W = (3, 7)
@@ -2138,24 +2180,36 @@ def run_main_path(torch, data, catalog):
               f"kernel_dispatch {stats['kernel_dispatch']}", flush=True)
         if q in expect and counts != expect[q]:
             fail(f"Q{q}: launches {counts}, expected {expect[q]}")
-        for kernel, qs in _REACHES.items():
-            if (counts[kernel] > 0) != (q in qs):
-                fail(f"Q{q}: {counts[kernel]} launches of {kernel}; the "
-                     f"queries that reach it are {qs}")
-        if q == 22 and not counts["fused_morsel_program"]:
-            fail("Q22: its PrefixCode stages did not run in the fused kernel")
+        check_reaches(q, counts)
         launches[q], results[q] = counts, got
-    # radix_histogram serves the exchange (phase 7 holds it),
-    # fused_batch_program the scheduler's stacked launches (phase 8) and
-    # flash_attention no query (phase 9 drives it)
+    check_w1_kernels(ops, launches, "the main path")
+    return launches, gpu, results
+
+
+def check_reaches(q, counts, what=""):
+    """The all-queries kernels a W = 1 query must launch, and no other."""
+    for kernel, qs in _REACHES.items():
+        if (counts[kernel] > 0) != (q in qs):
+            fail(f"Q{q}{what}: {counts[kernel]} launches of {kernel}; the "
+                 f"queries that reach it are {qs}")
+    if q == 22 and not counts["fused_morsel_program"]:
+        fail(f"Q22{what}: its PrefixCode stages did not run in the fused "
+             "kernel")
+
+
+def check_w1_kernels(ops, launches, what):
+    """Every kernel a W = 1 execute serves was launched by one of the 22
+    queries; radix_histogram serves the exchange (phase 7 holds it),
+    fused_batch_program the scheduler's stacked launches (phase 8) and
+    flash_attention no query (phase 9 drives it)."""
     for k in ops.KERNELS:
         later = k in ("radix_histogram", "fused_batch_program",
                       "flash_attention")
         if not later and not any(c[k] for c in launches.values()):
-            fail(f"kernel {k} was not launched by the main path")
+            fail(f"kernel {k} was not launched by {what}")
         if later and any(c[k] for c in launches.values()):
-            fail(f"{k} launched by a W=1 execute, which it does not serve")
-    return launches, gpu, results
+            fail(f"{k} launched by a W=1 execute of {what}, which it does "
+                 "not serve")
 
 
 # ---------------------------------------------------------------------------
@@ -2405,6 +2459,346 @@ def run_distributed(torch, catalog, w1_results):
     print(f"launches at W={_WORKERS} (22 queries, ici): {json.dumps(totals)}",
           flush=True)
     return launches, sessions["ici"]
+
+
+# ---------------------------------------------------------------------------
+# the storage phase: the 22 queries read from column-chunk files at SF 1
+# ---------------------------------------------------------------------------
+
+def _timed(torch, session, plan):
+    """One warm-up run of ``plan``, then three timed runs: (the first timed
+    run's result, its executor stats and launch counts, the three walls).
+    The launch counters are set to 0 just before that run and read just
+    after."""
+    from repro_torch.kernels import ops
+    session.execute(plan)                       # warm: allocator, streams
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = session.execute(plan)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    counts, stats = ops.launch_counts(), session.executor_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        session.execute(plan)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return got, stats, counts, walls
+
+
+def _scans(plan):
+    """Every TableScan node of a plan."""
+    from repro_torch.core import plan as P
+    out = [plan] if isinstance(plan, P.TableScan) else []
+    for child in plan.children():
+        out += _scans(child)
+    return out
+
+
+def expected_bytes_read(catalog, plan):
+    """table -> the sizes of the chunk files that each of the plan's scans
+    of it reads: the columns it scans, in the chunks its pushed-down filter
+    leaves by the zone maps."""
+    out = {}
+    for node in _scans(plan):
+        src = catalog.get(node.table)
+        cols = list(node.columns) if node.columns else list(src.schema)
+        live = [k for k in range(src.num_chunks)
+                if src._chunk_survives(k, node.filter)]
+        out[node.table] = out.get(node.table, 0) + sum(
+            os.path.getsize(os.path.join(src.root, src.name, src._files[c, k]))
+            for c in cols for k in live)
+    return out
+
+
+def _walls(walls):
+    return [round(t, 4) for t in walls]
+
+
+def storage_from_files(torch, catalog, mem):
+    """(b): the 22 queries at W = 1 from the files, each against the same
+    plan over the same rows in memory on the card; bytes read against the
+    surviving chunk files; Q6's skipping and fused launches."""
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import queries
+
+    gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    gpu_mem = Session(mem, device="cuda", batch_rows=_MAIN_ROWS)
+    plans, results, walls, launches = {}, {}, {}, {}
+    for q in _QUERIES:
+        plan = plans[q] = queries.build_query(q, catalog)
+        got, stats, counts, walls[q] = _timed(torch, gpu, plan)
+        want, _, _, mem_walls = _timed(torch, gpu_mem, plan)
+        compare(q, got, want, "its in-memory run on the card")
+        want = expected_bytes_read(catalog, plan)
+        for t, s in sorted(stats["tables"].items()):
+            print(f"storage Q{q} {t}: chunks {s['chunks_total']} skipped "
+                  f"{s['chunks_skipped']}, bytes_read {s['bytes_read']}, "
+                  f"bytes_transferred {s['bytes_transferred']}, morsels "
+                  f"{s['morsels']}, read_seconds {s['read_seconds']:.4f}, "
+                  f"wait_seconds {s['wait_seconds']:.4f}, prefetch_overlap "
+                  f"{s['prefetch_overlap']}", flush=True)
+            if s["bytes_read"] != want[t]:
+                fail(f"storage Q{q}: {t} bytes_read {s['bytes_read']}, the "
+                     f"surviving chunk files hold {want[t]}")
+        print(f"storage Q{q} SF {_SF} W=1: gpu {_walls(walls[q])} s (in "
+              f"memory {_walls(mem_walls)} s), rows "
+              f"{len(next(iter(got.values())))}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        check_reaches(q, counts, " from storage")
+        if q == 6:
+            li = stats["tables"]["lineitem"]
+            live = li["chunks_total"] - li["chunks_skipped"]
+            if not li["chunks_skipped"]:
+                fail("storage Q6: no lineitem chunk skipped")
+            if counts["fused_morsel_program"] != live:
+                fail(f"storage Q6: {counts['fused_morsel_program']} fused "
+                     f"launches for {live} surviving lineitem chunks")
+        results[q], launches[q] = got, counts
+    check_w1_kernels(ops, launches, "the 22 queries from storage")
+    totals = {k: sum(c[k] for c in launches.values()) for k in ops.KERNELS}
+    print(f"launches from storage (22 queries, W=1): {json.dumps(totals)}",
+          flush=True)
+    return gpu, gpu_mem, plans, results, walls
+
+
+def storage_baselines(torch, tmp, catalog, plans, results, walls):
+    """(c): skipping off, then the synchronous scan, each of the 22 equal
+    to its skipping, streaming run; the synchronous walls beside the
+    streaming walls."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import dbgen, queries
+
+    nostats = dbgen.storage_catalog(tmp, skip_with_stats=False)
+    off = Session(nostats, device="cuda", batch_rows=_MAIN_ROWS)
+    sync = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                   streaming=False)
+    sums = [0.0, 0.0]
+    for q in _QUERIES:
+        compare(q, off.execute(queries.build_query(q, nostats)), results[q],
+                "its run with zone-map skipping")
+        skipped = {t: s["chunks_skipped"]
+                   for t, s in off.executor_stats()["tables"].items()}
+        if any(skipped.values()):
+            fail(f"storage Q{q}: skipping off skipped {skipped}")
+        got, _, _, sync_walls = _timed(torch, sync, plans[q])
+        compare(q, got, results[q], "its streaming run")
+        sums[0] += sorted(walls[q])[1]
+        sums[1] += sorted(sync_walls)[1]
+        print(f"storage Q{q} streaming=False: gpu {_walls(sync_walls)} s, "
+              f"streaming {_walls(walls[q])} s", flush=True)
+    print(f"storage walls, sums of the 22 medians: streaming {sums[0]:.4f} s,"
+          f" synchronous {sums[1]:.4f} s", flush=True)
+
+
+def storage_workers(torch, catalog, results):
+    """(d): Q1, Q3, Q5 and Q6 planned for four workers from the files, each
+    equal to its W = 1 storage result, with no byte through the host."""
+    from repro_torch import ICIExchange
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    w4 = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                 num_workers=_WORKERS, exchange=ICIExchange())
+    for q in _STORAGE_W4:
+        got, stats, counts, wall = _timed(
+            torch, w4, queries.build_query(q, catalog, num_workers=_WORKERS))
+        compare(q, got, results[q], "its W=1 storage run")
+        ex = stats["exchanges"]
+        staged = sum(v["host_staged_bytes"] for v in ex.values())
+        li = stats["tables"].get("lineitem", {})
+        print(f"storage Q{q} W={_WORKERS}: gpu {_walls(wall)} s, lineitem "
+              f"morsels {li.get('morsels')}, skipped {li.get('chunks_skipped')},"
+              f" repartitions {_repartitions(ex)}, host_staged_bytes {staged},"
+              f" launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+        if staged:
+            fail(f"storage Q{q} W={_WORKERS}: {staged} bytes through the host")
+
+
+def _scan_rate(torch, source, cols):
+    """Seconds of one synchronous scan of ``cols`` (every chunk read and
+    copied to the card), and the values' bytes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in source.scan(cols, _MAIN_ROWS, "cuda"):
+        pass
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nbytes = sum(source.num_rows() * source.schema[c].np_dtype().itemsize
+                 * max(source.schema[c].width, 1) for c in cols)
+    return secs, nbytes
+
+
+def storage_paged(torch, tmp, data, results, plans):
+    """(e): lineitem in the paged format: Q6 equal to its column-chunk run,
+    and one full scan of Q6's lineitem columns in each format, timed."""
+    from repro_torch.core.session import Session
+    from repro_torch.storage import PagedTableSource, write_paged_table
+    from repro_torch.tpch import dbgen, queries, schema
+
+    t0 = time.perf_counter()
+    write_paged_table(tmp, "lineitem", data["lineitem"],
+                      schema.SCHEMAS["lineitem"], row_groups=_STORAGE_CHUNKS)
+    size = os.path.getsize(os.path.join(tmp, "lineitem.paged"))
+    print(f"storage paged: write_paged_table lineitem row_groups="
+          f"{_STORAGE_CHUNKS} in {time.perf_counter() - t0:.3f} s, {size} "
+          "bytes", flush=True)
+    catalog = dbgen.storage_catalog(tmp)
+    paged = PagedTableSource(tmp, "lineitem")
+    paged.unique_keys = (schema.PRIMARY_KEYS["lineitem"],)
+    catalog.register(paged)
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    got = session.execute(queries.build_query(6, catalog))
+    compare(6, got, results[6], "its column-chunk run")
+    li = session.executor_stats()["tables"]["lineitem"]
+    print(f"storage paged Q6: row groups {li['chunks_total']} skipped "
+          f"{li['chunks_skipped']}, bytes_read {li['bytes_read']}, "
+          f"read_seconds {li['read_seconds']:.4f}", flush=True)
+    cols = list(_scans(plans[6])[0].columns)
+    colchunk = dbgen.storage_catalog(tmp).get("lineitem")
+    # in turns: a format's second scan sees the first one's warm state
+    for name, source in (("colchunk", colchunk), ("paged", paged),
+                         ("paged", paged), ("colchunk", colchunk)):
+        secs, nbytes = _scan_rate(torch, source, cols)
+        print(f"storage scan lineitem {cols} {name}: {secs:.4f} s, {nbytes} "
+              f"value bytes, {nbytes / secs / 1e9:.3f} GB/s (read warm from "
+              "the page cache, copied to the card)", flush=True)
+
+
+def storage_round_trip(torch, catalog, plans, results, walls):
+    """(f): Q1 and Q3 with HashAggregation declared host-only: equal
+    results, and bytes through the host round trip."""
+    from repro_torch.core.session import Session
+
+    rt = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                 host_only_ops=frozenset({"HashAggregation"}))
+    for q in _ROUND_TRIP:
+        got, stats, _, wall = _timed(torch, rt, plans[q])
+        compare(q, got, results[q], "its run on the card")
+        conv = stats["conversions"].get("bytes", 0)
+        print(f"storage Q{q} host round trip: gpu {_walls(wall)} s "
+              f"(device-resident {_walls(walls[q])} s), conversions "
+              f"{conv} bytes", flush=True)
+        if not conv:
+            fail(f"storage Q{q}: no bytes through the host round trip")
+
+
+def storage_copy(torch, catalog):
+    """(g): one step of lineitem's first chunk, every column: read from the
+    files into pinned buffers (by ``readinto``, as the scan reads, and by
+    copying a memmap of each file), host seconds; then copied to the card
+    by ``morsel_to_device``, timed with CUDA events, from those pinned
+    buffers and from pageable ones (``morsel_to_device`` pins a copy
+    first). Medians of three after a warm-up."""
+    from repro_torch.core.streaming import morsel_to_device, stacked_morsel
+    from repro_torch.storage import read_column_chunk
+
+    src = catalog.get("lineitem")
+    cols = list(src.schema)
+
+    def by_memmap(c, k, out):
+        arr = read_column_chunk(src.root, src.name, c, k,
+                                fname=src._files[c, k])
+        out[:len(arr)] = arr
+        return len(arr)
+
+    def first_step(pin):
+        return next(src._host_morsels(cols, _MAIN_ROWS, pin=pin))
+
+    readers = (("readinto", lambda: first_step(True)),
+               ("memmap copy", lambda: stacked_morsel(
+                   cols, src.schema, 1, [0], src._chunk_rows[0], by_memmap,
+                   pin=True)))
+    for name, read in readers:
+        secs = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            step = read()
+            secs.append(time.perf_counter() - t0)
+        nbytes = sum(h.nbytes() for h in step)
+        median = sorted(secs[1:])[1]
+        print(f"storage read: one lineitem chunk step ({nbytes} bytes) into "
+              f"pinned buffers by {name}: "
+              f"{[round(t * 1e3, 3) for t in secs[1:]]} ms, "
+              f"{nbytes / median / 1e9:.3f} GB/s (warm page cache)",
+              flush=True)
+    for pin in (True, False):
+        step = first_step(pin)
+        nbytes = sum(h.nbytes() for h in step)
+        ms = []
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for h in step:
+                morsel_to_device(h, "cuda")
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        median = sorted(ms[1:])[1]
+        print(f"storage copy: one lineitem chunk step ({nbytes} bytes, "
+              f"{'pinned' if pin else 'pageable'} buffers) {_walls(ms[1:])} "
+              f"ms, {nbytes / median / 1e6:.3f} GB/s", flush=True)
+
+
+def run_storage(torch, tmp):
+    """The storage phase (a)-(g) in ``tmp``; returns what ``--profile``
+    needs: the files' session, the in-memory session and the plans."""
+    from repro_torch.core.session import Catalog
+    from repro_torch.tpch import dbgen, schema
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = dbgen.write_dataset(tmp, sf=_SF, seed=_SEED, chunks=_STORAGE_CHUNKS)
+    secs = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, files in os.walk(tmp) for f in files)
+    print(f"storage: write_dataset SF {_SF} chunks={_STORAGE_CHUNKS} in "
+          f"{secs:.3f} s, {on_disk} bytes on disk", flush=True)
+    catalog = dbgen.storage_catalog(tmp)
+    mem = Catalog.from_numpy(
+        data, schema.SCHEMAS, {t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
+    gpu, gpu_mem, plans, results, walls = storage_from_files(torch, catalog,
+                                                             mem)
+    storage_baselines(torch, tmp, catalog, plans, results, walls)
+    storage_workers(torch, catalog, results)
+    storage_paged(torch, tmp, data, results, plans)
+    storage_round_trip(torch, catalog, plans, results, walls)
+    storage_copy(torch, catalog)
+    print(f"storage phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return gpu, gpu_mem, plans
+
+
+def profile_storage(torch, gpu, gpu_mem, plans, out_dir):
+    """One profiled warm run of Q1 and Q6 from the files and from memory:
+    the host-to-device copies each makes."""
+    os.makedirs(out_dir, exist_ok=True)
+    for q in (1, 6):
+        for source, session in (("files", gpu), ("memory", gpu_mem)):
+
+            def run():
+                session.execute(plans[q])
+
+            for attempt in range(_PROFILE_ATTEMPTS):  # as in profile_kernels
+                prof, _ = _profiled(torch, run)
+                rows = _device_events(prof)
+                if rows:
+                    break
+            if not rows:
+                fail(f"profile of storage Q{q} ({source}): no device events")
+            h2d = [r for r in rows if r[0].startswith("Memcpy HtoD")]
+            summary = {"query": q, "source": source,
+                       "h2d_copies": sum(r[1] for r in h2d),
+                       "h2d_ms": sum(r[2] for r in h2d) / 1e3,
+                       "device_busy_ms": sum(r[2] for r in rows) / 1e3}
+            with open(os.path.join(out_dir, f"profile_storage_q{q}_{source}"
+                                   ".json"), "w") as f:
+                json.dump(dict(summary, by_kernel=rows), f, indent=1)
+            print(json.dumps({"profile_storage": summary}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3622,6 +4016,12 @@ def main() -> None:
                     help="run the exchange's metadata pass's synthetic "
                          "cases alone (each W, n of 0 to 2^22, bytes and "
                          "cast keys, views); prints no ok line")
+    ap.add_argument("--storage", action="store_true",
+                    help="run the storage phase alone (the 22 queries read "
+                         "from column-chunk files at SF 1, skipping off, "
+                         "the synchronous scan, W=4, the paged format, the "
+                         "host round trip, one timed copy); prints no ok "
+                         "line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9, the build checks, the fused checks "
                          "and the segmented cases alone on the kernels as "
@@ -3691,6 +4091,13 @@ def main() -> None:
         run_partition(torch, rh)
         print(card)
         return
+    # the storage phase's files, removed when the script exits
+    storage_dir = tempfile.mkdtemp(prefix="tpch_files_")
+    atexit.register(shutil.rmtree, storage_dir, True)
+    if args.storage:
+        run_storage(torch, storage_dir)
+        print(card)
+        return
 
     t0 = time.perf_counter()
     data = dbgen.generate(_SF)
@@ -3738,6 +4145,7 @@ def main() -> None:
     repartitions = w4_calls["repartition"]
     del w4_calls
     w4_launches, gpu4 = run_distributed(torch, catalog, results)
+    storage_sessions = run_storage(torch, storage_dir)
     t0 = time.perf_counter()
     batch_rows, batch_launchers = check_batch(torch, fused, catalog, data,
                                               rate)
@@ -3775,6 +4183,7 @@ def main() -> None:
             r["device_ms"] = device_ms[r["name"]]
         profile_main_path(torch, gpu, catalog, args.profile)
         profile_main_path(torch, gpu4, catalog, args.profile, _WORKERS)
+        profile_storage(torch, *storage_sessions, args.profile)
         # last: after a profile of the multi-threaded serving run, every
         # profile of 20 kernel launches on this thread records 19, even
         # with every scheduler and prefetch thread joined

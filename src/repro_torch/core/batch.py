@@ -518,10 +518,14 @@ def run_batch(driver, shapes: Sequence[BatchShape],
     src = ctx.catalog.get(program.table)
     stats = driver.scan_stats.setdefault(program.table, ScanStats())
     columns = list(program.columns) if program.columns is not None else None
-    # the scan streams unfiltered: member predicates differ, and each
-    # pushed-down filter re-applies as the first parameterized stage
-    morsels = src.stream(columns, ctx.batch_rows, ctx.device,
-                         prefetch_depth=ctx.prefetch_depth, stats=stats)
+    # the scan reads unfiltered: member predicates differ, so zone-map
+    # skipping is off and each pushed-down filter re-applies as that
+    # member's first parameterized stage (a superset scan is always safe)
+    if ctx.streaming:
+        morsels = src.stream(columns, ctx.batch_rows, ctx.device,
+                             prefetch_depth=ctx.prefetch_depth, stats=stats)
+    else:
+        morsels = src.scan(columns, ctx.batch_rows, ctx.device, stats=stats)
 
     spent = 0.0
     if program.has_agg:

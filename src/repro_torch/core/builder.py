@@ -332,8 +332,20 @@ class QueryBuilder:
         return opt.optimize(self.plan, self._catalog,
                             config=config or self._config())
 
-    def explain(self) -> str:
-        """Plan tree before and after the optimizer pipeline."""
+    def explain(self, analyze: bool = False) -> str:
+        """Plan tree before and after the optimizer pipeline.
+
+        A session-bound builder delegates to ``Session.explain``, so
+        ``analyze=True`` also executes the plan and appends the executor's
+        stats (EXPLAIN ANALYZE). An unbound builder gives the before/after
+        text, and ``analyze=True`` raises: there is no session to run on.
+        """
+        if self._session is not None:
+            return self._session.explain(self.plan, analyze=analyze)
+        if analyze:
+            raise RuntimeError(
+                "explain(analyze=True) needs a session-bound builder; "
+                "build via session.table(...)")
         return opt.explain_before_after(self.plan, self._catalog,
                                         config=self._config())
 

@@ -62,6 +62,10 @@ class ExecutionContext:
     exchange: Optional[ExchangeProtocol] = None
     batch_rows: int = 8192
     prefetch_depth: int = 2
+    # morsel-driven scans with prefetch (False = the synchronous baseline)
+    streaming: bool = True
+    # operators whose device version is "unavailable" (host round trip)
+    host_only_ops: frozenset = frozenset()
 
     def __post_init__(self):
         if self.exchange is None:
@@ -108,6 +112,7 @@ def empty_executor_stats() -> Dict[str, object]:
     return {
         "tables": {},
         "op_seconds": {},
+        "conversions": {},
         "device": "",
         "kernel_dispatch": {},
         "exchange_protocol": "",
@@ -122,6 +127,8 @@ class Driver:
     def __init__(self, ctx: ExecutionContext):
         self.ctx = ctx
         self.op_seconds: Dict[str, float] = {}
+        # bytes through the host round trips of host-only operators
+        self.conversion_stats: Dict[str, int] = {}
         self.scan_stats: Dict[str, ScanStats] = {}
         # kind -> operator calls that used a kernel of that kind
         self.kernel_dispatch: Dict[str, int] = {}
@@ -137,6 +144,7 @@ class Driver:
         return {
             "tables": {t: s.summary() for t, s in self.scan_stats.items()},
             "op_seconds": dict(self.op_seconds),
+            "conversions": dict(self.conversion_stats),
             "device": str(self.ctx.device),
             "kernel_dispatch": dict(self.kernel_dispatch),
             "exchange_protocol": self.ctx.exchange.name,
@@ -207,17 +215,30 @@ class Driver:
 
     def _run_pipeline(self, workers: List[ops.Operator],
                       stream: Iterator[Step]) -> Iterator[Step]:
-        """Each worker's operator on that worker's batch of every step."""
+        """Each worker's operator on that worker's batch of every step
+        (behind a host round trip when the operator is host-only)."""
+        trips = self._maybe_host_wrap(workers[0])
         t0 = time.perf_counter()
         for op in workers:
             op.open()
         for step in stream:
+            if trips is not None:
+                step = [rt.add_input(b)[0] for rt, b in zip(trips, step)]
             yield from _lockstep([op.add_input(b)
                                   for op, b in zip(workers, step)])
         yield from _lockstep([op.finish() for op in workers])
         name = workers[0].name
         self.op_seconds[name] = (self.op_seconds.get(name, 0.0)
                                  + time.perf_counter() - t0)
+
+    def _maybe_host_wrap(self, op: ops.Operator
+                         ) -> Optional[List[ops.HostRoundTrip]]:
+        """One ``HostRoundTrip`` per worker before a host-only operator's
+        input (the CudfToVelox/CudfFromVelox pair), else None."""
+        if op.name not in self.ctx.host_only_ops:
+            return None
+        return [ops.HostRoundTrip(self.conversion_stats)
+                for _ in range(self._w)]
 
     def _scan_steps(self, morsels: Iterator[Step],
                     scans: List[StreamingScan]) -> Iterator[Step]:
@@ -280,21 +301,38 @@ class Driver:
     def _exec_tablescan(self, node: P.TableScan) -> Stream:
         src = self.ctx.catalog.get(node.table)
         stats = self.scan_stats.setdefault(node.table, ScanStats())
-        morsels = src.stream(node.columns, self.ctx.batch_rows,
-                             self.ctx.device,
-                             prefetch_depth=self.ctx.prefetch_depth,
+        if self.ctx.streaming:
+            morsels = src.stream(node.columns, self.ctx.batch_rows,
+                                 self.ctx.device,
+                                 prefetch_depth=self.ctx.prefetch_depth,
+                                 stats=stats, num_workers=self._w,
+                                 filter_expr=node.filter)
+            scans = [StreamingScan(node.table) for _ in range(self._w)]
+            steps = self._scan_steps(morsels, scans)
+            if node.filter is None:
+                return Stream(steps, scans=scans)
+            if "FilterProject" not in self.ctx.host_only_ops:
+                for scan in scans:
+                    scan.fuse(ops.FilterProject(node.filter))
+                return Stream(steps, scans=scans)
+        else:
+            # synchronous baseline: read and copy inline with compute, and
+            # nothing fuses into the scan
+            steps = src.scan(node.columns, self.ctx.batch_rows,
+                             self.ctx.device, filter_expr=node.filter,
                              stats=stats, num_workers=self._w)
-        scans = [StreamingScan(node.table) for _ in range(self._w)]
-        if node.filter is not None:
-            for scan in scans:
-                scan.fuse(ops.FilterProject(node.filter))
-        return Stream(self._scan_steps(morsels, scans), scans=scans)
+            if node.filter is None:
+                return Stream(steps)
+        # the filter runs as its own pipeline, unfused
+        return Stream(self._run_pipeline(
+            self._operators(lambda: ops.FilterProject(node.filter)), steps))
 
     def _fuse_or_run(self, child: Stream,
                      make: Callable[[], ops.Operator]) -> Stream:
         """Fuse a per-morsel operator into the child's scans, or run it
-        over the child's stream."""
-        if child.scans is not None:
+        over the child's stream (a host-only operator never fuses)."""
+        if (child.scans is not None
+                and make().name not in self.ctx.host_only_ops):
             for scan in child.scans:     # per-morsel, inside the scan stage
                 scan.fuse(make())
             return child
@@ -394,7 +432,8 @@ class Driver:
             join.open()
             join.add_build(b)
             join.seal_build()
-        if probe_scans is not None and not joins[0]._multi:
+        if (probe_scans is not None and not joins[0]._multi
+                and joins[0].name not in self.ctx.host_only_ops):
             # fuse the probe into each worker's per-morsel scan pipeline,
             # where the iteration-start collapse folds it and the stages
             # before it into one fused launch per morsel; the join's time

@@ -11,9 +11,9 @@ tensors (the driver runs one per worker), eagerly; each operator body is
 wrapped in ``kernels.ops.table_op`` only for dispatch accounting.
 The port has FilterProject, HashAggregation (without spill), Distinct,
 HashJoin on its open-addressing path (single-match and expansion probes),
-the fused per-morsel pipeline with its probe variant, OrderBy, Limit and
-ScalarBroadcast. The sorted-key join comes with the SQL frontend slice
-(``ROADMAP.md``).
+the fused per-morsel pipeline with its probe variant, OrderBy, Limit,
+ScalarBroadcast and the HostRoundTrip conversion. The sorted-key join
+comes with the SQL frontend slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -744,3 +744,32 @@ class ScalarBroadcast(Operator):
         if self._scalar is None:
             raise RuntimeError("ScalarBroadcast: no scalar was set")
         return [_attach_scalar(batch, self._scalar, self.columns)]
+
+
+# ---------------------------------------------------------------------------
+# Host/device conversions (CudfToVelox / CudfFromVelox analogues)
+# ---------------------------------------------------------------------------
+
+class HostRoundTrip(Operator):
+    """Device -> host -> device conversion pair around a host-only operator.
+
+    The paper inserts CudfToVelox/CudfFromVelox when a pipeline holds an
+    operator without a GPU version; this models that round trip so its cost
+    is measurable: a batch on a CUDA device is copied to host memory and
+    back. ``stats["bytes"]`` adds both directions' bytes (the driver keeps
+    one such operator per worker, all adding into one dict)."""
+
+    name = "HostRoundTrip"
+
+    def __init__(self, stats: Optional[dict] = None):
+        self.stats = stats if stats is not None else {}
+
+    def add_input(self, batch):
+        host_cols = {n: a.cpu() for n, a in batch.columns.items()}
+        validity = batch.validity.cpu()                   # device -> host
+        nbytes = sum(a.numel() * a.element_size() for a in host_cols.values())
+        nbytes += validity.numel() * validity.element_size()
+        self.stats["bytes"] = self.stats.get("bytes", 0) + 2 * nbytes
+        dev = batch.device                                # host -> device
+        return [TorchTable({n: a.to(dev) for n, a in host_cols.items()},
+                           validity.to(dev), batch.schema)]

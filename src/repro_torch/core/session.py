@@ -35,20 +35,27 @@ import threading
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from .builder import QueryBuilder
 from .driver import Driver, ExecutionContext, empty_executor_stats
 from .exchange import ExchangeProtocol
-from .optimizer import OptimizerConfig, optimize
+from .optimizer import (OptimizerConfig, estimate_memory_breakdown,
+                        explain_before_after, optimize)
 from .plan import PlanNode
-from .streaming import HostMorsel, MorselPrefetcher, ScanStats
+from .streaming import HostMorsel, MorselPrefetcher, ScanStats, morsel_to_device
+from .table import TorchTable
 
 
 class TableSource:
-    """Abstract storage backend for one catalog table. Backends implement
-    ``_host_morsels`` (host-side reads); ``stream`` wraps the reads in a
-    prefetcher that copies them to the device."""
+    """Abstract storage backend for one catalog table.
+
+    Backends implement ``_host_morsels`` (host-side reads only) and
+    ``num_rows``; ``scan`` copies the reads to the device inline, ``stream``
+    through a prefetcher. Implementations: ``InMemoryTable`` (numpy), and
+    the chunked file formats ``storage.colchunk.ColumnChunkTable`` and
+    ``storage.paged.PagedTableSource`` (both with zone-map skipping)."""
 
     name: str
     schema: dict
@@ -61,20 +68,60 @@ class TableSource:
 
     def _host_morsels(self, columns, batch_rows: int,
                       stats: Optional[ScanStats] = None,
-                      num_workers: int = 1) -> Iterator[List[HostMorsel]]:
+                      num_workers: int = 1, filter_expr=None,
+                      pin: bool = False) -> Iterator[List[HostMorsel]]:
         """Host-side scan steps (storage reads only, no device copy): each
-        step is a list of one morsel per worker."""
+        step is a list of one morsel per worker. ``filter_expr`` is the
+        pushed-down predicate a backend may skip data by (rows it does not
+        skip are still filtered downstream); ``pin`` asks for buffers in
+        pinned memory, for a copy to a CUDA device."""
         raise NotImplementedError
+
+    def scan(self, columns, batch_rows: int, device, filter_expr=None,
+             stats: Optional[ScanStats] = None,
+             num_workers: int = 1) -> Iterator[List[TorchTable]]:
+        """Synchronous scan: each step is read and copied to ``device``
+        inline on the caller's thread, on the current stream (the
+        materialize-then-run baseline the paper starts from)::
+
+            src = session.catalog.get("lineitem")
+            for step in src.scan(["l_quantity"], 4096, "cpu"):
+                print(step[0].capacity)         # one table per worker
+        """
+        device = torch.device(device)
+        for step in self._host_morsels(columns, batch_rows, stats=stats,
+                                       num_workers=num_workers,
+                                       filter_expr=filter_expr,
+                                       pin=device.type == "cuda"):
+            if stats is not None:
+                stats.morsels += 1
+                stats.bytes_transferred += sum(h.nbytes() for h in step)
+            yield [morsel_to_device(h, device) for h in step]
 
     def stream(self, columns, batch_rows: int, device, prefetch_depth: int = 2,
                stats: Optional[ScanStats] = None,
-               num_workers: int = 1) -> MorselPrefetcher:
+               num_workers: int = 1, filter_expr=None) -> MorselPrefetcher:
         """Asynchronous scan: a background thread reads step N+1 and
-        copies its morsels to ``device`` while step N computes."""
-        return MorselPrefetcher(self._host_morsels(columns, batch_rows,
-                                                   stats=stats,
-                                                   num_workers=num_workers),
-                                device, depth=prefetch_depth, stats=stats)
+        copies its morsels to ``device`` while step N computes; counters
+        accumulate into ``stats``::
+
+            stats = ScanStats()
+            for step in src.stream(None, 4096, "cuda", stats=stats):
+                pass                            # compute overlaps next read
+            print(stats.prefetch_overlap)       # fraction of I/O hidden
+
+        A source that overrides only ``scan`` (its steps already on the
+        device) is prefetched too: its steps feed the same bounded queue."""
+        if (type(self)._host_morsels is TableSource._host_morsels
+                and type(self).scan is not TableSource.scan):
+            gen = self.scan(columns, batch_rows, device,
+                            filter_expr=filter_expr, num_workers=num_workers)
+        else:
+            gen = self._host_morsels(
+                columns, batch_rows, stats=stats, num_workers=num_workers,
+                filter_expr=filter_expr,
+                pin=torch.device(device).type == "cuda")
+        return MorselPrefetcher(gen, device, depth=prefetch_depth, stats=stats)
 
 
 class InMemoryTable(TableSource):
@@ -101,7 +148,11 @@ class InMemoryTable(TableSource):
 
     def _host_morsels(self, columns, batch_rows: int,
                       stats: Optional[ScanStats] = None,
-                      num_workers: int = 1) -> Iterator[List[HostMorsel]]:
+                      num_workers: int = 1, filter_expr=None,
+                      pin: bool = False) -> Iterator[List[HostMorsel]]:
+        # filter_expr and pin are ignored: the table keeps no stats to skip
+        # by, and a whole morsel is a view of the arrays (the copy to a
+        # CUDA device pins it)
         cols = list(columns) if columns else list(self.data.keys())
         schema = {c: self.schema[c] for c in cols}
         n = self._n
@@ -240,6 +291,16 @@ class Session:
     # scheduler knobs (core.scheduler.SchedulerConfig); None = defaults.
     # Assign before the first submit()/run(): the scheduler is built lazily.
     scheduler_config: Optional[object] = None
+    # morsel-driven scans: storage -> device prefetch on a thread with a
+    # bounded queue of ``prefetch_depth`` steps (False = the synchronous
+    # materialize-then-run baseline: read and copy inline, no fusion into
+    # the scan)
+    streaming: bool = True
+    # operator names whose device version is declared unavailable: the
+    # driver runs them behind a device -> host -> device round trip
+    # (``operators.HostRoundTrip``, paper §3.1), counted in
+    # ``executor_stats()["conversions"]``
+    host_only_ops: frozenset = frozenset()
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -252,7 +313,9 @@ class Session:
                                 num_workers=self.num_workers,
                                 exchange=exchange,
                                 batch_rows=self.batch_rows,
-                                prefetch_depth=self.prefetch_depth)
+                                prefetch_depth=self.prefetch_depth,
+                                streaming=self.streaming,
+                                host_only_ops=frozenset(self.host_only_ops))
 
     def table(self, name: str, columns=None) -> "QueryBuilder":
         """Fluent builder over a catalog table, bound to this session."""
@@ -265,6 +328,52 @@ class Session:
     def optimize(self, plan: PlanNode) -> PlanNode:
         """Run the optimizer's rule pipeline over a logical plan."""
         return optimize(plan, self.catalog, config=self.optimizer_config())
+
+    def explain(self, plan: PlanNode, analyze: bool = False) -> str:
+        """The plan before and after optimization (``QueryBuilder.explain``
+        delegates here).
+
+        With ``analyze=True`` the optimized plan is also executed, and the
+        executor's stats are appended (EXPLAIN ANALYZE): per table the scan
+        counters (morsels, chunks, chunks skipped by zone maps, bytes read
+        and copied to the device, prefetch overlap), operator seconds,
+        kernel dispatches, per-fragment exchange counters, then the
+        per-operator memory-footprint estimate."""
+        text = explain_before_after(plan, self.catalog,
+                                    config=self.optimizer_config())
+        if not analyze:
+            return text
+        optimized = self.optimize(plan)
+        breakdown = estimate_memory_breakdown(
+            optimized, self.catalog, num_workers=self.num_workers,
+            batch_rows=self.batch_rows, prefetch_depth=self.prefetch_depth)
+        self.execute(optimized)
+        lines = ["== executor stats =="]
+        stats = self.executor_stats()
+        for tname, s in sorted(stats["tables"].items()):
+            lines.append(
+                f"scan {tname}: morsels={s['morsels']} "
+                f"chunks={s['chunks_total']} "
+                f"chunks_skipped={s['chunks_skipped']} "
+                f"bytes_read={s['bytes_read']} "
+                f"bytes_transferred={s['bytes_transferred']} "
+                f"prefetch_overlap={s['prefetch_overlap']:.2f}")
+        for op, sec in sorted(stats["op_seconds"].items()):
+            lines.append(f"op {op}: {sec:.4f}s")
+        kd = stats["kernel_dispatch"]
+        if kd:
+            lines.append(f"kernels [{stats['device']}]: "
+                         + " ".join(f"{k}={v}" for k, v in sorted(kd.items())))
+        for frag, ex in stats["exchanges"].items():
+            lines.append(
+                f"exchange {frag} [{stats['exchange_protocol']}]: "
+                f"rounds={ex['rounds']} rows_moved={ex['rows_moved']} "
+                f"bytes_moved={ex['bytes_moved']} "
+                f"host_staged_bytes={ex['host_staged_bytes']} "
+                f"{ex['seconds']:.4f}s")
+        lines.append("== memory ==")
+        lines.extend(breakdown.describe().splitlines())
+        return text + "\n" + "\n".join(lines)
 
     def execute(self, plan: PlanNode) -> Dict[str, np.ndarray]:
         """Execute one plan; returns name -> numpy column of valid rows."""

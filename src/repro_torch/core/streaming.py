@@ -7,6 +7,14 @@
                           reads step N+1 (one morsel per worker) and copies
                           it to the device.
 * ``ScanStats``        -- per-scan counters.
+* ``empty_morsel`` / ``stacked_morsel`` -- the scan steps of the chunked
+                          storage formats (``repro_torch.storage``): one
+                          chunk per worker, read straight into the morsel's
+                          buffer.
+
+Storage backends implement ``TableSource._host_morsels`` (host-side reads
+only); ``TableSource.scan`` and ``TableSource.stream`` in ``session.py``
+copy its steps to the device inline or through a prefetcher.
 
 On a CUDA device the copy runs from pinned host memory on a side stream,
 and the producer records an event after it; the consumer makes its own
@@ -18,6 +26,7 @@ wait, the copy would race the kernel that reads the morsel.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -34,8 +43,10 @@ from .table import TorchTable
 class ScanStats:
     """Counters for one table's scan activity within a query."""
 
-    bytes_read: int = 0          # bytes read from storage
+    bytes_read: int = 0          # bytes read from storage (post-skipping)
     bytes_transferred: int = 0   # bytes placed into device memory
+    chunks_total: int = 0        # chunks considered by the scan
+    chunks_skipped: int = 0      # chunks pruned by zone-map stats
     morsels: int = 0             # morsel steps produced (one morsel per worker)
     read_seconds: float = 0.0    # producer: storage read + host->device copy
     wait_seconds: float = 0.0    # consumer: blocked waiting on the queue
@@ -58,11 +69,16 @@ class ScanStats:
 @dataclasses.dataclass
 class HostMorsel:
     """One scan unit in host memory: ``[cap, ...]`` column buffers plus
-    validity, ready for one device copy."""
+    validity, ready for one device copy. ``pinned`` holds the pinned
+    tensors whose memory the buffers view (column name -> tensor, the
+    validity under ``None``) when they were allocated pinned: the copy
+    starts from those tensors, so torch's caching host allocator keeps each
+    block until its copy has completed."""
 
     columns: Dict[str, np.ndarray]
     validity: np.ndarray
     schema: Dict[str, object]
+    pinned: Optional[Dict[Optional[str], torch.Tensor]] = None
 
     def nbytes(self) -> int:
         """Host bytes this morsel occupies (columns + validity)."""
@@ -72,24 +88,99 @@ class HostMorsel:
         return int(total)
 
 
-def _host_tensor(a: np.ndarray, dtype: torch.dtype, pin: bool) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
-    return t.pin_memory() if pin else t
+_TORCH_OF_NP = {np.dtype(np.int32): torch.int32,
+                np.dtype(np.int64): torch.int64,
+                np.dtype(np.float32): torch.float32,
+                np.dtype(np.float64): torch.float64,
+                np.dtype(np.bool_): torch.bool,
+                np.dtype(np.uint8): torch.uint8}
 
 
-def morsel_to_device(morsel: HostMorsel, device: torch.device,
+def _host_buffer(shape, dtype, pin: bool):
+    """An uninitialised host buffer that owns writable memory: a numpy
+    array, or with ``pin`` the numpy view of a pinned torch tensor, which
+    is returned beside it (else None)."""
+    if not pin:
+        return np.empty(shape, dtype), None
+    t = torch.empty(shape, dtype=_TORCH_OF_NP[np.dtype(dtype)],
+                    pin_memory=True)
+    return t.numpy(), t
+
+
+def empty_morsel(schema: Dict[str, object], num_workers: int
+                 ) -> List[HostMorsel]:
+    """One step of capacity-1, zero-valid-row morsels with the scan's
+    schema (keeps downstream operators fed when a scan prunes every
+    chunk: each worker's aggregations and joins still see one batch)."""
+    step = []
+    for _ in range(num_workers):
+        cols = {c: np.zeros(d.storage_shape(1), dtype=d.np_dtype())
+                for c, d in schema.items()}
+        step.append(HostMorsel(cols, np.zeros(1, dtype=bool), dict(schema)))
+    return step
+
+
+def stacked_morsel(cols, schema, num_workers: int, assigned, cap: int,
+                   read, pin: bool = False) -> List[HostMorsel]:
+    """One scan step of the chunked storage formats: worker k's morsel of
+    capacity ``cap`` holds chunk ``assigned[k]`` (the reference's row k of
+    its ``[W, cap]`` morsel), its tail dead and zeroed; workers past the
+    last assigned chunk get all-dead morsels.
+
+    ``read(col, chunk, out)`` writes that chunk's column values into the
+    front of ``out``, the morsel's buffer (with ``pin`` pinned memory, which
+    the device copy starts from), and returns how many rows it wrote. A
+    worker's live rows are those its chunk's columns were read with (none
+    without columns, as in the reference).
+    """
+    cap = max(cap, 1)
+    step = []
+    for wi in range(num_workers):
+        chunk = assigned[wi] if wi < len(assigned) else None
+        valid, owner = _host_buffer(cap, np.bool_, pin)
+        owners = {None: owner}
+        bufs = {}
+        n = 0
+        for c in cols:
+            d = schema[c]
+            buf, owner = _host_buffer(d.storage_shape(cap), d.np_dtype(), pin)
+            if chunk is not None:
+                n = read(c, chunk, buf)
+            buf[n:] = 0
+            bufs[c], owners[c] = buf, owner
+        valid[:n] = True
+        valid[n:] = False
+        step.append(HostMorsel(bufs, valid, {c: schema[c] for c in cols},
+                               owners if pin else None))
+    return step
+
+
+def _host_tensor(a, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    t = (a if isinstance(a, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(a))).to(dtype)
+    return t.pin_memory() if pin and not t.is_pinned() else t
+
+
+def morsel_to_device(morsel, device: torch.device,
                      stream: Optional["torch.cuda.Stream"] = None
                      ) -> TorchTable:
-    """Copy a host morsel to ``device`` in each column's physical dtype.
+    """Copy a host morsel to ``device`` in each column's physical dtype
+    (a ``TorchTable`` passes through: a source whose ``scan`` yields
+    device tables).
 
-    For a CUDA device the copy is asynchronous from pinned memory on
-    ``stream`` (the current stream if None); the caller synchronises with
-    it before use (``MorselPrefetcher`` records and waits on an event)."""
+    For a CUDA device the copy is asynchronous from pinned memory (the
+    morsel's own pinned buffers, else a pinned copy) on ``stream`` (the
+    current stream if None); the caller synchronises with it before use
+    (``MorselPrefetcher`` records and waits on an event)."""
+    if isinstance(morsel, TorchTable):
+        return morsel
     device = torch.device(device)
     on_cuda = device.type == "cuda"
-    host = {n: _host_tensor(a, morsel.schema[n].torch_dtype(), on_cuda)
+    own = morsel.pinned or {}
+    host = {n: _host_tensor(own.get(n, a), morsel.schema[n].torch_dtype(),
+                            on_cuda)
             for n, a in morsel.columns.items()}
-    hvalid = _host_tensor(morsel.validity, torch.bool, on_cuda)
+    hvalid = _host_tensor(own.get(None, morsel.validity), torch.bool, on_cuda)
     if not on_cuda:
         return TorchTable(host, hvalid, dict(morsel.schema))
     with torch.cuda.stream(stream or torch.cuda.current_stream(device)):
@@ -134,28 +225,37 @@ class MorselPrefetcher:
         return False
 
     def _produce(self) -> None:
+        # the producer's device work (the copies, and whatever a source
+        # whose scan yields device tables does) runs on the side stream,
+        # which the event recorded after each step covers
+        side = (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
         try:
-            it = iter(self._gen)
-            while not self._closed.is_set():
-                t0 = time.perf_counter()
-                try:
-                    hosts = next(it)
-                except StopIteration:
-                    break
-                tables = [morsel_to_device(h, self.device, self._stream)
-                          for h in hosts]
-                event = None
-                if self._stream is not None:
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
-                self.stats.read_seconds += time.perf_counter() - t0
-                self.stats.bytes_transferred += sum(h.nbytes() for h in hosts)
-                self.stats.morsels += 1
-                if not self._put((tables, event)):
-                    return
-            self._put(_SENTINEL)
+            with side:
+                self._produce_steps()
         except BaseException as exc:  # noqa: BLE001 -- re-raised by consumer
             self._put(exc)
+
+    def _produce_steps(self) -> None:
+        it = iter(self._gen)
+        while not self._closed.is_set():
+            t0 = time.perf_counter()
+            try:
+                hosts = next(it)
+            except StopIteration:
+                break
+            tables = [morsel_to_device(h, self.device, self._stream)
+                      for h in hosts]
+            event = None
+            if self._stream is not None:
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            self.stats.read_seconds += time.perf_counter() - t0
+            self.stats.bytes_transferred += sum(h.nbytes() for h in hosts)
+            self.stats.morsels += 1
+            if not self._put((tables, event)):
+                return
+        self._put(_SENTINEL)
 
     # -- consumer ------------------------------------------------------------
     def close(self) -> None:

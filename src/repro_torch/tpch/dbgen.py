@@ -1,19 +1,28 @@
 """dbgen: numpy TPC-H-like data generator (the port's copy of
-``repro.tpch.dbgen``'s ``generate`` and ``load_catalog``).
+``repro.tpch.dbgen``).
 
 Deterministic per (sf, seed), and bit-identical to the reference's output
-for the same arguments, so both engines scan the same bytes. The storage
-formats (``write_dataset``, ``storage_catalog``) come with a later slice.
+for the same arguments, so both engines scan the same bytes.
+``load_catalog`` serves the tables from memory; ``write_dataset`` writes
+them in the column-chunk format of §2.2 (one file per column and chunk,
+the metadata in the file names; the files are the reference writer's,
+byte for byte) and ``storage_catalog`` serves those files::
+
+    data = dbgen.write_dataset("tpch_sf1", sf=1, chunks=8)
+    catalog = dbgen.storage_catalog("tpch_sf1")
+    out = Session(catalog).execute(queries.build_query(6, catalog))
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
 
 from ..core import dtypes as dt
 from ..core.session import Catalog
+from ..storage.colchunk import ColumnChunkTable, write_table
 from . import schema as S
 
 _D = dt.date_to_i32
@@ -222,3 +231,40 @@ def load_catalog(sf: float = 0.01, seed: int = 19940729) -> Catalog:
     """In-memory catalog of ``generate(sf, seed)``."""
     return Catalog.from_numpy(generate(sf, seed), S.SCHEMAS,
                               {n: (k,) for n, k in S.PRIMARY_KEYS.items()})
+
+
+# fact tables are clustered (sorted) on their date column before chunking,
+# so chunk min/max stats form a useful zone map for date-range predicates
+# (the layout a date-partitioned warehouse table would have)
+CLUSTER_KEYS = {"lineitem": "l_shipdate", "orders": "o_orderdate"}
+# the tables split into ``chunks`` files a column (the others into one)
+_CHUNKED = ("lineitem", "orders", "partsupp", "customer", "part")
+
+
+def write_dataset(root: str, sf: float = 0.01, seed: int = 19940729,
+                  chunks: int = 4,
+                  cluster: bool = True) -> Dict[str, Dict[str, np.ndarray]]:
+    """Generate and persist in the column-chunk format. Returns the data
+    written, in its row order, so results computed from the return value
+    agree with scans of the files."""
+    data = generate(sf, seed)
+    if cluster:
+        for name, key in CLUSTER_KEYS.items():
+            order = np.argsort(data[name][key], kind="stable")
+            data[name] = {c: v[order] for c, v in data[name].items()}
+    os.makedirs(root, exist_ok=True)
+    for name, tab in data.items():
+        write_table(root, name, tab, S.SCHEMAS[name],
+                    chunks=chunks if name in _CHUNKED else 1)
+    return data
+
+
+def storage_catalog(root: str, skip_with_stats: bool = True) -> Catalog:
+    """A catalog of ``ColumnChunkTable``s over ``write_dataset``'s files,
+    with the primary keys the planner's capacity derivation reads."""
+    cat = Catalog()
+    for name in S.SCHEMAS:
+        src = ColumnChunkTable(root, name, skip_with_stats)
+        src.unique_keys = (S.PRIMARY_KEYS[name],)
+        cat.register(src)
+    return cat

@@ -618,6 +618,69 @@ def test_all_queries_on_card_match_cpu(cuda, q):
             np.testing.assert_array_equal(got[c], w)
 
 
+@pytest.fixture(scope="module")
+def storage_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tpch_files"))
+    dbgen.write_dataset(root, sf=0.01, chunks=8)
+    return root
+
+
+@pytest.mark.parametrize("streaming", [True, False])
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("q", [3, 6])
+def test_query_from_storage_on_card_matches_cpu(cuda, storage_root, q, skip,
+                                                streaming):
+    """The column-chunk files read into pinned buffers and copied to the
+    card, with zone-map skipping on and off, streaming and synchronous."""
+    catalog = dbgen.storage_catalog(storage_root, skip_with_stats=skip)
+    plan = queries.build_query(q, catalog)
+    cpu = Session(catalog, device="cpu", streaming=streaming)
+    want = cpu.execute(plan)
+    ops.reset_launch_counts()
+    session = Session(catalog, streaming=streaming)   # the card
+    got = session.execute(plan)
+    counts = ops.launch_counts()
+    tables = session.executor_stats()["tables"]
+    for t, s in cpu.executor_stats()["tables"].items():
+        for k in ("morsels", "bytes_read", "bytes_transferred",
+                  "chunks_total", "chunks_skipped"):
+            assert tables[t][k] == s[k], (t, k)
+    li = tables["lineitem"]
+    assert (li["chunks_skipped"] > 0) == skip
+    if q == 6 and streaming:
+        # one fused launch per surviving chunk (a step of one morsel)
+        assert counts["fused_morsel_program"] == li["morsels"]
+    assert sorted(got) == sorted(want)
+    for c, w in want.items():
+        assert got[c].shape == w.shape, c
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[c], w, rtol=2e-3, atol=1e-2)
+        else:
+            np.testing.assert_array_equal(got[c], w)
+
+
+def test_storage_morsels_are_copied_from_their_pinned_buffers(cuda,
+                                                              storage_root):
+    """A chunk is read straight into pinned memory, and the copy to the
+    card starts from that memory: no second host copy."""
+    from repro_torch.core import streaming
+    src = dbgen.storage_catalog(storage_root).get("lineitem")
+    step = next(src._host_morsels(None, 8192, num_workers=2, pin=True))
+    for m in step:
+        assert set(m.pinned) == set(m.columns) | {None}
+        for name, t in m.pinned.items():
+            assert t.is_pinned()
+            a = m.validity if name is None else m.columns[name]
+            assert a.ctypes.data == t.data_ptr()
+            dtype = (torch.bool if name is None
+                     else m.schema[name].torch_dtype())
+            host = streaming._host_tensor(t, dtype, True)
+            assert host.data_ptr() == t.data_ptr()
+        got = streaming.morsel_to_device(m, cuda).to_numpy()
+        for c, a in m.columns.items():
+            np.testing.assert_array_equal(got[c], a[m.validity])
+
+
 @pytest.mark.parametrize("n,p", [(0, 4), (1, 1), (5000, 4), (1 << 20, 16),
                                  (3001, 64), (100_003, 8192),
                                  (100_003, 8193)])
