@@ -135,7 +135,45 @@ In order it:
    the host round trip; (g) one step of a lineitem chunk read into
    pinned buffers by ``readinto`` (as the scan reads) and by a memmap copy,
    host seconds, then copied by ``morsel_to_device``, timed with CUDA
-   events, from those pinned buffers and from pageable ones;
+   events, from those pinned buffers and from pageable ones. Then the SQL
+   phase (``--sql`` runs it alone, with the build, and prints no ok line;
+   alone it first runs each query's hand-built plan for (a) to compare
+   with), on the in-memory SF 1 catalog through ``Session(device="cuda",
+   batch_rows=1 << 20).sql``: (a) the 20 texts of ``tpch.sqltext`` at
+   W = 1, each equal to phase 5's result of the query on their common
+   columns (Q10 and Q18, restated in the texts, as multisets of rows under
+   ``compare``'s tolerance), their walls (three after a warm-up) and
+   lowering seconds beside phase 5's walls, then ``_YEAR_LIKE`` (no TPC-H
+   text fuses an EXTRACT(YEAR)) against its CPU run; (b) the 20 at W = 4
+   with ``ICIExchange``, each equal to its W = 1 SQL result; (c) Q1, Q2,
+   Q3, Q4, Q6, Q14, Q16 and Q22 with ``ExecutionOptions(optimize=False)``,
+   with their fused launches (Q4's and Q22's fused runs carry a bytes
+   column through, Q2's part filter, an IN of 30 values, is split over
+   several programs): at SF 1 each equal to the same raw plan on the CPU
+   and, but for Q2, Q3 and Q16 (``_SQL_RAW_CAPPED``: a raw aggregation
+   keeps the default 4096 groups and drops the rest, in the reference as
+   here, and these pass it at SF 1), to its optimized result; at SF 0.01
+   (``_RAW_SF``) each equal to its optimized result; (d) the fused
+   instructions against ``apply_stages``, exact: YEAR over every year
+   start +-1 from 1969 to 2040 and the int32 extremes, BYTESMATCH over
+   ``_MATCH_ROWS`` (a row of spaces, parts that would overlap, a part at
+   the very end, a part longer than the row) with each of
+   ``_MATCH_CASES``, then the fused run of ``_YEAR_LIKE`` on the first 1M
+   rows of orders and SQL Q16's BYTESMATCH run (its supplier morsel), each
+   also on the views of ``_FUSED_VIEWS``, each timed with its plain
+   version and its bound (the bytes it must move, a bytes column's n x W
+   among them); (e) the composite join of ``_COMPOSITE`` (two key columns
+   that do not pack into 31 bits at SF 1), whose count must equal the
+   exact count numpy computes from the catalog's columns and whose build
+   must take the sorted-key path (one ``fallback_probe`` in
+   ``kernel_dispatch``); (f) 32 texts of ``_SERVING_TEXT`` (EXTRACT(YEAR)
+   and LIKE, differing only in literals) submitted with batching on, each
+   equal to its solo run, at least one stacked batch and no fallback, a
+   repeated text served from the result cache under its ``sql=`` key, and
+   the stacked program at 32 lanes on the first 1M rows of orders (and
+   n = 999,999, a one-row offset) exact against
+   ``apply_batched_stages``, timed. After phase 9 the three timed
+   programs' device ms from ``torch.profiler``;
 8. serving on the same SF 1 catalog: (a) ``fused_batch_program`` at 32
    lanes, for the three small-query programs of
    ``benchmarks/bench_concurrency.py`` (point lookup on orders, filtered
@@ -211,7 +249,8 @@ profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line; ``--build`` runs phase 3's
 synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
-and their views) and phase 8(a) alone; ``--segmented`` the segmented
+and their views), phase 8(a) and the SQL phase's (d) alone; ``--sql`` the
+SQL phase alone; ``--segmented`` the segmented
 sums' ``_SEG_CASES`` and min/max's ``_MINMAX_CASES`` alone; ``--probe``
 the probe's ``_PROBE_CASES`` and the expansion probe's ``_MULTI_CASES``
 alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone;
@@ -223,14 +262,18 @@ dropping a split; float32 by one TF32 product; a ghost pop that ends its
 slot's turn in the build; the fused kernels' copies of the tail tile's
 last partial group of four rows dropped; the segmented sums' scalar tail
 read as absent; a run that crosses a warp step joined without its
-earlier part; a bytes key's first lane left out of the partition hash; a
+earlier part; YEAR one year late on the last day of a leap year;
+BYTESMATCH searching a later part of a LIKE from the row's start, not
+from the end of the previous part's hit; a bytes key's first lane left out of the partition hash; a
 probe run ended at the end of a 32-byte sector of slots; a NaN folded as
 the min/max key that loses; the expansion probe's whole-row store writing
 the matches only, the zeros past the count left unwritten), and exits 0 only
 when the kernels pass and every fault is caught, the late K tile at
 ``prefill_32k``, the dropped split at D = 160 and 192, the one TF32
 product at (a) and (d) in float32, the ghost pop at
-``ghosts_over_a_run``, the dropped group at Q1's 999,999 rows, the tail
+``ghosts_over_a_run``, the dropped group at Q1's 999,999 rows, the late
+year at ``YEAR synthetic``, the restarted search at ``BYTESMATCH
+synthetic``, the tail
 at n % 4 of 1, 2 and 3, the join at sorted G = 16 and its counts, the
 bytes lane at ``bytes W=4`` and ``views W=4``, the cut run at
 ``dense T=1024``, the losing NaN at ``specials f32 G=4096`` and the
@@ -242,7 +285,9 @@ G + 1 buffer; ``block_prefix_sum``'s is one ``torch.cumsum``,
 ``segmented_minmax``'s one ``scatter_reduce``, ``radix_histogram``'s one
 ``torch.bincount`` of the call's in-range (source, destination) bins, the
 histogram alone (no PyTorch call hashes the rows too); no PyTorch call
-evaluates a batch of predicate lanes, so ``fused_batch_program``'s is null;
+evaluates a batch of predicate lanes, so ``fused_batch_program``'s is null,
+nor a program of stages with a LIKE over bytes rows, so the SQL phase's
+fused rows' is null;
 ``flash_attention``'s is one ``scaled_dot_product_attention``.
 """
 
@@ -695,6 +740,23 @@ def check_segmented(torch, seg, rate, calls, stacked):
     return rows_out, launchers
 
 
+def _profile_calls(torch, name, fn, syms, reps):
+    """``reps`` calls of ``fn`` in one profile, taken again until it holds
+    ``reps`` events of the kernels ``syms``: (those events, every device
+    event)."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(_PROFILE_ATTEMPTS):
+        prof, _ = _profiled(torch, lambda: [fn() for _ in range(reps)])
+        events = _device_events(prof)
+        hits = [e for e in events if any(s in e[0] for s in syms)]
+        if sum(e[1] for e in hits) == reps:
+            return hits, events
+        print(f"profile of {name}: {sum(e[1] for e in hits)} kernel "
+              f"events for {reps} calls in attempt {attempt + 1}", flush=True)
+    fail(f"profile of {name}: no {reps} kernel events")
+
+
 def segmented_device_ms(torch, rows, launchers, reps: int = 10):
     """Device ms a call of each segmented row from ``torch.profiler``: the
     kernel's events (``device_ms``) and every device event of the call
@@ -704,20 +766,8 @@ def segmented_device_ms(torch, rows, launchers, reps: int = 10):
         key = r["name"].partition("[")[0]
         if key not in ("segmented_sum", "segmented_int_sum"):
             continue
-        fn, syms = launchers[r["name"]], _KERNEL_SYMBOLS[key]
-        fn()
-        torch.cuda.synchronize()
-        for attempt in range(_PROFILE_ATTEMPTS):
-            prof, _ = _profiled(torch, lambda: [fn() for _ in range(reps)])
-            events = _device_events(prof)
-            hits = [e for e in events if any(s in e[0] for s in syms)]
-            if sum(e[1] for e in hits) == reps:
-                break
-            print(f"profile of {r['name']}: {sum(e[1] for e in hits)} kernel "
-                  f"events for {reps} calls in attempt {attempt + 1}",
-                  flush=True)
-        else:
-            fail(f"profile of {r['name']}: no {reps} kernel events")
+        hits, events = _profile_calls(torch, r["name"], launchers[r["name"]],
+                                      _KERNEL_SYMBOLS[key], reps)
         r["device_ms"] = sum(e[2] for e in hits) / reps / 1e3
         r["call_device_ms"] = sum(e[2] for e in events) / reps / 1e3
         print(f"device {r['name']}: kernel {r['device_ms']:.5f} ms, call "
@@ -2144,7 +2194,8 @@ def expected_launches(ops, data):
 def run_main_path(torch, data, catalog):
     """All 22 queries through the port's Session on the card, each against
     the same plan on the CPU; returns the launch counts of each query's
-    timed run, the card's session and each query's result."""
+    timed run, the card's session, each query's result and its three
+    walls."""
     from repro_torch.core.session import Session
     from repro_torch.kernels import ops
     from repro_torch.tpch import queries
@@ -2152,7 +2203,7 @@ def run_main_path(torch, data, catalog):
     gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
     cpu = Session(catalog, device="cpu", batch_rows=_MAIN_ROWS)
     expect = expected_launches(ops, data)
-    launches, results = {}, {}
+    launches, results, walls = {}, {}, {}
     for q in _QUERIES:
         plan = queries.build_query(q, catalog)
         gpu.execute(plan)                       # warm: allocator, streams
@@ -2181,9 +2232,9 @@ def run_main_path(torch, data, catalog):
         if q in expect and counts != expect[q]:
             fail(f"Q{q}: launches {counts}, expected {expect[q]}")
         check_reaches(q, counts)
-        launches[q], results[q] = counts, got
+        launches[q], results[q], walls[q] = counts, got, gpu_s
     check_w1_kernels(ops, launches, "the main path")
-    return launches, gpu, results
+    return launches, gpu, results, walls
 
 
 def check_reaches(q, counts, what=""):
@@ -2810,6 +2861,24 @@ def profile_storage(torch, gpu, gpu_mem, plans, out_dir):
 _L2_BYTES = 50 * 2 ** 20
 
 
+def sql_device_ms(torch, rows, launchers, reps: int = 10):
+    """Device ms a call of each row of the SQL phase's instructions (the
+    fused runs with YEAR and BYTESMATCH) from ``torch.profiler``: its fused
+    kernel's events (``device_ms``). After phase 9, as every profile of
+    the run."""
+    for r in rows:
+        if "BYTESMATCH" not in r["name"]:
+            continue
+        syms = _KERNEL_SYMBOLS["fused_batch_program"
+                               if r["name"].startswith("fused_batch")
+                               else "fused"]
+        hits, _ = _profile_calls(torch, r["name"], launchers[r["name"]],
+                                 syms, reps)
+        r["device_ms"] = sum(e[2] for e in hits) / reps / 1e3
+        print(f"device {r['name']}: kernel {r['device_ms']:.5f} ms (bound "
+              f"{r['bound_ms']:.5f}, ms {r['ms']:.5f})", flush=True)
+
+
 def host_us(torch, fn, reps: int = 200) -> float:
     """Host microseconds a call of ``fn`` takes to return (the wrapper's
     checks, allocations and launch), over ``reps`` calls with no
@@ -3006,6 +3075,497 @@ def partition_row(torch, rh, calls, rate):
                keys=list(c["names"]))
     print(f"row {json.dumps(row)}", flush=True)
     return [row], {name: launcher}
+
+
+# ---------------------------------------------------------------------------
+# the SQL phase: Session.sql on the card
+# ---------------------------------------------------------------------------
+
+# (c): the texts run unoptimized, among them Q4's and Q22's fused runs that
+# carry a bytes column, Q16's LIKE and Q2's part filter (an IN of 30 values)
+# split over several programs
+_SQL_RAW = (1, 2, 3, 4, 6, 14, 16, 22)
+# an unoptimized plan's aggregation keeps the builder's default capacity of
+# 4096 groups and drops the groups past it, in the reference as in the
+# port; at SF 1 these texts' raw plans pass it (Q2's min over 200,000
+# parts, Q3's 11,620 orders, Q16's 18,314 groups), so there they are held
+# to the same raw plan on the CPU, and all eight to their optimized
+# results at _RAW_SF, where every raw capacity holds
+_SQL_RAW_CAPPED = (2, 3, 16)
+_RAW_SF = 0.01
+# (d): EXTRACT(YEAR) and LIKE in one fused run over orders
+_YEAR_LIKE = ("SELECT o_orderkey, EXTRACT(YEAR FROM o_orderdate) AS y, "
+              "o_comment FROM orders WHERE EXTRACT(YEAR FROM o_orderdate) "
+              "= 1995 AND o_comment LIKE '%special%requests%'")
+# (e): a composite join whose two key columns do not pack into 31 bits at
+# SF 1 (6M order keys x 150K customer keys): the sorted-key path
+_COMPOSITE = ("SELECT count(*) AS n FROM lineitem, orders "
+              "WHERE l_orderkey = o_orderkey AND l_suppkey = o_custkey")
+# (f): one serving template, its texts differing only in literals
+_SQL_SERVING = 32
+_SERVING_TEXT = ("SELECT count(*) AS n, sum(o_totalprice) AS total "
+                 "FROM orders WHERE EXTRACT(YEAR FROM o_orderdate) = {y} "
+                 "AND o_comment LIKE '%special%requests%' "
+                 "AND o_totalprice > {p}")
+# (d): synthetic rows for BYTESMATCH, 12 bytes wide, space padded, and the
+# patterns held to the plain version on them: a row of spaces (length 0),
+# parts that would overlap, a part at the very end, a part longer than W
+_MATCH_ROWS = ("", "ab", "special requests", "special  requestsx",
+               "requests special", "aaa", "aaaa", "abcab", "xxxxxxxxxxab",
+               "ab          ", "   ab", "Customer Co")
+_MATCH_CASES = ((("a",), "contains"), (("aa", "aa"), "contains"),
+                (("ab", "ab"), "contains"),
+                (("special", "requests"), "contains"),
+                (("requests", "special"), "contains"), (("ab",), "endswith"),
+                ((" ab",), "endswith"), (("ab",), "startswith"),
+                (("x" * 13,), "contains"), (("x" * 13,), "endswith"),
+                (("xxxxxxxxxxab",), "contains"), ((" ",), "endswith"))
+
+
+def _year_days(np):
+    """Every year start from 1969 to 2040, a day either side, and the
+    int32 extremes."""
+    starts = [(np.datetime64(f"{y}-01-01") - np.datetime64("1970-01-01"))
+              .astype(int) for y in range(1969, 2042)]
+    i32 = np.iinfo(np.int32)
+    return np.array([d + k for d in starts for k in (-1, 0, 1)]
+                    + [i32.min, i32.min + 1, i32.max - 1, i32.max], np.int32)
+
+
+def _fused_bytes(program, table, out):
+    """The bytes a fused program must move on ``table``: each column it
+    reads (a bytes column's n x W), the validity, each stored output and
+    the output validity."""
+    n = table.capacity
+    read = sum(table.columns[c].element_size()
+               * (table.columns[c].shape[1] if table.columns[c].dim() == 2
+                  else 1) for c in program.in_names)
+    alias = program.out_alias or (None,) * len(program.out_names)
+    wrote = sum(out.columns[c].element_size()
+                for c, a in zip(program.out_names, alias) if a is None)
+    return n * (read + 1 + wrote + 1)
+
+
+def _fused_ops(fused, program, table):
+    """Operations a row: one an instruction, a bytes row's W a BYTESMATCH."""
+    widths = dict(zip(program.in_names, program.in_widths))
+    ops = 0
+    for op, _, a, _ in program.code.tolist():
+        ops += (widths[program.in_names[a]]
+                if op == fused.OPS["BYTESMATCH"] else 1)
+    return table.capacity * ops
+
+
+def check_sql_instructions(torch, fused, catalog, data, rate, q16=None):
+    """(d): YEAR and BYTESMATCH on the card against ``apply_stages``,
+    exact: YEAR over every year start +-1 from 1969 to 2040 and the int32
+    extremes, BYTESMATCH over ``_MATCH_ROWS`` with each of
+    ``_MATCH_CASES``, then the fused run of ``_YEAR_LIKE`` on the first 1M
+    rows of orders and SQL Q16's BYTESMATCH run (``q16``: the table and
+    stages its FusedMorsel received), each also on the views of
+    ``_FUSED_VIEWS``. Returns the kernels-line rows and their launchers."""
+    import numpy as np
+
+    from repro_torch.core import dtypes as dt
+    from repro_torch.core.expr import BytesMatch, Year, col, lit
+    from repro_torch.core.session import Session
+    from repro_torch.core.table import TorchTable
+
+    days = _year_days(np)
+    table = TorchTable.from_numpy({"d": days}, {"d": dt.DATE32},
+                                  device="cuda")
+    stages = [(Year(col("d")) > lit(1960), (("y", Year(col("d"))),
+                                            ("c", Year(lit(9500)))))]
+    program = fused.lower_stages(table, stages)
+    _check_fused_case(torch, fused, table, stages, program,
+                      "fused_morsel_program[YEAR synthetic]")
+    rows = np.array([list(s.encode().ljust(12)[:12]) for s in _MATCH_ROWS],
+                    np.uint8)
+    table = TorchTable.from_numpy({"s": rows}, {"s": dt.bytes_(12)},
+                                  device="cuda")
+    for parts, mode in _MATCH_CASES:
+        e = BytesMatch(col("s"), parts, mode)
+        stages = [(None, (("m", e), ("s", col("s"))))]
+        _check_fused_case(torch, fused, table, stages,
+                          fused.lower_stages(table, stages),
+                          "fused_morsel_program[BYTESMATCH synthetic]")
+    print(f"check fused_morsel_program[YEAR synthetic]: {len(days)} days "
+          f"exact; check fused_morsel_program[BYTESMATCH synthetic]: "
+          f"{len(_MATCH_CASES)} patterns over {len(rows)} rows exact",
+          flush=True)
+
+    cases = []
+    plan = Session(catalog, device="cuda").sql(_YEAR_LIKE).optimized()
+    while type(plan).__name__ != "Project":
+        plan = plan.child
+    scan = plan.child
+    orders = data["orders"]
+    n = min(len(orders["o_orderkey"]), _MAIN_ROWS)
+    schema = catalog.get("orders").schema
+    morsel = TorchTable.from_numpy(
+        {c: orders[c][:n] for c in scan.columns},
+        {c: schema[c] for c in scan.columns}, capacity=_MAIN_ROWS,
+        device="cuda")
+    cases.append(("YEAR+BYTESMATCH orders", morsel,
+                  [(scan.filter, None), (None, tuple(plan.projections))]))
+    if q16 is not None:
+        cases.append(("BYTESMATCH SQL Q16",) + q16)
+    rows_out, launchers = [], {}
+    for label, table, stages in cases:
+        program = fused.lower_stages(table, stages)
+        ops = set(program.code[:, 0].tolist())
+        if fused.OPS["BYTESMATCH"] not in ops or (
+                "YEAR" in label and fused.OPS["YEAR"] not in ops):
+            fail(f"fused_morsel_program[{label}]: the program holds no "
+                 f"{label.split()[0]}")
+        name = f"fused_morsel_program[{label}]"
+        got = _check_fused_case(torch, fused, table, stages, program, name)
+        for view_label, sl in _FUSED_VIEWS:
+            _check_fused_case(torch, fused, view(table, sl), stages, program,
+                              f"fused_morsel_program[{label} {view_label}]")
+        launchers[name] = (lambda t=table, st=stages, p=program:
+                           fused.fused_morsel_program(t, st, program=p))
+        ms = time_ms(torch, launchers[name])
+        plain_ms = time_ms(torch, lambda t=table, st=stages:
+                           fused.apply_stages(t, st))
+        b, by = bound_ms(_fused_bytes(program, table, got),
+                         _fused_ops(fused, program, table), rate)
+        print(f"check {name} rows={table.capacity}: "
+              f"{program.code.shape[0]} instructions, pool "
+              f"{len(program.pool)} B, {program.plan.smem_bytes()} B of "
+              f"shared memory, live {int(got.validity.sum())}, bit-identical "
+              f"(and {', '.join(v for v, _ in _FUSED_VIEWS)}); {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, bound {b:.5f} ms ({by})", flush=True)
+        rows_out.append(dict(name=name, route="cuda",
+                             source="src/repro_torch/kernels/csrc/fused_morsel.cu",
+                             replaces="src/repro/core/fused.py:78",
+                             max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b, bound_by=by, library_ms=None))
+    return rows_out, launchers
+
+
+def compare_common(q, got, want, what):
+    """``compare`` on the columns both results have (a SQL text names the
+    oracle's output columns, the hand-built plan may carry more)."""
+    common = sorted(set(got) & set(want))
+    if not common:
+        fail(f"Q{q}: no column in common with {what}")
+    compare(q, {c: got[c] for c in common}, {c: want[c] for c in common},
+            what)
+
+
+def _sql_once(torch, builder, options=None):
+    """One collect of a SQL builder, timed, with the counters (kernels and
+    instructions) set to 0 just before and read just after."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = builder.collect(options=options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    counts.update(ops.instruction_launches())
+    return got, counts, [wall]
+
+
+def _sql_timed(torch, builder, options=None):
+    """``_timed`` for a SQL builder: one warm-up collect, then three timed
+    ones, the first counted by ``_sql_once``."""
+    builder.collect(options=options)
+    got, counts, walls = _sql_once(torch, builder, options)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        builder.collect(options=options)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return got, counts, walls
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def sql_texts(torch, fused, catalog, results, walls):
+    """(a) the 20 texts at W = 1, each equal to phase 5's result of the
+    query on their common columns (Q10 and Q18, restated, as multisets of
+    rows under ``compare``'s tolerance), walls (three after a warm-up)
+    beside phase 5's, then ``_YEAR_LIKE`` against its CPU run; (b) the 20
+    at W = 4 (one run each), each equal to its W = 1 SQL result. Returns
+    the W = 1 results, the launches (kernels and instructions) of the
+    counted runs and the table and stages of Q16's BYTESMATCH run."""
+    from repro_torch import ICIExchange
+    from repro_torch.core.session import ExecutionOptions, Session
+    from repro_torch.tpch import sqltext
+
+    gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    w4 = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                 num_workers=_WORKERS, exchange=ICIExchange())
+    total, sql_results, q16 = {}, {}, []
+    orig = fused.fused_morsel_program
+
+    def keep(table, stages, probe=None, program=None):
+        if not q16 and probe is None:
+            held = program or fused.lower_stages(table, stages)
+            if fused.OPS["BYTESMATCH"] in held.code[:, 0].tolist():
+                q16.append((table, list(stages)))
+        return orig(table, stages, probe=probe, program=program)
+
+    sums = [0.0, 0.0]
+    for q in sqltext.SUPPORTED:
+        text = sqltext.sql_text(q, catalog)
+        t0 = time.perf_counter()
+        builder = gpu.sql(text)
+        plan_s = time.perf_counter() - t0
+        if q == 16:
+            fused.fused_morsel_program = keep
+        try:
+            got, counts, sql_walls = _sql_timed(torch, builder)
+        finally:
+            fused.fused_morsel_program = orig
+        compare_common(q, got, results[q], "phase 5's run of the query")
+        _add(total, counts)
+        sums[0] += sorted(sql_walls)[1]
+        sums[1] += sorted(walls[q])[1]
+        print(f"sql Q{q} SF {_SF} W=1: lowering {plan_s:.4f} s, gpu "
+              f"{_walls(sql_walls)} s, phase 5 {_walls(walls[q])} s, rows "
+              f"{len(next(iter(got.values())))}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        w4_got, w4_counts, w4_walls = _sql_once(torch, w4.sql(text))
+        compare(q, w4_got, got, "its W=1 SQL run")
+        print(f"sql Q{q} W={_WORKERS}: gpu {_walls(w4_walls)} s, launches "
+              f"{ {k: v for k, v in w4_counts.items() if v} }", flush=True)
+        sql_results[q] = got
+    print(f"sql walls, sums of the 20 medians: SQL {sums[0]:.4f} s, phase 5 "
+          f"{sums[1]:.4f} s", flush=True)
+    if not q16:
+        fail("sql Q16: no fused run held BYTESMATCH")
+    # no TPC-H text fuses an EXTRACT(YEAR): _YEAR_LIKE does, against its
+    # CPU run
+    got, counts, year_walls = _sql_timed(torch, gpu.sql(_YEAR_LIKE))
+    cpu = Session(catalog, device="cpu", batch_rows=_MAIN_ROWS)
+    compare("year_like", got, cpu.sql(_YEAR_LIKE).collect(), "its CPU run")
+    if not counts["fused_morsel_program.YEAR"]:
+        fail(f"sql year_like: no fused launch ran YEAR ({counts})")
+    _add(total, counts)
+    print(f"sql year_like W=1: gpu {_walls(year_walls)} s, rows "
+          f"{len(next(iter(got.values())))}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return sql_results, total, q16[0]
+
+
+def sql_unoptimized(torch, catalog, sql_results, total):
+    """(c) ``_SQL_RAW`` with ``ExecutionOptions(optimize=False)``, one run
+    each with its fused launches: at SF 1 each equal to the same raw plan
+    on the CPU and, but for ``_SQL_RAW_CAPPED``, to its optimized result;
+    at ``_RAW_SF`` each equal to its optimized result on the card."""
+    from repro_torch.core.session import Catalog, ExecutionOptions, Session
+    from repro_torch.tpch import dbgen, schema, sqltext
+
+    raw = ExecutionOptions(optimize=False)
+    gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    cpu = Session(catalog, device="cpu", batch_rows=_MAIN_ROWS)
+    for q in _SQL_RAW:
+        text = sqltext.sql_text(q, catalog)
+        got, counts, raw_walls = _sql_once(torch, gpu.sql(text), raw)
+        compare(q, got, cpu.sql(text, options=raw).collect(),
+                "the same unoptimized plan on the CPU")
+        rows = (len(next(iter(got.values()))),
+                len(next(iter(sql_results[q].values()))))
+        if q not in _SQL_RAW_CAPPED:
+            compare(q, got, sql_results[q], "its optimized SQL run")
+        _add(total, counts)
+        print(f"sql Q{q} optimize=False: gpu {_walls(raw_walls)} s, rows "
+              f"{rows[0]} (optimized {rows[1]}), fused_morsel_program "
+              f"launches {counts['fused_morsel_program']}, "
+              f"fused_morsel_probe {counts['fused_morsel_probe']}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    small = Catalog.from_numpy(
+        dbgen.generate(_RAW_SF), schema.SCHEMAS,
+        {t: (k,) for t, k in schema.PRIMARY_KEYS.items()})
+    gpu = Session(small, device="cuda", batch_rows=_MAIN_ROWS)
+    for q in _SQL_RAW:
+        builder = gpu.sql(sqltext.sql_text(q, small))
+        got, counts, _ = _sql_once(torch, builder, raw)
+        compare(q, got, builder.collect(), f"its optimized run at SF "
+                f"{_RAW_SF}")
+        print(f"sql Q{q} optimize=False SF {_RAW_SF}: equal to its optimized "
+              f"run, fused_morsel_program launches "
+              f"{counts['fused_morsel_program']}", flush=True)
+
+
+def sql_composite(torch, catalog, data):
+    """(e): ``_COMPOSITE`` at SF 1 through the sorted-key join, its count
+    equal to the exact count computed with numpy from the catalog's
+    columns."""
+    import numpy as np
+
+    from repro_torch.core.session import Session
+
+    gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    got, counts, walls = _sql_timed(torch, gpu.sql(_COMPOSITE))
+    li, od = data["lineitem"], data["orders"]
+    pairs = (od["o_orderkey"].astype(np.int64) << 20) | od["o_custkey"]
+    keys = (li["l_orderkey"].astype(np.int64) << 20) | li["l_suppkey"]
+    want = int(np.isin(keys, pairs).sum())
+    dispatch = gpu.executor_stats()["kernel_dispatch"]
+    if int(got["n"][0]) != want:
+        fail(f"sql composite join: count {int(got['n'][0])}, numpy {want}")
+    if dispatch.get("fallback_probe") != 1:
+        fail(f"sql composite join: kernel_dispatch {dispatch}, want one "
+             "fallback_probe (the sorted-key path)")
+    print(f"sql composite join SF {_SF}: count {want} equal to numpy's, "
+          f"sorted-key path (kernel_dispatch {dispatch}), gpu "
+          f"{_walls(walls)} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+
+
+def sql_serving(torch, fused, catalog, data, rate):
+    """(f): ``_SQL_SERVING`` texts of ``_SERVING_TEXT`` through the
+    scheduler with batching on, each equal to its solo run; at least one
+    stacked batch, no fallback, and a repeated text served from the result
+    cache under its ``sql=`` key. Then the stacked program at 32 lanes on
+    the first 1M rows of orders against ``apply_batched_stages``, exact,
+    and timed. Returns its kernels-line row, launcher and the instruction
+    launches of the batched run."""
+    from repro_torch import SchedulerConfig, Session
+    from repro_torch.core import batch
+    from repro_torch.core.table import TorchTable
+    from repro_torch.kernels import ops
+
+    texts = [_SERVING_TEXT.format(y=1992 + j % 7, p=1000.0 * (j + 1))
+             for j in range(_SQL_SERVING)]
+    solo_session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    solo = [solo_session.sql(t).collect() for t in texts]
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    session.scheduler_config = SchedulerConfig(
+        batching=True, max_batch=_SQL_SERVING, max_concurrency=4,
+        batch_window_ms=50, memory_budget=8 << 30, max_queue=2 * len(texts))
+    session.scheduler()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [session.sql(t).submit() for t in texts]
+    got = session.gather(*handles)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    instr = ops.instruction_launches()
+    for j, (g, w) in enumerate(zip(got, solo)):
+        compare(f"serving sql#{j}", g, w, "its solo run on the card")
+    again = session.sql(texts[0]).submit()
+    compare("serving sql#0 repeat", again.result(), solo[0],
+            "its solo run on the card")
+    stats = session.scheduler().stats()
+    session.scheduler().close()
+    _check_threads_exited("sql serving")
+    if stats["batches"] < 1 or stats["batch_fallbacks"]:
+        fail(f"sql serving: {stats['batches']} batches, "
+             f"{stats['batch_fallbacks']} fallbacks (want >= 1 and 0)")
+    if not (again.cache_hit and handles[0]._result_key.startswith("sql=")):
+        fail(f"sql serving: the repeated text was no result-cache hit "
+             f"(key {handles[0]._result_key[:24]})")
+    if not (counts["fused_batch_program"]
+            and instr["fused_batch_program.BYTESMATCH"]
+            and instr["fused_batch_program.YEAR"]):
+        fail(f"sql serving: launches {counts}, instructions {instr}")
+    print(f"sql serving SF {_SF}: {len(texts)} texts in {wall:.4f} s "
+          f"({len(texts) / wall:.1f} q/s), {stats['batches']} stacked "
+          f"batches of {stats['batched_queries']} queries, "
+          f"{stats['batch_fallbacks']} fallbacks, repeat from the result "
+          f"cache, launches { {k: v for k, v in counts.items() if v} }, "
+          f"instructions { {k: v for k, v in instr.items() if v} }",
+          flush=True)
+
+    shapes = [batch.extract_shape(session.sql(t).optimized())
+              for t in texts]
+    prog = shapes[0].program
+    if any(s is None or s.program is not prog for s in shapes):
+        fail("sql serving: the texts do not share one batch program")
+    src, schema = data[prog.table], catalog.get(prog.table).schema
+    n = min(len(src[prog.columns[0]]), _MAIN_ROWS)
+    table = TorchTable.from_numpy({c: src[c][:n] for c in prog.columns},
+                                  {c: schema[c] for c in prog.columns},
+                                  capacity=_MAIN_ROWS, device="cuda")
+    params = batch._params(prog, shapes, _LANES, table.device)
+    lowered = prog.lowered(table)
+    name = "fused_batch_program[YEAR+BYTESMATCH sql]"
+    for part in (table, view(table, slice(0, 999_999)),
+                 view(table, slice(1, None))):
+        got_t, masks = fused.fused_batch_program(part, prog.pre_stages,
+                                                 params, _LANES,
+                                                 program=lowered)
+        want_t, want_masks = fused.apply_batched_stages(
+            part, prog.pre_stages, params, _LANES)
+        torch.cuda.synchronize()
+        if not torch.equal(masks, want_masks):
+            fail(f"{name} n={part.capacity}: masks differ from "
+                 "apply_batched_stages")
+        for c in want_t.column_names:
+            if not torch.equal(got_t.columns[c], want_t.columns[c]):
+                fail(f"{name} n={part.capacity}: column {c} differs")
+    launcher = (lambda: fused.fused_batch_program(
+        table, prog.pre_stages, params, _LANES, program=lowered))
+    ms = time_ms(torch, launcher)
+    plain_ms = time_ms(torch, lambda: fused.apply_batched_stages(
+        table, prog.pre_stages, params, _LANES), reps=5)
+    widths = dict(zip(lowered.in_names, lowered.in_widths))
+    read = sum(table.columns[c].element_size() * (widths[c] or 1)
+               for c in lowered.in_names)
+    stored = [torch.tensor([], dtype=d).element_size()
+              for d, a in zip(lowered.out_dtypes, lowered.out_alias)
+              if a is None]
+    nbytes = table.capacity * (read + 1 + sum(stored) + _LANES)
+    b, by = bound_ms(nbytes, table.capacity * _batch_ops(fused, lowered,
+                                                           _LANES), rate)
+    print(f"check {name} rows={table.capacity} lanes={_LANES}: "
+          f"{lowered.code.shape[0]} instructions, pool "
+          f"{len(lowered.pool)} B, exact (and n=999999, offset 1); "
+          f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b:.5f} ms ({by})",
+          flush=True)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_batch.cu",
+               replaces="src/repro/core/fused.py:178", max_abs_err=0.0,
+               ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=None,
+               launches=instr["fused_batch_program.BYTESMATCH"])
+    return row, {name: launcher}
+
+
+def run_sql(torch, fused, catalog, data, rate, results=None, walls=None):
+    """The SQL phase (a)-(f). ``results`` and ``walls`` are phase 5's; with
+    none (``--sql`` alone) each query's ``build_query`` plan runs on the
+    card here first. Returns the kernels-line rows of the new instructions
+    and their launchers."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries, sqltext
+
+    t_phase = time.perf_counter()
+    if results is None:
+        gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+        results, walls = {}, {}
+        for q in sqltext.SUPPORTED:
+            results[q], _, _, walls[q] = _timed(
+                torch, gpu, queries.build_query(q, catalog))
+    sql_results, total, q16 = sql_texts(torch, fused, catalog, results,
+                                        walls)
+    sql_unoptimized(torch, catalog, sql_results, total)
+    rows_out, launchers = check_sql_instructions(torch, fused, catalog, data,
+                                                 rate, q16)
+    for r in rows_out:
+        key = "BYTESMATCH" if "Q16" in r["name"] else "YEAR"
+        r["launches"] = (total.get(f"fused_morsel_program.{key}", 0)
+                         + total.get(f"fused_morsel_probe.{key}", 0))
+    sql_composite(torch, catalog, data)
+    row, more = sql_serving(torch, fused, catalog, data, rate)
+    rows_out.append(row)
+    launchers.update(more)
+    print(f"sql instructions in the counted runs of (a) and (c): "
+          f"{json.dumps({k: v for k, v in total.items() if '.' in k})}",
+          flush=True)
+    print(f"sql phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows_out, launchers
 
 
 # ---------------------------------------------------------------------------
@@ -3669,6 +4229,13 @@ _FAULTS = {
          "__ldg(row + b);",
          "for (int b = 1; b < width; ++b) folded = folded * 31u + "
          "__ldg(row + b);", 1)],
+    # the fused kernels' YEAR: the last day of a leap year reads as the
+    # next year
+    "year_last_day": [("(4 * (d + 365) + 3) / 1461", "(4 * (d + 365) + 4) / 1461",
+                       1)],
+    # the fused kernels' BYTESMATCH: a later part of a contains is searched
+    # from the row's start, not from the end of the previous part's hit
+    "bytesmatch_parts_from_zero": [("    int at = from;", "    int at = 0;", 1)],
     # the single-match probe: a run that reaches the end of a 32-byte
     # sector of slots ends there as a miss
     "probe_run_cut_short": [
@@ -3684,6 +4251,8 @@ _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
                                        "d192 f32"),
                 "ghost_pop_ends_turn": ("ghosts_over_a_run",),
                 "tail_group_dropped": ("Q1 n=999999",),
+                "year_last_day": ("YEAR synthetic",),
+                "bytesmatch_parts_from_zero": ("BYTESMATCH synthetic",),
                 "seg_tail_dropped": ("tail n%4=1", "tail n%4=2",
                                      "tail n%4=3"),
                 "seg_join_drops_carry": ("sorted G=16", "counts G=16"),
@@ -3709,6 +4278,8 @@ _PROBE_CUH = os.path.join("src", "repro_torch", "kernels", "csrc",
 # the attention kernels and run phase 9 alone
 _FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build"),
                   "tail_group_dropped": (_INTERP_CUH, "--fused"),
+                  "year_last_day": (_INTERP_CUH, "--fused"),
+                  "bytesmatch_parts_from_zero": (_INTERP_CUH, "--fused"),
                   "seg_tail_dropped": (_SEG_CU, "--segmented"),
                   "seg_join_drops_carry": (_SEG_CU, "--segmented"),
                   "minmax_nan_loses": (_SEG_CU, "--segmented"),
@@ -3718,7 +4289,8 @@ _FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build"),
                   "multi_walk_from_group_base": (_PROBE_CUH, "--probe")}
 # the cases of the fused checks a fault may name (check_fused's views)
 _FUSED_CASES = tuple(f"Q{q}{label}" for q in (1, 6) for label in (
-    "", *(f" {v}" for v, _ in _FUSED_VIEWS)))
+    "", *(f" {v}" for v, _ in _FUSED_VIEWS))) + ("YEAR synthetic",
+                                                  "BYTESMATCH synthetic")
 
 
 def fault_target(fault: str):
@@ -4001,7 +4573,8 @@ def main() -> None:
     ap.add_argument("--fused", action="store_true",
                     help="run the fused kernels' checks alone (Q1's and Q6's "
                          "stages on a lineitem morsel and its views, the "
-                         "three serving batch programs); prints no ok line")
+                         "three serving batch programs, YEAR and "
+                         "BYTESMATCH); prints no ok line")
     ap.add_argument("--segmented", action="store_true",
                     help="run the segmented sums' cases alone (synthetic "
                          "ids: sorted, unsorted, dead, ragged, offset, "
@@ -4021,6 +4594,12 @@ def main() -> None:
                          "from column-chunk files at SF 1, skipping off, "
                          "the synchronous scan, W=4, the paged format, the "
                          "host round trip, one timed copy); prints no ok "
+                         "line")
+    ap.add_argument("--sql", action="store_true",
+                    help="run the SQL phase alone (the 20 TPC-H texts at "
+                         "W=1 and W=4, unoptimized texts, YEAR and "
+                         "BYTESMATCH against their plain version, the "
+                         "sorted-key join, SQL-born serving); prints no ok "
                          "line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9, the build checks, the fused checks "
@@ -4116,6 +4695,11 @@ def main() -> None:
     if args.fused:
         check_fused(torch, fused, queries, catalog, morsel, rate)
         check_batch(torch, fused, catalog, data, rate)
+        check_sql_instructions(torch, fused, catalog, data, rate)
+        print(card)
+        return
+    if args.sql:
+        run_sql(torch, fused, catalog, data, rate)
         print(card)
         return
     rows_out, launchers = check_fused(torch, fused, queries, catalog, morsel,
@@ -4135,7 +4719,7 @@ def main() -> None:
                                               calls["minmax"])
     del calls
 
-    launches, gpu, results = run_main_path(torch, data, catalog)
+    launches, gpu, results, walls = run_main_path(torch, data, catalog)
     w4_calls = capture_workers(torch, hp, fused, catalog)
     check_worker_joins(torch, hp, fused, w4_calls)
     check_exchange(torch, rh, w4_calls["repartition"])
@@ -4146,6 +4730,10 @@ def main() -> None:
     del w4_calls
     w4_launches, gpu4 = run_distributed(torch, catalog, results)
     storage_sessions = run_storage(torch, storage_dir)
+    sql_rows, sql_launchers = run_sql(torch, fused, catalog, data, rate,
+                                      results, walls)
+    rows_out += sql_rows
+    launchers.update(sql_launchers)
     t0 = time.perf_counter()
     batch_rows, batch_launchers = check_batch(torch, fused, catalog, data,
                                               rate)
@@ -4167,6 +4755,7 @@ def main() -> None:
     if failures:
         fail("; ".join(failures))
     segmented_device_ms(torch, rows_out, launchers)
+    sql_device_ms(torch, rows_out, launchers)
     # the main path's probe, expansion probe, min/max and repartition
     # shapes, each call timed
     for more_rows, more_launchers in (

@@ -29,7 +29,10 @@ sums up to reduction order.
 Where the reference jits a program per (program, lane count, morsel spec),
 the port runs eagerly and caches the lowered register program on the
 ``BatchProgram``, keyed by lane count and input dtypes, so no morsel
-lowers anew. ``ParamRef`` lives in ``core.expr`` and
+lowers anew. A stacked ``LIKE`` (``BytesMatch``) or ``EXTRACT(YEAR)``
+(``Year``) predicate lowers to the fused kernels' BYTESMATCH and YEAR, as
+a solo run's does; both are lane-invariant, so they run once before the
+lane loop. ``ParamRef`` lives in ``core.expr`` and
 ``apply_batched_stages`` (the kernel's plain version) in ``core.fused``;
 both are importable from here.
 """

@@ -19,9 +19,8 @@ the ``Driver`` executes builder queries unchanged; ``.collect()`` runs the
 plan through the rule-based logical optimizer first (see ``optimizer.py``).
 Builders are immutable: every method returns a new builder.
 
-The port binds ``collect`` to its own ``Session``; ``submit`` (the
-scheduler) comes with the serving slice, and the SQL entry points with the
-SQL frontend slice.
+The port binds ``collect`` and ``submit`` to its own ``Session``;
+``Session.sql`` lowers SQL text onto this builder (``core.sql``).
 """
 
 from __future__ import annotations
@@ -108,8 +107,16 @@ class QueryBuilder:
              .filter(col("l_quantity") < 5.0)
              .group_by("l_returnflag")
              .agg(n=("count", None)))
-        out = q.collect()                 # optimize + execute
+        out = q.collect()                 # optimize + execute on this thread
+        handle = q.submit(priority=1)     # or: schedule it concurrently
+        out = handle.result()
     """
+
+    # set on the FINAL builder only (by Session.sql / lower_sql), never
+    # propagated by _derive: the SQL text a builder was lowered from (a
+    # scheduler cache-key prefix) and its attached ExecutionOptions
+    sql_text: Optional[str] = None
+    _options = None
 
     def __init__(self, plan: P.PlanNode, schema: Dict[str, dt.DType],
                  catalog, session=None):
@@ -345,20 +352,27 @@ class QueryBuilder:
         if analyze:
             raise RuntimeError(
                 "explain(analyze=True) needs a session-bound builder; "
-                "build via session.table(...)")
+                "build via session.table(...) or session.sql(...)")
         return opt.explain_before_after(self.plan, self._catalog,
                                         config=self._config())
 
-    def collect(self, optimize: bool = True):
+    def collect(self, optimize: bool = True, options=None):
         """Optimize and execute; requires a session-bound builder
-        (``session.table(...)``). Optimization uses the session's worker
-        count."""
+        (``session.table(...)`` / ``session.sql(...)``). Optimization uses
+        the session's worker count. ``options`` (an ``ExecutionOptions``)
+        overrides the worker count and ``optimize`` for this call; when
+        omitted, options attached by ``session.sql(..., options=...)``
+        apply."""
         if self._session is None:
             raise RuntimeError(
                 "collect() needs a session-bound builder; build via "
                 "session.table(...) or execute to_plan()/optimized() yourself")
-        plan = self._session.optimize(self.plan) if optimize else self.plan
-        return self._session.execute(plan)
+        opts = options if options is not None else self._options
+        if opts is not None and opts.optimize is not None:
+            optimize = opts.optimize
+        sess = self._session._with_options(opts)
+        plan = sess.optimize(self.plan) if optimize else self.plan
+        return sess.execute(plan)
 
     execute = collect
 
@@ -372,7 +386,8 @@ class QueryBuilder:
             rows = h.result()
 
         ``options`` (an ``ExecutionOptions``) overrides priority, worker
-        count, optimize and batching for this query.
+        count, optimize and batching for this query; SQL-born builders
+        also key the scheduler's caches by their SQL text.
         """
         if self._session is None:
             raise RuntimeError(

@@ -16,12 +16,11 @@ at ``Repartition``/``Broadcast`` nodes, two-phase aggregations, and the
 gathers before a global sort, limit or scalar subquery. At W = 1 every
 stream is a list of one and no exchange runs.
 
-The port runs TableScan, Filter (``compact=True`` stream-compacts the
-survivors), Project, Aggregation, Distinct, Join (hash joins; a
-single-match probe straight off a scan fuses into the scan's morsel
-pipeline), ScalarBroadcast, OrderBy, Limit, Exchange, Repartition and
-Broadcast. ``InMemorySource`` raises ``NotImplementedError`` naming the
-slice that brings it.
+The port runs TableScan, InMemorySource, Filter (``compact=True``
+stream-compacts the survivors), Project, Aggregation, Distinct, Join (hash
+joins; a single-match probe straight off a scan fuses into the scan's
+morsel pipeline), ScalarBroadcast, OrderBy, Limit, Exchange, Repartition
+and Broadcast.
 
 ``collect_batch`` runs a group of compatible small queries as one stacked
 scan (``core.batch``); the scheduler calls it for inter-query batching.
@@ -42,11 +41,6 @@ from . import plan as P
 from .exchange import ExchangeProtocol, ICIExchange, maybe_compact
 from .streaming import ScanStats
 from .table import TorchTable, concat_tables
-
-# node type -> the port slice that brings it (ROADMAP.md, queue A)
-_LATER = {
-    "InMemorySource": "the SQL frontend slice",
-}
 
 # one batch per worker
 Step = List[TorchTable]
@@ -294,8 +288,7 @@ class Driver:
         method = getattr(self, f"_exec_{name.lower()}", None)
         if method is None:
             raise NotImplementedError(
-                f"repro_torch: {name} comes with "
-                f"{_LATER.get(name, 'a later slice')}")
+                f"repro_torch: {name} comes with a later slice")
         return method(node)
 
     def _exec_tablescan(self, node: P.TableScan) -> Stream:
@@ -326,6 +319,15 @@ class Driver:
         # the filter runs as its own pipeline, unfused
         return Stream(self._run_pipeline(
             self._operators(lambda: ops.FilterProject(node.filter)), steps))
+
+    def _exec_inmemorysource(self, node: P.InMemorySource) -> Stream:
+        """Host arrays as a source, scanned synchronously in morsels split
+        across the workers as a catalog table's are (nothing fuses into
+        it)."""
+        from .session import InMemoryTable    # session imports the driver
+        src = InMemoryTable(node.name, node.data, node.schema)
+        return Stream(src.scan(None, self.ctx.batch_rows, self.ctx.device,
+                               num_workers=self._w))
 
     def _fuse_or_run(self, child: Stream,
                      make: Callable[[], ops.Operator]) -> Stream:

@@ -15,15 +15,23 @@ int column, or the injective composite pack), and the kernel probes the
 join's table (``kernels/csrc/hash_probe.cuh``) and stores ``found`` and
 ``bidx`` beside the stage outputs.
 
-A fixed-width bytes column (uint8[N, W]) enters the program only through
-``PrefixCode``: its input slot carries the row width, and a LOADB
-instruction reads one byte of the row.
+A fixed-width bytes column (uint8[N, W]) enters the program through
+``PrefixCode`` (its input slot carries the row width, and a LOADB
+instruction reads one byte of the row) and through ``BytesMatch`` (a
+BYTESMATCH instruction matches the row against a pattern held in the
+program's byte ``pool``). A bytes column that a stage only carries passes
+through: the output column is the input tensor, which the kernel never
+loads. ``Year`` is the YEAR instruction, exact against the reference's
+table of year starts (1969 before 1970, 2039 from 2039 on).
 
 ``apply_stages`` (with ``kernels.hash_probe.hash_probe_plain`` for the
 probe) is the plain version, and it is what a CPU tensor runs. The lowering
 raises ``NotImplementedError`` for any node it cannot express (a bytes
-column stored or compared, ``BytesMatch``, ``Year``, ...); it never runs
-the stages unfused instead.
+column stored or compared, a computed value matched, ...); it never runs
+the stages unfused instead. A run too large for the kernel's limits
+(registers, instructions, columns, shared memory) raises
+``KernelLimitError``; ``lower_split`` then cuts the run into consecutive
+programs that fit, each its own launch.
 
 ``fused_batch_program`` is the inter-query batched variant (the port of the
 reference's ``fused_batch_program``): B stacked queries share the stages'
@@ -48,9 +56,10 @@ import torch
 from ..kernels import build
 from ..kernels import hash_probe as hp
 from ..kernels import ops as kernel_ops
+from . import dtypes as dt
 from . import relational as rel
-from .expr import (BinaryOp, ColumnRef, Expr, IsIn, Literal, ParamRef,
-                   PrefixCode, UnaryOp, param_values)
+from .expr import (BinaryOp, BytesMatch, ColumnRef, Expr, IsIn, Literal,
+                   ParamRef, PrefixCode, UnaryOp, Year, param_values)
 from .plan import _canon
 from .table import TorchTable
 
@@ -69,9 +78,13 @@ OPS = {
     "EQ_F32": 21, "NE_F32": 22, "LT_F32": 23, "LE_F32": 24, "GT_F32": 25,
     "GE_F32": 26,
     "AND": 27, "OR": 28, "NOT": 29, "I32_TO_F32": 30, "PROBE": 31,
-    "LOADB": 32, "PARAM": 33, "LOOP": 34, "LFILTER": 35,
+    "LOADB": 32, "PARAM": 33, "LOOP": 34, "LFILTER": 35, "YEAR": 36,
+    "BYTESMATCH": 37,
 }
 LIMITS = {"kMaxInstr": 160, "kMaxCols": 24, "kMaxRegs": 48, "kMaxLanes": 64,
+          # the pattern pool's bytes (BYTESMATCH); a pattern record is
+          # (mode, parts, then each part's length and bytes)
+          "kMaxPool": 256,
           # the tile kernels: 256 threads, four rows each, over a tile of
           # 1024 rows; uniform slots from kUniformBase; two load stages when
           # they fit in the block's shared memory (kMaxSmem, sm_90); an
@@ -103,6 +116,14 @@ _ARITH_OPS = ("add", "sub", "mul")
 # register kinds: 'i32' (int32 bits), 'f32' (float32 bits), 'b' (0 or 1)
 _KIND = {torch.int32: "i32", torch.float32: "f32", torch.bool: "b"}
 _KIND_DTYPE = {"i32": torch.int32, "f32": torch.float32, "b": torch.bool}
+# BYTESMATCH modes, as the kernel reads them from a pattern record
+_MATCH_MODES = {"contains": 0, "startswith": 1, "endswith": 2}
+
+
+class KernelLimitError(NotImplementedError):
+    """A run of stages that the fused kernels could run, but not as one
+    program: it passes a register, instruction, column or shared-memory
+    limit (``lower_split`` cuts it)."""
 
 
 def apply_stages(table: TorchTable, stages: Sequence[Stage]) -> TorchTable:
@@ -131,7 +152,11 @@ def probe_key(table: TorchTable, key_names, pack, empty_key: int
     cols = [table.columns[k] for k in key_names]
     if pack is not None:
         return rel.packed_key(cols, pack, empty_key=empty_key)
-    key = rel.join_key(cols)
+    key, exact = rel.join_key(cols)
+    if not exact:
+        raise NotImplementedError(
+            f"probe_key: {tuple(key_names)} is a hashed key; the table "
+            "takes exact keys, and a hashed one probes the sorted-key join")
     return key
 
 
@@ -157,9 +182,11 @@ class Program:
 
     A ``batch`` program (``lower_stages(..., batch=True)``) has lane loops
     instead of FILTERs; ``param_dtypes`` holds each parameter slot's dtype
-    (None for a slot it never reads), and ``out_alias`` names, for each
+    (None for a slot it never reads). ``out_alias`` names, for each
     output, the input column it passes through unchanged (the kernel does
-    not store it) or None (the kernel stores it, in output order).
+    not store it) or None (the kernel stores it, in output order): in a
+    batch program every pass-through, in another only a bytes column's.
+    ``pool`` holds the BYTESMATCH instructions' pattern records.
 
     ``lower_registers`` numbers the registers 0..n_regs-1, one definition
     each; ``assign_slots`` (which ``lower_stages`` applies last) renumbers
@@ -179,6 +206,7 @@ class Program:
     batch: bool = False
     param_dtypes: Tuple[Optional[torch.dtype], ...] = ()
     out_alias: Tuple[Optional[str], ...] = ()
+    pool: bytes = b""
     n_vec: int = 0
     n_uniform: int = 0
     plan: Optional["TilePlan"] = None
@@ -213,13 +241,16 @@ class _Lowering:
         self.consts: Dict[Tuple[str, int], int] = {}
         # parameter slot -> the dtype its ParamRef reads
         self.params: Dict[int, torch.dtype] = {}
+        # the BYTESMATCH pattern records, and each one's offset in it
+        self.pool = bytearray()
+        self.patterns: Dict[bytes, int] = {}
 
     # -- emission ------------------------------------------------------------
     def reg(self) -> int:
         r = self.n_regs
         self.n_regs += 1
         if self.n_regs > LIMITS["kMaxRegs"]:
-            raise NotImplementedError(
+            raise KernelLimitError(
                 f"fused lowering: more than {LIMITS['kMaxRegs']} registers")
         return r
 
@@ -237,7 +268,7 @@ class _Lowering:
     def slot(self, name: str) -> int:
         slot = self.in_slots.setdefault(name, len(self.in_slots))
         if slot >= LIMITS["kMaxCols"]:
-            raise NotImplementedError("fused lowering: too many columns")
+            raise KernelLimitError("fused lowering: too many columns")
         return slot
 
     def column(self, name: str) -> Tuple[int, str]:
@@ -254,6 +285,41 @@ class _Lowering:
             self.loaded[name] = (r, kind)
             self.load_of[r] = name
         return self.loaded[name]
+
+    def bytes_column(self, e, env, what: str) -> str:
+        """The input bytes column (uint8[n, W]) that ``e`` names."""
+        src = env[e.name] if isinstance(e, ColumnRef) else None
+        if not isinstance(src, str):
+            raise NotImplementedError(
+                f"fused lowering: {what} of a computed value")
+        t = self.table.columns[src]
+        if t.dim() != 2 or t.dtype != torch.uint8:
+            raise NotImplementedError(
+                f"fused lowering: {what} of column {src!r} of dtype "
+                f"{t.dtype} and shape {tuple(t.shape)}")
+        return src
+
+    def pattern(self, e: BytesMatch) -> int:
+        """The pool offset of ``e``'s pattern record: the mode, the number
+        of parts, then each part's length and bytes (startswith and
+        endswith read the first part alone, as the reference does)."""
+        parts = [p.encode() for p in (e.parts if e.mode == "contains"
+                                      else e.parts[:1])]
+        if e.mode not in _MATCH_MODES or not parts or any(
+                len(p) > 255 for p in parts):
+            raise NotImplementedError(
+                f"fused lowering: BytesMatch {e.mode!r} of {len(parts)} "
+                "parts (a part is at most 255 bytes)")
+        rec = bytes([_MATCH_MODES[e.mode], len(parts)]) + b"".join(
+            bytes([len(p)]) + p for p in parts)
+        if rec not in self.patterns:
+            if len(self.pool) + len(rec) > LIMITS["kMaxPool"]:
+                raise KernelLimitError(
+                    f"fused lowering: more than {LIMITS['kMaxPool']} bytes "
+                    "of patterns")
+            self.patterns[rec] = len(self.pool)
+            self.pool += rec
+        return self.patterns[rec]
 
     def value(self, v) -> Tuple[int, str]:
         """The register of an env entry: an input column's name is loaded
@@ -378,14 +444,19 @@ class _Lowering:
                 op = "NEG_F32" if v[1] == "f32" else "NEG_I32"
                 return self.emit(op, self.reg(), v[0]), v[1]
             raise NotImplementedError(f"fused lowering: {e.op!r} on {v[1]}")
+        if isinstance(e, Year):
+            v = self.expr(e.operand, env, stage)
+            if v[1] != "i32":
+                raise NotImplementedError(f"fused lowering: Year of {v[1]}")
+            return self.emit("YEAR", self.reg(), v[0]), "i32"
+        if isinstance(e, BytesMatch):
+            src = self.bytes_column(e.operand, env, "BytesMatch")
+            return self.emit("BYTESMATCH", self.reg(), self.slot(src),
+                             self.pattern(e)), "b"
         if isinstance(e, PrefixCode):
             # the reference's decode in wrapping int32:
             # out = out * 10 + (byte - '0'), byte by byte
-            src = env[e.operand.name] if isinstance(e.operand,
-                                                    ColumnRef) else None
-            if not isinstance(src, str):
-                raise NotImplementedError(
-                    "fused lowering: PrefixCode of a computed value")
+            src = self.bytes_column(e.operand, env, "PrefixCode")
             ten = self.const(10, "i32")[0]
             zero = self.const(ord("0"), "i32")[0]
             acc = self.const(0, "i32")[0]
@@ -416,8 +487,7 @@ class _Lowering:
                 acc = self.emit("OR", self.reg(), acc[0], hit), "b"
             return acc
         raise NotImplementedError(
-            f"fused lowering: no instruction for {type(e).__name__}; a fused "
-            "BytesMatch or Year comes with the SQL frontend slice")
+            f"fused lowering: no instruction for {type(e).__name__}")
 
 
 def _param_kind(e: ParamRef) -> Optional[str]:
@@ -443,6 +513,128 @@ def lower_stages(table: TorchTable, stages: Sequence[Stage],
                                         empty_key, batch))
 
 
+def lower_split(table: TorchTable, stages: Sequence[Stage],
+                probe_keys: Optional[Sequence[str]] = None,
+                pack=None, empty_key: int = -1
+                ) -> Tuple[Tuple[Tuple[Stage, ...], Program], ...]:
+    """Lower a run of stages into consecutive programs, each within the
+    kernel's limits: ``((stages, program), ...)``, run one launch each,
+    the probe (if any) in the last. A run that fits is one program.
+
+    One that does not is first cut into a stage a filter conjunct (a
+    filter ANDs into the validity and nothing compacts, so the cut changes
+    no result), then cut greedily: each program takes the longest run of
+    the remaining stages that lowers. A filter that does not fit even
+    alone, a disjunction (an ``IsIn`` of many values, an OR chain), is
+    evaluated term by term into a bool column that each stage carries
+    with the other columns (``_split_disjunction``), and filtered on at the
+    end. Raises ``NotImplementedError`` when a node has no instruction,
+    ``KernelLimitError`` when a stage still does not fit."""
+    try:
+        return ((tuple(stages), lower_stages(table, stages, probe_keys, pack,
+                                             empty_key)),)
+    except KernelLimitError:
+        pass
+    flat: List[Stage] = []
+    for filter_expr, projections in stages:
+        flat.extend((f, None) for f in _conjuncts(filter_expr))
+        if projections is not None:
+            flat.append((None, projections))
+    runs, cur, i = [], table, 0
+    while i < len(flat):
+        program = None
+        for j in range(len(flat), i, -1):
+            try:
+                program = lower_stages(
+                    cur, flat[i:j], probe_keys if j == len(flat) else None,
+                    pack, empty_key)
+                break
+            except KernelLimitError:
+                if j > i + 1:
+                    continue
+                parts = _split_disjunction(cur, flat[i])
+                if parts is None:
+                    raise
+                flat[i:i + 1] = parts
+        if program is None:
+            continue          # the stage at i was cut into smaller ones
+        runs.append((tuple(flat[i:j]), program))
+        cur, i = _shape_table(cur, program), j
+    return tuple(runs)
+
+
+def _conjuncts(e) -> List[object]:
+    """The terms of a chain of ANDs (a filter of None has none)."""
+    if e is None:
+        return []
+    if isinstance(e, BinaryOp) and e.op == "and":
+        return _conjuncts(e.lhs) + _conjuncts(e.rhs)
+    return [e]
+
+
+def _disjuncts(e, chunk: int) -> List[object]:
+    """The terms of a chain of ORs, an ``IsIn`` cut into ``IsIn``s of at
+    most ``chunk`` values."""
+    if isinstance(e, BinaryOp) and e.op == "or":
+        return _disjuncts(e.lhs, chunk) + _disjuncts(e.rhs, chunk)
+    if isinstance(e, IsIn) and len(e.values) > chunk:
+        vals = tuple(e.values)
+        return [IsIn(e.operand, vals[k:k + chunk])
+                for k in range(0, len(vals), chunk)]
+    return [e]
+
+
+# the bool column a split disjunction accumulates into
+_SPLIT_OR = "__split_or"
+
+
+def _split_disjunction(table: TorchTable, stage: Stage):
+    """A filter stage too large for one program, as stages that each fit:
+    the first computes ``__split_or`` from the first term, each next one
+    ORs one more term into it, and the last filters on it; each carries
+    the table's columns through. The terms are as large as still lets
+    every stage lower alone. None when the filter is no disjunction that
+    such a cut makes fit."""
+    filter_expr, projections = stage
+    if filter_expr is None or projections is not None:
+        return None
+    carry = tuple((n, ColumnRef(n)) for n in table.column_names)
+    acc = ColumnRef(_SPLIT_OR)
+    with_acc = TorchTable(
+        dict(table.columns, **{_SPLIT_OR: torch.empty(0, dtype=torch.bool)}),
+        torch.empty(0, dtype=torch.bool),
+        dict(table.schema, **{_SPLIT_OR: dt.BOOL}))
+    chunk = max((len(t.values) for t in _disjuncts(filter_expr, 1 << 30)
+                 if isinstance(t, IsIn)), default=1)
+    while True:
+        terms = _disjuncts(filter_expr, chunk)
+        if len(terms) >= 2:
+            stages = [(None, carry + ((_SPLIT_OR, terms[0]),))] + [
+                (None, carry + ((_SPLIT_OR, BinaryOp("or", acc, t)),))
+                for t in terms[1:]] + [(acc, carry)]
+            try:
+                lower_registers(table, stages[:1])
+                for st in stages[1:]:
+                    lower_registers(with_acc, [st])
+                return stages
+            except KernelLimitError:
+                pass
+        if chunk == 1:
+            return None
+        chunk = (chunk + 1) // 2
+
+
+def _shape_table(table: TorchTable, program: Program) -> TorchTable:
+    """A table of no rows with the columns ``program`` outputs (dtypes and
+    row widths): what the next program of a split run lowers against."""
+    alias = program.out_alias or (None,) * len(program.out_names)
+    cols = {n: (table.columns[a][:0] if a is not None
+                else torch.empty(0, dtype=d))
+            for n, d, a in zip(program.out_names, program.out_dtypes, alias)}
+    return TorchTable(cols, torch.empty(0, dtype=torch.bool),
+                      dict(program.out_schema))
+
+
 def lower_registers(table: TorchTable, stages: Sequence[Stage],
                     probe_keys: Optional[Sequence[str]] = None,
                     pack=None, empty_key: int = -1,
@@ -452,9 +644,10 @@ def lower_registers(table: TorchTable, stages: Sequence[Stage],
     program ends in the probe of the key they make (packed by ``pack`` if
     set). With ``batch`` the program is for ``fused_batch_program``: each
     filter becomes a lane loop (``ParamRef``s read the lane's parameters)
-    and outputs that pass an input column through unchanged alias it.
-    Raises ``NotImplementedError`` for any expression, dtype or size the
-    kernels do not take."""
+    and outputs that pass an input column through unchanged alias it;
+    without, only a bytes column passes through. Raises
+    ``NotImplementedError`` for any expression or dtype the kernels do not
+    take, ``KernelLimitError`` past their limits."""
     if batch and probe_keys is not None:
         raise ValueError("lower_stages: a batch program has no probe")
     lw = _Lowering(table, batch=batch)
@@ -472,8 +665,8 @@ def lower_registers(table: TorchTable, stages: Sequence[Stage],
         if projections is not None:
             new_env, new_schema = {}, {}
             for out_name, e in projections:
-                if (batch and isinstance(e, ColumnRef)
-                        and isinstance(env[e.name], str)):
+                if (isinstance(e, ColumnRef) and _passes(table, env[e.name],
+                                                         batch)):
                     # a pass-through: no load, the output aliases the input
                     new_env[out_name] = env[e.name]
                 else:
@@ -486,12 +679,12 @@ def lower_registers(table: TorchTable, stages: Sequence[Stage],
     out_names, out_dtypes, out_alias = [], [], []
     n_store = 0
     for name, v in env.items():
-        alias = None
-        if batch:
-            # an input column passed through unchanged: the kernel stores
-            # nothing, the output is the input tensor (as the plain
-            # version's ColumnRef evaluates to it)
-            alias = v if isinstance(v, str) else lw.load_of.get(v[0])
+        # an input column passed through unchanged: the kernel stores
+        # nothing, the output is the input tensor (as the plain version's
+        # ColumnRef evaluates to it)
+        alias = v if _passes(table, v, batch) else None
+        if batch and alias is None and not isinstance(v, str):
+            alias = lw.load_of.get(v[0])
         out_names.append(name)
         out_alias.append(alias)
         if alias is not None:
@@ -502,9 +695,9 @@ def lower_registers(table: TorchTable, stages: Sequence[Stage],
         n_store += 1
         out_dtypes.append(_KIND_DTYPE[kind])
     if n_store > LIMITS["kMaxCols"]:
-        raise NotImplementedError("fused lowering: too many output columns")
+        raise KernelLimitError("fused lowering: too many output columns")
     if len(lw.code) > LIMITS["kMaxInstr"]:
-        raise NotImplementedError(
+        raise KernelLimitError(
             f"fused lowering: {len(lw.code)} instructions, more than "
             f"{LIMITS['kMaxInstr']}")
     code = torch.tensor(lw.code, dtype=torch.int32).reshape(-1, 4)
@@ -518,20 +711,31 @@ def lower_registers(table: TorchTable, stages: Sequence[Stage],
                    probe=probe_keys is not None, batch=batch,
                    param_dtypes=tuple(lw.params.get(i)
                                       for i in range(n_params)),
-                   out_alias=tuple(out_alias) if batch else ())
+                   out_alias=tuple(out_alias), pool=bytes(lw.pool))
+
+
+def _passes(table: TorchTable, v, batch: bool) -> bool:
+    """Whether the env entry ``v`` is an input column that passes through
+    to an output untouched: any input column in a batch program, a bytes
+    column in another (the kernel never loads one whole)."""
+    return isinstance(v, str) and (batch or table.columns[v].dim() == 2)
 
 
 # -- slots and the tile kernels' plan ------------------------------------------
 
-_ALU = frozenset(range(OPS["ADD_I32"], OPS["I32_TO_F32"] + 1))
+_ALU = frozenset(range(OPS["ADD_I32"], OPS["I32_TO_F32"] + 1)) | {
+    OPS["YEAR"]}
 _UNARY = frozenset(OPS[k] for k in ("NEG_I32", "NEG_F32", "NOT",
-                                    "I32_TO_F32"))
+                                    "I32_TO_F32", "YEAR"))
 _LOADS = frozenset((OPS["LOAD32"], OPS["LOAD8"]))
 # instructions whose field a is a register (the ALU ops' b too)
 _READS_A = frozenset((OPS["STORE32"], OPS["STORE8"], OPS["FILTER"],
                       OPS["PROBE"], OPS["LFILTER"])) | _ALU
-_DEFINES = _ALU | _LOADS | frozenset((OPS["CONST"], OPS["LOADB"],
-                                      OPS["PARAM"]))
+# LOADB and BYTESMATCH read an input column from device memory: their
+# fields a (the column) and b (the byte, or the pattern's pool offset) are
+# no registers
+_GLOBAL = frozenset((OPS["LOADB"], OPS["BYTESMATCH"]))
+_DEFINES = _ALU | _LOADS | _GLOBAL | frozenset((OPS["CONST"], OPS["PARAM"]))
 
 
 def _reads(op: int) -> Tuple[int, ...]:
@@ -546,7 +750,8 @@ class TilePlan:
     """What the tile kernels run, laid out on the host (``assign_slots``).
 
     A CTA's dynamic shared memory holds, in order: the tile code
-    (``16 * len(code)`` bytes), the computed vector slots (``comp_bytes``,
+    (``16 * len(code)`` bytes), the pattern pool (``pool_bytes`` rounded
+    up to 16), the computed vector slots (``comp_bytes``,
     4 KB a slot: ``[slot][kTileRows]`` uint32), ``stages`` load stages of
     ``stage_bytes`` each (the tile's validity at offset 0, 1 KB, then each
     loaded column at its offset: 1 KB a bool column, 4 KB a 32-bit one)
@@ -556,7 +761,9 @@ class TilePlan:
     CONST, PARAM and uniform ALU instructions, which the kernel evaluates
     once per CTA and lane into the uniform table; ``loads`` (column,
     width, offset) each loaded column's copy. ``packed`` is the int32
-    array the kernels' entry points take."""
+    array the kernels' entry points take: the header (its last word the
+    pool's length), the tile and uniform code, the loads, then the pool in
+    16-byte groups."""
 
     code: Tuple[Tuple[int, int, int, int], ...]
     uniform: Tuple[Tuple[int, int, int, int], ...]
@@ -566,11 +773,18 @@ class TilePlan:
     stage_bytes: int
     comp_bytes: int
     packed: torch.Tensor
+    pool_bytes: int = 0
 
     def smem_bytes(self, lanes: int = 1) -> int:
         """Dynamic shared memory of a CTA running ``lanes`` lanes."""
-        return (16 * len(self.code) + self.comp_bytes
-                + self.stages * self.stage_bytes + 4 * lanes * self.n_uniform)
+        return (16 * len(self.code) + _pool16(self.pool_bytes)
+                + self.comp_bytes + self.stages * self.stage_bytes
+                + 4 * lanes * self.n_uniform)
+
+
+def _pool16(n: int) -> int:
+    """The pool's bytes in shared memory: ``n`` rounded up to 16."""
+    return -(-n // 16) * 16
 
 
 def _dead_after(code) -> Dict[int, int]:
@@ -647,13 +861,14 @@ def assign_slots(program: Program) -> Program:
                     computed.add(row[1])
             slot[row[1]] = row[1] = s
         code.append(tuple(row))
-    plan = _tile_plan(code, n_vec, n_uniform, program.batch)
+    plan = _tile_plan(code, n_vec, n_uniform, program.batch, program.pool)
     return dataclasses.replace(
         program, code=torch.tensor(code, dtype=torch.int32).reshape(-1, 4),
         n_vec=n_vec, n_uniform=n_uniform, plan=plan)
 
 
-def _tile_plan(code, n_vec: int, n_uniform: int, batch: bool) -> TilePlan:
+def _tile_plan(code, n_vec: int, n_uniform: int, batch: bool,
+               pool: bytes = b"") -> TilePlan:
     """The shared-memory layout and the encoded tile and uniform code of a
     slot-numbered program (``assign_slots``)."""
     base, shift = LIMITS["kUniformBase"], LIMITS["kKindShift"]
@@ -694,7 +909,7 @@ def _tile_plan(code, n_vec: int, n_uniform: int, batch: bool) -> TilePlan:
         elif op in _ALU:
             tile.append((op, operand(dst), operand(a),
                          operand(a if op in _UNARY else b)))
-        elif op == OPS["LOADB"]:
+        elif op in _GLOBAL:
             tile.append((op, operand(dst), a, b))
         elif op == OPS["LOOP"]:
             loop = len(tile)
@@ -707,22 +922,24 @@ def _tile_plan(code, n_vec: int, n_uniform: int, batch: bool) -> TilePlan:
     loads = tuple((width[s][0], width[s][1], ring[s]) for s in sorted(
         ring, key=ring.get))
     lanes = LIMITS["kMaxLanes"] if batch else 1
-    fixed = 16 * len(tile) + comp_bytes + 4 * lanes * n_uniform
+    fixed = (16 * len(tile) + _pool16(len(pool)) + comp_bytes
+             + 4 * lanes * n_uniform)
     stages = LIMITS["kStages"]
     if fixed + stages * stage_bytes > LIMITS["kMaxSmem"]:
         stages = 1
     if fixed + stage_bytes > LIMITS["kMaxSmem"]:
-        raise NotImplementedError(
+        raise KernelLimitError(
             f"fused lowering: {fixed + stage_bytes} bytes of shared memory, "
             f"more than {LIMITS['kMaxSmem']}")
     header = [len(tile), len(uniform), len(loads), n_uniform, stages,
-              stage_bytes, comp_bytes]
-    header += [0] * (LIMITS["kPlanHeader"] - len(header))
+              stage_bytes, comp_bytes, len(pool)]
+    words = np.frombuffer(bytes(pool).ljust(_pool16(len(pool)), b"\0"),
+                          dtype="<i4").tolist()
     flat = header + [x for r in tile + uniform for x in r] + [
-        x for c, w, o in loads for x in (c, w, o, 0)]
+        x for c, w, o in loads for x in (c, w, o, 0)] + words
     return TilePlan(tuple(tile), tuple(uniform), loads, n_uniform, stages,
                     stage_bytes, comp_bytes,
-                    torch.tensor(flat, dtype=torch.int32))
+                    torch.tensor(flat, dtype=torch.int32), len(pool))
 
 
 def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
@@ -739,7 +956,8 @@ def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
         if kind != "i32":
             raise NotImplementedError(
                 f"fused lowering: probe key {name!r} is not an integer "
-                "column (hashed keys come with the SQL frontend slice)")
+                "column (a hashed key probes the sorted-key join, which "
+                "does not fuse)")
         regs.append(r)
     if pack is None:
         if len(regs) != 1:
@@ -778,8 +996,8 @@ def fused_morsel_program(table: TorchTable, stages: Sequence[Stage],
     raw (0 where no slot matched). Without a probe both are None.
 
     For a CUDA table this launches the fused kernel with ``program`` (or
-    the stages lowered now); for a CPU table it runs ``apply_stages`` and
-    ``apply_probe``.
+    the stages lowered now by ``lower_split``, one launch a program); for
+    a CPU table it runs ``apply_stages`` and ``apply_probe``.
     """
     kernel_ops.mark_kernel("fused")
     if not table.validity.is_cuda:
@@ -788,11 +1006,14 @@ def fused_morsel_program(table: TorchTable, stages: Sequence[Stage],
             return out, None, None
         return (out,) + apply_probe(out, probe)
     if program is None:
-        program = lower_stages(
+        runs = lower_split(
             table, stages,
             probe_keys=None if probe is None else probe["probe_keys"],
             pack=None if probe is None else probe["pack"],
             empty_key=-1 if probe is None else probe["empty_key"])
+        for _, part in runs[:-1]:
+            table = _launch(part, table, None)[0]
+        program = runs[-1][1]
     if program.probe != (probe is not None):
         raise ValueError("fused_morsel_program: the program and the call "
                          "disagree on the probe")
@@ -824,8 +1045,14 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
                 f"{tuple(t.shape)} on {t.device}; the program reads "
                 f"{dtype}{list(shape)} on {dev}")
         ins.append(t.contiguous())
+    alias = program.out_alias or (None,) * len(program.out_names)
+    for name, a in zip(program.out_names, alias):
+        if a is not None and a not in table.columns:
+            raise ValueError(f"fused_morsel_program: output {name!r} passes "
+                             f"through column {a!r}, which the table lacks")
     valid_in = table.validity.contiguous()
-    outs = [torch.empty(n, dtype=d, device=dev) for d in program.out_dtypes]
+    outs = [torch.empty(n, dtype=d, device=dev)
+            for d, a in zip(program.out_dtypes, alias) if a is None]
     valid_out = torch.empty(n, dtype=torch.bool, device=dev)
     found = bidx = None
     tk = tv = None
@@ -866,9 +1093,21 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
                 else "fused_morsel_program")
         build.check(_LIB, rc, name)
         kernel_ops.count_launch(name)
-    out = TorchTable(dict(zip(program.out_names, outs)), valid_out,
-                     dict(program.out_schema))
+        count_instructions(name, program)
+    it = iter(outs)
+    cols = {name: (table.columns[a] if a is not None else next(it))
+            for name, a in zip(program.out_names, alias)}
+    out = TorchTable(cols, valid_out, dict(program.out_schema))
     return out, found, bidx
+
+
+def count_instructions(kernel: str, program: Program) -> None:
+    """One launch of ``kernel`` for each of YEAR and BYTESMATCH that
+    ``program`` holds (``kernels.ops.instruction_launches``)."""
+    ops = set(program.code[:, 0].tolist())
+    for name in kernel_ops.INSTRUCTIONS:
+        if OPS[name] in ops:
+            kernel_ops.count_instruction_launch(kernel, name)
 
 
 # ---------------------------------------------------------------------------
@@ -1013,6 +1252,7 @@ def _launch_batch(program: Program, table: TorchTable, params: Tuple,
                     masks[lo:lo + lanes].data_ptr(), n, stream)
             build.check(_BATCH_LIB, rc, "fused_batch_program")
             kernel_ops.count_launch("fused_batch_program")
+            count_instructions("fused_batch_program", program)
     it = iter(stored)
     cols = {name: (table.columns[alias] if alias is not None else next(it))
             for name, alias in zip(program.out_names, program.out_alias)}

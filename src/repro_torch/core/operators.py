@@ -10,10 +10,9 @@ Each worker has its own operator instances over its local ``[cap]``
 tensors (the driver runs one per worker), eagerly; each operator body is
 wrapped in ``kernels.ops.table_op`` only for dispatch accounting.
 The port has FilterProject, HashAggregation (without spill), Distinct,
-HashJoin on its open-addressing path (single-match and expansion probes),
-the fused per-morsel pipeline with its probe variant, OrderBy, Limit,
-ScalarBroadcast and the HostRoundTrip conversion. The sorted-key join
-comes with the SQL frontend slice (``ROADMAP.md``).
+HashJoin on its open-addressing path (single-match and expansion probes)
+and on its sorted-key path, the fused per-morsel pipeline with its probe
+variant, OrderBy, Limit, ScalarBroadcast and the HostRoundTrip conversion.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import hash_probe as hp
+from ..kernels import ops as kernel_ops
 from ..kernels.ops import table_op
 from . import dtypes as dt
 from . import fused
@@ -298,7 +298,12 @@ def _pow2(n: int) -> int:
 MAX_HASH_TABLE_SLOTS = 1 << 25
 EMPTY_KEY = -1
 _PACKABLE_DTYPES = ("int32", "date32", "dict32")
-_SORTED_KEY_SLICE = "the SQL frontend slice"
+
+
+@table_op
+def _build_join_table(build: TorchTable, build_keys):
+    key, _ = rel.join_key([build.columns[k] for k in build_keys])
+    return rel.join_build(key, build.validity)
 
 
 @table_op
@@ -410,13 +415,72 @@ def _probe_join_hash_multi(probe: TorchTable, hash_state, probe_keys,
                                build_payload, join_type)
 
 
+@table_op
+def _probe_join(probe: TorchTable, build_state, probe_keys, build_keys,
+                build_payload, join_type: str, max_matches: int,
+                exact: bool, window: int):
+    """The sorted-key probe (the reference's ``_probe_join``). An exact key
+    takes the first ``max_matches`` rows of its run. A hashed key probes
+    its whole hash run, ``window`` rows (the longest run of equal hashes,
+    read at seal time), verifies equality of the key columns, and keeps
+    each probe row's first ``max_matches`` true matches in run order, so a
+    true match sorted behind a colliding key is not dropped (the reference
+    takes the first ``max_matches`` rows of the run before verifying)."""
+    build, bt = build_state
+    key, _ = rel.join_key([probe.columns[k] for k in probe_keys])
+    semi = join_type in ("left_semi", "left_anti")
+    if semi and exact:
+        mask = rel.semi_mask(bt, key, probe.validity)
+        if join_type == "left_anti":
+            mask = probe.validity & ~mask
+        return probe.filter(mask)
+    m = max_matches if exact else max(max_matches, window, 1)
+    res = rel.join_probe(bt, key, probe.validity, m)
+    probe_idx, build_idx, valid = res.probe_idx, res.build_idx, res.valid
+    if not exact:   # hashed keys: verify true equality (bucket-then-verify)
+        for pk, bk in zip(probe_keys, build_keys):
+            pv = probe.columns[pk].index_select(0, probe_idx)
+            bv = build.columns[bk].index_select(0, build_idx)
+            eq = (pv == bv).all(dim=-1) if pv.dim() > 1 else (pv == bv)
+            valid = valid & eq
+        if m > max_matches and not semi:
+            probe_idx, build_idx, valid = _first_matches(
+                probe.capacity, m, max_matches, build_idx, valid)
+    return _expand_join_output(probe, build, probe_idx, build_idx, valid,
+                               build_payload, join_type)
+
+
+def _first_matches(p: int, window: int, m: int, build_idx, valid):
+    """The first ``m`` live candidates of each probe row's ``window``, in
+    order, in the layout of ``m`` output rows a probe row."""
+    dev = valid.device
+    live = valid.reshape(p, window)
+    pos = torch.cumsum(live.to(torch.int64), dim=1) - 1
+    keep = (live & (pos < m)).reshape(-1)
+    rows = torch.arange(p, dtype=torch.int64, device=dev)[:, None]
+    slot = (rows * m + pos).reshape(-1)[keep]
+    out_b = torch.zeros(p * m, dtype=build_idx.dtype, device=dev)
+    out_v = torch.zeros(p * m, dtype=torch.bool, device=dev)
+    out_b[slot] = build_idx[keep]
+    out_v[slot] = True
+    probe_idx = torch.arange(p * m, dtype=torch.int64, device=dev) // m
+    return probe_idx, out_b, out_v
+
+
 def _expand_join_output(probe: TorchTable, build: TorchTable, probe_idx,
                         build_idx, valid, build_payload,
                         join_type: str) -> TorchTable:
-    """Expansion-layout output (the reference's ``_expand_join_output``,
-    whose semi/anti branch only its sorted-key path reaches): gather both
-    sides for inner, append the unmatched probe rows for left_outer."""
+    """Expansion-layout output (the reference's ``_expand_join_output``):
+    membership for semi/anti (the sorted-key path with hashed keys), gather
+    both sides for inner, append the unmatched probe rows for left_outer."""
     dev = probe.device
+    if join_type in ("left_semi", "left_anti"):
+        hit = torch.zeros(probe.capacity, dtype=torch.int32, device=dev)
+        hit.scatter_reduce_(0, probe_idx, valid.to(torch.int32), "amax")
+        mask = probe.validity & (hit > 0)
+        if join_type == "left_anti":
+            mask = probe.validity & ~mask
+        return probe.filter(mask)
     cols, schema = {}, {}
     for n in probe.column_names:
         cols[n] = probe.columns[n].index_select(0, probe_idx)
@@ -456,10 +520,13 @@ class HashJoin(Operator):
     other inner and left-outer joins expand with ``hash_probe_multi`` into
     ``P x max_matches`` rows, compacted after the probe.
 
-    Where the reference falls back to its sorted-key path (a non-integer or
-    too wide composite key, a valid build key equal to the empty sentinel
-    -1, a table above ``MAX_HASH_TABLE_SLOTS``), the port raises
-    ``NotImplementedError``: that path comes with the SQL frontend slice.
+    Where the reference falls back to its sorted-key path, so does the
+    port: a non-integer or too wide composite key, a valid build key equal
+    to the empty sentinel -1, or a table above ``MAX_HASH_TABLE_SLOTS``.
+    The build keys are sorted (``relational.join_build``) and probed by
+    searchsorted (``_probe_join``); a hashed key is verified after the
+    probe. Each such build counts one ``fallback_probe`` in the kernel
+    dispatch, as in the reference.
     """
 
     name = "HashJoin"
@@ -477,7 +544,10 @@ class HashJoin(Operator):
         self.build_rows = build_rows     # planner's build-side row bound
         self._build_batches: List[TorchTable] = []
         self._hash_state = None          # (build, table_keys, table_vals)
+        self._state = None               # (build, sorted BuildTable)
         self._max_probes = 0
+        self._exact = True
+        self._window = 0                 # longest hash run (hashed keys)
         self._pack = None                # composite-key windows, or None
         self._multi = False              # expansion probe (hash_probe_multi)
 
@@ -485,33 +555,16 @@ class HashJoin(Operator):
         """Accumulate one build-side batch (device-resident)."""
         self._build_batches.append(batch)
 
-    def seal_build(self) -> None:
-        """Concatenate the build side and build its table; probing may
-        start after. Reads back two scalars from the device: the shortfall
-        of occupied slots against valid rows, and the longest occupied run
-        (``max_probes``)."""
-        if not self._build_batches:
-            raise RuntimeError("HashJoin: the build side is empty")
-        build = concat_tables(self._build_batches)
-        self._build_batches = []
-        kt = [build.schema[k] for k in self.build_keys]
-        pack = None
-        if not (len(kt) == 1 and kt[0].name in _PACKABLE_DTYPES):
-            if len(kt) >= 2:
-                pack = _derive_pack(build, self.build_keys)
-            if pack is None:
-                raise NotImplementedError(
-                    f"HashJoin: key {self.build_keys} is not integer or too "
-                    f"wide to pack; the sorted-key join comes with "
-                    f"{_SORTED_KEY_SLICE}")
+    def _try_hash_build(self, build: TorchTable, pack) -> bool:
+        """Build the open-addressing table; False sends the join to the
+        sorted-key path. Reads back two scalars from the device: the
+        shortfall of occupied slots against valid rows, and the longest
+        occupied run (``max_probes``)."""
         cap = build.capacity
         bound = min(self.build_rows or cap, cap)
         table_size = _pow2(max(2 * bound, 2))
         if table_size > MAX_HASH_TABLE_SLOTS:
-            raise NotImplementedError(
-                f"HashJoin: a table of {table_size} slots is above the "
-                f"port's cap of {MAX_HASH_TABLE_SLOTS}; the sorted-key join "
-                f"comes with {_SORTED_KEY_SLICE}")
+            return False
         tk, tv = _build_hash_table(build, self.build_keys, table_size, pack)
         # every valid build row must occupy a slot: a shortfall means a key
         # equal to the empty sentinel, whose matches a probe would drop
@@ -520,17 +573,47 @@ class HashJoin(Operator):
             - (tk != EMPTY_KEY).sum(dtype=torch.int64),
             hp.longest_run(tk, EMPTY_KEY)]).tolist()
         if short:
-            raise NotImplementedError(
-                f"HashJoin: a valid build key equals the empty sentinel "
-                f"{EMPTY_KEY}; the sorted-key join comes with "
-                f"{_SORTED_KEY_SLICE}")
+            return False
         self._hash_state = (build, tk, tv)
         self._max_probes = hp.probe_bound_of_run(longest, table_size)
-        self._pack = pack
-        self._multi = not (self.join_type in ("left_semi", "left_anti")
-                           or self.max_matches == 1)
+        return True
+
+    def seal_build(self) -> None:
+        """Concatenate the build side and build its table, or sort it for
+        the sorted-key path; probing may start after."""
+        if not self._build_batches:
+            raise RuntimeError("HashJoin: the build side is empty")
+        build = concat_tables(self._build_batches)
+        self._build_batches = []
+        kt = [build.schema[k] for k in self.build_keys]
+        self._exact = len(kt) == 1 and kt[0].name in _PACKABLE_DTYPES
+        pack = None
+        key_ok = self._exact
+        if not key_ok and len(kt) >= 2:
+            pack = _derive_pack(build, self.build_keys)
+            key_ok = pack is not None
+        if key_ok and self._try_hash_build(build, pack):
+            self._pack = pack
+            self._multi = not (self.join_type in ("left_semi", "left_anti")
+                               or self.max_matches == 1)
+            return
+        kernel_ops.count_dispatch("fallback_probe")
+        bt = _build_join_table(build, self.build_keys)
+        self._state = (build, bt)
+        if not self._exact:
+            # one scalar read back: how far a hashed key's probe must walk
+            self._window = int(rel.longest_run(bt))
 
     def add_input(self, batch):
+        if self._state is not None:
+            out = _probe_join(batch, self._state, self.probe_keys,
+                              self.build_keys, self.build_payload,
+                              self.join_type, self.max_matches, self._exact,
+                              self._window)
+            if (self.join_type in ("inner", "left_outer")
+                    and self.max_matches > 1):
+                out = compact_table(out)
+            return [out]
         if self._hash_state is None:
             raise RuntimeError("HashJoin: probe before the build was sealed")
         if self._multi:
@@ -550,8 +633,20 @@ class HashJoin(Operator):
 # FusedMorsel: one kernel launch per morsel (filter -> project -> probe)
 # ---------------------------------------------------------------------------
 
+def _run_split(table: TorchTable, stages, runs):
+    """All but the last program of a split run (``fused.lower_split``), a
+    launch each; returns the table and the stages and program left. A CPU
+    table has no programs (``runs`` None): all its stages are left."""
+    if runs is None:
+        return table, stages, None
+    for part, program in runs[:-1]:
+        table, _, _ = fused.fused_morsel_program(table, part, program=program)
+    return (table,) + runs[-1]
+
+
 @table_op
-def _fused_morsel(table: TorchTable, stages, program):
+def _fused_morsel(table: TorchTable, stages, runs):
+    table, stages, program = _run_split(table, stages, runs)
     out, _, _ = fused.fused_morsel_program(table, stages, program=program)
     return out
 
@@ -559,8 +654,9 @@ def _fused_morsel(table: TorchTable, stages, program):
 @table_op
 def _fused_morsel_probe(table: TorchTable, hash_state, stages, probe_keys,
                         build_payload, join_type: str, max_probes: int, pack,
-                        program):
+                        runs):
     build, tk, tv = hash_state
+    table, stages, program = _run_split(table, stages, runs)
     out, found, bidx = fused.fused_morsel_program(
         table, stages,
         probe=dict(tk=tk, tv=tv, probe_keys=probe_keys, pack=pack,
@@ -573,7 +669,8 @@ def _fused_morsel_probe(table: TorchTable, hash_state, stages, probe_keys,
 class FusedMorsel(Operator):
     """A collapsed run of FilterProject stages, optionally ending in a
     single-match probe of a sealed ``HashJoin``, executed as one fused
-    kernel launch per morsel (``core.fused``). Created by
+    kernel launch per morsel (``core.fused``), or one a program where the
+    run is too large for one (``fused.lower_split``). Created by
     ``fuse_morsel_pipeline``."""
 
     name = "FusedMorsel"
@@ -581,32 +678,34 @@ class FusedMorsel(Operator):
     def __init__(self, stages, join: Optional[HashJoin] = None):
         self.stages = tuple(stages)
         self.join = join
-        # lowered programs per input signature (names, dtypes, shapes)
+        # the lowered programs per input signature (names, dtypes, shapes):
+        # ((stages, program), ...), one launch each
         self._programs = {}
 
     def _program(self, batch: TorchTable):
         if not batch.validity.is_cuda:
             return None
-        sig = tuple((n, a.dtype, a.dim()) for n, a in batch.columns.items())
-        program = self._programs.get(sig)
-        if program is None:
+        sig = tuple((n, a.dtype, tuple(a.shape[1:]))
+                    for n, a in batch.columns.items())
+        runs = self._programs.get(sig)
+        if runs is None:
             j = self.join
-            program = fused.lower_stages(
+            runs = fused.lower_split(
                 batch, self.stages,
                 probe_keys=None if j is None else j.probe_keys,
                 pack=None if j is None else j._pack)
-            self._programs[sig] = program
-        return program
+            self._programs[sig] = runs
+        return runs
 
     def add_input(self, batch):
-        program = self._program(batch)
+        runs = self._program(batch)
         j = self.join
         if j is None:
-            return [_fused_morsel(batch, self.stages, program)]
+            return [_fused_morsel(batch, self.stages, runs)]
         return [_fused_morsel_probe(batch, j._hash_state, self.stages,
                                     j.probe_keys, j.build_payload,
                                     j.join_type, j._max_probes, j._pack,
-                                    program)]
+                                    runs)]
 
 
 def fuse_morsel_pipeline(pipe: Pipeline) -> None:

@@ -6,8 +6,11 @@ reference's ``pallas`` path sends them (``relational.py:226-257``). The
 join keys of the open-addressing table are here (``join_key`` for one
 int-like column, ``packed_key`` for a composite one), and so is the
 exchange's hash partitioning (``hash32``, ``hash_combine``,
-``partition_ids``, bit-identical to the reference's). The sorted-key join
-comes with the SQL frontend slice (``ROADMAP.md``).
+``partition_ids``, bit-identical to the reference's), and so is the
+sorted-key join (``join_build``, ``join_probe``, ``semi_mask``), which
+takes the keys the table cannot: a float, bool or bytes key, a composite
+too wide to pack, a build key equal to the table's empty sentinel, or a
+build side above the table's cap.
 """
 
 from __future__ import annotations
@@ -96,18 +99,15 @@ def _sort_key(key: torch.Tensor) -> torch.Tensor:
     return key.to(torch.int32)
 
 
-def join_key(cols: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Single int32 join key: one integer column, as it is (exact).
-
-    The reference hashes any other key (``hash_combine``) and verifies
-    equality after the join; that path comes with the SQL frontend
-    slice."""
+def join_key(cols: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, bool]:
+    """Single int32 join key: ``(key, exact)``. Exact for one integer
+    column; otherwise the ``hash_combine`` of the columns, and the caller
+    must verify equality of the original columns after the join
+    (hash-bucket-then-verify, as a hash join does)."""
     if len(cols) == 1 and cols[0].dim() == 1 and not (
             cols[0].is_floating_point() or cols[0].dtype == torch.bool):
-        return cols[0].to(torch.int32)
-    raise NotImplementedError(
-        "join_key: hashed (non-integer or multi-column) keys come with the "
-        "SQL frontend slice")
+        return cols[0].to(torch.int32), True
+    return hash_combine(cols), False
 
 
 def packed_key(cols: Sequence[torch.Tensor], pack: Sequence[Tuple[int, int]],
@@ -249,6 +249,93 @@ def segment_agg(values: torch.Tensor, gids: torch.Tensor,
     if v.dtype == torch.int32:
         return segmented_agg.segmented_int_sum(seg, acc, max_groups)
     return segmented_agg.segmented_sum(seg, acc, max_groups)
+
+
+# ---------------------------------------------------------------------------
+# the sorted-key join (sort + searchsorted; the open-addressing table of
+# kernels.hash_probe is the other way to probe)
+# ---------------------------------------------------------------------------
+
+class BuildTable(NamedTuple):
+    """Sorted join build side (keys, permutation, original validity)."""
+
+    sorted_keys: torch.Tensor   # int32[B], invalid rows pushed to the end
+    perm: torch.Tensor          # int64[B] permutation into the build rows
+    validity: torch.Tensor      # the build rows' validity
+
+
+def join_build(keys: torch.Tensor, validity: torch.Tensor) -> BuildTable:
+    """Sort the build keys (invalid rows last, as ``INT32_MAX``; a stable
+    sort keeps equal keys in build-row order) for searchsorted probes."""
+    k = torch.where(validity, keys.to(torch.int32),
+                    torch.full_like(keys, INT32_MAX, dtype=torch.int32))
+    perm = torch.argsort(k, stable=True)
+    return BuildTable(k.index_select(0, perm), perm, validity)
+
+
+def longest_run(bt: BuildTable) -> torch.Tensor:
+    """The longest run of equal keys among the valid sorted build keys, as
+    a 0-d int64 tensor (0 for an empty build side)."""
+    n = bt.sorted_keys.shape[0]
+    if n == 0:
+        return torch.zeros((), dtype=torch.int64)
+    valid_sorted = bt.validity.index_select(0, bt.perm)
+    start = torch.ones(n, dtype=torch.bool, device=bt.perm.device)
+    start[1:] = bt.sorted_keys[1:] != bt.sorted_keys[:-1]
+    run_id = torch.cumsum(start.to(torch.int64), 0) - 1
+    lengths = torch.zeros(n, dtype=torch.int64, device=bt.perm.device)
+    lengths.index_add_(0, run_id, valid_sorted.to(torch.int64))
+    return lengths.max()
+
+
+class ProbeResult(NamedTuple):
+    """Expanded probe output: per output row the matched build and probe
+    indices and liveness, and per probe row its match count."""
+
+    build_idx: torch.Tensor    # int64[P*M] original build row per output row
+    probe_idx: torch.Tensor    # int64[P*M] probe row per output row
+    valid: torch.Tensor        # bool[P*M]
+    match_count: torch.Tensor  # int32[P] matches per probe row
+
+
+def _run_bounds(bt: BuildTable, probe_keys: torch.Tensor):
+    sk = bt.sorted_keys
+    pk = probe_keys.to(torch.int32)
+    return (torch.searchsorted(sk, pk, side="left"),
+            torch.searchsorted(sk, pk, side="right"))
+
+
+def join_probe(bt: BuildTable, probe_keys: torch.Tensor,
+               probe_valid: torch.Tensor, max_matches: int) -> ProbeResult:
+    """Expansion probe with the static output capacity ``P * max_matches``:
+    probe row i owns output rows ``[i*m, (i+1)*m)``, the first ``m`` rows
+    of its key's run in build-row order."""
+    p = probe_keys.shape[0]
+    m = max_matches
+    dev = probe_keys.device
+    start, end = _run_bounds(bt, probe_keys)
+    count = torch.where(probe_valid, end - start,
+                        torch.zeros_like(start)).to(torch.int32)
+    j = torch.arange(p * m, dtype=torch.int64, device=dev)
+    pi = j // m
+    k = j % m
+    within = k < count.index_select(0, pi)
+    if bt.sorted_keys.shape[0] == 0:      # no build row: no match
+        return ProbeResult(torch.zeros_like(pi), pi, within, count)
+    b = torch.clamp(start.index_select(0, pi) + k, 0,
+                    bt.sorted_keys.shape[0] - 1)
+    bidx = bt.perm.index_select(0, b)
+    valid = (within & probe_valid.index_select(0, pi)
+             & bt.validity.index_select(0, bidx))
+    return ProbeResult(bidx, pi, valid, count)
+
+
+def semi_mask(bt: BuildTable, probe_keys: torch.Tensor,
+              probe_valid: torch.Tensor) -> torch.Tensor:
+    """Probe rows with at least one match (EXISTS); anti is
+    ``probe_valid & ~semi``."""
+    start, end = _run_bounds(bt, probe_keys)
+    return probe_valid & (end > start)
 
 
 def _extreme(dtype: torch.dtype, sign: int) -> torch.Tensor:

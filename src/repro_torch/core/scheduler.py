@@ -48,6 +48,7 @@ comes with the adaptive-execution slice (ROADMAP.md, queue A): a
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import heapq
 import itertools
 import threading
@@ -230,6 +231,15 @@ class _VersionedLRU:
             while len(self._od) > self.capacity:
                 self._od.popitem(last=False)
 
+    def invalidate(self, key: str) -> None:
+        """Drop ``key`` if present."""
+        with self._lock:
+            self._od.pop(key, None)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._od)
+
 
 def referenced_tables(plan: P.PlanNode) -> List[str]:
     """Catalog tables a plan reads (cache-invalidation scope)."""
@@ -292,6 +302,7 @@ class QueryScheduler:
 
     # -- public API ---------------------------------------------------------
     def submit(self, plan: P.PlanNode, priority: int = 0,
+               sql: Optional[str] = None,
                num_workers: Optional[int] = None,
                optimize: Optional[bool] = None,
                feedback: Optional[object] = None,
@@ -305,7 +316,10 @@ class QueryScheduler:
         its handle (raising that handle's queue priority if the duplicate's
         is higher).
 
-        ``num_workers``/``optimize`` carry per-query ``ExecutionOptions``
+        ``sql``, the text a SQL-born query was lowered from, prefixes both
+        cache keys with ``sql=<sha1[:16]>:``: two texts that lower to the
+        same plan share nothing, and the same plan without text keys
+        apart. ``num_workers``/``optimize`` carry per-query ``ExecutionOptions``
         overrides: the worker count is pinned on the handle and keyed, and
         ``optimize=False`` runs the raw plan as-is. ``batching=False`` opts
         this query out of inter-query batching (it has no effect when the
@@ -322,7 +336,15 @@ class QueryScheduler:
             else self.session.num_workers
         # the device type stands where the reference keys on the kernel
         # backend; no feedback store exists yet (fb0)
-        key = f"w{w}:k={device_type}:fb0:{P.fingerprint(plan)}"
+        # SQL-born queries prefix their cache keys with the text's hash,
+        # so a change in the lowering of a text can never serve a result
+        # cached under the old reading of it
+        sql_prefix = ""
+        if sql is not None:
+            digest = hashlib.sha1(sql.encode("utf-8")).hexdigest()[:16]
+            sql_prefix = f"sql={digest}:"
+        key = (f"{sql_prefix}w{w}:k={device_type}:fb0:"
+               f"{P.fingerprint(plan)}")
         # result cache first: a hit skips optimization entirely
         cached = self.result_cache.get(key, self.session.catalog)
         if cached is not None:

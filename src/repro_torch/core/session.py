@@ -317,9 +317,50 @@ class Session:
                                 streaming=self.streaming,
                                 host_only_ops=frozenset(self.host_only_ops))
 
+    def _with_options(self, options: Optional[ExecutionOptions]
+                      ) -> "Session":
+        """This session with a query's overrides applied (the direct path
+        of ``QueryBuilder.collect``): the worker count. A ``feedback``
+        other than None or False raises ``NotImplementedError``: it comes
+        with the adaptive-execution slice."""
+        if options is None:
+            return self
+        if options.feedback is not None and options.feedback is not False:
+            raise NotImplementedError(
+                "ExecutionOptions.feedback comes with the adaptive-execution "
+                "slice")
+        if options.num_workers is not None:
+            return dataclasses.replace(self, num_workers=options.num_workers)
+        return self
+
     def table(self, name: str, columns=None) -> "QueryBuilder":
         """Fluent builder over a catalog table, bound to this session."""
         return QueryBuilder.scan(self.catalog, name, columns, session=self)
+
+    def sql(self, text: str, options: Optional[ExecutionOptions] = None,
+            dialect: Optional[str] = None) -> "QueryBuilder":
+        """Parse SQL text into a session-bound ``QueryBuilder``
+        (``core.sql.lower_sql``).
+
+        The builder is a hand-built one in every respect: ``.collect()``,
+        ``.submit()`` and ``.explain(analyze=True)`` work, and the
+        optimizer and scheduler treat it alike (the text also prefixes the
+        scheduler's plan and result cache keys)::
+
+            out = session.sql(
+                "SELECT l_returnflag, count(*) AS n FROM lineitem "
+                "GROUP BY l_returnflag ORDER BY l_returnflag").collect()
+
+        Unsupported constructs raise ``SqlUnsupportedError`` naming the
+        node, syntax errors ``SqlParseError``, unknown tables or columns
+        ``SchemaError``. ``dialect`` transpiles another dialect through the
+        optional ``sqlglot`` package and raises without it. ``options``
+        attaches ``ExecutionOptions`` that ``collect`` and ``submit`` pick
+        up."""
+        from .sql import lower_sql
+        qb = lower_sql(text, self.catalog, session=self, dialect=dialect)
+        qb._options = options
+        return qb
 
     def optimizer_config(self) -> OptimizerConfig:
         """The optimizer's configuration for this session's worker count."""
@@ -421,19 +462,24 @@ class Session:
         ``QueryHandle``.
 
         ``query`` is a ``PlanNode`` or a ``QueryBuilder`` (its plan is
-        taken as built; the scheduler optimizes through the plan cache).
-        ``options`` carries per-query overrides. Raises ``QueryRejected``
-        when admission control refuses it::
+        taken as built; the scheduler optimizes through the plan cache; a
+        builder from ``session.sql`` prefixes the cache keys with its
+        text). ``options`` carries per-query overrides; a builder from
+        ``session.sql(..., options=...)`` brings its own unless overridden
+        here. Raises ``QueryRejected`` when admission control refuses it::
 
             h = session.submit(session.table("lineitem").limit(5), priority=1)
             rows = h.result()
         """
         plan = query.plan if hasattr(query, "plan") else query
+        if options is None:
+            options = getattr(query, "_options", None)
+        sql = getattr(query, "sql_text", None)
         opts = options or ExecutionOptions()
         if opts.priority is not None:
             priority = opts.priority
         return self.scheduler().submit(
-            plan, priority=priority, num_workers=opts.num_workers,
+            plan, priority=priority, sql=sql, num_workers=opts.num_workers,
             optimize=opts.optimize, feedback=opts.feedback,
             batching=opts.batching)
 

@@ -50,6 +50,9 @@
 //   date32 and bool values as int32, float32 as its bits). A PARAM is a
 //   uniform slot: the CTA reads each lane's parameters once, into its
 //   uniform table, with everything computed from them alone.
+// * A stacked LIKE or EXTRACT(YEAR ...) predicate runs the interpreter's
+//   BYTESMATCH and YEAR, as the morsel kernel does; both are
+//   lane-invariant, so the host computes them once before the lane loop.
 // * At the end each thread writes, for each lane, its four rows' mask
 //   bytes as one 4-byte store to masks[b * n + i] (lane-major: for each
 //   lane, neighbouring threads write neighbouring words).
@@ -119,7 +122,10 @@ __device__ __forceinline__ void one_op_lanes(const int4 in, const Smem& m,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One CTA an SM is enough to bound its registers: with no minimum, ptxas
+// held this kernel to 48 registers once BYTESMATCH's row walk was inlined
+// beside the lane loop, and spilled.
+__global__ void __launch_bounds__(kThreads, 1)
 fused_batch_kernel(const __grid_constant__ Plan p, const __grid_constant__ Columns cols,
                    const uint32_t* __restrict__ params, int lanes,
                    const unsigned char* __restrict__ valid_in,

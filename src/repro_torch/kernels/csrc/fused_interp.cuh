@@ -37,6 +37,17 @@
 //   decides; a program at kMaxRegs still fits).
 // * The grid is persistent: as many CTAs as fit on the card at the plan's
 //   shared memory, each striding over the tiles.
+// * Two instructions read more than a word: LOADB one byte of a bytes
+//   column's row (uint8[n, W]), and BYTESMATCH (SQL LIKE over such a
+//   column) the row's W bytes, both from device memory through the
+//   read-only path, a row at a time. BYTESMATCH's pattern is a record in
+//   the plan's byte pool, which the CTA copies into shared memory beside
+//   the tile code once: a warp's threads compare different bytes of it at
+//   once, which shared memory serves without the constant cache's
+//   serialisation.
+// * YEAR (EXTRACT(YEAR FROM date32)) is an ALU instruction, exact against
+//   the reference's table of year starts 1970-2039 (every day before 1970
+//   is 1969, every day from 2039 on is 2039).
 //
 // Float arithmetic uses the round-to-nearest intrinsics, so no multiply
 // and add fuse into an FMA: results are bit-identical to the plain PyTorch
@@ -75,6 +86,8 @@ constexpr int kKindRing32 = 1;   // a loaded 32-bit column, in the stage
 constexpr int kKindRing8 = 2;    // a loaded bool column, in the stage
 constexpr int kKindUniform = 3;  // the uniform table's word
 constexpr int kPlanHeader = 8;
+// the pattern pool's bytes
+constexpr int kMaxPool = 256;
 static_assert(kTileRows == kThreads * kRowsPerThread, "a tile is the CTA's rows");
 
 enum Op : int {
@@ -114,17 +127,25 @@ enum Op : int {
   OP_PARAM = 33,    // r[dst] = parameter slot a of the current lane
   OP_LOOP = 34,     // start of a lane loop: a = the distance to its LFILTER
   OP_LFILTER = 35,  // lane mask bit &= r[a] != 0; next lane, back to the LOOP
+  OP_YEAR = 36,     // r[dst] = the year of day r[a] (clamped to 1969..2039)
+  OP_BYTESMATCH = 37,  // r[dst] = this row of bytes column a matches pool record b
 };
 
 // The plan: header (n_tile, n_uni, n_loads, n_uniform, stages,
-// stage_bytes, comp_bytes), the tile code, then the uniform code (op,
-// uniform dst, a, b), then the loads (column, width 4 or 1, offset in the
-// stage).
+// stage_bytes, comp_bytes, n_pool), the tile code, then the uniform code
+// (op, uniform dst, a, b), then the loads (column, width 4 or 1, offset in
+// the stage), then the pattern pool's n_pool bytes in 16-byte groups. A
+// pattern record: its mode (0 contains, 1 startswith, 2 endswith), its
+// number of parts, then each part's length and bytes.
 struct Plan {
-  int n_tile, n_uni, n_loads, n_uniform, stages, stage_bytes, comp_bytes;
+  int n_tile, n_uni, n_loads, n_uniform, stages, stage_bytes, comp_bytes, n_pool;
   int4 ins[kMaxInstr];
   int4 loads[kMaxCols];
+  int4 pool[kMaxPool / 16];
 };
+
+// The 16-byte groups of a pool of n bytes.
+__host__ __device__ inline int pool_groups(int n) { return (n + 15) / 16; }
 
 struct Columns {
   const void* in[kMaxCols];
@@ -135,6 +156,17 @@ struct Columns {
 __device__ __forceinline__ float f(uint32_t bits) { return __uint_as_float(bits); }
 __device__ __forceinline__ uint32_t u(float x) { return __float_as_uint(x); }
 __device__ __forceinline__ int32_t s(uint32_t bits) { return (int32_t)bits; }
+
+// The year of day d (days since 1970-01-01), as the reference's
+// searchsorted over the year starts of 1970-2039 gives it: 1969 before
+// 1970, 2039 from 2039-01-01 (day 25202) on. Between, every fourth year
+// from 1972 is a leap year (2000 is one), so the days from 1969-01-01 run
+// in cycles of 1461 whose first three years are common.
+__device__ __forceinline__ uint32_t year_of(int32_t d) {
+  if (d < 0) return 1969u;
+  if (d >= 25202) return 2039u;
+  return (uint32_t)(1969 + (4 * (d + 365) + 3) / 1461);
+}
 
 // The arithmetic, comparison and logic instructions, as expressions of the
 // operand values a and b.
@@ -163,7 +195,8 @@ __device__ __forceinline__ int32_t s(uint32_t bits) { return (int32_t)bits; }
   X(OP_AND, (uint32_t)((a != 0u) & (b != 0u)))                  \
   X(OP_OR, (uint32_t)((a != 0u) | (b != 0u)))                   \
   X(OP_NOT, (uint32_t)(a == 0u))                                \
-  X(OP_I32_TO_F32, u(__int2float_rn(s(a))))
+  X(OP_I32_TO_F32, u(__int2float_rn(s(a))))                    \
+  X(OP_YEAR, year_of(s(a)))
 
 // One instruction on one value (the uniform table); false for an opcode
 // that is not an ALU instruction.
@@ -215,6 +248,7 @@ __device__ __forceinline__ uint4 alu4(int op, const uint4 A, const uint4 B) {
 // The regions of a CTA's dynamic shared memory (TilePlan.smem_bytes).
 struct Smem {
   const int4* code;       // the tile code
+  const unsigned char* pool;  // the pattern pool
   unsigned char* comp;    // computed slots, [slot][kTileRows] uint32
   unsigned char* ring;    // the load stages
   uint32_t* uni;          // the uniform table, [lane][n_uniform]
@@ -223,7 +257,8 @@ struct Smem {
 __device__ __forceinline__ Smem carve(const Plan& p, unsigned char* smem) {
   Smem m;
   m.code = reinterpret_cast<const int4*>(smem);
-  m.comp = smem + 16 * p.n_tile;
+  m.pool = smem + 16 * p.n_tile;
+  m.comp = smem + 16 * (p.n_tile + pool_groups(p.n_pool));
   m.ring = m.comp + p.comp_bytes;
   m.uni = reinterpret_cast<uint32_t*>(m.ring + p.stages * p.stage_bytes);
   return m;
@@ -348,6 +383,9 @@ __device__ __forceinline__ void prologue(const Plan& p, const Columns& cols,
   if (blockIdx.x < n_tiles) issue_loads(p, cols, valid_in, m.ring, blockIdx.x, n);
   int4* code = reinterpret_cast<int4*>(smem);
   for (int k = threadIdx.x; k < p.n_tile; k += blockDim.x) code[k] = p.ins[k];
+  for (int k = threadIdx.x; k < pool_groups(p.n_pool); k += blockDim.x) {
+    code[p.n_tile + k] = p.pool[k];
+  }
   for (int lane = threadIdx.x; lane < lanes; lane += blockDim.x) {
     uint32_t* row = m.uni + lane * p.n_uniform;
     for (int k = 0; k < p.n_uni; ++k) {
@@ -393,13 +431,60 @@ __device__ __forceinline__ uint4 fetch(int e, const Smem& m, const unsigned char
   }
 }
 
-// An ALU instruction or a LOADB into the thread's four rows of a computed
-// slot. LOADB keeps its loads a row (a bytes column's row is not a word).
+// Whether the w bytes of `row` hold the m bytes of `pat` at `at`.
+__device__ __forceinline__ bool bytes_at(const unsigned char* row, int at,
+                                        const unsigned char* pat, int m) {
+  for (int k = 0; k < m; ++k) {
+    if (__ldg(row + at + k) != pat[k]) return false;
+  }
+  return true;
+}
+
+// One row of a bytes column (w bytes) against the pattern record `rec`,
+// with the reference's semantics (src/repro/core/expr.py, BytesMatch):
+// contains finds the parts in order, each from where the previous one's
+// first hit ended, and a part longer than the row never matches;
+// startswith compares the first bytes; endswith compares the last bytes of
+// the row trimmed of trailing spaces (a row of spaces has length 0).
+__device__ __forceinline__ bool match_row(const unsigned char* row, int w,
+                                         const unsigned char* rec) {
+  const int mode = rec[0];
+  const unsigned char* part = rec + 2;
+  int m = part[0];
+  if (mode == 1) return m <= w && bytes_at(row, 0, part + 1, m);
+  if (mode == 2) {
+    int len = w;
+    while (len > 0 && __ldg(row + len - 1) == (unsigned char)' ') --len;
+    return m <= len && bytes_at(row, len - m, part + 1, m);
+  }
+  int from = 0;
+  for (int k = 0; k < rec[1]; ++k, part += 1 + m) {
+    m = part[0];
+    int at = from;
+    while (at + m <= w && !bytes_at(row, at, part + 1, m)) ++at;
+    if (at + m > w) return false;
+    from = at + m;
+  }
+  return true;
+}
+
+// An ALU instruction, a LOADB or a BYTESMATCH into the thread's four rows
+// of a computed slot. LOADB and BYTESMATCH read a row at a time (a bytes
+// column's row is not a word).
 __device__ __forceinline__ void exec_vec(const int4 in, const Smem& m,
                                         const unsigned char* stage, const uint32_t* uni,
                                         const Columns& cols, long long r0, int v) {
   uint4 x;
-  if (in.x == OP_LOADB) {
+  if (in.x == OP_BYTESMATCH) {
+    const unsigned char* col = static_cast<const unsigned char*>(cols.in[in.z]);
+    const int w = cols.width[in.z];
+    uint32_t hit = 0;
+#pragma unroll 1
+    for (int k = 0; k < v; ++k) {
+      hit |= (uint32_t)match_row(col + (r0 + k) * w, w, m.pool + in.w) << k;
+    }
+    x = make_uint4(hit & 1u, (hit >> 1) & 1u, (hit >> 2) & 1u, (hit >> 3) & 1u);
+  } else if (in.x == OP_LOADB) {
     const unsigned char* col = static_cast<const unsigned char*>(cols.in[in.z]);
     const long long w = cols.width[in.z];
     uint32_t b[kRowsPerThread];
@@ -470,7 +555,24 @@ __device__ __forceinline__ bool exec_store(const int4 in, const Smem& m,
 // host side: the plan's checks and the launch's shape
 // ---------------------------------------------------------------------------
 
-__host__ __device__ inline bool is_alu(int op) { return op >= OP_ADD_I32 && op <= OP_I32_TO_F32; }
+__host__ __device__ inline bool is_alu(int op) {
+  return (op >= OP_ADD_I32 && op <= OP_I32_TO_F32) || op == OP_YEAR;
+}
+
+// A pattern record at `off` of the pool's n bytes: a mode of 0-2, at least
+// one part (exactly one unless it is contains), all inside the pool.
+inline bool valid_record(const unsigned char* pool, int n, int off) {
+  if (off < 0 || off + 2 > n) return false;
+  const int mode = pool[off], parts = pool[off + 1];
+  if (mode > 2 || parts < 1 || (mode != 0 && parts != 1)) return false;
+  int at = off + 2;
+  for (int k = 0; k < parts; ++k) {
+    if (at >= n) return false;
+    at += 1 + pool[at];
+    if (at > n) return false;
+  }
+  return true;
+}
 
 // An operand of the tile code: a whole computed slot, a whole slot of the
 // stage, or a word of the uniform table.
@@ -513,13 +615,15 @@ inline bool read_plan(const int* plan, int len, const int* in_widths, int n_in,
   p->stages = plan[4];
   p->stage_bytes = plan[5];
   p->comp_bytes = plan[6];
-  if (p->n_tile < 0 || p->n_uni < 0 || p->n_tile + p->n_uni > kMaxInstr ||
+  p->n_pool = plan[7];
+  if (p->n_pool < 0 || p->n_pool > kMaxPool || p->n_tile < 0 || p->n_uni < 0 ||
+      p->n_tile + p->n_uni > kMaxInstr ||
       p->n_loads < 0 || p->n_loads > kMaxCols || p->n_uniform < 0 ||
       p->n_uniform > kMaxRegs || (p->stages != 1 && p->stages != kStages) ||
       p->stage_bytes < kTileRows || p->stage_bytes % kTileRows != 0 ||
       p->stage_bytes > kMaxSmem || p->comp_bytes < 0 ||
       p->comp_bytes % (4 * kTileRows) != 0 || p->comp_bytes > kMaxSmem ||
-      len != kPlanHeader + 4 * (p->n_tile + p->n_uni + p->n_loads)) {
+      len != kPlanHeader + 4 * (p->n_tile + p->n_uni + p->n_loads + pool_groups(p->n_pool))) {
     return false;
   }
   const int* ins = plan + kPlanHeader;
@@ -535,11 +639,17 @@ inline bool read_plan(const int* plan, int len, const int* in_widths, int n_in,
     }
     p->loads[k] = ld;
   }
+  const int* words = lds + 4 * p->n_loads;
+  for (int k = 0; k < pool_groups(p->n_pool); ++k) {
+    p->pool[k] = make_int4(words[4 * k], words[4 * k + 1], words[4 * k + 2], words[4 * k + 3]);
+  }
+  const unsigned char* pool = reinterpret_cast<const unsigned char*>(p->pool);
   int open = -1;   // the open LOOP
   for (int k = 0; k < p->n_tile; ++k) {
     const int4 in = p->ins[k];
-    if (open >= 0 && in.x != OP_LFILTER && !is_alu(in.x) && in.x != OP_LOADB) {
-      return false;   // a loop body holds ALU instructions and LOADBs only
+    if (open >= 0 && in.x != OP_LFILTER && !is_alu(in.x) && in.x != OP_LOADB &&
+        in.x != OP_BYTESMATCH) {
+      return false;   // a loop body holds ALU instructions, LOADBs and BYTESMATCHes
     }
     bool ok;
     if (is_alu(in.x)) {
@@ -547,6 +657,9 @@ inline bool read_plan(const int* plan, int len, const int* in_widths, int n_in,
     } else if (in.x == OP_LOADB) {
       ok = valid_comp(in.y, *p) && in.z >= 0 && in.z < n_in && in.w >= 0 &&
            in.w < in_widths[in.z];
+    } else if (in.x == OP_BYTESMATCH) {
+      ok = valid_comp(in.y, *p) && in.z >= 0 && in.z < n_in && in_widths[in.z] > 0 &&
+           valid_record(pool, p->n_pool, in.w);
     } else if (in.x == OP_STORE32 || in.x == OP_STORE8) {
       ok = in.y >= 0 && in.y < n_out && valid_operand(in.z, *p);
     } else if (in.x == OP_FILTER || in.x == OP_PROBE) {
@@ -581,8 +694,8 @@ inline bool read_plan(const int* plan, int len, const int* in_widths, int n_in,
 
 // Dynamic shared memory of a CTA running `lanes` lanes.
 inline long long smem_bytes(const Plan& p, int lanes) {
-  return 16LL * p.n_tile + p.comp_bytes + (long long)p.stages * p.stage_bytes +
-         4LL * lanes * p.n_uniform;
+  return 16LL * (p.n_tile + pool_groups(p.n_pool)) + p.comp_bytes +
+         (long long)p.stages * p.stage_bytes + 4LL * lanes * p.n_uniform;
 }
 
 // The persistent grid of `kernel` at `smem` bytes over n_tiles tiles: the

@@ -41,7 +41,12 @@
 // * A fixed-width bytes column (uint8[n, width], Q22's c_phone) is read one
 //   byte a row: its slot carries its row width, and LOADB loads byte b of
 //   the row, zero-extended. The host lowers PrefixCode to LOADBs and int32
-//   arithmetic.
+//   arithmetic, and SQL's LIKE (BytesMatch) to a BYTESMATCH, which walks
+//   the row's windows against a pattern of the plan's pool (copied into
+//   shared memory with the code). A bytes column a stage only carries is
+//   never loaded: the host hands back the input tensor.
+// * EXTRACT(YEAR ...) is the ALU instruction YEAR: the reference's table of
+//   year starts, as a clamp to 1969..2039 and the 1461-day leap cycle.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>

@@ -116,11 +116,36 @@ def count_launch(name: str) -> None:
         _launches[name] += 1
 
 
+# the fused kernels' instructions whose launches are counted on their own,
+# per kernel: one for each launch of a program that holds the instruction,
+# under "kernel.INSTRUCTION"
+INSTRUCTIONS = ("YEAR", "BYTESMATCH")
+_FUSED = ("fused_morsel_program", "fused_morsel_probe", "fused_batch_program")
+_instr_launches: Dict[str, int] = {f"{k}.{i}": 0 for k in _FUSED
+                                   for i in INSTRUCTIONS}
+
+
+def count_instruction_launch(kernel: str, name: str) -> None:
+    """Add one to ``kernel.name``'s counter: a launch of fused kernel
+    ``kernel`` ran instruction ``name``."""
+    with _launch_lock:
+        _instr_launches[f"{kernel}.{name}"] += 1
+
+
+def instruction_launches() -> Dict[str, int]:
+    """``kernel.INSTRUCTION`` -> the launches of that fused kernel that ran
+    the instruction since the last reset."""
+    with _launch_lock:
+        return dict(_instr_launches)
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's and instruction's launch counter to 0."""
     with _launch_lock:
         for k in _launches:
             _launches[k] = 0
+        for k in _instr_launches:
+            _instr_launches[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -510,7 +510,14 @@ def test_fused_prefix_code_matches_reference_and_emulator():
 def test_lowering_refuses_bytes_it_cannot_read():
     data, schema = _customers(16, seed=1)
     t = TorchTable.from_numpy(data, port_schema(schema), device="cpu")
-    for e in (prefix_code(col("c_phone"), 16),       # past the row width
-              col("c_phone").contains("1"), year(col("c_custkey"))):
-        with pytest.raises(NotImplementedError):
-            fused.lower_stages(t, [(None, (("x", to_port(e)),))])
+    with pytest.raises(NotImplementedError):         # past the row width
+        fused.lower_stages(t, [(None, (("x", to_port(
+            prefix_code(col("c_phone"), 16))),))])
+    # a LIKE and an EXTRACT(YEAR) lower to BYTESMATCH and YEAR (they once
+    # raised here) and run in the emulator as the plain version does
+    for e, op in ((col("c_phone").contains("1"), "BYTESMATCH"),
+                  (year(col("c_custkey")), "YEAR")):
+        stages = [(None, (("x", to_port(e)),))]
+        program = fused.lower_stages(t, stages)
+        assert fused.OPS[op] in program.code[:, 0].tolist()
+        assert_tables_equal(emulate(program, t), fused.apply_stages(t, stages))

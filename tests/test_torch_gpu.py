@@ -239,6 +239,36 @@ def test_query_on_card_matches_cpu(cuda, q):
             np.testing.assert_array_equal(got[c], w)
 
 
+# SQL texts whose fused runs hold BYTESMATCH (Q16's LIKE) and YEAR
+_SQL_TEXTS = {
+    "q16": None,
+    "year_like": "SELECT o_orderkey, EXTRACT(YEAR FROM o_orderdate) AS y "
+                 "FROM orders WHERE EXTRACT(YEAR FROM o_orderdate) = 1995 "
+                 "AND o_comment LIKE '%special%requests%'",
+}
+
+
+@pytest.mark.parametrize("optimize", [True, False])
+@pytest.mark.parametrize("name", sorted(_SQL_TEXTS))
+def test_sql_text_on_card_matches_cpu(cuda, name, optimize):
+    """``Session.sql`` on the card against the CPU at SF 0.01, optimized
+    and not: the LIKE and EXTRACT(YEAR) predicates run in the fused
+    kernel's BYTESMATCH and YEAR."""
+    from repro_torch.core.session import ExecutionOptions
+    from repro_torch.tpch import sqltext
+    catalog = dbgen.load_catalog(sf=0.01)
+    text = _SQL_TEXTS[name] or sqltext.sql_text(16, catalog)
+    opts = ExecutionOptions(optimize=optimize)
+    want = Session(catalog, device="cpu").sql(text, options=opts).collect()
+    ops.reset_launch_counts()
+    got = Session(catalog).sql(text, options=opts).collect()
+    used = ops.instruction_launches()
+    assert used["fused_morsel_program.BYTESMATCH"] > 0
+    if name == "year_like":
+        assert used["fused_morsel_program.YEAR"] > 0
+    assert_results_match(got, want, name)
+
+
 # ---------------------------------------------------------------------------
 # the join kernels (build_table, hash_probe, the fused probe)
 # ---------------------------------------------------------------------------

@@ -256,13 +256,20 @@ def test_cpu_join_wrappers_mark_dispatches_and_launch_nothing():
 def test_join_key_matches_reference():
     c = np.array([I32.min, -1, 0, 7, I32.max], np.int32)
     want, exact = ref_rel.join_key([jnp.asarray(c)])
-    got = rel.join_key([torch.from_numpy(c)])
-    assert exact
+    got, got_exact = rel.join_key([torch.from_numpy(c)])
+    assert exact and got_exact
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    for cols in ([torch.ones(3)], [torch.ones(3, dtype=torch.bool)],
-                 [torch.zeros(3, dtype=torch.int32)] * 2):
-        with pytest.raises(NotImplementedError, match="SQL frontend"):
-            rel.join_key(cols)
+    # any other key is the reference's hash_combine, bit for bit, and is
+    # not exact: the sorted-key join verifies it after the probe
+    rng = np.random.default_rng(5)
+    f = rng.normal(0, 1000, 64).astype(np.float32)
+    b = rng.random(64) < 0.5
+    i = rng.integers(I32.min, I32.max, 64, dtype=np.int64).astype(np.int32)
+    for cols in ([f], [b], [i, i[::-1].copy()], [i, f]):
+        want, exact = ref_rel.join_key([jnp.asarray(x) for x in cols])
+        got, got_exact = rel.join_key([torch.from_numpy(x) for x in cols])
+        assert not exact and not got_exact
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("pack", [((0, 10), (5, 3)), ((-4, 100), (0, 1)),
@@ -503,6 +510,10 @@ def test_hash_join_matches_reference_operator(join_type, keys):
 
 
 def test_hash_join_refuses_unported_paths(monkeypatch):
+    """Where the reference leaves its hash table for the sorted-key join,
+    so does the port (it once raised there): a float key, a composite too
+    wide to pack, a valid build key equal to the sentinel -1, a table above
+    the cap. Every other join still builds its table."""
     build, bvalid, _, _ = _join_sides(seed=3)
     _, pb = _both(build, _BUILD_SCHEMA, bvalid, 1024)
 
@@ -510,23 +521,29 @@ def test_hash_join_refuses_unported_paths(monkeypatch):
              build_rows=None):
         j = ops.HashJoin(keys, keys, (), join_type, max_matches,
                          build_rows=build_rows)
+        counts = {}
         j.add_build(table)
-        j.seal_build()
+        with kernel_ops.collect_dispatches(counts):
+            j.seal_build()
+        sorted_path = j._state is not None
+        assert sorted_path == (j._hash_state is None)
+        assert counts.get("fallback_probe", 0) == int(sorted_path)
         return j
 
     # an expansion join (max_matches > 1) seals onto the expansion probe
     assert seal(("k",), max_matches=4)._multi
-    with pytest.raises(NotImplementedError, match="not integer"):
-        seal(("pf",))
-    with pytest.raises(NotImplementedError, match="not integer"):
-        seal(("k", "pf"))
+    for keys in (("pf",), ("k", "pf")):
+        j = seal(keys)
+        # the longest run of equal hashes (floats hash by their int32 cast,
+        # so these normal floats share a few long runs)
+        assert j._state is not None and not j._exact and j._window >= 1
     minus = dict(build, k=np.where(np.arange(700) == 3, -1, build["k"]))
     _, pm = _both(minus, _BUILD_SCHEMA, np.ones(700, bool), 1024)
-    with pytest.raises(NotImplementedError, match="sentinel"):
-        seal(("k",), table=pm)
+    j = seal(("k",), table=pm)
+    assert j._state is not None and j._exact
     monkeypatch.setattr(ops, "MAX_HASH_TABLE_SLOTS", 1024)
-    with pytest.raises(NotImplementedError, match="cap"):
-        seal(("k",), build_rows=513)
+    assert seal(("k",), build_rows=513)._state is not None
+    assert seal(("k",), build_rows=512)._hash_state is not None
     monkeypatch.undo()
     # semi/anti joins take any max_matches: membership alone decides
     assert seal(("k",), "left_semi", max_matches=4)._hash_state is not None

@@ -203,17 +203,25 @@ def test_lowering_refuses_what_the_kernel_cannot_run():
                                                  "i": rdt.INT32}),
                               device="cpu")
     pcol = to_port(col("s"))
-    with pytest.raises(NotImplementedError):
-        fused.lower_stages(t, [(None, (("s", pcol),))])
-    with pytest.raises(NotImplementedError):   # bytes column passes through
-        fused.lower_stages(t, [(to_port(col("i") > lit(2)), None)])
+    # a bytes column that a stage only carries passes through: the kernel
+    # never loads it, and the output column is the input tensor, as the
+    # plain version's ColumnRef gives it
+    for stages in ([(None, (("s", pcol),))],
+                   [(to_port(col("i") > lit(2)), None)]):
+        program = fused.lower_stages(t, stages)
+        assert "s" not in program.in_names
+        assert dict(zip(program.out_names, program.out_alias))["s"] == "s"
+        got = emulate(program, t)
+        assert_tables_equal(got, fused.apply_stages(t, stages))
+        assert got.columns["s"] is t.columns["s"]
 
     class Opaque(Expr):
         """A node the lowering has no instruction for."""
 
     with pytest.raises(NotImplementedError):
         fused.lower_stages(t, [(None, (("x", Opaque() + 1),))])
-    # a probe on a bytes key: the hashed join keys come later
+    # a probe on a bytes key: the table takes exact keys (a hashed one
+    # probes the sorted-key join)
     probe = dict(tk=torch.full((8,), -1, dtype=torch.int32),
                  tv=torch.zeros(8, dtype=torch.int32), probe_keys=("s",),
                  pack=None, empty_key=-1, max_probes=8)

@@ -140,10 +140,11 @@ def test_unported_nodes_and_workers_raise(port_catalog):
     stats = session.executor_stats()
     assert stats["kernel_dispatch"] == {"partition": 1}
     assert list(stats["exchanges"]) == ["#0 Repartition(l_orderkey)"]
+    # an InMemorySource scans its host arrays in morsels
     source = port_plan.InMemorySource("t", {"x": np.arange(3)},
                                       {"x": schema.LINEITEM["l_orderkey"]})
-    with pytest.raises(NotImplementedError, match="SQL frontend slice"):
-        session.execute(source)
+    got = session.execute(source)
+    np.testing.assert_array_equal(got["x"], np.arange(3, dtype=np.int32))
     # two workers run Q6 planned for two workers, and match one worker
     two = Session(port_catalog, device="cpu", num_workers=2)
     q6 = two.execute(queries.build_query(6, port_catalog, num_workers=2))

@@ -22,6 +22,10 @@
   at the plan's offsets, zero fill past n, the uniform table a lane, the
   per-warp lane skip (a skipped body's slots poisoned), and stores masked
   to the rows below n.
+* All three run YEAR with the kernel's arithmetic (``year_numpy``) and
+  BYTESMATCH by walking the pattern record of the program's pool over each
+  row as the kernel does (``match_numpy``), so a test against the plain
+  version holds the kernel's semantics to the reference's.
 * ``emulate_partition`` is the exchange's metadata pass of
   ``kernels/csrc/radix_histogram.cu`` (``partition_histogram_run`` and its
   kernel) on CPU tensors at their real addresses: each source's chunk grid
@@ -186,9 +190,55 @@ def _bits(x):
     return np.ascontiguousarray(x).view(np.uint32)
 
 
-def _step(op, dst, a, b, regs, ins, n) -> bool:
+def year_numpy(days) -> np.ndarray:
+    """The kernel's YEAR (``year_of`` in fused_interp.cuh) over int32 days:
+    1969 before day 0, 2039 from day 25202 on, else the 1461-day cycles
+    from 1969-01-01."""
+    d = np.asarray(days).astype(np.int64)
+    y = 1969 + (4 * (d + 365) + 3) // 1461
+    return np.where(d < 0, 1969, np.where(d >= 25202, 2039, y)).astype(
+        np.uint32)
+
+
+def pool_record(pool: bytes, off: int):
+    """The pattern record at ``off`` of a program's pool -> ``(mode,
+    [part bytes, ...])``."""
+    mode, n_parts = pool[off], pool[off + 1]
+    parts, at = [], off + 2
+    for _ in range(n_parts):
+        m = pool[at]
+        parts.append(bytes(pool[at + 1:at + 1 + m]))
+        at += 1 + m
+    return mode, parts
+
+
+def _match_row(row: bytes, mode: int, parts) -> bool:
+    if mode == 1:       # startswith
+        return len(parts[0]) <= len(row) and row.startswith(parts[0])
+    if mode == 2:       # endswith, on the row trimmed of trailing spaces
+        t = row.rstrip(b" ")
+        return len(parts[0]) <= len(t) and t.endswith(parts[0])
+    start = 0           # contains: each part from the previous hit's end
+    for part in parts:
+        at = row.find(part, start)
+        if at < 0:
+            return False
+        start = at + len(part)
+    return True
+
+
+def match_numpy(data: np.ndarray, pool: bytes, off: int) -> np.ndarray:
+    """The kernel's BYTESMATCH of pool record ``off`` over the rows of a
+    uint8[n, W] column -> uint32 0/1 a row."""
+    mode, parts = pool_record(pool, off)
+    return np.array([_match_row(bytes(r), mode, parts) for r in data],
+                    dtype=np.uint32).reshape(len(data))
+
+
+def _step(op, dst, a, b, regs, ins, n, pool=b"") -> bool:
     """One load or arithmetic/comparison/logic instruction over whole
-    columns (the kernel's ``load`` and ``alu``); False for any other op."""
+    columns (the kernel's ``load`` and ``alu``, with YEAR and BYTESMATCH);
+    False for any other op."""
     def f32(r):
         return regs[r].view(np.float32)
 
@@ -203,6 +253,10 @@ def _step(op, dst, a, b, regs, ins, n) -> bool:
         regs[dst] = np.full(n, np.int32(a)).view(np.uint32)
     elif op == "LOADB":
         regs[dst] = ins[a][:, b].astype(np.uint32)
+    elif op == "BYTESMATCH":
+        regs[dst] = match_numpy(ins[a], pool, b)
+    elif op == "YEAR":
+        regs[dst] = year_numpy(i32(a))
     elif op in ("ADD_I32", "SUB_I32", "MUL_I32"):
         fn = {"ADD": np.add, "SUB": np.subtract, "MUL": np.multiply}
         regs[dst] = fn[op[:3]](regs[a], regs[b]).astype(np.uint32)
@@ -262,7 +316,7 @@ def _emulate(program, table, probe):
     with np.errstate(all="ignore"):
         for code, dst, a, b in program.code.tolist():
             op = _OP_NAMES[code]
-            if _step(op, dst, a, b, regs, ins, n):
+            if _step(op, dst, a, b, regs, ins, n, program.pool):
                 continue
             if op == "STORE32":
                 outs[dst] = regs[a].copy()
@@ -324,13 +378,14 @@ def emulate_batch(program: "port_fused.Program", table: TorchTable, params,
                         else:
                             assert op2 not in ("LOOP", "LFILTER", "STORE32",
                                                "STORE8", "FILTER", "PROBE")
-                            assert _step(op2, d2, a2, b2, regs, ins, n), op2
+                            assert _step(op2, d2, a2, b2, regs, ins, n,
+                                         program.pool), op2
                     masks[lane] &= regs[code[end][2]] != 0
                 for r in set(regs) - before:
                     del regs[r]     # a read after the loop raises KeyError
                 pc = end + 1
                 continue
-            if _step(op, dst, a, b, regs, ins, n):
+            if _step(op, dst, a, b, regs, ins, n, program.pool):
                 pass
             elif op == "STORE32":
                 outs[dst] = regs[a].copy()
@@ -381,6 +436,11 @@ def emulate_tiles(program: "port_fused.Program", table: TorchTable,
         raw = np.ascontiguousarray(padded(ins[c])).view(np.uint8)
         stage[:, off:off + rows * width] = raw.reshape(n_tiles, rows * width)
     comp = np.full((n_tiles, plan.comp_bytes // 4), POISON, np.uint32)
+    # the pool as the kernel reads it: the packed plan's last 16-byte groups
+    groups = -(-plan.pool_bytes // 16)
+    words = plan.packed[len(plan.packed) - 4 * groups:] if groups else \
+        plan.packed[:0]
+    pool = words.numpy().astype("<i4").tobytes()[:plan.pool_bytes]
     # the uniform table, a row a lane
     bits = param_bits(params, lanes)
     uni = np.zeros((lanes, plan.n_uniform), np.uint32)
@@ -412,6 +472,8 @@ def emulate_tiles(program: "port_fused.Program", table: TorchTable,
         name = _OP_NAMES[op]
         if name == "LOADB":
             x = padded(ins[a][:, b].astype(np.uint32)).reshape(n_tiles, rows)
+        elif name == "BYTESMATCH":
+            x = padded(match_numpy(ins[a], pool, b)).reshape(n_tiles, rows)
         else:
             regs = {0: fetch(a, lane), 1: fetch(b, lane)}
             with np.errstate(all="ignore"):
@@ -524,20 +586,27 @@ def run_port_queries(qnums, data, batch_rows: int = TPCH_BATCH_ROWS):
 
 
 def emulate_fused_call(table: TorchTable, stages, probe) -> None:
-    """Lower one fused call as the card's ``FusedMorsel`` lowers it, run
-    the program through the emulator, and assert it equals the plain
+    """Lower one fused call as the card's ``FusedMorsel`` lowers it
+    (``fused.lower_split``: one program, or consecutive ones where the run
+    passes the kernel's limits), run each program through the emulator on
+    the previous one's output, and assert the result equals the plain
     version (``apply_stages`` and ``apply_probe``) bit for bit."""
-    program = port_fused.lower_stages(
+    runs = port_fused.lower_split(
         table, stages,
         probe_keys=None if probe is None else probe["probe_keys"],
         pack=None if probe is None else probe["pack"])
+    cur = table
+    for _, program in runs[:-1]:
+        assert program.code.shape[0] <= port_fused.LIMITS["kMaxInstr"]
+        cur = emulate(program, cur)
+    program = runs[-1][1]
     assert program.code.shape[0] <= port_fused.LIMITS["kMaxInstr"]
     want = port_fused.apply_stages(table, stages)
     if probe is None:
-        assert_tables_equal(emulate(program, table), want)
+        assert_tables_equal(emulate(program, cur), want)
         return
     got, found, bidx = emulate_probe(
-        program, table, probe["tk"].numpy(), probe["tv"].numpy(),
+        program, cur, probe["tk"].numpy(), probe["tv"].numpy(),
         probe["max_probes"], probe["empty_key"])
     assert_tables_equal(got, want)
     wf, wb = port_fused.apply_probe(want, probe)
