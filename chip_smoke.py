@@ -173,7 +173,41 @@ In order it:
    the stacked program at 32 lanes on the first 1M rows of orders (and
    n = 999,999, a one-row offset) exact against
    ``apply_batched_stages``, timed. After phase 9 the three timed
-   programs' device ms from ``torch.profiler``;
+   programs' device ms from ``torch.profiler``. Then the out-of-core
+   phase (``--spill`` runs it alone, with the build, and prints no ok
+   line; alone it first runs each query in memory to compare with), on
+   the same SF 1 catalog at ``batch_rows = 1 << 20``: (a) each of the 22
+   at W = 1 under ``device_budget`` = a quarter of its estimated
+   footprint (``footprint_budget``, the reference's sweep rule), then Q3
+   under a sixteenth (``_FORCED_SHARE``: at SF 1 a quarter of Q3's leaves
+   its joins inside their reservations), each a warm-up run (the grace
+   joins' histogram calls captured) and three timed runs with the launch
+   counters set to 0 just before the first and read just after: each
+   result equal to phase 5's, Q18 spilled under the quarter and Q3 under
+   the sixteenth (``_MUST_SPILL``), ``radix_histogram`` launched once per
+   ``_grace_pids`` call (its ``partition`` dispatch); a line a run with
+   the spill counters,
+   the grace joins and their partitions, the walls beside phase 5's and
+   the card's peak allocated bytes under the budget and in memory; (b)
+   the forced Q3 again with a host budget one byte below the most spilled
+   bytes its host tier held at once in (a) and a spill directory of its
+   own: disk spills and restores above 0,
+   no more bytes read back than written, the directory empty after; (c)
+   Q3, Q5 and Q18 planned for four workers under a quarter and a
+   sixty-fourth of their W = 4 footprint (``_W4_SHARES``), run as in (a),
+   each equal to its W = 1 result, with the exchanges staged through the
+   spill store: at least one grace join forms at W = 4, each of its
+   histogram calls counts its ``W * P`` (worker, partition) bins, and
+   those calls join (a)'s in the bit-exact check below; (d) Q18 submitted with
+   ``SchedulerConfig(memory_budget=...)`` at a quarter of its footprint:
+   admitted with a spill plan (``spill_admitted == 1``) and right; (e) Q6
+   with a host budget of 1 B: right, the budget's ``in_use`` back at 0.
+   The standalone ``radix_histogram`` is held bit-exact to its plain
+   version on every captured grace call (a row count that is no multiple
+   of the 512-id block among them) and on ``_HIST_CASES``, then timed on
+   the largest captured call (row 8s of the kernels line: its bound is
+   the ids read once and the counts written once, its ``library_ms`` one
+   ``torch.bincount`` of the same ids; its device ms after phase 9);
 8. serving on the same SF 1 catalog: (a) ``fused_batch_program`` at 32
    lanes, for the three small-query programs of
    ``benchmarks/bench_concurrency.py`` (point lookup on orders, filtered
@@ -254,7 +288,9 @@ SQL phase alone; ``--segmented`` the segmented
 sums' ``_SEG_CASES`` and min/max's ``_MINMAX_CASES`` alone; ``--probe``
 the probe's ``_PROBE_CASES`` and the expansion probe's ``_MULTI_CASES``
 alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone;
-``--storage`` the storage phase alone.
+``--storage`` the storage phase alone; ``--spill`` the out-of-core phase
+alone (the metadata pass's ``--partition`` run also holds the standalone
+histogram's ``_HIST_CASES``).
 ``--faults`` runs the six on the kernels as they are and then on copies,
 in a temporary directory, each with one fault planted (a K tile left
 out, early or late; V tiles not reloaded; the split over K's combine
@@ -264,7 +300,8 @@ last partial group of four rows dropped; the segmented sums' scalar tail
 read as absent; a run that crosses a warp step joined without its
 earlier part; YEAR one year late on the last day of a leap year;
 BYTESMATCH searching a later part of a LIKE from the row's start, not
-from the end of the previous part's hit; a bytes key's first lane left out of the partition hash; a
+from the end of the previous part's hit; a bytes key's first lane left out of the partition hash;
+the standalone histogram's ids past the last full 512-id block left out; a
 probe run ended at the end of a 32-byte sector of slots; a NaN folded as
 the min/max key that loses; the expansion probe's whole-row store writing
 the matches only, the zeros past the count left unwritten), and exits 0 only
@@ -275,7 +312,8 @@ product at (a) and (d) in float32, the ghost pop at
 year at ``YEAR synthetic``, the restarted search at ``BYTESMATCH
 synthetic``, the tail
 at n % 4 of 1, 2 and 3, the join at sorted G = 16 and its counts, the
-bytes lane at ``bytes W=4`` and ``views W=4``, the cut run at
+bytes lane at ``bytes W=4`` and ``views W=4``, the histogram's tail at ``grace n=1500000 P=64``,
+``grace n=100003 P=8`` and ``grace W=4 n=1048579 P=64``, the cut run at
 ``dense T=1024``, the losing NaN at ``specials f32 G=4096`` and the
 unwritten zeros at ``duplicates m=4``.
 
@@ -295,6 +333,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import importlib
 import json
 import math
@@ -1460,9 +1499,11 @@ def check_partition_cases(torch, rh, failures):
 
 
 def run_partition(torch, rh):
-    """``--partition``: the metadata pass's synthetic cases alone."""
+    """``--partition``: the metadata pass's synthetic cases and the
+    standalone histogram's grace shapes alone."""
     failures = []
     check_partition_cases(torch, rh, failures)
+    check_hist_cases(torch, rh, failures)
     if failures:
         fail("; ".join(failures))
 
@@ -3569,6 +3610,465 @@ def run_sql(torch, fused, catalog, data, rate, results=None, walls=None):
 
 
 # ---------------------------------------------------------------------------
+# the out-of-core phase: the 22 queries under a quarter of their footprint
+# ---------------------------------------------------------------------------
+
+# (a): the queries that must spill at W = 1, each with the share of its
+# footprint it must spill under: Q18 under a quarter, Q3 under a
+# sixteenth, since at SF 1 a quarter of Q3's leaves its joins inside
+# their reservations (the estimate is mostly its OrderBy and aggregation,
+# which reserve no more than the flush point needs)
+_FORCED_SHARE = 16
+_MUST_SPILL = {18: 4, 3: _FORCED_SHARE}
+# (c): the queries run at W = 4, each under these shares of its W = 4
+# footprint: a quarter, and a sixty-fourth. At SF 1 the W = 4 footprint is
+# mostly the aggregations' accumulators, one a worker, so under a quarter
+# or a sixteenth every join still fits its reservation; under a
+# sixty-fourth Q5's and Q18's largest joins go grace
+_SPILL_W4 = (3, 5, 18)
+_W4_SHARES = (4, 64)
+# the standalone histogram at grace shapes, synthetic (``--partition`` runs
+# them too): ids of W workers' rows in [0, W * P], the last the dead rows'
+# dropped bin; row counts that are no multiple of the 512-thread block
+# among them, and W * P = 256 at W = 4
+_HIST_CASES = ("grace n=1500000 P=64", "grace n=1048576 P=2",
+               "grace n=100003 P=8", "grace n=1 P=2",
+               "grace W=4 n=1048579 P=64")
+_HIST_SYMBOLS = ("histogram_shared_kernel", "histogram_global_kernel")
+
+
+def footprint_budget(catalog, plan, workers: int = 1, share: int = 4) -> int:
+    """The reference's sweep rule at ``share`` 4: a ``1 / share`` of the
+    plan's estimated footprint at the main path's morsel size, at least
+    1 KiB."""
+    from repro_torch.core.optimizer import estimate_memory
+    est = estimate_memory(plan, catalog, num_workers=workers,
+                          batch_rows=_MAIN_ROWS, prefetch_depth=2)
+    return max(est // share, 1024)
+
+
+def check_hist_call(torch, rh, ids, bins, what, failures, show=True):
+    """The standalone ``radix_histogram`` against its plain version on one
+    call's ids, exact. A miss goes into ``failures`` (and is printed
+    whatever ``show`` says)."""
+    got = rh.radix_histogram(ids, bins)
+    want = rh.radix_histogram_plain(ids, bins)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    if not same:
+        failures.append(f"radix_histogram[{what}]: {got.tolist()} vs plain "
+                        f"{want.tolist()}")
+    if show or not same:
+        print(f"check radix_histogram[{what}]: ids={ids.shape[0]} P={bins} "
+              f"(n % 512 = {ids.shape[0] % 512}) live {int(got.sum())}: "
+              + ("exact" if same else "differs"), flush=True)
+
+
+def check_hist_cases(torch, rh, failures):
+    """``_HIST_CASES`` on the card (``check_hist_call`` each)."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    for case in _HIST_CASES:
+        parts = dict(x.split("=") for x in case.split()[1:])
+        w, n, p = int(parts.get("W", 1)), int(parts["n"]), int(parts["P"])
+        ids = torch.randint(0, w * p + 1, (w * n,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        check_hist_call(torch, rh, ids, w * p, case, failures)
+
+
+@contextlib.contextmanager
+def grace_capture(calls, joins):
+    """While active, keep each grace-join histogram call's ids (copied to
+    the host, so that the card's peak memory is the query's) and bins
+    (``operators.radix_histogram``, the standalone kernel's wrapper, as
+    ``_grace_pids`` calls it) in ``calls``, and each sealed grace join's
+    (partitions, spilled build partitions) in ``joins``."""
+    from repro_torch.core import operators
+    hist, seal = operators.radix_histogram, operators.GraceHashJoin.seal_build
+
+    def hist_kept(ids, bins):
+        calls.append({"ids": ids.cpu(), "bins": bins})
+        return hist(ids, bins)
+
+    def seal_kept(self):
+        seal(self)
+        joins.append((self.num_partitions, len(self._spilled_build)))
+
+    operators.radix_histogram = hist_kept
+    operators.GraceHashJoin.seal_build = seal_kept
+    try:
+        yield
+    finally:
+        operators.radix_histogram = hist
+        operators.GraceHashJoin.seal_build = seal
+
+
+@contextlib.contextmanager
+def grace_launches(record):
+    """While active, ``record["n"]`` counts the standalone histogram's
+    launches made by grace joins (by the calls of
+    ``operators.radix_histogram``, as ``_grace_pids`` makes them), apart
+    from the exchange's ``partition_histogram``, whose launches share the
+    ``radix_histogram`` counter."""
+    from repro_torch.core import operators
+    from repro_torch.kernels import ops
+    hist = operators.radix_histogram
+
+    def counted(ids, bins):
+        before = ops.launch_counts()["radix_histogram"]
+        out = hist(ids, bins)
+        record["n"] += ops.launch_counts()["radix_histogram"] - before
+        return out
+
+    record["n"] = 0
+    operators.radix_histogram = counted
+    try:
+        yield
+    finally:
+        operators.radix_histogram = hist
+
+
+@contextlib.contextmanager
+def host_peak(record):
+    """While active, ``record["peak"]`` is the most bytes of spilled
+    partitions any ``SpillManager``'s host tier held at once (read after
+    each partition it took in)."""
+    from repro_torch.core.spill import SpillManager
+    make_room = SpillManager._make_room
+
+    def kept(self):
+        held = sum(p.nbytes for p in self._host_store.values())
+        record["peak"] = max(record.get("peak", 0), held)
+        make_room(self)
+
+    SpillManager._make_room = kept
+    try:
+        yield
+    finally:
+        SpillManager._make_room = make_room
+
+
+def _spill_text(sp) -> str:
+    h, d = sp["host"], sp["disk"]
+    return (f"spilled {sp['spilled_bytes']} B, host {h['spills']} spills "
+            f"{h['restores']} restores {h['restored_bytes']} B restored, disk "
+            f"{d['spills']} spills {d['restores']} restores "
+            f"{d['spilled_bytes']} B written {d['restored_bytes']} B read, "
+            f"reserved_peak {sp['reserved_peak']} B, denials "
+            f"{sp['reserve_denials']}")
+
+
+def _peak(torch, fn):
+    """(fn's result, the bytes the caching allocator's peak rose above what
+    was allocated before the call)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _spill_run(torch, session, mem, plan, calls, what):
+    """One query under ``session``'s budget: a warm-up run (its grace
+    joins' histogram calls captured, the card's peak memory and the host
+    tier's peak of spilled bytes read, and the in-memory session's card
+    peak beside them), then three timed runs, the launch counters set to 0 just before
+    the first and read just after, the grace joins' own histogram
+    launches among them as ``radix_histogram[grace]``: those of the
+    exchange's ``partition_histogram`` (W > 1) share the counter. Returns
+    (the first timed run's result, its executor stats, its launches, the
+    grace joins, the walls, the card's two peaks and the host peak)."""
+    from repro_torch.kernels import ops
+    joins, host, grace = [], {}, {}
+    with grace_capture(calls, joins), host_peak(host):
+        _, peak = _peak(torch, lambda: session.execute(plan))
+    _, mem_peak = _peak(torch, lambda: mem.execute(plan))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with grace_launches(grace):
+        got = session.execute(plan)
+        torch.cuda.synchronize()
+    wall = [time.perf_counter() - t0]
+    counts, stats = ops.launch_counts(), session.executor_stats()
+    counts["radix_histogram[grace]"] = grace["n"]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        session.execute(plan)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    grace_pids = stats["kernel_dispatch"].get("partition", 0)
+    if (counts["radix_histogram"] != grace_pids or (joins and not grace["n"])
+            or (session.num_workers == 1
+                and grace["n"] != counts["radix_histogram"])):
+        fail(f"{what}: {counts['radix_histogram']} radix_histogram launches "
+             f"({grace['n']} by grace joins) for {grace_pids} partition "
+             f"dispatches and {len(joins)} grace joins")
+    return got, stats, counts, joins, wall, (peak, mem_peak,
+                                             host.get("peak", 0))
+
+
+def _spill_line(what, budget, sp, joins, wall, peaks, counts,
+                extra="") -> str:
+    peak, mem_peak, hpeak = peaks
+    return (f"spill {what} SF {_SF}, budget {budget} B: {_spill_text(sp)}, "
+            f"grace joins (partitions, spilled build partitions) {joins}, "
+            f"walls {_walls(wall)} s{extra}, peak allocated {peak} B vs "
+            f"{mem_peak} B in memory, host tier peak {hpeak} B, launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+
+
+def spill_queries(torch, catalog, results, walls):
+    """(a): each of the 22 at W = 1 under a quarter of its footprint
+    (``footprint_budget``), then Q3 under ``_FORCED_SHARE``, each through
+    ``_spill_run``: each result equal to the in-memory one, each query of
+    ``_MUST_SPILL`` spilled under its share, one standalone histogram
+    launch a ``_grace_pids`` call (its ``partition`` dispatch). Returns
+    the captured calls, the histogram's launches and the forced Q3's host
+    peak."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    mem = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    calls, hist_launches, q3_host, spilled = [], 0, 0, []
+    runs = [(q, 4) for q in _QUERIES] + [
+        (q, share) for q, share in _MUST_SPILL.items() if share != 4]
+    for q, share in runs:
+        plan = queries.build_query(q, catalog)
+        budget = footprint_budget(catalog, plan, share=share)
+        session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                          device_budget=budget)
+        what = f"Q{q} W=1 at 1/{share} of its footprint"
+        got, stats, counts, joins, wall, peaks = _spill_run(
+            torch, session, mem, plan, calls, what)
+        sp = stats["spill"]
+        print(_spill_line(what, budget, sp, joins, wall, peaks, counts,
+                          f" vs in memory {_walls(walls[q])} s"), flush=True)
+        compare(q, got, results[q], "its in-memory run on the card")
+        if share == 4 and sp["spilled_bytes"]:
+            spilled.append(q)
+        if _MUST_SPILL.get(q) == share and not sp["spilled_bytes"]:
+            fail(f"{what} ({budget} B) spilled nothing")
+        if q == 3 and share == _FORCED_SHARE:
+            q3_host = peaks[2]
+        hist_launches += counts["radix_histogram[grace]"]
+    print(f"spill: under a quarter of their footprint {spilled} spilled",
+          flush=True)
+    return calls, hist_launches, q3_host
+
+
+def spill_disk(torch, catalog, results, q3_host):
+    """(b): Q3 under ``_FORCED_SHARE`` with a host budget one byte below
+    the most spilled bytes its host tier held at once in (a), so that the
+    largest partitions sink to disk at that peak (prefetched morsels share
+    the budget, so a few more may) and the host decode (0.13-0.16 GB/s)
+    stays within seconds; its spill files in a directory of its own: disk
+    spills and restores, no more read back than written, the directory
+    empty after."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    plan = queries.build_query(3, catalog)
+    root = tempfile.mkdtemp(prefix="spill_disk_")
+    try:
+        session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                          device_budget=footprint_budget(
+                              catalog, plan, share=_FORCED_SHARE),
+                          host_budget=max(q3_host - 1, 1), spill_dir=root)
+        t0 = time.perf_counter()
+        got = session.execute(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sp = session.executor_stats()["spill"]
+        left = os.listdir(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"spill disk Q3 host budget {max(q3_host - 1, 1)} B: "
+          f"{_spill_text(sp)}, wall {wall:.4f} s, files left {len(left)}",
+          flush=True)
+    compare(3, got, results[3], "its in-memory run on the card")
+    d = sp["disk"]
+    if not (d["spills"] and d["restores"]) or (
+            d["restored_bytes"] > d["spilled_bytes"]) or left:
+        fail(f"Q3 disk tier: {d}, {len(left)} files left")
+
+
+def spill_workers(torch, catalog, results):
+    """(c): Q3, Q5 and Q18 planned for ``_WORKERS`` workers under each
+    of ``_W4_SHARES`` of their W = 4 footprint, each through ``_spill_run``
+    (beside the in-memory run at W = 4) and equal to its W = 1 result,
+    with its staged exchanges. At least one grace join must form, and
+    every histogram call of a run's grace joins counts ``W * P`` bins for
+    one of its joins' P. Returns the captured calls and the histogram's
+    launches."""
+    from repro_torch import ICIExchange
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    mem = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                  num_workers=_WORKERS, exchange=ICIExchange())
+    calls, launches, graced = [], 0, []
+    for q in _SPILL_W4:
+        plan = queries.build_query(q, catalog, num_workers=_WORKERS)
+        for share in _W4_SHARES:
+            budget = footprint_budget(catalog, plan, _WORKERS, share)
+            session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                              num_workers=_WORKERS, exchange=ICIExchange(),
+                              device_budget=budget)
+            what = f"Q{q} W={_WORKERS} at 1/{share} of its footprint"
+            run_calls = []
+            got, stats, counts, joins, wall, peaks = _spill_run(
+                torch, session, mem, plan, run_calls, what)
+            print(_spill_line(what, budget, stats["spill"], joins, wall,
+                              peaks, counts, ", staged exchanges "
+                              f"{stats['spill_staged_exchanges']}"),
+                  flush=True)
+            compare(q, got, results[q], "its W=1 run on the card")
+            bins = {_WORKERS * p for p, _ in joins}
+            odd = [c["bins"] for c in run_calls if c["bins"] not in bins]
+            if odd:
+                fail(f"{what}: histogram calls of {odd} bins for grace "
+                     f"joins {joins}")
+            if joins:
+                graced.append(what)
+            calls += run_calls
+            launches += counts["radix_histogram[grace]"]
+    if not graced:
+        fail(f"no grace join formed at W={_WORKERS} under shares "
+             f"{_W4_SHARES}")
+    print(f"spill: grace joins at W={_WORKERS} in {graced}", flush=True)
+    return calls, launches
+
+
+def spill_scheduler(torch, catalog, results):
+    """(d): Q18 submitted with a ``memory_budget`` of a quarter of its
+    footprint: admitted with a spill plan, run under a spill manager of
+    that budget, right."""
+    from repro_torch import SchedulerConfig
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    plan = queries.build_query(18, catalog)
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    session.scheduler_config = SchedulerConfig(
+        memory_budget=footprint_budget(catalog, plan), cache_results=False)
+    try:
+        handle = session.submit(plan)
+        got = handle.result(timeout=600)
+        stats = session.scheduler().stats()
+    finally:
+        session.scheduler().close()
+    sp = handle.executor_stats["spill"]
+    print(f"spill scheduler Q18 memory_budget "
+          f"{session.scheduler_config.memory_budget} B: spill_admitted "
+          f"{stats['spill_admitted']}, {_spill_text(sp)}", flush=True)
+    compare(18, got, results[18], "its in-memory run on the card")
+    if stats["spill_admitted"] != 1 or handle.spill_plan is None:
+        fail(f"scheduler Q18: spill_admitted {stats['spill_admitted']}")
+
+
+def spill_prefetch(torch, catalog, results):
+    """(e): Q6 with a host budget of 1 B (each step over-subscribes it
+    alone): right, and the budget's ``in_use`` back at 0."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                      device_budget=1 << 40, host_budget=1)
+    got = session.execute(queries.build_query(6, catalog))
+    in_use = session.last_driver.ctx.spill.host.in_use
+    scan = session.executor_stats()["tables"]["lineitem"]
+    print(f"spill prefetch Q6 host budget 1 B: morsels {scan['morsels']}, "
+          f"in_use after {in_use} B", flush=True)
+    compare(6, got, results[6], "its in-memory run on the card")
+    if in_use:
+        fail(f"Q6 host budget: {in_use} B still held")
+
+
+def grace_hist_row(torch, rh, calls, launches, rate):
+    """Row 8s of the kernels line: the standalone histogram on the largest
+    captured grace call, timed (CUDA events), its plain version, its bound
+    (each id read once, the counts written once) and one
+    ``torch.bincount`` of the same ids beside it."""
+    c = max(calls, key=lambda c: c["ids"].shape[0])
+    ids, bins = c["ids"].cuda(), c["bins"]
+    n = ids.shape[0]
+    b, by = bound_ms(4 * n + 4 * bins, n, rate)
+    launcher = lambda: rh.radix_histogram(ids, bins)  # noqa: E731
+    name = f"radix_histogram[grace n={n} P={bins}]"
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/radix_histogram.cu",
+               replaces="src/repro/kernels/radix_histogram.py:36",
+               launches=launches, max_abs_err=0.0,
+               ms=time_ms(torch, launcher),
+               plain_ms=time_ms(torch, lambda: rh.radix_histogram_plain(
+                   ids, bins), reps=3, warm=1),
+               bound_ms=b, bound_by=by,
+               library_ms=time_ms(torch, lambda: torch.bincount(
+                   ids, minlength=bins + 1)),
+               host_us=host_us(torch, launcher, 50), rows=n,
+               calls=len(calls))
+    print(f"row {json.dumps(row)}", flush=True)
+    return [row], {name: launcher}
+
+
+def grace_device_ms(torch, rows, launchers, reps: int = 10):
+    """Device ms a call of row 8s from ``torch.profiler`` (the histogram
+    kernel's events). After phase 9, as every profile of the run."""
+    for r in rows:
+        if r["name"].startswith("radix_histogram[grace"):
+            hits, _ = _profile_calls(torch, r["name"], launchers[r["name"]],
+                                     _HIST_SYMBOLS, reps)
+            r["device_ms"] = sum(e[2] for e in hits) / reps / 1e3
+            print(f"device {r['name']}: kernel {r['device_ms']:.5f} ms "
+                  f"(bound {r['bound_ms']:.5f}, ms {r['ms']:.5f})",
+                  flush=True)
+
+
+def run_spill(torch, rh, catalog, rate, results=None, walls=None):
+    """The out-of-core phase (a)-(e), then the standalone histogram on
+    every captured grace call and ``_HIST_CASES``, exact. ``results`` and
+    ``walls`` are phase 5's; with none (``--spill`` alone) each query runs
+    in memory on the card here first. Returns row 8s of the kernels line
+    and its launcher."""
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    t_phase = time.perf_counter()
+    if results is None:
+        gpu = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+        results, walls = {}, {}
+        for q in _QUERIES:
+            results[q], _, _, walls[q] = _timed(
+                torch, gpu, queries.build_query(q, catalog))
+    calls, launches, q3_host = spill_queries(torch, catalog, results, walls)
+    spill_disk(torch, catalog, results, q3_host)
+    w4_calls, w4_launches = spill_workers(torch, catalog, results)
+    failures = []
+    for where, got in (("W=1", calls), (f"W={_WORKERS}", w4_calls)):
+        for i, c in enumerate(got):
+            check_hist_call(torch, rh, c["ids"].cuda(), c["bins"],
+                            f"grace call {i} {where}", failures, show=False)
+        shapes = sorted({(c["ids"].shape[0], c["bins"]) for c in got})
+        print(f"check radix_histogram on the {len(got)} captured grace "
+              f"calls at {where} (ids, bins) {shapes}: "
+              + ("exact" if not failures else "differs"), flush=True)
+    check_hist_cases(torch, rh, failures)
+    if failures:
+        fail("; ".join(failures))
+    calls += w4_calls
+    if not any(c["ids"].shape[0] % 512 for c in calls):
+        fail("no captured grace histogram call has a row count that is no "
+             "multiple of the block")
+    spill_scheduler(torch, catalog, results)
+    spill_prefetch(torch, catalog, results)
+    rows, launchers = grace_hist_row(torch, rh, calls,
+                                     launches + w4_launches, rate)
+    print(f"out-of-core phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows, launchers
+
+
+# ---------------------------------------------------------------------------
 # phase 8: serving -- the batched kernel, then the scheduler on the card
 # ---------------------------------------------------------------------------
 
@@ -4236,6 +4736,15 @@ _FAULTS = {
     # the fused kernels' BYTESMATCH: a later part of a contains is searched
     # from the row's start, not from the end of the previous part's hit
     "bytesmatch_parts_from_zero": [("    int at = from;", "    int at = 0;", 1)],
+    # the standalone histogram: the ids past the last full 512-id block
+    # are left out
+    "hist_tail_dropped": [
+        ("    int id = i < n ? ids[i] : -1;\n"
+         "    if ((unsigned)id >= (unsigned)num_bins) id = -1;\n"
+         "    add_grouped(hist, id);",
+         "    int id = base + kThreads <= n ? ids[i] : -1;\n"
+         "    if ((unsigned)id >= (unsigned)num_bins) id = -1;\n"
+         "    add_grouped(hist, id);", 1)],
     # the single-match probe: a run that reaches the end of a 32-byte
     # sector of slots ends there as a miss
     "probe_run_cut_short": [
@@ -4261,6 +4770,9 @@ _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
                 "multi_walk_from_group_base": ("duplicates m=4",
                                                "wrap T=64"),
                 "partition_bytes_lane_skipped": ("bytes W=4", "views W=4"),
+                "hist_tail_dropped": ("grace n=1500000 P=64",
+                                      "grace n=100003 P=8",
+                                      "grace W=4 n=1048579 P=64"),
                 "probe_run_cut_short": ("dense T=1024",)}
 _ATTN_CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                         "flash_attention.cu")
@@ -4285,6 +4797,7 @@ _FAULT_TARGETS = {"ghost_pop_ends_turn": (_TABLE_CU, "--build"),
                   "minmax_nan_loses": (_SEG_CU, "--segmented"),
                   "multi_zeros_unwritten": (_TABLE_CU, "--probe"),
                   "partition_bytes_lane_skipped": (_RADIX_CU, "--partition"),
+                  "hist_tail_dropped": (_RADIX_CU, "--partition"),
                   "probe_run_cut_short": (_PROBE_CUH, "--probe"),
                   "multi_walk_from_group_base": (_PROBE_CUH, "--probe")}
 # the cases of the fused checks a fault may name (check_fused's views)
@@ -4313,7 +4826,8 @@ def _run_alone(root: str, option: str) -> dict:
     for line in out.stdout.splitlines():
         if line.startswith(("check flash_attention", "check build_table",
                             "check fused", "check segmented",
-                            "check partition_histogram", "check hash_probe")):
+                            "check partition_histogram", "check hash_probe",
+                            "check radix_histogram")):
             print(line, flush=True)
         m = case.match(line)
         if m:
@@ -4601,6 +5115,12 @@ def main() -> None:
                          "BYTESMATCH against their plain version, the "
                          "sorted-key join, SQL-born serving); prints no ok "
                          "line")
+    ap.add_argument("--spill", action="store_true",
+                    help="run the out-of-core phase alone (the 22 queries "
+                         "at W=1 under a quarter of their footprint, the "
+                         "disk tier, W=4, the scheduler's over-budget "
+                         "query, the bytes-aware prefetcher, the grace "
+                         "join's histogram); prints no ok line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9, the build checks, the fused checks "
                          "and the segmented cases alone on the kernels as "
@@ -4702,6 +5222,12 @@ def main() -> None:
         run_sql(torch, fused, catalog, data, rate)
         print(card)
         return
+    if args.spill:
+        spill_rows, spill_launchers = run_spill(torch, rh, catalog, rate)
+        grace_device_ms(torch, spill_rows, spill_launchers)
+        print(json.dumps({"kernels": spill_rows}))
+        print(card)
+        return
     rows_out, launchers = check_fused(torch, fused, queries, catalog, morsel,
                                       rate)
     calls = capture_calls(torch, hp, fused, catalog)
@@ -4734,6 +5260,10 @@ def main() -> None:
                                       results, walls)
     rows_out += sql_rows
     launchers.update(sql_launchers)
+    spill_rows, spill_launchers = run_spill(torch, rh, catalog, rate, results,
+                                            walls)
+    rows_out += spill_rows
+    launchers.update(spill_launchers)
     t0 = time.perf_counter()
     batch_rows, batch_launchers = check_batch(torch, fused, catalog, data,
                                               rate)
@@ -4756,6 +5286,7 @@ def main() -> None:
         fail("; ".join(failures))
     segmented_device_ms(torch, rows_out, launchers)
     sql_device_ms(torch, rows_out, launchers)
+    grace_device_ms(torch, rows_out, launchers)
     # the main path's probe, expansion probe, min/max and repartition
     # shapes, each call timed
     for more_rows, more_launchers in (

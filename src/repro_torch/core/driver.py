@@ -22,6 +22,13 @@ joins; a single-match probe straight off a scan fuses into the scan's
 morsel pipeline), ScalarBroadcast, OrderBy, Limit, Exchange, Repartition
 and Broadcast.
 
+Out of core (``ExecutionContext.spill``, a ``core.spill.SpillManager``):
+a join whose build side does not fit its device reservation runs as one
+``GraceHashJoin`` over the workers' steps, an aggregation whose
+accumulator does not fit flushes runs to the host tier, an exchange send
+buffer past the unreserved budget is staged through the spill store, and
+every scan's prefetcher draws on the manager's host budget.
+
 ``collect_batch`` runs a group of compatible small queries as one stacked
 scan (``core.batch``); the scheduler calls it for inter-query batching.
 """
@@ -45,6 +52,11 @@ from .table import TorchTable, concat_tables
 # one batch per worker
 Step = List[TorchTable]
 
+# smallest device reservation granted to a memory-hungry operator under
+# pressure: enough to make progress (one partition / a few groups resident)
+# without letting small operators monopolise the budget
+_MIN_GRANT = 1 << 10
+
 
 @dataclasses.dataclass
 class ExecutionContext:
@@ -60,10 +72,19 @@ class ExecutionContext:
     streaming: bool = True
     # operators whose device version is "unavailable" (host round trip)
     host_only_ops: frozenset = frozenset()
+    # tiered-memory spill manager (core.spill). None = in-memory-only
+    # execution; set, joins whose build side exceeds its reservation go
+    # grace-partitioned, aggregations flush accumulator runs to the host
+    # tier, and oversized exchange send buffers stage through the store
+    spill: Optional[object] = None
 
     def __post_init__(self):
         if self.exchange is None:
             self.exchange = ICIExchange()
+
+    def host_budget(self):
+        """Shared host-memory budget (prefetch + spill host tier), if any."""
+        return self.spill.host if self.spill is not None else None
 
 
 @dataclasses.dataclass
@@ -111,6 +132,8 @@ def empty_executor_stats() -> Dict[str, object]:
         "kernel_dispatch": {},
         "exchange_protocol": "",
         "exchanges": {},
+        "spill": {},
+        "spill_staged_exchanges": 0,
     }
 
 
@@ -130,11 +153,15 @@ class Driver:
         # ("#0 Repartition(l_orderkey)" -> counter deltas)
         self.exchange_stats: Dict[str, Dict[str, float]] = {}
         self._frag_seq = 0
+        # exchanges whose send buffer was staged through the spill store
+        self.spill_staged_exchanges = 0
+        self._spill_seq = 0
 
     def executor_stats(self) -> Dict[str, object]:
         """Per-query stats: scan counters, operator seconds, the device,
         kernel dispatch counts (comparable with the reference's ``pallas``
-        run), the exchange protocol and per-fragment exchange counters."""
+        run), the exchange protocol, per-fragment exchange counters, and
+        the per-tier spill counters."""
         return {
             "tables": {t: s.summary() for t, s in self.scan_stats.items()},
             "op_seconds": dict(self.op_seconds),
@@ -143,6 +170,9 @@ class Driver:
             "kernel_dispatch": dict(self.kernel_dispatch),
             "exchange_protocol": self.ctx.exchange.name,
             "exchanges": {k: dict(v) for k, v in self.exchange_stats.items()},
+            "spill": (self.ctx.spill.stats.summary()
+                      if self.ctx.spill is not None else {}),
+            "spill_staged_exchanges": self.spill_staged_exchanges,
         }
 
     # -- public API ----------------------------------------------------------
@@ -167,16 +197,27 @@ class Driver:
         pins the member-lane count of the stacked program; None sizes it
         to the group. Batching is W = 1 only."""
         from . import batch   # batch imports operators and fused
-        if self._w != 1:
-            raise ValueError(f"collect_batch: batching runs at W = 1, not "
-                             f"W = {self._w}")
-        with kernel_ops.collect_dispatches(self.kernel_dispatch):
-            return batch.run_batch(self, shapes, lanes=lanes)
+        try:
+            if self._w != 1:
+                raise ValueError(f"collect_batch: batching runs at W = 1, "
+                                 f"not W = {self._w}")
+            with kernel_ops.collect_dispatches(self.kernel_dispatch):
+                return batch.run_batch(self, shapes, lanes=lanes)
+        finally:
+            self._close_spill()
 
     def _run(self, node: P.PlanNode):
-        with kernel_ops.collect_dispatches(self.kernel_dispatch):
-            stream = self._stream(node)
-            return stream, self._materialize(stream.batches)
+        try:
+            with kernel_ops.collect_dispatches(self.kernel_dispatch):
+                stream = self._stream(node)
+                return stream, self._materialize(stream.batches)
+        finally:
+            self._close_spill()
+
+    def _close_spill(self) -> None:
+        """Delete this query's spill files (counters survive in stats)."""
+        if self.ctx.spill is not None:
+            self.ctx.spill.close()
 
     # -- plumbing --------------------------------------------------------------
     @property
@@ -225,6 +266,23 @@ class Driver:
         self.op_seconds[name] = (self.op_seconds.get(name, 0.0)
                                  + time.perf_counter() - t0)
 
+    def _run_stacked(self, op: ops.Operator,
+                     stream: Iterator[Step]) -> Iterator[Step]:
+        """One operator over whole steps (the ``GraceHashJoin``, which
+        partitions all workers' rows together): each step in, steps out,
+        behind a host round trip per worker when the operator is
+        host-only."""
+        trips = self._maybe_host_wrap(op)
+        t0 = time.perf_counter()
+        op.open()
+        for step in stream:
+            if trips is not None:
+                step = [rt.add_input(b)[0] for rt, b in zip(trips, step)]
+            yield from op.add_input(step)
+        yield from op.finish()
+        self.op_seconds[op.name] = (self.op_seconds.get(op.name, 0.0)
+                                    + time.perf_counter() - t0)
+
     def _maybe_host_wrap(self, op: ops.Operator
                          ) -> Optional[List[ops.HostRoundTrip]]:
         """One ``HostRoundTrip`` per worker before a host-only operator's
@@ -254,17 +312,35 @@ class Driver:
             self.op_seconds.get("StreamingScan", 0.0) + spent)
         yield from _lockstep(outs)
 
+    def _maybe_stage(self, tables: List[TorchTable]) -> List[TorchTable]:
+        """Stage an oversized exchange send buffer through the spill store
+        (device -> pinned host -> paged disk as the tiers fill) instead of
+        pinning it in device memory alongside the receive buffers; each
+        worker's table is one spilled partition."""
+        spill = self.ctx.spill
+        if spill is None or not spill.should_stage(
+                sum(t.nbytes() for t in tables)):
+            return tables
+        keys = []
+        for t in tables:
+            keys.append(("exchange-stage", self._spill_seq))
+            self._spill_seq += 1
+            spill.spill_table(keys[-1], t)
+        self.spill_staged_exchanges += 1
+        return [spill.restore(k) for k in keys]
+
     def _repartition(self, tables: List[TorchTable], keys: Sequence[str],
                      label: str = "repartition") -> List[TorchTable]:
         return self._tracked(
             f"{label}({','.join(keys)})",
-            lambda: self.ctx.exchange.repartition(tables, tuple(keys),
-                                                  self._w))
+            lambda: self.ctx.exchange.repartition(self._maybe_stage(tables),
+                                                  tuple(keys), self._w))
 
     def _broadcast(self, tables: List[TorchTable],
                    label: str = "broadcast") -> List[TorchTable]:
         return self._tracked(
-            label, lambda: self.ctx.exchange.broadcast(tables, self._w))
+            label, lambda: self.ctx.exchange.broadcast(
+                self._maybe_stage(tables), self._w))
 
     def _tracked(self, label: str, fn):
         """Run one exchange, recording its stats delta as a fragment entry."""
@@ -299,7 +375,8 @@ class Driver:
                                  self.ctx.device,
                                  prefetch_depth=self.ctx.prefetch_depth,
                                  stats=stats, num_workers=self._w,
-                                 filter_expr=node.filter)
+                                 filter_expr=node.filter,
+                                 host_budget=self.ctx.host_budget())
             scans = [StreamingScan(node.table) for _ in range(self._w)]
             steps = self._scan_steps(morsels, scans)
             if node.filter is None:
@@ -351,6 +428,39 @@ class Driver:
             self._stream(node.child),
             lambda: ops.FilterProject(None, node.projections))
 
+    def _release_after(self, batches: Iterator[Step],
+                       op_key: str) -> Iterator[Step]:
+        """Yield through ``batches``; return the operator's device
+        reservation to the spill manager when the stream is drained."""
+        try:
+            yield from batches
+        finally:
+            self.ctx.spill.release(op_key)
+
+    def _agg_spill(self, node: P.Aggregation) -> dict:
+        """Spill kwargs for one aggregation's operators: reserve the
+        accumulators' footprint; a shortfall runs them in flush-to-host
+        mode with the flush point scaled to the granted fraction."""
+        spill = self.ctx.spill
+        if spill is None:
+            return {}
+        from .optimizer import infer_schema, row_width
+        try:
+            width = row_width(infer_schema(node, self.ctx.catalog))
+        except (TypeError, KeyError):
+            width = 64
+        # accumulator + the concat-merge scratch copy, per worker
+        want = 2 * width * node.max_groups * self._w
+        op_key = f"agg{self._spill_seq}"
+        self._spill_seq += 1
+        granted = spill.reserve(op_key, want, minimum=min(want, _MIN_GRANT))
+        if granted >= want:
+            spill.release(op_key)
+            return {}
+        flush = max(1, (node.max_groups * granted) // max(want, 1))
+        return {"spill": spill, "spill_flush_groups": flush,
+                "op_key": op_key}
+
     def _exec_aggregation(self, node: P.Aggregation) -> Stream:
         child = self._stream(node.child)
         mode = node.mode
@@ -359,10 +469,14 @@ class Driver:
                     else "two_phase")
 
         def pipeline(agg_mode, batches):
-            return self._run_pipeline(
+            sk = self._agg_spill(node)
+            op_key = sk.pop("op_key", None)
+            out = self._run_pipeline(
                 self._operators(lambda: ops.HashAggregation(
-                    node.group_keys, node.aggs, agg_mode, node.max_groups)),
+                    node.group_keys, node.aggs, agg_mode, node.max_groups,
+                    **sk)),
                 batches)
+            return self._release_after(out, op_key) if op_key else out
 
         if mode in ("single", "partial", "final"):
             return Stream(pipeline(mode, child.batches), child.dist)
@@ -427,6 +541,29 @@ class Driver:
                 probe_scans = None      # the scan is already drained
                 dist = "partitioned"
             # 'local': co-partitioned already, no movement
+        spill = self.ctx.spill
+        op_key = None
+        if spill is not None:
+            # reserve the build side + hash state + probe headroom; a
+            # shortfall routes the join through the grace-partitioned path,
+            # which no scan fuses
+            want = 2 * sum(t.nbytes() for t in build)
+            op_key = f"join{self._spill_seq}"
+            self._spill_seq += 1
+            granted = spill.reserve(op_key, want,
+                                    minimum=min(want, _MIN_GRANT))
+            if granted < want:
+                join = ops.GraceHashJoin(
+                    node.build_keys, node.probe_keys, node.build_payload,
+                    node.join_type, node.max_matches,
+                    build_rows=node.build_rows, spill=spill,
+                    reservation=granted)
+                join.open()
+                join.add_build(build)
+                join.seal_build()
+                del build   # partitioned into the spill hierarchy
+                out = self._run_stacked(join, probe_batches)
+                return Stream(self._release_after(out, op_key), dist)
         joins = self._operators(lambda: ops.HashJoin(
             node.build_keys, node.probe_keys, node.build_payload,
             node.join_type, node.max_matches, build_rows=node.build_rows))
@@ -444,8 +581,12 @@ class Driver:
             # launches
             for scan, join in zip(probe_scans, joins):
                 scan.fuse(join)
-            return Stream(probe_batches, dist)
-        return Stream(self._run_pipeline(joins, probe_batches), dist)
+            out = probe_batches
+        else:
+            out = self._run_pipeline(joins, probe_batches)
+        if op_key is not None:
+            out = self._release_after(out, op_key)
+        return Stream(out, dist)
 
     def _exec_orderby(self, node: P.OrderBy) -> Stream:
         child = self._stream(node.child)

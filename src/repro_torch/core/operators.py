@@ -9,20 +9,24 @@ Operators follow Velox's streaming contract, as in the reference::
 Each worker has its own operator instances over its local ``[cap]``
 tensors (the driver runs one per worker), eagerly; each operator body is
 wrapped in ``kernels.ops.table_op`` only for dispatch accounting.
-The port has FilterProject, HashAggregation (without spill), Distinct,
-HashJoin on its open-addressing path (single-match and expansion probes)
-and on its sorted-key path, the fused per-morsel pipeline with its probe
-variant, OrderBy, Limit, ScalarBroadcast and the HostRoundTrip conversion.
+The port has FilterProject, HashAggregation (with its flush-to-host
+spill mode), Distinct, HashJoin on its open-addressing path (single-match
+and expansion probes) and on its sorted-key path, the grace-partitioned
+GraceHashJoin over ``core.spill``, the fused per-morsel pipeline with its
+probe variant, OrderBy, Limit, ScalarBroadcast and the HostRoundTrip
+conversion.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import hash_probe as hp
 from ..kernels import ops as kernel_ops
+from ..kernels.radix_histogram import radix_histogram
 from ..kernels.ops import table_op
 from . import dtypes as dt
 from . import fused
@@ -209,12 +213,21 @@ class HashAggregation(Operator):
     mode: 'partial' emits partial columns (avg -> sum+cnt);
           'final'   merges partial columns;
           'single'  complete aggregation in one operator.
+
+    Spill mode (``core.spill``): with a ``SpillManager`` and a flush
+    threshold, the accumulator goes to the host tier whenever its occupied
+    groups reach ``spill_flush_groups``; ``finish`` restores the flushed
+    runs one at a time and merges each into the accumulator with the same
+    merge specs.
     """
 
     name = "HashAggregation"
 
+    _spill_seq = itertools.count()
+
     def __init__(self, group_keys: Sequence[str], aggs: Sequence[AggSpec],
-                 mode: str = "single", max_groups: int = 4096):
+                 mode: str = "single", max_groups: int = 4096, spill=None,
+                 spill_flush_groups: Optional[int] = None):
         assert mode in ("partial", "final", "single")
         self.group_keys = tuple(group_keys)
         self.user_specs = tuple(aggs)
@@ -222,22 +235,42 @@ class HashAggregation(Operator):
         lowered = lower_aggs(self.user_specs)
         self.specs = merge_specs(lowered) if mode == "final" else lowered
         self.max_groups = max_groups
+        self.spill = spill
+        self.spill_flush_groups = spill_flush_groups
+        self._skey = f"agg{next(self._spill_seq)}"
+        self._flushed: List[object] = []
         self._acc: Optional[TorchTable] = None
 
     def open(self):
         self._acc = None
+        self._flushed = []
+
+    def _merge(self, acc: Optional[TorchTable],
+               part: TorchTable) -> TorchTable:
+        if acc is None:
+            return part
+        return _aggregate(concat_tables([acc, part]), self.group_keys,
+                          merge_specs(self.specs), self.max_groups)
 
     def add_input(self, batch):
         part = _aggregate(batch, self.group_keys, self.specs, self.max_groups)
-        if self._acc is None:
-            self._acc = part
-        else:
-            merged = concat_tables([self._acc, part])
-            self._acc = _aggregate(merged, self.group_keys,
-                                   merge_specs(self.specs), self.max_groups)
+        self._acc = self._merge(self._acc, part)
+        if (self.spill is not None and self.spill_flush_groups is not None
+                and int(self._acc.num_valid()) >= self.spill_flush_groups):
+            key = (self._skey, len(self._flushed))
+            self.spill.spill_table(key, self._acc)
+            self._flushed.append(key)
+            self._acc = None
         return []
 
     def finish(self):
+        if self._flushed:
+            # restore the flushed runs one at a time: the device holds two
+            # max_groups tables however many runs spilled
+            acc = self._acc
+            for key in self._flushed:
+                acc = self._merge(acc, self.spill.restore(key))
+            self._acc, self._flushed = acc, []
         if self._acc is None:
             return []
         out, self._acc = self._acc, None
@@ -527,13 +560,18 @@ class HashJoin(Operator):
     searchsorted (``_probe_join``); a hashed key is verified after the
     probe. Each such build counts one ``fallback_probe`` in the kernel
     dispatch, as in the reference.
+
+    ``compact`` (default True, as in the reference) compacts the expansion
+    layout's output of an inner or left-outer join; False leaves its dead
+    rows in place.
     """
 
     name = "HashJoin"
 
     def __init__(self, build_keys: Sequence[str], probe_keys: Sequence[str],
                  build_payload: Sequence[str] = (), join_type: str = "inner",
-                 max_matches: int = 1, build_rows: Optional[int] = None):
+                 max_matches: int = 1, compact: bool = True,
+                 build_rows: Optional[int] = None):
         if join_type not in ("inner", "left_semi", "left_anti", "left_outer"):
             raise ValueError(f"HashJoin: join type {join_type!r}")
         self.build_keys = tuple(build_keys)
@@ -541,6 +579,7 @@ class HashJoin(Operator):
         self.build_payload = tuple(build_payload)
         self.join_type = join_type
         self.max_matches = max_matches
+        self.compact = compact
         self.build_rows = build_rows     # planner's build-side row bound
         self._build_batches: List[TorchTable] = []
         self._hash_state = None          # (build, table_keys, table_vals)
@@ -610,7 +649,7 @@ class HashJoin(Operator):
                               self.build_keys, self.build_payload,
                               self.join_type, self.max_matches, self._exact,
                               self._window)
-            if (self.join_type in ("inner", "left_outer")
+            if (self.compact and self.join_type in ("inner", "left_outer")
                     and self.max_matches > 1):
                 out = compact_table(out)
             return [out]
@@ -621,12 +660,285 @@ class HashJoin(Operator):
                 batch, self._hash_state, self.probe_keys, self.build_payload,
                 self.join_type, self._max_probes, self.max_matches,
                 self._pack)
-            if self.join_type in ("inner", "left_outer"):
+            if self.compact and self.join_type in ("inner", "left_outer"):
                 out = compact_table(out)
             return [out]
         return [_probe_join_hash(batch, self._hash_state, self.probe_keys,
                                  self.build_payload, self.join_type,
                                  self._max_probes, self._pack)]
+
+
+# ---------------------------------------------------------------------------
+# GraceHashJoin (spill-aware out-of-core join over core.spill)
+# ---------------------------------------------------------------------------
+
+Step = List[TorchTable]
+
+
+@table_op
+def _grace_pids(tables: Step, keys, num_parts: int):
+    """Grace-join partition ids of one worker-stacked table (a list of W
+    worker tables): each worker's ``relational.partition_ids`` (the
+    exchange's partitioner), and the live rows of each (worker, partition)
+    from one launch of the standalone ``radix_histogram`` over the bins
+    ``w * P + pid`` (a dead row in the dropped bin ``W * P``, the
+    reference's mask to ``P`` at W = 1). Returns ``(pids, int32[W, P])``,
+    the pids masked to ``P`` for dead rows."""
+    p = num_parts
+    w = len(tables)
+    pids, bins = [], []
+    for i, t in enumerate(tables):
+        pid = rel.partition_ids([t.columns[k] for k in keys], t.validity, p)
+        pids.append(torch.where(t.validity, pid, torch.full_like(pid, p)))
+        bins.append(pids[-1] if w == 1 else torch.where(
+            t.validity, pid + i * p, torch.full_like(pid, w * p)))
+    counts = radix_histogram(bins[0] if w == 1 else torch.cat(bins), w * p)
+    return pids, counts.reshape(w, p)
+
+
+def _row_bytes(columns) -> int:
+    """Bytes a row takes: its columns' elements and its validity byte."""
+    total = 1
+    for a in columns.values():
+        total += a.element_size() * (a.shape[1] if a.dim() > 1 else 1)
+    return total
+
+
+class _GraceSplit:
+    """The device-side partition split of one worker-stacked table: the
+    rows of each worker ordered by partition id (stable, so a partition
+    keeps its rows' order) and gathered once; partition ``p`` of worker
+    ``w`` is copied from a slice of them and padded with dead rows to the
+    partition's capacity (``_pow2`` of its largest per-worker count, at
+    least 1, the reference's). ``counts`` is the ``[W, P]`` histogram,
+    read back once."""
+
+    def __init__(self, tables: Step, pids, counts, num_parts: int):
+        self.schema = dict(tables[0].schema)
+        self.device = tables[0].device
+        self.counts = counts.cpu().tolist()
+        self.sorted = []
+        for t, pid in zip(tables, pids):
+            order = torch.sort(pid, stable=True).indices
+            self.sorted.append({n: a.index_select(0, order)
+                                for n, a in t.columns.items()})
+        self.offsets = [[0, *itertools.accumulate(row)][:-1]
+                        for row in self.counts]
+        self.caps = [_pow2(max(max(row[p] for row in self.counts), 1))
+                     for p in range(num_parts)]
+        self._row = _row_bytes(self.sorted[0])
+
+    def rows(self, p: int) -> int:
+        """Live rows of partition ``p`` over all workers."""
+        return sum(row[p] for row in self.counts)
+
+    def nbytes(self, p: int) -> int:
+        """Bytes of partition ``p`` as the reference's host split holds
+        them: W workers of ``caps[p]`` rows."""
+        return len(self.counts) * self.caps[p] * self._row
+
+    def part(self, p: int) -> Step:
+        """Partition ``p``: one table of ``caps[p]`` rows per worker, its
+        live rows first, copied out of the sorted rows (so that no
+        partition keeps them alive), the tail zeroed."""
+        cap = self.caps[p]
+        out = []
+        for w, cols in enumerate(self.sorted):
+            lo, n = self.offsets[w][p], self.counts[w][p]
+            got = {}
+            for name, a in cols.items():
+                buf = torch.empty((cap,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                  device=a.device)
+                buf[:n] = a[lo:lo + n]
+                buf[n:] = 0
+                got[name] = buf
+            out.append(TorchTable(
+                got, torch.arange(cap, device=self.device) < n, self.schema))
+        return out
+
+
+def _stack(step: Step) -> TorchTable:
+    """One host-tier partition of a worker-stacked step: ``[W, cap]``
+    tensors (the reference's stacked layout), or the worker's own table at
+    W = 1."""
+    if len(step) == 1:
+        return step[0]
+    return TorchTable({n: torch.stack([t.columns[n] for t in step])
+                       for n in step[0].columns},
+                      torch.stack([t.validity for t in step]),
+                      dict(step[0].schema))
+
+
+def _unstack(table: TorchTable, w: int) -> Step:
+    """Invert ``_stack``: the W worker tables (views)."""
+    if w == 1:
+        return [table]
+    return [TorchTable({n: a[i] for n, a in table.columns.items()},
+                       table.validity[i], table.schema) for i in range(w)]
+
+
+def _one_row_invalid(table: TorchTable) -> TorchTable:
+    """A capacity-1, zero-valid-rows table with ``table``'s schema."""
+    return TorchTable({n: a[:1] for n, a in table.columns.items()},
+                      torch.zeros_like(table.validity[:1]),
+                      dict(table.schema))
+
+
+class GraceHashJoin(Operator):
+    """Grace-style partitioned hash join over the spill hierarchy.
+
+    Used by the driver when a join's build side does not fit its device
+    reservation (``core.spill.SpillManager``). Both sides are
+    hash-partitioned on the join key with the exchange's partitioner, so
+    matching rows land in the same partition and each pair joins alone:
+
+    * ``seal_build`` partitions the build side on the device
+      (``_grace_pids``, ``_GraceSplit``); partitions stay on the device
+      until half the reservation is used, the rest spill (pinned host
+      buffers, then paged disk pages as the host tier fills). A resident
+      partition never leaves device memory.
+    * ``add_input`` partitions each probe batch the same way and stages
+      every non-empty slice in the spill store (fully blocking, like the
+      classic grace join's first pass).
+    * ``finish`` takes partition pairs one at a time: the build partition
+      (resident, or restored), a ``HashJoin`` over it (its kernels), its
+      staged probe slices replayed; a partition no probe row hashed to is
+      dropped unread.
+
+    A batch is a step, a list of W worker tables (the reference's
+    ``[W, cap]`` batch; W = 1 for one worker): the histogram counts the
+    ``W * P`` (worker, partition) bins in one launch, a partition is W
+    tables, a spilled one is one ``[W, cap]`` host-tier partition, and the
+    outputs are steps.
+    """
+
+    name = "GraceHashJoin"
+    _seq = itertools.count()
+
+    def __init__(self, build_keys: Sequence[str], probe_keys: Sequence[str],
+                 build_payload: Sequence[str] = (), join_type: str = "inner",
+                 max_matches: int = 1, compact: bool = True,
+                 build_rows: Optional[int] = None, *, spill,
+                 reservation: int):
+        self.build_keys = tuple(build_keys)
+        self.probe_keys = tuple(probe_keys)
+        self.build_payload = tuple(build_payload)
+        self.join_type = join_type
+        self.max_matches = max_matches
+        self.compact = compact
+        self.build_rows = build_rows
+        self.spill = spill
+        self.reservation = max(int(reservation), 1)
+        self.num_partitions: Optional[int] = None   # set by seal_build
+        self._skey = f"grace{next(self._seq)}"
+        self._w = 1
+        self._build_batches: List[Step] = []
+        self._resident: dict = {}        # partition -> Step (device tier)
+        self._spilled_build: set = set()
+        self._build_rows_by_part: dict = {}
+        self._probe_chunks: dict = {}    # partition -> staged chunk count
+        self._build_schema: Optional[dict] = None
+        # one-row all-invalid prototypes per worker: when every staged
+        # slice is empty, finish() still emits one batch of the join's
+        # schema so downstream operators see it
+        self._build_proto: Optional[Step] = None
+        self._probe_proto: Optional[Step] = None
+
+    def add_build(self, step: Step) -> None:
+        """Accumulate one build-side step (device-resident until seal)."""
+        self._build_batches.append(list(step))
+
+    def seal_build(self) -> None:
+        """Partition the build side on the device; spill the partitions
+        past half the reservation. Probing may start after."""
+        assert self._build_batches, "join build side is empty"
+        steps, self._build_batches = self._build_batches, []
+        build = [concat_tables([s[w] for s in steps])
+                 for w in range(len(steps[0]))]
+        self._w = len(build)
+        self._build_schema = dict(build[0].schema)
+        self._build_proto = [_one_row_invalid(t) for t in build]
+        # fan out until one partition (+ its probe slice and hash state)
+        # fits about half the reservation
+        nbytes = sum(t.nbytes() for t in build)
+        want = -(-2 * nbytes // self.reservation)
+        self.num_partitions = max(min(_pow2(want), 64), 2)
+        pids, counts = _grace_pids(build, self.build_keys,
+                                   self.num_partitions)
+        split = _GraceSplit(build, pids, counts, self.num_partitions)
+        del build, pids
+        resident_budget = self.reservation // 2
+        used = 0
+        for p in range(self.num_partitions):
+            self._build_rows_by_part[p] = split.rows(p)
+            nbytes = split.nbytes(p)
+            if used + nbytes <= resident_budget:
+                used += nbytes
+                self._resident[p] = split.part(p)
+            else:
+                self.spill.spill_table((self._skey, "build", p),
+                                       _stack(split.part(p)))
+                self._spilled_build.add(p)
+
+    def add_input(self, step: Step):
+        assert self._build_schema is not None, "probe before build sealed"
+        step = list(step)
+        if self._probe_proto is None:
+            self._probe_proto = [_one_row_invalid(t) for t in step]
+        pids, counts = _grace_pids(step, self.probe_keys, self.num_partitions)
+        split = _GraceSplit(step, pids, counts, self.num_partitions)
+        for p in range(self.num_partitions):
+            if split.rows(p) == 0:
+                continue
+            i = self._probe_chunks.get(p, 0)
+            self.spill.spill_table((self._skey, "probe", p, i),
+                                   _stack(split.part(p)))
+            self._probe_chunks[p] = i + 1
+        return []
+
+    def _inner(self, build: Step, build_rows: int) -> List[HashJoin]:
+        joins = []
+        for b in build:
+            j = HashJoin(self.build_keys, self.probe_keys, self.build_payload,
+                         self.join_type, self.max_matches,
+                         compact=self.compact, build_rows=build_rows)
+            j.open()
+            j.add_build(b)
+            j.seal_build()
+            joins.append(j)
+        return joins
+
+    @staticmethod
+    def _probe(joins: List[HashJoin], step: Step) -> List[Step]:
+        outs = [j.add_input(b) for j, b in zip(joins, step)]
+        return [list(s) for s in zip(*outs)]
+
+    def finish(self):
+        outs: List[Step] = []
+        for p in range(self.num_partitions):
+            chunks = self._probe_chunks.pop(p, 0)
+            if chunks == 0:
+                # no probe row hashed here: nothing can match; discard
+                self._resident.pop(p, None)
+                if p in self._spilled_build:
+                    self.spill.drop((self._skey, "build", p))
+                continue
+            if p in self._resident:
+                build = self._resident.pop(p)
+            else:
+                build = _unstack(self.spill.restore((self._skey, "build", p)),
+                                 self._w)
+            joins = self._inner(build, max(self._build_rows_by_part[p], 1))
+            del build
+            for i in range(chunks):
+                chunk = self.spill.restore((self._skey, "probe", p, i))
+                outs.extend(self._probe(joins, _unstack(chunk, self._w)))
+        if not outs and self._probe_proto is not None:
+            # every probe slice was empty (e.g. a selective build filter
+            # upstream): one all-invalid batch of the join's output schema
+            joins = self._inner(self._build_proto, 1)
+            outs.extend(self._probe(joins, self._probe_proto))
+        return outs
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,9 @@ fixed device-memory budget. This module is that layer:
   queue. A footprint past ``spill_disk_ceiling`` or a full wait queue is
   rejected (``QueryRejected``), with the per-operator breakdown in the
   message. A footprint over the budget but under the ceiling is admitted
-  with a priced spill plan (``QueryHandle.spill_plan``), as in the
-  reference; running it needs the out-of-core slice (ROADMAP.md, queue
-  A), so its handle completes with ``NotImplementedError`` naming that
-  slice and the query never runs unbudgeted.
+  with a priced spill plan (``QueryHandle.spill_plan``) and runs
+  out of core, under a per-query ``core.spill.SpillManager`` whose device
+  budget is the scheduler's whole ``memory_budget``.
 
 * **Interleaved execution** -- admitted queries run on a pool of
   ``max_concurrency`` worker threads, each driving its own ``Driver`` on
@@ -62,7 +61,6 @@ from . import plan as P
 from .driver import Driver, empty_executor_stats
 from .optimizer import estimate_memory_breakdown, optimize
 
-_SPILL_SLICE = "the out-of-core slice (ROADMAP.md, queue A)"
 _FEEDBACK_SLICE = "the adaptive-execution slice (ROADMAP.md, queue A)"
 
 
@@ -95,11 +93,12 @@ class SchedulerConfig:
     # anti-starvation: after the queue head has been passed over this many
     # times for smaller queries, backfilling stops until the head fits
     max_head_skips: int = 16
-    # the spill plan's host-tier cap, and the footprint past which a query
-    # is rejected (running an over-budget query needs the out-of-core
-    # slice, which brings the reference's spill_dir)
+    # tiered-memory spill for over-budget queries (core.spill): host-tier
+    # cap, the footprint past which a query is rejected (the disk ceiling),
+    # and where the paged spill files go (None = per-query temp dirs)
     spill_host_budget: int = 1 << 31
     spill_disk_ceiling: int = 1 << 38
+    spill_dir: Optional[str] = None
     # inter-query batching (core.batch): when True, a worker that dequeues
     # a batchable query (single-table filter/project/agg shape, W=1, no
     # feedback store, no spill) waits up to batch_window_ms for compatible
@@ -691,13 +690,19 @@ class QueryScheduler:
         handle's ``executor_stats`` under ``"batch"``."""
         handle.started_at = time.perf_counter()
         try:
-            if handle.spill_plan is not None:
-                raise NotImplementedError(
-                    f"query footprint ~{handle.footprint} B exceeds the "
-                    f"scheduler's memory budget of "
-                    f"{self.config.memory_budget} B; running it with "
-                    f"spilling comes with {_SPILL_SLICE}")
-            driver = Driver(self._context(handle))
+            ctx = self._context(handle)
+            if handle.spill_plan is not None and ctx.spill is None:
+                # admitted over budget: run under a per-query spill
+                # manager whose device budget is the scheduler's whole
+                # budget (the query charged all of it, so it runs alone)
+                from .spill import SpillManager
+                ctx = dataclasses.replace(ctx, spill=SpillManager(
+                    self.config.memory_budget,
+                    self.config.spill_host_budget,
+                    spill_dir=self.config.spill_dir,
+                    disk_ceiling=self.config.spill_disk_ceiling,
+                    device=ctx.device))
+            driver = Driver(ctx)
             result = driver.collect(handle.plan)
             stats = driver.executor_stats()
             if batch_info is not None:

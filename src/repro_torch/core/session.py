@@ -100,7 +100,8 @@ class TableSource:
 
     def stream(self, columns, batch_rows: int, device, prefetch_depth: int = 2,
                stats: Optional[ScanStats] = None,
-               num_workers: int = 1, filter_expr=None) -> MorselPrefetcher:
+               num_workers: int = 1, filter_expr=None,
+               host_budget=None) -> MorselPrefetcher:
         """Asynchronous scan: a background thread reads step N+1 and
         copies its morsels to ``device`` while step N computes; counters
         accumulate into ``stats``::
@@ -111,7 +112,10 @@ class TableSource:
             print(stats.prefetch_overlap)       # fraction of I/O hidden
 
         A source that overrides only ``scan`` (its steps already on the
-        device) is prefetched too: its steps feed the same bounded queue."""
+        device) is prefetched too: its steps feed the same bounded queue.
+        ``host_budget`` (a ``core.spill.HostMemoryBudget``) bounds the
+        queued steps' host bytes as well (the spill manager's shared
+        meter)."""
         if (type(self)._host_morsels is TableSource._host_morsels
                 and type(self).scan is not TableSource.scan):
             gen = self.scan(columns, batch_rows, device,
@@ -121,7 +125,8 @@ class TableSource:
                 columns, batch_rows, stats=stats, num_workers=num_workers,
                 filter_expr=filter_expr,
                 pin=torch.device(device).type == "cuda")
-        return MorselPrefetcher(gen, device, depth=prefetch_depth, stats=stats)
+        return MorselPrefetcher(gen, device, depth=prefetch_depth, stats=stats,
+                                host_budget=host_budget)
 
 
 class InMemoryTable(TableSource):
@@ -301,21 +306,43 @@ class Session:
     # (``operators.HostRoundTrip``, paper §3.1), counted in
     # ``executor_stats()["conversions"]``
     host_only_ops: frozenset = frozenset()
+    # tiered-memory spill (core.spill): a device-memory budget in bytes
+    # turns on out-of-core execution -- every query gets a SpillManager on
+    # the session's device, and the memory-hungry operators degrade through
+    # pinned host buffers and paged disk files instead of exceeding the
+    # budget. None = in-memory only.
+    device_budget: Optional[int] = None
+    # host-tier cap shared by spilled partitions and prefetched morsels
+    host_budget: int = 1 << 31
+    # directory for paged spill files (None = per-query temp dirs)
+    spill_dir: Optional[str] = None
+    # hard ceiling for the disk tier (the only tier that rejects work)
+    disk_ceiling: int = 1 << 38
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.last_driver: Optional[Driver] = None
 
     def context(self) -> ExecutionContext:
-        """Snapshot this session's execution config for one Driver run."""
+        """Snapshot this session's execution config for one Driver run
+        (each context gets its own per-query ``SpillManager`` when the
+        session has a ``device_budget``)."""
         exchange = self.exchange.clone() if self.exchange is not None else None
+        spill = None
+        if self.device_budget is not None:
+            from .spill import SpillManager
+            spill = SpillManager(self.device_budget, self.host_budget,
+                                 spill_dir=self.spill_dir,
+                                 disk_ceiling=self.disk_ceiling,
+                                 device=self.device)
         return ExecutionContext(catalog=self.catalog, device=self.device,
                                 num_workers=self.num_workers,
                                 exchange=exchange,
                                 batch_rows=self.batch_rows,
                                 prefetch_depth=self.prefetch_depth,
                                 streaming=self.streaming,
-                                host_only_ops=frozenset(self.host_only_ops))
+                                host_only_ops=frozenset(self.host_only_ops),
+                                spill=spill)
 
     def _with_options(self, options: Optional[ExecutionOptions]
                       ) -> "Session":
@@ -379,7 +406,9 @@ class Session:
         counters (morsels, chunks, chunks skipped by zone maps, bytes read
         and copied to the device, prefetch overlap), operator seconds,
         kernel dispatches, per-fragment exchange counters, then the
-        per-operator memory-footprint estimate."""
+        per-operator memory-footprint estimate (with the spill-cost
+        estimate under a ``device_budget``) and the per-tier spill
+        counters."""
         text = explain_before_after(plan, self.catalog,
                                     config=self.optimizer_config())
         if not analyze:
@@ -413,7 +442,20 @@ class Session:
                 f"host_staged_bytes={ex['host_staged_bytes']} "
                 f"{ex['seconds']:.4f}s")
         lines.append("== memory ==")
-        lines.extend(breakdown.describe().splitlines())
+        lines.extend(breakdown.describe(self.device_budget,
+                                        self.host_budget).splitlines())
+        spill = stats["spill"]
+        if spill:
+            lines.append(
+                f"spill: reserved_peak={spill['reserved_peak']} "
+                f"reserve_denials={spill['reserve_denials']} "
+                f"staged_exchanges={stats['spill_staged_exchanges']}")
+            for tier in ("host", "disk"):
+                t = spill[tier]
+                lines.append(
+                    f"spill {tier} tier: spilled_bytes={t['spilled_bytes']} "
+                    f"restored_bytes={t['restored_bytes']} "
+                    f"spills={t['spills']} restores={t['restores']}")
         return text + "\n" + "\n".join(lines)
 
     def execute(self, plan: PlanNode) -> Dict[str, np.ndarray]:

@@ -200,14 +200,26 @@ class MorselPrefetcher:
     ``device`` and pushes the list of tables into a bounded queue of
     ``depth`` slots. Iteration is single-consumer; abandoning it early stops
     the producer, and producer exceptions re-raise in the consumer.
+
+    The bound is also **bytes-aware**: with a ``host_budget``
+    (``core.spill.HostMemoryBudget``, shared with the spill manager's host
+    tier) or a private ``max_bytes`` cap, the producer blocks before each
+    step until the step's host bytes (its morsels' buffers, pinned for a
+    CUDA device) fit the budget. The consumer gives them back when it takes
+    the step, once the step's copy has completed.
     """
 
     def __init__(self, host_morsels: Iterator[List[HostMorsel]], device,
-                 depth: int = 2, stats: Optional[ScanStats] = None):
+                 depth: int = 2, stats: Optional[ScanStats] = None,
+                 host_budget=None, max_bytes: Optional[int] = None):
         self.stats = stats if stats is not None else ScanStats()
         self.device = torch.device(device)
         self._gen = host_morsels
         self._q: "queue.Queue" = queue.Queue(maxsize=max(int(depth), 1))
+        if host_budget is None and max_bytes is not None:
+            from .spill import HostMemoryBudget
+            host_budget = HostMemoryBudget(max_bytes)
+        self._budget = host_budget
         self._closed = threading.Event()
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -244,6 +256,10 @@ class MorselPrefetcher:
                 hosts = next(it)
             except StopIteration:
                 break
+            nbytes = sum(h.nbytes() for h in hosts)
+            if self._budget is not None and not self._budget.acquire(
+                    nbytes, stop=self._closed.is_set):
+                return
             tables = [morsel_to_device(h, self.device, self._stream)
                       for h in hosts]
             event = None
@@ -251,16 +267,24 @@ class MorselPrefetcher:
                 event = torch.cuda.Event()
                 event.record(self._stream)
             self.stats.read_seconds += time.perf_counter() - t0
-            self.stats.bytes_transferred += sum(h.nbytes() for h in hosts)
+            self.stats.bytes_transferred += nbytes
             self.stats.morsels += 1
-            if not self._put((tables, event)):
+            if not self._put((tables, event, nbytes)):
+                self._give_back(event, nbytes)
                 return
         self._put(_SENTINEL)
+
+    def _give_back(self, event, nbytes: int) -> None:
+        """Return a step's host bytes to the budget once its copy (the
+        reader of its host buffers) has completed."""
+        if self._budget is not None:
+            self._budget.release_after(event, nbytes)
 
     # -- consumer ------------------------------------------------------------
     def close(self) -> None:
         """Stop the producer thread and wait until it has exited (also
-        called when iteration ends): it stops within one step's copy."""
+        called when iteration ends): it stops within one step's copy. The
+        budget held by steps still queued is given back."""
         self._closed.set()
         if (self._thread.is_alive()
                 and self._thread is not threading.current_thread()):
@@ -268,6 +292,13 @@ class MorselPrefetcher:
             if self._thread.is_alive():
                 raise RuntimeError("MorselPrefetcher: the producer thread "
                                    "did not stop within 30 s")
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if isinstance(item, tuple):
+                self._give_back(item[1], item[2])
 
     def __iter__(self) -> Iterator[List[TorchTable]]:
         self._thread.start()
@@ -285,7 +316,8 @@ class MorselPrefetcher:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                tables, event = item
+                tables, event, nbytes = item
+                self._give_back(event, nbytes)
                 if event is not None:
                     consumer = torch.cuda.current_stream(self.device)
                     consumer.wait_event(event)

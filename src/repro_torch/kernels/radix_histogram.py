@@ -54,6 +54,7 @@ def radix_histogram_plain(pids: torch.Tensor,
 
 def radix_histogram(pids: torch.Tensor, num_partitions: int) -> torch.Tensor:
     """pids int32[N] -> counts int32[num_partitions]."""
+    ops.mark_kernel("partition")
     if not pids.is_cuda:
         return radix_histogram_plain(pids, num_partitions)
     if pids.dtype != torch.int32 or pids.dim() != 1:

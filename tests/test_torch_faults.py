@@ -53,7 +53,7 @@ def test_fault_cases_name_phase_9_cases(fault):
     for the attention faults, the build checks' for the build's, the fused
     checks' for the fused kernels', the segmented sums' and min/max's
     cases for theirs, the two probes' cases for theirs, the metadata
-    pass's for its own."""
+    pass's and the standalone histogram's grace shapes for theirs."""
     assert fault in chip_smoke._FAULTS
     _, option = chip_smoke.fault_target(fault)
     cases = {"--attention": {c[0] for c in chip_smoke._ATTN_CASES},
@@ -63,7 +63,8 @@ def test_fault_cases_name_phase_9_cases(fault):
                              | set(chip_smoke._MINMAX_CASES)),
              "--probe": (set(chip_smoke._PROBE_CASES)
                          | set(chip_smoke._MULTI_CASES)),
-             "--partition": set(chip_smoke._PART_CASES)}[option]
+             "--partition": (set(chip_smoke._PART_CASES)
+                             | set(chip_smoke._HIST_CASES))}[option]
     assert set(chip_smoke._FAULT_CASES[fault]) <= cases
 
 

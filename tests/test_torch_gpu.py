@@ -1192,3 +1192,80 @@ def test_build_table_launches_depend_on_shape_only(cuda):
         seen.append(kernels)
     assert seen[0] == seen[1]
     assert sum(seen[0].values()) == 3 + -(-17 // 8)   # T = 2^17
+
+
+# ---------------------------------------------------------------------------
+# out of core: the grace join's histogram and the grace join on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("w,n,p", [(1, 1_500_000, 64), (1, 100_003, 2),
+                                   (4, 262_147, 64), (1, 1, 2)])
+def test_grace_histogram_on_card(cuda, w, n, p):
+    """The standalone histogram at grace shapes (W * P bins, the dead rows
+    in bin W * P, counts of ids that are no multiple of the block): exact
+    against its plain version, one launch."""
+    rng = np.random.default_rng(n + p)
+    ids = torch.from_numpy(rng.integers(0, w * p + 1, w * n).astype(np.int32))
+    ops.reset_launch_counts()
+    got = radix_histogram(ids.to(cuda), w * p).cpu()
+    assert ops.launch_counts()["radix_histogram"] == 1
+    assert torch.equal(got, radix_histogram_plain(ids, w * p))
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("join_type", ["inner", "left_semi", "left_anti",
+                                       "left_outer"])
+def test_grace_hash_join_on_card_matches_cpu(cuda, join_type, workers):
+    """``GraceHashJoin`` on the card against the same join on the CPU: the
+    same rows, the same spill counters, one histogram launch a
+    ``_grace_pids`` call, and every output on the card."""
+    from repro_torch.core import operators as port_ops
+    from repro_torch.core.spill import SpillManager
+
+    rng = np.random.default_rng(7)
+    schema = {"k": port_dtypes.INT32, "b": port_dtypes.INT32}
+    keys = rng.permutation(1 << 20)[:5000].astype(np.int32)
+
+    def side(n, cap, dev):
+        data = {"k": keys[rng.integers(0, len(keys), n)],
+                "b": rng.integers(-9, 9, n).astype(np.int32)}
+        valid = np.pad(rng.random(n) < 0.9, (0, cap - n))
+        return data, valid
+
+    build = [side(6000, 8192, None) for _ in range(workers)]
+    probes = [[side(3000, 4096, None) for _ in range(workers)]
+              for _ in range(2)]
+
+    def table(d, v, dev):
+        return TorchTable.from_numpy(d, schema, capacity=len(v),
+                                     device=dev).filter(
+            torch.from_numpy(v).to(dev))
+
+    def run(dev):
+        mgr = SpillManager(0, device=dev)
+        payload = () if join_type in ("left_semi", "left_anti") else ("b",)
+        op = port_ops.GraceHashJoin(("k",), ("k",), payload, join_type, 4,
+                                    build_rows=6000 * workers, spill=mgr,
+                                    reservation=40_000 * workers)
+        op.open()
+        op.add_build([table(d, v, dev) for d, v in build])
+        op.seal_build()
+        outs = []
+        for step in probes:
+            outs += op.add_input([table(d, v, dev) for d, v in step])
+        outs += op.finish()
+        rows = []
+        for step in outs:
+            for t in step:
+                assert t.device.type == torch.device(dev).type
+                live = t.validity.cpu().numpy()
+                rows += list(zip(*(t.columns[c].cpu().numpy()[live].tolist()
+                                   for c in sorted(t.columns))))
+        return sorted(rows), mgr.stats.summary()
+
+    ops.reset_launch_counts()
+    got, got_stats = run(cuda)
+    assert ops.launch_counts()["radix_histogram"] == 3
+    want, want_stats = run("cpu")
+    assert got == want and got_stats == want_stats
+    assert got_stats["host"]["spills"] > 0

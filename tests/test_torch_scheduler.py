@@ -3,9 +3,9 @@ the reference's tier-1 scheduler tests (``tests/test_scheduler.py``) on the
 port's ``Session(device="cpu")`` -- admission, backpressure, priority, both
 caches, re-registration, coalescing, interleaved correctness against the
 oracle, failure delivery -- plus the admission estimate held byte for byte
-to the reference's for all 22 optimized TPC-H plans at W=1 and W=4. The
-reference's admit-with-spill test waits for the out-of-core slice; here an
-over-budget query's handle raises ``NotImplementedError`` naming it."""
+to the reference's for all 22 optimized TPC-H plans at W=1 and W=4, and
+the reference's admit-with-spill test: an over-budget query runs out of
+core under a per-query spill manager."""
 
 import threading
 import time
@@ -94,10 +94,9 @@ def test_over_disk_ceiling_query_rejected(catalog):
     assert session.scheduler().stats()["rejected"] == 1
 
 
-def test_over_budget_query_waits_for_the_out_of_core_slice(catalog):
+def test_over_budget_query_admitted_with_spill(catalog, data):
     # over the memory budget but under the disk ceiling: admitted with a
-    # priced spill plan, as in the reference; running it needs the spill
-    # tiers, so the handle fails naming that slice (never unbudgeted)
+    # priced slowdown and executed out-of-core (nonzero spilled bytes)
     session = _session(catalog, batch_rows=4096)
     session.scheduler_config = SchedulerConfig(memory_budget=64 * 1024)
     handle = session.submit(queries.build_query(3, catalog))
@@ -106,11 +105,12 @@ def test_over_budget_query_waits_for_the_out_of_core_slice(catalog):
     assert handle.spill_plan["est_slowdown"] > 1.0
     assert handle.memory_breakdown.total == handle.footprint
     assert handle.estimate == 64 * 1024    # charged the whole budget
-    with pytest.raises(NotImplementedError, match="out-of-core slice"):
-        handle.result(timeout=60)
+    res = handle.result(timeout=300)
+    assert_results_match(res, oracle.ORACLES[3](data), 3)
     stats = session.scheduler().stats()
-    assert stats["spill_admitted"] == 1 and stats["failed"] == 1
-    assert stats["completed"] == 0
+    assert stats["spill_admitted"] == 1 and stats["rejected"] == 0
+    spill = handle.executor_stats.get("spill", {})
+    assert spill.get("spilled_bytes", 0) > 0
 
 
 def test_feedback_waits_for_the_adaptive_slice(catalog):
