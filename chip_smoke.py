@@ -207,7 +207,37 @@ In order it:
    of the 512-id block among them) and on ``_HIST_CASES``, then timed on
    the largest captured call (row 8s of the kernels line: its bound is
    the ids read once and the counts written once, its ``library_ms`` one
-   ``torch.bincount`` of the same ids; its device ms after phase 9);
+   ``torch.bincount`` of the same ids; its device ms after phase 9).
+   Then the adaptive phase (``--adaptive`` runs it alone, with the
+   build, and prints no ok line), on the same catalog, each query on a
+   ``FeedbackStore`` of its own (another query's observation of a shared
+   subtree would make its first plan warm), the port's numpy oracle of
+   the 22 computed after the timed runs in ``_ORACLE_PROCS`` forked
+   processes:
+   (a) each of the 22 at W = 1: the cold plan, fingerprint-equal to the
+   static ``build_query`` plan, run once; the warm plan re-optimized from
+   its observations, one warm-up run and three timed runs, beside three
+   runs each of the static plan with feedback off and on (their
+   difference is the observation's cost; the harvest's host time after
+   its one read-back, ``op_seconds["FeedbackHarvest"]``, beside it), with
+   the launch counters set to
+   0 just before the cold run and the first timed warm run and read just
+   after; warm equal to cold (exact for keys, counts and bytes, rtol 2e-3
+   for floats) and both equal to the oracle; a line a query with the sums
+   of ``max_groups`` and of hash-table slots cold and warm, the joins
+   whose distribution, orientation or ``max_matches`` changed, and
+   ``kernel_dispatch`` cold and warm (warm ``fallback_probe`` at most
+   cold's, no warm capacity above the cold node's), and a line of the
+   sums over the 22; the warm runs must launch every kernel the cold runs
+   launched; (b) the same at W = 4 (``ICIExchange``): cold once, warm
+   three times, each warm result equal to warm W = 1; (c) Q3 submitted
+   three times to a ``feedback=True`` scheduler with ``cache_results=
+   False``: a plan-cache miss, a miss again (the q-error check evicted
+   the cold entry), a hit, all equal; (d) ``estimate_memory`` cold and
+   warm for the 22 in (a)'s lines, warm at most cold, then Q3's static
+   plan and its warm plan under the forced Q3's budget (a sixteenth of
+   the static footprint) through ``_spill_run``, the spill counters and
+   walls side by side, both equal to (a)'s warm run;
 8. serving on the same SF 1 catalog: (a) ``fused_batch_program`` at 32
    lanes, for the three small-query programs of
    ``benchmarks/bench_concurrency.py`` (point lookup on orders, filtered
@@ -290,7 +320,7 @@ the probe's ``_PROBE_CASES`` and the expansion probe's ``_MULTI_CASES``
 alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone;
 ``--storage`` the storage phase alone; ``--spill`` the out-of-core phase
 alone (the metadata pass's ``--partition`` run also holds the standalone
-histogram's ``_HIST_CASES``).
+histogram's ``_HIST_CASES``); ``--adaptive`` the adaptive phase alone.
 ``--faults`` runs the six on the kernels as they are and then on copies,
 in a temporary directory, each with one fault planted (a K tile left
 out, early or late; V tiles not reloaded; the split over K's combine
@@ -4069,6 +4099,422 @@ def run_spill(torch, rh, catalog, rate, results=None, walls=None):
 
 
 # ---------------------------------------------------------------------------
+# the adaptive phase: the 22 queries cold, then warm from what they observed
+# ---------------------------------------------------------------------------
+
+# the oracle's worker processes, forked after the timed runs so that each
+# reads the tables the script generated without a copy, and
+# ``_ORACLE_DATA``, those tables, set just before the fork
+_ORACLE_PROCS = 8
+_ORACLE_DATA = None
+
+
+def _oracle(q):
+    """One query's answer from the port's numpy oracle (a pool worker)."""
+    from repro_torch.tpch import oracle
+    return q, oracle.ORACLES[q](_ORACLE_DATA)
+
+
+def compare_oracle(q, got, want, what):
+    """A result against the oracle's as the tests hold them
+    (``tests/tpch_util.assert_results_match``): the columns both have,
+    the same rows, exact for the oracle's integer and bytes columns
+    (bytes rows compared as bytes), rtol 2e-3 (atol 1e-2) for its floats;
+    rows matched by sorting on the exact columns, then on the floats
+    rounded to 2 places."""
+    import numpy as np
+
+    def canon(a):
+        a = np.asarray(a)
+        if a.ndim == 2 and a.dtype == np.uint8:
+            return np.array([row.tobytes() for row in a])
+        return a
+
+    common = [c for c in want if c in got]
+    if not common:
+        fail(f"Q{q} {what}: no column in common with the oracle")
+    n = len(canon(next(iter(want.values()))))
+    if any(len(canon(got[c])) != n for c in common):
+        fail(f"Q{q} {what}: row count differs from the oracle's {n}")
+    exact = [c for c in common if canon(want[c]).dtype.kind in "iubS"]
+    floats = [c for c in common if c not in exact]
+
+    def order(res):
+        keys = []
+        for c in (exact or common) + floats:
+            a = canon(res[c])
+            keys.append(a if a.dtype.kind == "S"
+                        else np.round(a.astype(np.float64), 2))
+        return np.lexsort(tuple(reversed(keys)))
+
+    go, wo = order(got), order(want)
+    for c in exact:
+        if not np.array_equal(canon(got[c])[go], canon(want[c])[wo]):
+            fail(f"Q{q} {what}: column {c} differs from the oracle")
+    for c in floats:
+        a = canon(got[c]).astype(np.float64)[go]
+        b = canon(want[c]).astype(np.float64)[wo]
+        if not np.all(np.isfinite(a)):
+            fail(f"Q{q} {what}: column {c} has non-finite values")
+        if not np.allclose(a, b, rtol=2e-3, atol=1e-2):
+            fail(f"Q{q} {what}: column {c} differs from the oracle: "
+                 f"{a} vs {b}")
+
+
+def plan_sizes(plan):
+    """(the sum of ``max_groups``, the sum of hash-table slots, the joins)
+    of a plan: a join's table takes ``2 * build_rows`` slots rounded up to
+    a power of two; each join as ``[type, probe keys, build keys,
+    distribution, max_matches]``, the distribution of a W > 1 plan's
+    ``local`` join read from the exchange placed on its build side."""
+    from repro_torch.core import plan as P
+    groups, slots, joins = 0, 0, []
+
+    def visit(node):
+        nonlocal groups, slots
+        if isinstance(node, (P.Aggregation, P.Distinct)):
+            groups += node.max_groups
+        if isinstance(node, P.Join):
+            if node.build_rows is not None:
+                slots += 2 ** math.ceil(math.log2(max(2 * node.build_rows,
+                                                      2)))
+            dist = node.distribution
+            if dist == "local" and isinstance(node.build, P.Broadcast):
+                dist = "broadcast"
+            elif dist == "local" and isinstance(node.build, P.Repartition):
+                dist = "partitioned"
+            joins.append([node.join_type, list(node.probe_keys),
+                          list(node.build_keys), dist, node.max_matches])
+        for child in node.children():
+            visit(child)
+
+    visit(plan)
+    return groups, slots, joins
+
+
+def capacity_rises(cold_plan, warm_plan):
+    """The capacities (``max_groups``, ``build_rows``, ``max_matches``) of
+    warm plan nodes above those of the cold node with the same feedback
+    key (a node under a swapped join keys apart and is not compared)."""
+    from repro_torch.core import plan as P
+    fields = {"Aggregation": ("max_groups",), "Distinct": ("max_groups",),
+              "Join": ("build_rows", "max_matches")}
+
+    def sizes(plan):
+        out = {}
+
+        def visit(node):
+            for f in fields.get(type(node).__name__, ()):
+                out[(P.feedback_key(node), f)] = getattr(node, f)
+            for child in node.children():
+                visit(child)
+
+        visit(plan)
+        return out
+
+    cold = sizes(cold_plan)
+    return [(key[1], cold[key], v) for key, v in sizes(warm_plan).items()
+            if cold.get(key) is not None and v > cold[key]]
+
+
+def joins_changed(cold, warm):
+    """The joins whose distribution, orientation (build and probe sides
+    swapped) or ``max_matches`` the warm plan changed, paired with the
+    cold plan's by type and key sets in walk order."""
+    pending = {}
+    for j in cold:
+        pending.setdefault((j[0], frozenset(map(tuple, j[1:3]))),
+                           []).append(j)
+    out = []
+    for w in warm:
+        same = pending.get((w[0], frozenset(map(tuple, w[1:3]))))
+        if not same:
+            out.append({"new": w})
+            continue
+        c = same.pop(0)
+        diff = {}
+        if c[1] != w[1]:
+            diff["orientation"] = f"{c[1]}={c[2]} -> {w[1]}={w[2]}"
+        if c[3] != w[3]:
+            diff["distribution"] = f"{c[3]} -> {w[3]}"
+        if c[4] != w[4]:
+            diff["max_matches"] = f"{c[4]} -> {w[4]}"
+        if diff:
+            out.append(dict({"keys": f"{c[1]}={c[2]}"}, **diff))
+    return out
+
+
+def _counted(torch, session, plan):
+    """One run with the launch counters set to 0 just before and read
+    just after: (result, executor stats, launches, wall)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = session.execute(plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return got, session.executor_stats(), ops.launch_counts(), wall
+
+
+def _wall(torch, session, plan):
+    t0 = time.perf_counter()
+    session.execute(plan)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def _sums_text(total):
+    """The summed walls (s; each query's median of its timed runs, the
+    cold run's own at W = 4) and capacities, as one line's text."""
+    return ", ".join(f"{k} {round(v, 4) if isinstance(v, float) else v}"
+                     for k, v in total.items())
+
+
+def adaptive_w1(torch, catalog):
+    """(a) and (d)'s estimates: each of the 22 at W = 1 on a store of its
+    own (another query's observation of a shared subtree would make its
+    first plan warm): the cold plan, fingerprint-equal to the static
+    ``build_query`` plan, run once with the counters set to 0; the warm
+    plan after one warm-up run, three timed runs with the counters read
+    over the first, beside the static plan's three runs with feedback off
+    and on (interleaved); warm equal to cold; warm ``fallback_probe`` at
+    most cold's; ``estimate_memory`` warm at most cold. Returns each
+    query's (cold, warm) results, the warm launches, the stores and warm
+    plans."""
+    from repro_torch.core import plan as P
+    from repro_torch.core.feedback import FeedbackStore
+    from repro_torch.core.optimizer import estimate_memory
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    off = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    results, launches, warm_state = {}, {}, {}
+    cold_launches, total = {}, {}
+    for q in range(1, 23):
+        store = FeedbackStore()
+        on = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                     feedback=store)
+        raw = queries.build_query(q, catalog, optimized=False)
+        static = queries.build_query(q, catalog)
+        cold_plan = on.optimize(raw)
+        if P.fingerprint(cold_plan) != P.fingerprint(static):
+            fail(f"adaptive Q{q}: the cold plan is not the static plan")
+        cold, cold_stats, cold_counts, cold_wall = _counted(torch, on,
+                                                            cold_plan)
+        warm_plan = on.optimize(raw)
+        est = (estimate_memory(static, catalog, batch_rows=_MAIN_ROWS),
+               estimate_memory(warm_plan, catalog, batch_rows=_MAIN_ROWS,
+                               feedback=store))
+        on.execute(warm_plan)                   # warm-up
+        walls = {"off": [], "on": [], "warm": [], "harvest": []}
+        for i in range(3):
+            walls["off"].append(_wall(torch, off, static))
+            walls["on"].append(_wall(torch, on, cold_plan))
+            walls["harvest"].append(
+                on.executor_stats()["op_seconds"]["FeedbackHarvest"])
+            if i == 0:
+                warm, warm_stats, warm_counts, t = _counted(torch, on,
+                                                            warm_plan)
+                walls["warm"].append(t)
+            else:
+                walls["warm"].append(_wall(torch, on, warm_plan))
+        compare(q, warm, cold, "its cold run on the card")
+        cg, cs, cj = plan_sizes(cold_plan)
+        wg, ws, wj = plan_sizes(warm_plan)
+        kd_cold, kd_warm = (cold_stats["kernel_dispatch"],
+                            warm_stats["kernel_dispatch"])
+        print(f"adaptive Q{q} W=1 SF {_SF}: cold {cold_wall:.4f} s, static "
+              f"feedback off {_walls(walls['off'])} on "
+              f"{_walls(walls['on'])} s, warm {_walls(walls['warm'])} s "
+              f"(medians warm / off "
+              f"{_median(walls['warm']) / _median(walls['off']):.3f}, on / "
+              f"off {_median(walls['on']) / _median(walls['off']):.3f}; the "
+              f"harvest's host ms after its read-back "
+              f"{_median(walls['harvest']) * 1e3:.3f}); "
+              f"max_groups {cg} -> {wg}, table slots {cs} -> {ws}; joins "
+              f"changed {json.dumps(joins_changed(cj, wj))}; "
+              f"estimate_memory {est[0]} -> {est[1]} B; kernel_dispatch "
+              f"cold {json.dumps(kd_cold)} warm {json.dumps(kd_warm)}; "
+              f"launches cold {json.dumps(_nonzero(cold_counts))} warm "
+              f"{json.dumps(_nonzero(warm_counts))}; store "
+              f"{len(store)} entries", flush=True)
+        if kd_warm.get("fallback_probe", 0) > kd_cold.get("fallback_probe",
+                                                          0):
+            fail(f"adaptive Q{q}: warm fallback_probe "
+                 f"{kd_warm.get('fallback_probe')} above cold's "
+                 f"{kd_cold.get('fallback_probe', 0)}")
+        if capacity_rises(cold_plan, warm_plan):
+            fail(f"adaptive Q{q}: warm capacities above cold's: "
+                 f"{capacity_rises(cold_plan, warm_plan)}")
+        if est[1] > est[0]:
+            fail(f"adaptive Q{q}: warm estimate_memory {est[1]} B above "
+                 f"cold's {est[0]} B")
+        results[q] = (cold, warm)
+        launches[q], cold_launches[q] = warm_counts, cold_counts
+        _add(total, {"off": _median(walls["off"]), "on": _median(walls["on"]),
+                     "warm": _median(walls["warm"]),
+                     "harvest": _median(walls["harvest"]), "groups cold": cg,
+                     "groups warm": wg, "slots cold": cs, "slots warm": ws,
+                     "estimate cold": est[0], "estimate warm": est[1]})
+        warm_state[q] = (store, warm_plan, static)
+    print(f"adaptive W=1 sums over the 22: {_sums_text(total)}", flush=True)
+    used = {k for c in cold_launches.values() for k, v in c.items() if v}
+    warm_used = {k for c in launches.values() for k, v in c.items() if v}
+    if used - warm_used:
+        fail(f"adaptive: the warm runs launched no {sorted(used - warm_used)}"
+             f", which the cold runs launched")
+    return results, launches, warm_state
+
+
+def adaptive_w4(torch, catalog, results):
+    """(b): each of the 22 planned for four workers (``ICIExchange``) on a
+    store of its own, cold once, then warm three times (the counters read
+    over the first): the cold plan fingerprint-equal to the static W = 4
+    plan, the warm result equal to warm W = 1."""
+    from repro_torch import ICIExchange
+    from repro_torch.core import plan as P
+    from repro_torch.core.feedback import FeedbackStore
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    launches, total = {}, {}
+    for q in range(1, 23):
+        session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                          num_workers=_WORKERS, exchange=ICIExchange(),
+                          feedback=FeedbackStore())
+        raw = queries.build_query(q, catalog, optimized=False)
+        cold_plan = session.optimize(raw)
+        if P.fingerprint(cold_plan) != P.fingerprint(
+                queries.build_query(q, catalog, num_workers=_WORKERS)):
+            fail(f"adaptive Q{q} W={_WORKERS}: the cold plan is not the "
+                 "static plan")
+        _, cold_stats, _, cold_wall = _counted(torch, session, cold_plan)
+        warm_plan = session.optimize(raw)
+        warm, warm_stats, counts, t = _counted(torch, session, warm_plan)
+        walls = [t] + [_wall(torch, session, warm_plan) for _ in range(2)]
+        compare(q, warm, results[q][1], "its warm W=1 run")
+        cg, cs, cj = plan_sizes(cold_plan)
+        wg, ws, wj = plan_sizes(warm_plan)
+        print(f"adaptive Q{q} W={_WORKERS} SF {_SF}: cold {cold_wall:.4f} s, "
+              f"warm {_walls(walls)} s; max_groups {cg} -> {wg}, table "
+              f"slots {cs} -> {ws}; joins changed "
+              f"{json.dumps(joins_changed(cj, wj))}; kernel_dispatch cold "
+              f"{json.dumps(cold_stats['kernel_dispatch'])} warm "
+              f"{json.dumps(warm_stats['kernel_dispatch'])}; launches warm "
+              f"{json.dumps(_nonzero(counts))}", flush=True)
+        if (warm_stats["kernel_dispatch"].get("fallback_probe", 0)
+                > cold_stats["kernel_dispatch"].get("fallback_probe", 0)):
+            fail(f"adaptive Q{q} W={_WORKERS}: warm fallback_probe above "
+                 "cold's")
+        if capacity_rises(cold_plan, warm_plan):
+            fail(f"adaptive Q{q} W={_WORKERS}: warm capacities above "
+                 f"cold's: {capacity_rises(cold_plan, warm_plan)}")
+        launches[q] = counts
+        _add(total, {"cold": cold_wall, "warm": _median(walls),
+                     "groups cold": cg, "groups warm": wg, "slots cold": cs,
+                     "slots warm": ws})
+    print(f"adaptive W={_WORKERS} sums over the 22: {_sums_text(total)}",
+          flush=True)
+    return launches
+
+
+def adaptive_scheduler(torch, catalog, results):
+    """(c): Q3 submitted three times on a ``feedback=True`` session with
+    ``cache_results=False``: a plan-cache miss, a miss again (the cold
+    entry evicted by the q-error check), then a hit; all three equal, and
+    equal to (a)'s cold run."""
+    from repro_torch import SchedulerConfig
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                      feedback=True,
+                      scheduler_config=SchedulerConfig(cache_results=False))
+    raw = queries.build_query(3, catalog, optimized=False)
+    try:
+        handles = []
+        for _ in range(3):
+            handles.append(session.submit(raw))
+            handles[-1].result(timeout=600)
+        stats = session.scheduler().stats()
+    finally:
+        session.scheduler().close()
+    hits = [h.plan_cache_hit for h in handles]
+    print(f"adaptive scheduler Q3 x3: plan cache hits {hits}, stats "
+          f"{json.dumps({k: stats[k] for k in ('plan_cache_hits', 'plan_cache_misses', 'completed')})}, "
+          f"store {json.dumps(session.executor_stats()['feedback'])}",
+          flush=True)
+    if hits != [False, False, True]:
+        fail(f"adaptive scheduler Q3: plan cache hits {hits}, expected a "
+             "miss, a miss after the eviction, then a hit")
+    for h in handles:
+        compare(3, h.result(), results[3][0], "(a)'s cold run")
+
+
+def adaptive_spill(torch, catalog, results, warm_state):
+    """(d): Q3's static plan and its warm plan (on (a)'s store) under the
+    out-of-core phase's forced budget (``_FORCED_SHARE`` of the static
+    plan's footprint), each through ``_spill_run``: the counters and walls
+    side by side, both equal to (a)'s warm run."""
+    from repro_torch.core.session import Session
+
+    store, warm_plan, static = warm_state[3]
+    budget = footprint_budget(catalog, static, share=_FORCED_SHARE)
+    mem = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    calls = []
+    for what, plan, fb in (("cold", static, None), ("warm", warm_plan, store)):
+        session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                          device_budget=budget, feedback=fb)
+        label = f"adaptive Q3 {what} W=1 at 1/{_FORCED_SHARE}"
+        got, stats, counts, joins, wall, peaks = _spill_run(
+            torch, session, mem, plan, calls, label)
+        print(_spill_line(label, budget, stats["spill"], joins, wall, peaks,
+                          counts), flush=True)
+        compare(3, got, results[3][1], "(a)'s warm run")
+
+
+def run_adaptive(torch, catalog, data):
+    """The adaptive phase (a)-(d) on the SF 1 catalog at ``batch_rows =
+    1 << 20``, then the oracle's 22 answers in ``_ORACLE_PROCS`` forked
+    processes; each cold and warm W = 1 result held against them.
+    Returns the warm launches at W = 1 and W = 4."""
+    import multiprocessing
+
+    global _ORACLE_DATA
+    t_phase = time.perf_counter()
+    results, launches, warm_state = adaptive_w1(torch, catalog)
+    w4_launches = adaptive_w4(torch, catalog, results)
+    adaptive_scheduler(torch, catalog, results)
+    adaptive_spill(torch, catalog, results, warm_state)
+    # the oracle after the timed runs, so that its processes take no core
+    # from the driver's host thread while it is timed
+    t0 = time.perf_counter()
+    _ORACLE_DATA = data
+    with multiprocessing.get_context("fork").Pool(_ORACLE_PROCS) as pool:
+        answers = dict(pool.map(_oracle, range(1, 23)))
+        pool.close()
+        pool.join()
+    _ORACLE_DATA = None
+    print(f"adaptive oracle: the 22 in {time.perf_counter() - t0:.1f} s on "
+          f"{_ORACLE_PROCS} processes", flush=True)
+    for q in range(1, 23):
+        for what, got in zip(("cold", "warm"), results[q]):
+            compare_oracle(q, got, answers[q], f"W=1 {what}")
+    print(f"adaptive: the 22 cold and warm at W=1 equal the oracle; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, w4_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 8: serving -- the batched kernel, then the scheduler on the card
 # ---------------------------------------------------------------------------
 
@@ -5121,6 +5567,13 @@ def main() -> None:
                          "disk tier, W=4, the scheduler's over-budget "
                          "query, the bytes-aware prefetcher, the grace "
                          "join's histogram); prints no ok line")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="run the adaptive phase alone (the 22 queries "
+                         "cold then warm on a feedback store at W=1 and "
+                         "W=4, each held against the port's oracle, the "
+                         "scheduler's q-error eviction, warm estimates and "
+                         "the warm Q3 under the forced budget); prints no "
+                         "ok line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9, the build checks, the fused checks "
                          "and the segmented cases alone on the kernels as "
@@ -5228,6 +5681,10 @@ def main() -> None:
         print(json.dumps({"kernels": spill_rows}))
         print(card)
         return
+    if args.adaptive:
+        run_adaptive(torch, catalog, data)
+        print(card)
+        return
     rows_out, launchers = check_fused(torch, fused, queries, catalog, morsel,
                                       rate)
     calls = capture_calls(torch, hp, fused, catalog)
@@ -5264,6 +5721,7 @@ def main() -> None:
                                             walls)
     rows_out += spill_rows
     launchers.update(spill_launchers)
+    run_adaptive(torch, catalog, data)
     t0 = time.perf_counter()
     batch_rows, batch_launchers = check_batch(torch, fused, catalog, data,
                                               rate)

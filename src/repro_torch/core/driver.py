@@ -29,8 +29,19 @@ accumulator does not fit flushes runs to the host tier, an exchange send
 buffer past the unreserved budget is staged through the spill store, and
 every scan's prefetcher draws on the manager's host budget.
 
+Runtime feedback (``ExecutionContext.feedback``, a
+``core.feedback.FeedbackStore``): every plan node's stream but the
+exchanges' is wrapped in a counter, an int64 tensor on the device that each
+step adds its workers' valid rows to; a join's exact-key build multiplicity
+is computed on the device too (a sort and run lengths). Nothing is read
+back until ``_harvest_feedback`` reads every count in one transfer, once
+per query, after the result is ready, and records them in the store. As in
+the reference, a scan counts the rows left after the Filter, Project and
+single-match probe fused into it. With no store nothing is wrapped.
+
 ``collect_batch`` runs a group of compatible small queries as one stacked
-scan (``core.batch``); the scheduler calls it for inter-query batching.
+scan (``core.batch``); the scheduler calls it for inter-query batching. It
+never harvests: the scheduler batches no query that has a store.
 """
 
 from __future__ import annotations
@@ -77,6 +88,13 @@ class ExecutionContext:
     # grace-partitioned, aggregations flush accumulator runs to the host
     # tier, and oversized exchange send buffers stage through the store
     spill: Optional[object] = None
+    # runtime-feedback store (core.feedback.FeedbackStore). Set, the driver
+    # counts each plan node's valid output rows on the device while
+    # streaming and harvests the counts (plus join build-key multiplicities
+    # and zone-map skip fractions) into the store after the query
+    # completes, so the next optimization of the same plan shape re-plans
+    # warm
+    feedback: Optional[object] = None
 
     def __post_init__(self):
         if self.exchange is None:
@@ -134,6 +152,7 @@ def empty_executor_stats() -> Dict[str, object]:
         "exchanges": {},
         "spill": {},
         "spill_staged_exchanges": 0,
+        "feedback": {},
     }
 
 
@@ -156,12 +175,17 @@ class Driver:
         # exchanges whose send buffer was staged through the spill store
         self.spill_staged_exchanges = 0
         self._spill_seq = 0
+        # runtime-feedback observations, all device tensors until the
+        # harvest: (node, int64 row counter, distribution) per observed
+        # node, and id(join node) -> exact-key build multiplicity
+        self._feedback_obs: list = []
+        self._feedback_matches: Dict[int, torch.Tensor] = {}
 
     def executor_stats(self) -> Dict[str, object]:
         """Per-query stats: scan counters, operator seconds, the device,
         kernel dispatch counts (comparable with the reference's ``pallas``
-        run), the exchange protocol, per-fragment exchange counters, and
-        the per-tier spill counters."""
+        run), the exchange protocol, per-fragment exchange counters, the
+        per-tier spill counters, and the feedback-store summary."""
         return {
             "tables": {t: s.summary() for t, s in self.scan_stats.items()},
             "op_seconds": dict(self.op_seconds),
@@ -173,6 +197,8 @@ class Driver:
             "spill": (self.ctx.spill.stats.summary()
                       if self.ctx.spill is not None else {}),
             "spill_staged_exchanges": self.spill_staged_exchanges,
+            "feedback": (self.ctx.feedback.summary()
+                         if self.ctx.feedback is not None else {}),
         }
 
     # -- public API ----------------------------------------------------------
@@ -195,7 +221,7 @@ class Driver:
         sharing one interned program) as a single stacked execution;
         returns one host-numpy result dict per member, in order. ``lanes``
         pins the member-lane count of the stacked program; None sizes it
-        to the group. Batching is W = 1 only."""
+        to the group. Batching is W = 1 only, and records no feedback."""
         from . import batch   # batch imports operators and fused
         try:
             if self._w != 1:
@@ -210,7 +236,9 @@ class Driver:
         try:
             with kernel_ops.collect_dispatches(self.kernel_dispatch):
                 stream = self._stream(node)
-                return stream, self._materialize(stream.batches)
+                tables = self._materialize(stream.batches)
+            self._harvest_feedback()
+            return stream, tables
         finally:
             self._close_spill()
 
@@ -365,7 +393,92 @@ class Driver:
         if method is None:
             raise NotImplementedError(
                 f"repro_torch: {name} comes with a later slice")
-        return method(node)
+        stream = method(node)
+        if (self.ctx.feedback is None
+                or isinstance(node, (P.Repartition, P.Broadcast, P.Exchange))):
+            # exchange nodes are keyed through (plan.feedback_key looks at
+            # their child), so counting them would double-observe the child
+            return stream
+        return self._observe(node, stream)
+
+    def _observe(self, node: P.PlanNode, stream: Stream) -> Stream:
+        """Wrap a stage output in a valid-row counter on the device. The
+        wrapped stream keeps the child's scans, so later Filter, Project
+        and single-match probe stages still fuse, and a scan counts the
+        rows left after them, as in the reference."""
+        count = torch.zeros((), dtype=torch.int64, device=self.ctx.device)
+
+        def counted(steps: Iterator[Step]) -> Iterator[Step]:
+            for step in steps:
+                for t in step:
+                    count.add_(t.num_valid())
+                yield step
+
+        self._feedback_obs.append((node, count, stream.dist))
+        return Stream(counted(stream.batches), stream.dist, scans=stream.scans)
+
+    def _observe_join_build(self, node: P.Join, build: List[TorchTable],
+                            dist: str) -> None:
+        """Record a join's exact-key build multiplicity, the most valid
+        build rows sharing one key value, which bounds the matches of a
+        probe row. Only for a single int-like key, where equality has no
+        hash collisions. Computed on the device with static shapes (dead
+        rows sort last under a key no int32 value takes, and count 0), so
+        nothing is read back here."""
+        kt = [build[0].schema[k] for k in node.build_keys]
+        if len(kt) != 1 or kt[0].name not in ("int32", "date32", "dict32"):
+            return
+        if dist == "replicated" and self._w > 1:
+            build = build[:1]                   # identical worker replicas
+        key = node.build_keys[0]
+        keys = torch.cat([t.columns[key].to(torch.int64) for t in build])
+        valid = torch.cat([t.validity for t in build])
+        if keys.numel() == 0:
+            # an empty build bounds nothing tighter than one match
+            self._feedback_matches[id(node)] = torch.ones(
+                (), dtype=torch.int64, device=keys.device)
+            return
+        dead = torch.iinfo(torch.int64).max
+        s = torch.sort(torch.where(valid, keys, dead)).values
+        runs = (torch.searchsorted(s, s, right=True)
+                - torch.searchsorted(s, s, right=False))
+        most = torch.where(s != dead, runs, 0).max()
+        self._feedback_matches[id(node)] = most.clamp_min(1)
+
+    def _harvest_feedback(self) -> None:
+        """Read every observation back in one transfer and record it in
+        the feedback store (once, after the result materialized). The
+        host seconds spent recording, after the read-back, are
+        ``op_seconds["FeedbackHarvest"]``."""
+        fb = self.ctx.feedback
+        if fb is None or not self._feedback_obs:
+            return
+        from .optimizer import row_bound
+        match_ids = list(self._feedback_matches)
+        values = torch.stack(
+            [c for _, c, _ in self._feedback_obs]
+            + [self._feedback_matches[i] for i in match_ids]).tolist()
+        t0 = time.perf_counter()
+        counts = values[:len(self._feedback_obs)]
+        matches = dict(zip(match_ids, values[len(self._feedback_obs):]))
+        for (node, _, dist), rows in zip(self._feedback_obs, counts):
+            if dist == "replicated" and self._w > 1:
+                rows //= self._w                # identical worker replicas
+            try:
+                est = row_bound(node, self.ctx.catalog)
+            except Exception:
+                est = None                      # exchange-wrapped subtree
+            skip = None
+            if isinstance(node, P.TableScan):
+                stats = self.scan_stats.get(node.table)
+                if stats is not None and stats.chunks_total:
+                    skip = stats.chunks_skipped / stats.chunks_total
+            fb.record(fb.key_for(node, self.ctx.catalog, self._w), rows,
+                      estimated=est, max_matches=matches.get(id(node)),
+                      skip_fraction=skip)
+        self._feedback_obs = []
+        self._feedback_matches = {}
+        self.op_seconds["FeedbackHarvest"] = time.perf_counter() - t0
 
     def _exec_tablescan(self, node: P.TableScan) -> Stream:
         src = self.ctx.catalog.get(node.table)
@@ -524,6 +637,8 @@ class Driver:
     def _exec_join(self, node: P.Join) -> Stream:
         build_stream = self._stream(node.build)
         build = self._materialize(build_stream.batches)
+        if self.ctx.feedback is not None:
+            self._observe_join_build(node, build, build_stream.dist)
         probe = self._stream(node.probe)
         dist, probe_batches, probe_scans = probe.dist, probe.batches, probe.scans
         if self._w > 1:

@@ -11,9 +11,13 @@ a pass pipeline over ``PlanNode`` trees:
                            fused inside the scan and data skipping can use
                            chunk min/max stats.
 * ``prune_columns``     -- scan only columns referenced downstream.
+* ``reorder_joins``     -- with a feedback store, swap a join's build and
+                           probe sides when observation shows the probe
+                           side much smaller (a no-op cold).
 * ``choose_join_distribution``
                         -- broadcast vs partitioned per join, from catalog
-                           row counts (replaces hand-set ``distribution=``).
+                           row counts, or observed ones warm (replaces
+                           hand-set ``distribution=``).
 * ``derive_capacities`` -- static-shape capacity hints (``max_groups``,
                            ``max_matches``) from catalog stats + key
                            uniqueness, replacing the ad-hoc ``Sizes``
@@ -35,14 +39,14 @@ Capacity hints are *sound upper bounds*: a too-small ``max_groups`` or
 true cardinality from above (table row counts, dictionary domain sizes,
 provable build-key uniqueness).
 
-The port keeps the reference's static rule pipeline, so its plans
-fingerprint exactly like the reference's cold (no-feedback) plans. What the
-reference adds from a runtime-feedback store (rule 3a, ``reorder_joins``,
-and the observed-cardinality tightening of join distribution and
-capacities) comes with that store in the adaptive-execution slice.
+With a runtime-feedback store (``OptimizerConfig.feedback``, a
+``core.feedback.FeedbackStore``) the plan is *warm*: cardinalities observed
+on a prior run override the static bounds, downward only and only under the
+table versions they were measured on. Without one every feedback branch is
+inert, so cold plans fingerprint exactly like the reference's. Warm plans
+fingerprint like the reference's warm plans from the same observations.
 ``estimate_memory_breakdown`` is the device-memory estimate the scheduler
-admits queries by (``core.scheduler``); its feedback-priced branch comes
-with the same slice.
+admits queries by (``core.scheduler``); warm, it prices observed footprints.
 """
 
 from __future__ import annotations
@@ -78,9 +82,72 @@ class OptimizerConfig:
     # planned worker count: >1 makes ``place_exchanges`` lower distribution
     # hints into explicit Repartition/Broadcast exchange nodes
     num_workers: int = 1
+    # runtime-feedback store (core.feedback.FeedbackStore). Set, observed
+    # cardinalities from prior executions override the static catalog row
+    # bounds: join distribution and orientation follow observed sizes, and
+    # ``derive_capacities`` tightens max_groups/build_rows/max_matches, the
+    # sizes of the card's group-by accumulators, hash tables and expansion
+    # rows. None = plan statically (the cold path).
+    feedback: Optional[object] = None
+    # multiplicative headroom on observed group counts before re-rounding
+    # to a power of two (drift tolerance between runs)
+    feedback_slack: float = 1.25
 
 
 DEFAULT_CONFIG = OptimizerConfig()
+
+
+# ---------------------------------------------------------------------------
+# runtime-feedback lookups
+# ---------------------------------------------------------------------------
+
+def observed_rows(node: P.PlanNode, catalog,
+                  config: OptimizerConfig) -> Optional[int]:
+    """Observed output cardinality of ``node`` from a prior execution, or
+    None when no feedback store is configured / nothing was recorded for
+    this plan shape (worker count and table versions must match; see
+    ``FeedbackStore.key_for``)."""
+    fb = config.feedback
+    if fb is None:
+        return None
+    return fb.rows(fb.key_for(node, catalog, config.num_workers))
+
+
+def estimated_rows(node: P.PlanNode, catalog,
+                   config: OptimizerConfig = DEFAULT_CONFIG) -> int:
+    """The row estimate the planner believes: observed cardinality when the
+    feedback store has one, the static ``row_bound`` otherwise."""
+    obs = observed_rows(node, catalog, config)
+    return int(obs) if obs is not None else int(row_bound(node, catalog))
+
+
+def feedback_estimates(plan: P.PlanNode, catalog,
+                       config: OptimizerConfig) -> Dict[str, int]:
+    """Per-node planner estimates for an optimized plan, keyed by feedback
+    store key: the "producing estimates" a plan-cache entry is filed
+    under. After execution the scheduler compares them against the fresh
+    observations: a q-error past its threshold invalidates the cached
+    plan, so the next submission re-plans from the better numbers."""
+    fb = config.feedback
+    if fb is None:
+        return {}
+    out: Dict[str, int] = {}
+
+    def visit(node: P.PlanNode) -> None:
+        for c in node.children():
+            visit(c)
+        if isinstance(node, (P.Repartition, P.Broadcast, P.Exchange)):
+            return                       # keyed through to their child
+        try:
+            est = row_bound(node, catalog)
+        except TypeError:
+            return
+        key = fb.key_for(node, catalog, config.num_workers)
+        entry = fb.get(key)
+        out[key] = int(entry.rows) if entry is not None else int(est)
+
+    visit(plan)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +464,51 @@ def _prune(node: P.PlanNode, required: Set[str], catalog) -> P.PlanNode:
 
 
 # ---------------------------------------------------------------------------
+# rule 3a: feedback-driven join orientation (build-side selection)
+# ---------------------------------------------------------------------------
+
+def reorder_joins(node: P.PlanNode, catalog,
+                  config: OptimizerConfig = DEFAULT_CONFIG) -> P.PlanNode:
+    """Swap a join's build/probe orientation when observation says the
+    probe side is the (much) smaller one: build-side selection from
+    observed rather than declared sizes.
+
+    A swap is taken only when it is provably safe: inner join, no hand-set
+    'local' co-partitioning, disjoint column names across the sides, and
+    the swapped orientation's build keys (the old probe keys) cover a
+    declared unique set (the engine's ``max_matches`` contract silently
+    truncates many-to-many overflow, so an unprovable orientation is never
+    produced). The swapped join carries the old probe's columns as payload
+    and is wrapped in a schema-restoring Project, so downstream operators
+    (and the plan's output) are unchanged. No-op without a feedback store.
+    """
+    if config.feedback is None:
+        return node
+    new = replace_children(
+        node, [reorder_joins(c, catalog, config) for c in node.children()])
+    if (not isinstance(new, P.Join) or new.join_type != "inner"
+            or new.distribution == "local"):
+        return new
+    obs_build = observed_rows(new.build, catalog, config)
+    obs_probe = observed_rows(new.probe, catalog, config)
+    if obs_build is None or obs_probe is None or 2 * obs_probe >= obs_build:
+        return new
+    probe_schema = infer_schema(new.probe, catalog)
+    build_schema = infer_schema(new.build, catalog)
+    if set(probe_schema) & set(build_schema):
+        return new       # colliding names: payload would shadow columns
+    swapped = P.Join(
+        probe=new.build, build=new.probe,
+        probe_keys=list(new.build_keys), build_keys=list(new.probe_keys),
+        build_payload=list(probe_schema), join_type="inner")
+    if not _build_side_unique(swapped, catalog):
+        return new       # cannot prove the old probe side joins uniquely
+    out_schema = infer_schema(new, catalog)
+    return P.Project(swapped,
+                     [(name, ColumnRef(name)) for name in out_schema])
+
+
+# ---------------------------------------------------------------------------
 # rule 3: join distribution selection
 # ---------------------------------------------------------------------------
 
@@ -409,14 +521,19 @@ def choose_join_distribution(node: P.PlanNode, catalog,
     small build side avoids exchanging the (large) probe side; once the
     build side outgrows ``BROADCAST_ROW_LIMIT`` rows, replicating it to all
     workers costs more than hash-exchanging both sides on the join keys.
-    Hand-set ``'local'`` (already co-partitioned) is preserved.
+    Hand-set ``'local'`` (already co-partitioned) is preserved. With a
+    feedback store, the observed build cardinality from a prior run
+    replaces the static bound: a build side whose declared bound forced a
+    partitioned join can come back as a broadcast join once observation
+    shows it small.
     """
     new = replace_children(
         node, [choose_join_distribution(c, catalog, config)
                for c in node.children()])
     if isinstance(new, P.Join) and new.distribution != "local":
-        dist = ("partitioned"
-                if row_bound(new.build, catalog) > BROADCAST_ROW_LIMIT
+        obs = observed_rows(new.build, catalog, config)
+        build_rows = obs if obs is not None else row_bound(new.build, catalog)
+        dist = ("partitioned" if build_rows > BROADCAST_ROW_LIMIT
                 else "broadcast")
         new = dataclasses.replace(new, distribution=dist)
     return new
@@ -438,6 +555,21 @@ def derive_capacities(node: P.PlanNode, catalog,
       optimizer never *lowers* a capacity it cannot prove.
     * Join ``build_rows``: the build side's row bound, which sizes the
       open-addressing table.
+
+    With a feedback store, observed cardinalities tighten these further
+    (only ever downward, and only under the table versions they were
+    measured on):
+
+    * ``max_groups`` from the aggregate's *own* observed output (that IS
+      the group count), with ``feedback_slack`` headroom: the accumulator
+      every segmented reduction and merge on the card is sized by;
+    * ``build_rows`` from the observed build cardinality: an undersized
+      bound fails the hash table's occupancy check and takes the counted
+      sorted-key ``fallback_probe`` path, never a wrong result, so the
+      exact observation is safe;
+    * ``max_matches`` from the observed build-key multiplicity, but only
+      for single exact int-like keys where equality has no hash
+      collisions (the driver records nothing otherwise).
     """
     new = replace_children(
         node, [derive_capacities(c, catalog, config) for c in node.children()])
@@ -450,14 +582,32 @@ def derive_capacities(node: P.PlanNode, catalog,
         dom = _domain_bound(keys, infer_schema(new.child, catalog))
         if dom is not None:
             bound = min(bound, dom)
+        candidates = []
         mg = _pow2(bound + GROUP_SLACK)
-        if mg > MAX_CAPACITY:
+        if mg <= MAX_CAPACITY:
+            candidates.append(mg)
+        obs = observed_rows(new, catalog, config)
+        if obs is not None:
+            # the aggregate's own observed output is its group count (a
+            # W-fold over-count at worst for distributed partials, still
+            # an upper bound on true groups)
+            warm = _pow2(int(math.ceil(obs * config.feedback_slack))
+                         + GROUP_SLACK)
+            if warm <= MAX_CAPACITY:
+                candidates.append(warm)
+        if not candidates:
             # no in-budget bound provable: never lower a hand-set capacity
             return new
-        return dataclasses.replace(new, max_groups=mg)
+        return dataclasses.replace(new, max_groups=min(candidates))
 
     if isinstance(new, P.Join):
-        if new.build_rows is None:
+        obs_build = observed_rows(new.build, catalog, config)
+        if obs_build is not None and (new.build_rows is None
+                                      or obs_build < new.build_rows):
+            # tightening is sound: a bound smaller than the actual build
+            # fails the occupancy check into the sorted-key fallback
+            new = dataclasses.replace(new, build_rows=max(int(obs_build), 1))
+        elif new.build_rows is None:
             # build-side row bound: sizes the kernel backend's
             # open-addressing probe table (2x slots for load factor 1/2).
             # Hand-set hints are kept -- the planner never overrides a
@@ -478,8 +628,10 @@ def derive_capacities(node: P.PlanNode, catalog,
         def clamp(mm: int) -> int:
             # a probe row cannot match more rows than the build side can
             # hold on any probe path (hash collisions included — only that
-            # many rows exist), so the static build bound caps the
-            # expansion capacity.
+            # many rows exist), so the *static* build bound caps the
+            # expansion capacity. Never clamp by the feedback-tightened
+            # build_rows: its safety net (the occupancy-check fallback)
+            # protects table sizing, not match capacity.
             if br_static is not None and mm > br_static:
                 return max(int(br_static), 1)
             return mm
@@ -491,6 +643,14 @@ def derive_capacities(node: P.PlanNode, catalog,
             # small constant of headroom suffices.
             mm = 1 if _exact_key(new, catalog) else clamp(4)
             return dataclasses.replace(new, max_matches=mm)
+        if config.feedback is not None and _exact_key(new, catalog):
+            # uniqueness unprovable statically, but the driver measured the
+            # exact-key build multiplicity (collision-free equality): it
+            # bounds matches per probe row for the recorded table versions
+            mm_obs = config.feedback.max_matches(
+                config.feedback.key_for(new, catalog, config.num_workers))
+            if mm_obs is not None and mm_obs < new.max_matches:
+                return dataclasses.replace(new, max_matches=max(mm_obs, 1))
         if clamp(new.max_matches) != new.max_matches:
             return dataclasses.replace(new,
                                        max_matches=clamp(new.max_matches))
@@ -641,9 +801,6 @@ def place_exchanges(node: P.PlanNode, catalog,
 # device-memory footprint estimation (admission control input)
 # ---------------------------------------------------------------------------
 
-_FEEDBACK_SLICE = "the adaptive-execution slice (ROADMAP.md, queue A)"
-
-
 def row_width(schema: Dict[str, dt.DType]) -> int:
     """Bytes per row of a schema (+1 byte/row for the validity mask)."""
     width = 1
@@ -719,9 +876,13 @@ def estimate_memory(plan: P.PlanNode, catalog, num_workers: int = 1,
       ``Broadcast``     -- the child materialized (these are blocking).
 
     An upper-bound-flavored estimate, byte for byte the reference's for
-    the same plan. ``feedback`` (an observation store) comes with
-    the adaptive-execution slice: anything but None raises
-    ``NotImplementedError``.
+    the same plan and store.
+
+    With ``feedback`` (a ``core.feedback.FeedbackStore``), warm entries are
+    priced from *observed* footprints: recorded cardinalities replace the
+    declared row bounds for materialized intermediates, and zone-map skip
+    fractions discount scans, so a warm query admits (and is given a spill
+    budget) at what it actually pins.
     """
     return estimate_memory_breakdown(plan, catalog, num_workers, batch_rows,
                                      prefetch_depth, feedback).total
@@ -733,24 +894,40 @@ def estimate_memory_breakdown(plan: P.PlanNode, catalog,
                               feedback=None) -> MemoryEstimate:
     """``estimate_memory`` with the per-operator breakdown retained
     (admission control attaches it to rejections)."""
-    if feedback is not None:
-        raise NotImplementedError(
-            f"estimate_memory_breakdown: feedback-priced estimates come "
-            f"with {_FEEDBACK_SLICE}")
     parts: List = []
     w = max(num_workers, 1)
 
-    def bounded_rows(node: P.PlanNode) -> int:
+    def observed(node: P.PlanNode) -> Optional[int]:
+        if feedback is None:
+            return None
+        return feedback.rows(feedback.key_for(node, catalog, w))
+
+    def static_rows(node: P.PlanNode) -> int:
         try:
             return min(row_bound(node, catalog), 1 << 40)
         except TypeError:
             return 1 << 20
 
+    def bounded_rows(node: P.PlanNode) -> int:
+        obs = observed(node)
+        if obs is not None:
+            return max(int(obs), 1)
+        return static_rows(node)
+
     def visit(node: P.PlanNode) -> None:
         if isinstance(node, P.TableScan):
             width = row_width(infer_schema(node, catalog))
             in_flight = batch_rows * w * (prefetch_depth + 1)
-            total_rows = bounded_rows(node)
+            total_rows = static_rows(node)
+            if feedback is not None:
+                # the recorded zone-map skip fraction discounts chunks the
+                # scan prunes before they ever reach device memory (the
+                # observed *row* count is post-filter and would under-price
+                # the in-flight morsels, so only the skip rate is used)
+                sf = feedback.skip_fraction(
+                    feedback.key_for(node, catalog, w))
+                if sf:
+                    total_rows = max(int(total_rows * (1.0 - sf)), 1)
             parts.append((f"TableScan({node.table})",
                           width * min(in_flight,
                                       max(total_rows, batch_rows))))
@@ -806,7 +983,8 @@ def estimate_memory_breakdown(plan: P.PlanNode, catalog,
 # pipeline
 # ---------------------------------------------------------------------------
 
-DEFAULT_RULES = (push_filters, prune_columns, choose_join_distribution, derive_capacities, place_exchanges)
+DEFAULT_RULES = (push_filters, prune_columns, reorder_joins,
+                 choose_join_distribution, derive_capacities, place_exchanges)
 
 
 def optimize(plan: P.PlanNode, catalog, rules=DEFAULT_RULES,

@@ -213,24 +213,30 @@ class InMemorySource(PlanNode):
 # canonical plan keys
 # ---------------------------------------------------------------------------
 
-def _canon(v: Any) -> str:
+def _canon(v: Any, node_fn=None) -> str:
     """Canonical string for a plan-node field value.
 
     Normalizes list/tuple spelling (builders produce lists, hand-written
     plans often tuples), sorts dict keys, and digests numpy buffers so an
     ``InMemorySource`` keys on its actual data, not its object identity.
+    ``node_fn`` is the recursion used for nested PlanNodes (``fingerprint``
+    by default; ``feedback_key`` for capacity-normalized keys).
     """
+    if node_fn is None:
+        node_fn = fingerprint
     if isinstance(v, PlanNode):
-        return fingerprint(v)
+        return node_fn(v)
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
-        inner = ",".join(f"{f.name}={_canon(getattr(v, f.name))}"
-                         for f in dataclasses.fields(v))
+        inner = ",".join(
+            f"{f.name}={_canon(getattr(v, f.name), node_fn)}"
+            for f in dataclasses.fields(v))
         return f"{type(v).__name__}({inner})"
     if isinstance(v, (list, tuple)):
-        return "[" + ",".join(_canon(x) for x in v) + "]"
+        return "[" + ",".join(_canon(x, node_fn) for x in v) + "]"
     if isinstance(v, dict):
         items = sorted(v.items(), key=lambda kv: str(kv[0]))
-        return "{" + ",".join(f"{k}:{_canon(x)}" for k, x in items) + "}"
+        return ("{" + ",".join(f"{k}:{_canon(x, node_fn)}"
+                               for k, x in items) + "}")
     if hasattr(v, "tobytes") and hasattr(v, "dtype"):      # numpy array
         h = hashlib.sha1()
         h.update(str(v.dtype).encode())
@@ -255,4 +261,42 @@ def fingerprint(node: PlanNode) -> str:
     inner = ",".join(
         f"{f.name}={_canon(getattr(node, f.name))}"
         for f in dataclasses.fields(node))
+    return f"{type(node).__name__}({inner})"
+
+
+# fields the optimizer derives (and runtime feedback re-derives): two plans
+# that differ only in these describe the same logical computation, so the
+# feedback store must give them the same key
+_FEEDBACK_SKIP = {
+    "Aggregation": frozenset({"max_groups", "mode"}),
+    "Distinct": frozenset({"max_groups", "mode"}),
+    "Join": frozenset({"max_matches", "build_rows", "distribution"}),
+}
+
+# physical exchange placement is worker-count plumbing, not logic: the store
+# keys through it so a pre-`place_exchanges` node being planned matches the
+# exchange-wrapped node the driver observed on the previous run
+_FEEDBACK_TRANSPARENT = ("Repartition", "Broadcast", "Exchange")
+
+
+def feedback_key(node: PlanNode) -> str:
+    """Capacity-normalized plan key for the runtime-feedback store.
+
+    Like ``fingerprint`` but (a) skips optimizer-derived capacity fields
+    (``max_groups``/``mode``, ``max_matches``/``build_rows``/
+    ``distribution``) so a node keys the same before and after
+    ``derive_capacities`` rewrites it (cold and warm plans of one query
+    share feedback entries), and (b) looks through physical exchange
+    nodes (``Repartition``/``Broadcast``/``Exchange``) so distributed
+    fragment plans key onto their logical shape. Worker count still
+    matters for observed cardinalities (partial aggregates emit per-worker
+    groups), so ``FeedbackStore`` buckets entries per ``num_workers`` on
+    top of this key.
+    """
+    while type(node).__name__ in _FEEDBACK_TRANSPARENT:
+        node = node.child
+    skip = _FEEDBACK_SKIP.get(type(node).__name__, frozenset())
+    inner = ",".join(
+        f"{f.name}={_canon(getattr(node, f.name), feedback_key)}"
+        for f in dataclasses.fields(node) if f.name not in skip)
     return f"{type(node).__name__}({inner})"

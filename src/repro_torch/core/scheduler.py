@@ -38,10 +38,15 @@ fixed device-memory budget. This module is that layer:
   in ``stats()["batch_fallbacks"]`` and leaves the error's text under
   ``executor_stats["batch"]["fallback"]`` on each member.
 
+* **Adaptive re-planning** (a ``core.feedback.FeedbackStore`` on the
+  session, or ``submit(feedback=...)``) -- a query is planned warm from the
+  store, its driver harvests fresh observations, and a cached plan whose
+  estimates miss them by more than ``feedback_qerror_limit`` is evicted,
+  so the next identical submit re-plans; warm entries converge and stay
+  cached. A query with a store is never batched.
+
 Where the reference keys on the kernel backend, the port keys on the
-session device's type (``"cuda"`` or ``"cpu"``). Feedback-driven planning
-comes with the adaptive-execution slice (ROADMAP.md, queue A): a
-``feedback`` other than None or False raises ``NotImplementedError``.
+session device's type (``"cuda"`` or ``"cpu"``).
 """
 
 from __future__ import annotations
@@ -59,9 +64,8 @@ from ..kernels import segmented_agg as _segagg
 from . import batch as _batch
 from . import plan as P
 from .driver import Driver, empty_executor_stats
-from .optimizer import estimate_memory_breakdown, optimize
-
-_FEEDBACK_SLICE = "the adaptive-execution slice (ROADMAP.md, queue A)"
+from .feedback import qerror
+from .optimizer import estimate_memory_breakdown, feedback_estimates, optimize
 
 
 class QueryRejected(RuntimeError):
@@ -108,6 +112,13 @@ class SchedulerConfig:
     batching: bool = False
     batch_window_ms: float = 2.0
     max_batch: int = 16
+    # adaptive re-planning: a cached plan whose believed cardinalities
+    # (static bounds, or the feedback observations it was planned from)
+    # miss the fresh post-execution observations by more than this q-error
+    # is evicted from the plan cache, so the next identical submit
+    # re-optimizes against the updated feedback store. Feedback-planned
+    # entries converge (estimate == observation) and stay cached.
+    feedback_qerror_limit: float = 4.0
 
 
 class QueryHandle:
@@ -143,6 +154,14 @@ class QueryHandle:
         self._queue_skips = 0          # times passed over by backfilling
         self._versions: tuple = ()     # admission-time catalog snapshot
         self._result_key: str = ""
+        # adaptive execution: the feedback store resolved at submit time,
+        # the plan-cache key of the optimized entry, and the cardinalities
+        # the plan was optimized under (store key -> believed rows); the
+        # post-execution q-error check compares these against the fresh
+        # observations and evicts the cached plan when they drifted
+        self._feedback = None
+        self._plan_key: str = ""
+        self._est_map: Dict[str, int] = {}
         # inter-query batching: the extracted stacked-program membership
         # (core.batch.BatchShape) and the compatibility key the worker
         # groups on -- (interned program, device type); both None when
@@ -322,19 +341,28 @@ class QueryScheduler:
         overrides: the worker count is pinned on the handle and keyed, and
         ``optimize=False`` runs the raw plan as-is. ``batching=False`` opts
         this query out of inter-query batching (it has no effect when the
-        config flag is off). ``feedback`` other than None or False raises
-        ``NotImplementedError``: it comes with the adaptive-execution
-        slice.
+        config flag is off). ``feedback`` is the query's store: None takes
+        the session's, True an ephemeral one, False none, or a
+        ``FeedbackStore`` as given.
         """
-        if feedback is not None and feedback is not False:
-            raise NotImplementedError(
-                f"QueryScheduler.submit: feedback comes with "
-                f"{_FEEDBACK_SLICE}")
         device_type = self.session.device.type
         w = num_workers if num_workers is not None \
             else self.session.num_workers
+        # adaptive execution: resolve the feedback store once, here, and
+        # pin it on the handle (the per-query override, else the session's
+        # store). True means an ephemeral per-query store; False disables
+        # the session store for this query.
+        if feedback is None:
+            fb = self.session.feedback_store()
+        elif feedback is True:
+            from .feedback import FeedbackStore
+            fb = FeedbackStore()
+        elif feedback is False:
+            fb = None
+        else:
+            fb = feedback
         # the device type stands where the reference keys on the kernel
-        # backend; no feedback store exists yet (fb0)
+        # backend
         # SQL-born queries prefix their cache keys with the text's hash,
         # so a change in the lowering of a text can never serve a result
         # cached under the old reading of it
@@ -342,7 +370,10 @@ class QueryScheduler:
         if sql is not None:
             digest = hashlib.sha1(sql.encode("utf-8")).hexdigest()[:16]
             sql_prefix = f"sql={digest}:"
-        key = (f"{sql_prefix}w{w}:k={device_type}:fb0:"
+        # the feedback flag is part of the key: a warm (feedback-planned)
+        # tree and the static plan of the same query differ, so neither
+        # cache may serve one where the other was requested
+        key = (f"{sql_prefix}w{w}:k={device_type}:fb{int(fb is not None)}:"
                f"{P.fingerprint(plan)}")
         # result cache first: a hit skips optimization entirely
         cached = self.result_cache.get(key, self.session.catalog)
@@ -358,15 +389,16 @@ class QueryScheduler:
             return handle
 
         if optimize is False:
-            optimized, plan_hit = plan, False
+            optimized, est_map, plan_hit = plan, {}, False
         else:
-            optimized, plan_hit = self._optimized(plan, key, w)
+            optimized, est_map, plan_hit = self._optimized(plan, key, w, fb)
         try:
             breakdown = estimate_memory_breakdown(
                 optimized, self.session.catalog,
                 num_workers=w,
                 batch_rows=self.session.batch_rows,
-                prefetch_depth=self.session.prefetch_depth)
+                prefetch_depth=self.session.prefetch_depth,
+                feedback=fb)
             est = breakdown.total
         except TypeError:
             if optimize is not False:
@@ -381,6 +413,9 @@ class QueryScheduler:
         handle.plan_cache_hit = plan_hit
         handle.device_type = device_type
         handle.num_workers = w
+        handle._feedback = fb
+        handle._plan_key = "opt:" + key
+        handle._est_map = est_map
         # version snapshot taken NOW: if a table is re-registered while the
         # query runs, the snapshot no longer matches at the next lookup and
         # the (stale) result is never served from cache
@@ -406,9 +441,10 @@ class QueryScheduler:
         # inter-query batching: only when the config opts in (so the
         # disabled path never even inspects the plan), the query didn't
         # opt out, and the execution mode is the simple one a stacked
-        # launch reproduces exactly -- optimized W=1 plan, no spill
+        # launch reproduces exactly -- optimized W=1 plan, no feedback
+        # store (batched runs harvest no feedback), no spill
         if (self.config.batching and batching is not False
-                and optimize is not False
+                and optimize is not False and fb is None
                 and handle.spill_plan is None and w == 1):
             shape = _batch.extract_shape(optimized)
             if shape is not None:
@@ -500,23 +536,30 @@ class QueryScheduler:
                                    "still running after 30 s")
 
     # -- internals ----------------------------------------------------------
-    def _optimized(self, plan: P.PlanNode, raw_key: str,
-                   w: int) -> Tuple[P.PlanNode, bool]:
+    def _optimized(self, plan: P.PlanNode, raw_key: str, w: int,
+                   fb: Optional[object]
+                   ) -> Tuple[P.PlanNode, Dict[str, int], bool]:
         """Optimized plan via the plan cache. ``raw_key`` already carries
         the planned worker count (exchange placement makes the physical
-        plan W-dependent), the device type and the raw tree's fingerprint.
-        Versions are snapshot *before* optimization, which reads catalog
-        stats."""
+        plan W-dependent), the device type, the feedback flag and the raw
+        tree's fingerprint. Versions are snapshot *before* optimization,
+        which reads catalog stats. Entries store ``(optimized, est_map)``
+        where ``est_map`` is the per-node cardinality belief the plan was
+        derived under (``optimizer.feedback_estimates``); the q-error
+        check after execution compares it against fresh observations."""
         key = "opt:" + raw_key
         cached = self.plan_cache.get(key, self.session.catalog)
         if cached is not None:
-            return cached, True
+            optimized, est_map = cached
+            return optimized, est_map, True
         versions = self.session.catalog.versions(referenced_tables(plan))
         config = dataclasses.replace(self.session.optimizer_config(),
-                                     num_workers=w)
+                                     num_workers=w, feedback=fb)
         optimized = optimize(plan, self.session.catalog, config=config)
-        self.plan_cache.put(key, versions, optimized)
-        return optimized, False
+        est_map = (feedback_estimates(optimized, self.session.catalog, config)
+                   if fb is not None else {})
+        self.plan_cache.put(key, versions, (optimized, est_map))
+        return optimized, est_map, False
 
     def _ensure_workers(self) -> None:
         """Lazily grow the worker pool up to ``max_concurrency`` (held lock)."""
@@ -643,7 +686,9 @@ class QueryScheduler:
             # per-query worker-count override: a session clone, so the
             # context matches the W the plan was optimized for
             sess = dataclasses.replace(sess, num_workers=handle.num_workers)
-        return sess.context()   # each context clones the exchange
+        # each context clones the exchange; the store is the one resolved
+        # at submit time (None for every batched member)
+        return dataclasses.replace(sess.context(), feedback=handle._feedback)
 
     def _execute_batch(self, members: List[QueryHandle]) -> None:
         """Run a claimed group as ONE stacked execution, scattering the
@@ -708,6 +753,7 @@ class QueryScheduler:
             if batch_info is not None:
                 stats["batch"] = dict(batch_info)
             handle.executor_stats = stats
+            self._check_feedback(handle)
             self.result_cache.put(handle._result_key, handle._versions,
                                   result)
             handle._complete(result=result)
@@ -722,3 +768,23 @@ class QueryScheduler:
                 self.failed += 1
             if not isinstance(exc, Exception):
                 raise
+
+    def _check_feedback(self, handle: QueryHandle) -> None:
+        """Adaptive plan-cache invalidation: after a feedback-enabled
+        query runs, compare the cardinalities its cached plan was derived
+        under (``handle._est_map``) against the observations the driver
+        just harvested. A q-error past ``feedback_qerror_limit`` on any
+        node means the plan's capacities and ordering were priced from
+        stale beliefs: evict the entry so the next identical submit
+        re-plans from the updated store. Warm (feedback-planned) entries
+        have estimate == observation and survive, so the loop converges."""
+        fb = handle._feedback
+        if fb is None or not handle._est_map:
+            return
+        worst = 1.0
+        for key, est in handle._est_map.items():
+            entry = fb.get(key)
+            if entry is not None:
+                worst = max(worst, qerror(est, entry.rows))
+        if worst > self.config.feedback_qerror_limit:
+            self.plan_cache.invalidate(handle._plan_key)

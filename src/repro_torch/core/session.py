@@ -258,8 +258,9 @@ class ExecutionOptions:
     num_workers: Optional[int] = None
     # run the logical optimizer before execution (default True)
     optimize: Optional[bool] = None
-    # runtime-feedback override; anything but None or False raises
-    # NotImplementedError (the adaptive-execution slice brings it)
+    # runtime-feedback override for this query only: ``True`` enables an
+    # ephemeral ``core.feedback.FeedbackStore``, ``False`` disables the
+    # session's store, or pass a ``FeedbackStore`` to share across queries
     feedback: Optional[object] = None
     # inter-query batching opt-out for this query only: ``False`` keeps it
     # out of stacked launches even when ``SchedulerConfig.batching`` is on
@@ -318,10 +319,31 @@ class Session:
     spill_dir: Optional[str] = None
     # hard ceiling for the disk tier (the only tier that rejects work)
     disk_ceiling: int = 1 << 38
+    # adaptive execution (core.feedback): ``True`` gives the session a
+    # ``FeedbackStore`` recording observed per-node cardinalities after
+    # every query; the optimizer then re-plans warm runs from those
+    # observations (tighter capacities, feedback-driven build-side
+    # selection) and the scheduler evicts cached plans whose estimates
+    # drifted. Pass an existing ``FeedbackStore`` to share one across
+    # sessions; ``None`` disables adaptivity entirely.
+    feedback: Optional[object] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.last_driver: Optional[Driver] = None
+
+    def feedback_store(self):
+        """The session's ``core.feedback.FeedbackStore``, or ``None`` when
+        adaptivity is off. Normalizes ``feedback=True`` into a concrete
+        store on first use (thread-safe; all later calls share it)."""
+        fb = self.feedback
+        if fb is True:
+            with Session._scheduler_lock:
+                if self.feedback is True:
+                    from .feedback import FeedbackStore
+                    self.feedback = FeedbackStore()
+                fb = self.feedback
+        return fb if fb is not None and fb is not False else None
 
     def context(self) -> ExecutionContext:
         """Snapshot this session's execution config for one Driver run
@@ -342,23 +364,22 @@ class Session:
                                 prefetch_depth=self.prefetch_depth,
                                 streaming=self.streaming,
                                 host_only_ops=frozenset(self.host_only_ops),
-                                spill=spill)
+                                spill=spill,
+                                feedback=self.feedback_store())
 
     def _with_options(self, options: Optional[ExecutionOptions]
                       ) -> "Session":
         """This session with a query's overrides applied (the direct path
-        of ``QueryBuilder.collect``): the worker count. A ``feedback``
-        other than None or False raises ``NotImplementedError``: it comes
-        with the adaptive-execution slice."""
+        of ``QueryBuilder.collect``): the worker count and the feedback
+        store."""
         if options is None:
             return self
-        if options.feedback is not None and options.feedback is not False:
-            raise NotImplementedError(
-                "ExecutionOptions.feedback comes with the adaptive-execution "
-                "slice")
+        repl = {}
         if options.num_workers is not None:
-            return dataclasses.replace(self, num_workers=options.num_workers)
-        return self
+            repl["num_workers"] = options.num_workers
+        if options.feedback is not None:
+            repl["feedback"] = options.feedback
+        return dataclasses.replace(self, **repl) if repl else self
 
     def table(self, name: str, columns=None) -> "QueryBuilder":
         """Fluent builder over a catalog table, bound to this session."""
@@ -390,8 +411,10 @@ class Session:
         return qb
 
     def optimizer_config(self) -> OptimizerConfig:
-        """The optimizer's configuration for this session's worker count."""
-        return OptimizerConfig(num_workers=self.num_workers)
+        """The optimizer's configuration for this session's worker count
+        and feedback store (warm plans when the store has observations)."""
+        return OptimizerConfig(num_workers=self.num_workers,
+                               feedback=self.feedback_store())
 
     def optimize(self, plan: PlanNode) -> PlanNode:
         """Run the optimizer's rule pipeline over a logical plan."""
@@ -408,7 +431,8 @@ class Session:
         kernel dispatches, per-fragment exchange counters, then the
         per-operator memory-footprint estimate (with the spill-cost
         estimate under a ``device_budget``) and the per-tier spill
-        counters."""
+        counters. With a feedback store the estimate prices the warm plan
+        from what earlier runs observed."""
         text = explain_before_after(plan, self.catalog,
                                     config=self.optimizer_config())
         if not analyze:
@@ -416,7 +440,8 @@ class Session:
         optimized = self.optimize(plan)
         breakdown = estimate_memory_breakdown(
             optimized, self.catalog, num_workers=self.num_workers,
-            batch_rows=self.batch_rows, prefetch_depth=self.prefetch_depth)
+            batch_rows=self.batch_rows, prefetch_depth=self.prefetch_depth,
+            feedback=self.feedback_store())
         self.execute(optimized)
         lines = ["== executor stats =="]
         stats = self.executor_stats()
@@ -466,9 +491,15 @@ class Session:
 
     def executor_stats(self) -> Dict[str, object]:
         """Stats from the most recent ``execute``; before any, the same
-        keys with empty values (``driver.empty_executor_stats``)."""
-        return (empty_executor_stats() if self.last_driver is None
-                else self.last_driver.executor_stats())
+        keys with empty values (``driver.empty_executor_stats``). The
+        ``feedback`` entry always reflects the session's live store (it
+        accumulates across queries, unlike the per-query driver stats)."""
+        stats = (empty_executor_stats() if self.last_driver is None
+                 else self.last_driver.executor_stats())
+        fb = self.feedback_store()
+        if fb is not None:
+            stats["feedback"] = fb.summary()
+        return stats
 
     # -- serving entry points (core.scheduler) ------------------------------
     # guards lazy scheduler creation: N client threads whose first call is

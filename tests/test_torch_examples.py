@@ -1,0 +1,46 @@
+"""The port's examples (``examples/quickstart_torch.py`` and
+``examples/serve_queries_torch.py``) run on the CPU with ``--device cpu``,
+and their answers are the reference oracle's."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+from tpch_util import assert_results_match  # noqa: E402
+
+from repro.tpch import dbgen as ref_dbgen  # noqa: E402
+from repro.tpch import oracle  # noqa: E402
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def _load(name: str):
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_runs_on_cpu(capsys):
+    out = _load("quickstart_torch").main(["--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "== optimized plan ==" in text and "TPC-H Q5" in text
+    assert len(out["top"]["user"]) == 5
+    spend = out["top"]["spend"]
+    assert list(spend) == sorted(spend, reverse=True)
+    assert_results_match(out["q5"], oracle.ORACLES[5](
+        ref_dbgen.generate(sf=0.002)), 5)
+
+
+def test_serve_queries_runs_on_cpu(capsys):
+    mod = _load("serve_queries_torch")
+    out = mod.main(["--device", "cpu", "--clients", "3"])
+    assert "served 12 queries from 3 clients on cpu" in capsys.readouterr().out
+    assert len(out["results"]) == 3 * len(mod.DASHBOARD)
+    data = ref_dbgen.generate(sf=0.002)
+    for q, res in out["results"]:
+        assert_results_match(res, oracle.ORACLES[q](data), q)
+    assert out["stats"]["rejected"] == 0 and out["stats"]["failed"] == 0

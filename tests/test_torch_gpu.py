@@ -1269,3 +1269,30 @@ def test_grace_hash_join_on_card_matches_cpu(cuda, join_type, workers):
     want, want_stats = run("cpu")
     assert got == want and got_stats == want_stats
     assert got_stats["host"]["spills"] > 0
+
+
+@pytest.mark.parametrize("q", [3, 18])
+def test_feedback_cold_warm_on_card_matches_cpu(cuda, q):
+    """Adaptive execution on the card at SF 0.01: Q3 and Q18 cold then
+    warm give the CPU's answers, the same warm plans and the same store
+    entries (the counts and build multiplicities were kept on the card
+    until one read-back per query)."""
+    from repro_torch.core import plan as port_plan
+    catalog = dbgen.load_catalog(sf=0.01)
+    raw = queries.build_query(q, catalog, optimized=False)
+
+    def run(device):
+        session = Session(catalog, device=device, feedback=True)
+        cold_plan = session.optimize(raw)
+        cold = session.execute(cold_plan)
+        warm_plan = session.optimize(raw)
+        warm = session.execute(warm_plan)
+        entries = {k: (e.rows, e.estimated, e.max_matches, e.skip_fraction)
+                   for k, e in session.feedback_store()._entries.items()}
+        return cold, warm, port_plan.fingerprint(warm_plan), entries
+
+    got, want = run(None), run("cpu")
+    assert got[2] == want[2]
+    assert got[3] == want[3]
+    for g, w in zip(got[:2], want[:2]):
+        assert_results_match(g, w, q)

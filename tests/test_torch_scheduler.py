@@ -113,16 +113,6 @@ def test_over_budget_query_admitted_with_spill(catalog, data):
     assert spill.get("spilled_bytes", 0) > 0
 
 
-def test_feedback_waits_for_the_adaptive_slice(catalog):
-    session = _session(catalog)
-    with pytest.raises(NotImplementedError, match="adaptive-execution"):
-        session.submit(queries.build_query(6, catalog),
-                       options=ExecutionOptions(feedback=True))
-    with pytest.raises(NotImplementedError, match="adaptive-execution"):
-        estimate_memory_breakdown(queries.build_query(6, catalog), catalog,
-                                  feedback=object())
-
-
 def test_queue_full_backpressure(catalog):
     gate = threading.Event()
     _tiny_table(catalog, "gated", gate=gate)

@@ -226,11 +226,23 @@ class TestUnifiedApi:
         assert len(keys) > 0 and keys.max() <= 32
         assert list(keys) == sorted(keys)
 
-    def test_feedback_option_raises(self, session):
-        q = session.sql("SELECT count(*) AS n FROM nation",
-                        options=ExecutionOptions(feedback=True))
-        with pytest.raises(NotImplementedError, match="adaptive"):
-            q.collect()
+    def test_feedback_option_cold_then_warm(self, session):
+        from repro_torch.core.feedback import FeedbackStore
+        text = ("SELECT o_orderpriority, count(*) AS n FROM orders "
+                "GROUP BY o_orderpriority ORDER BY o_orderpriority")
+        once = session.sql(text, options=ExecutionOptions(
+            feedback=True)).collect()          # an ephemeral store
+        store = FeedbackStore()
+        q = session.sql(text, options=ExecutionOptions(feedback=store))
+        cold = q.collect()
+        assert len(store) > 0
+        hits = store.summary()["hits"]
+        warm = q.collect()
+        assert store.summary()["hits"] > hits  # planned from observations
+        for out in (cold, warm):
+            assert list(out) == list(once)
+            for c in once:
+                np.testing.assert_array_equal(out[c], once[c])
 
     def test_builder_collect_shim(self, session):
         out = session.table("orders").agg(n=("count", None)).collect(True)
