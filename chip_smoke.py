@@ -105,7 +105,31 @@ In order it:
    ``HostExchange``, each equal to its ICI result, with bytes staged
    through the host and no ``radix_histogram`` launch. Each query prints
    its wall times (three runs after one warm-up), its exchange rounds,
-   rows and bytes moved, and its launches. Then the storage phase
+   rows and bytes moved, and its launches. Then the mesh phase
+   (``--mesh`` runs it alone, with the build, and prints no ok line):
+   (a) on ``EngineMesh([cuda:0])`` (``launch.mesh``: the staged
+   all-to-all of ``ICIExchange(mesh=...)``, one card), the 22 queries at
+   W = 4, each equal to the same plan off the mesh (the comparison of
+   phase 5) and, in the full run, to its W = 1 result, with equal exchange
+   fragments (rounds, rows and bytes moved), no byte through the host, one
+   ``radix_histogram`` launch a repartition and every worker on
+   ``cuda:0``, each run once to warm up and once timed with the launch
+   counters set to 0 just before it and read just after (every kernel of
+   the path but ``fused_batch_program`` and ``flash_attention`` must
+   launch), its wall on and off the mesh; one more run of each on and off
+   the mesh with CUDA events around every repartition's data phase (the
+   staged layout, all-to-all and compaction against the fused gather),
+   their ms and the rows each worker received (equal on and off); then
+   W = 2 on ``_MESH_W2`` against the same plans off the mesh, and
+   ``HostExchange`` on ``_MESH_HOST`` against the mesh's ICI results,
+   bytes staged through the host and no ``radix_histogram`` launch; the
+   device guard: ``partition_histogram`` on ``cuda:1`` tensors while
+   ``cuda:0`` is current, exact against its plain version (on one card a
+   line says it cannot run); (b) where there are two or more cards, the
+   22 at W = 4 on a mesh of four cards (two where three are visible), each
+   equal to its off-mesh result, every worker's output tables on its mesh
+   device, with each pair's peer access and the bytes copied between
+   cards; on one card a line says (b) did not run. Then the storage phase
    (``--storage`` runs it alone, with the build, and prints no ok line):
    (a) ``dbgen.write_dataset`` at SF 1 (seed 19940729,
    ``chunks=8``: lineitem chunks of 750,079 rows) into a temporary
@@ -320,7 +344,8 @@ the probe's ``_PROBE_CASES`` and the expansion probe's ``_MULTI_CASES``
 alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone;
 ``--storage`` the storage phase alone; ``--spill`` the out-of-core phase
 alone (the metadata pass's ``--partition`` run also holds the standalone
-histogram's ``_HIST_CASES``); ``--adaptive`` the adaptive phase alone.
+histogram's ``_HIST_CASES``); ``--adaptive`` the adaptive phase alone;
+``--mesh`` the mesh phase alone.
 ``--faults`` runs the six on the kernels as they are and then on copies,
 in a temporary directory, each with one fault planted (a K tile left
 out, early or late; V tiles not reloaded; the split over K's combine
@@ -1784,7 +1809,8 @@ def _minmax_entry(torch, seg, gids, vals, g, kind):
     symbol = ("segmented_minmax_f32" if vals.dtype == torch.float32
               else "segmented_minmax_i32")
     out = torch.full((g,), _POISON, dtype=torch.int32, device=gids.device)
-    fn = build.function(seg._LIB, symbol, seg._MINMAX_ARGTYPES)
+    fn = build.function(seg._LIB, symbol, seg._MINMAX_ARGTYPES,
+                        device=gids.device)
     rc = fn(gids.data_ptr(), vals.data_ptr(), gids.shape[0], g,
             int(kind == "min"), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -2006,7 +2032,7 @@ def _multi_entry(torch, hp, tk, tv, pk, m, mp):
     count = torch.full((n,), _POISON, dtype=torch.int32, device=pk.device)
     slots = torch.full((n, m), _POISON, dtype=torch.int32, device=pk.device)
     fn = build.function(hp._LIB, "hash_table_probe_multi",
-                        hp._PROBE_MULTI_ARGTYPES)
+                        hp._PROBE_MULTI_ARGTYPES, device=pk.device)
     rc = fn(tk.data_ptr(), tv.data_ptr(), tk.shape[0], min(mp, tk.shape[0]),
             -1, pk.data_ptr(), n, m, count.data_ptr(), slots.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -2581,6 +2607,269 @@ def run_distributed(torch, catalog, w1_results):
     print(f"launches at W={_WORKERS} (22 queries, ici): {json.dumps(totals)}",
           flush=True)
     return launches, sessions["ici"]
+
+
+# ---------------------------------------------------------------------------
+# the mesh phase: the staged all-to-all, one card a mesh, then several
+# ---------------------------------------------------------------------------
+
+# the queries run at two workers a mesh and through the host-staged
+# exchange on it
+_MESH_W2 = (3, 5, 9, 13, 18, 21)
+_MESH_HOST = (5, 9, 13)
+# the path's kernels: every kernel but the serving batch and attention
+_MESH_KERNELS = ("fused_batch_program", "flash_attention")
+
+
+def _counters(stats):
+    """Each exchange fragment's rounds, rows and bytes moved."""
+    return {k: (v["rounds"], v["rows_moved"], v["bytes_moved"])
+            for k, v in stats["exchanges"].items()}
+
+
+def _staged_bytes(stats):
+    return sum(v["host_staged_bytes"] for v in stats["exchanges"].values())
+
+
+def data_phase_ms(torch, session, plans):
+    """One run of each plan with CUDA events around each repartition's data
+    phase (the fused gather off the mesh, the staged layout, all-to-all and
+    compaction on it): q -> (data-phase ms summed over its repartitions,
+    the rows each destination worker received, summed the same way)."""
+    from repro_torch.core import exchange as ex_mod
+    cls = ex_mod.ICIExchange
+    fused = cls.__dict__["_repartition_fused"]
+    staged = cls.__dict__["_repartition_staged"]
+    now = {}
+
+    def timed(fn, per_dst):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        now["ms"] += start.elapsed_time(end)
+        now["rows"] = [a + int(b) for a, b in zip(now["rows"], per_dst)]
+        return out
+
+    def fused_phase(tables, pids, per_dst, out_cap):
+        return timed(lambda: fused.__func__(tables, pids, per_dst, out_cap),
+                     per_dst)
+
+    def staged_phase(self, tables, pids, counts, out_cap):
+        return timed(lambda: staged(self, tables, pids, counts, out_cap),
+                     counts.sum(axis=0))
+
+    out = {}
+    cls._repartition_fused = staticmethod(fused_phase)
+    cls._repartition_staged = staged_phase
+    try:
+        for q, plan in plans.items():
+            now.update(ms=0.0, rows=[0] * session.num_workers)
+            session.execute(plan)
+            torch.cuda.synchronize()
+            out[q] = (now["ms"], now["rows"])
+    finally:
+        cls._repartition_fused = fused
+        cls._repartition_staged = staged
+    return out
+
+
+def _mesh_run(torch, session, plan):
+    """One warm-up run, then one timed run with the launch counters set to
+    0 just before it and read just after: (result, stats, counts, wall)."""
+    from repro_torch.kernels import ops
+    session.execute(plan)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = session.execute(plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return got, session.executor_stats(), ops.launch_counts(), wall
+
+
+def mesh_one_card(torch, catalog, w1_results=None):
+    """(a) The 22 queries at ``_WORKERS`` workers on
+    ``EngineMesh([cuda:0])`` (the staged all-to-all on one card) against the
+    same plans off the mesh, walls side by side; then two workers on
+    ``_MESH_W2`` and ``HostExchange`` on ``_MESH_HOST``; the data phase's
+    CUDA-event ms on and off the mesh and the rows each worker received.
+    Returns the off-mesh results at ``_WORKERS`` workers."""
+    from repro_torch import HostExchange
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import EngineMesh
+    from repro_torch.tpch import queries
+    mesh = EngineMesh([torch.device("cuda", 0)])
+    plans = {q: queries.build_query(q, catalog, num_workers=_WORKERS)
+             for q in _QUERIES}
+    off = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                  num_workers=_WORKERS)
+    on = Session(catalog, batch_rows=_MAIN_ROWS, num_workers=_WORKERS,
+                 mesh=mesh)
+    if on.device != torch.device("cuda", 0):
+        fail(f"mesh session on {on.device}, not its mesh's first device")
+    off_results, totals = {}, dict.fromkeys(ops.KERNELS, 0)
+    wall_on = wall_off = 0.0
+    for q, plan in plans.items():
+        want, want_stats, _, t_off = _mesh_run(torch, off, plan)
+        got, stats, counts, t_on = _mesh_run(torch, on, plan)
+        compare(q, got, want, f"its off-mesh W={_WORKERS} run")
+        if w1_results is not None:
+            compare(q, got, w1_results[q], "its W=1 run on the card")
+        if _counters(stats) != _counters(want_stats):
+            fail(f"Q{q} mesh W={_WORKERS}: exchanges {_counters(stats)}, off "
+                 f"the mesh {_counters(want_stats)}")
+        staged = _staged_bytes(stats)
+        reps = _repartitions(stats["exchanges"])
+        if staged or counts["radix_histogram"] != reps:
+            fail(f"Q{q} mesh W={_WORKERS}: {staged} bytes through the host, "
+                 f"{counts['radix_histogram']} radix_histogram launches for "
+                 f"{reps} repartitions")
+        if stats["worker_devices"] != ["cuda:0"] * _WORKERS:
+            fail(f"Q{q} mesh: workers on {stats['worker_devices']}")
+        for k in ops.KERNELS:
+            totals[k] += counts[k]
+        wall_on += t_on
+        wall_off += t_off
+        off_results[q] = want
+        print(f"mesh Q{q} SF {_SF} W={_WORKERS} on 1 card: wall on the mesh "
+              f"{t_on:.4f} s, off {t_off:.4f} s, rows "
+              f"{len(next(iter(got.values())))}, {reps} repartitions, "
+              f"host_staged_bytes {staged}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    for k in ops.KERNELS:
+        if k not in _MESH_KERNELS and not totals[k]:
+            fail(f"kernel {k} was not launched by the mesh path")
+    print(f"mesh W={_WORKERS} 1 card (22 queries): walls on the mesh "
+          f"{wall_on:.4f} s, off {wall_off:.4f} s; launches "
+          f"{json.dumps(totals)}", flush=True)
+    # the data phase, staged against fused, and where the rows went
+    ms_on = data_phase_ms(torch, on, plans)
+    ms_off = data_phase_ms(torch, off, plans)
+    rows = [0] * _WORKERS
+    for q in plans:
+        if ms_on[q][1] != ms_off[q][1]:
+            fail(f"Q{q}: rows received {ms_on[q][1]} on the mesh, "
+                 f"{ms_off[q][1]} off it")
+        rows = [a + b for a, b in zip(rows, ms_on[q][1])]
+        print(f"mesh data phase Q{q}: staged {ms_on[q][0]:.3f} ms, fused "
+              f"{ms_off[q][0]:.3f} ms, rows each worker received "
+              f"{ms_on[q][1]}", flush=True)
+    print(f"mesh data phase (22 queries, W={_WORKERS}, CUDA events): staged "
+          f"{sum(v[0] for v in ms_on.values()):.3f} ms, fused "
+          f"{sum(v[0] for v in ms_off.values()):.3f} ms; rows each worker "
+          f"received {rows}", flush=True)
+    # two workers a mesh, and the host-staged exchange on it
+    on2 = Session(catalog, batch_rows=_MAIN_ROWS, num_workers=2, mesh=mesh)
+    off2 = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                   num_workers=2)
+    for q in _MESH_W2:
+        plan = queries.build_query(q, catalog, num_workers=2)
+        want, want_stats, _, t_off = _mesh_run(torch, off2, plan)
+        got, stats, counts, t_on = _mesh_run(torch, on2, plan)
+        compare(q, got, want, "its off-mesh W=2 run")
+        if _counters(stats) != _counters(want_stats) or _staged_bytes(stats):
+            fail(f"Q{q} mesh W=2: exchanges {_counters(stats)} vs "
+                 f"{_counters(want_stats)}, {_staged_bytes(stats)} bytes "
+                 "through the host")
+        print(f"mesh Q{q} W=2 on 1 card: wall on the mesh {t_on:.4f} s, off "
+              f"{t_off:.4f} s", flush=True)
+    host = Session(catalog, batch_rows=_MAIN_ROWS, num_workers=_WORKERS,
+                   mesh=mesh, exchange=HostExchange())
+    for q in _MESH_HOST:
+        got, stats, counts, wall = _mesh_run(torch, host, plans[q])
+        compare(q, got, off_results[q], f"its W={_WORKERS} ICI run")
+        staged = _staged_bytes(stats)
+        if not staged or counts["radix_histogram"]:
+            fail(f"Q{q} mesh host: {staged} bytes staged, "
+                 f"{counts['radix_histogram']} radix_histogram launches")
+        print(f"mesh Q{q} W={_WORKERS} host on 1 card: wall {wall:.4f} s, "
+              f"host_staged_bytes {staged}", flush=True)
+    return off_results
+
+
+def check_device_guard(torch, rh):
+    """``partition_histogram`` on tensors of ``cuda:1`` while ``cuda:0`` is
+    current, against its plain version: the launch must run under its
+    tensors' device."""
+    if torch.cuda.device_count() < 2:
+        print("device guard: one card, so a launch on another card than the "
+              "current one cannot be tried here", flush=True)
+        return
+    gen = torch.Generator().manual_seed(29)
+    keys = [[torch.randint(-1000, 1000, (100_003,), generator=gen,
+                           dtype=torch.int32).to("cuda:1")] for _ in range(4)]
+    valid = [(torch.rand(100_003, generator=gen) < 0.8).to("cuda:1")
+             for _ in range(4)]
+    with torch.cuda.device(0):
+        pids, counts = rh.partition_histogram(keys, valid, 4)
+        torch.cuda.synchronize(1)
+    want_pids, want_counts = rh.partition_histogram_plain(
+        [[k.cpu() for k in ks] for ks in keys], [v.cpu() for v in valid], 4)
+    if pids.device != torch.device("cuda", 1) or not (
+            torch.equal(pids.cpu(), want_pids)
+            and torch.equal(counts.cpu(), want_counts)):
+        fail("device guard: partition_histogram on cuda:1 with cuda:0 "
+             "current differs from its plain version")
+    print("device guard: partition_histogram on cuda:1 with cuda:0 current: "
+          "exact", flush=True)
+
+
+def mesh_cards(torch, catalog, results):
+    """(b) The 22 queries at ``_WORKERS`` workers on a mesh of
+    ``min(count, 4)`` cards (2 when 3 are visible), each equal to
+    ``results`` (the off-mesh run), every worker's output tables on its
+    mesh device, with the peer access of each pair of cards and the bytes
+    copied between cards."""
+    from repro_torch.core.driver import Driver
+    from repro_torch.core.session import Session
+    from repro_torch.launch.mesh import EngineMesh
+    from repro_torch.tpch import queries
+    count = torch.cuda.device_count()
+    if count < 2:
+        print("mesh (b): needs two or more cards, this host has one; not "
+              "run", flush=True)
+        return
+    cards = 4 if count >= 4 else 2
+    mesh = EngineMesh([torch.device("cuda", i) for i in range(cards)])
+    for i in range(cards):
+        peers = {f"cuda:{j}": torch.cuda.can_device_access_peer(i, j)
+                 for j in range(cards) if j != i}
+        print(f"mesh (b): peer access from cuda:{i}: {peers}", flush=True)
+    session = Session(catalog, batch_rows=_MAIN_ROWS, num_workers=_WORKERS,
+                      mesh=mesh)
+    peer = 0
+    for q in _QUERIES:
+        plan = queries.build_query(q, catalog, num_workers=_WORKERS)
+        got, stats, _, wall = _mesh_run(torch, session, plan)
+        compare(q, got, results[q], f"its off-mesh W={_WORKERS} run")
+        copied = session.last_driver.ctx.exchange.peer_bytes
+        peer += copied
+        if _staged_bytes(stats):
+            fail(f"Q{q} mesh of {cards} cards: bytes through the host")
+        tables = Driver(session.context()).execute(plan)
+        torch.cuda.synchronize()
+        where = [str(t.device) for t in tables]
+        if where != [str(mesh.device_of(w, _WORKERS))
+                     for w in range(_WORKERS)]:
+            fail(f"Q{q} mesh of {cards} cards: outputs on {where}")
+        print(f"mesh Q{q} W={_WORKERS} on {cards} cards: wall {wall:.4f} s, "
+              f"workers on {stats['worker_devices']}, bytes copied between "
+              f"cards {copied}", flush=True)
+    print(f"mesh (b) {cards} cards (22 queries): bytes copied between cards "
+          f"{peer}", flush=True)
+
+
+def run_mesh(torch, rh, catalog, w1_results=None):
+    """The mesh phase: (a), the device guard, then (b)."""
+    t0 = time.perf_counter()
+    off_results = mesh_one_card(torch, catalog, w1_results)
+    check_device_guard(torch, rh)
+    mesh_cards(torch, catalog, off_results)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5574,6 +5863,12 @@ def main() -> None:
                          "scheduler's q-error eviction, warm estimates and "
                          "the warm Q3 under the forced budget); prints no "
                          "ok line")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run the mesh phase alone (the 22 queries at W=4 "
+                         "on a one-card mesh against the same plans off "
+                         "it, W=2 and HostExchange on it, the data phase's "
+                         "ms, the device guard, and a mesh over the cards "
+                         "where there are several); prints no ok line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9, the build checks, the fused checks "
                          "and the segmented cases alone on the kernels as "
@@ -5685,6 +5980,10 @@ def main() -> None:
         run_adaptive(torch, catalog, data)
         print(card)
         return
+    if args.mesh:
+        run_mesh(torch, rh, catalog)
+        print(card)
+        return
     rows_out, launchers = check_fused(torch, fused, queries, catalog, morsel,
                                       rate)
     calls = capture_calls(torch, hp, fused, catalog)
@@ -5712,6 +6011,7 @@ def main() -> None:
     repartitions = w4_calls["repartition"]
     del w4_calls
     w4_launches, gpu4 = run_distributed(torch, catalog, results)
+    run_mesh(torch, rh, catalog, results)
     storage_sessions = run_storage(torch, storage_dir)
     sql_rows, sql_launchers = run_sql(torch, fused, catalog, data, rate,
                                       results, walls)

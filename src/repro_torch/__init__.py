@@ -21,7 +21,10 @@ Entry point::
 present; pass ``device="cpu"`` to run the plain versions. W workers run
 on the one device with ``Session(catalog, num_workers=W,
 exchange=ICIExchange() | HostExchange())`` and a plan from
-``queries.build_query(q, catalog, num_workers=W)``.
+``queries.build_query(q, catalog, num_workers=W)``; with
+``mesh=launch.mesh.make_engine_mesh(W)`` each worker runs on a card of its
+own (``EngineMesh([torch.device("cuda:0")])`` keeps them on one card
+through the same staged exchange).
 
 Serving: ``session.submit(plan)`` returns a handle, ``session.gather(*h)``
 and ``session.run(plan)`` wait for results; the scheduler behind them

@@ -6,14 +6,19 @@ operators. Scans run as ``StreamingScan`` stages fed by a
 per-morsel pipeline, which ``operators.fuse_morsel_pipeline`` collapses
 into one fused kernel launch per morsel.
 
-W workers run on one device, one driver per worker as in Presto: a stage's
-stream advances all workers in lockstep, each step holding one batch per
-worker (the reference's ``[W, cap]`` batch as a list), and every worker
-has its own operator instances -- its own scan pipeline, hash-join build
-table and aggregation state, as the reference's ``vmap`` gives each worker
-slice. Exchanges (``core.exchange``) move rows between the workers' tables
-at ``Repartition``/``Broadcast`` nodes, two-phase aggregations, and the
-gathers before a global sort, limit or scalar subquery. At W = 1 every
+W workers run one driver each, as in Presto: a stage's stream advances
+all workers in lockstep, each step holding one batch per worker (the
+reference's ``[W, cap]`` batch as a list), and every worker has its own
+operator instances -- its own scan pipeline, hash-join build table and
+aggregation state, as the reference's ``vmap`` gives each worker slice.
+Off the mesh every worker is on the context's device. On a mesh
+(``ExecutionContext.mesh``, a ``launch.mesh.EngineMesh``) worker w's scan
+output lands on ``worker_device(w)``, its operators allocate on the device
+of their input, so every kernel of that worker launches there, and only
+the exchanges move rows between devices. Exchanges (``core.exchange``)
+move rows between the workers' tables at ``Repartition``/``Broadcast``
+nodes, two-phase aggregations, and the gathers before a global sort,
+limit or scalar subquery. At W = 1 every
 stream is a list of one and no exchange runs.
 
 The port runs TableScan, InMemorySource, Filter (``compact=True``
@@ -95,14 +100,31 @@ class ExecutionContext:
     # completes, so the next optimization of the same plan shape re-plans
     # warm
     feedback: Optional[object] = None
+    # the worker mesh (launch.mesh.EngineMesh): worker w's tables live on
+    # mesh.device_of(w, num_workers). None = every worker on ``device``
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         if self.exchange is None:
-            self.exchange = ICIExchange()
+            self.exchange = ICIExchange(mesh=self.mesh)
+        if self.mesh is None:
+            return
+        for what, given in (("out-of-core execution", self.spill),
+                            ("runtime feedback", self.feedback)):
+            if given is not None:
+                raise NotImplementedError(
+                    f"{what} on a mesh is not ported yet (ROADMAP.md, "
+                    "Queue A)")
 
     def host_budget(self):
         """Shared host-memory budget (prefetch + spill host tier), if any."""
         return self.spill.host if self.spill is not None else None
+
+    def worker_device(self, w: int) -> torch.device:
+        """The device of worker ``w``: its mesh device, else ``device``."""
+        if self.mesh is None:
+            return self.device
+        return self.mesh.device_of(w, self.num_workers)
 
 
 @dataclasses.dataclass
@@ -147,6 +169,7 @@ def empty_executor_stats() -> Dict[str, object]:
         "op_seconds": {},
         "conversions": {},
         "device": "",
+        "worker_devices": [],
         "kernel_dispatch": {},
         "exchange_protocol": "",
         "exchanges": {},
@@ -182,15 +205,18 @@ class Driver:
         self._feedback_matches: Dict[int, torch.Tensor] = {}
 
     def executor_stats(self) -> Dict[str, object]:
-        """Per-query stats: scan counters, operator seconds, the device,
-        kernel dispatch counts (comparable with the reference's ``pallas``
-        run), the exchange protocol, per-fragment exchange counters, the
-        per-tier spill counters, and the feedback-store summary."""
+        """Per-query stats: scan counters, operator seconds, the device and
+        each worker's device, kernel dispatch counts (comparable with the
+        reference's ``pallas`` run), the exchange protocol, per-fragment
+        exchange counters, the per-tier spill counters, and the
+        feedback-store summary."""
         return {
             "tables": {t: s.summary() for t, s in self.scan_stats.items()},
             "op_seconds": dict(self.op_seconds),
             "conversions": dict(self.conversion_stats),
             "device": str(self.ctx.device),
+            "worker_devices": [str(self.ctx.worker_device(w))
+                               for w in range(self._w)],
             "kernel_dispatch": dict(self.kernel_dispatch),
             "exchange_protocol": self.ctx.exchange.name,
             "exchanges": {k: dict(v) for k, v in self.exchange_stats.items()},
@@ -251,6 +277,12 @@ class Driver:
     @property
     def _w(self) -> int:
         return self.ctx.num_workers
+
+    def _on_mesh(self) -> dict:
+        """The scan's placement argument: worker w's morsels to its mesh
+        device (the reference's ``sharding=``); nothing off the mesh, so a
+        source's own ``scan`` that takes no mesh still works there."""
+        return {} if self.ctx.mesh is None else {"mesh": self.ctx.mesh}
 
     def _materialize(self, batches: Iterator[Step]) -> List[TorchTable]:
         """Drain a stream into one table per worker."""
@@ -489,7 +521,8 @@ class Driver:
                                  prefetch_depth=self.ctx.prefetch_depth,
                                  stats=stats, num_workers=self._w,
                                  filter_expr=node.filter,
-                                 host_budget=self.ctx.host_budget())
+                                 host_budget=self.ctx.host_budget(),
+                                 **self._on_mesh())
             scans = [StreamingScan(node.table) for _ in range(self._w)]
             steps = self._scan_steps(morsels, scans)
             if node.filter is None:
@@ -503,7 +536,8 @@ class Driver:
             # nothing fuses into the scan
             steps = src.scan(node.columns, self.ctx.batch_rows,
                              self.ctx.device, filter_expr=node.filter,
-                             stats=stats, num_workers=self._w)
+                             stats=stats, num_workers=self._w,
+                             **self._on_mesh())
             if node.filter is None:
                 return Stream(steps)
         # the filter runs as its own pipeline, unfused
@@ -517,7 +551,7 @@ class Driver:
         from .session import InMemoryTable    # session imports the driver
         src = InMemoryTable(node.name, node.data, node.schema)
         return Stream(src.scan(None, self.ctx.batch_rows, self.ctx.device,
-                               num_workers=self._w))
+                               num_workers=self._w, **self._on_mesh()))
 
     def _fuse_or_run(self, child: Stream,
                      make: Callable[[], ops.Operator]) -> Stream:

@@ -2,25 +2,36 @@
 
 A distributed stage holds one ``TorchTable`` per worker; an exchange takes
 the list of the W source workers' tables and returns the list of the W
-destination workers' tables. On one card every worker's tables live on the
-same device (the reference's off-mesh path, "degenerate SPMD").
+destination workers' tables.
 
 Two protocols, the paper's UcxExchange / HttpExchange contrast:
 
 * ``ICIExchange``  -- device-native. A metadata phase hashes every row to
   its destination and counts the rows each source worker holds for each
-  destination (``partition_histogram``, one launch of the
-  ``radix_histogram`` kernel per repartition) and reads the
-  ``[W_src, W_dst]`` matrix back in one sync to size the receive buffers;
-  the data phase moves every column once, with one gather, straight into
-  the compacted destination tables. Data never leaves device memory.
+  destination (``partition_histogram``, the ``radix_histogram`` kernel)
+  and reads the ``[W_src, W_dst]`` matrix back in one sync to size the
+  receive buffers. Data never leaves device memory. Its data phase takes
+  one of two paths:
+
+  - off the mesh (``mesh=None``, every worker on one device, the
+    reference's "degenerate SPMD"): every column moves once, with one
+    gather, straight into the compacted destination tables
+    (``_repartition_fused``); a broadcast hands every worker one shared
+    replica. The metadata phase is one launch for all W sources.
+  - on a mesh (``ICIExchange(mesh=EngineMesh(...))``, worker w's tables
+    on ``mesh.device_of(w, W)``): the reference's staged all-to-all. The
+    metadata phase launches once for each device, over the sources that
+    device holds, and the counts are added on the host. Each source lays
+    its rows out into ``[W_dst, part_cap]`` send buffers on its own
+    device (``_partition_layout_table``); destination d receives the W
+    sources' blocks for d in source order, each block copied device to
+    device into its receive buffer on d's device (``_exchange_data``);
+    the receive side then compacts to the metadata phase's capacity
+    (``_compact_stacked``). A broadcast copies the W (compacted) tables,
+    laid end to end, to every destination's device.
 * ``HostExchange`` -- host-staged: device -> numpy, partitioned by a numpy
   hash, serialized into pickle pages, deserialized, and copied back to the
-  device. It launches no kernel.
-
-The on-mesh path (one worker per card, the all-to-all of
-``_partition_layout_table`` + ``_exchange_data``) comes with the
-multi-card slice (``ROADMAP.md``).
+  device of each destination worker. It launches no kernel.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import pickle
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -92,17 +103,64 @@ def _compact_to(table: TorchTable, cap: int) -> TorchTable:
     return TorchTable(cols, gather < n, table.schema)
 
 
+def _compact_stacked(tables: Sequence[TorchTable], cap: int) -> Tables:
+    """Vector compaction (§3.3.2) of every worker's table to ``cap`` rows,
+    each on its own device (the reference's ``_compact_stacked``)."""
+    return [_compact_to(t, cap) for t in tables]
+
+
 def maybe_compact(tables: Sequence[TorchTable]) -> Tables:
     """Vector compaction when it at least halves capacity (§3.3.2): every
     worker's table is trimmed to pow2(the largest per-worker valid count),
-    with one read-back of the counts. The driver calls it before a sort; at
-    W=1 it is the reference's ``maybe_compact`` of one worker."""
+    with one read-back of the counts (gathered on the first worker's
+    device). The driver calls it before a sort; at W=1 it is the
+    reference's ``maybe_compact`` of one worker."""
     tables = list(tables)
-    counts = torch.stack([t.num_valid() for t in tables]).tolist()
+    dev = tables[0].device
+    counts = torch.stack([t.num_valid().to(dev) for t in tables]).tolist()
     cap = _pow2(max(max(counts), 1))
     if cap * 2 > tables[0].capacity:
         return tables
-    return [_compact_to(t, cap) for t in tables]
+    return _compact_stacked(tables, cap)
+
+
+# the metadata phase's pids, carried through the send side's compaction
+_PID = "__exchange_pid"
+
+
+def _histogram(sources: dict, w: int):
+    """``partition_histogram`` over the sources of one device (source
+    index -> (key columns, validity)); each of the W sources not given is
+    an empty table on that device, so its row of the ``[W, W]`` counts is
+    0. Returns the given sources' pids, laid end to end, and the counts."""
+    own_keys, own_valid = next(iter(sources.values()))
+    keys, valid = [], []
+    for s in range(w):
+        k, v = sources.get(s, (None, None))
+        if k is None:
+            # an int32 empty column: no cast, so no partition_cast count
+            k = [c.new_empty((0,) + tuple(c.shape[1:]),
+                             dtype=torch.int32 if c.dim() == 1 else c.dtype)
+                 for c in own_keys]
+            v = own_valid.new_empty(0)
+        keys.append(k)
+        valid.append(v)
+    return partition_histogram(keys, valid, w)
+
+
+def _partition_layout_table(table: TorchTable, pids: torch.Tensor,
+                            num_workers: int, part_cap: int) -> TorchTable:
+    """Data phase step 1 on one source worker's device: its rows laid out
+    into ``[W_dst, part_cap]`` send buffers, flattened to ``[W_dst *
+    part_cap]`` (``relational.partition_layout``; an empty slot holds row
+    0). ``pids`` are the metadata phase's destinations of the rows (W for
+    a dead row), where the reference hashes the key columns again."""
+    gather, valid = rel.partition_layout(pids, table.validity, num_workers,
+                                         part_cap)
+    gather = gather.long()
+    return TorchTable({n: a.index_select(0, gather)
+                       for n, a in table.columns.items()},
+                      valid, dict(table.schema))
 
 
 class ExchangeProtocol:
@@ -141,28 +199,52 @@ class ExchangeProtocol:
 
 
 class ICIExchange(ExchangeProtocol):
-    """Device-native exchange (the paper's UcxExchange), off-mesh: every
-    worker on one card."""
+    """Device-native exchange (the paper's UcxExchange). Each worker's
+    tables stay on the device they arrive on (the execution context's
+    placement). With ``mesh`` (a ``launch.mesh.EngineMesh``, the
+    reference's switch), or whenever the workers' tables lie on more than
+    one device, the data phase is the staged all-to-all, whose blocks move
+    device to device; otherwise it is the fused one-device path.
+
+    ``peer_bytes`` counts the bytes of the blocks this instance copied
+    between two different devices (0 off the mesh and on a one-device
+    mesh); ``ExchangeStats`` counts rows and bytes as the reference does,
+    whichever the path."""
 
     name = "ici"
+
+    def __init__(self, mesh: Optional[object] = None):
+        super().__init__()
+        self.mesh = mesh
+        self.peer_bytes = 0
+
+    def clone(self) -> "ICIExchange":
+        """Fresh ICI protocol on the same mesh, zeroed stats."""
+        return type(self)(self.mesh)
 
     def repartition(self, tables, key_names, num_workers):
         t0 = time.perf_counter()
         tables = self._ensure_rows(tables)
         w = num_workers
         assert len(tables) == w, (len(tables), w)
+        key_names = tuple(key_names)
         # metadata phase (rendezvous handshake): one pass hashes every
         # source row to its destination (W for an invalid row) and counts
         # the (source, destination) rows. One read-back sizes the receive
         # buffers.
-        pids, counts = partition_histogram(
-            [[t.columns[k] for k in key_names] for t in tables],
-            [t.validity for t in tables], w)
-        counts = counts.cpu().numpy()
+        groups = self._groups(tables)
+        pids, counts = self._partition_counts(tables, key_names, groups)
         kernel_ops.count_dispatch("partition")
         per_dst = counts.sum(axis=0)
         out_cap = _pow2(int(per_dst.max()))
-        out = self._repartition_fused(tables, pids, per_dst, out_cap)
+        if self.mesh is None and len(groups) == 1:
+            out = self._repartition_fused(tables, pids[0], per_dst, out_cap)
+        else:
+            out = self._repartition_staged(
+                tables,
+                [p for flat, srcs in zip(pids, groups) for p in
+                 torch.split(flat, [tables[s].capacity for s in srcs])],
+                counts, out_cap)
         self.stats.rounds += 1
         moved = int(counts.sum() - np.trace(counts))  # off-diagonal rows move
         self.stats.rows_moved += moved
@@ -170,14 +252,103 @@ class ICIExchange(ExchangeProtocol):
         self.stats.seconds += time.perf_counter() - t0
         return out
 
+    def _repartition_staged(self, tables: Tables, pids,
+                            counts: np.ndarray, out_cap: int) -> Tables:
+        """Data phase on the mesh: staged send buffers, the all-to-all,
+        then receive-side compaction to ``out_cap`` (§3.3.2). The send
+        side's compaction keeps each row's source worker and keys, so the
+        metadata phase's counts stay valid: each source's ``pids`` ride
+        through it as one more column."""
+        w = len(tables)
+        staged = maybe_compact([
+            TorchTable({**t.columns, _PID: p}, t.validity, t.schema)
+            for t, p in zip(tables, pids)])
+        part_cap = self._choose_part_cap(counts)
+        sends = [_partition_layout_table(
+            TorchTable({n: a for n, a in t.columns.items() if n != _PID},
+                       t.validity, t.schema),
+            t.columns[_PID], w, part_cap)
+            for t in staged]
+        out = self._exchange_data(sends, part_cap)
+        if out_cap < out[0].capacity:
+            out = _compact_stacked(out, out_cap)
+        return out
+
+    @staticmethod
+    def _groups(tables: Tables) -> List[List[int]]:
+        """The sources on each device their tables lie on, in device order
+        (one group of all W when every worker shares one device)."""
+        devs = [t.device for t in tables]
+        return [[s for s, d in enumerate(devs) if d == dev]
+                for dev in dict.fromkeys(devs)]
+
+    @staticmethod
+    def _partition_counts(tables: Tables, key_names, groups):
+        """The metadata phase: (the pids of each device's sources laid end
+        to end, W for a dead row; the ``[W_src, W_dst]`` counts as numpy).
+        One launch a device takes the sources it holds (all W when they
+        share one device), the others given as empty tables on that device
+        (their rows of counts stay 0), and the host adds the devices'
+        counts."""
+        w = len(tables)
+        pids, counts = [], np.zeros((w, w), np.int64)
+        for srcs in groups:
+            flat, cnt = _histogram(
+                {s: ([tables[s].columns[k] for k in key_names],
+                     tables[s].validity) for s in srcs}, w)
+            counts += cnt.cpu().numpy()
+            pids.append(flat)
+        return pids, counts
+
+    def _choose_part_cap(self, counts: np.ndarray) -> int:
+        """Send-buffer sizing from the metadata phase (flow control): the
+        largest (source, destination) count, to a power of two."""
+        return _pow2(int(counts.max()) if counts.size else 1)
+
+    def _exchange_data(self, sends: Tables, part_cap: int) -> Tables:
+        """The all-to-all: destination d receives block d of every
+        source's ``[W_dst * part_cap]`` send buffer, in source order, as
+        one ``[W_src * part_cap]`` table on its own device. Each block is
+        copied device to device (peer copies between cards); nothing passes
+        through the host."""
+        return self._receive(sends, part_cap)
+
+    def _receive(self, sends: Tables, part_cap: Optional[int]) -> Tables:
+        """Each destination d's receive buffer on worker d's device (that
+        of ``sends[d]``): from each source in order, its block d of
+        ``part_cap`` rows, or its whole table when ``part_cap`` is None."""
+        first = sends[0]
+        out = []
+        for d, dev in enumerate(t.device for t in sends):
+            def receive(arrays):
+                blocks = [a if part_cap is None
+                          else a[d * part_cap:(d + 1) * part_cap]
+                          for a in arrays]
+                buf = torch.empty((sum(b.shape[0] for b in blocks),)
+                                  + tuple(blocks[0].shape[1:]),
+                                  dtype=blocks[0].dtype, device=dev)
+                at = 0
+                for b in blocks:
+                    buf[at:at + b.shape[0]].copy_(b, non_blocking=True)
+                    at += b.shape[0]
+                    if b.device != dev:
+                        self.peer_bytes += b.numel() * b.element_size()
+                return buf
+
+            cols = {n: receive([t.columns[n] for t in sends])
+                    for n in first.column_names}
+            out.append(TorchTable(cols, receive([t.validity for t in sends]),
+                                  dict(first.schema)))
+        return out
+
     @staticmethod
     def _repartition_fused(tables: Tables, pids: torch.Tensor,
                            per_dst: np.ndarray, out_cap: int) -> Tables:
-        """Data phase: destination d receives the rows whose pid is d in
-        flat source-major, row-ascending order, compacted to the front of
-        an ``[out_cap]`` table (one stable sort of the pids, then one gather
-        per column). Dead slots hold the last flat row, as the reference's
-        clamped gather leaves them."""
+        """Data phase off the mesh: destination d receives the rows whose
+        pid is d in flat source-major, row-ascending order, compacted to the
+        front of an ``[out_cap]`` table (one stable sort of the pids, then
+        one gather per column). Dead slots hold the last flat row, as the
+        reference's clamped gather leaves them."""
         w = len(tables)
         dev = pids.device
         last = pids.shape[0] - 1
@@ -202,17 +373,22 @@ class ICIExchange(ExchangeProtocol):
         tables = self._ensure_rows(tables)
         # metadata phase: the valid count sizes the replica, so dead padding
         # is compacted away before it is handed to every worker
-        validity = torch.cat([t.validity for t in tables])
+        dev = tables[0].device
+        validity = torch.cat([t.validity.to(dev) for t in tables])
         rows = int(validity.sum())
-        cap = _pow2(rows)
-        last = validity.shape[0] - 1
-        idx = torch.full((cap,), last, dtype=torch.int64,
-                         device=validity.device)
-        idx[:rows] = torch.nonzero(validity).squeeze(1)
-        live = torch.arange(cap, device=validity.device) < rows
-        # every worker shares the one replica: no operator writes into its
-        # input in place
-        out = [_gather_rows(tables, idx, live)] * num_workers
+        if self.mesh is None and len(self._groups(tables)) == 1:
+            cap = _pow2(rows)
+            last = validity.shape[0] - 1
+            idx = torch.full((cap,), last, dtype=torch.int64, device=dev)
+            idx[:rows] = torch.nonzero(validity).squeeze(1)
+            live = torch.arange(cap, device=dev) < rows
+            # every worker shares the one replica: no operator writes into
+            # its input in place
+            out = [_gather_rows(tables, idx, live)] * num_workers
+        else:
+            # every destination receives the W (compacted) tables laid end
+            # to end in worker order, copied to its own device
+            out = self._receive(maybe_compact(tables), None)
         self.stats.rounds += 1
         self.stats.rows_moved += rows * (num_workers - 1)
         self.stats.bytes_moved += (rows * (num_workers - 1)
@@ -227,7 +403,9 @@ class HostExchange(ExchangeProtocol):
     Results are serialized into *pages* (the smallest unit of transmission,
     ``_PAGE_ROWS`` rows), the consumer fetches pages with a request/reply
     protocol, and all of it transits CPU memory: serialize -> page -> fetch
-    -> deserialize, with pickle as the page codec."""
+    -> deserialize, with pickle as the page codec. Destination d's table
+    goes to the device of worker d's source table, so on a mesh each
+    worker's rows land on its own device."""
 
     name = "host"
 
@@ -261,7 +439,7 @@ class HostExchange(ExchangeProtocol):
     def repartition(self, tables, key_names, num_workers):
         t0 = time.perf_counter()
         tables = self._ensure_rows(tables)
-        device, schema = tables[0].device, tables[0].schema
+        schema = tables[0].schema
         host_cols, validity, staged = self._to_host(tables)
         self.stats.host_staged_bytes += staged
 
@@ -303,7 +481,7 @@ class HostExchange(ExchangeProtocol):
 
         cap = _pow2(max(c for _, _, c in per_worker))
         out, out_bytes = [], 0
-        for rows, vals, cnt in per_worker:
+        for dst, (rows, vals, cnt) in enumerate(per_worker):
             cols = {n: np.zeros((cap,) + a[0].shape[1:], dtype=a[0].dtype)
                     for n, a in host_cols.items()}
             valid = np.zeros(cap, dtype=bool)
@@ -313,7 +491,8 @@ class HostExchange(ExchangeProtocol):
                 valid[:cnt] = np.concatenate(vals)
             out_bytes += sum(a.nbytes for a in cols.values())
             # host -> device staging
-            out.append(self._to_device(cols, valid, schema, device))
+            out.append(self._to_device(cols, valid, schema,
+                                       tables[dst].device))
         self.stats.rounds += 1
         self.stats.bytes_moved += total_bytes
         self.stats.rows_moved += int(sum(v.sum() for v in validity))
@@ -324,7 +503,7 @@ class HostExchange(ExchangeProtocol):
     def broadcast(self, tables, num_workers):
         t0 = time.perf_counter()
         tables = self._ensure_rows(tables)
-        device, schema = tables[0].device, tables[0].schema
+        schema = tables[0].schema
         host_cols, validity, staged = self._to_host(tables)
         self.stats.host_staged_bytes += staged
         w = num_workers
@@ -343,7 +522,7 @@ class HostExchange(ExchangeProtocol):
         ov = np.zeros(cap, bool)
         ov[:cnt] = True
         # host -> device staging, one copy per worker
-        out = [self._to_device(cols, ov, schema, device) for _ in range(w)]
+        out = [self._to_device(cols, ov, schema, t.device) for t in tables]
         self.stats.rounds += 1
         self.stats.bytes_moved += total
         self.stats.rows_moved += cnt * (w - 1)

@@ -1073,7 +1073,7 @@ def _launch(program: Program, table: TorchTable, probe: Optional[dict]):
         found = torch.empty(n, dtype=torch.bool, device=dev)
         bidx = torch.empty(n, dtype=torch.int32, device=dev)
     if n > 0:
-        fn = build.function(_LIB, "fused_morsel_run", _ARGTYPES)
+        fn = build.function(_LIB, "fused_morsel_run", _ARGTYPES, device=dev)
         in_ptrs = (ctypes.c_uint64 * max(len(ins), 1))(
             *[t.data_ptr() for t in ins])
         in_widths = (ctypes.c_int * max(len(ins), 1))(*program.in_widths)
@@ -1228,7 +1228,8 @@ def _launch_batch(program: Program, table: TorchTable, params: Tuple,
     valid_in = table.validity.contiguous()
     masks = torch.empty((n_members, n), dtype=torch.bool, device=dev)
     if n > 0:
-        fn = build.function(_BATCH_LIB, "fused_batch_run", _BATCH_ARGTYPES)
+        fn = build.function(_BATCH_LIB, "fused_batch_run", _BATCH_ARGTYPES,
+                            device=dev)
         in_ptrs = (ctypes.c_uint64 * max(len(ins), 1))(
             *[t.data_ptr() for t in ins])
         in_widths = (ctypes.c_int * max(len(ins), 1))(*program.in_widths)

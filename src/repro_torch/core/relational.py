@@ -83,6 +83,38 @@ def partition_ids(key_cols: Sequence[torch.Tensor], validity: torch.Tensor,
     return torch.where(validity, pid, torch.zeros_like(pid))
 
 
+def partition_layout(pids: torch.Tensor, validity: torch.Tensor,
+                     num_partitions: int, part_capacity: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable scatter layout: row -> slot within ``[num_partitions,
+    part_capacity]`` (the reference's ``partition_layout``).
+
+    Returns ``(gather_idx int32, out_valid bool)``, both of
+    ``num_partitions * part_capacity``: ``gather_idx[p * cap + s]`` is the
+    source row of slot s of partition p, 0 for an empty slot. Invalid rows
+    go to an overflow bin past the last partition; rows past a partition's
+    capacity are dropped (they scatter into one spare slot that is cut
+    off)."""
+    n, dev = pids.shape[0], pids.device
+    total = num_partitions * part_capacity
+    pids = pids.to(torch.int64)
+    pids = torch.where(validity, pids, torch.full_like(pids, num_partitions))
+    order = torch.sort(pids, stable=True).indices
+    sorted_pids = pids.index_select(0, order)
+    # rank within its partition = position - the partition's first position
+    first = torch.searchsorted(
+        sorted_pids, torch.arange(num_partitions + 1, device=dev))
+    rank = torch.arange(n, device=dev) - first.index_select(0, sorted_pids)
+    in_cap = (rank < part_capacity) & (sorted_pids < num_partitions)
+    slot = torch.where(in_cap, sorted_pids * part_capacity + rank,
+                       torch.full_like(rank, total))
+    gather = torch.zeros(total + 1, dtype=torch.int32, device=dev)
+    gather.index_put_((slot,), order.to(torch.int32))
+    out_valid = torch.zeros(total + 1, dtype=torch.bool, device=dev)
+    out_valid.index_put_((slot,), torch.ones_like(slot, dtype=torch.bool))
+    return gather[:total], out_valid[:total]
+
+
 def _sort_key(key: torch.Tensor) -> torch.Tensor:
     """An int32 key whose signed order is the reference's sort order.
 

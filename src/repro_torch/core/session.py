@@ -15,6 +15,15 @@ runs logical plans through the ``Driver``::
 ``Session(device=None)`` means ``"cuda"`` and raises when no GPU is present;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels.
 
+Several cards (the reference's ``Session(mesh=...)``): worker w's tables
+live on ``mesh.device_of(w, W)`` and the exchange moves rows between them
+device to device::
+
+    from repro_torch.launch.mesh import make_engine_mesh
+
+    session = Session(catalog, num_workers=4, mesh=make_engine_mesh(4))
+    out = session.execute(queries.build_query(5, catalog, num_workers=4))
+
 Serving path (many queries, scheduled concurrently under a device-memory
 budget, with plan and result caches and, opt-in, inter-query batching)::
 
@@ -37,14 +46,15 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import indexed, resolve_device
 from .builder import QueryBuilder
 from .driver import Driver, ExecutionContext, empty_executor_stats
 from .exchange import ExchangeProtocol
 from .optimizer import (OptimizerConfig, estimate_memory_breakdown,
                         explain_before_after, optimize)
 from .plan import PlanNode
-from .streaming import HostMorsel, MorselPrefetcher, ScanStats, morsel_to_device
+from .streaming import (HostMorsel, MorselPrefetcher, ScanStats,
+                        morsel_to_device, worker_devices)
 from .table import TorchTable
 
 
@@ -79,32 +89,35 @@ class TableSource:
 
     def scan(self, columns, batch_rows: int, device, filter_expr=None,
              stats: Optional[ScanStats] = None,
-             num_workers: int = 1) -> Iterator[List[TorchTable]]:
+             num_workers: int = 1, mesh=None) -> Iterator[List[TorchTable]]:
         """Synchronous scan: each step is read and copied to ``device``
         inline on the caller's thread, on the current stream (the
-        materialize-then-run baseline the paper starts from)::
+        materialize-then-run baseline the paper starts from); on a
+        ``mesh`` (``launch.mesh.EngineMesh``) morsel w goes to worker w's
+        device instead::
 
             src = session.catalog.get("lineitem")
             for step in src.scan(["l_quantity"], 4096, "cpu"):
                 print(step[0].capacity)         # one table per worker
         """
-        device = torch.device(device)
-        for step in self._host_morsels(columns, batch_rows, stats=stats,
-                                       num_workers=num_workers,
-                                       filter_expr=filter_expr,
-                                       pin=device.type == "cuda"):
+        devices = worker_devices(device, num_workers, mesh)
+        for step in self._host_morsels(
+                columns, batch_rows, stats=stats, num_workers=num_workers,
+                filter_expr=filter_expr,
+                pin=any(d.type == "cuda" for d in devices)):
             if stats is not None:
                 stats.morsels += 1
                 stats.bytes_transferred += sum(h.nbytes() for h in step)
-            yield [morsel_to_device(h, device) for h in step]
+            yield [morsel_to_device(h, d) for h, d in zip(step, devices)]
 
     def stream(self, columns, batch_rows: int, device, prefetch_depth: int = 2,
                stats: Optional[ScanStats] = None,
                num_workers: int = 1, filter_expr=None,
-               host_budget=None) -> MorselPrefetcher:
+               host_budget=None, mesh=None) -> MorselPrefetcher:
         """Asynchronous scan: a background thread reads step N+1 and
-        copies its morsels to ``device`` while step N computes; counters
-        accumulate into ``stats``::
+        copies its morsels to ``device`` (on a ``mesh``, morsel w to
+        worker w's device) while step N computes; counters accumulate into
+        ``stats``::
 
             stats = ScanStats()
             for step in src.stream(None, 4096, "cuda", stats=stats):
@@ -118,15 +131,20 @@ class TableSource:
         meter)."""
         if (type(self)._host_morsels is TableSource._host_morsels
                 and type(self).scan is not TableSource.scan):
+            # off the mesh the call is as before, for a ``scan`` that
+            # takes no mesh
+            on_mesh = {} if mesh is None else {"mesh": mesh}
             gen = self.scan(columns, batch_rows, device,
-                            filter_expr=filter_expr, num_workers=num_workers)
+                            filter_expr=filter_expr, num_workers=num_workers,
+                            **on_mesh)
         else:
+            devices = worker_devices(device, num_workers, mesh)
             gen = self._host_morsels(
                 columns, batch_rows, stats=stats, num_workers=num_workers,
                 filter_expr=filter_expr,
-                pin=torch.device(device).type == "cuda")
+                pin=any(d.type == "cuda" for d in devices))
         return MorselPrefetcher(gen, device, depth=prefetch_depth, stats=stats,
-                                host_budget=host_budget)
+                                host_budget=host_budget, mesh=mesh)
 
 
 class InMemoryTable(TableSource):
@@ -240,6 +258,11 @@ class Catalog:
         return tuple(sorted((n, self.version(n)) for n in names))
 
 
+def _not_on_mesh(what: str):
+    raise NotImplementedError(f"{what} on a mesh is not ported yet: the next "
+                              "slice of ROADMAP.md, Queue A")
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutionOptions:
     """Per-query options for the serving entry points
@@ -274,8 +297,12 @@ class Session:
     ``device=None`` means ``"cuda"`` and raises when there is no GPU.
     ``num_workers`` workers run on the one device, each with its own
     operators, and ``exchange`` moves rows between them (``None`` means
-    ``ICIExchange()``; ``HostExchange()`` stages through host memory). Plan
-    a query for the same worker count::
+    ``ICIExchange(mesh=mesh)``; ``HostExchange()`` stages through host
+    memory). With ``mesh`` (a ``launch.mesh.EngineMesh``) worker w runs on
+    ``mesh.device_of(w, num_workers)``; ``device`` is then the mesh's first
+    device (``None`` means that device; any other raises), and the
+    serving entry points, ``device_budget`` and ``feedback`` raise
+    ``NotImplementedError``. Plan a query for the same worker count::
 
         session = Session(catalog, num_workers=4, exchange=HostExchange())
         out = session.execute(queries.build_query(5, catalog, num_workers=4))
@@ -327,8 +354,24 @@ class Session:
     # drifted. Pass an existing ``FeedbackStore`` to share one across
     # sessions; ``None`` disables adaptivity entirely.
     feedback: Optional[object] = None
+    # the worker mesh (launch.mesh.EngineMesh, the reference's jax Mesh
+    # with a 'workers' axis): worker w's tables live on
+    # mesh.device_of(w, num_workers). None = every worker on ``device``
+    mesh: Optional[object] = None
 
     def __post_init__(self):
+        if self.mesh is not None:
+            first = resolve_device(self.mesh.devices[0])
+            if self.device is not None and (
+                    indexed(resolve_device(self.device)) != first):
+                raise ValueError(f"Session: device {self.device} is not the "
+                                 f"mesh's first device {first}")
+            self.device = first
+            self.mesh.check(self.num_workers)
+            if self.device_budget is not None:
+                _not_on_mesh("device_budget (out-of-core execution)")
+            if self.feedback is not None and self.feedback is not False:
+                _not_on_mesh("feedback (adaptive execution)")
         self.device = resolve_device(self.device)
         self.last_driver: Optional[Driver] = None
 
@@ -359,7 +402,7 @@ class Session:
                                  device=self.device)
         return ExecutionContext(catalog=self.catalog, device=self.device,
                                 num_workers=self.num_workers,
-                                exchange=exchange,
+                                exchange=exchange, mesh=self.mesh,
                                 batch_rows=self.batch_rows,
                                 prefetch_depth=self.prefetch_depth,
                                 streaming=self.streaming,
@@ -512,6 +555,8 @@ class Session:
         Configure with ``session.scheduler_config = SchedulerConfig(...)``
         before the first call; later assignments need ``reset_scheduler``.
         """
+        if self.mesh is not None:
+            _not_on_mesh("the scheduler (submit, run, gather)")
         sched = getattr(self, "_scheduler", None)
         if sched is None:
             with Session._scheduler_lock:

@@ -22,6 +22,11 @@ stream wait on that event before the morsel's first use, and marks each
 tensor as used by its stream so the caching allocator cannot hand the
 memory back to the side stream while a kernel still reads it. Without the
 wait, the copy would race the kernel that reads the morsel.
+
+On a mesh (``launch.mesh.EngineMesh``, the counterpart of the reference's
+``sharding=``) each step's morsel w goes to worker w's device: the
+prefetcher keeps one side stream and records one event a step on each
+CUDA device of the mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..device import indexed
 from .table import TorchTable
 
 
@@ -161,6 +167,15 @@ def _host_tensor(a, dtype: torch.dtype, pin: bool) -> torch.Tensor:
     return t.pin_memory() if pin and not t.is_pinned() else t
 
 
+def worker_devices(device, num_workers: int, mesh=None) -> List[torch.device]:
+    """The device of each of ``num_workers`` workers, with its index:
+    ``mesh``'s placement (``EngineMesh.worker_devices``), or ``device``
+    for every worker off the mesh."""
+    if mesh is None:
+        return [indexed(device)] * num_workers
+    return mesh.worker_devices(num_workers)
+
+
 def morsel_to_device(morsel, device: torch.device,
                      stream: Optional["torch.cuda.Stream"] = None
                      ) -> TorchTable:
@@ -197,9 +212,10 @@ class MorselPrefetcher:
 
     A daemon thread drains ``host_morsels`` (each item one scan step: a list
     of one ``HostMorsel`` per worker), copies the step's morsels to
-    ``device`` and pushes the list of tables into a bounded queue of
-    ``depth`` slots. Iteration is single-consumer; abandoning it early stops
-    the producer, and producer exceptions re-raise in the consumer.
+    ``device`` (on a ``mesh``, morsel w to worker w's device) and pushes
+    the list of tables into a bounded queue of ``depth`` slots. Iteration
+    is single-consumer; abandoning it early stops the producer, and
+    producer exceptions re-raise in the consumer.
 
     The bound is also **bytes-aware**: with a ``host_budget``
     (``core.spill.HostMemoryBudget``, shared with the spill manager's host
@@ -211,9 +227,11 @@ class MorselPrefetcher:
 
     def __init__(self, host_morsels: Iterator[List[HostMorsel]], device,
                  depth: int = 2, stats: Optional[ScanStats] = None,
-                 host_budget=None, max_bytes: Optional[int] = None):
+                 host_budget=None, max_bytes: Optional[int] = None,
+                 mesh=None):
         self.stats = stats if stats is not None else ScanStats()
         self.device = torch.device(device)
+        self._mesh = mesh
         self._gen = host_morsels
         self._q: "queue.Queue" = queue.Queue(maxsize=max(int(depth), 1))
         if host_budget is None and max_bytes is not None:
@@ -221,8 +239,13 @@ class MorselPrefetcher:
             host_budget = HostMemoryBudget(max_bytes)
         self._budget = host_budget
         self._closed = threading.Event()
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        devices = [indexed(self.device)] + (list(mesh.devices) if mesh
+                                            else [])
+        # one side stream a CUDA device (keyed by the device with its
+        # index, as its tables report it); the session's device's first
+        self._streams = {d: torch.cuda.Stream(d)
+                         for d in dict.fromkeys(devices) if d.type == "cuda"}
+        self._stream = self._streams.get(devices[0])
         self._thread = threading.Thread(target=self._produce, daemon=True,
                                         name="morsel-prefetch")
 
@@ -260,25 +283,34 @@ class MorselPrefetcher:
             if self._budget is not None and not self._budget.acquire(
                     nbytes, stop=self._closed.is_set):
                 return
-            tables = [morsel_to_device(h, self.device, self._stream)
-                      for h in hosts]
-            event = None
-            if self._stream is not None:
-                event = torch.cuda.Event()
-                event.record(self._stream)
+            devs = worker_devices(self.device, len(hosts), self._mesh)
+            tables = [morsel_to_device(h, d, self._streams.get(d))
+                      for h, d in zip(hosts, devs)]
+            # one event a CUDA device, recorded after its copies, and the
+            # host bytes those copies read
+            events, parts = {}, {}
+            for h, t in zip(hosts, tables):
+                d = t.device
+                if d.type == "cuda" and d not in events:
+                    events[d] = torch.cuda.Event()
+                    events[d].record(self._streams[d])
+                parts[d] = parts.get(d, 0) + h.nbytes()
+            parts = [(events.get(d), n) for d, n in parts.items()]
             self.stats.read_seconds += time.perf_counter() - t0
             self.stats.bytes_transferred += nbytes
             self.stats.morsels += 1
-            if not self._put((tables, event, nbytes)):
-                self._give_back(event, nbytes)
+            if not self._put((tables, events, parts)):
+                self._give_back(parts)
                 return
         self._put(_SENTINEL)
 
-    def _give_back(self, event, nbytes: int) -> None:
-        """Return a step's host bytes to the budget once its copy (the
-        reader of its host buffers) has completed."""
+    def _give_back(self, parts) -> None:
+        """Return a step's host bytes to the budget once their copies (the
+        readers of its host buffers) have completed: each device's bytes
+        after that device's event."""
         if self._budget is not None:
-            self._budget.release_after(event, nbytes)
+            for event, nbytes in parts:
+                self._budget.release_after(event, nbytes)
 
     # -- consumer ------------------------------------------------------------
     def close(self) -> None:
@@ -298,7 +330,7 @@ class MorselPrefetcher:
             except queue.Empty:
                 break
             if isinstance(item, tuple):
-                self._give_back(item[1], item[2])
+                self._give_back(item[2])
 
     def __iter__(self) -> Iterator[List[TorchTable]]:
         self._thread.start()
@@ -316,14 +348,16 @@ class MorselPrefetcher:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                tables, event, nbytes = item
-                self._give_back(event, nbytes)
-                if event is not None:
-                    consumer = torch.cuda.current_stream(self.device)
+                tables, events, parts = item
+                self._give_back(parts)
+                for table in tables:
+                    event = events.get(table.device)
+                    if event is None:
+                        continue
+                    consumer = torch.cuda.current_stream(table.device)
                     consumer.wait_event(event)
-                    for table in tables:
-                        for t in list(table.columns.values()) + [table.validity]:
-                            t.record_stream(consumer)
+                    for t in list(table.columns.values()) + [table.validity]:
+                        t.record_stream(consumer)
                 yield tables
         finally:
             self.close()

@@ -18,3 +18,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "repro_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def indexed(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current CUDA device, as
+    a tensor placed there reports it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -55,7 +55,7 @@ def block_prefix_sum(mask: torch.Tensor):
     # zeroes them)
     scratch = torch.empty(-(-n // _TILE_ROWS) + 1, dtype=torch.int64,
                           device=dev)
-    fn = build.function(_LIB, "block_prefix_sum_run", _ARGTYPES)
+    fn = build.function(_LIB, "block_prefix_sum_run", _ARGTYPES, device=dev)
     rc = fn(mask.data_ptr(), n, pos.data_ptr(), total.data_ptr(),
             scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(_LIB, rc, "block_prefix_sum")

@@ -9,6 +9,12 @@ one ``nvcc`` process each, the first time any kernel is asked for.
 
 Nothing here runs when a module is imported: the CPU tests import every
 module and have no ``nvcc``.
+
+Every call of a C entry point runs with its tensors' device current
+(``function(..., device=)``): a stream of ``cuda:1`` used while ``cuda:0``
+is current would fail or launch into the wrong context, and the per-device
+state the sources keep (attributes set by ``cudaFuncSetAttribute``, SM
+counts and occupancy) is looked up by the current device.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -125,15 +133,20 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def function(name: str, symbol: str, argtypes,
-             restype=ctypes.c_int) -> ctypes._CFuncPtr:
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int, *,
+             device) -> callable:
     """C entry point ``symbol`` of library ``name`` with its ``argtypes``
-    declared (pointers and the stream as ``c_void_p``) and its ``restype``:
-    by default an int, the CUDA error code."""
+    declared (pointers and the stream as ``c_void_p``) and its ``restype``
+    (by default an int, the CUDA error code), called with ``device`` (the
+    CUDA device of the tensors it is given) as the current device."""
     fn = getattr(library(name), symbol)
     if fn.argtypes is None:
         fn.argtypes, fn.restype = argtypes, restype
-    return fn
+
+    def on_device(*args):
+        with torch.cuda.device(device):
+            return fn(*args)
+    return on_device
 
 
 def check(name: str, rc: int, what: str) -> None:

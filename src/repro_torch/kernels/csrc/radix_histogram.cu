@@ -289,24 +289,31 @@ partition_histogram_kernel(const __grid_constant__ PartitionArgs a) {
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 // The grid of partition_histogram_kernel<W>: resident blocks a SM (from
-// the occupancy of this variant, computed once) times the SMs, at most one
-// warp a step.
+// the occupancy of this variant) times the SMs, both read once for each
+// device (the current one: the caller runs with its tensors' device
+// current), at most one warp a step.
 template <int W>
 cudaError_t launch_partition(const PartitionArgs& a, cudaStream_t s) {
-  static int per_sm = 0;
-  static int sms = 0;
+  static int per_sm_of[kMaxDevices];
+  static int sms_of[kMaxDevices];
   cudaError_t rc;
+  int device = 0;
+  if ((rc = cudaGetDevice(&device)) != cudaSuccess) return rc;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int per_sm = per_sm_of[device], sms = sms_of[device];
   if (per_sm == 0) {
-    int device = 0, count = 0, blocks = 0;
-    if ((rc = cudaGetDevice(&device)) != cudaSuccess) return rc;
-    if ((rc = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+    int blocks = 0;
+    if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      device)) != cudaSuccess) return rc;
     if ((rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &blocks, partition_histogram_kernel<W>, kPartThreads, 0))
         != cudaSuccess) return rc;
-    sms = count;
     per_sm = blocks > 0 ? blocks : 1;
+    sms_of[device] = sms;
+    per_sm_of[device] = per_sm;
   }
   const long long steps = a.step_at[a.num_sources];
   long long grid = (steps + kPartWarps - 1) / kPartWarps;

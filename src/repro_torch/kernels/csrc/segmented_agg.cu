@@ -81,6 +81,9 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 namespace {
@@ -529,6 +532,20 @@ int resident(const void* kernel, size_t smem) {
   return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 132);
 }
 
+// resident() on the current device (the caller runs with its tensors'
+// device current), computed once for each device, kernel and size
+int resident_on_device(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t>, int> most;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(dev, kernel, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = most.find(key);
+  if (it == most.end()) it = most.emplace(key, resident(kernel, smem)).first;
+  return it->second;
+}
+
 // a CTA for every 1024 rows, at most `most`
 int grid_of(const void* gids, long long n, int most) {
   const long long a = (long long)((reinterpret_cast<uintptr_t>(gids) >> 2) & 3);
@@ -545,13 +562,13 @@ int launch(const void* gids, const void* vals, long long n, int num_groups,
   const T* v = static_cast<const T*>(vals);
   T* o = static_cast<T*>(out);
   if (num_groups <= kSharedGroups) {
-    static const int most = resident((const void*)segmented_sum_kernel<T, true>,
-                                     (size_t)kSharedGroups * sizeof(T));
+    const int most = resident_on_device((const void*)segmented_sum_kernel<T, true>,
+                                        (size_t)kSharedGroups * sizeof(T));
     const size_t smem = (size_t)num_groups * sizeof(T);
     segmented_sum_kernel<T, true><<<grid_of(gids, n, most), kThreads, smem, s>>>(
         g, v, n, num_groups, o);
   } else {
-    static const int most = resident((const void*)segmented_sum_kernel<T, false>, 0);
+    const int most = resident_on_device((const void*)segmented_sum_kernel<T, false>, 0);
     segmented_sum_kernel<T, false><<<grid_of(gids, n, most), kThreads, 0, s>>>(
         g, v, n, num_groups, o);
   }
@@ -568,20 +585,21 @@ int launch_minmax(const void* gids, const void* vals, long long n,
   T* o = static_cast<T*>(out);
   // the identity, 16 bytes a thread a store
   const long long fill_blocks = ((long long)num_groups + 4 * kThreads - 1) / (4 * kThreads);
-  static const int fill_most = resident((const void*)fill_kernel, 0);
+  const int fill_most = resident_on_device((const void*)fill_kernel, 0);
   const int ident = MinMaxOp<T, kMin>::out_identity();
   fill_kernel<<<(int)(fill_blocks < fill_most ? fill_blocks : fill_most), kThreads, 0, s>>>(
       static_cast<int*>(out), num_groups, ident);
   if (n > 0) {
     if (num_groups <= kSharedGroups) {
-      static const int most = resident((const void*)segmented_minmax_kernel<T, kMin, true>,
-                                       (size_t)kSharedGroups * sizeof(int));
+      const int most = resident_on_device(
+          (const void*)segmented_minmax_kernel<T, kMin, true>,
+          (size_t)kSharedGroups * sizeof(int));
       segmented_minmax_kernel<T, kMin, true>
           <<<grid_of(gids, n, most), kThreads, (size_t)num_groups * sizeof(int), s>>>(
               g, v, n, num_groups, o);
     } else {
-      static const int most =
-          resident((const void*)segmented_minmax_kernel<T, kMin, false>, 0);
+      const int most =
+          resident_on_device((const void*)segmented_minmax_kernel<T, kMin, false>, 0);
       segmented_minmax_kernel<T, kMin, false><<<grid_of(gids, n, most), kThreads, 0, s>>>(
           g, v, n, num_groups, o);
     }

@@ -135,11 +135,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = _DTYPES[q.dtype]
     # float32 partials when the 16-bit kernel splits its CTAs over K
     nbytes = build.function(_LIB, "flash_attention_scratch_bytes",
-                            _SCRATCH_ARGTYPES, ctypes.c_longlong)(
+                            _SCRATCH_ARGTYPES, ctypes.c_longlong,
+                            device=q.device)(
                                 b * h, s, d, dtype)
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
                if nbytes else None)
-    fn = build.function(_LIB, "flash_attention_run", _ARGTYPES)
+    fn = build.function(_LIB, "flash_attention_run", _ARGTYPES,
+                        device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
             s, d, dtype, int(bool(causal)), d ** -0.5,
             None if scratch is None else scratch.data_ptr(), nbytes,

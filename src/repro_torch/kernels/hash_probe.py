@@ -155,9 +155,11 @@ def build_table(keys: torch.Tensor, vals: torch.Tensor, table_size: int,
     else:
         valid = None if valid is None else valid.contiguous()
         nbytes = build.function(_LIB, "hash_table_build_scratch_bytes",
-                                [ctypes.c_longlong], ctypes.c_longlong)(n)
+                                [ctypes.c_longlong], ctypes.c_longlong,
+                                device=dev)(n)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-        fn = build.function(_LIB, "hash_table_build", _BUILD_ARGTYPES)
+        fn = build.function(_LIB, "hash_table_build", _BUILD_ARGTYPES,
+                            device=dev)
         rc = fn(keys.data_ptr(), vals.data_ptr(),
                 None if valid is None else valid.data_ptr(), n, table_size,
                 empty_key, tk.data_ptr(), tv.data_ptr(), scratch.data_ptr(),
@@ -178,7 +180,8 @@ def _build_rounds(keys, vals, valid, n, table_size, empty_key, tk, tv,
     winner = torch.full((table_size,), _INT32_MAX, dtype=torch.int32,
                         device=dev)
     unplaced = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.function(_LIB, "hash_table_build_rounds", _ROUNDS_ARGTYPES)
+    fn = build.function(_LIB, "hash_table_build_rounds", _ROUNDS_ARGTYPES,
+                        device=dev)
     return fn(keys.data_ptr(), vals.data_ptr(), placed.data_ptr(), n,
               table_size, empty_key, tk.data_ptr(), tv.data_ptr(),
               winner.data_ptr(), unplaced.data_ptr(), stream)
@@ -251,7 +254,8 @@ def hash_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
         table_keys, table_vals, probe_keys = (
             table_keys.contiguous(), table_vals.contiguous(),
             probe_keys.contiguous())
-    fn = build.function(_LIB, "hash_table_probe", _PROBE_ARGTYPES)
+    fn = build.function(_LIB, "hash_table_probe", _PROBE_ARGTYPES,
+                        device=probe_keys.device)
     rc = fn(table_keys.data_ptr(), table_vals.data_ptr(), t,
             min(max_probes, t), empty_key, probe_keys.data_ptr(), n,
             found.data_ptr(), vals.data_ptr(),
@@ -357,7 +361,8 @@ def hash_probe_multi(table_keys: torch.Tensor, table_vals: torch.Tensor,
         table_keys, table_vals, probe_keys = (
             table_keys.contiguous(), table_vals.contiguous(),
             probe_keys.contiguous())
-    fn = build.function(_LIB, "hash_table_probe_multi", _PROBE_MULTI_ARGTYPES)
+    fn = build.function(_LIB, "hash_table_probe_multi", _PROBE_MULTI_ARGTYPES,
+                        device=probe_keys.device)
     rc = fn(table_keys.data_ptr(), table_vals.data_ptr(), t,
             min(max_probes, t), empty_key, probe_keys.data_ptr(), n,
             max_matches, count.data_ptr(), slots.data_ptr(),

@@ -67,7 +67,7 @@ def radix_histogram(pids: torch.Tensor, num_partitions: int) -> torch.Tensor:
         return torch.zeros(num_partitions, dtype=torch.int32, device=dev)
     pids = pids.contiguous()
     counts = torch.empty(num_partitions, dtype=torch.int32, device=dev)
-    fn = build.function(_LIB, "radix_histogram_run", _ARGTYPES)
+    fn = build.function(_LIB, "radix_histogram_run", _ARGTYPES, device=dev)
     rc = fn(pids.data_ptr(), pids.shape[0], num_partitions, counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(_LIB, rc, "radix_histogram")
@@ -162,7 +162,8 @@ def partition_histogram(key_cols_per_source, validity_per_source,
         n.append(v.shape[0])
     pids = torch.empty(sum(n), dtype=torch.int32, device=dev)
     counts = torch.empty((w, w), dtype=torch.int32, device=dev)
-    fn = build.function(_LIB, "partition_histogram_run", _PARTITION_ARGTYPES)
+    fn = build.function(_LIB, "partition_histogram_run", _PARTITION_ARGTYPES,
+                        device=dev)
     rc = fn((ctypes.c_uint64 * len(ptrs))(*ptrs),
             (ctypes.c_longlong * len(strides))(*strides),
             (ctypes.c_int * ncols)(*widths), ncols,

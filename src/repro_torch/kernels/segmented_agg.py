@@ -115,7 +115,7 @@ def _launch(name, symbol, gids, values, num_groups, dtype):
     n = gids.numel()
     if n == 0 or num_groups == 0:
         return out
-    fn = build.function(_LIB, symbol, _ARGTYPES)
+    fn = build.function(_LIB, symbol, _ARGTYPES, device=gids.device)
     stream = torch.cuda.current_stream(gids.device).cuda_stream
     rc = fn(gids.data_ptr(), values.data_ptr(), n, num_groups, out.data_ptr(),
             stream)
@@ -198,7 +198,7 @@ def segmented_minmax(gids: torch.Tensor, values: torch.Tensor,
     out = torch.empty(num_groups, dtype=values.dtype, device=gids.device)
     if num_groups == 0:
         return out
-    fn = build.function(_LIB, symbol, _MINMAX_ARGTYPES)
+    fn = build.function(_LIB, symbol, _MINMAX_ARGTYPES, device=gids.device)
     stream = torch.cuda.current_stream(gids.device).cuda_stream
     rc = fn(gids.data_ptr(), values.data_ptr(), gids.numel(), num_groups,
             int(kind == "min"), out.data_ptr(), stream)

@@ -1,6 +1,7 @@
-"""The port's examples (``examples/quickstart_torch.py`` and
-``examples/serve_queries_torch.py``) run on the CPU with ``--device cpu``,
-and their answers are the reference oracle's."""
+"""The port's examples (``examples/quickstart_torch.py``,
+``examples/serve_queries_torch.py`` and
+``examples/distributed_tpch_torch.py``) run on the CPU with ``--device
+cpu``, and their answers are the reference oracle's."""
 
 import importlib.util
 from pathlib import Path
@@ -44,3 +45,15 @@ def test_serve_queries_runs_on_cpu(capsys):
     for q, res in out["results"]:
         assert_results_match(res, oracle.ORACLES[q](data), q)
     assert out["stats"]["rejected"] == 0 and out["stats"]["failed"] == 0
+
+
+def test_distributed_tpch_runs_on_cpu(capsys):
+    out = _load("distributed_tpch_torch").main(["--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "mesh=['cpu'] workers=4" in text
+    data = ref_dbgen.generate(sf=0.002)
+    for q in (1, 5, 9, 13):
+        for proto in ("ICI", "Host"):
+            run = out[(q, proto)]
+            assert_results_match(run["result"], oracle.ORACLES[q](data), q)
+            assert (run["staged_bytes"] > 0) == (proto == "Host")

@@ -28,7 +28,9 @@ from repro_torch.kernels import segmented_agg as seg  # noqa: E402
 from repro_torch.kernels.block_prefix_sum import (  # noqa: E402
     block_prefix_sum, block_prefix_sum_plain)
 from repro_torch.kernels.radix_histogram import (  # noqa: E402
-    radix_histogram, radix_histogram_plain)
+    partition_histogram, partition_histogram_plain, radix_histogram,
+    radix_histogram_plain)
+from repro_torch.launch.mesh import EngineMesh  # noqa: E402
 from repro_torch.tpch import dbgen, queries  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -767,6 +769,79 @@ def test_host_exchange_on_card_matches_ici(cuda, q):
     exchanges = host.executor_stats()["exchanges"]
     assert sum(v["host_staged_bytes"] for v in exchanges.values()) > 0
     assert_results_match(got, ici, q)
+
+
+def _exchange_rows(stats):
+    return {k: (v["rounds"], v["rows_moved"], v["bytes_moved"],
+                v["host_staged_bytes"]) for k, v in stats["exchanges"].items()}
+
+
+@pytest.mark.parametrize("q", [3, 5, 9, 13, 21])
+def test_queries_on_a_one_card_mesh_match_off_mesh(cuda, q):
+    catalog = dbgen.load_catalog(sf=0.01)
+    plan = queries.build_query(q, catalog, num_workers=4)
+    off = Session(catalog, num_workers=4)
+    want = off.execute(plan)
+    on = Session(catalog, num_workers=4,
+                 mesh=EngineMesh([torch.device("cuda", 0)]))
+    got = on.execute(plan)
+    stats = on.executor_stats()
+    assert stats["worker_devices"] == ["cuda:0"] * 4
+    assert _exchange_rows(stats) == _exchange_rows(off.executor_stats())
+    assert all(v[3] == 0 for v in _exchange_rows(stats).values())
+    assert_results_match(got, want, q)
+
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+
+
+def test_launch_runs_under_its_tensors_device(cuda):
+    _cards(2)
+    gen = torch.Generator().manual_seed(3)
+    keys = [[torch.randint(-99, 99, (5000,), generator=gen,
+                           dtype=torch.int32)] for _ in range(2)]
+    valid = [torch.rand(5000, generator=gen) < 0.7 for _ in range(2)]
+    with torch.cuda.device(0):
+        pids, counts = partition_histogram(
+            [[k.to("cuda:1") for k in ks] for ks in keys],
+            [v.to("cuda:1") for v in valid], 2)
+        gids = torch.arange(5000, dtype=torch.int32, device="cuda:1") % 7
+        sums = seg.segmented_int_sum(gids, gids, 7)
+    want_pids, want_counts = partition_histogram_plain(keys, valid, 2)
+    assert pids.device == torch.device("cuda", 1)
+    assert torch.equal(pids.cpu(), want_pids)
+    assert torch.equal(counts.cpu(), want_counts)
+    assert torch.equal(sums.cpu(), seg.segmented_int_sum_plain(
+        gids.cpu(), gids.cpu(), 7))
+
+
+def test_bare_cuda_means_one_device_for_mesh_and_session(cuda):
+    _cards(2)
+    catalog = dbgen.load_catalog(sf=0.002)
+    with torch.cuda.device(1):
+        session = Session(catalog, device="cuda", num_workers=4,
+                          mesh=EngineMesh(["cuda"]))
+        assert session.device == torch.device("cuda", 1)
+        session.execute(queries.build_query(6, catalog, num_workers=4))
+    assert session.executor_stats()["worker_devices"] == ["cuda:1"] * 4
+
+
+@pytest.mark.parametrize("q", [3, 5, 13])
+def test_queries_on_a_mesh_of_cards_match_off_mesh(cuda, q):
+    _cards(2)
+    from repro_torch.core.driver import Driver
+    catalog = dbgen.load_catalog(sf=0.01)
+    plan = queries.build_query(q, catalog, num_workers=4)
+    mesh = EngineMesh([torch.device("cuda", 0), torch.device("cuda", 1)])
+    on = Session(catalog, num_workers=4, mesh=mesh)
+    got = on.execute(plan)
+    assert on.last_driver.ctx.exchange.peer_bytes > 0
+    want = Session(catalog, num_workers=4).execute(plan)
+    assert_results_match(got, want, q)
+    tables = Driver(on.context()).execute(plan)
+    assert [t.device for t in tables] == mesh.worker_devices(4)
 
 
 # ---------------------------------------------------------------------------

@@ -576,7 +576,7 @@ def time_segmented(torch, lib, cases):
         symbol = ("segmented_sum_i32" if vals.dtype == torch.int32
                   else "segmented_sum_f32")
         alone = {"earlier": run, "current": build.function(
-            seg._LIB, symbol, seg._ARGTYPES)}
+            seg._LIB, symbol, seg._ARGTYPES, device=gids.device)}
         alone_ms = {who: device_ms(torch, lambda f=f: f(
             gids.data_ptr(), vals.data_ptr(), gids.shape[0], g,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream), 20,
