@@ -105,31 +105,7 @@ In order it:
    ``HostExchange``, each equal to its ICI result, with bytes staged
    through the host and no ``radix_histogram`` launch. Each query prints
    its wall times (three runs after one warm-up), its exchange rounds,
-   rows and bytes moved, and its launches. Then the mesh phase
-   (``--mesh`` runs it alone, with the build, and prints no ok line):
-   (a) on ``EngineMesh([cuda:0])`` (``launch.mesh``: the staged
-   all-to-all of ``ICIExchange(mesh=...)``, one card), the 22 queries at
-   W = 4, each equal to the same plan off the mesh (the comparison of
-   phase 5) and, in the full run, to its W = 1 result, with equal exchange
-   fragments (rounds, rows and bytes moved), no byte through the host, one
-   ``radix_histogram`` launch a repartition and every worker on
-   ``cuda:0``, each run once to warm up and once timed with the launch
-   counters set to 0 just before it and read just after (every kernel of
-   the path but ``fused_batch_program`` and ``flash_attention`` must
-   launch), its wall on and off the mesh; one more run of each on and off
-   the mesh with CUDA events around every repartition's data phase (the
-   staged layout, all-to-all and compaction against the fused gather),
-   their ms and the rows each worker received (equal on and off); then
-   W = 2 on ``_MESH_W2`` against the same plans off the mesh, and
-   ``HostExchange`` on ``_MESH_HOST`` against the mesh's ICI results,
-   bytes staged through the host and no ``radix_histogram`` launch; the
-   device guard: ``partition_histogram`` on ``cuda:1`` tensors while
-   ``cuda:0`` is current, exact against its plain version (on one card a
-   line says it cannot run); (b) where there are two or more cards, the
-   22 at W = 4 on a mesh of four cards (two where three are visible), each
-   equal to its off-mesh result, every worker's output tables on its mesh
-   device, with each pair's peer access and the bytes copied between
-   cards; on one card a line says (b) did not run. Then the storage phase
+   rows and bytes moved, and its launches. Then the storage phase
    (``--storage`` runs it alone, with the build, and prints no ok line):
    (a) ``dbgen.write_dataset`` at SF 1 (seed 19940729,
    ``chunks=8``: lineitem chunks of 750,079 rows) into a temporary
@@ -284,6 +260,57 @@ In order it:
    of ``examples/serve_queries.py`` (Q1, Q6, Q14, Q3, unoptimized) twice
    each without batching: each result must equal its phase 5 result, and
    every repeat must come from the result cache or coalesce;
+   then the mesh phase (``--mesh`` runs it alone, with the build, and
+   prints no ok line):
+   (a) on ``EngineMesh([cuda:0])`` (``launch.mesh``: the staged
+   all-to-all of ``ICIExchange(mesh=...)``, one card), the 22 queries at
+   W = 4, each equal to the same plan off the mesh (the comparison of
+   phase 5) and, in the full run, to its W = 1 result, with equal exchange
+   fragments (rounds, rows and bytes moved), no byte through the host, one
+   ``radix_histogram`` launch a repartition and every worker on
+   ``cuda:0``, each run once to warm up and once timed with the launch
+   counters set to 0 just before it and read just after (every kernel of
+   the path but ``fused_batch_program`` and ``flash_attention`` must
+   launch), its wall on and off the mesh; one more run of each on and off
+   the mesh with CUDA events around every repartition's data phase (the
+   staged layout, all-to-all and compaction against the fused gather),
+   their ms and the rows each worker received (equal on and off); then
+   W = 2 on ``_MESH_W2`` against the same plans off the mesh, and
+   ``HostExchange`` on ``_MESH_HOST`` against the mesh's ICI results,
+   bytes staged through the host and no ``radix_histogram`` launch; the
+   device guard: ``partition_histogram`` on ``cuda:1`` tensors while
+   ``cuda:0`` is current, exact against its plain version (on one card a
+   line says it cannot run); (c) serving on the mesh: the 22 planned for
+   W = 4 through a scheduler (``submit``, then ``gather``) from eight
+   client threads off the mesh and on it, each result equal to its
+   off-mesh ``execute``, then (b)'s 96-query workload at W = 1 with
+   batching off the mesh and on the one-card mesh, each member equal to
+   its off-mesh serving, at least one stacked batch, no fallback, each
+   with its wall, q/s, p50, p99 and launches; (d) out of core on the
+   mesh: the 22 at W = 4 under a quarter of their footprint off the mesh
+   and on it, each equal to its in-memory result, the spill counters
+   equal field for field (where the mesh's broadcast, the W tables end to
+   end, changed a reservation: equal to an off-mesh run with the mesh's
+   layout, ``ICIExchange(mesh=...)``), walls and the card's
+   ``max_memory_allocated``; Q5 and Q18 under a sixty-fourth: grace joins
+   form, every standalone histogram call on a card of the mesh, one
+   launch a call, each bit-exact against its plain version; (e) adaptive
+   execution on the mesh: the 22 at W = 4 cold then warm on a store of
+   their own, off the mesh and on it, both mesh runs equal to the port's
+   oracle (in the full run the adaptive phase's answers, else computed
+   here), the stores' entries and the warm plans equal; Q3 submitted
+   three times to a ``feedback=True`` scheduler: at W = 1 on the mesh
+   miss, miss (evicted), hit, at W = 4 the same hits on the mesh as off
+   it; (b) where there are two or more cards, the
+   22 at W = 4 on a mesh of four cards (two where three are visible), each
+   equal to its off-mesh result, every worker's output tables on its mesh
+   device, with each pair's peer access and the bytes copied between
+   cards, then (c)-(e) for Q3, Q5 and Q18 across those cards: served,
+   under a quarter and a sixty-fourth (every restored partition back on
+   the card it left, each histogram call on a card of the mesh, each
+   card's ``max_memory_allocated``, the bytes copied between cards), cold
+   then warm (the stores equal to (e)'s off the mesh); on one card a line
+   says (b) did not run.
 9. attention: ``flash_attention`` against its plain version (TF32 off) on
    edge cases (S = 128 with blocks 64 and 128, D = 40 and 1, B * H = 1 and
    96, S = 96 and 1; S 192, block_q 96 and D 257 refused), then driven
@@ -345,7 +372,8 @@ alone; ``--partition`` the metadata pass's ``_PART_CASES`` alone;
 ``--storage`` the storage phase alone; ``--spill`` the out-of-core phase
 alone (the metadata pass's ``--partition`` run also holds the standalone
 histogram's ``_HIST_CASES``); ``--adaptive`` the adaptive phase alone;
-``--mesh`` the mesh phase alone.
+``--mesh`` the mesh phase alone; ``--cards`` its part (b) alone, with
+the off-mesh runs it compares with.
 ``--faults`` runs the six on the kernels as they are and then on copies,
 in a temporary directory, each with one fault planted (a K tile left
 out, early or late; V tiles not reloaded; the split over K's combine
@@ -2818,12 +2846,14 @@ def check_device_guard(torch, rh):
           "exact", flush=True)
 
 
-def mesh_cards(torch, catalog, results):
+def mesh_cards(torch, catalog, results, off):
     """(b) The 22 queries at ``_WORKERS`` workers on a mesh of
     ``min(count, 4)`` cards (2 when 3 are visible), each equal to
     ``results`` (the off-mesh run), every worker's output tables on its
     mesh device, with the peer access of each pair of cards and the bytes
-    copied between cards."""
+    copied between cards; then (c)-(e) for ``_MESH_CARDS_QUERIES`` on
+    those cards (``mesh_cards_serving_spill_feedback``; ``off`` holds (e)'s
+    off-mesh stores)."""
     from repro_torch.core.driver import Driver
     from repro_torch.core.session import Session
     from repro_torch.launch.mesh import EngineMesh
@@ -2831,7 +2861,7 @@ def mesh_cards(torch, catalog, results):
     count = torch.cuda.device_count()
     if count < 2:
         print("mesh (b): needs two or more cards, this host has one; not "
-              "run", flush=True)
+              "run, nor (c)-(e) across cards", flush=True)
         return
     cards = 4 if count >= 4 else 2
     mesh = EngineMesh([torch.device("cuda", i) for i in range(cards)])
@@ -2861,14 +2891,455 @@ def mesh_cards(torch, catalog, results):
               f"cards {copied}", flush=True)
     print(f"mesh (b) {cards} cards (22 queries): bytes copied between cards "
           f"{peer}", flush=True)
+    mesh_cards_serving_spill_feedback(torch, catalog, mesh, results, off)
 
 
-def run_mesh(torch, rh, catalog, w1_results=None):
-    """The mesh phase: (a), the device guard, then (b)."""
+# (c)-(e): serving, out of core and adaptive execution on the one-card
+# mesh; part (b) runs them for these queries across the cards
+_MESH_CARDS_QUERIES = (3, 5, 18)
+# the admission budget of the 22 served at W = 4 (each query's estimate
+# is under it, so none runs out of core)
+_MESH_SERVE_BUDGET = 24 << 30
+# (d): the queries under a sixty-fourth of their W = 4 footprint, whose
+# grace joins form
+_MESH_GRACE = (5, 18)
+
+
+def _latency_text(handles):
+    lat = [h.latency for h in handles]
+    return (f"p50 {_percentile(lat, 0.5):.4f} s p99 "
+            f"{_percentile(lat, 0.99):.4f} s")
+
+
+def _card_peaks(torch, mesh, fn):
+    """(fn's result, each mesh card's ``max_memory_allocated`` over the
+    call in bytes)."""
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    out = fn()
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    return out, [torch.cuda.max_memory_allocated(d) for d in mesh.devices]
+
+
+def mesh_serving(torch, catalog, data, mesh, off_results):
+    """(c) The 22 planned for ``_WORKERS`` workers through the scheduler
+    (``submit``, then ``gather``) from ``_CLIENTS`` client threads, off the
+    mesh and on it, each result equal to its off-mesh ``execute``
+    (``off_results``); then phase 8's 96-query workload at W = 1 with
+    batching off the mesh and on the one-card mesh, each member equal to
+    its off-mesh serving, at least one stacked batch and no fallback;
+    q/s, p50 and p99 of each, and the launches on the mesh."""
+    from repro_torch.core.builder import QueryBuilder
+    from repro_torch.core.expr import col
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import queries
+
+    plans = [queries.build_query(q, catalog, num_workers=_WORKERS)
+             for q in _QUERIES]
+    for where, m in (("off the mesh", None), ("on the mesh", mesh)):
+        ops.reset_launch_counts()
+        got, handles, wall, stats = _serve(
+            torch, catalog, plans, False, workers=_WORKERS, mesh=m,
+            budget=_MESH_SERVE_BUDGET, gather=True)
+        counts = ops.launch_counts()
+        for q, g in zip(_QUERIES, got):
+            compare(q, g, off_results[q],
+                    f"its off-mesh W={_WORKERS} execute (served {where})")
+        if stats["failed"] or stats["spill_admitted"]:
+            fail(f"mesh (c) served {where}: {json.dumps(stats)}")
+        if m is not None and any(h.executor_stats["worker_devices"]
+                                 != [str(d) for d in
+                                     m.worker_devices(_WORKERS)]
+                                 for h in handles):
+            fail("mesh (c): a served query ran off its mesh devices")
+        print(f"mesh (c) serving the 22 W={_WORKERS} {where}: "
+              f"{_CLIENTS} clients, wall {wall:.4f} s "
+              f"({len(plans) / wall:.1f} q/s), {_latency_text(handles)}; "
+              f"launches {json.dumps(_nonzero(counts))}", flush=True)
+    keys = data["orders"]["o_orderkey"]
+    labels = [(_SHAPES[i % 3], i // 3) for i in range(_SERVING_QUERIES)]
+    builders = [small_query(QueryBuilder, col, catalog, keys, shape, j)
+                for shape, j in labels]
+    served = {}
+    for where, m in (("off the mesh", None), ("on the mesh", mesh)):
+        ops.reset_launch_counts()
+        got, handles, wall, stats = _serve(torch, catalog, builders, True,
+                                           mesh=m)
+        counts = ops.launch_counts()
+        served[where] = got
+        if (stats["batches"] < 1 or stats["batch_fallbacks"]
+                or not counts["fused_batch_program"]):
+            fail(f"mesh (c) batched serving {where}: {json.dumps(stats)}, "
+                 f"{counts['fused_batch_program']} fused_batch_program "
+                 "launches")
+        print(f"mesh (c) serving {_SERVING_QUERIES} small queries W=1 "
+              f"batched {where}: wall {wall:.4f} s "
+              f"({_SERVING_QUERIES / wall:.1f} q/s), "
+              f"{_latency_text(handles)}, {stats['batches']} stacked "
+              f"batches of {stats['batched_queries']} queries, "
+              f"{stats['batch_fallbacks']} fallbacks; launches "
+              f"{json.dumps(_nonzero(counts))}", flush=True)
+    for (shape, j), g, w in zip(labels, served["on the mesh"],
+                                served["off the mesh"]):
+        compare(f"{shape}#{j}", g, w, "its off-mesh serving")
+
+
+def _spilled(torch, catalog, plan, budget, **kw):
+    """One run of ``plan`` on a fresh W = 4 session under ``budget``:
+    (result, executor stats, launches, wall)."""
+    from repro_torch.core.session import Session
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                      num_workers=_WORKERS, device_budget=budget, **kw)
+    return _counted(torch, session, plan)
+
+
+def _same_spill(torch, catalog, plan, budget, mesh, got, want, what):
+    """Fail unless the mesh run's spill counters ``got`` equal the
+    off-mesh run's ``want``, or, where the mesh's broadcast layout (the W
+    tables end to end, the reference's) changed a reservation, those of an
+    off-mesh run whose exchange lays rows out as the mesh does. Returns
+    whether they equal ``want``."""
+    from repro_torch import ICIExchange
+    if got == want:
+        return True
+    _, st, _, _ = _spilled(torch, catalog, plan, budget,
+                           exchange=ICIExchange(mesh=mesh))
+    if st["spill"] != got:
+        fail(f"{what}: spill counters on the mesh {_spill_text(got)}; off "
+             f"it {_spill_text(want)}; off it with the mesh's layout "
+             f"{_spill_text(st['spill'])}")
+    return False
+
+
+def mesh_spill(torch, rh, catalog, mesh, off_results):
+    """(d) The 22 planned for ``_WORKERS`` workers under a quarter of their
+    footprint, off the mesh and on it, each equal to its in-memory result,
+    the spill counters equal (``_same_spill``), each card's
+    ``max_memory_allocated``; then ``_MESH_GRACE`` under a sixty-fourth:
+    grace joins must form, each standalone histogram call on its worker's
+    card, bit-exact against its plain version, one launch a call."""
+    from repro_torch import ICIExchange
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import queries
+
+    totals = dict.fromkeys(ops.KERNELS, 0)
+    walls = {"on": 0.0, "off": 0.0}
+    layout, spilled, top = [], [], [0] * len(mesh.devices)
+    for q in _QUERIES:
+        plan = queries.build_query(q, catalog, num_workers=_WORKERS)
+        budget = footprint_budget(catalog, plan, _WORKERS, 4)
+        _, off_stats, _, t_off = _spilled(torch, catalog, plan, budget,
+                                          exchange=ICIExchange())
+        on = Session(catalog, batch_rows=_MAIN_ROWS, num_workers=_WORKERS,
+                     mesh=mesh, device_budget=budget)
+        (got, stats, counts, t_on), peaks = _card_peaks(
+            torch, mesh, lambda: _counted(torch, on, plan))
+        compare(q, got, off_results[q], "its in-memory off-mesh run")
+        sp = stats["spill"]
+        what = f"Q{q} W={_WORKERS} at 1/4 on the mesh"
+        if not _same_spill(torch, catalog, plan, budget, mesh, sp,
+                           off_stats["spill"], what):
+            layout.append(q)
+        if sp["spilled_bytes"]:
+            spilled.append(q)
+        for k in ops.KERNELS:
+            totals[k] += counts[k]
+        walls["on"] += t_on
+        walls["off"] += t_off
+        top = [max(a, b) for a, b in zip(top, peaks)]
+        print(f"mesh (d) {what}, budget {budget} B: wall {t_on:.4f} s, off "
+              f"the mesh {t_off:.4f} s; {_spill_text(sp)}; staged exchanges "
+              f"{stats['spill_staged_exchanges']}; max_memory_allocated by "
+              f"card {peaks}", flush=True)
+    print(f"mesh (d) the 22 W={_WORKERS} at 1/4: walls on the mesh "
+          f"{walls['on']:.4f} s, off {walls['off']:.4f} s; spilled "
+          f"{spilled}; counters equal off the mesh but for {layout} (equal "
+          f"there to the mesh's layout off the mesh); max_memory_allocated "
+          f"by card {top}; launches {json.dumps(_nonzero(totals))}",
+          flush=True)
+    failures, graced = [], []
+    for q in _MESH_GRACE:
+        plan = queries.build_query(q, catalog, num_workers=_WORKERS)
+        budget = footprint_budget(catalog, plan, _WORKERS, 64)
+        _, off_stats, _, t_off = _spilled(torch, catalog, plan, budget,
+                                          exchange=ICIExchange())
+        on = Session(catalog, batch_rows=_MAIN_ROWS, num_workers=_WORKERS,
+                     mesh=mesh, device_budget=budget)
+        calls, joins, grace = [], [], {}
+        with grace_capture(calls, joins), grace_launches(grace):
+            (got, stats, counts, t_on), peaks = _card_peaks(
+                torch, mesh, lambda: _counted(torch, on, plan))
+        what = f"Q{q} W={_WORKERS} at 1/64 on the mesh"
+        compare(q, got, off_results[q], "its in-memory off-mesh run")
+        _same_spill(torch, catalog, plan, budget, mesh, stats["spill"],
+                    off_stats["spill"], what)
+        if not joins or grace["n"] != len(calls):
+            fail(f"{what}: grace joins {joins}, {grace['n']} standalone "
+                 f"histogram launches for {len(calls)} calls")
+        for i, c in enumerate(calls):
+            if c["device"] not in mesh.devices:
+                fail(f"{what}: histogram call {i} on {c['device']}")
+            check_hist_call(torch, rh, c["ids"].to(c["device"]), c["bins"],
+                            f"{what} call {i}", failures, show=False)
+        graced.append(q)
+        print(f"mesh (d) {what}, budget {budget} B: wall {t_on:.4f} s, off "
+              f"the mesh {t_off:.4f} s; {_spill_text(stats['spill'])}; "
+              f"grace joins (partitions, spilled build partitions) {joins}; "
+              f"{len(calls)} standalone histogram calls on "
+              f"{sorted({str(c['device']) for c in calls})}, exact: "
+              f"{not failures}; max_memory_allocated by card {peaks}; "
+              f"launches {json.dumps(_nonzero(counts))}", flush=True)
+    if failures:
+        fail("; ".join(failures))
+
+
+def _entries(store):
+    """A feedback store's entries: key -> (rows, estimated, max_matches,
+    skip_fraction)."""
+    return {k: (e.rows, e.estimated, e.max_matches, e.skip_fraction)
+            for k, e in store._entries.items()}
+
+
+def _cold_warm(torch, session, raw):
+    """The cold plan once, then the warm plan once, each through
+    ``_counted``: (cold, warm results, launches summed, cold and warm
+    walls, the warm plan)."""
+    cold_plan = session.optimize(raw)
+    cold, _, counts, t_cold = _counted(torch, session, cold_plan)
+    warm_plan = session.optimize(raw)
+    warm, _, more, t_warm = _counted(torch, session, warm_plan)
+    return (cold, warm, {k: counts[k] + more[k] for k in counts}, t_cold,
+            t_warm, warm_plan)
+
+
+def mesh_adaptive(torch, catalog, mesh, answers):
+    """(e) Each of the 22 at ``_WORKERS`` workers cold, then warm, on a
+    store of its own, off the mesh (``ICIExchange()``) and on it: both
+    runs on the mesh equal the oracle (``answers``), the store's entries
+    and the warm plan equal off the mesh's; then Q3 submitted three times
+    to a ``feedback=True`` scheduler: at W = 1 on the mesh a plan-cache
+    miss, a miss again (evicted), a hit, as in the adaptive phase; at
+    W = 4 the same hits on the mesh as off it. Returns the off-mesh
+    stores' entries."""
+    from repro_torch import ICIExchange, SchedulerConfig
+    from repro_torch.core import plan as P
+    from repro_torch.core.feedback import FeedbackStore
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import queries
+
+    off_entries, totals = {}, dict.fromkeys(ops.KERNELS, 0)
+    walls = dict.fromkeys(("cold on", "warm on", "cold off", "warm off"), 0.0)
+    for q in range(1, 23):
+        raw = queries.build_query(q, catalog, optimized=False)
+        off = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                      num_workers=_WORKERS, exchange=ICIExchange(),
+                      feedback=FeedbackStore())
+        _, _, _, c_off, w_off, off_plan = _cold_warm(torch, off, raw)
+        on = Session(catalog, batch_rows=_MAIN_ROWS, num_workers=_WORKERS,
+                     mesh=mesh, feedback=FeedbackStore())
+        cold, warm, counts, c_on, w_on, warm_plan = _cold_warm(torch, on,
+                                                               raw)
+        for what, got in (("cold", cold), ("warm", warm)):
+            compare_oracle(q, got, answers[q],
+                           f"W={_WORKERS} {what} on the mesh")
+        off_entries[q] = _entries(off.feedback_store())
+        got_entries = _entries(on.feedback_store())
+        if got_entries != off_entries[q]:
+            diff = sorted(k for k in set(got_entries) | set(off_entries[q])
+                          if got_entries.get(k) != off_entries[q].get(k))
+            fail(f"adaptive Q{q} W={_WORKERS} on the mesh: store entries "
+                 f"differ from off the mesh at {diff[:3]}")
+        if P.fingerprint(warm_plan) != P.fingerprint(off_plan):
+            fail(f"adaptive Q{q} W={_WORKERS}: the warm plan on the mesh is "
+                 "not the warm plan off it")
+        for k in ops.KERNELS:
+            totals[k] += counts[k]
+        for k, v in (("cold on", c_on), ("warm on", w_on),
+                     ("cold off", c_off), ("warm off", w_off)):
+            walls[k] += v
+        print(f"mesh (e) adaptive Q{q} W={_WORKERS}: cold {c_on:.4f} s, warm "
+              f"{w_on:.4f} s on the mesh; off it {c_off:.4f} s, "
+              f"{w_off:.4f} s; store {len(got_entries)} entries, equal",
+              flush=True)
+    print(f"mesh (e) the 22 W={_WORKERS} cold and warm equal the oracle, "
+          f"stores equal off the mesh; walls "
+          f"{_sums_text(walls)}; launches {json.dumps(_nonzero(totals))}",
+          flush=True)
+    hits = {}
+    for label, w, m in (("W=1 on the mesh", 1, mesh),
+                        (f"W={_WORKERS} on the mesh", _WORKERS, mesh),
+                        (f"W={_WORKERS} off the mesh", _WORKERS, None)):
+        session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                          num_workers=w, mesh=m, feedback=True,
+                          scheduler_config=SchedulerConfig(
+                              cache_results=False))
+        raw = queries.build_query(3, catalog, optimized=False)
+        try:
+            handles = []
+            for _ in range(3):
+                handles.append(session.submit(raw))
+                compare_oracle(3, handles[-1].result(timeout=600),
+                               answers[3], f"scheduled {label}")
+        finally:
+            session.scheduler().close()
+        hits[label] = [h.plan_cache_hit for h in handles]
+    print(f"mesh (e) scheduler Q3 x3, plan cache hits: {json.dumps(hits)}",
+          flush=True)
+    on, off = hits[f"W={_WORKERS} on the mesh"], hits[
+        f"W={_WORKERS} off the mesh"]
+    if hits["W=1 on the mesh"] != [False, False, True] or on != off:
+        fail(f"mesh (e) scheduler Q3: plan cache hits {hits}; expected at "
+             "W=1 a miss, a miss after the eviction, then a hit, and at "
+             f"W={_WORKERS} the same on the mesh as off it")
+    return off_entries
+
+
+@contextlib.contextmanager
+def restored_places(record):
+    """While active, ``record`` gets (the devices a spilled partition's
+    tables left, the devices they came back on) for each restore."""
+    from repro_torch.core.spill import SpillManager
+    place = SpillManager._place
+
+    def kept(self, part, held):
+        out = place(self, part, held)
+        record.append((list(part.devices), [t.device for t in out]))
+        return out
+
+    SpillManager._place = kept
+    try:
+        yield
+    finally:
+        SpillManager._place = place
+
+
+def mesh_cards_serving_spill_feedback(torch, catalog, mesh, results,
+                                      off_entries):
+    """(b)'s (c)-(e) for ``_MESH_CARDS_QUERIES`` across ``mesh``'s cards:
+    served through the scheduler (``submit``, ``gather``), under a quarter
+    and a sixty-fourth of their footprint (every restored partition back
+    on the card it left, outputs on each worker's card, each grace
+    histogram call on a card of the mesh) and cold then warm (the store
+    equal to (e)'s off-mesh one); each equal to its off-mesh result, the
+    bytes copied between cards."""
+    from repro_torch.core.driver import Driver
+    from repro_torch.core.feedback import FeedbackStore
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+
+    cards = len(mesh.devices)
+    plans = {q: queries.build_query(q, catalog, num_workers=_WORKERS)
+             for q in _MESH_CARDS_QUERIES}
+    got, handles, wall, _ = _serve(
+        torch, catalog, list(plans.values()), False, workers=_WORKERS,
+        mesh=mesh, budget=_MESH_SERVE_BUDGET, gather=True)
+    for q, g in zip(plans, got):
+        compare(q, g, results[q], f"its off-mesh run (served on {cards} "
+                "cards)")
+    print(f"mesh (b) (c) serving {list(plans)} W={_WORKERS} on {cards} "
+          f"cards: wall {wall:.4f} s, {_latency_text(handles)}", flush=True)
+    for q, plan in plans.items():
+        for share in (4, 64):
+            budget = footprint_budget(catalog, plan, _WORKERS, share)
+            session = Session(catalog, batch_rows=_MAIN_ROWS,
+                              num_workers=_WORKERS, mesh=mesh,
+                              device_budget=budget)
+            places, calls, joins = [], [], []
+            with restored_places(places), grace_capture(calls, joins):
+                (out, stats, _, t), peaks = _card_peaks(
+                    torch, mesh, lambda: _counted(torch, session, plan))
+            tables = Driver(session.context()).execute(plan)
+            torch.cuda.synchronize()
+            compare(q, out, results[q], f"its off-mesh run (1/{share} on "
+                    f"{cards} cards)")
+            wrong = [p for p in places if p[0] != p[1]]
+            where = [t.device for t in tables]
+            if wrong or where != mesh.worker_devices(_WORKERS) or any(
+                    c["device"] not in mesh.devices for c in calls):
+                fail(f"Q{q} 1/{share} on {cards} cards: restores {wrong[:3]}"
+                     f", outputs on {where}, histogram calls on "
+                     f"{[c['device'] for c in calls]}")
+            print(f"mesh (b) (d) Q{q} W={_WORKERS} at 1/{share} on {cards} "
+                  f"cards: wall {t:.4f} s; {_spill_text(stats['spill'])}; "
+                  f"{len(places)} restores, each on the card it left; grace "
+                  f"joins {joins}, {len(calls)} histogram calls on "
+                  f"{sorted({str(c['device']) for c in calls})}; bytes "
+                  f"copied between cards "
+                  f"{session.last_driver.ctx.exchange.peer_bytes}; "
+                  f"max_memory_allocated by card {peaks}", flush=True)
+        session = Session(catalog, batch_rows=_MAIN_ROWS,
+                          num_workers=_WORKERS, mesh=mesh,
+                          feedback=FeedbackStore())
+        cold, warm, _, t_cold, t_warm, _ = _cold_warm(
+            torch, session, queries.build_query(q, catalog, optimized=False))
+        compare(q, cold, results[q], f"its off-mesh run (cold on {cards} "
+                "cards)")
+        compare(q, warm, results[q], f"its off-mesh run (warm on {cards} "
+                "cards)")
+        if _entries(session.feedback_store()) != off_entries[q]:
+            fail(f"adaptive Q{q} on {cards} cards: store entries differ "
+                 "from off the mesh")
+        print(f"mesh (b) (e) Q{q} W={_WORKERS} on {cards} cards: cold "
+              f"{t_cold:.4f} s, warm {t_warm:.4f} s, store equal to off the "
+              "mesh's", flush=True)
+
+
+def run_mesh_cards(torch, catalog):
+    """Part (b) of the mesh phase alone, and what it is compared with:
+    the 22 at ``_WORKERS`` workers off the mesh on ``cuda:0``, and
+    ``_MESH_CARDS_QUERIES`` cold then warm off the mesh, each on a store
+    of its own."""
+    from repro_torch import ICIExchange
+    from repro_torch.core.feedback import FeedbackStore
+    from repro_torch.core.session import Session
+    from repro_torch.tpch import queries
+    t0 = time.perf_counter()
+    off = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                  num_workers=_WORKERS)
+    results = {q: off.execute(queries.build_query(q, catalog,
+                                                  num_workers=_WORKERS))
+               for q in _QUERIES}
+    entries = {}
+    for q in _MESH_CARDS_QUERIES:
+        session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                          num_workers=_WORKERS, exchange=ICIExchange(),
+                          feedback=FeedbackStore())
+        _cold_warm(torch, session, queries.build_query(q, catalog,
+                                                       optimized=False))
+        entries[q] = _entries(session.feedback_store())
+    mesh_cards(torch, catalog, results, entries)
+    print(f"mesh (b) alone: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_mesh(torch, rh, catalog, data, w1_results=None, answers=None):
+    """The mesh phase: (a), the device guard, (c)-(e) on the one-card
+    mesh, then (b) (with (c)-(e) across the cards). ``answers`` are the
+    oracle's (computed here when None)."""
+    from repro_torch.launch.mesh import EngineMesh
     t0 = time.perf_counter()
     off_results = mesh_one_card(torch, catalog, w1_results)
     check_device_guard(torch, rh)
-    mesh_cards(torch, catalog, off_results)
+    print(f"mesh (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    if answers is None:
+        answers = oracle_answers(data)
+    mesh = EngineMesh([torch.device("cuda", 0)])
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        print(f"mesh {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    part("(c)", lambda: mesh_serving(torch, catalog, data, mesh,
+                                     off_results))
+    part("(d)", lambda: mesh_spill(torch, rh, catalog, mesh, off_results))
+    off_entries = part("(e)", lambda: mesh_adaptive(torch, catalog, mesh,
+                                                    answers))
+    mesh_cards(torch, catalog, off_results, off_entries)
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -3997,7 +4468,8 @@ def check_hist_cases(torch, rh, failures):
 @contextlib.contextmanager
 def grace_capture(calls, joins):
     """While active, keep each grace-join histogram call's ids (copied to
-    the host, so that the card's peak memory is the query's) and bins
+    the host, so that the card's peak memory is the query's), device and
+    bins
     (``operators.radix_histogram``, the standalone kernel's wrapper, as
     ``_grace_pids`` calls it) in ``calls``, and each sealed grace join's
     (partitions, spilled build partitions) in ``joins``."""
@@ -4005,7 +4477,7 @@ def grace_capture(calls, joins):
     hist, seal = operators.radix_histogram, operators.GraceHashJoin.seal_build
 
     def hist_kept(ids, bins):
-        calls.append({"ids": ids.cpu(), "bins": bins})
+        calls.append({"ids": ids.cpu(), "bins": bins, "device": ids.device})
         return hist(ids, bins)
 
     def seal_kept(self):
@@ -4771,21 +5243,12 @@ def adaptive_spill(torch, catalog, results, warm_state):
         compare(3, got, results[3][1], "(a)'s warm run")
 
 
-def run_adaptive(torch, catalog, data):
-    """The adaptive phase (a)-(d) on the SF 1 catalog at ``batch_rows =
-    1 << 20``, then the oracle's 22 answers in ``_ORACLE_PROCS`` forked
-    processes; each cold and warm W = 1 result held against them.
-    Returns the warm launches at W = 1 and W = 4."""
+def oracle_answers(data):
+    """The port's oracle of the 22 on ``data``, in ``_ORACLE_PROCS``
+    forked processes: q -> answer."""
     import multiprocessing
 
     global _ORACLE_DATA
-    t_phase = time.perf_counter()
-    results, launches, warm_state = adaptive_w1(torch, catalog)
-    w4_launches = adaptive_w4(torch, catalog, results)
-    adaptive_scheduler(torch, catalog, results)
-    adaptive_spill(torch, catalog, results, warm_state)
-    # the oracle after the timed runs, so that its processes take no core
-    # from the driver's host thread while it is timed
     t0 = time.perf_counter()
     _ORACLE_DATA = data
     with multiprocessing.get_context("fork").Pool(_ORACLE_PROCS) as pool:
@@ -4793,14 +5256,30 @@ def run_adaptive(torch, catalog, data):
         pool.close()
         pool.join()
     _ORACLE_DATA = None
-    print(f"adaptive oracle: the 22 in {time.perf_counter() - t0:.1f} s on "
+    print(f"oracle: the 22 in {time.perf_counter() - t0:.1f} s on "
           f"{_ORACLE_PROCS} processes", flush=True)
+    return answers
+
+
+def run_adaptive(torch, catalog, data):
+    """The adaptive phase (a)-(d) on the SF 1 catalog at ``batch_rows =
+    1 << 20``, then the oracle's 22 answers in ``_ORACLE_PROCS`` forked
+    processes; each cold and warm W = 1 result held against them.
+    Returns the oracle's answers."""
+    t_phase = time.perf_counter()
+    results, _, warm_state = adaptive_w1(torch, catalog)
+    adaptive_w4(torch, catalog, results)
+    adaptive_scheduler(torch, catalog, results)
+    adaptive_spill(torch, catalog, results, warm_state)
+    # the oracle after the timed runs, so that its processes take no core
+    # from the driver's host thread while it is timed
+    answers = oracle_answers(data)
     for q in range(1, 23):
         for what, got in zip(("cold", "warm"), results[q]):
             compare_oracle(q, got, answers[q], f"W=1 {what}")
     print(f"adaptive: the 22 cold and warm at W=1 equal the oracle; "
           f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches, w4_launches
+    return answers
 
 
 # ---------------------------------------------------------------------------
@@ -4963,20 +5442,24 @@ def _check_threads_exited(what):
         fail(f"{what}: threads alive after close(): {left}")
 
 
-def _serve(torch, catalog, builders, batching, profile_dir=None):
-    """``builders`` through a fresh card session's scheduler from
+def _serve(torch, catalog, builders, batching, profile_dir=None, *,
+           workers=1, mesh=None, budget=8 << 30, gather=False):
+    """``builders`` (builders or plans) through a fresh card session's
+    scheduler (``workers`` workers, on ``mesh`` when given) from
     ``_CLIENTS`` client threads, each submitting its share and then waiting
-    for it; returns (results, handles, wall seconds, stats)."""
+    for it (``session.gather`` with ``gather``); returns (results, handles,
+    wall seconds, stats)."""
     import threading
 
     from repro_torch import SchedulerConfig, Session
 
-    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS)
+    session = Session(catalog, device="cuda", batch_rows=_MAIN_ROWS,
+                      num_workers=workers, mesh=mesh)
     # the queue holds the whole workload: every client submits all of its
     # queries before it waits
     session.scheduler_config = SchedulerConfig(
         batching=batching, max_batch=32, max_concurrency=8,
-        cache_results=False, batch_window_ms=10, memory_budget=8 << 30,
+        cache_results=False, batch_window_ms=10, memory_budget=budget,
         max_queue=len(builders))
     session.scheduler()
     handles = [None] * len(builders)
@@ -4987,6 +5470,8 @@ def _serve(torch, catalog, builders, batching, profile_dir=None):
             mine = range(c, len(builders), _CLIENTS)
             for i in mine:
                 handles[i] = session.submit(builders[i])
+            if gather:
+                session.gather(*(handles[i] for i in mine))
             for i in mine:
                 handles[i].result(timeout=600)
         except Exception as exc:  # noqa: BLE001 -- reported below
@@ -5867,8 +6352,16 @@ def main() -> None:
                     help="run the mesh phase alone (the 22 queries at W=4 "
                          "on a one-card mesh against the same plans off "
                          "it, W=2 and HostExchange on it, the data phase's "
-                         "ms, the device guard, and a mesh over the cards "
-                         "where there are several); prints no ok line")
+                         "ms, the device guard, serving, out of core and "
+                         "adaptive execution on the mesh, and a mesh over "
+                         "the cards where there are several); prints no ok "
+                         "line")
+    ap.add_argument("--cards", action="store_true",
+                    help="run part (b) of the mesh phase alone (the 22 at "
+                         "W=4 on a mesh of 2-4 cards, then serving, out of "
+                         "core and adaptive execution for Q3, Q5 and Q18 "
+                         "across them, against the off-mesh runs); prints "
+                         "no ok line")
     ap.add_argument("--faults", action="store_true",
                     help="run phase 9, the build checks, the fused checks "
                          "and the segmented cases alone on the kernels as "
@@ -5981,7 +6474,11 @@ def main() -> None:
         print(card)
         return
     if args.mesh:
-        run_mesh(torch, rh, catalog)
+        run_mesh(torch, rh, catalog, data)
+        print(card)
+        return
+    if args.cards:
+        run_mesh_cards(torch, catalog)
         print(card)
         return
     rows_out, launchers = check_fused(torch, fused, queries, catalog, morsel,
@@ -6011,7 +6508,6 @@ def main() -> None:
     repartitions = w4_calls["repartition"]
     del w4_calls
     w4_launches, gpu4 = run_distributed(torch, catalog, results)
-    run_mesh(torch, rh, catalog, results)
     storage_sessions = run_storage(torch, storage_dir)
     sql_rows, sql_launchers = run_sql(torch, fused, catalog, data, rate,
                                       results, walls)
@@ -6021,7 +6517,7 @@ def main() -> None:
                                             walls)
     rows_out += spill_rows
     launchers.update(spill_launchers)
-    run_adaptive(torch, catalog, data)
+    answers = run_adaptive(torch, catalog, data)
     t0 = time.perf_counter()
     batch_rows, batch_launchers = check_batch(torch, fused, catalog, data,
                                               rate)
@@ -6031,6 +6527,7 @@ def main() -> None:
         torch, catalog, data)
     run_dashboard(torch, catalog, results)
     print(f"phase 8 (serving): {time.perf_counter() - t0:.1f} s", flush=True)
+    run_mesh(torch, rh, catalog, data, results, answers)
     t0 = time.perf_counter()
     attn_rows, attn_launchers = run_attention(torch, fa, kops, rate, name)
     rows_out += attn_rows

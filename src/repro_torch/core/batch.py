@@ -507,9 +507,9 @@ def run_batch(driver, shapes: Sequence[BatchShape],
     """Execute ``shapes`` (all sharing one interned program) as a single
     stacked scan; returns one host-numpy result dict per member, in
     order. The caller (``Driver.collect_batch``) provides the dispatch
-    scope. ``lanes`` pins the stacked lane count (it must cover the
-    group); by default it is the group's size rounded up to a power of
-    two."""
+    scope and holds W = 1 (on a mesh session the mesh is one card).
+    ``lanes`` pins the stacked lane count (it must cover the group); by
+    default it is the group's size rounded up to a power of two."""
     program = shapes[0].program
     if any(s.program is not program for s in shapes):
         raise ValueError("run_batch members must share one interned "
@@ -524,11 +524,15 @@ def run_batch(driver, shapes: Sequence[BatchShape],
     # the scan reads unfiltered: member predicates differ, so zone-map
     # skipping is off and each pushed-down filter re-applies as that
     # member's first parameterized stage (a superset scan is always safe)
+    # batching is W = 1 only: on a mesh that is a one-card mesh (a mesh of
+    # several cards cannot hold one worker), whose card is ctx.device
     if ctx.streaming:
         morsels = src.stream(columns, ctx.batch_rows, ctx.device,
-                             prefetch_depth=ctx.prefetch_depth, stats=stats)
+                             prefetch_depth=ctx.prefetch_depth, stats=stats,
+                             **driver._on_mesh())
     else:
-        morsels = src.scan(columns, ctx.batch_rows, ctx.device, stats=stats)
+        morsels = src.scan(columns, ctx.batch_rows, ctx.device, stats=stats,
+                           **driver._on_mesh())
 
     spent = 0.0
     if program.has_agg:

@@ -27,21 +27,25 @@ joins; a single-match probe straight off a scan fuses into the scan's
 morsel pipeline), ScalarBroadcast, OrderBy, Limit, Exchange, Repartition
 and Broadcast.
 
-Out of core (``ExecutionContext.spill``, a ``core.spill.SpillManager``):
+Out of core (``ExecutionContext.spill``, a ``core.spill.SpillManager``
+with one device budget for the query over all its workers and devices):
 a join whose build side does not fit its device reservation runs as one
 ``GraceHashJoin`` over the workers' steps, an aggregation whose
 accumulator does not fit flushes runs to the host tier, an exchange send
 buffer past the unreserved budget is staged through the spill store, and
-every scan's prefetcher draws on the manager's host budget.
+every scan's prefetcher draws on the manager's host budget. A spilled
+partition comes back on the device it left, so on a mesh each worker's
+state stays on its own card.
 
 Runtime feedback (``ExecutionContext.feedback``, a
 ``core.feedback.FeedbackStore``): every plan node's stream but the
-exchanges' is wrapped in a counter, an int64 tensor on the device that each
-step adds its workers' valid rows to; a join's exact-key build multiplicity
-is computed on the device too (a sort and run lengths). Nothing is read
-back until ``_harvest_feedback`` reads every count in one transfer, once
-per query, after the result is ready, and records them in the store. As in
-the reference, a scan counts the rows left after the Filter, Project and
+exchanges' is wrapped in counters, an int64 tensor a worker on that
+worker's device, that each step adds the worker's valid rows to; a join's
+exact-key build multiplicity is computed on the device too (a sort and run
+lengths, on worker 0's device). Nothing is read back until
+``_harvest_feedback`` reads every count in one transfer, once per query,
+after the result is ready, and records them in the store. As in the
+reference, a scan counts the rows left after the Filter, Project and
 single-match probe fused into it. With no store nothing is wrapped.
 
 ``collect_batch`` runs a group of compatible small queries as one stacked
@@ -107,14 +111,6 @@ class ExecutionContext:
     def __post_init__(self):
         if self.exchange is None:
             self.exchange = ICIExchange(mesh=self.mesh)
-        if self.mesh is None:
-            return
-        for what, given in (("out-of-core execution", self.spill),
-                            ("runtime feedback", self.feedback)):
-            if given is not None:
-                raise NotImplementedError(
-                    f"{what} on a mesh is not ported yet (ROADMAP.md, "
-                    "Queue A)")
 
     def host_budget(self):
         """Shared host-memory budget (prefetch + spill host tier), if any."""
@@ -200,7 +196,9 @@ class Driver:
         self._spill_seq = 0
         # runtime-feedback observations, all device tensors until the
         # harvest: (node, int64 row counter, distribution) per observed
-        # node, and id(join node) -> exact-key build multiplicity
+        # node and worker (W entries a node, worker 0's first, each counter
+        # on its worker's device), and id(join node) -> exact-key build
+        # multiplicity
         self._feedback_obs: list = []
         self._feedback_matches: Dict[int, torch.Tensor] = {}
 
@@ -376,7 +374,8 @@ class Driver:
         """Stage an oversized exchange send buffer through the spill store
         (device -> pinned host -> paged disk as the tiers fill) instead of
         pinning it in device memory alongside the receive buffers; each
-        worker's table is one spilled partition."""
+        worker's table is one spilled partition, restored onto that
+        worker's device."""
         spill = self.ctx.spill
         if spill is None or not spill.should_stage(
                 sum(t.nbytes() for t in tables)):
@@ -434,19 +433,22 @@ class Driver:
         return self._observe(node, stream)
 
     def _observe(self, node: P.PlanNode, stream: Stream) -> Stream:
-        """Wrap a stage output in a valid-row counter on the device. The
-        wrapped stream keeps the child's scans, so later Filter, Project
-        and single-match probe stages still fuse, and a scan counts the
-        rows left after them, as in the reference."""
-        count = torch.zeros((), dtype=torch.int64, device=self.ctx.device)
+        """Wrap a stage output in valid-row counters, one a worker on that
+        worker's device. The wrapped stream keeps the child's scans, so
+        later Filter, Project and single-match probe stages still fuse,
+        and a scan counts the rows left after them, as in the
+        reference."""
+        counts = [torch.zeros((), dtype=torch.int64,
+                              device=self.ctx.worker_device(w))
+                  for w in range(self._w)]
 
         def counted(steps: Iterator[Step]) -> Iterator[Step]:
             for step in steps:
-                for t in step:
+                for count, t in zip(counts, step):
                     count.add_(t.num_valid())
                 yield step
 
-        self._feedback_obs.append((node, count, stream.dist))
+        self._feedback_obs += [(node, c, stream.dist) for c in counts]
         return Stream(counted(stream.batches), stream.dist, scans=stream.scans)
 
     def _observe_join_build(self, node: P.Join, build: List[TorchTable],
@@ -454,8 +456,10 @@ class Driver:
         """Record a join's exact-key build multiplicity, the most valid
         build rows sharing one key value, which bounds the matches of a
         probe row. Only for a single int-like key, where equality has no
-        hash collisions. Computed on the device with static shapes (dead
-        rows sort last under a key no int32 value takes, and count 0), so
+        hash collisions. Computed on worker 0's device with static shapes
+        (the workers' keys gathered there first: a key value may lie on
+        several workers when the build is not hash-partitioned; dead rows
+        sort last under a key no int32 value takes, and count 0), so
         nothing is read back here."""
         kt = [build[0].schema[k] for k in node.build_keys]
         if len(kt) != 1 or kt[0].name not in ("int32", "date32", "dict32"):
@@ -463,8 +467,10 @@ class Driver:
         if dist == "replicated" and self._w > 1:
             build = build[:1]                   # identical worker replicas
         key = node.build_keys[0]
-        keys = torch.cat([t.columns[key].to(torch.int64) for t in build])
-        valid = torch.cat([t.validity for t in build])
+        dev = build[0].device
+        keys = torch.cat([t.columns[key].to(dev, torch.int64)
+                          for t in build])
+        valid = torch.cat([t.validity.to(dev) for t in build])
         if keys.numel() == 0:
             # an empty build bounds nothing tighter than one match
             self._feedback_matches[id(node)] = torch.ones(
@@ -479,21 +485,23 @@ class Driver:
 
     def _harvest_feedback(self) -> None:
         """Read every observation back in one transfer and record it in
-        the feedback store (once, after the result materialized). The
-        host seconds spent recording, after the read-back, are
-        ``op_seconds["FeedbackHarvest"]``."""
+        the feedback store (once, after the result materialized), a node's
+        rows summed over its workers. The host seconds spent recording,
+        after the read-back, are ``op_seconds["FeedbackHarvest"]``."""
         fb = self.ctx.feedback
         if fb is None or not self._feedback_obs:
             return
         from .optimizer import row_bound
         match_ids = list(self._feedback_matches)
-        values = torch.stack(
-            [c for _, c, _ in self._feedback_obs]
-            + [self._feedback_matches[i] for i in match_ids]).tolist()
+        scalars = [c for _, c, _ in self._feedback_obs] + [
+            self._feedback_matches[i] for i in match_ids]
+        values = self._read_back(scalars)
         t0 = time.perf_counter()
-        counts = values[:len(self._feedback_obs)]
+        w = self._w
+        nodes = self._feedback_obs[::w]     # a counter a worker, in order
+        counts = [sum(values[k * w:(k + 1) * w]) for k in range(len(nodes))]
         matches = dict(zip(match_ids, values[len(self._feedback_obs):]))
-        for (node, _, dist), rows in zip(self._feedback_obs, counts):
+        for (node, _, dist), rows in zip(nodes, counts):
             if dist == "replicated" and self._w > 1:
                 rows //= self._w                # identical worker replicas
             try:
@@ -511,6 +519,23 @@ class Driver:
         self._feedback_obs = []
         self._feedback_matches = {}
         self.op_seconds["FeedbackHarvest"] = time.perf_counter() - t0
+
+    def _read_back(self, scalars: List[torch.Tensor]) -> List[int]:
+        """The values of 0-d tensors in one read-back: stacked, or on
+        several devices each device's stacked there and copied to worker
+        0's device first."""
+        by_device: Dict[torch.device, List[int]] = {}
+        for i, c in enumerate(scalars):
+            by_device.setdefault(c.device, []).append(i)
+        if len(by_device) == 1:
+            return torch.stack(scalars).tolist()
+        first = self.ctx.worker_device(0)
+        read = torch.cat([torch.stack([scalars[i] for i in idx]).to(first)
+                          for idx in by_device.values()]).tolist()
+        values = [0] * len(scalars)
+        for i, v in zip((i for idx in by_device.values() for i in idx), read):
+            values[i] = v
+        return values
 
     def _exec_tablescan(self, node: P.TableScan) -> Stream:
         src = self.ctx.catalog.get(node.table)

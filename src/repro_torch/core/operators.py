@@ -559,19 +559,15 @@ class HashJoin(Operator):
     The build keys are sorted (``relational.join_build``) and probed by
     searchsorted (``_probe_join``); a hashed key is verified after the
     probe. Each such build counts one ``fallback_probe`` in the kernel
-    dispatch, as in the reference.
-
-    ``compact`` (default True, as in the reference) compacts the expansion
-    layout's output of an inner or left-outer join; False leaves its dead
-    rows in place.
+    dispatch, as in the reference. The expansion layout's output of an
+    inner or left-outer join is compacted, as in the reference.
     """
 
     name = "HashJoin"
 
     def __init__(self, build_keys: Sequence[str], probe_keys: Sequence[str],
                  build_payload: Sequence[str] = (), join_type: str = "inner",
-                 max_matches: int = 1, compact: bool = True,
-                 build_rows: Optional[int] = None):
+                 max_matches: int = 1, build_rows: Optional[int] = None):
         if join_type not in ("inner", "left_semi", "left_anti", "left_outer"):
             raise ValueError(f"HashJoin: join type {join_type!r}")
         self.build_keys = tuple(build_keys)
@@ -579,7 +575,6 @@ class HashJoin(Operator):
         self.build_payload = tuple(build_payload)
         self.join_type = join_type
         self.max_matches = max_matches
-        self.compact = compact
         self.build_rows = build_rows     # planner's build-side row bound
         self._build_batches: List[TorchTable] = []
         self._hash_state = None          # (build, table_keys, table_vals)
@@ -649,7 +644,7 @@ class HashJoin(Operator):
                               self.build_keys, self.build_payload,
                               self.join_type, self.max_matches, self._exact,
                               self._window)
-            if (self.compact and self.join_type in ("inner", "left_outer")
+            if (self.join_type in ("inner", "left_outer")
                     and self.max_matches > 1):
                 out = compact_table(out)
             return [out]
@@ -660,7 +655,7 @@ class HashJoin(Operator):
                 batch, self._hash_state, self.probe_keys, self.build_payload,
                 self.join_type, self._max_probes, self.max_matches,
                 self._pack)
-            if self.compact and self.join_type in ("inner", "left_outer"):
+            if self.join_type in ("inner", "left_outer"):
                 out = compact_table(out)
             return [out]
         return [_probe_join_hash(batch, self._hash_state, self.probe_keys,
@@ -680,20 +675,25 @@ def _grace_pids(tables: Step, keys, num_parts: int):
     """Grace-join partition ids of one worker-stacked table (a list of W
     worker tables): each worker's ``relational.partition_ids`` (the
     exchange's partitioner), and the live rows of each (worker, partition)
-    from one launch of the standalone ``radix_histogram`` over the bins
-    ``w * P + pid`` (a dead row in the dropped bin ``W * P``, the
-    reference's mask to ``P`` at W = 1). Returns ``(pids, int32[W, P])``,
-    the pids masked to ``P`` for dead rows."""
+    from the standalone ``radix_histogram`` over the bins ``w * P + pid``
+    (a dead row in the dropped bin ``W * P``, the reference's mask to
+    ``P`` at W = 1): one launch a device, over the rows of the workers it
+    holds, the host adding the devices' counts (one device off a mesh).
+    Returns ``(pids, int32[W, P])``, the pids masked to ``P`` for dead
+    rows, the counts on the host when several devices counted."""
     p = num_parts
     w = len(tables)
-    pids, bins = [], []
+    pids, bins = [], {}
     for i, t in enumerate(tables):
         pid = rel.partition_ids([t.columns[k] for k in keys], t.validity, p)
         pids.append(torch.where(t.validity, pid, torch.full_like(pid, p)))
-        bins.append(pids[-1] if w == 1 else torch.where(
-            t.validity, pid + i * p, torch.full_like(pid, w * p)))
-    counts = radix_histogram(bins[0] if w == 1 else torch.cat(bins), w * p)
-    return pids, counts.reshape(w, p)
+        bins.setdefault(t.device, []).append(
+            pids[-1] if w == 1 else torch.where(
+                t.validity, pid + i * p, torch.full_like(pid, w * p)))
+    counts = [radix_histogram(b[0] if len(b) == 1 else torch.cat(b), w * p)
+              for b in bins.values()]
+    total = counts[0] if len(counts) == 1 else sum(c.cpu() for c in counts)
+    return pids, total.reshape(w, p)
 
 
 def _row_bytes(columns) -> int:
@@ -715,7 +715,6 @@ class _GraceSplit:
 
     def __init__(self, tables: Step, pids, counts, num_parts: int):
         self.schema = dict(tables[0].schema)
-        self.device = tables[0].device
         self.counts = counts.cpu().tolist()
         self.sorted = []
         for t, pid in zip(tables, pids):
@@ -738,9 +737,10 @@ class _GraceSplit:
         return len(self.counts) * self.caps[p] * self._row
 
     def part(self, p: int) -> Step:
-        """Partition ``p``: one table of ``caps[p]`` rows per worker, its
-        live rows first, copied out of the sorted rows (so that no
-        partition keeps them alive), the tail zeroed."""
+        """Partition ``p``: one table of ``caps[p]`` rows per worker on
+        that worker's device, its live rows first, copied out of the
+        sorted rows (so that no partition keeps them alive), the tail
+        zeroed."""
         cap = self.caps[p]
         out = []
         for w, cols in enumerate(self.sorted):
@@ -752,29 +752,10 @@ class _GraceSplit:
                 buf[:n] = a[lo:lo + n]
                 buf[n:] = 0
                 got[name] = buf
+            dev = next(iter(cols.values())).device
             out.append(TorchTable(
-                got, torch.arange(cap, device=self.device) < n, self.schema))
+                got, torch.arange(cap, device=dev) < n, self.schema))
         return out
-
-
-def _stack(step: Step) -> TorchTable:
-    """One host-tier partition of a worker-stacked step: ``[W, cap]``
-    tensors (the reference's stacked layout), or the worker's own table at
-    W = 1."""
-    if len(step) == 1:
-        return step[0]
-    return TorchTable({n: torch.stack([t.columns[n] for t in step])
-                       for n in step[0].columns},
-                      torch.stack([t.validity for t in step]),
-                      dict(step[0].schema))
-
-
-def _unstack(table: TorchTable, w: int) -> Step:
-    """Invert ``_stack``: the W worker tables (views)."""
-    if w == 1:
-        return [table]
-    return [TorchTable({n: a[i] for n, a in table.columns.items()},
-                       table.validity[i], table.schema) for i in range(w)]
 
 
 def _one_row_invalid(table: TorchTable) -> TorchTable:
@@ -806,10 +787,12 @@ class GraceHashJoin(Operator):
       dropped unread.
 
     A batch is a step, a list of W worker tables (the reference's
-    ``[W, cap]`` batch; W = 1 for one worker): the histogram counts the
-    ``W * P`` (worker, partition) bins in one launch, a partition is W
-    tables, a spilled one is one ``[W, cap]`` host-tier partition, and the
-    outputs are steps.
+    ``[W, cap]`` batch; W = 1 for one worker), each on its worker's
+    device: the histogram counts the ``W * P`` (worker, partition) bins in
+    one launch a device, a partition is W tables, each split, built and
+    probed on its worker's device, a spilled one is one ``[W, cap]``
+    host-tier partition (``SpillManager.spill_step``, which gives each
+    table back on its own device), and the outputs are steps.
     """
 
     name = "GraceHashJoin"
@@ -817,21 +800,18 @@ class GraceHashJoin(Operator):
 
     def __init__(self, build_keys: Sequence[str], probe_keys: Sequence[str],
                  build_payload: Sequence[str] = (), join_type: str = "inner",
-                 max_matches: int = 1, compact: bool = True,
-                 build_rows: Optional[int] = None, *, spill,
-                 reservation: int):
+                 max_matches: int = 1, build_rows: Optional[int] = None, *,
+                 spill, reservation: int):
         self.build_keys = tuple(build_keys)
         self.probe_keys = tuple(probe_keys)
         self.build_payload = tuple(build_payload)
         self.join_type = join_type
         self.max_matches = max_matches
-        self.compact = compact
         self.build_rows = build_rows
         self.spill = spill
         self.reservation = max(int(reservation), 1)
         self.num_partitions: Optional[int] = None   # set by seal_build
         self._skey = f"grace{next(self._seq)}"
-        self._w = 1
         self._build_batches: List[Step] = []
         self._resident: dict = {}        # partition -> Step (device tier)
         self._spilled_build: set = set()
@@ -855,7 +835,6 @@ class GraceHashJoin(Operator):
         steps, self._build_batches = self._build_batches, []
         build = [concat_tables([s[w] for s in steps])
                  for w in range(len(steps[0]))]
-        self._w = len(build)
         self._build_schema = dict(build[0].schema)
         self._build_proto = [_one_row_invalid(t) for t in build]
         # fan out until one partition (+ its probe slice and hash state)
@@ -876,8 +855,8 @@ class GraceHashJoin(Operator):
                 used += nbytes
                 self._resident[p] = split.part(p)
             else:
-                self.spill.spill_table((self._skey, "build", p),
-                                       _stack(split.part(p)))
+                self.spill.spill_step((self._skey, "build", p),
+                                      split.part(p))
                 self._spilled_build.add(p)
 
     def add_input(self, step: Step):
@@ -891,8 +870,8 @@ class GraceHashJoin(Operator):
             if split.rows(p) == 0:
                 continue
             i = self._probe_chunks.get(p, 0)
-            self.spill.spill_table((self._skey, "probe", p, i),
-                                   _stack(split.part(p)))
+            self.spill.spill_step((self._skey, "probe", p, i),
+                                  split.part(p))
             self._probe_chunks[p] = i + 1
         return []
 
@@ -901,7 +880,7 @@ class GraceHashJoin(Operator):
         for b in build:
             j = HashJoin(self.build_keys, self.probe_keys, self.build_payload,
                          self.join_type, self.max_matches,
-                         compact=self.compact, build_rows=build_rows)
+                         build_rows=build_rows)
             j.open()
             j.add_build(b)
             j.seal_build()
@@ -926,13 +905,12 @@ class GraceHashJoin(Operator):
             if p in self._resident:
                 build = self._resident.pop(p)
             else:
-                build = _unstack(self.spill.restore((self._skey, "build", p)),
-                                 self._w)
+                build = self.spill.restore_step((self._skey, "build", p))
             joins = self._inner(build, max(self._build_rows_by_part[p], 1))
             del build
             for i in range(chunks):
-                chunk = self.spill.restore((self._skey, "probe", p, i))
-                outs.extend(self._probe(joins, _unstack(chunk, self._w)))
+                chunk = self.spill.restore_step((self._skey, "probe", p, i))
+                outs.extend(self._probe(joins, chunk))
         if not outs and self._probe_proto is not None:
             # every probe slice was empty (e.g. a selective build filter
             # upstream): one all-invalid batch of the join's output schema

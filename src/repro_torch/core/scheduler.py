@@ -15,13 +15,18 @@ fixed device-memory budget. This module is that layer:
   message. A footprint over the budget but under the ceiling is admitted
   with a priced spill plan (``QueryHandle.spill_plan``) and runs
   out of core, under a per-query ``core.spill.SpillManager`` whose device
-  budget is the scheduler's whole ``memory_budget``.
+  budget is the scheduler's whole ``memory_budget`` (on a mesh, one
+  budget over all its cards, as the admission estimate is one figure).
 
 * **Interleaved execution** -- admitted queries run on a pool of
   ``max_concurrency`` worker threads, each driving its own ``Driver`` on
-  the session's device. Kernels go to each thread's current stream; every
-  scan's ``MorselPrefetcher`` copies on its own side stream, so one
-  query's copies overlap another's kernels.
+  the session's device, or on a mesh session on each worker's card. Each
+  kernel launches on its card's current stream, under that card's launch
+  guard (``kernels.build.function(..., device=)``); every scan's
+  ``MorselPrefetcher`` copies on a side stream a card, so one query's
+  copies overlap another's kernels. A per-query worker count the mesh
+  cannot split fails that query's handle with ``EngineMesh.check``'s
+  ``ValueError``; it never runs off the mesh.
 
 * **Plan cache** and **result cache** -- bounded LRUs keyed by the plan's
   fingerprint, the worker count and the session device's type; entries
@@ -33,6 +38,9 @@ fixed device-memory budget. This module is that layer:
   dequeues a batchable query (``core.batch.extract_shape``) waits up to
   ``batch_window_ms`` for compatible pending queries and runs up to
   ``max_batch`` of them as one stacked scan (``Driver.collect_batch``).
+  Batching is W = 1 only, as in the reference: on a one-card mesh the
+  stacked scan runs on that card; a mesh of several cards cannot hold a
+  W = 1 query at all, so no batch ever meets several cards.
   If the stacked run raises, every member runs solo, so a query that would
   succeed alone never receives a batched error; each such fallback counts
   in ``stats()["batch_fallbacks"]`` and leaves the error's text under
@@ -79,8 +87,8 @@ class SchedulerConfig:
     """Knobs for admission control, the two caches and batching.
 
     ``memory_budget`` is the device memory admitted queries may pin
-    together; ``max_concurrency`` the number of worker threads (concurrent
-    query pipelines) on the one device.
+    together (on a mesh, over all its cards); ``max_concurrency`` the
+    number of worker threads (concurrent query pipelines).
     """
 
     # total device-memory budget admitted queries may collectively pin
@@ -443,9 +451,11 @@ class QueryScheduler:
         # opt out, and the execution mode is the simple one a stacked
         # launch reproduces exactly -- optimized W=1 plan, no feedback
         # store (batched runs harvest no feedback), no spill
+        mesh = self.session.mesh
         if (self.config.batching and batching is not False
                 and optimize is not False and fb is None
-                and handle.spill_plan is None and w == 1):
+                and handle.spill_plan is None and w == 1
+                and (mesh is None or mesh.size == 1)):
             shape = _batch.extract_shape(optimized)
             if shape is not None:
                 handle._batch_shape = shape
@@ -684,7 +694,9 @@ class QueryScheduler:
         sess = self.session
         if handle.num_workers != sess.num_workers:
             # per-query worker-count override: a session clone, so the
-            # context matches the W the plan was optimized for
+            # context matches the W the plan was optimized for (on a mesh
+            # the clone checks that the mesh splits that W, else raises
+            # ValueError into the handle)
             sess = dataclasses.replace(sess, num_workers=handle.num_workers)
         # each context clones the exchange; the store is the one resolved
         # at submit time (None for every batched member)
@@ -739,7 +751,8 @@ class QueryScheduler:
             if handle.spill_plan is not None and ctx.spill is None:
                 # admitted over budget: run under a per-query spill
                 # manager whose device budget is the scheduler's whole
-                # budget (the query charged all of it, so it runs alone)
+                # budget (the query charged all of it, so it runs alone);
+                # each partition it spills comes back on the card it left
                 from .spill import SpillManager
                 ctx = dataclasses.replace(ctx, spill=SpillManager(
                     self.config.memory_budget,

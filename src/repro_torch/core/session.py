@@ -258,11 +258,6 @@ class Catalog:
         return tuple(sorted((n, self.version(n)) for n in names))
 
 
-def _not_on_mesh(what: str):
-    raise NotImplementedError(f"{what} on a mesh is not ported yet: the next "
-                              "slice of ROADMAP.md, Queue A")
-
-
 @dataclasses.dataclass(frozen=True)
 class ExecutionOptions:
     """Per-query options for the serving entry points
@@ -300,9 +295,12 @@ class Session:
     ``ICIExchange(mesh=mesh)``; ``HostExchange()`` stages through host
     memory). With ``mesh`` (a ``launch.mesh.EngineMesh``) worker w runs on
     ``mesh.device_of(w, num_workers)``; ``device`` is then the mesh's first
-    device (``None`` means that device; any other raises), and the
-    serving entry points, ``device_budget`` and ``feedback`` raise
-    ``NotImplementedError``. Plan a query for the same worker count::
+    device (``None`` means that device; any other raises). Every entry
+    point runs on the mesh: ``execute``, ``collect`` and ``sql``, the
+    serving entry points, ``device_budget`` (one budget for the query over
+    all cards; a spilled partition comes back on the card it left) and
+    ``feedback``. A worker count the mesh cannot split raises
+    ``ValueError``. Plan a query for the same worker count::
 
         session = Session(catalog, num_workers=4, exchange=HostExchange())
         out = session.execute(queries.build_query(5, catalog, num_workers=4))
@@ -335,8 +333,9 @@ class Session:
     # ``executor_stats()["conversions"]``
     host_only_ops: frozenset = frozenset()
     # tiered-memory spill (core.spill): a device-memory budget in bytes
-    # turns on out-of-core execution -- every query gets a SpillManager on
-    # the session's device, and the memory-hungry operators degrade through
+    # turns on out-of-core execution -- every query gets a SpillManager
+    # (on a mesh one budget over all its cards, each partition restored
+    # to the card it left), and the memory-hungry operators degrade through
     # pinned host buffers and paged disk files instead of exceeding the
     # budget. None = in-memory only.
     device_budget: Optional[int] = None
@@ -368,10 +367,6 @@ class Session:
                                  f"mesh's first device {first}")
             self.device = first
             self.mesh.check(self.num_workers)
-            if self.device_budget is not None:
-                _not_on_mesh("device_budget (out-of-core execution)")
-            if self.feedback is not None and self.feedback is not False:
-                _not_on_mesh("feedback (adaptive execution)")
         self.device = resolve_device(self.device)
         self.last_driver: Optional[Driver] = None
 
@@ -413,8 +408,8 @@ class Session:
     def _with_options(self, options: Optional[ExecutionOptions]
                       ) -> "Session":
         """This session with a query's overrides applied (the direct path
-        of ``QueryBuilder.collect``): the worker count and the feedback
-        store."""
+        of ``execute`` and ``QueryBuilder.collect``): the worker count and
+        the feedback store."""
         if options is None:
             return self
         repl = {}
@@ -526,9 +521,19 @@ class Session:
                     f"spills={t['spills']} restores={t['restores']}")
         return text + "\n" + "\n".join(lines)
 
-    def execute(self, plan: PlanNode) -> Dict[str, np.ndarray]:
-        """Execute one plan; returns name -> numpy column of valid rows."""
-        driver = Driver(self.context())
+    def execute(self, plan: PlanNode,
+                options: Optional[ExecutionOptions] = None
+                ) -> Dict[str, np.ndarray]:
+        """Execute one plan on this thread; returns name -> numpy column of
+        valid rows. The direct path: no admission control, no caches.
+        ``options`` applies the per-query ``num_workers`` and ``feedback``
+        overrides (``priority`` means nothing here, and ``optimize`` is
+        the caller's: the plan runs as given)::
+
+            out = session.execute(plan, options=ExecutionOptions(
+                num_workers=2))             # a plan built for two workers
+        """
+        driver = Driver(self._with_options(options).context())
         self.last_driver = driver
         return driver.collect(plan)
 
@@ -555,8 +560,6 @@ class Session:
         Configure with ``session.scheduler_config = SchedulerConfig(...)``
         before the first call; later assignments need ``reset_scheduler``.
         """
-        if self.mesh is not None:
-            _not_on_mesh("the scheduler (submit, run, gather)")
         sched = getattr(self, "_scheduler", None)
         if sched is None:
             with Session._scheduler_lock:

@@ -19,11 +19,19 @@ device -> pinned host -> paged disk.
 
 On a CUDA device the host tier holds pinned tensors from torch's caching
 host allocator: ``spill_table`` copies device to host asynchronously on the
-current stream and records an event, and ``restore`` copies back to the
-manager's device asynchronously on the current stream. A host buffer is
-read on the host (the disk tier, ``restore_host``) only after its event,
-and its bytes go back to the budget only once the copy that reads it has
-completed (``HostMemoryBudget.release_after``).
+source card's current stream and records an event there, and ``restore``
+copies each partition back to the card it left, asynchronously on that
+card's current stream after that event. A host buffer is read on the host
+(the disk tier, ``restore_host``) only after its events, and its bytes go
+back to the budget only once every copy that reads it has completed
+(``HostMemoryBudget.release_after``).
+
+A partition remembers the device of each worker table it holds. A step of
+W worker tables (``spill_step``, the grace join's partitions) is one
+``[W, cap]`` partition stacked on the host, whatever cards its tables lie
+on, and ``restore_step`` gives worker w's table back on worker w's card;
+at W = 1 it is the worker's own table. The bytes and the disk layout are
+those of the reference's stacked partition, on a mesh or off it.
 
 Spilled partitions round-trip **bit-exactly**: integer columns are stored
 through the paged format's plain-encoded byte pages (its delta encoding is
@@ -112,11 +120,12 @@ class HostMemoryBudget:
     when nothing is held, so a single morsel or partition larger than the
     whole budget still flows.
 
-    ``release_after(event, nbytes)`` returns bytes whose buffer an
-    asynchronous device copy still reads: they count as held until the
-    event has completed. Every decision and every reading of ``in_use``
-    first waits for those copies, so the accounting is the reference's,
-    whatever the card's progress.
+    ``release_after(events, nbytes)`` returns bytes whose buffer
+    asynchronous device copies still read: they count as held until the
+    event (or each event of a sequence, one a card) has completed. Every
+    decision and every reading of ``in_use`` first waits for those
+    copies, so the accounting is the reference's, whatever the card's
+    progress.
     """
 
     def __init__(self, max_bytes: int):
@@ -134,8 +143,9 @@ class HostMemoryBudget:
         (held lock)."""
         if not self._pending:
             return
-        for event, nbytes in self._pending:
-            event.synchronize()
+        for events, nbytes in self._pending:
+            for event in events:
+                event.synchronize()
             self._in_use = max(0, self._in_use - nbytes)
         self._pending.clear()
         self._cond.notify_all()
@@ -186,15 +196,17 @@ class HostMemoryBudget:
             self._in_use = max(0, self._in_use - nbytes)
             self._cond.notify_all()
 
-    def release_after(self, event, nbytes: int) -> None:
-        """Return ``nbytes`` once ``event`` (a ``torch.cuda.Event`` after
-        the copy that reads the buffer) has completed; ``None`` releases
-        now."""
-        if event is None:
+    def release_after(self, events, nbytes: int) -> None:
+        """Return ``nbytes`` once ``events`` (a ``torch.cuda.Event`` after
+        the copy that reads the buffer, or a sequence of them, one a card)
+        have completed; ``None`` or an empty sequence releases now."""
+        if events is not None and not isinstance(events, (list, tuple)):
+            events = (events,)
+        if not events:
             self.release(nbytes)
             return
         with self._cond:
-            self._pending.append((event, nbytes))
+            self._pending.append((tuple(events), nbytes))
 
 
 # ---------------------------------------------------------------------------
@@ -205,19 +217,25 @@ class HostMemoryBudget:
 class _HostPartition:
     """One spilled partition resident in the host tier: CPU tensors
     (pinned when they came from a CUDA device), validity included, shapes
-    preserved, and the event after the copy that filled them (None when
-    they were filled on the host)."""
+    preserved; the device each worker table came from (one for a table,
+    W for a stacked step's ``[W, cap]`` tensors) and, per source card, the
+    event after the copies that filled them (none when they were filled
+    on the host)."""
 
     columns: Dict[str, torch.Tensor]
     validity: torch.Tensor
     schema: Dict[str, dt.DType]
     nbytes: int
-    ready: Optional[object] = None
+    devices: Tuple[torch.device, ...]
+    stacked: bool = False
+    ready: Dict[torch.device, object] = dataclasses.field(
+        default_factory=dict)
 
     def numpy(self) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
-        """The host arrays, after the copy that filled them has completed."""
-        if self.ready is not None:
-            self.ready.synchronize()
+        """The host arrays, after the copies that filled them have
+        completed."""
+        for event in self.ready.values():
+            event.synchronize()
         return ({n: a.numpy() for n, a in self.columns.items()},
                 self.validity.numpy())
 
@@ -233,6 +251,8 @@ class _DiskPartition:
     layout: Dict[str, tuple]        # name -> (shape, numpy dtype str)
     schema: Dict[str, dt.DType]
     nbytes: int
+    devices: Tuple[torch.device, ...]
+    stacked: bool
 
 
 # physical float/bool dtypes the paged format plain-encodes as-is
@@ -295,6 +315,37 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.require(a, requirements=("C", "W")))
 
 
+def _to_host(step: List[TorchTable]):
+    """The host copy of a step's tables, stacked ``[W, cap]`` when W > 1:
+    (name -> tensor with the validity under ``None``, per source card the
+    event after its copies). From CUDA devices each table is copied
+    asynchronously into its row of pinned tensors on its own card's
+    current stream; no tensor crosses from one card to another."""
+    tensors = []
+    for t in step:
+        tensors.append(dict(t.columns))
+        tensors[-1][None] = t.validity
+    stacked = len(step) > 1
+    if not step[0].validity.is_cuda:
+        if stacked:
+            return ({n: torch.stack([t[n] for t in tensors])
+                     for n in tensors[0]}, {})
+        return {n: a.clone() for n, a in tensors[0].items()}, {}
+    lead = (len(step),) if stacked else ()
+    host = {n: torch.empty(lead + tuple(a.shape), dtype=a.dtype,
+                           pin_memory=True)
+            for n, a in tensors[0].items()}
+    for i, t in enumerate(tensors):
+        for n, a in t.items():
+            (host[n][i] if stacked else host[n]).copy_(a, non_blocking=True)
+    ready = {}
+    for dev in dict.fromkeys(t.device for t in step):
+        # after every copy from this card, each queued on its stream
+        ready[dev] = torch.cuda.Event()
+        ready[dev].record(torch.cuda.current_stream(dev))
+    return host, ready
+
+
 # ---------------------------------------------------------------------------
 # SpillManager
 # ---------------------------------------------------------------------------
@@ -308,9 +359,12 @@ class SpillManager:
     * ``spill_table``/``put_host`` move a partition out of device memory
       into the host store, cascading largest-first victims to paged disk
       files when the host budget fills.
-    * ``restore`` brings a partition back as a ``TorchTable`` on
-      ``device`` (and drops it from the store); ``restore_host`` returns
-      the host arrays.
+    * ``restore`` brings a partition back as a ``TorchTable`` on the
+      device it left (and drops it from the store), ``restore_step`` a
+      step's W worker tables each on its own device; ``restore_host``
+      returns the host arrays.
+
+    The device budget is the query's, over all its workers and cards.
 
     One manager serves one query; ``close()`` removes its spill directory.
     """
@@ -388,35 +442,37 @@ class SpillManager:
     def spill_table(self, key, table: TorchTable) -> int:
         """Move a device table into the spill hierarchy; returns the bytes
         that left the device tier. From a CUDA device the columns are
-        copied into pinned host tensors on the current stream."""
-        tensors = dict(table.columns)
-        tensors[None] = table.validity
-        ready = None
-        if table.validity.is_cuda:
-            host = {}
-            for n, a in tensors.items():
-                buf = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                buf.copy_(a, non_blocking=True)
-                host[n] = buf
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(table.validity.device))
-        else:
-            host = {n: a.clone() for n, a in tensors.items()}
+        copied into pinned host tensors on the current stream;
+        ``restore`` puts the table back on the device it left."""
+        return self.spill_step(key, [table])
+
+    def spill_step(self, key, step: List[TorchTable]) -> int:
+        """Move a step of W worker tables (of one schema and capacity, on
+        any devices) into the spill hierarchy as one partition: ``[W, cap]``
+        tensors stacked on the host, or the worker's own table at W = 1.
+        Returns the bytes that left the device tier; ``restore_step``
+        gives each table back on the device it left."""
+        host, ready = _to_host(step)
         validity = host.pop(None)
-        return self._put(key, host, validity, table.schema, ready)
+        return self._put(key, host, validity, step[0].schema,
+                         tuple(t.device for t in step), len(step) > 1, ready)
 
     def put_host(self, key, columns: Dict[str, object],
                  validity, schema: Dict[str, dt.DType]) -> int:
         """Insert host arrays (numpy arrays or CPU tensors) as a spilled
-        partition under ``key``."""
+        partition under ``key``; ``restore`` puts it on this manager's
+        device."""
         cols = {n: _host_tensor(a) for n, a in columns.items()}
-        return self._put(key, cols, _host_tensor(validity), schema, None)
+        return self._put(key, cols, _host_tensor(validity), schema,
+                         (self.device,), False, {})
 
-    def _put(self, key, columns, validity, schema, ready) -> int:
+    def _put(self, key, columns, validity, schema, devices, stacked,
+             ready) -> int:
         nbytes = int(validity.numel() * validity.element_size()
                      + sum(a.numel() * a.element_size()
                            for a in columns.values()))
-        part = _HostPartition(columns, validity, dict(schema), nbytes, ready)
+        part = _HostPartition(columns, validity, dict(schema), nbytes,
+                              devices, stacked, ready)
         with self._lock:
             assert key not in self._host_store and key not in self._disk_store, \
                 f"duplicate spill key {key!r}"
@@ -470,21 +526,23 @@ class SpillManager:
                                                    part.schema)
         write_paged_table(root, name, data, disk_schema, row_groups=1)
         self._disk_store[key] = _DiskPartition(root, name, layout,
-                                               part.schema, part.nbytes)
+                                               part.schema, part.nbytes,
+                                               part.devices, part.stacked)
         self._disk_in_use += part.nbytes
         self.stats.disk.spilled_bytes += part.nbytes
         self.stats.disk.spills += 1
 
-    def _pop(self, key):
-        """Remove ``key`` from whichever tier holds it: the host partition
-        (its bytes still held against the budget), or the disk partition's
-        arrays read back."""
+    def _pop(self, key) -> Tuple[_HostPartition, bool]:
+        """Remove ``key`` from whichever tier holds it: (the partition,
+        whether its bytes are still held against the host budget). A disk
+        partition is read back into (unpinned) host tensors, held by
+        nothing."""
         with self._lock:
             if key in self._host_store:
                 part = self._host_store.pop(key)
                 self.stats.host.restored_bytes += part.nbytes
                 self.stats.host.restores += 1
-                return part
+                return part, True
             entry = self._disk_store.pop(key)
             self._disk_in_use -= entry.nbytes
         from ..storage.paged import PagedTable
@@ -499,45 +557,65 @@ class SpillManager:
             os.remove(os.path.join(entry.path_root, f"{entry.file_name}.paged"))
         except OSError:
             pass
-        return columns, validity, entry.schema
+        part = _HostPartition({n: _host_tensor(a) for n, a in columns.items()},
+                              _host_tensor(validity), entry.schema,
+                              entry.nbytes, entry.devices, entry.stacked)
+        return part, False
 
     def restore_host(self, key) -> Tuple[Dict[str, np.ndarray], np.ndarray,
                                          Dict[str, dt.DType]]:
         """Pop a spilled partition back to host arrays (columns, validity,
         schema), reading it from whichever tier holds it."""
-        got = self._pop(key)
-        if isinstance(got, _HostPartition):
-            columns, validity = got.numpy()
-            self.host.release(got.nbytes)
-            return columns, validity, got.schema
-        return got
+        part, held = self._pop(key)
+        columns, validity = part.numpy()
+        if held:
+            self.host.release(part.nbytes)
+        return columns, validity, part.schema
 
     def restore(self, key) -> TorchTable:
-        """Pop a spilled partition back into device memory, on this
-        manager's device. From the host tier the copy is asynchronous on
-        the current stream; the partition's host bytes return to the budget
-        once it has completed."""
-        got = self._pop(key)
-        dev = self.device
-        if not isinstance(got, _HostPartition):
-            columns, validity, schema = got
-            cols = {n: _host_tensor(a).to(dev) for n, a in columns.items()}
-            return TorchTable(cols, _host_tensor(validity).to(dev),
-                              dict(schema))
-        if dev.type != "cuda":
-            self.host.release(got.nbytes)
-            return TorchTable(dict(got.columns), got.validity,
-                              dict(got.schema))
-        stream = torch.cuda.current_stream(dev)
-        if got.ready is not None:
-            stream.wait_event(got.ready)
-        cols = {n: a.to(dev, non_blocking=True)
-                for n, a in got.columns.items()}
-        validity = got.validity.to(dev, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-        self.host.release_after(done, got.nbytes)
-        return TorchTable(cols, validity, dict(got.schema))
+        """Pop a spilled table back into device memory, on the device it
+        left (a ``put_host`` partition: this manager's device). From the
+        host tier the copy is asynchronous on that card's current stream;
+        the partition's host bytes return to the budget once it has
+        completed."""
+        tables = self._place(*self._pop(key))
+        assert len(tables) == 1, f"{key!r} holds a step: use restore_step"
+        return tables[0]
+
+    def restore_step(self, key) -> List[TorchTable]:
+        """Pop a partition of ``spill_step`` back as its W worker tables,
+        each on the device it left: views of the host tensors for a CPU
+        worker, an asynchronous copy on each card's current stream for a
+        CUDA one (after that card's spill event); the host bytes return to
+        the budget once every card's copies have completed."""
+        return self._place(*self._pop(key))
+
+    def _place(self, part: _HostPartition, held: bool) -> List[TorchTable]:
+        if part.stacked:
+            rows = [({n: a[i] for n, a in part.columns.items()},
+                     part.validity[i]) for i in range(len(part.devices))]
+        else:
+            rows = [(part.columns, part.validity)]
+        out, done = [], {}
+        for (columns, validity), dev in zip(rows, part.devices):
+            if dev.type != "cuda":
+                out.append(TorchTable(dict(columns), validity,
+                                      dict(part.schema)))
+                continue
+            stream = torch.cuda.current_stream(dev)
+            if dev not in done and dev in part.ready:
+                stream.wait_event(part.ready[dev])
+            done[dev] = stream
+            out.append(TorchTable(
+                {n: a.to(dev, non_blocking=held) for n, a in columns.items()},
+                validity.to(dev, non_blocking=held), dict(part.schema)))
+        if held:
+            events = []
+            for stream in done.values():
+                events.append(torch.cuda.Event())
+                events[-1].record(stream)
+            self.host.release_after(events, part.nbytes)
+        return out
 
     def has(self, key) -> bool:
         """True if ``key`` is resident in the host or disk tier."""
@@ -563,7 +641,8 @@ class SpillManager:
         with self._lock:
             part = self._host_store.pop(key, None)
             if part is not None:
-                self.host.release_after(part.ready, part.nbytes)
+                self.host.release_after(list(part.ready.values()),
+                                        part.nbytes)
                 return
             entry = self._disk_store.pop(key, None)
             if entry is None:
@@ -589,7 +668,8 @@ class SpillManager:
         self.host.pressure = None
         with self._lock:
             for part in self._host_store.values():
-                self.host.release_after(part.ready, part.nbytes)
+                self.host.release_after(list(part.ready.values()),
+                                        part.nbytes)
             self._host_store.clear()
             for entry in self._disk_store.values():
                 try:

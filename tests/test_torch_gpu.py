@@ -1371,3 +1371,157 @@ def test_feedback_cold_warm_on_card_matches_cpu(cuda, q):
     assert got[3] == want[3]
     for g, w in zip(got[:2], want[:2]):
         assert_results_match(g, w, q)
+
+
+# ---------------------------------------------------------------------------
+# serving, out of core and adaptive execution on a mesh of cards
+# ---------------------------------------------------------------------------
+
+_MESH_BUDGET = 64 * 1024
+
+
+def _mesh_of(*indices):
+    return EngineMesh([torch.device("cuda", i) for i in indices])
+
+
+def _cpu_mesh_session(catalog, w, **kw):
+    return Session(catalog, device="cpu", num_workers=w,
+                   mesh=EngineMesh([torch.device("cpu")]), **kw)
+
+
+def test_serving_on_a_one_card_mesh_matches_off_mesh(cuda):
+    """``submit``/``gather`` at W = 4 on ``EngineMesh([cuda:0])`` equal
+    the same plans' ``execute`` off the mesh, every worker on the card;
+    batched W = 1 serving on the mesh equals solo execution."""
+    from repro_torch import SchedulerConfig
+    from repro_torch.core.builder import QueryBuilder
+    from repro_torch.core.expr import col
+    catalog = dbgen.load_catalog(sf=0.01)
+    plans = {q: queries.build_query(q, catalog, num_workers=4)
+             for q in (3, 5, 18)}
+    off = Session(catalog, num_workers=4)
+    on = Session(catalog, num_workers=4, mesh=_mesh_of(0))
+    try:
+        handles = [on.submit(p) for p in plans.values()]
+        got = on.gather(*handles)
+    finally:
+        on.scheduler().close()
+    for (q, plan), g, h in zip(plans.items(), got, handles):
+        assert_results_match(g, off.execute(plan), q)
+        assert h.executor_stats["worker_devices"] == ["cuda:0"] * 4
+    builders = [QueryBuilder.scan(catalog, "lineitem")
+                .filter(col("l_quantity") < float(2 + i))
+                .agg(n=("count", None)) for i in range(16)]
+    solo = Session(catalog)
+    one = Session(catalog, mesh=_mesh_of(0))
+    one.scheduler_config = SchedulerConfig(batching=True,
+                                           batch_window_ms=100.0,
+                                           cache_results=False)
+    try:
+        handles = [one.submit(b) for b in builders]
+        got = one.gather(*handles)
+        stats = one.scheduler().stats()
+    finally:
+        one.scheduler().close()
+    assert stats["batches"] >= 1 and stats["batch_fallbacks"] == 0
+    for b, g in zip(builders, got):
+        assert_results_match(g, solo.execute(b.optimized()), 1)
+
+
+@pytest.mark.parametrize("q", [3, 5, 18])
+def test_spill_on_a_one_card_mesh_matches_cpu(cuda, q):
+    """Under a 64 KiB budget at W = 4 on ``EngineMesh([cuda:0])``: the
+    CPU mesh's answer and spill counters."""
+    catalog = dbgen.load_catalog(sf=0.01)
+    plan = queries.build_query(q, catalog, num_workers=4)
+    on = Session(catalog, num_workers=4, mesh=_mesh_of(0),
+                 device_budget=_MESH_BUDGET)
+    cpu = _cpu_mesh_session(catalog, 4, device_budget=_MESH_BUDGET)
+    assert_results_match(on.execute(plan), cpu.execute(plan), q)
+    got = on.executor_stats()["spill"]
+    assert got == cpu.executor_stats()["spill"] and got["spilled_bytes"]
+
+
+@pytest.mark.parametrize("q", [3, 18])
+def test_feedback_on_a_one_card_mesh_matches_cpu(cuda, q):
+    """Cold then warm at W = 4 on ``EngineMesh([cuda:0])``: the CPU
+    mesh's answers, warm plans and store entries."""
+    from repro_torch.core import plan as port_plan
+    catalog = dbgen.load_catalog(sf=0.01)
+    raw = queries.build_query(q, catalog, optimized=False)
+
+    def run(session):
+        session.execute(session.optimize(raw))
+        warm_plan = session.optimize(raw)
+        warm = session.execute(warm_plan)
+        entries = {k: (e.rows, e.estimated, e.max_matches, e.skip_fraction)
+                   for k, e in session.feedback_store()._entries.items()}
+        return warm, port_plan.fingerprint(warm_plan), entries
+
+    got = run(Session(catalog, num_workers=4, mesh=_mesh_of(0),
+                      feedback=True))
+    want = run(_cpu_mesh_session(catalog, 4, feedback=True))
+    assert got[1:] == want[1:]
+    assert_results_match(got[0], want[0], q)
+
+
+@pytest.mark.parametrize("q", [3, 5, 18])
+def test_spill_and_feedback_on_two_cards(cuda, q, monkeypatch):
+    """W = 4 on ``EngineMesh([cuda:0, cuda:1])`` under a 64 KiB budget:
+    every restored partition back on the card it left, the one-card
+    mesh's answer and spill counters; cold then warm, the one-card mesh's
+    store."""
+    _cards(2)
+    from repro_torch.core.spill import SpillManager
+    catalog = dbgen.load_catalog(sf=0.01)
+    plan = queries.build_query(q, catalog, num_workers=4)
+    places = []
+    place = SpillManager._place
+
+    def kept(self, part, held):
+        out = place(self, part, held)
+        places.append((list(part.devices), [t.device for t in out]))
+        return out
+
+    monkeypatch.setattr(SpillManager, "_place", kept)
+    two = Session(catalog, num_workers=4, mesh=_mesh_of(0, 1),
+                  device_budget=_MESH_BUDGET)
+    one = Session(catalog, num_workers=4, mesh=_mesh_of(0),
+                  device_budget=_MESH_BUDGET)
+    got = two.execute(plan)
+    assert places and all(a == b for a, b in places)
+    assert {d for a, _ in places for d in a} == {torch.device("cuda", 0),
+                                                 torch.device("cuda", 1)}
+    assert_results_match(got, one.execute(plan), q)
+    assert two.executor_stats()["spill"] == one.executor_stats()["spill"]
+    raw = queries.build_query(q, catalog, optimized=False)
+    stores = []
+    for mesh in (_mesh_of(0, 1), _mesh_of(0)):
+        session = Session(catalog, num_workers=4, mesh=mesh, feedback=True)
+        session.execute(session.optimize(raw))
+        session.execute(session.optimize(raw))
+        stores.append({k: (e.rows, e.max_matches)
+                       for k, e in session.feedback_store()._entries.items()})
+    assert stores[0] == stores[1]
+
+
+def test_grace_histogram_launches_once_a_card(cuda):
+    """``_grace_pids`` over a step of four workers on two cards: one
+    standalone histogram launch a card, on that card, and the counts and
+    pids of the same rows on one card."""
+    _cards(2)
+    from repro_torch.core import operators as port_ops
+    rng = np.random.default_rng(11)
+    schema = {"k": port_dtypes.INT32}
+    keys = [{"k": rng.integers(-999, 999, 70_001).astype(np.int32)}
+            for _ in range(4)]
+    one = [TorchTable.from_numpy(k, schema, device="cuda:0") for k in keys]
+    two = [TorchTable.from_numpy(k, schema, device=f"cuda:{w // 2}")
+           for w, k in enumerate(keys)]
+    want_pids, want = port_ops._grace_pids(one, ("k",), 16)
+    ops.reset_launch_counts()
+    pids, counts = port_ops._grace_pids(two, ("k",), 16)
+    assert ops.launch_counts()["radix_histogram"] == 2
+    assert torch.equal(counts.cpu(), want.cpu())
+    for w, (a, b) in enumerate(zip(pids, want_pids)):
+        assert a.device == two[w].device and torch.equal(a.cpu(), b.cpu())

@@ -341,20 +341,30 @@ def test_mesh_session_sql_collect_and_explain(data):
 
 
 def test_mesh_session_refuses_what_is_not_ported(data):
+    # once refused on a mesh, now ported: the serving entry points,
+    # ``device_budget`` and ``feedback`` run on a mesh session and give
+    # the oracle's answer
     catalog = port_catalog(data)
     session = _mesh_session(catalog)
     plan = queries.build_query(6, catalog, num_workers=4)
-    for call in (lambda: session.submit(plan), lambda: session.run(plan),
-                 lambda: session.gather(), session.scheduler):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
-    with pytest.raises(NotImplementedError, match="device_budget"):
-        _mesh_session(catalog, device_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="feedback"):
-        _mesh_session(catalog, feedback=True)
-    with pytest.raises(NotImplementedError, match="feedback"):
-        session.table("nation").collect(
-            options=ExecutionOptions(feedback=True))
+    want = oracle.ORACLES[6](data)
+    try:
+        assert session.scheduler() is session.scheduler()
+        assert session.gather() == []
+        for got in (session.submit(plan).result(), session.run(plan),
+                    *session.gather(session.submit(plan))):
+            assert_results_match(got, want, 6)
+    finally:
+        session.scheduler().close()
+    spilling = _mesh_session(catalog, device_budget=1 << 20)
+    assert_results_match(spilling.execute(plan), want, 6)
+    assert spilling.last_driver.ctx.spill is not None
+    adaptive = _mesh_session(catalog, feedback=True)
+    assert_results_match(adaptive.execute(plan), want, 6)
+    assert len(adaptive.feedback_store()) > 0
+    got = session.table("nation").collect(
+        options=ExecutionOptions(feedback=True))
+    assert len(got["n_nationkey"]) == 25
 
 
 def test_mesh_session_device_and_worker_split():

@@ -695,47 +695,64 @@ def run_ref_dist(qnums, num_workers: int, proto: str = "ici",
     return runs
 
 
-def run_port_mesh(qnums, data, num_workers: int, proto: str = "ici"):
-    """Each query's ``build_query(q, catalog, num_workers=W)`` plan through
-    ``Session(device="cpu", num_workers=W, mesh=EngineMesh([cpu]))`` (the
-    staged on-mesh exchange) -> ``{q: (plan, result, stats)}``."""
+def port_mesh_session(catalog, num_workers: int, devices: int = 1,
+                      **kw):
+    """The port's mesh session on the CPU: ``Session(device="cpu",
+    num_workers=W, mesh=EngineMesh([cpu] * devices))`` at
+    ``TPCH_BATCH_ROWS``, with ``kw`` (``device_budget=``, ``feedback=``,
+    ``exchange=``, ...)."""
     import torch
 
-    from repro_torch import HostExchange
     from repro_torch.core.session import Session
     from repro_torch.launch.mesh import EngineMesh
+    kw.setdefault("batch_rows", TPCH_BATCH_ROWS)
+    return Session(catalog, device="cpu", num_workers=num_workers,
+                   mesh=EngineMesh([torch.device("cpu")] * devices), **kw)
+
+
+def ref_mesh_session(catalog, num_workers: int, backend: str = "jnp", **kw):
+    """The reference's session on a one-device mesh (``make_engine_mesh(1)``,
+    ``ICIExchange(mesh=...)``) under ``backend`` at ``TPCH_BATCH_ROWS``,
+    with ``kw``."""
+    from repro.core import ICIExchange
+    from repro.core.session import Session as RefSession
+    from repro.launch.mesh import make_engine_mesh
+    mesh = make_engine_mesh(1)
+    kw.setdefault("batch_rows", TPCH_BATCH_ROWS)
+    return RefSession(catalog, num_workers=num_workers, mesh=mesh,
+                      exchange=ICIExchange(mesh=mesh), kernel_backend=backend,
+                      **kw)
+
+
+def run_port_mesh(qnums, data, num_workers: int, proto: str = "ici", **kw):
+    """Each query's ``build_query(q, catalog, num_workers=W)`` plan through
+    ``port_mesh_session`` (the staged on-mesh exchange; ``kw`` to the
+    session) -> ``{q: (plan, result, stats)}``."""
+    from repro_torch import HostExchange
     from repro_torch.tpch import queries
     catalog = port_catalog(data)
-    mesh = EngineMesh([torch.device("cpu")])
     runs = {}
     for q in qnums:
         plan = queries.build_query(q, catalog, num_workers=num_workers)
-        session = Session(catalog, batch_rows=TPCH_BATCH_ROWS, device="cpu",
-                          num_workers=num_workers, mesh=mesh,
-                          exchange=None if proto == "ici" else HostExchange())
+        session = port_mesh_session(
+            catalog, num_workers,
+            exchange=None if proto == "ici" else HostExchange(), **kw)
         runs[q] = (plan, session.execute(plan), session.executor_stats())
     return runs
 
 
-def run_ref_mesh(qnums, num_workers: int, sf: float = DIST_SF):
+def run_ref_mesh(qnums, num_workers: int, sf: float = DIST_SF, **kw):
     """The reference's distributed plan of each query at ``num_workers`` on
-    a one-device mesh (``make_engine_mesh(1)``, ``ICIExchange(mesh=...)``:
-    the staged layout, the worker-axis transpose, receive-side compaction)
+    a one-device mesh (``ref_mesh_session``: the staged layout, the
+    worker-axis transpose, receive-side compaction; ``kw`` to the session)
     under its ``jnp`` backend -> ``{q: (plan, result, stats)}``."""
-    from repro.core import ICIExchange
-    from repro.core.session import Session as RefSession
-    from repro.launch.mesh import make_engine_mesh
     from repro.tpch import dbgen as ref_dbgen
     from repro.tpch import queries as ref_queries
     catalog = ref_dbgen.load_catalog(sf=sf)
-    mesh = make_engine_mesh(1)
     runs = {}
     for q in qnums:
         plan = ref_queries.build_query(q, catalog, num_workers=num_workers)
-        session = RefSession(catalog, batch_rows=TPCH_BATCH_ROWS,
-                             num_workers=num_workers, mesh=mesh,
-                             exchange=ICIExchange(mesh=mesh),
-                             kernel_backend="jnp")
+        session = ref_mesh_session(catalog, num_workers, **kw)
         runs[q] = (plan, session.execute(plan), session.executor_stats())
     return runs
 
