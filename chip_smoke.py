@@ -330,6 +330,40 @@ In order it:
    timed, and the bound is operations at the card's dense bfloat16 rate,
    or in float32 three times the operations at its TF32 rate (3xTF32),
    with the FFMA bound printed beside it;
+9b. the LM side, last of all the phases, after phase 10 and every profile
+   (a profile taken after it lost one kernel event of ten; ``--lm`` runs
+   it alone after the build and prints its kernels line and the card
+   line, and no ok line): ``repro_torch.models``
+   at qwen2-1.5B's full ``CONFIG`` (28 layers, d_model 1536, vocab
+   151,936; bfloat16 weights drawn on the card from a ``torch.Generator``
+   seeded ``_LM_SEED``). (a) prefill of 8 prompts of 512 tokens with
+   ``max_len`` 1024 and 64 greedy decode steps, after one warm-up at the
+   same shapes and one prefill and decode step under torch's sync debug
+   mode (which must report no host sync), with the launch counters set to
+   0 just before the prefill and read just after it: ``flash_attention`` must launch once a layer
+   and nothing else; every logit finite; the prefill's ms, the ms a decode
+   step, tokens/s and ``torch.cuda.max_memory_allocated``. (b) ``forward``
+   over each prompt and its first 64 generated tokens, at full depth: the
+   prefill's logits and each decode step's equal its logits at that
+   position within ``_LM_TOL`` (max |diff| <= atol + rtol * |forward|),
+   the greedy tokens equal wherever forward's top two are further apart.
+   (c) the card against the port on the CPU at full width and 2 layers,
+   one set of weights made on the CPU and copied to the card: B 2, prompts
+   of 128 and 200 tokens (200 pads the attention to 256 rows), 8 decode
+   steps fed the CPU's greedy tokens; logits within ``_LM_CPU_TOL``, each
+   K/V cache entry within it times its head row's largest |entry|. (d) the
+   first ``flash_attention`` call of (a)'s prefill, captured, against
+   ``flash_attention_plain``: ``scaled_error`` within
+   ``SCALED_ERROR_TOL``; then the kernel, the plain version and
+   ``scaled_dot_product_attention`` timed at that shape ([8, 12, 512,
+   128] bfloat16, causal) beside the bound: the
+   ``flash_attention[lm qwen2_1_5b prefill]`` row of the kernels line, its
+   launches those of (a)'s prefill. (e) prefill of 2 prompts of 512 and 4
+   decode steps for phi4-mini, granite-3-8B, granite-34B and pixtral-12B
+   (through ``embeds``, d_head 160) at full width and 2 layers: two
+   launches a prefill, finite logits, the prefill and the decode steps
+   against ``forward`` within ``_LM_TOL`` (pixtral's prefill only: its
+   prompt is embeddings);
 10. the main path's shapes: every captured standalone probe (W = 1 and
    W = 4) once in one profile, a line each (keys, slots, max_probes, hit
    rate, whether the table fits the L2, bound, device µs) and the sums;
@@ -500,6 +534,22 @@ _ATTN_CASES = (
     ("d192 bf16", (1, 2, 1024, 192), "bfloat16", True, 2e-2, _SPLIT),
 )
 _ATTN_SEED = 2024
+# phase 9b: the LM side at qwen2-1.5B's full CONFIG
+# (src/repro/configs/qwen2_1_5b.py), its weights' seed, the batch of
+# prompts, their length, the caches' max_len and the greedy decode steps;
+# the CPU comparison's prompt lengths (200 pads the attention to 256 rows)
+# and the other dense CONFIGs run at full width and 2 layers
+_LM_ARCH = "qwen2_1_5b"
+_LM_SEED = 29
+_LM_BATCH, _LM_PROMPT, _LM_MAX_LEN, _LM_STEPS = 8, 512, 1024, 64
+_LM_CPU_PROMPTS = (128, 200)
+_LM_OTHERS = ("phi4_mini_3_8b", "granite_3_8b", "granite_34b", "pixtral_12b")
+# (atol, rtol) on bfloat16 logits (~N(0, 0.8) at qwen2's width): decode
+# and prefill against forward on the card (b, e), and the card against the
+# CPU (c); about twice the largest max |diff| read on the card (PERF.md:
+# 0.090 in (b) at 28 layers, 0.074 in (e), 0.051 in (c))
+_LM_TOL = (0.2, 0.02)
+_LM_CPU_TOL = (0.1, 0.02)
 
 
 def fail(msg: str) -> None:
@@ -5869,6 +5919,319 @@ def _kernels_seen(torch, fn, names):
 
 
 # ---------------------------------------------------------------------------
+# phase 9b: the LM side, qwen2-1.5B's dense serving path
+# ---------------------------------------------------------------------------
+
+def _lm_batch(torch, cfg, b, s, seed, device):
+    """B prompts of ``s`` tokens drawn with numpy from ``seed`` (patch
+    embeddings for a frontend-stub config), on ``device``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if cfg.embed_frontend_stub:
+        e = rng.standard_normal((b, s, cfg.d_model), dtype=np.float32)
+        return {"embeds": torch.from_numpy(e).to(device, torch.bfloat16)}
+    tok = rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+    return {"tokens": torch.from_numpy(tok).to(device)}
+
+
+def _lm_model(torch, mods, cfg, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    return mods.build_model(cfg, device=device, generator=gen)
+
+
+def _lm_serve(torch, model, batch, max_len, steps, feed=None):
+    """Prefill then ``steps`` decode steps, each fed the greedy token of
+    the step before (or ``feed[:, t]``): (the prefill's and each step's
+    logits [B, 1, V], the tokens fed [B, steps], the caches after the
+    prefill (copies), the prefill's seconds, the decode's seconds). The
+    clocks are the host's around work that ends in a synchronize."""
+    s = next(iter(batch.values())).shape[1]
+    sync = (torch.cuda.synchronize if model.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(batch, max_len)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    first = [c._replace(k=c.k.clone(), v=c.v.clone()) for c in caches]
+    outs, fed = [logits], []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        tok = (logits[:, -1].argmax(-1).to(torch.int32) if feed is None
+               else feed[:, t])
+        fed.append(tok)
+        logits, caches = model.decode_step(tok[:, None], caches, s + t)
+        outs.append(logits)
+    sync()
+    t_decode = time.perf_counter() - t0
+    return outs, torch.stack(fed, dim=1), first, t_prefill, t_decode
+
+
+def _lm_diff(torch, got, want, tol):
+    """(max |got - want|, the largest ratio of |got - want| to atol + rtol *
+    |want|) of two logits tensors, as float32; a NaN reads as inf."""
+    atol, rtol = tol
+    d = (got.float() - want.float()).abs().nan_to_num(nan=math.inf)
+    return float(d.max()), float((d / (atol + rtol * want.float().abs()))
+                                 .nan_to_num(nan=math.inf).max())
+
+
+def _lm_greedy_misses(torch, got, want, tol) -> int:
+    """Rows whose greedy token differs although ``want``'s top two logits
+    are further apart than the tolerance at the top logit."""
+    atol, rtol = tol
+    top2 = want.float().topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > atol + rtol * top2[..., 0].abs()
+    return int(((got.argmax(-1) != want.argmax(-1)) & sure).sum())
+
+
+def _lm_against_forward(torch, model, batch, outs, fed, tol, what, failures):
+    """(b): ``forward`` over the prompt and the fed tokens; the prefill's
+    logits against its position S - 1 and step t's against S + t. A
+    frontend-stub prompt (embeddings) checks the prefill alone."""
+    with torch.inference_mode():
+        if "tokens" in batch:
+            seq = torch.cat([batch["tokens"], fed], dim=1)
+            logits, _ = model.forward({"tokens": seq})
+        else:
+            logits, _ = model.forward(batch)
+            outs = outs[:1]
+    s = next(iter(batch.values())).shape[1]
+    worst = (0.0, 0.0)
+    misses = 0
+    for t, got in enumerate(outs):
+        want = logits[:, s - 1 + t:s + t]
+        err, ratio = _lm_diff(torch, got, want, tol)
+        worst = (max(worst[0], err), max(worst[1], ratio))
+        misses += _lm_greedy_misses(torch, got, want, tol)
+    if not worst[1] <= 1.0:
+        failures.append(f"{what}: against forward max |diff| {worst[0]:.4g}, "
+                        f"{worst[1]:.3g} of the tolerance {tol}")
+    if misses:
+        failures.append(f"{what}: {misses} greedy tokens differ from "
+                        "forward's beyond the tolerance")
+    print(f"check {what} against forward over {len(outs)} positions: max "
+          f"|diff| {worst[0]:.4g}, {worst[1]:.3g} of the tolerance "
+          f"(atol, rtol) {tol}, greedy misses {misses}", flush=True)
+
+
+def _lm_finite(torch, outs, what, failures):
+    bad = sum(int((~torch.isfinite(o.float())).sum()) for o in outs)
+    if bad:
+        failures.append(f"{what}: {bad} non-finite logits")
+
+
+def _lm_host_syncs(torch, model, batch, max_len):
+    """What torch's sync debug mode reports for one prefill and one decode
+    step: the messages of the host syncs they make (none expected)."""
+    import warnings
+    s = next(iter(batch.values())).shape[1]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            logits, caches = model.prefill(batch, max_len)
+            model.decode_step(logits[:, -1].argmax(-1).to(torch.int32)[:, None],
+                              caches, s)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message)[:120] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+class _Capture:
+    """Wraps ``ops.flash_attention`` while it is entered: counts the model's
+    calls and keeps the first call's q, k and v (references only)."""
+
+    def __init__(self, kops):
+        self.kops, self.first, self.calls = kops, None, 0
+
+    def __enter__(self):
+        real = self.real = self.kops.flash_attention
+
+        def wrapped(q, k, v, *a, **kw):
+            self.calls += 1
+            if self.first is None:
+                self.first = (q, k, v)
+            return real(q, k, v, *a, **kw)
+        self.kops.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.flash_attention = self.real
+
+
+def lm_qwen2(torch, mods, cfgs, kops, failures):
+    """(a), (b) and the capture of (d) at qwen2-1.5B's full CONFIG: (the
+    first attention call's q, k and v, contiguous; the prefill's
+    launches)."""
+    cfg = cfgs.get_config(_LM_ARCH)
+    model = _lm_model(torch, mods, cfg, "cuda", _LM_SEED)
+    batch = _lm_batch(torch, cfg, _LM_BATCH, _LM_PROMPT, _LM_SEED, "cuda")
+    _lm_serve(torch, model, batch, _LM_MAX_LEN, 2)    # warm-up
+    syncs = _lm_host_syncs(torch, model, batch, _LM_MAX_LEN)
+    if syncs:
+        failures.append(f"lm {_LM_ARCH}: {len(syncs)} host syncs in a "
+                        f"prefill and a decode step: {syncs[:3]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    with _Capture(kops) as cap:
+        outs, fed, _, t_prefill, t_decode = _lm_serve(
+            torch, model, batch, _LM_MAX_LEN, _LM_STEPS)
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    what = f"lm {_LM_ARCH}"
+    if counts["flash_attention"] != cfg.n_layers or \
+            sum(counts.values()) != cfg.n_layers or cap.calls != cfg.n_layers:
+        failures.append(f"{what}: launches {counts}, {cap.calls} calls; "
+                        f"want {cfg.n_layers} flash_attention a prefill")
+    _lm_finite(torch, outs, what, failures)
+    n_tok = _LM_BATCH * _LM_STEPS
+    print(f"lm {_LM_ARCH} (a): {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters; "
+          f"prefill {_LM_BATCH}x{_LM_PROMPT} tokens in "
+          f"{t_prefill * 1e3:.3f} ms "
+          f"({_LM_BATCH * _LM_PROMPT / t_prefill:.1f} tokens/s), "
+          f"{_LM_STEPS} decode steps at {t_decode / _LM_STEPS * 1e3:.3f} ms "
+          f"a step ({n_tok / t_decode:.1f} tokens/s), max_memory_allocated "
+          f"{peak / 1e9:.3f} GB, launches {dict(_nonzero(counts))}; "
+          f"{card_line()}", flush=True)
+    _lm_against_forward(torch, model, batch, outs, fed, _LM_TOL,
+                        f"{what} (b) decode", failures)
+    qkv = tuple(t.contiguous() for t in cap.first)
+    del model, outs, cap
+    torch.cuda.empty_cache()
+    return qkv, counts["flash_attention"]
+
+
+def lm_against_cpu(torch, mods, cfgs, failures):
+    """(c): full width, 2 layers, one set of weights made on the CPU."""
+    import copy
+    import dataclasses
+    cfg = dataclasses.replace(cfgs.get_config(_LM_ARCH), n_layers=2)
+    cpu = _lm_model(torch, mods, cfg, "cpu", _LM_SEED)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    atol, rtol = _LM_CPU_TOL
+    for s in _LM_CPU_PROMPTS:
+        what = f"lm {_LM_ARCH} 2 layers S {s} (c) card vs CPU"
+        batch = _lm_batch(torch, cfg, 2, s, _LM_SEED + s, "cpu")
+        want, fed, want_c, _, _ = _lm_serve(torch, cpu, batch, s + 8, 8)
+        got, _, got_c, _, _ = _lm_serve(
+            torch, gpu, {k: x.cuda() for k, x in batch.items()}, s + 8, 8,
+            feed=fed.cuda())
+        err = ratio = 0.0
+        misses = 0
+        for g, w in zip(got, want):
+            e, r = _lm_diff(torch, g.cpu(), w, _LM_CPU_TOL)
+            err, ratio = max(err, e), max(ratio, r)
+            misses += _lm_greedy_misses(torch, g.cpu(), w, _LM_CPU_TOL)
+        cache = 0.0
+        for gc, wc in zip(got_c, want_c):
+            for g, w in ((gc.k, wc.k), (gc.v, wc.v)):
+                w = w.float()
+                row = w.abs().amax(-1, keepdim=True)
+                d = (g.cpu().float() - w).abs()
+                cache = max(cache, float((d / (atol + rtol * row)).max()))
+        _lm_finite(torch, got, what, failures)
+        if not (ratio <= 1.0 and cache <= 1.0) or misses:
+            failures.append(f"{what}: logits max |diff| {err:.4g} "
+                            f"({ratio:.3g} of the tolerance), caches "
+                            f"{cache:.3g} of it, greedy misses {misses}")
+        print(f"check {what}: prefill and 8 decode steps, logits max |diff| "
+              f"{err:.4g} ({ratio:.3g} of (atol, rtol) {_LM_CPU_TOL}), K/V "
+              f"caches {cache:.3g} of it by row, greedy misses {misses}",
+              flush=True)
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def lm_others(torch, mods, cfgs, kops, failures):
+    """(e): the other dense CONFIGs at full width and 2 layers."""
+    import dataclasses
+    for arch in _LM_OTHERS:
+        cfg = dataclasses.replace(cfgs.get_config(arch), n_layers=2)
+        model = _lm_model(torch, mods, cfg, "cuda", _LM_SEED)
+        batch = _lm_batch(torch, cfg, 2, _LM_PROMPT, _LM_SEED, "cuda")
+        _lm_serve(torch, model, batch, _LM_PROMPT + 4, 1)    # warm-up
+        kops.reset_launch_counts()
+        outs, fed, _, t_prefill, t_decode = _lm_serve(
+            torch, model, batch, _LM_PROMPT + 4, 4)
+        counts = kops.launch_counts()
+        what = f"lm {arch} 2 layers (e)"
+        if counts["flash_attention"] != 2 or sum(counts.values()) != 2:
+            failures.append(f"{what}: launches {counts}, want 2 "
+                            "flash_attention")
+        _lm_finite(torch, outs, what, failures)
+        print(f"lm {arch} (e): d_model {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv} of {cfg.head_dim}, vocab {cfg.vocab}, "
+              f"{'GeLU' if cfg.mlp_gelu else 'SwiGLU'}, prompt "
+              f"{next(iter(batch))}; prefill 2x{_LM_PROMPT} in "
+              f"{t_prefill * 1e3:.3f} ms, decode {t_decode / 4 * 1e3:.3f} ms "
+              f"a step, launches {dict(_nonzero(counts))}", flush=True)
+        _lm_against_forward(torch, model, batch, outs, fed, _LM_TOL,
+                            f"{what} decode", failures)
+        del model, outs
+        torch.cuda.empty_cache()
+
+
+def lm_attention_row(torch, fa, qkv, launches, rate, name, failures):
+    """(d): the captured call against the plain version, timed: the
+    kernels line's ``flash_attention[lm qwen2_1_5b prefill]`` row."""
+    import torch.nn.functional as F
+    q, k, v = qkv
+    row = f"flash_attention[lm {_LM_ARCH} prefill]"
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    scaled = fa.scaled_error(got, want, v, True)
+    if not scaled <= fa.SCALED_ERROR_TOL:
+        failures.append(f"{row}: scaled error {scaled:.3g} > "
+                        f"{fa.SCALED_ERROR_TOL}")
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=True), reps=5, warm=1)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    b, h, s, d = q.shape
+    flops = 4 * b * h * s * s * d / 2
+    nbytes = 4 * b * h * s * d * q.element_size()
+    bound, by = bound_ms(nbytes, flops, rate, by_name(_BF16_RATE, name))
+    print(f"check {row} {list(q.shape)} {str(q.dtype)[6:]} causal: max "
+          f"|kernel - plain| {err:.3g}, scaled error {scaled:.3g} (tol "
+          f"{fa.SCALED_ERROR_TOL}), {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}), launches {launches} in (a)'s "
+          "prefill", flush=True)
+    return dict(name=row, route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:71",
+                launches=launches, max_abs_err=err, scaled_err=scaled, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms)
+
+
+def run_lm(torch, fa, kops, rate, name):
+    """Phase 9b: the LM side's dense serving path; (rows of the kernels
+    line). Every part is checked and printed before the phase fails."""
+    cfgs = importlib.import_module("repro_torch.configs")
+    mods = importlib.import_module("repro_torch.models")
+    t0 = time.perf_counter()
+    failures = []
+    qkv, launches = lm_qwen2(torch, mods, cfgs, kops, failures)
+    lm_against_cpu(torch, mods, cfgs, failures)
+    row = lm_attention_row(torch, fa, qkv, launches, rate, name, failures)
+    del qkv
+    lm_others(torch, mods, cfgs, kops, failures)
+    torch.cuda.empty_cache()
+    print(f"phase 9b (LM): {time.perf_counter() - t0:.1f} s", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return [row]
+
+
+# ---------------------------------------------------------------------------
 # --faults: planted faults in the attention and build kernels against the
 # checks of phase 9 and of the build
 # ---------------------------------------------------------------------------
@@ -6300,6 +6663,12 @@ def main() -> None:
                     help="run phase 9 alone (the attention kernel's "
                          "checks and times) and print its kernels line; "
                          "prints no ok line")
+    ap.add_argument("--lm", action="store_true",
+                    help="run phase 9b alone (qwen2-1.5B at full width: "
+                         "prefill and greedy decode, against forward and "
+                         "the CPU, the prefill's attention kernel; the "
+                         "other dense configs at 2 layers) and print its "
+                         "kernels line; prints no ok line")
     ap.add_argument("--build", action="store_true",
                     help="run the build checks of phase 3 alone (the "
                          "synthetic cases, the route and the launches); "
@@ -6413,6 +6782,10 @@ def main() -> None:
     if args.attention:
         attn_rows, _ = run_attention(torch, fa, kops, rate, name)
         print(json.dumps({"kernels": attn_rows}))
+        print(card)
+        return
+    if args.lm:
+        print(json.dumps({"kernels": run_lm(torch, fa, kops, rate, name)}))
         print(card)
         return
     if args.build:
@@ -6563,6 +6936,8 @@ def main() -> None:
         # profile of 20 kernel launches on this thread records 19, even
         # with every scheduler and prefetch thread joined
         profile_serving(torch, catalog, serving_builders, args.profile)
+    # phase 9b last: a profile taken after it lost one kernel event of ten
+    rows_out += run_lm(torch, fa, kops, rate, name)
     for r in rows_out:
         if "launches" in r:   # phase 9 counted its own path
             continue

@@ -1,7 +1,8 @@
 """The port's examples (``examples/quickstart_torch.py``,
-``examples/serve_queries_torch.py`` and
-``examples/distributed_tpch_torch.py``) run on the CPU with ``--device
-cpu``, and their answers are the reference oracle's."""
+``examples/serve_queries_torch.py``,
+``examples/distributed_tpch_torch.py`` and ``examples/serve_lm_torch.py``)
+run on the CPU with ``--device cpu``, and their answers are the reference
+oracle's (the LM example's, its own model's greedy tokens)."""
 
 import importlib.util
 from pathlib import Path
@@ -57,3 +58,23 @@ def test_distributed_tpch_runs_on_cpu(capsys):
             run = out[(q, proto)]
             assert_results_match(run["result"], oracle.ORACLES[q](data), q)
             assert (run["staged_bytes"] > 0) == (proto == "Host")
+
+
+def test_serve_lm_runs_on_cpu(capsys):
+    """qwen2-1.5B's SMOKE config: 16 greedy tokens for each of 4 prompts;
+    each prompt plus the first 15 through ``forward`` gives back the same
+    greedy tokens wherever the top two logits are 0.05 apart."""
+    import torch
+    out = _load("serve_lm_torch").main(["--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "qwen2_1_5b_smoke on cpu" in text and "tok/s on cpu" in text
+    model, gen = out["model"], out["tokens"]
+    assert gen.shape == (4, 16)
+    assert ((gen >= 0) & (gen < model.cfg.vocab)).all()
+    seq = torch.cat([out["prompts"], torch.from_numpy(gen[:, :-1])], dim=1)
+    with torch.no_grad():
+        logits, _ = model.forward({"tokens": seq})
+    tail = logits[:, out["prompts"].shape[1] - 1:].float()
+    top2 = tail.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 0.05
+    assert (tail.argmax(-1).numpy() == gen)[sure.numpy()].all()

@@ -1525,3 +1525,33 @@ def test_grace_histogram_launches_once_a_card(cuda):
     assert torch.equal(counts.cpu(), want.cpu())
     for w, (a, b) in enumerate(zip(pids, want_pids)):
         assert a.device == two[w].device and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("s", [64, 200])
+def test_lm_serving_on_card_matches_cpu(cuda, s):
+    """qwen2-1.5B's SMOKE config: one set of weights made on the CPU and
+    copied to the card; prefill (through the attention kernel, once a
+    layer; S 200 pads to 256 rows) and 4 greedy decode steps fed the CPU's
+    tokens, logits within rtol = atol = 2e-2 of the CPU's."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen2_1_5b", smoke=True)
+    cpu = build_model(cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda)
+    assert build_model(cfg).embed.is_cuda      # no device: the card
+    tok = torch.from_numpy(np.random.default_rng(s).integers(
+        0, cfg.vocab, (2, s), dtype=np.int32))
+    want, wc = cpu.prefill({"tokens": tok}, s + 4)
+    ops.reset_launch_counts()
+    got, gc = gpu.prefill({"tokens": tok.to(cuda)}, s + 4)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    for t in range(5):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().numpy(), rtol=2e-2, atol=2e-2)
+        if t == 4:
+            break
+        nxt = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        want, wc = cpu.decode_step(nxt, wc, s + t)
+        got, gc = gpu.decode_step(nxt.to(cuda), gc, s + t)
