@@ -330,7 +330,7 @@ In order it:
    timed, and the bound is operations at the card's dense bfloat16 rate,
    or in float32 three times the operations at its TF32 rate (3xTF32),
    with the FFMA bound printed beside it;
-9b. the LM side, last of all the phases, after phase 10 and every profile
+9b. the LM side, after phase 10 and every profile (then only 9c)
    (a profile taken after it lost one kernel event of ten; ``--lm`` runs
    it alone after the build and prints its kernels line and the card
    line, and no ok line): ``repro_torch.models``
@@ -364,6 +364,35 @@ In order it:
    launches a prefill, finite logits, the prefill and the decode steps
    against ``forward`` within ``_LM_TOL`` (pixtral's prefill only: its
    prompt is embeddings);
+9c. training, after 9b (``--train`` runs it alone after the build and
+   prints its kernels line and the card line, and no ok line): (a) a
+   corpus table of ``_TRAIN_ROWS`` (16,777,216) synthetic tokens (``doc``,
+   ``tok`` skewed towards small ids, ``quality``), registered with the
+   port's ``Session`` on the card and filtered by ``quality > 0.2``
+   through ``Session.execute``, which must launch ``fused_morsel_program``
+   and return numpy's filter of the table; those tokens through
+   ``TokenPipeline(device="cuda")`` (B 8, S 512, prefetch 2) into
+   ``make_train_step(model, microbatches=2)`` at qwen2-1.5B's full
+   ``CONFIG`` (weights drawn on the card, seed ``_TRAIN_SEED``): the
+   memory reckoned from the parameters printed first, one warm-up step,
+   one step under torch's sync debug mode (no host sync), then
+   ``_TRAIN_STEPS`` timed steps (ms a step, tokens/s,
+   ``max_memory_allocated``, each step's loss, lr and grad_norm, which
+   must be finite), the launch counters set to 0 just before the query
+   and read after the last step; the query's first fused call, kept, is
+   held bit-identical to ``apply_stages`` and timed: the
+   ``fused_morsel_program[train corpus]`` row of the kernels line. (b) the
+   card against the port on the CPU at full width and 2 layers: one set
+   of weights and one AdamW state at step 150 (seeded m and v) made on the
+   CPU and copied to the card, one step of 2 microbatches at B 2, S 64
+   (base lr 1e-2): the loss, grad_norm, every parameter, m and v within
+   ``_TRAIN_TOL``; then ``adamw_update`` alone on float32 tensors within
+   1e-6 of each tensor's largest |value|. (c) the ``--full-100m`` config
+   of ``examples/train_lm_torch.py`` (12 layers, d_model 768, vocab
+   32,000) through ``TrainLoop``: 200 steps of 8 x 128 tokens with a
+   checkpoint every 50 into a temporary directory (removed after),
+   uninterrupted and with a failure at step 100: one restart, the final
+   parameters equal within atol 1e-6, the last loss below the first;
 10. the main path's shapes: every captured standalone probe (W = 1 and
    W = 4) once in one profile, a line each (keys, slots, max_probes, hit
    rate, whether the table fits the L2, bound, device µs) and the sums;
@@ -396,7 +425,8 @@ W = 1 run of Q1 and of Q6 from the storage phase's files and from the
 same rows in memory (their ``Memcpy HtoD`` copies and ms), and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
-line and the card line, and no ok line; ``--build`` runs phase 3's
+line and the card line, and no ok line (``--lm`` phase 9b, ``--train``
+phase 9c); ``--build`` runs phase 3's
 synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
 and their views), phase 8(a) and the SQL phase's (d) alone; ``--sql`` the
 SQL phase alone; ``--segmented`` the segmented
@@ -550,6 +580,31 @@ _LM_OTHERS = ("phi4_mini_3_8b", "granite_3_8b", "granite_34b", "pixtral_12b")
 # 0.090 in (b) at 28 layers, 0.074 in (e), 0.051 in (c))
 _LM_TOL = (0.2, 0.02)
 _LM_CPU_TOL = (0.1, 0.02)
+# phase 9c: training at qwen2-1.5B's full CONFIG. (a) the corpus table's
+# rows (16,777,216 synthetic tokens), the quality a row must exceed, the
+# weights' and corpus's seed, the batch, sequence, microbatches and
+# prefetch, and the timed steps after one warm-up; (b) the card against the
+# CPU at full width and 2 layers: the batch, the mid-training step, its base
+# lr, the moments' scale; (c) the example's --full-100m config through the
+# fault-tolerant loop: steps, batch, sequence, checkpoint interval, the step
+# that fails
+_TRAIN_ROWS = 1 << 24
+_TRAIN_QUALITY = 0.2
+_TRAIN_SEED = 30
+_TRAIN_B, _TRAIN_S, _TRAIN_MICRO, _TRAIN_PREFETCH = 8, 512, 2, 2
+_TRAIN_STEPS = 8
+_TRAIN_CPU_B, _TRAIN_CPU_S, _TRAIN_MID_STEP, _TRAIN_CPU_LR = 2, 64, 150, 1e-2
+_TRAIN_MOMENT = 1e-4
+_FT_STEPS, _FT_B, _FT_S, _FT_EVERY, _FT_FAIL = 200, 8, 128, 50, 100
+# (b)'s tolerances: the loss and grad_norm relative; m and v against the
+# largest |part| the step's gradients added (m - b1 m_old, v - b2 v_old);
+# each parameter within one bfloat16 ulp plus this many learning rates;
+# adamw_update alone on float32 tensors against each tensor's largest
+# |value|. bfloat16 gradients round differently on the card and the CPU
+# (1-2% of each leaf's largest gradient at qwen2's SMOKE config against
+# the reference, tests/test_torch_train.py)
+_TRAIN_TOL = {"loss": 1e-3, "grad_norm": 5e-3, "moments": 5e-2,
+              "param_lr": 0.3, "adamw": 1e-6}
 
 
 def fail(msg: str) -> None:
@@ -6232,6 +6287,393 @@ def run_lm(torch, fa, kops, rate, name):
 
 
 # ---------------------------------------------------------------------------
+# phase 9c: training, qwen2-1.5B at full width taking AdamW steps
+# ---------------------------------------------------------------------------
+
+def _sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_corpus(torch, fused, kops, vocab, device):
+    """(a)'s corpus: a table of ``_TRAIN_ROWS`` synthetic tokens (``doc``,
+    ``tok`` skewed towards small ids as tests/test_system.py's, ``quality``)
+    registered with the port's ``Session`` on ``device`` and filtered by
+    ``quality > _TRAIN_QUALITY`` through ``Session.execute``, with the first
+    ``fused_morsel_program`` call's inputs kept (cloned) -> (the tokens,
+    that call, the launch counts, the seconds)."""
+    import numpy as np
+    from repro_torch.core import dtypes as dt
+    from repro_torch.core import plan as P
+    from repro_torch.core.expr import col
+    from repro_torch.core.session import Catalog, Session
+    rng = np.random.default_rng(_TRAIN_SEED)
+    n = _TRAIN_ROWS
+    corpus = {"doc": np.arange(n, dtype=np.int32) // 64,
+              "tok": (rng.random(n) ** 4 * vocab).astype(np.int32),
+              "quality": rng.random(n, dtype=np.float32)}
+    catalog = Catalog()
+    catalog.register_numpy("corpus", corpus, {
+        "doc": dt.INT32, "tok": dt.INT32, "quality": dt.FLOAT32})
+    plan = P.Project(P.Filter(P.TableScan("corpus"),
+                              col("quality") > _TRAIN_QUALITY),
+                     [("tok", col("tok"))])
+    session = Session(catalog, device=device, batch_rows=_MAIN_ROWS)
+    kept = []
+    real = fused.fused_morsel_program
+
+    def keep_first(table, stages, probe=None, program=None):
+        if not kept:
+            kept.append((type(table)(
+                {c: a.clone() for c, a in table.columns.items()},
+                table.validity.clone(), table.schema), stages, program))
+        return real(table, stages, probe=probe, program=program)
+
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fused.fused_morsel_program = keep_first
+    try:
+        tokens = session.execute(plan)["tok"]
+    finally:
+        fused.fused_morsel_program = real
+    secs = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    want = corpus["tok"][corpus["quality"] > np.float32(_TRAIN_QUALITY)]
+    if not np.array_equal(tokens, want):
+        fail(f"train (a): the corpus query's {len(tokens)} tokens differ "
+             f"from numpy's filter ({len(want)})")
+    return tokens, kept[0], counts, secs
+
+
+def train_memory_prediction(n_params: int, weight_bytes: int) -> str:
+    """(a)'s memory, reckoned from the parameters before the run: between
+    steps the model's own weights, the state's weights and float32 m and v;
+    in a step also the float32 gradient sums, one microbatch's bfloat16
+    gradients, the new weights and new m and v (the step is functional:
+    the old state lives until it returns) and the activations."""
+    gb = 1e9
+    f32 = 4 * n_params
+    return (f"train (a) memory reckoned before the run: weights "
+            f"{weight_bytes / gb:.2f} GB (the model's and the state's, "
+            f"{2 * weight_bytes / gb:.2f}), float32 m and v "
+            f"{2 * f32 / gb:.2f} GB, float32 gradient sums {f32 / gb:.2f} GB,"
+            f" one microbatch's bfloat16 gradients {weight_bytes / gb:.2f} GB;"
+            f" between steps {(2 * weight_bytes + 2 * f32) / gb:.2f} GB; in "
+            f"the update also new m, v and weights "
+            f"{(2 * f32 + weight_bytes) / gb:.2f} GB and the group "
+            f"temporaries, activations on top in the backward")
+
+
+def train_full(torch, fused, kops, cfg, device, failures):
+    """(a): the corpus filtered on the card, then ``_TRAIN_STEPS`` timed
+    steps of ``make_train_step(model, microbatches=_TRAIN_MICRO)`` on
+    ``TokenPipeline(device=...)`` batches after one warm-up step and one
+    step under torch's sync debug mode; the launch counters set to 0 just
+    before the query and read after the last step -> (the kept fused call,
+    the counts)."""
+    import warnings
+    mods = importlib.import_module("repro_torch.models")
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train import make_train_step, optimizer, train_state_init
+    tokens, call, counts_query, q_secs = train_corpus(torch, fused, kops,
+                                                      cfg.vocab, device)
+    print(f"train (a) corpus: {_TRAIN_ROWS} rows filtered by quality > "
+          f"{_TRAIN_QUALITY} on {device} in {q_secs:.3f} s: {len(tokens)} "
+          f"tokens, equal to numpy's filter; launches "
+          f"{dict(_nonzero(counts_query))}", flush=True)
+    model = _lm_model(torch, mods, cfg, device, _TRAIN_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(train_memory_prediction(n_params, weight_bytes), flush=True)
+    pipe = TokenPipeline(tokens, _TRAIN_B, _TRAIN_S, device=device,
+                         prefetch=_TRAIN_PREFETCH, seed=_TRAIN_SEED)
+    step = make_train_step(model, microbatches=_TRAIN_MICRO)
+    state, _ = step(train_state_init(model), next(pipe))     # warm-up
+    batch = next(pipe)
+    _sync(torch, device)
+    syncs = []
+    if device.type == "cuda":
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, _ = step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message)[:120] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        state, _ = step(state, batch)
+    if syncs:
+        failures.append(f"train (a): {len(syncs)} host syncs in a step: "
+                        f"{syncs[:3]}")
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(_TRAIN_STEPS):
+        state, m = step(state, next(pipe))
+        metrics.append(m)
+    _sync(torch, device)
+    secs = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else 0)
+    # the update alone, on float32 gradients of the sums' shapes
+    update_s = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        optimizer.adamw_update(state.params, state.opt.m, state.opt)
+        _sync(torch, device)
+        update_s.append(time.perf_counter() - t1)
+    rows = torch.stack([torch.stack([m["loss"], m["lr"], m["grad_norm"]])
+                        for m in metrics]).tolist()
+    if not all(math.isfinite(x) for r in rows for x in (r[0], r[2])):
+        failures.append(f"train (a): a loss or grad_norm is not finite: "
+                        f"{rows}")
+    if counts["fused_morsel_program"] < 1:
+        failures.append(f"train (a): fused_morsel_program did not run: "
+                        f"{counts}")
+    n_tok = _TRAIN_B * _TRAIN_S * _TRAIN_STEPS
+    print(f"train (a) {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters; "
+          f"{_TRAIN_STEPS} steps of {_TRAIN_B}x{_TRAIN_S} tokens in "
+          f"{_TRAIN_MICRO} microbatches, {secs / _TRAIN_STEPS * 1e3:.3f} ms "
+          f"a step, {n_tok / secs:.1f} tokens/s, max_memory_allocated "
+          f"{peak / 1e9:.3f} GB, host syncs in a step {len(syncs)}, "
+          f"launches {dict(_nonzero(counts))}; adamw_update alone "
+          f"{min(update_s) * 1e3:.3f} ms (host clock, synchronized); "
+          f"{card_line()}", flush=True)
+    for i, (loss, lr, gnorm) in enumerate(rows):
+        print(f"train (a) step {i + 2}: loss {loss:.6f} lr {lr:.6g} "
+              f"grad_norm {gnorm:.6f}", flush=True)
+    del model, state, metrics, pipe
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return call, counts["fused_morsel_program"]
+
+
+def train_fused_row(torch, fused, call, launches, rate):
+    """(a)'s kept ``fused_morsel_program`` call against ``apply_stages``
+    (bit-identical), timed: the ``fused_morsel_program[train corpus]`` row
+    of the kernels line, its launches those of (a)."""
+    table, stages, program = call
+    got = _check_fused_case(torch, fused, table, stages, program,
+                            "fused_morsel_program[train corpus]")
+    ms = time_ms(torch, lambda: fused.fused_morsel_program(
+        table, stages, program=program))
+    plain_ms = time_ms(torch, lambda: fused.apply_stages(table, stages))
+    n = table.capacity
+    nbytes = n * (sum(table.columns[c].element_size()
+                      for c in program.in_names) + 1
+                  + sum(got.columns[c].element_size()
+                        for c in program.out_names) + 1)
+    alu = sum(1 for op in program.code[:, 0].tolist()
+              if op >= fused.OPS["FILTER"])
+    bound, by = bound_ms(nbytes, n * alu, rate)
+    print(f"check fused_morsel_program[train corpus] rows={n}: "
+          f"bit-identical to apply_stages, {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bound:.4f} ms ({by}), launches {launches} in (a)",
+          flush=True)
+    return dict(name="fused_morsel_program[train corpus]", route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_morsel.cu",
+                replaces="src/repro/core/fused.py:78", launches=launches,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def _mid_training_state(torch, model, seed):
+    """The model's weights and an AdamW state at ``_TRAIN_MID_STEP``: m ~
+    N(0, _TRAIN_MOMENT), v uniform in [0.5, 1.5] _TRAIN_MOMENT ** 2."""
+    from repro_torch.train import train_state_init
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+    params = train_state_init(model).params
+    gen = torch.Generator().manual_seed(seed)
+    m = {k: torch.randn(p.shape, generator=gen) * _TRAIN_MOMENT
+         for k, p in params.items()}
+    v = {k: (torch.rand(p.shape, generator=gen) + 0.5) * _TRAIN_MOMENT ** 2
+         for k, p in params.items()}
+    return TrainState(params, AdamWState(
+        torch.tensor(_TRAIN_MID_STEP, dtype=torch.int32), m, v))
+
+
+def _state_on(state, device):
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    def move(tree):
+        return {k: x.to(device) for k, x in tree.items()}
+    return TrainState(move(state.params), AdamWState(
+        state.opt.step.to(device), move(state.opt.m), move(state.opt.v)))
+
+
+def _worst(a, b, scale) -> float:
+    """max |a - b| over ``scale`` (a float), as float64."""
+    return float((a.double() - b.double()).abs().max()) / max(scale, 1e-30)
+
+
+def train_against_cpu(torch, cfg, device, failures):
+    """(b): full width, 2 layers; one set of weights and one mid-training
+    state made on the CPU and copied to ``device``; one step of
+    ``_TRAIN_MICRO`` microbatches on each, then ``adamw_update`` alone on
+    float32 tensors."""
+    import copy
+    import dataclasses
+    import numpy as np
+    mods = importlib.import_module("repro_torch.models")
+    from repro_torch.train import make_train_step, optimizer
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    cpu = _lm_model(torch, mods, cfg, "cpu", _TRAIN_SEED)
+    dev = copy.deepcopy(cpu).to(device)
+    state = _mid_training_state(torch, cpu, _TRAIN_SEED)
+    tok = torch.from_numpy(np.random.default_rng(_TRAIN_SEED).integers(
+        0, cfg.vocab, (_TRAIN_CPU_B, _TRAIN_CPU_S + 1), dtype=np.int32))
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    t0 = time.perf_counter()
+    want, wm = make_train_step(cpu, microbatches=_TRAIN_MICRO,
+                               base_lr=_TRAIN_CPU_LR)(state, batch)
+    cpu_secs = time.perf_counter() - t0
+    got, gm = make_train_step(dev, microbatches=_TRAIN_MICRO,
+                              base_lr=_TRAIN_CPU_LR)(
+        _state_on(state, device), {k: x.to(device) for k, x in batch.items()})
+    _sync(torch, device)
+    tol = _TRAIN_TOL
+    err = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+           for k in ("loss", "grad_norm", "lr")}
+    lr = float(wm["lr"])
+    worst = {"param_lr": 0.0, "m": 0.0, "v": 0.0}
+    for name, w in want.params.items():
+        g = got.params[name].cpu().double()
+        w = w.double()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30)))
+                         - 7)
+        worst["param_lr"] = max(worst["param_lr"], float(
+            ((g - w).abs() - ulp).max()) / lr)
+        for what, b in (("m", 0.9), ("v", 0.95)):
+            new_w = getattr(want.opt, what)[name]
+            added = float((new_w - b * getattr(state.opt, what)[name])
+                          .abs().max())
+            worst[what] = max(worst[what], _worst(
+                getattr(got.opt, what)[name].cpu(), new_w, added))
+    for k in ("loss", "grad_norm"):
+        if not err[k] <= tol[k]:
+            failures.append(f"train (b): {k} {float(gm[k])} against the "
+                            f"CPU's {float(wm[k])}")
+    if not (err["lr"] <= tol["adamw"] and worst["param_lr"] <= tol["param_lr"]
+            and max(worst["m"], worst["v"]) <= tol["moments"]):
+        failures.append(f"train (b): lr {err['lr']:.3g}, parameters "
+                        f"{worst['param_lr']:.3g} lr past an ulp, m "
+                        f"{worst['m']:.3g}, v {worst['v']:.3g} (tolerances "
+                        f"{tol})")
+    # adamw_update alone, float32 in, float32 out
+    f32 = {k: x.float() for k, x in state.params.items()}
+    grads = {k: x * 7.0 for k, x in state.opt.m.items()}
+    pw, sw, iw = optimizer.adamw_update(f32, grads, state.opt)
+    on = _state_on(state, device)
+    pg, sg, ig = optimizer.adamw_update(
+        {k: x.to(device) for k, x in f32.items()},
+        {k: x.to(device) for k, x in grads.items()}, on.opt)
+    adamw = max(_worst(a.cpu(), b, float(b.abs().max()))
+                for k in f32 for a, b in ((pg[k], pw[k]), (sg.m[k], sw.m[k]),
+                                          (sg.v[k], sw.v[k])))
+    adamw = max(adamw, *(abs(float(ig[k]) - float(iw[k])) / float(iw[k])
+                         for k in ("lr", "grad_norm")))
+    if not adamw <= tol["adamw"]:
+        failures.append(f"train (b): adamw_update on float32 tensors "
+                        f"{adamw:.3g} of each tensor's largest |value|")
+    print(f"check train (b) {cfg.name} at 2 layers, B {_TRAIN_CPU_B} S "
+          f"{_TRAIN_CPU_S}, {_TRAIN_MICRO} microbatches, step "
+          f"{_TRAIN_MID_STEP} -> {int(got.opt.step)}, lr {lr:.6g}, {device} "
+          f"against the CPU ({cpu_secs:.1f} s there): loss {float(gm['loss'])}"
+          f" / {float(wm['loss'])} (rel {err['loss']:.3g}), grad_norm "
+          f"{float(gm['grad_norm'])} / {float(wm['grad_norm'])} (rel "
+          f"{err['grad_norm']:.3g}), parameters {worst['param_lr']:.3g} lr "
+          f"past a bfloat16 ulp, m {worst['m']:.3g} and v {worst['v']:.3g} "
+          f"of the step's largest added |part|; adamw_update on float32 "
+          f"{adamw:.3g} relative; tolerances {tol}; {card_line()}",
+          flush=True)
+
+
+def train_fault_tolerant(torch, here, device, failures):
+    """(c): the example's ``--full-100m`` config through
+    ``TrainLoop``: ``_FT_STEPS`` steps of ``_FT_B`` x ``_FT_S`` tokens with
+    a checkpoint every ``_FT_EVERY`` into a temporary directory (removed
+    after), uninterrupted and with a failure at ``_FT_FAIL``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", os.path.join(here, "examples", "train_lm_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = ex.make_config(True)
+    corpus = ex.make_corpus(cfg)
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+    runs = {}
+    try:
+        for which, fail_at in (("clean", ()), ("faulty", (_FT_FAIL,))):
+            t0 = time.perf_counter()
+            loop, state = ex.train(
+                cfg, corpus, steps=_FT_STEPS, batch=_FT_B, seq=_FT_S,
+                device=device, ckpt_dir=os.path.join(tmp, which),
+                fail_at=fail_at, ckpt_every=_FT_EVERY)
+            _sync(torch, device)
+            runs[which] = (loop, state, time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (clean, clean_state, t_clean), (faulty, state, t_faulty) = (
+        runs["clean"], runs["faulty"])
+    diff = max(float((a.float() - state.params[k].float()).abs().max())
+               for k, a in clean_state.params.items())
+    on_device = all(x.device.type == device.type
+                    for x in state.params.values())
+    losses = [m["loss"] for m in faulty.metrics]
+    ms = 1e3 * sorted(m["seconds"] for m in faulty.metrics)[
+        len(faulty.metrics) // 2]
+    if faulty.restarts != 1 or clean.restarts != 0:
+        failures.append(f"train (c): restarts {faulty.restarts} (clean "
+                        f"{clean.restarts}), want 1 and 0")
+    if not diff <= 1e-6 or not on_device:
+        failures.append(f"train (c): the recovered parameters differ from "
+                        f"the uninterrupted run's by {diff} (atol 1e-6), "
+                        f"on the device {on_device}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"train (c): loss {losses[0]} -> {losses[-1]} did not "
+                        "fall")
+    print(f"check train (c) {cfg.name} ({sum(x.numel() for x in state.params.values())} "
+          f"parameters) {_FT_STEPS} steps of {_FT_B}x{_FT_S} tokens on "
+          f"{device}, a checkpoint every {_FT_EVERY}, a failure at "
+          f"{_FT_FAIL}: restarts {faulty.restarts}, {len(faulty.metrics)} "
+          f"steps run, recovered parameters against the uninterrupted "
+          f"run's max |diff| {diff} (atol 1e-6), loss {losses[0]:.4f} -> "
+          f"{losses[len(losses) // 2]:.4f} -> {losses[-1]:.4f}, median "
+          f"{ms:.3f} ms a step (the loop reads each loss back), runs "
+          f"{t_clean:.1f} s and {t_faulty:.1f} s; {card_line()}", flush=True)
+
+
+def run_train(torch, fused, kops, rate, here):
+    """Phase 9c: training on the card; (rows of the kernels line). Every
+    part is checked and printed before the phase fails."""
+    cfgs = importlib.import_module("repro_torch.configs")
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    failures = []
+    cfg = cfgs.get_config(_LM_ARCH)
+    call, launches = train_full(torch, fused, kops, cfg, device, failures)
+    row = train_fused_row(torch, fused, call, launches, rate)
+    del call
+    train_against_cpu(torch, cfg, device, failures)
+    train_fault_tolerant(torch, here, device, failures)
+    torch.cuda.empty_cache()
+    print(f"phase 9c (training): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return [row]
+
+
+# ---------------------------------------------------------------------------
 # --faults: planted faults in the attention and build kernels against the
 # checks of phase 9 and of the build
 # ---------------------------------------------------------------------------
@@ -6669,6 +7111,13 @@ def main() -> None:
                          "the CPU, the prefill's attention kernel; the "
                          "other dense configs at 2 layers) and print its "
                          "kernels line; prints no ok line")
+    ap.add_argument("--train", action="store_true",
+                    help="run phase 9c alone (qwen2-1.5B at full width "
+                         "taking AdamW steps on a corpus the engine "
+                         "filtered on the card, one step against the CPU "
+                         "at 2 layers, the fault-tolerant loop's exact "
+                         "recovery) and print its kernels line; prints no "
+                         "ok line")
     ap.add_argument("--build", action="store_true",
                     help="run the build checks of phase 3 alone (the "
                          "synthetic cases, the route and the launches); "
@@ -6786,6 +7235,11 @@ def main() -> None:
         return
     if args.lm:
         print(json.dumps({"kernels": run_lm(torch, fa, kops, rate, name)}))
+        print(card)
+        return
+    if args.train:
+        print(json.dumps({"kernels": run_train(torch, fused, kops, rate,
+                                               here)}))
         print(card)
         return
     if args.build:
@@ -6936,8 +7390,10 @@ def main() -> None:
         # profile of 20 kernel launches on this thread records 19, even
         # with every scheduler and prefetch thread joined
         profile_serving(torch, catalog, serving_builders, args.profile)
-    # phase 9b last: a profile taken after it lost one kernel event of ten
+    # phases 9b and 9c last: a profile taken after 9b lost one kernel
+    # event of ten
     rows_out += run_lm(torch, fa, kops, rate, name)
+    rows_out += run_train(torch, fused, kops, rate, here)
     for r in rows_out:
         if "launches" in r:   # phase 9 counted its own path
             continue

@@ -64,7 +64,11 @@ def forward(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def loss_fn(params, cfg, batch) -> torch.Tensor:
-    logits, aux = forward(params, cfg, batch)
+    return loss_of(*forward(params, cfg, batch), batch)
+
+
+def loss_of(logits, aux, batch) -> torch.Tensor:
+    """The loss of ``forward``'s (logits, aux) against ``batch``'s labels."""
     return cross_entropy(logits, batch["labels"], batch.get("mask")) \
         + 0.01 * aux
 

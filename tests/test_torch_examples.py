@@ -1,8 +1,10 @@
 """The port's examples (``examples/quickstart_torch.py``,
 ``examples/serve_queries_torch.py``,
-``examples/distributed_tpch_torch.py`` and ``examples/serve_lm_torch.py``)
-run on the CPU with ``--device cpu``, and their answers are the reference
-oracle's (the LM example's, its own model's greedy tokens)."""
+``examples/distributed_tpch_torch.py``, ``examples/serve_lm_torch.py`` and
+``examples/train_lm_torch.py``) run on the CPU with ``--device cpu``, and
+their answers are the reference oracle's (the LM example's, its own model's
+greedy tokens; the training example's, a loss that falls through a failure
+and its recovery)."""
 
 import importlib.util
 from pathlib import Path
@@ -78,3 +80,30 @@ def test_serve_lm_runs_on_cpu(capsys):
     top2 = tail.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 0.05
     assert (tail.argmax(-1).numpy() == gen)[sure.numpy()].all()
+
+
+def test_train_lm_runs_on_cpu(capsys):
+    """The small config for 40 steps of 4 x 64 tokens: one injected failure
+    at step 20 (before the first checkpoint, so the loop restarts from the
+    initial state), and a last loss below the first."""
+    import torch
+    mod = _load("train_lm_torch")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(["--steps", "2"])
+    # one intra-op thread: the suite runs several test processes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = mod.main(["--device", "cpu", "--steps", "40", "--batch", "4",
+                        "--seq", "64"])
+    finally:
+        torch.set_num_threads(threads)
+    text = capsys.readouterr().out
+    assert "model demo_small: 1.2M params on cpu" in text
+    assert "restarts survived: 1" in text and "OK: loss decreased" in text
+    loop = out["loop"]
+    assert [m["step"] for m in loop.metrics] == list(range(20)) + \
+        list(range(40))
+    assert out["losses"][-1] < out["losses"][0]
+    assert int(out["state"].opt.step) == 40

@@ -1555,3 +1555,123 @@ def test_lm_serving_on_card_matches_cpu(cuda, s):
         nxt = want[:, -1].argmax(-1).to(torch.int32)[:, None]
         want, wc = cpu.decode_step(nxt, wc, s + t)
         got, gc = gpu.decode_step(nxt.to(cuda), gc, s + t)
+
+
+def _mid_training_state(model, seed):
+    """The model's weights and a seeded AdamW state at step 150 (past
+    warmup): m ~ N(0, 1e-3), v uniform in [0.5e-6, 1.5e-6]."""
+    from repro_torch.train import train_state_init
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+    params = train_state_init(model).params
+    gen = torch.Generator().manual_seed(seed)
+    m = {k: torch.randn(p.shape, generator=gen) * 1e-3
+         for k, p in params.items()}
+    v = {k: (torch.rand(p.shape, generator=gen) + 0.5) * 1e-6
+         for k, p in params.items()}
+    return TrainState(params, AdamWState(torch.tensor(150, dtype=torch.int32),
+                                         m, v))
+
+
+def _on(state, device):
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    def move(tree):
+        return {k: x.to(device) for k, x in tree.items()}
+    return TrainState(move(state.params), AdamWState(
+        state.opt.step.to(device), move(state.opt.m), move(state.opt.v)))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """qwen2-1.5B's SMOKE config, one set of weights and one mid-training
+    state made on the CPU and copied to the card, one step of 2
+    microbatches (B 4, S 32, base lr 1e-2): the loss within 1e-3, the
+    grad norm within 5e-3, m and v within 5e-2 of each leaf's largest
+    |value| and each parameter within a bfloat16 ulp plus 0.3 lr of the
+    CPU's (bfloat16 gradients round differently on the two devices); the
+    card's step after a warm-up one makes no host sync. Then ``adamw_update`` alone on float32
+    tensors within 1e-6 relative."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step, optimizer
+    cfg = get_config("qwen2_1_5b", smoke=True)
+    cpu = build_model(cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda)
+    state = _mid_training_state(cpu, 3)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 33), dtype=np.int32))
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    want, wm = make_train_step(cpu, microbatches=2, base_lr=1e-2)(state,
+                                                                 batch)
+    step = make_train_step(gpu, microbatches=2, base_lr=1e-2)
+    on_card = _on(state, cuda)
+    card_batch = {k: x.to(cuda) for k, x in batch.items()}
+    step(on_card, card_batch)     # warm-up: RoPE's frequencies reach the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, gm = step(on_card, card_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.params["embed"].is_cuda and got.opt.m["embed"].is_cuda
+    np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]), rtol=1e-3)
+    np.testing.assert_allclose(float(gm["grad_norm"]), float(wm["grad_norm"]),
+                               rtol=5e-3)
+    np.testing.assert_allclose(float(gm["lr"]), float(wm["lr"]), rtol=1e-6)
+    lr = float(wm["lr"])
+    for name, w in want.params.items():
+        g = got.params[name].cpu().float().numpy()
+        w = w.float().numpy()
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
+        assert (np.abs(g - w) <= 0.3 * lr + ulp).all(), name
+        for what in ("m", "v"):
+            a = getattr(got.opt, what)[name].cpu().numpy()
+            b = getattr(want.opt, what)[name].numpy()
+            assert np.abs(a - b).max() <= 5e-2 * np.abs(b).max(), (what, name)
+    # the optimizer alone, float32 in float32 out
+    f32 = {k: x.float() for k, x in state.params.items()}
+    grads = {k: torch.randn(x.shape, generator=torch.Generator()
+                            .manual_seed(4)) * 1e-2 for k, x in f32.items()}
+    pw, sw, iw = optimizer.adamw_update(f32, grads, state.opt)
+    pg, sg, ig = optimizer.adamw_update(
+        {k: x.to(cuda) for k, x in f32.items()},
+        {k: x.to(cuda) for k, x in grads.items()}, _on(state, cuda).opt)
+    for k in f32:
+        for a, b in ((pg[k], pw[k]), (sg.m[k], sw.m[k]), (sg.v[k], sw.v[k])):
+            assert (a.cpu() - b).abs().max() <= 1e-6 * b.abs().max(), k
+
+
+def test_train_loop_recovers_exactly_on_card(cuda, tmp_path):
+    """The reference's recovery test on the card: qwen2-1.5B's SMOKE
+    config, 12 steps of 2 x 32 tokens with a checkpoint every 4, failures
+    at steps 3 and 9; the final parameters equal the uninterrupted run's
+    within atol 1e-6, each on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.runtime import FailureInjector, TrainLoop
+    from repro_torch.train import make_train_step, train_state_init
+    model = build_model(get_config("qwen2_1_5b", smoke=True))
+    corpus = np.random.default_rng(0).integers(
+        0, model.cfg.vocab, 40_000).astype(np.int32)
+    step = make_train_step(model, base_lr=1e-3)
+
+    def loop(path, injector=None):
+        return TrainLoop(step, train_state_init(model),
+                         lambda s: TokenPipeline(corpus, 2, 32, start_step=s),
+                         str(tmp_path / path), ckpt_every=4,
+                         injector=injector)
+
+    clean = loop("clean").run(12)
+    faulty_loop = loop("faulty", FailureInjector([3, 9]))
+    faulty = faulty_loop.run(12)
+    assert faulty_loop.restarts == 2
+    for name, a in clean.params.items():
+        assert faulty.params[name].is_cuda
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   faulty.params[name].float().cpu().numpy(),
+                                   atol=1e-6, err_msg=name)
