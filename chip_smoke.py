@@ -330,7 +330,7 @@ In order it:
    timed, and the bound is operations at the card's dense bfloat16 rate,
    or in float32 three times the operations at its TF32 rate (3xTF32),
    with the FFMA bound printed beside it;
-9b. the LM side, after phase 10 and every profile (then only 9c)
+9b. the LM side, after phase 10 and every profile (then only 9c and 9d)
    (a profile taken after it lost one kernel event of ten; ``--lm`` runs
    it alone after the build and prints its kernels line and the card
    line, and no ok line): ``repro_torch.models``
@@ -383,16 +383,55 @@ In order it:
    held bit-identical to ``apply_stages`` and timed: the
    ``fused_morsel_program[train corpus]`` row of the kernels line. (b) the
    card against the port on the CPU at full width and 2 layers: one set
-   of weights and one AdamW state at step 150 (seeded m and v) made on the
-   CPU and copied to the card, one step of 2 microbatches at B 2, S 64
+   of weights and one AdamW state at step 150 (seeded m and v) drawn on
+   the card and copied to the CPU, one step of 2 microbatches at B 2, S 64
    (base lr 1e-2): the loss, grad_norm, every parameter, m and v within
-   ``_TRAIN_TOL``; then ``adamw_update`` alone on float32 tensors within
+   ``_TRAIN_TOL``, the differences computed on the card; then ``adamw_update`` alone on float32 tensors within
    1e-6 of each tensor's largest |value|. (c) the ``--full-100m`` config
    of ``examples/train_lm_torch.py`` (12 layers, d_model 768, vocab
    32,000) through ``TrainLoop``: 200 steps of 8 x 128 tokens with a
    checkpoint every 50 into a temporary directory (removed after),
    uninterrupted and with a failure at step 100: one restart, the final
    parameters equal within atol 1e-6, the last loss below the first;
+9d. the MoE and hybrid families, after 9c (``--moe`` runs it alone after
+   the build and prints its kernels line and the card line, and no ok
+   line): ``repro_torch.models`` with ``moe`` and ``moe_a2a``'s local path
+   and ``mamba``. (a) deepseek-moe-16B's full ``CONFIG`` (28 layers,
+   d_model 2048, 64 routed experts top-6 and 2 shared, vocab 102,400;
+   bfloat16 weights drawn on the card, seed ``_MOE_SEED``): prefill of 8
+   prompts of 512 with ``max_len`` 1024 and 16 greedy decode steps,
+   after a warm-up and one prefill and decode step under sync debug mode
+   (no host sync): ``flash_attention`` launches once a layer and nothing
+   else, every logit finite; the prefill's ms, ms a decode step,
+   tokens/s, ``max_memory_allocated`` and the share of token copies that
+   capacity dropped in the prefill (each call's own capacity, 512 slots
+   an expert at 4,096 tokens), and one profiled prefill and decode step
+   (device busy against the wall, the heaviest kernels). (b) decode
+   against ``forward`` at full depth, B 2, prompts of 64 and 16 steps fed
+   drawn tokens: ``forward`` over the 80, then the prefill and each step
+   on the forward's routing (``tests/torch_routing.py``: each MoE call
+   takes the first run's experts, and a choice of its own that differs
+   must be a near tie, the first run's gap between the k-th and (k+1)-th
+   probability below the architecture's ``_MOE_MARGIN``), no copy dropped
+   (the check's precondition), each position's logits within ``_LM_TOL``,
+   and the residual stream's difference after each layer printed. (c) the
+   card against the port on the CPU at full width and 2 layers, one set
+   of weights made on the CPU, B 2, prompts of 128, 8 decode steps fed
+   the CPU's tokens, the card on the CPU's routing: logits within
+   ``_LM_CPU_TOL``, K/V caches within it by row. (d) dbrx-132B (GQA
+   48/8, 16 experts top-4) at full width and 2 layers and jamba-v0.1 at
+   full width and one period of 8 layers (7 Mamba, 1 attention, 4 MoE):
+   prefill of 2 prompts of 512 and 4 decode steps, ``flash_attention``
+   launched once an attention layer, finite logits, jamba's Mamba loop
+   timed by CUDA events as a share of the prefill, and (b)'s check at B 2,
+   S 64 (jamba's logits within ``_LM_HYBRID_TOL``). (e) one MoE training
+   step of 2 microbatches at deepseek's full width and 2 layers against
+   the CPU, as 9c (b) without ``adamw_update`` alone, on the CPU's
+   routing.
+   (f) the first ``flash_attention`` call of (a)'s prefill ([8, 16, 512,
+   128] bfloat16, causal) against its plain version, timed beside SDPA
+   and the bound: the ``flash_attention[lm deepseek_moe_16b prefill]``
+   row, its launches (a)'s prefill's;
 10. the main path's shapes: every captured standalone probe (W = 1 and
    W = 4) once in one profile, a line each (keys, slots, max_probes, hit
    rate, whether the table fits the L2, bound, device µs) and the sums;
@@ -426,7 +465,7 @@ same rows in memory (their ``Memcpy HtoD`` copies and ms), and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line (``--lm`` phase 9b, ``--train``
-phase 9c); ``--build`` runs phase 3's
+phase 9c, ``--moe`` phase 9d); ``--build`` runs phase 3's
 synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
 and their views), phase 8(a) and the SQL phase's (d) alone; ``--sql`` the
 SQL phase alone; ``--segmented`` the segmented
@@ -605,6 +644,34 @@ _FT_STEPS, _FT_B, _FT_S, _FT_EVERY, _FT_FAIL = 200, 8, 128, 50, 100
 # the reference, tests/test_torch_train.py)
 _TRAIN_TOL = {"loss": 1e-3, "grad_norm": 5e-3, "moments": 5e-2,
               "param_lr": 0.3, "adamw": 1e-6}
+# phase 9d: the MoE and hybrid families. (a) deepseek-moe-16B's full CONFIG
+# (src/repro/configs/deepseek_moe_16b.py: 28 layers, 64 routed experts
+# top-6, 2 shared), its weights' seed, 8 prompts of 512, max_len 1024, 16
+# greedy steps; (b) decode against forward at B 2, prompts of 64, 16 steps;
+# (c) the card against the CPU at 2 layers, prompts of 128, 8 steps; (d)
+# dbrx-132B at 2 layers and jamba-v0.1 at one period of 8 layers, 2 prompts
+# of 512, 4 steps; each architecture's near-tie margin on the router
+# probabilities for a routing choice that differs between two runs
+# (tests/torch_routing.py), about twice its largest gap read on an H100:
+# deepseek 0.00273 (its 64 experts' probabilities average 0.016), dbrx
+# 0.00362 (16 experts, 0.0625), jamba 0.00948 (16 experts), whose decode's
+# router probabilities drift from its forward's by up to 0.031 as its
+# residual stream's difference grows through its Mamba layers (0.011 after
+# layer 0, 0.060 after layer 7; deepseek's 0.015-0.043 over 28 layers);
+# (b)'s tolerance for a hybrid config (about twice
+# jamba's largest readings, 0.28 and 0.33 over 8 layers, against the dense
+# configs' 0.090 over 28: its Mamba layers carry the roundings in which
+# decode and forward differ further than attention layers do; (b) prints
+# the residual stream's difference after each layer)
+_MOE_ARCH = "deepseek_moe_16b"
+_MOE_SEED = 31
+_MOE_BATCH, _MOE_PROMPT, _MOE_MAX_LEN, _MOE_STEPS = 8, 512, 1024, 16
+_MOE_FWD_B, _MOE_FWD_PROMPT, _MOE_FWD_STEPS = 2, 64, 16
+_MOE_CPU_PROMPT, _MOE_CPU_STEPS = 128, 8
+_MOE_OTHERS = (("dbrx_132b", 2), ("jamba_v0_1_52b", 8))
+_LM_HYBRID_TOL = (0.6, 0.02)
+_MOE_MARGIN = {"deepseek_moe_16b": 5e-3, "dbrx_132b": 8e-3,
+               "jamba_v0_1_52b": 2e-2}
 
 
 def fail(msg: str) -> None:
@@ -5998,7 +6065,8 @@ def _lm_serve(torch, model, batch, max_len, steps, feed=None):
     """Prefill then ``steps`` decode steps, each fed the greedy token of
     the step before (or ``feed[:, t]``): (the prefill's and each step's
     logits [B, 1, V], the tokens fed [B, steps], the caches after the
-    prefill (copies), the prefill's seconds, the decode's seconds). The
+    prefill (copies of each ``KVCache`` or ``MambaState``), the prefill's
+    seconds, the decode's seconds). The
     clocks are the host's around work that ends in a synchronize."""
     s = next(iter(batch.values())).shape[1]
     sync = (torch.cuda.synchronize if model.device.type == "cuda"
@@ -6008,7 +6076,7 @@ def _lm_serve(torch, model, batch, max_len, steps, feed=None):
     logits, caches = model.prefill(batch, max_len)
     sync()
     t_prefill = time.perf_counter() - t0
-    first = [c._replace(k=c.k.clone(), v=c.v.clone()) for c in caches]
+    first = [type(c)(*(t.clone() for t in c)) for c in caches]
     outs, fed = [logits], []
     t0 = time.perf_counter()
     for t in range(steps):
@@ -6231,12 +6299,13 @@ def lm_others(torch, mods, cfgs, kops, failures):
         torch.cuda.empty_cache()
 
 
-def lm_attention_row(torch, fa, qkv, launches, rate, name, failures):
+def lm_attention_row(torch, fa, qkv, launches, rate, name, failures,
+                     arch=_LM_ARCH):
     """(d): the captured call against the plain version, timed: the
-    kernels line's ``flash_attention[lm qwen2_1_5b prefill]`` row."""
+    kernels line's ``flash_attention[lm <arch> prefill]`` row."""
     import torch.nn.functional as F
     q, k, v = qkv
-    row = f"flash_attention[lm {_LM_ARCH} prefill]"
+    row = f"flash_attention[lm {arch} prefill]"
     got = fa.flash_attention(q, k, v, causal=True)
     want = fa.flash_attention_plain(q, k, v, causal=True)
     err = float((got.float() - want.float()).abs().max())
@@ -6483,17 +6552,21 @@ def train_fused_row(torch, fused, call, launches, rate):
                 bound_by=by, library_ms=None)
 
 
-def _mid_training_state(torch, model, seed):
+def _mid_training_state(torch, model, seed, draw_on):
     """The model's weights and an AdamW state at ``_TRAIN_MID_STEP``: m ~
-    N(0, _TRAIN_MOMENT), v uniform in [0.5, 1.5] _TRAIN_MOMENT ** 2."""
+    N(0, _TRAIN_MOMENT), v uniform in [0.5, 1.5] _TRAIN_MOMENT ** 2, drawn
+    on ``draw_on`` (the card draws billions of numbers far faster than a
+    CPU generator) and kept on the model's device."""
     from repro_torch.train import train_state_init
     from repro_torch.train.optimizer import AdamWState
     from repro_torch.train.train_step import TrainState
     params = train_state_init(model).params
-    gen = torch.Generator().manual_seed(seed)
-    m = {k: torch.randn(p.shape, generator=gen) * _TRAIN_MOMENT
-         for k, p in params.items()}
-    v = {k: (torch.rand(p.shape, generator=gen) + 0.5) * _TRAIN_MOMENT ** 2
+    gen = torch.Generator(draw_on).manual_seed(seed)
+
+    def draw(fn, p):
+        return fn(p.shape, generator=gen, device=draw_on).to(p.device)
+    m = {k: draw(torch.randn, p) * _TRAIN_MOMENT for k, p in params.items()}
+    v = {k: (draw(torch.rand, p) + 0.5) * _TRAIN_MOMENT ** 2
          for k, p in params.items()}
     return TrainState(params, AdamWState(
         torch.tensor(_TRAIN_MID_STEP, dtype=torch.int32), m, v))
@@ -6514,61 +6587,10 @@ def _worst(a, b, scale) -> float:
     return float((a.double() - b.double()).abs().max()) / max(scale, 1e-30)
 
 
-def train_against_cpu(torch, cfg, device, failures):
-    """(b): full width, 2 layers; one set of weights and one mid-training
-    state made on the CPU and copied to ``device``; one step of
-    ``_TRAIN_MICRO`` microbatches on each, then ``adamw_update`` alone on
-    float32 tensors."""
-    import copy
-    import dataclasses
-    import numpy as np
-    mods = importlib.import_module("repro_torch.models")
-    from repro_torch.train import make_train_step, optimizer
-    cfg = dataclasses.replace(cfg, n_layers=2)
-    cpu = _lm_model(torch, mods, cfg, "cpu", _TRAIN_SEED)
-    dev = copy.deepcopy(cpu).to(device)
-    state = _mid_training_state(torch, cpu, _TRAIN_SEED)
-    tok = torch.from_numpy(np.random.default_rng(_TRAIN_SEED).integers(
-        0, cfg.vocab, (_TRAIN_CPU_B, _TRAIN_CPU_S + 1), dtype=np.int32))
-    batch = {"tokens": tok[:, :-1].contiguous(),
-             "labels": tok[:, 1:].contiguous()}
-    t0 = time.perf_counter()
-    want, wm = make_train_step(cpu, microbatches=_TRAIN_MICRO,
-                               base_lr=_TRAIN_CPU_LR)(state, batch)
-    cpu_secs = time.perf_counter() - t0
-    got, gm = make_train_step(dev, microbatches=_TRAIN_MICRO,
-                              base_lr=_TRAIN_CPU_LR)(
-        _state_on(state, device), {k: x.to(device) for k, x in batch.items()})
-    _sync(torch, device)
-    tol = _TRAIN_TOL
-    err = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
-           for k in ("loss", "grad_norm", "lr")}
-    lr = float(wm["lr"])
-    worst = {"param_lr": 0.0, "m": 0.0, "v": 0.0}
-    for name, w in want.params.items():
-        g = got.params[name].cpu().double()
-        w = w.double()
-        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30)))
-                         - 7)
-        worst["param_lr"] = max(worst["param_lr"], float(
-            ((g - w).abs() - ulp).max()) / lr)
-        for what, b in (("m", 0.9), ("v", 0.95)):
-            new_w = getattr(want.opt, what)[name]
-            added = float((new_w - b * getattr(state.opt, what)[name])
-                          .abs().max())
-            worst[what] = max(worst[what], _worst(
-                getattr(got.opt, what)[name].cpu(), new_w, added))
-    for k in ("loss", "grad_norm"):
-        if not err[k] <= tol[k]:
-            failures.append(f"train (b): {k} {float(gm[k])} against the "
-                            f"CPU's {float(wm[k])}")
-    if not (err["lr"] <= tol["adamw"] and worst["param_lr"] <= tol["param_lr"]
-            and max(worst["m"], worst["v"]) <= tol["moments"]):
-        failures.append(f"train (b): lr {err['lr']:.3g}, parameters "
-                        f"{worst['param_lr']:.3g} lr past an ulp, m "
-                        f"{worst['m']:.3g}, v {worst['v']:.3g} (tolerances "
-                        f"{tol})")
-    # adamw_update alone, float32 in, float32 out
+def _adamw_alone(torch, optimizer, state, device) -> float:
+    """``adamw_update`` on float32 copies of ``state``'s parameters (the
+    gradients 7 m) on the CPU and on ``device``: the largest difference
+    relative to each tensor's largest |value|, lr's and grad_norm's."""
     f32 = {k: x.float() for k, x in state.params.items()}
     grads = {k: x * 7.0 for k, x in state.opt.m.items()}
     pw, sw, iw = optimizer.adamw_update(f32, grads, state.opt)
@@ -6576,15 +6598,85 @@ def train_against_cpu(torch, cfg, device, failures):
     pg, sg, ig = optimizer.adamw_update(
         {k: x.to(device) for k, x in f32.items()},
         {k: x.to(device) for k, x in grads.items()}, on.opt)
-    adamw = max(_worst(a.cpu(), b, float(b.abs().max()))
+    adamw = max(_worst(a, b.to(device), float(b.abs().max()))
                 for k in f32 for a, b in ((pg[k], pw[k]), (sg.m[k], sw.m[k]),
                                           (sg.v[k], sw.v[k])))
-    adamw = max(adamw, *(abs(float(ig[k]) - float(iw[k])) / float(iw[k])
-                         for k in ("lr", "grad_norm")))
-    if not adamw <= tol["adamw"]:
-        failures.append(f"train (b): adamw_update on float32 tensors "
+    return max(adamw, *(abs(float(ig[k]) - float(iw[k])) / float(iw[k])
+                        for k in ("lr", "grad_norm")))
+
+
+def train_against_cpu(torch, cfg, device, failures, label="train (b)",
+                      adamw_alone=True):
+    """(b): full width, 2 layers; one set of weights and one mid-training
+    state drawn on ``device`` and copied to the CPU; one step of
+    ``_TRAIN_MICRO`` microbatches on each, then ``adamw_update`` alone on
+    float32 tensors (unless not ``adamw_alone``); the differences computed
+    on ``device``. A MoE
+    config's step on ``device`` runs on the CPU's routing
+    (``tests/torch_routing.py``), its own differing choices near ties."""
+    import copy
+    import dataclasses
+    import numpy as np
+    mods = importlib.import_module("repro_torch.models")
+    from repro_torch.train import make_train_step, optimizer
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    dev = _lm_model(torch, mods, cfg, device, _TRAIN_SEED)
+    cpu = copy.deepcopy(dev).to("cpu")
+    state = _mid_training_state(torch, cpu, _TRAIN_SEED, device)
+    tok = torch.from_numpy(np.random.default_rng(_TRAIN_SEED).integers(
+        0, cfg.vocab, (_TRAIN_CPU_B, _TRAIN_CPU_S + 1), dtype=np.int32))
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    moe = cfg.n_experts > 0
+    t0 = time.perf_counter()
+    rt = _routing() if moe else None
+    with rt.recorded() if moe else contextlib.nullcontext() as probs:
+        want, wm = make_train_step(cpu, microbatches=_TRAIN_MICRO,
+                                   base_lr=_TRAIN_CPU_LR)(state, batch)
+    cpu_secs = time.perf_counter() - t0
+    rec = rt.Routed(cfg.top_k, probs) if moe else None
+    with rt.forced(rec) if moe else contextlib.nullcontext():
+        got, gm = make_train_step(dev, microbatches=_TRAIN_MICRO,
+                                  base_lr=_TRAIN_CPU_LR)(
+            _state_on(state, device),
+            {k: x.to(device) for k, x in batch.items()})
+    _sync(torch, device)
+    routing = _route_check(rec, cfg, label, failures) if moe else ""
+    tol = _TRAIN_TOL
+    err = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+           for k in ("loss", "grad_norm", "lr")}
+    lr = float(wm["lr"])
+    worst = {"param_lr": 0.0, "m": 0.0, "v": 0.0}
+    for name, w in want.params.items():
+        g = got.params[name].double()
+        w = w.to(device).double()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30)))
+                         - 7)
+        worst["param_lr"] = max(worst["param_lr"], float(
+            ((g - w).abs() - ulp).max()) / lr)
+        for what, b in (("m", 0.9), ("v", 0.95)):
+            new_w = getattr(want.opt, what)[name].to(device)
+            added = float((new_w - b * getattr(state.opt, what)[name].to(
+                device)).abs().max())
+            worst[what] = max(worst[what], _worst(
+                getattr(got.opt, what)[name], new_w, added))
+    for k in ("loss", "grad_norm"):
+        if not err[k] <= tol[k]:
+            failures.append(f"{label}: {k} {float(gm[k])} against the "
+                            f"CPU's {float(wm[k])}")
+    if not (err["lr"] <= tol["adamw"] and worst["param_lr"] <= tol["param_lr"]
+            and max(worst["m"], worst["v"]) <= tol["moments"]):
+        failures.append(f"{label}: lr {err['lr']:.3g}, parameters "
+                        f"{worst['param_lr']:.3g} lr past an ulp, m "
+                        f"{worst['m']:.3g}, v {worst['v']:.3g} (tolerances "
+                        f"{tol})")
+    # adamw_update alone, float32 in, float32 out
+    adamw = _adamw_alone(torch, optimizer, state, device) if adamw_alone \
+        else None
+    if adamw is not None and not adamw <= tol["adamw"]:
+        failures.append(f"{label}: adamw_update on float32 tensors "
                         f"{adamw:.3g} of each tensor's largest |value|")
-    print(f"check train (b) {cfg.name} at 2 layers, B {_TRAIN_CPU_B} S "
+    print(f"check {label} {cfg.name} at 2 layers, B {_TRAIN_CPU_B} S "
           f"{_TRAIN_CPU_S}, {_TRAIN_MICRO} microbatches, step "
           f"{_TRAIN_MID_STEP} -> {int(got.opt.step)}, lr {lr:.6g}, {device} "
           f"against the CPU ({cpu_secs:.1f} s there): loss {float(gm['loss'])}"
@@ -6593,7 +6685,8 @@ def train_against_cpu(torch, cfg, device, failures):
           f"{err['grad_norm']:.3g}), parameters {worst['param_lr']:.3g} lr "
           f"past a bfloat16 ulp, m {worst['m']:.3g} and v {worst['v']:.3g} "
           f"of the step's largest added |part|; adamw_update on float32 "
-          f"{adamw:.3g} relative; tolerances {tol}; {card_line()}",
+          f"{'not run' if adamw is None else f'{adamw:.3g} relative'}; "
+          f"tolerances {tol}{routing}; {card_line()}",
           flush=True)
 
 
@@ -6667,6 +6760,399 @@ def run_train(torch, fused, kops, rate, here):
     train_fault_tolerant(torch, here, device, failures)
     torch.cuda.empty_cache()
     print(f"phase 9c (training): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return [row]
+
+
+# ---------------------------------------------------------------------------
+# phase 9d: the MoE and hybrid families (deepseek-moe-16B at full depth,
+# dbrx-132B and jamba-v0.1 at a few layers, a MoE training step)
+# ---------------------------------------------------------------------------
+
+def _routing():
+    """``tests/torch_routing.py``: the near-tie rule for top-k routing (a
+    run on another run's experts, each differing choice of its own a near
+    tie)."""
+    return importlib.import_module("torch_routing")
+
+
+def _route_check(rec, cfg, what, failures) -> str:
+    """Holds ``rec`` (a ``Routed`` after its forced run) to ``cfg``'s
+    margin; returns its summary."""
+    margin = _MOE_MARGIN[cfg.name]
+    msg = rec.failure(margin, what)
+    if msg:
+        failures.append(msg)
+    return ", " + rec.summary(margin)
+
+
+class _LayerOuts:
+    """Keeps the residual stream after each layer (``blocks.apply_train``,
+    ``apply_prefill``, ``apply_decode``) while entered, in call order."""
+
+    def __init__(self):
+        from repro_torch.models import blocks
+        self.mod, self.outs = blocks, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.mod, n) for n in (
+            "apply_train", "apply_prefill", "apply_decode")}
+        for n, fn in self.saved.items():
+            setattr(self.mod, n, self._keep(fn))
+        return self
+
+    def _keep(self, fn):
+        def kept(*args, **kw):
+            out = fn(*args, **kw)
+            self.outs.append(out[0].detach().clone())
+            return out
+        return kept
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.mod, n, fn)
+
+
+def _layer_drift(torch, cfg, fwd, serve, s, steps) -> str:
+    """Each layer's largest |serve - forward| over its row's largest
+    |value| (the prefill's rows and each step's), from ``_LayerOuts``."""
+    from repro_torch.models.blocks import layer_kind
+    n = cfg.n_layers
+    parts = []
+    for i in range(n):
+        want = fwd[i].float()
+        got = [serve[i].float()] + [serve[n * (1 + t) + i].float()
+                                    for t in range(steps)]
+        rows = [want[:, :s]] + [want[:, s + t:s + t + 1]
+                                for t in range(steps)]
+        worst = max(float(((g - w).abs() / w.abs().amax(-1, keepdim=True))
+                          .max()) for g, w in zip(got, rows))
+        parts.append(f"{i} {'+'.join(layer_kind(cfg, i))} {worst:.3g}")
+    return "; ".join(parts)
+
+
+class _Drops:
+    """Keeps each MoE call's routing while entered: ``copies(n)`` gives
+    (token copies, copies dropped by capacity) over the calls of ``n``
+    tokens (all calls when None), read back after the run."""
+
+    def __init__(self):
+        from repro_torch.models import moe_a2a
+        self.mod, self.calls = moe_a2a, []
+
+    def __enter__(self):
+        route = self.route = self.mod._route
+
+        def kept(flat, params, cfg, *args):
+            r = route(flat, params, cfg, *args)
+            self.calls.append((flat.shape[0], r.topi.numel(), r.slot_w))
+            return r
+
+        self.mod._route = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.route
+
+    def copies(self, n=None):
+        calls = [c for c in self.calls if n is None or c[0] == n]
+        total = sum(c[1] for c in calls)
+        return total, total - sum(int((c[2] != 0).sum()) for c in calls)
+
+
+def _moe_shares(n_tok, drops):
+    total, dropped = drops.copies(n_tok)
+    return (f"capacity dropped {dropped} of {total} token copies "
+            f"({dropped / max(total, 1):.6f})")
+
+
+def moe_against_forward(torch, model, b, s, steps, seed, what, failures):
+    """(b): ``forward`` over ``b`` prompts of ``s`` tokens and ``steps``
+    more (its routing recorded), then the prefill of the prompts and
+    ``steps`` decode steps fed the same tokens on the forward's routing:
+    each position's logits against forward's within ``_LM_TOL``
+    (``_LM_HYBRID_TOL`` for a hybrid config). The tokens are drawn, not
+    greedy: greedy steps of a random model repeat a token, whose copies
+    then crowd one expert. No copy may be dropped (the check's
+    precondition: capacity follows each call's tokens)."""
+    cfg = model.cfg
+    seq = _lm_batch(torch, cfg, b, s + steps, seed, model.device)["tokens"]
+    batch, fed = {"tokens": seq[:, :s]}, seq[:, s:]
+    rt = _routing()
+    with _Drops() as d_fwd, rt.recorded() as probs, \
+            _LayerOuts() as l_fwd, torch.inference_mode():
+        logits, _ = model.forward({"tokens": seq})
+    # the forward's routing in the serve's call order: the prefill's calls
+    # (its first s positions), then each step's (position s + t)
+    n_moe = len(probs)
+    probs = [p.reshape(b, s + steps, -1) for p in probs]
+    order = [p[:, :s].reshape(b * s, -1) for p in probs]
+    for t in range(steps):
+        order += [p[:, s + t] for p in probs]
+    rec = rt.Routed(cfg.top_k, order)
+    with _Drops() as d_serve, rt.forced(rec), _LayerOuts() as l_serve:
+        outs, _, _, _, _ = _lm_serve(torch, model, batch, s + steps, steps,
+                                     feed=fed)
+    routing = _route_check(rec, cfg, what, failures)
+    layers = _layer_drift(torch, cfg, l_fwd.outs, l_serve.outs, s, steps)
+    del l_fwd, l_serve
+    _lm_finite(torch, outs, what, failures)
+    dropped = d_fwd.copies()[1] + d_serve.copies()[1]
+    if dropped:
+        failures.append(f"{what}: {dropped} token copies dropped; the check "
+                        "needs none")
+    tol = _LM_HYBRID_TOL if cfg.family == "hybrid" else _LM_TOL
+    worst, misses = (0.0, 0.0), 0
+    for t, got in enumerate(outs):
+        want = logits[:, s - 1 + t:s + t]
+        err, ratio = _lm_diff(torch, got, want, tol)
+        worst = (max(worst[0], err), max(worst[1], ratio))
+        misses += _lm_greedy_misses(torch, got, want, tol)
+    if not worst[1] <= 1.0 or misses:
+        failures.append(f"{what}: against forward max |diff| {worst[0]:.4g}, "
+                        f"{worst[1]:.3g} of the tolerance {tol}, greedy "
+                        f"misses {misses}")
+    print(f"check {what} against forward, B {b}, prompts of {s}, {steps} "
+          f"steps, {n_moe} MoE calls a forward: max |diff| {worst[0]:.4g}, "
+          f"{worst[1]:.3g} of the tolerance (atol, rtol) {tol}, greedy "
+          f"misses {misses}, copies dropped {dropped}{routing}; the "
+          f"residual stream's largest |decode - forward| over its row's "
+          f"largest |value| after each layer: {layers}", flush=True)
+
+
+def _moe_profile(torch, what, fn):
+    """One profiled call of ``fn``: its device busy ms and its heaviest
+    kernels, printed beside the call's wall."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof, _ = _profiled(torch, fn)
+    rows = _device_events(prof)
+    busy = sum(r[2] for r in rows) / 1e3
+    top = "; ".join(f"{r[0][:60]} x{r[1]} {r[2] / 1e3:.3f} ms"
+                    for r in rows[:8])
+    print(f"profile {what}: wall {wall:.3f} ms unprofiled, device busy "
+          f"{busy:.3f} ms ({len(rows)} kernel names); {top}", flush=True)
+
+
+def moe_deepseek(torch, mods, cfgs, kops, failures):
+    """(a) and (b) at deepseek-moe-16B's full CONFIG: (the first attention
+    call's q, k and v, contiguous; the prefill's launches)."""
+    cfg = cfgs.get_config(_MOE_ARCH)
+    what = f"moe {_MOE_ARCH}"
+    t0 = time.perf_counter()
+    model = _lm_model(torch, mods, cfg, "cuda", _MOE_SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    batch = _lm_batch(torch, cfg, _MOE_BATCH, _MOE_PROMPT, _MOE_SEED, "cuda")
+    _lm_serve(torch, model, batch, _MOE_MAX_LEN, 2)    # warm-up
+    syncs = _lm_host_syncs(torch, model, batch, _MOE_MAX_LEN)
+    if syncs:
+        failures.append(f"{what}: {len(syncs)} host syncs in a prefill and "
+                        f"a decode step: {syncs[:3]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    with _Capture(kops) as cap, _Drops() as drops:
+        outs, fed, _, t_prefill, t_decode = _lm_serve(
+            torch, model, batch, _MOE_MAX_LEN, _MOE_STEPS)
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["flash_attention"] != cfg.n_layers or \
+            sum(counts.values()) != cfg.n_layers or cap.calls != cfg.n_layers:
+        failures.append(f"{what}: launches {counts}, {cap.calls} calls; "
+                        f"want {cfg.n_layers} flash_attention a prefill")
+    _lm_finite(torch, outs, what, failures)
+    n_tok = _MOE_BATCH * _MOE_STEPS
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{what} (a): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+          f"shared, vocab {cfg.vocab}, {n_params} parameters drawn on the "
+          f"card in {t_init:.1f} s; prefill {_MOE_BATCH}x{_MOE_PROMPT} tokens "
+          f"in {t_prefill * 1e3:.3f} ms "
+          f"({_MOE_BATCH * _MOE_PROMPT / t_prefill:.1f} tokens/s), "
+          f"{_MOE_STEPS} decode steps at {t_decode / _MOE_STEPS * 1e3:.3f} ms "
+          f"a step ({n_tok / t_decode:.1f} tokens/s), max_memory_allocated "
+          f"{peak / 1e9:.3f} GB, launches {dict(_nonzero(counts))}, host "
+          f"syncs {len(syncs)}; the prefill's "
+          f"{_moe_shares(_MOE_BATCH * _MOE_PROMPT, drops)}, the decode's "
+          f"{_moe_shares(_MOE_BATCH, drops)}; {card_line()}", flush=True)
+    qkv = tuple(t.contiguous() for t in cap.first)
+    del outs, cap, drops
+    with torch.inference_mode():
+        _moe_profile(torch, f"{what} prefill", lambda: model.prefill(
+            batch, _MOE_MAX_LEN))
+        logits, caches = model.prefill(batch, _MOE_MAX_LEN)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        _moe_profile(torch, f"{what} decode step", lambda: model.decode_step(
+            tok, caches, _MOE_PROMPT))
+        del logits, caches
+    moe_against_forward(torch, model, _MOE_FWD_B, _MOE_FWD_PROMPT,
+                        _MOE_FWD_STEPS, _MOE_SEED + 1, f"{what} (b) decode",
+                        failures)
+    del model
+    torch.cuda.empty_cache()
+    return qkv, counts["flash_attention"]
+
+
+def moe_against_cpu(torch, mods, cfgs, failures):
+    """(c): full width, 2 layers, one set of weights made on the CPU; the
+    card on the CPU's routing."""
+    import copy
+    import dataclasses
+    cfg = dataclasses.replace(cfgs.get_config(_MOE_ARCH), n_layers=2)
+    cpu = _lm_model(torch, mods, cfg, "cpu", _MOE_SEED)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    s, steps = _MOE_CPU_PROMPT, _MOE_CPU_STEPS
+    what = f"moe {_MOE_ARCH} 2 layers S {s} (c) card vs CPU"
+    batch = _lm_batch(torch, cfg, 2, s, _MOE_SEED + s, "cpu")
+    t0 = time.perf_counter()
+    rt = _routing()
+    with rt.recorded() as probs:
+        want, fed, want_c, _, _ = _lm_serve(torch, cpu, batch, s + steps,
+                                            steps)
+    cpu_secs = time.perf_counter() - t0
+    rec = rt.Routed(cfg.top_k, probs)
+    with rt.forced(rec):
+        got, _, got_c, _, _ = _lm_serve(
+            torch, gpu, {k: x.cuda() for k, x in batch.items()}, s + steps,
+            steps, feed=fed.cuda())
+    routing = _route_check(rec, cfg, what, failures)
+    atol, rtol = _LM_CPU_TOL
+    err = ratio = 0.0
+    misses = 0
+    for g, w in zip(got, want):
+        e, r = _lm_diff(torch, g.cpu(), w, _LM_CPU_TOL)
+        err, ratio = max(err, e), max(ratio, r)
+        misses += _lm_greedy_misses(torch, g.cpu(), w, _LM_CPU_TOL)
+    cache = 0.0
+    for gc, wc in zip(got_c, want_c):
+        for g, w in zip(gc, wc):
+            w = w.float()
+            row = w.abs().amax(-1, keepdim=True)
+            d = (g.cpu().float() - w).abs()
+            cache = max(cache, float((d / (atol + rtol * row)).max()))
+    _lm_finite(torch, got, what, failures)
+    if not (ratio <= 1.0 and cache <= 1.0) or misses:
+        failures.append(f"{what}: logits max |diff| {err:.4g} ({ratio:.3g} "
+                        f"of the tolerance), caches {cache:.3g} of it, "
+                        f"greedy misses {misses}")
+    print(f"check {what}: prefill and {steps} decode steps ({cpu_secs:.1f} s "
+          f"on the CPU), logits max |diff| {err:.4g} ({ratio:.3g} of (atol, "
+          f"rtol) {_LM_CPU_TOL}), K/V caches {cache:.3g} of it by row, greedy "
+          f"misses {misses}{routing}", flush=True)
+    del gpu
+    torch.cuda.empty_cache()
+
+
+class _ScanClock:
+    """CUDA events around each ``mamba._selective_scan`` call while
+    entered: ``ms()`` sums them after a synchronize."""
+
+    def __init__(self, torch):
+        from repro_torch.models import mamba
+        self.torch, self.mod, self.events = torch, mamba, []
+
+    def __enter__(self):
+        scan = self.scan = self.mod._selective_scan
+        torch = self.torch
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = scan(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self.mod._selective_scan = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._selective_scan = self.scan
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def moe_others(torch, mods, cfgs, kops, failures):
+    """(d): dbrx-132B and jamba-v0.1 at full width and a few layers."""
+    import dataclasses
+    for arch, layers in _MOE_OTHERS:
+        cfg = dataclasses.replace(cfgs.get_config(arch), n_layers=layers)
+        n_attn = sum(cfg.family != "hybrid" or cfg.is_attn_layer(i)
+                     for i in range(layers))
+        model = _lm_model(torch, mods, cfg, "cuda", _MOE_SEED)
+        batch = _lm_batch(torch, cfg, 2, _MOE_PROMPT, _MOE_SEED, "cuda")
+        _lm_serve(torch, model, batch, _MOE_PROMPT + 4, 1)    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launch_counts()
+        with _ScanClock(torch) as clock:
+            outs, fed, _, t_prefill, t_decode = _lm_serve(
+                torch, model, batch, _MOE_PROMPT + 4, 4)
+        counts = kops.launch_counts()
+        what = f"moe {arch} {layers} layers (d)"
+        if counts["flash_attention"] != n_attn or \
+                sum(counts.values()) != n_attn:
+            failures.append(f"{what}: launches {counts}, want {n_attn} "
+                            "flash_attention")
+        _lm_finite(torch, outs, what, failures)
+        scan = (f", the Mamba loop ({len(clock.events)} scans) "
+                f"{clock.ms():.3f} ms of it "
+                f"({clock.ms() / (t_prefill * 1e3):.3f})"
+                if clock.events else "")
+        print(f"{what}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv}, {cfg.n_experts} experts top-{cfg.top_k}, "
+              f"{n_attn} attention layers, "
+              f"{sum(p.numel() for p in model.parameters())} parameters; "
+              f"prefill 2x{_MOE_PROMPT} in {t_prefill * 1e3:.3f} ms{scan}, "
+              f"decode {t_decode / 4 * 1e3:.3f} ms a step, "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches "
+              f"{dict(_nonzero(counts))}", flush=True)
+        moe_against_forward(torch, model, _MOE_FWD_B, _MOE_FWD_PROMPT,
+                            _MOE_FWD_STEPS, _MOE_SEED + 2, f"{what} decode",
+                            failures)
+        del model, outs
+        torch.cuda.empty_cache()
+
+
+def run_moe(torch, fa, kops, rate, name):
+    """Phase 9d: the MoE and hybrid families; (rows of the kernels line).
+    Every part is checked and printed before the phase fails."""
+    cfgs = importlib.import_module("repro_torch.configs")
+    mods = importlib.import_module("repro_torch.models")
+    t0 = time.perf_counter()
+    failures = []
+    marks = [t0]
+
+    def mark():
+        marks.append(time.perf_counter())
+    qkv, launches = moe_deepseek(torch, mods, cfgs, kops, failures)
+    row = lm_attention_row(torch, fa, qkv, launches, rate, name, failures,
+                           arch=_MOE_ARCH)
+    del qkv
+    mark()
+    moe_against_cpu(torch, mods, cfgs, failures)
+    mark()
+    moe_others(torch, mods, cfgs, kops, failures)
+    mark()
+    train_against_cpu(torch, cfgs.get_config(_MOE_ARCH),
+                      torch.device("cuda"), failures, label="moe train (e)",
+                      adamw_alone=False)
+    mark()
+    torch.cuda.empty_cache()
+    print("phase 9d parts, s: (a), (b) and (f) {:.1f}, (c) {:.1f}, (d) "
+          "{:.1f}, (e) {:.1f}".format(*(b - a for a, b in zip(marks,
+                                                              marks[1:]))),
+          flush=True)
+    print(f"phase 9d (MoE and hybrid): {time.perf_counter() - t0:.1f} s",
           flush=True)
     if failures:
         fail("; ".join(failures))
@@ -7118,6 +7604,13 @@ def main() -> None:
                          "at 2 layers, the fault-tolerant loop's exact "
                          "recovery) and print its kernels line; prints no "
                          "ok line")
+    ap.add_argument("--moe", action="store_true",
+                    help="run phase 9d alone (deepseek-moe-16B at full "
+                         "width and depth: prefill and greedy decode, "
+                         "against forward and the CPU; dbrx-132B and "
+                         "jamba-v0.1 at a few layers; a MoE training step "
+                         "against the CPU) and print its kernels line; "
+                         "prints no ok line")
     ap.add_argument("--build", action="store_true",
                     help="run the build checks of phase 3 alone (the "
                          "synthetic cases, the route and the launches); "
@@ -7196,6 +7689,7 @@ def main() -> None:
     if args.faults:
         sys.exit(run_faults(here))
     sys.path.insert(0, src)
+    sys.path.append(os.path.join(here, "tests"))     # torch_routing
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -7240,6 +7734,10 @@ def main() -> None:
     if args.train:
         print(json.dumps({"kernels": run_train(torch, fused, kops, rate,
                                                here)}))
+        print(card)
+        return
+    if args.moe:
+        print(json.dumps({"kernels": run_moe(torch, fa, kops, rate, name)}))
         print(card)
         return
     if args.build:
@@ -7390,10 +7888,11 @@ def main() -> None:
         # profile of 20 kernel launches on this thread records 19, even
         # with every scheduler and prefetch thread joined
         profile_serving(torch, catalog, serving_builders, args.profile)
-    # phases 9b and 9c last: a profile taken after 9b lost one kernel
+    # phases 9b, 9c and 9d last: a profile taken after 9b lost one kernel
     # event of ten
     rows_out += run_lm(torch, fa, kops, rate, name)
     rows_out += run_train(torch, fused, kops, rate, here)
+    rows_out += run_moe(torch, fa, kops, rate, name)
     for r in rows_out:
         if "launches" in r:   # phase 9 counted its own path
             continue

@@ -1,12 +1,16 @@
 """Serve a model with batched requests on the port: prefill + batched greedy
 decode over the KV cache, the counterpart of ``examples/serve_lm.py``.
 
-    PYTHONPATH=src python examples/serve_lm_torch.py [--device cpu] [--full]
+    PYTHONPATH=src python examples/serve_lm_torch.py [--arch ID] \
+        [--device cpu] [--full]
 
 Runs qwen2-1.5B's SMOKE config on the CUDA device by default and fails when
-there is none; ``--device cpu`` runs the plain versions, ``--full`` the full
-published config (28 layers, d_model 1536, vocab 151,936) with random
-weights. Prefill's attention runs through the port's flash attention kernel.
+there is none; ``--arch`` takes any config the port builds (the dense
+ones, dbrx_132b, deepseek_moe_16b, jamba_v0_1_52b) and refuses the rest
+with ``NotImplementedError``; ``--device cpu`` runs the plain versions,
+``--full`` the full published config with random weights (qwen2-1.5B: 28
+layers, d_model 1536, vocab 151,936). Prefill's attention runs through the
+port's flash attention kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 
@@ -29,13 +33,15 @@ def _sync(device) -> None:
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--arch", default="qwen2_1_5b", choices=ARCH_IDS,
+                        help="the config to serve (qwen2_1_5b by default)")
     parser.add_argument("--device", default=None,
                         help="cuda (the default) or cpu")
     parser.add_argument("--full", action="store_true",
-                        help="the full qwen2-1.5B config, not its SMOKE one")
+                        help="the full config, not its SMOKE one")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    model = build_model(get_config("qwen2_1_5b", smoke=not args.full),
+    model = build_model(get_config(args.arch, smoke=not args.full),
                         device=device,
                         generator=torch.Generator(device).manual_seed(0))
     cfg = model.cfg

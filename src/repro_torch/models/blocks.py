@@ -1,30 +1,35 @@
-"""Layer blocks: the port of ``repro/models/blocks.py`` for the dense
-decoder (the ``attn`` mixer and the ``mlp`` channel).
+"""Layer blocks: the port of ``repro/models/blocks.py`` for the decoder's
+``attn`` and ``mamba`` mixers and its ``mlp`` and ``moe`` channels.
 
-``layer_kind`` is whole; a layer of another kind (``mamba``, ``mlstm``,
-``slstm``, ``moe``) raises ``NotImplementedError`` naming the ROADMAP
-item that ports it (``LATER``). A layer's parameters live in a ``Layer``
-module under the reference's names (``ln1``, ``mixer.{wq,wk,wv,wo,b_q,
-b_k,b_v}``, ``ln2``, ``ffn.{w1,w2,w3}``), in the reference's ``[d_in,
-d_out]`` layout.
+``layer_kind`` is whole; a layer of another kind (``mlstm``, ``slstm``)
+raises ``NotImplementedError`` naming the ROADMAP item that ports it
+(``LATER``). A layer's parameters live in a ``Layer`` module under the
+reference's names (``ln1``, ``mixer.{wq,wk,wv,wo,b_q,b_k,b_v}`` or
+``mixer.{in_proj,conv_w,...}``, ``ln2``, ``ffn.{w1,w2,w3}`` or
+``ffn.{router,experts_w1,...}``), in the reference's ``[d_in, d_out]``
+layout. A layer's cache is a ``KVCache`` (attention) or a ``MambaState``.
+
+The reference's prefill reruns the whole scan (``_mamba_tail_state``) for
+the final ssm state; the port keeps the final state of the forward's own
+loop, the same recurrence on the same inputs.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
-import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import attention as attn
+from . import mamba as mb
+from . import moe as moe_mod
 from .layers import init_mlp, init_rms, mlp, rms_norm
 
 # the ROADMAP item (Queue A) that ports each layer kind and model family
-# this slice leaves out
-LATER = {"mamba": "7d (SSM and hybrid)", "mlstm": "7d (SSM and hybrid)",
-         "slstm": "7d (SSM and hybrid)", "ssm": "7d (SSM and hybrid)",
-         "hybrid": "7d (SSM and hybrid)", "moe": "7c (MoE)",
-         "encdec": "7e (encoder-decoder)"}
+# still left out
+LATER = {"mlstm": "3 (xLSTM)", "slstm": "3 (xLSTM)", "ssm": "3 (xLSTM)",
+         "encdec": "4 (encoder-decoder)"}
 
 
 def layer_kind(cfg, i: int) -> Tuple[str, str]:
@@ -42,7 +47,7 @@ def layer_kind(cfg, i: int) -> Tuple[str, str]:
 
 
 def _check_kind(cfg, i: int) -> None:
-    """Raises ``NotImplementedError`` unless layer i is ``(attn, mlp)``."""
+    """Raises ``NotImplementedError`` for a kind this port leaves out."""
     for kind in layer_kind(cfg, i):
         if kind in LATER:
             raise NotImplementedError(
@@ -63,49 +68,84 @@ class Layer(nn.Module):
 
 def init_layer(cfg, i: int, generator, device) -> dict:
     _check_kind(cfg, i)
+    mixer, channel = layer_kind(cfg, i)
     return {"ln1": init_rms(cfg.d_model, device),
-            "mixer": attn.init_attention(cfg, generator, device),
+            "mixer": (attn.init_attention(cfg, generator, device)
+                      if mixer == "attn"
+                      else mb.init_mamba(cfg, generator, device)),
             "ln2": init_rms(cfg.d_model, device),
-            "ffn": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gelu, generator,
-                            device)}
+            "ffn": (moe_mod.init_moe(cfg, generator, device)
+                    if channel == "moe"
+                    else init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gelu,
+                                  generator, device))}
 
 
 def init_layer_cache(cfg, i: int, batch: int, max_len: int, device):
     _check_kind(cfg, i)
-    return attn.init_kv_cache(cfg, batch, max_len, device)
+    if layer_kind(cfg, i)[0] == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, device)
+    return mb.init_mamba_state(cfg, batch, device)
 
 
 # -- forward paths -----------------------------------------------------------
 
-def _channel(p, x, cfg):
-    return x + mlp(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps))
+def _channel(p, x, cfg, i: int):
+    """The channel mixer's residual -> (x, the MoE's aux loss, or None for
+    an MLP, so that no caller makes a zero it then adds or drops)."""
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    if layer_kind(cfg, i)[1] == "moe":
+        h, aux = moe_mod.moe_ffn(p.ffn, h, cfg)
+        return x + h, aux
+    return x + mlp(p.ffn, h), None
 
 
 def apply_train(p, x, cfg, i: int, positions):
-    """Full-sequence path (train / logits-over-sequence) -> (x, aux)."""
+    """Full-sequence path (train / logits-over-sequence) -> (x, aux), aux
+    None for an MLP layer."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    x = x + attn.full_attention(p.mixer, h, cfg, positions)
-    return _channel(p, x, cfg), torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+    if layer_kind(cfg, i)[0] == "attn":
+        h = attn.full_attention(p.mixer, h, cfg, positions)
+    else:
+        h = mb.mamba_forward(p.mixer, h, cfg)
+    return _channel(p, x + h, cfg, i)
 
 
 def apply_prefill(p, x, cfg, i: int, positions, max_len: int):
-    """Full-sequence forward that also fills the layer's decode cache
-    (``max_len`` positions, the prompt's at the front) -> (x, aux, cache).
-    The attention runs through the flash attention kernel."""
+    """Full-sequence forward that also fills the layer's decode cache ->
+    (x, aux, cache), aux None for an MLP layer. An attention layer's cache
+    holds ``max_len`` positions, the prompt's at the front, and its
+    attention runs through the flash attention kernel; a Mamba layer's is
+    its ``MambaState`` after the prompt."""
     b, s, _ = x.shape
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    q, k, v = attn._qkv(p.mixer, h, cfg, positions)
-    cache = attn.init_kv_cache(cfg, b, max_len, x.device)
-    cache.k[:, :s] = k
-    cache.v[:, :s] = v
-    x = x + attn.causal_self_attention(q, k, v, cfg) @ p.mixer["wo"]
-    return _channel(p, x, cfg), torch.zeros((), dtype=torch.float32,
-                                             device=x.device), cache
+    if layer_kind(cfg, i)[0] == "attn":
+        q, k, v = attn._qkv(p.mixer, h, cfg, positions)
+        cache = attn.init_kv_cache(cfg, b, max_len, x.device)
+        cache.k[:, :s] = k
+        cache.v[:, :s] = v
+        h = attn.causal_self_attention(q, k, v, cfg) @ p.mixer["wo"]
+    else:
+        h, cache = _mamba_prefill(p.mixer, h, cfg)
+    x, aux = _channel(p, x + h, cfg, i)
+    return x, aux, cache
+
+
+def _mamba_prefill(params, x, cfg):
+    """mamba_forward + final (conv window, ssm state) for decode handoff:
+    the window is the last (d_conv - 1) pre-conv activations, zero rows
+    before the prompt as the forward's conv pads them."""
+    out, xr, h = mb._scan(params, x, cfg)
+    kw = cfg.mamba_d_conv
+    window = F.pad(xr, (0, 0, kw - 1, 0))[:, -(kw - 1):, :]
+    return out, mb.MambaState(window, h)
 
 
 def apply_decode(p, x, cfg, i: int, cache, pos: int):
-    """One-token step against the layer cache, written in place."""
+    """One-token step against the layer cache (an attention layer's is
+    written in place); the MoE's aux is dropped."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    h, cache = attn.decode_attention(p.mixer, h, cfg, cache, pos)
-    return _channel(p, x + h, cfg), cache
+    if layer_kind(cfg, i)[0] == "attn":
+        h, cache = attn.decode_attention(p.mixer, h, cfg, cache, pos)
+    else:
+        h, cache = mb.mamba_decode(p.mixer, h, cfg, cache)
+    return _channel(p, x + h, cfg, i)[0], cache

@@ -1,17 +1,18 @@
-"""``LMModel``: the port of ``repro/models/model.py`` for dense decoder LMs.
+"""``LMModel``: the port of ``repro/models/model.py`` for the decoder LMs
+of the ``dense``, ``moe`` and ``hybrid`` families.
 
 ``build_model(cfg)`` makes the model's weights on the card (``device=None``
 means ``"cuda"``, which raises on a box without CUDA); ``device="cpu"``
 runs the plain versions and ``device="meta"`` allocates nothing, for the
 specs alone. The model owns its parameters under the reference's names
 (``embed``, ``final_norm``, ``lm_head``, ``layers.<i>.{ln1, mixer.*, ln2,
-ffn.*}``) in the reference's ``[d_in, d_out]`` layout, so
+ffn.*}``, ``blocks.Layer``) in the reference's ``[d_in, d_out]`` layout, so
 ``models.convert.load_reference`` copies the reference's weights across.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -20,8 +21,10 @@ from torch import nn
 from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
 from . import blocks, transformer
-from .attention import KVCache
 from .layers import DTYPE
+
+# the families this port builds
+PORTED = ("dense", "moe", "hybrid")
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -29,14 +32,16 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 
 class LMModel(nn.Module):
-    """A dense decoder LM: ``forward``, ``loss``, ``prefill`` and
-    ``decode_step`` (the last two under ``torch.inference_mode``), with
-    ``init_caches`` and the shape-only ``input_specs`` / ``cache_specs``."""
+    """A decoder LM: ``forward``, ``loss``, ``prefill`` and ``decode_step``
+    (the last two under ``torch.inference_mode``), with ``init_caches``
+    and the shape-only ``input_specs`` / ``cache_specs``. A family outside
+    ``PORTED`` raises ``NotImplementedError``; ``n_layers`` that
+    ``block_period`` does not divide raises ``ValueError``."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
                 f"(ROADMAP Queue A item {blocks.LATER[cfg.family]})")
@@ -72,7 +77,9 @@ class LMModel(nn.Module):
     def decode_step(self, tokens, caches, pos: int):
         return transformer.decode_step(self, self.cfg, tokens, caches, pos)
 
-    def init_caches(self, batch: int, max_len: int) -> List[KVCache]:
+    def init_caches(self, batch: int, max_len: int) -> list:
+        """One cache a layer: a ``KVCache`` of ``max_len`` positions or a
+        ``MambaState``, zeroed."""
         return transformer.init_caches(self.cfg, batch, max_len, self.device)
 
     # -- shape-only specs (meta tensors) --------------------------------------
@@ -95,8 +102,9 @@ class LMModel(nn.Module):
             out["labels"] = _meta((b, s), i32)
         return out
 
-    def cache_specs(self, shape: ShapeSpec) -> List[KVCache]:
-        """Meta-tensor decode caches (KV of ``seq_len`` per shape)."""
+    def cache_specs(self, shape: ShapeSpec) -> list:
+        """Meta-tensor decode caches (KV of ``seq_len`` per shape, or a
+        ``MambaState``), one a layer."""
         return transformer.init_caches(self.cfg, shape.global_batch,
                                        shape.seq_len, "meta")
 

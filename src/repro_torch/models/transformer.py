@@ -5,25 +5,35 @@ A Python loop over the layers of ``params.layers`` (an ``nn.ModuleList``
 of ``blocks.Layer``) replaces the reference's ``lax.scan`` over stacked
 groups. ``params`` is any module holding ``embed``, ``final_norm``,
 ``layers`` and, without tied embeddings, ``lm_head`` (``model.LMModel``).
-The caches are a list of per-layer ``KVCache``s, written in place and
-returned; ``pos`` is a Python int.
+The caches are a list of one cache a layer, a ``KVCache`` (written in
+place) or a ``MambaState`` by the layer's kind, returned; ``pos`` is a
+Python int.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import blocks
-from .attention import KVCache
 from .layers import DTYPE, cross_entropy, init_embed, init_rms, rms_norm
+
+
+def n_groups(cfg) -> int:
+    """The reference's groups of ``block_period`` layers; raises
+    ``ValueError`` unless the period divides ``n_layers``."""
+    if cfg.n_layers % cfg.block_period:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of block_period {cfg.block_period}")
+    return cfg.n_layers // cfg.block_period
 
 
 def init_params(cfg, generator, device) -> dict:
     """The reference's parameters, drawn in order from ``generator``:
     the layers, then ``embed``, then ``lm_head``. ``layers`` is a list of
     ``blocks.init_layer`` dicts."""
+    n_groups(cfg)
     layers = [blocks.init_layer(cfg, i, generator, device)
               for i in range(cfg.n_layers)]
     p = {"embed": init_embed(cfg.vocab, cfg.d_model, generator, device),
@@ -59,7 +69,8 @@ def forward(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params.layers):
         x, a = blocks.apply_train(layer, x, cfg, i, positions)
-        aux = aux + a
+        if a is not None:
+            aux = aux + a
     return _logits(params, cfg, x), aux
 
 
@@ -73,7 +84,7 @@ def loss_of(logits, aux, batch) -> torch.Tensor:
         + 0.01 * aux
 
 
-def init_caches(cfg, batch: int, max_len: int, device) -> List[KVCache]:
+def init_caches(cfg, batch: int, max_len: int, device) -> list:
     return [blocks.init_layer_cache(cfg, i, batch, max_len, device)
             for i in range(cfg.n_layers)]
 
@@ -86,6 +97,7 @@ def prefill(params, cfg, batch, max_len: Optional[int] = None):
     positions = _positions(b, s, x.device)
     caches = []
     for i, layer in enumerate(params.layers):
+        # the reference's prefill sums the aux and drops the sum
         x, _, cache = blocks.apply_prefill(layer, x, cfg, i, positions,
                                            max_len)
         caches.append(cache)

@@ -82,6 +82,20 @@ def test_serve_lm_runs_on_cpu(capsys):
     assert (tail.argmax(-1).numpy() == gen)[sure.numpy()].all()
 
 
+def test_serve_lm_arch_runs_on_cpu(capsys):
+    """``--arch deepseek_moe_16b`` serves the MoE family's SMOKE config;
+    the families still to port raise ``NotImplementedError``."""
+    out = _load("serve_lm_torch").main(["--arch", "deepseek_moe_16b",
+                                        "--device", "cpu"])
+    assert "deepseek_moe_16b_smoke on cpu" in capsys.readouterr().out
+    assert out["tokens"].shape == (4, 16)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < out["model"].cfg.vocab)
+            ).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _load("serve_lm_torch").main(["--arch", "xlstm_125m", "--device",
+                                      "cpu"])
+
+
 def test_train_lm_runs_on_cpu(capsys):
     """The small config for 40 steps of 4 x 64 tokens: one injected failure
     at step 20 (before the first checkpoint, so the loop restarts from the

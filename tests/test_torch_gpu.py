@@ -1675,3 +1675,116 @@ def test_train_loop_recovers_exactly_on_card(cuda, tmp_path):
         np.testing.assert_allclose(a.float().cpu().numpy(),
                                    faulty.params[name].float().cpu().numpy(),
                                    atol=1e-6, err_msg=name)
+
+
+def _rows_close(got, want, tol, what):
+    """Each element within ``tol`` plus ``tol`` times its row's largest
+    |value| (the last axis), as ``tests/test_torch_hybrid.py`` holds them."""
+    g, w = got.float().cpu(), want.float().cpu()
+    row = w.abs().amax(dim=-1, keepdim=True)
+    assert ((g - w).abs() <= tol + tol * row).all(), (
+        what, float((g - w).abs().max()))
+
+
+def test_moe_on_card_matches_cpu(cuda):
+    """Identical bfloat16 inputs on the card and the CPU: deepseek's SMOKE
+    config at 64 tokens (no drop) and dbrx's at 512 tokens with 128 slots
+    an expert (drops). The same experts a token, the same token in every
+    slot and the same copies kept; the output within rtol = atol = 2e-2
+    (the combine adds in atomic order on the card) and aux within 1e-5;
+    ``moe_ffn`` with the shared experts likewise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, moe_a2a
+    for arch, n, cap in (("deepseek_moe_16b", 64, None),
+                         ("dbrx_132b", 512, 128)):
+        cfg = get_config(arch, smoke=True)
+        p = moe.init_moe(cfg, torch.Generator().manual_seed(0), "cpu")
+        pg = {k: v.to(cuda) for k, v in p.items()}
+        x = torch.randn((n, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1)).bfloat16()
+        cap = cap or moe._capacity(n, cfg)
+        want = moe_a2a._route(x, p, cfg, 0, cfg.n_experts, cap)
+        got = moe_a2a._route(x.to(cuda), pg, cfg, 0, cfg.n_experts, cap)
+        assert torch.equal(got.topi.sort(-1).values.cpu(),
+                           want.topi.sort(-1).values), arch
+        assert torch.equal(got.slot_tok.cpu(), want.slot_tok), arch
+        kept = want.slot_w != 0
+        assert torch.equal((got.slot_w != 0).cpu(), kept), arch
+        assert (int(kept.sum()) < n * cfg.top_k) == (arch == "dbrx_132b")
+        y, aux = moe_a2a._local_moe(x.to(cuda), pg, cfg, 0, cfg.n_experts,
+                                    cap)
+        wy, waux = moe_a2a._local_moe(x, p, cfg, 0, cfg.n_experts, cap)
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   wy.float().numpy(), rtol=2e-2, atol=2e-2)
+        np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
+        xb = x[:64].reshape(2, 32, -1)
+        y, aux = moe.moe_ffn(pg, xb.to(cuda), cfg)
+        wy, waux = moe.moe_ffn(p, xb, cfg)
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   wy.float().numpy(), rtol=2e-2, atol=2e-2)
+        np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
+
+
+def test_mamba_on_card_matches_cpu(cuda):
+    """jamba's SMOKE Mamba layer at S 129: ``mamba_forward``, the
+    prefill's state and one ``mamba_decode`` step on the card against the
+    CPU, each element within 2e-2 plus 2e-2 times its row's largest
+    |value|, the ssm state within 2e-2 of its largest |value|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, mamba
+    cfg = get_config("jamba_v0_1_52b", smoke=True)
+    p = mamba.init_mamba(cfg, torch.Generator().manual_seed(0), "cpu")
+    pg = {k: v.to(cuda) for k, v in p.items()}
+    x = torch.randn((2, 130, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    _rows_close(mamba.mamba_forward(pg, x.to(cuda), cfg),
+                mamba.mamba_forward(p, x, cfg), 2e-2, "mamba_forward")
+    want, ws = blocks._mamba_prefill(p, x[:, :129], cfg)
+    got, gs = blocks._mamba_prefill(pg, x[:, :129].to(cuda), cfg)
+    _rows_close(got, want, 2e-2, "prefill")
+    _rows_close(gs.conv, ws.conv, 2e-2, "conv window")
+    assert float((gs.ssm.cpu() - ws.ssm).abs().max()) <= \
+        2e-2 * float(ws.ssm.abs().max())
+    want, ws = mamba.mamba_decode(p, x[:, 129:], cfg, ws)
+    got, gs = mamba.mamba_decode(pg, x[:, 129:].to(cuda), cfg, gs)
+    _rows_close(got, want, 2e-2, "decode")
+    assert float((gs.ssm.cpu() - ws.ssm).abs().max()) <= \
+        2e-2 * float(ws.ssm.abs().max())
+
+
+def test_jamba_serving_on_card_matches_cpu(cuda):
+    """jamba's SMOKE config: one set of weights made on the CPU and copied
+    to the card; prefill of 2 x 64 (one attention kernel launch, layer 3)
+    and 4 greedy decode steps fed the CPU's tokens, the card on the CPU's
+    routing (``tests/torch_routing.py``: its own differing choices near
+    ties, gap below 1e-2, ``tests/test_torch_hybrid.py``'s margin), logits each within 6e-2 plus 6e-2 times its
+    row's largest |value| (``tests/test_torch_hybrid.py``'s tolerance
+    against the reference)."""
+    import copy
+
+    from torch_routing import Routed, forced, recorded
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("jamba_v0_1_52b", smoke=True)
+    cpu = build_model(cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda)
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 64), dtype=np.int32))
+    with recorded() as probs:
+        want = [cpu.prefill({"tokens": tok}, 68)]
+        fed = []
+        for t in range(4):
+            fed.append(want[-1][0][:, -1].argmax(-1).to(torch.int32)[:, None])
+            want.append(cpu.decode_step(fed[-1], want[-1][1], 64 + t))
+    rec = Routed(cfg.top_k, probs)
+    with forced(rec):
+        ops.reset_launch_counts()
+        got = [gpu.prefill({"tokens": tok.to(cuda)}, 68)]
+        assert ops.launch_counts()["flash_attention"] == 1
+        for t in range(4):
+            got.append(gpu.decode_step(fed[t].to(cuda), got[-1][1], 64 + t))
+    rec.check(1e-2, "jamba on the card against the CPU")
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g[0].float()).all()
+        _rows_close(g[0], w[0], 6e-2, f"step {t}")
