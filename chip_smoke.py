@@ -313,11 +313,15 @@ In order it:
    says (b) did not run.
 9. attention: ``flash_attention`` against its plain version (TF32 off) on
    edge cases (S = 128 with blocks 64 and 128, D = 40 and 1, B * H = 1 and
-   96, S = 96 and 1; S 192, block_q 96 and D 257 refused), then driven
+   96, S = 96 and 1; S 192 with block_k 128, S 256 with block_q 96 and
+   D 257 refused), then driven
    through ``ops.flash_attention`` once a case, one launch each, at
    qwen2-1.5B's attention width (``[1, 12, 4096, 128]`` causal in float32
    and bfloat16, ``[1, 12, 32768, 128]`` causal in bfloat16, checked on
-   heads 0 and 11), ``[1, 16, 4096, 64]`` full in bfloat16 and ``[1, 2,
+   heads 0 and 11), ``[1, 16, 4096, 64]`` full in bfloat16, ``[1, 16,
+   1000, 64]`` full (a ragged S, no padding: the kernel masks the keys
+   past S; q drawn around +1 and k around -1, so that a key past S left
+   unmasked would take most of a row's weight) in both, and ``[1, 2,
    1024, D]`` causal for D = 160, 192 in both: float32 within 1e-4 at 4096
    and 2e-5 at 1024, bfloat16 within 2e-2, and every case within
    ``SCALED_ERROR_TOL`` of ``flash_attention.scaled_error``, the error in
@@ -330,7 +334,7 @@ In order it:
    timed, and the bound is operations at the card's dense bfloat16 rate,
    or in float32 three times the operations at its TF32 rate (3xTF32),
    with the FFMA bound printed beside it;
-9b. the LM side, after phase 10 and every profile (then only 9c and 9d)
+9b. the LM side, after phase 10 and every profile (then only 9c-9e)
    (a profile taken after it lost one kernel event of ten; ``--lm`` runs
    it alone after the build and prints its kernels line and the card
    line, and no ok line): ``repro_torch.models``
@@ -349,7 +353,7 @@ In order it:
    the greedy tokens equal wherever forward's top two are further apart.
    (c) the card against the port on the CPU at full width and 2 layers,
    one set of weights made on the CPU and copied to the card: B 2, prompts
-   of 128 and 200 tokens (200 pads the attention to 256 rows), 8 decode
+   of 128 and 200 tokens (200 a ragged S for the kernel), 8 decode
    steps fed the CPU's greedy tokens; logits within ``_LM_CPU_TOL``, each
    K/V cache entry within it times its head row's largest |entry|. (d) the
    first ``flash_attention`` call of (a)'s prefill, captured, against
@@ -432,6 +436,54 @@ In order it:
    128] bfloat16, causal) against its plain version, timed beside SDPA
    and the bound: the ``flash_attention[lm deepseek_moe_16b prefill]``
    row, its launches (a)'s prefill's;
+9e. the xLSTM and encoder-decoder families, after 9d (``--xlstm-encdec``
+   runs it alone after the build and prints its kernels line and the card
+   line, and no ok line), TF32 off throughout and set back after:
+   ``repro_torch.models`` with ``xlstm`` and ``encdec`` (bfloat16 weights
+   drawn on the card, seed ``_XE_SEED``). (a) xlstm-125M's full
+   ``CONFIG`` (12 layers, 9 mLSTM and 3 sLSTM, d_model 768, 4 heads,
+   vocab 50,304, tied embeddings): prefill of 8 prompts of 512 and 64
+   greedy decode steps, after a warm-up and one prefill and decode step
+   under sync debug mode (no host sync); no kernel of the port launches
+   (none computes the xLSTM), every logit finite; the prefill's ms and
+   tokens/s, ms a decode step and tokens/s, ``max_memory_allocated``, the
+   CUDA-event ms of the sLSTM loops and of the mLSTM chunk loops as
+   shares of a prefill, and one profiled prefill and decode step (device
+   busy against the wall, the heaviest kernels). (b) decode against
+   ``forward`` at full depth, B 2, prompts of 64 and of 100 (a ragged S,
+   which the reference refuses), 16 steps fed drawn tokens: each
+   position's logits within ``_LM_TOL``, the greedy tokens equal beyond
+   it, and the residual stream's difference after each layer printed;
+   ``forward`` with ``MLSTM_MODE`` chunkwise against recurrent within
+   ``_XL_MODES_TOL`` (the reference's test holds them to 5e-2 at the SMOKE
+   config's 4 layers; at 12 its own forms part by more). (c) the card
+   against the port on the CPU at full width and depth, one set of
+   weights made on the CPU: B 2, prompts of 128, 8 decode steps fed the
+   CPU's tokens, logits within ``_XL_CPU_TOL`` and each state tensor
+   after the prefill within ``_XL_STATE_TOL`` times its largest
+   |value|. (d) seamless-m4t-large-v2's
+   full ``CONFIG`` (24 encoder and 24 decoder layers, d_model 1024, 16
+   heads of 64, d_ff 8192, vocab 256,206): prefill of 8 utterances of
+   1,000 frames (a ragged S for the encoder's attention), then 64 greedy
+   decode steps from a drawn start token, after a warm-up and a sync
+   debug check as in (a); ``flash_attention`` launches once an encoder
+   layer (24) and nothing else; the prefill's ms, ms a decode step and
+   tokens/s, ``max_memory_allocated``, the cross and self caches' bytes,
+   one profiled prefill and decode step. (e) decode against ``forward`` at
+   full depth, B 2, 200 frames, 16 steps fed drawn tokens, within
+   ``_LM_TOL`` (the prefill's encoder runs the kernel, ``forward``'s plain
+   torch). (f) the card against the CPU at full width and 2 + 2 layers, B
+   2, 200 frames, 8 steps fed the CPU's tokens: logits within
+   ``_LM_CPU_TOL``, cross K/V within it by row. (g) one training step
+   each against the CPU, as 9c (b) without ``adamw_update`` alone:
+   xlstm-125M at full depth, B 2, S 64, and seamless at 2 + 2 layers,
+   B 2, 64 frames and 16 tokens; the loss, grad_norm, m and v within the
+   larger of ``_TRAIN_TOL`` and twice the CPU's own spread between the
+   model's exact forms (one microbatch against two; the xLSTM's recurrent
+   mLSTM against its chunkwise one), the parameters printed. (h) the first ``flash_attention`` call of
+   (d)'s prefill ([8, 16, 1000, 64] bfloat16, full) against its plain
+   version, timed beside SDPA and the bound: the ``flash_attention[lm
+   seamless_m4t_large_v2 encode]`` row, its launches (d)'s prefill's;
 10. the main path's shapes: every captured standalone probe (W = 1 and
    W = 4) once in one profile, a line each (keys, slots, max_probes, hit
    rate, whether the table fits the L2, bound, device µs) and the sums;
@@ -465,8 +517,8 @@ same rows in memory (their ``Memcpy HtoD`` copies and ms), and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line (``--lm`` phase 9b, ``--train``
-phase 9c, ``--moe`` phase 9d); ``--build`` runs phase 3's
-synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
+phase 9c, ``--moe`` phase 9d, ``--xlstm-encdec`` phase 9e); ``--build``
+runs phase 3's synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
 and their views), phase 8(a) and the SQL phase's (d) alone; ``--sql`` the
 SQL phase alone; ``--segmented`` the segmented
 sums' ``_SEG_CASES`` and min/max's ``_MINMAX_CASES`` alone; ``--probe``
@@ -479,9 +531,9 @@ histogram's ``_HIST_CASES``); ``--adaptive`` the adaptive phase alone;
 the off-mesh runs it compares with.
 ``--faults`` runs the six on the kernels as they are and then on copies,
 in a temporary directory, each with one fault planted (a K tile left
-out, early or late; V tiles not reloaded; the split over K's combine
-dropping a split; float32 by one TF32 product; a ghost pop that ends its
-slot's turn in the build; the fused kernels' copies of the tail tile's
+out, early or late; V tiles not reloaded; the keys past a ragged S left
+unmasked; the split over K's combine dropping a split; float32 by one
+TF32 product; a ghost pop that ends its slot's turn in the build; the fused kernels' copies of the tail tile's
 last partial group of four rows dropped; the segmented sums' scalar tail
 read as absent; a run that crosses a warp step joined without its
 earlier part; YEAR one year late on the last day of a leap year;
@@ -492,7 +544,8 @@ probe run ended at the end of a 32-byte sector of slots; a NaN folded as
 the min/max key that loses; the expansion probe's whole-row store writing
 the matches only, the zeros past the count left unwritten), and exits 0 only
 when the kernels pass and every fault is caught, the late K tile at
-``prefill_32k``, the dropped split at D = 160 and 192, the one TF32
+``prefill_32k``, the unmasked keys at both ``ragged_1000`` cases, the
+dropped split at D = 160 and 192, the one TF32
 product at (a) and (d) in float32, the ghost pop at
 ``ghosts_over_a_run``, the dropped group at Q1's 999,999 rows, the late
 year at ``YEAR synthetic``, the restarted search at ``BYTESMATCH
@@ -583,9 +636,12 @@ _DASHBOARD = (1, 6, 14, 3)
 # the kernels a call runs): qwen2-1.5B's attention width
 # (src/repro/configs/qwen2_1_5b.py: 12 heads of 128) at the train_4k and
 # prefill_32k shapes (src/repro/configs/base.py), seamless_m4t_large_v2's
-# encoder width (16 heads of 64, full), and the head dims of pixtral_12b
-# (160) and xlstm_125m (192), whose 16 CTAs of 128 rows the 16-bit kernel
-# splits over K, as the float32 kernel splits its 32 CTAs of 64 rows
+# encoder width (16 heads of 64, full) at 4,096 frames and at 1,000 (a
+# ragged S, which 128 does not divide, as its encoder's prefill meets it),
+# and the head dims 160 (pixtral_12b's, zero-filled to the kernels'
+# 192-wide template) and 192 (that template at full width; no attention of
+# the repository's configs has it), whose 16 CTAs of 128 rows the 16-bit
+# kernel splits over K, as the float32 kernel splits its 32 CTAs of 64 rows
 _F32 = ("attn_tf32x3_kernel",)
 _F32_SPLIT = ("attn_combine_kernel", "attn_tf32x3_kernel")
 _WGMMA = ("attn_wgmma_kernel",)
@@ -597,16 +653,27 @@ _ATTN_CASES = (
      _WGMMA),
     ("encoder_4k bf16 full", (1, 16, 4096, 64), "bfloat16", False, 2e-2,
      _WGMMA),
+    ("ragged_1000 bf16 full", (1, 16, 1000, 64), "bfloat16", False, 2e-2,
+     _WGMMA),
+    ("ragged_1000 f32 full", (1, 16, 1000, 64), "float32", False, 2e-5,
+     _F32),
     ("d160 f32", (1, 2, 1024, 160), "float32", True, 2e-5, _F32_SPLIT),
     ("d160 bf16", (1, 2, 1024, 160), "bfloat16", True, 2e-2, _SPLIT),
     ("d192 f32", (1, 2, 1024, 192), "float32", True, 2e-5, _F32_SPLIT),
     ("d192 bf16", (1, 2, 1024, 192), "bfloat16", True, 2e-2, _SPLIT),
 )
 _ATTN_SEED = 2024
+# a ragged case (S that 128 does not divide) draws q's entries around +1
+# and k's around -1: every real score lies far below the 0 that a zero
+# key past S would score, so a key past S left unmasked would take most of
+# its row's weight (with centred inputs, reckoned from the scores' N(0, 1)
+# spread, the 24 such keys of S 1,000 would take about 1.5% of it, too
+# little for either limit)
+_RAGGED_SHIFT = 1.0
 # phase 9b: the LM side at qwen2-1.5B's full CONFIG
 # (src/repro/configs/qwen2_1_5b.py), its weights' seed, the batch of
 # prompts, their length, the caches' max_len and the greedy decode steps;
-# the CPU comparison's prompt lengths (200 pads the attention to 256 rows)
+# the CPU comparison's prompt lengths (200 is a ragged S for the kernel)
 # and the other dense CONFIGs run at full width and 2 layers
 _LM_ARCH = "qwen2_1_5b"
 _LM_SEED = 29
@@ -672,6 +739,49 @@ _MOE_OTHERS = (("dbrx_132b", 2), ("jamba_v0_1_52b", 8))
 _LM_HYBRID_TOL = (0.6, 0.02)
 _MOE_MARGIN = {"deepseek_moe_16b": 5e-3, "dbrx_132b": 8e-3,
                "jamba_v0_1_52b": 2e-2}
+# phase 9e: the xLSTM and encoder-decoder families. (a) xlstm-125M's full
+# CONFIG (src/repro/configs/xlstm_125m.py: 12 layers, 9 mLSTM and 3
+# sLSTM, d_model 768, 4 heads, vocab 50,304, tied embeddings), its weights'
+# seed, 8 prompts of 512, 64 greedy steps; (b) decode against forward at B
+# 2, prompts of 64 and of 100 (a ragged S, which the reference refuses), 16
+# steps fed drawn tokens; (c) the card against the CPU at full depth, B 2,
+# prompts of 128, 8 steps; (d) seamless-m4t-large-v2's full CONFIG
+# (src/repro/configs/seamless_m4t_large_v2.py: 24 + 24 layers, d_model
+# 1024, 16 heads of 64, d_ff 8192, vocab 256,206), 8 utterances of 1,000
+# frames (20 s of speech at a 20 ms stride; 128 does not divide it), 64
+# greedy steps; (e) decode against forward at B 2, 200 frames, 16 steps
+# fed drawn tokens; (f) the card against the CPU at 2 + 2 layers, B 2, 200
+# frames, 8 steps; (g) a training step each against the CPU: xlstm at full
+# depth (B 2, S 64), seamless at 2 + 2 layers (B 2, 64 frames, 16 tokens).
+# (b) and (e) hold decode to forward within _LM_TOL (twice and 2.6 times
+# their largest readings on an H100, 0.0975 and 0.0762) and (f) the card to
+# the CPU within _LM_CPU_TOL (0.0313). xLSTM's exponential gates and
+# mLSTM's normalizer carry a rounding's difference on through the layers
+# (tools/xlstm_conditioning.py: on the CPU the reference's own chunkwise
+# and recurrent forms differ by 0.116 at full depth, 0.051 at 4 layers of
+# full width; its test holds them to 5e-2 at the SMOKE config's d_model
+# 64), so at full depth (b)'s two mLSTM forms are held within
+# _XL_MODES_TOL and (c)'s card against the CPU within _XL_CPU_TOL, each
+# about twice its largest reading on an H100
+# (0.163 and 0.2305), and each state tensor within _XL_STATE_TOL of its
+# largest |value| (0.0512). (g) holds a step's loss, grad_norm, m and v to
+# the larger of _TRAIN_TOL and twice the CPU's own spread between the
+# model's exact forms, and prints its parameters (train_against_cpu's
+# spread): on the CPU xlstm's chunkwise and recurrent steps part by m 0.30
+# and v 0.42 of the step's largest added part; seamless's embedding reads
+# 0.336 lr past an ulp on the card with its m and v within 0.024 (PERF.md)
+_XE_SEED = 32
+_XL_ARCH, _ED_ARCH = "xlstm_125m", "seamless_m4t_large_v2"
+_XL_BATCH, _XL_PROMPT, _XL_STEPS = 8, 512, 64
+_XL_FWD_B, _XL_FWD_PROMPTS, _XL_FWD_STEPS = 2, (64, 100), 16
+_XL_CPU_PROMPT, _XL_CPU_STEPS = 128, 8
+_ED_BATCH, _ED_FRAMES, _ED_STEPS = 8, 1000, 64
+_ED_FWD_FRAMES, _ED_FWD_STEPS = 200, 16
+_ED_CPU_LAYERS, _ED_CPU_FRAMES, _ED_CPU_STEPS = 2, 200, 8
+_ED_TRAIN_FRAMES = 64
+_XL_MODES_TOL = (0.3, 0.02)
+_XL_CPU_TOL = (0.45, 0.02)
+_XL_STATE_TOL = 0.1
 
 
 def fail(msg: str) -> None:
@@ -5841,12 +5951,15 @@ def run_dashboard(torch, catalog, w1_results):
 # phase 9: flash attention at qwen2-1.5B's attention width
 # ---------------------------------------------------------------------------
 
-def _attn_inputs(torch, shape, dtype, seed):
-    """q, k, v of ``shape`` drawn with numpy from ``seed``, on the card."""
+def _attn_inputs(torch, shape, dtype, seed, shift=0.0):
+    """q, k, v of ``shape`` drawn with numpy from ``seed``, on the card;
+    q's entries around ``shift``, k's around ``-shift``."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-            .to("cuda", getattr(torch, dtype)) for _ in range(3)]
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             + centre)
+            .to("cuda", getattr(torch, dtype)) for centre in (shift, -shift,
+                                                              0.0)]
 
 
 def _attn_errs(fa, got, q, k, v, causal, heads=None):
@@ -5880,7 +5993,7 @@ def check_attention_edges(torch, fa, kops, failures):
     launch a call: S = 128 with blocks (64, 128); D = 40 and D = 1 (no
     16-byte rows); B * H = 1 and 96; S = 96 and S = 1 (rows that fill no
     tile); and what the wrapper refuses with no launch: S that does not
-    divide by the blocks, D = 257."""
+    divide by blocks given, D = 257."""
     cases = [((1, 2, 128, 64), True, dict(block_q=64, block_k=128)),
              ((1, 2, 256, 40), True, {}), ((1, 2, 256, 1), False, {}),
              ((1, 1, 256, 64), True, {}), ((8, 12, 256, 64), True, {}),
@@ -5902,7 +6015,8 @@ def check_attention_edges(torch, fa, kops, failures):
             old = worst.get(dtype, (0.0, 0.0))
             worst[dtype] = (max(old[0], err), max(old[1], scaled))
     kops.reset_launch_counts()
-    for shape, blocks, want in (((1, 1, 192, 64), {}, "S 192, blocks 128"),
+    for shape, blocks, want in (((1, 1, 192, 64), dict(block_k=128),
+                                 "S 192, block_k 128"),
                                 ((1, 1, 256, 64), dict(block_q=96),
                                  "S 256, block_q 96"),
                                 ((1, 1, 128, 257), {}, "D 257")):
@@ -5917,7 +6031,8 @@ def check_attention_edges(torch, fa, kops, failures):
     print(f"check flash_attention edges: {len(cases)} shapes, one launch "
           "each; worst (max |kernel - plain|, scaled error): " + ", ".join(
               f"{dt} ({e:.3g}, {sc:.3g})" for dt, (e, sc) in worst.items())
-          + "; S 192, block_q 96 and D 257 refused", flush=True)
+          + "; S 192 with block_k 128, S 256 with block_q 96 and D 257 "
+          "refused", flush=True)
 
 
 def run_attention(torch, fa, kops, rate, name):
@@ -5954,7 +6069,8 @@ def _attention_cases(torch, fa, kops, rate, name, failures):
     rows_out, launchers = [], {}
     for i, (case, shape, dtype, causal, tol, kernels) in enumerate(
             _ATTN_CASES):
-        q, k, v = _attn_inputs(torch, shape, dtype, _ATTN_SEED + i)
+        q, k, v = _attn_inputs(torch, shape, dtype, _ATTN_SEED + i,
+                               _RAGGED_SHIFT if shape[2] % 128 else 0.0)
         row = f"flash_attention[{case}]"
         torch.cuda.synchronize()
         kops.reset_launch_counts()
@@ -6061,6 +6177,13 @@ def _lm_model(torch, mods, cfg, device, seed):
     return mods.build_model(cfg, device=device, generator=gen)
 
 
+def _cpu_and_card(torch, mods, cfg, seed):
+    """One set of weights made on the CPU, and its copy on the card."""
+    import copy
+    cpu = _lm_model(torch, mods, cfg, "cpu", seed)
+    return cpu, copy.deepcopy(cpu).to("cuda")
+
+
 def _lm_serve(torch, model, batch, max_len, steps, feed=None):
     """Prefill then ``steps`` decode steps, each fed the greedy token of
     the step before (or ``feed[:, t]``): (the prefill's and each step's
@@ -6108,6 +6231,34 @@ def _lm_greedy_misses(torch, got, want, tol) -> int:
     return int(((got.argmax(-1) != want.argmax(-1)) & sure).sum())
 
 
+def _logits_diff(torch, got, want, tol):
+    """(max |diff|, its largest ratio to ``tol`` by ``_lm_diff``, greedy
+    misses) over pairs of logits tensors, each compared on ``want``'s
+    device."""
+    err = ratio = 0.0
+    misses = 0
+    for g, w in zip(got, want):
+        g = g.to(w.device)
+        e, r = _lm_diff(torch, g, w, tol)
+        err, ratio = max(err, e), max(ratio, r)
+        misses += _lm_greedy_misses(torch, g, w, tol)
+    return err, ratio, misses
+
+
+def _rows_ratio(torch, pairs, tol) -> float:
+    """The largest |got - want| over ``atol + rtol`` times its row's
+    largest |want| (the last axis), over (got, want) pairs of cache
+    tensors, on ``want``'s device."""
+    atol, rtol = tol
+    worst = 0.0
+    for g, w in pairs:
+        w = w.float()
+        row = w.abs().amax(-1, keepdim=True)
+        d = (g.to(w.device).float() - w).abs()
+        worst = max(worst, float((d / (atol + rtol * row)).max()))
+    return worst
+
+
 def _lm_against_forward(torch, model, batch, outs, fed, tol, what, failures):
     """(b): ``forward`` over the prompt and the fed tokens; the prefill's
     logits against its position S - 1 and step t's against S + t. A
@@ -6120,21 +6271,16 @@ def _lm_against_forward(torch, model, batch, outs, fed, tol, what, failures):
             logits, _ = model.forward(batch)
             outs = outs[:1]
     s = next(iter(batch.values())).shape[1]
-    worst = (0.0, 0.0)
-    misses = 0
-    for t, got in enumerate(outs):
-        want = logits[:, s - 1 + t:s + t]
-        err, ratio = _lm_diff(torch, got, want, tol)
-        worst = (max(worst[0], err), max(worst[1], ratio))
-        misses += _lm_greedy_misses(torch, got, want, tol)
-    if not worst[1] <= 1.0:
-        failures.append(f"{what}: against forward max |diff| {worst[0]:.4g}, "
-                        f"{worst[1]:.3g} of the tolerance {tol}")
+    err, ratio, misses = _logits_diff(torch, outs, [
+        logits[:, s - 1 + t:s + t] for t in range(len(outs))], tol)
+    if not ratio <= 1.0:
+        failures.append(f"{what}: against forward max |diff| {err:.4g}, "
+                        f"{ratio:.3g} of the tolerance {tol}")
     if misses:
         failures.append(f"{what}: {misses} greedy tokens differ from "
                         "forward's beyond the tolerance")
     print(f"check {what} against forward over {len(outs)} positions: max "
-          f"|diff| {worst[0]:.4g}, {worst[1]:.3g} of the tolerance "
+          f"|diff| {err:.4g}, {ratio:.3g} of the tolerance "
           f"(atol, rtol) {tol}, greedy misses {misses}", flush=True)
 
 
@@ -6144,22 +6290,30 @@ def _lm_finite(torch, outs, what, failures):
         failures.append(f"{what}: {bad} non-finite logits")
 
 
-def _lm_host_syncs(torch, model, batch, max_len):
-    """What torch's sync debug mode reports for one prefill and one decode
-    step: the messages of the host syncs they make (none expected)."""
+def _host_syncs(torch, fn):
+    """What torch's sync debug mode reports for a call of ``fn``: the
+    messages of the host syncs it makes (none expected)."""
     import warnings
-    s = next(iter(batch.values())).shape[1]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            logits, caches = model.prefill(batch, max_len)
-            model.decode_step(logits[:, -1].argmax(-1).to(torch.int32)[:, None],
-                              caches, s)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     return [str(w.message)[:120] for w in caught
             if "called a synchronizing" in str(w.message)]
+
+
+def _lm_host_syncs(torch, model, batch, max_len):
+    """``_host_syncs`` of one prefill and one decode step."""
+    s = next(iter(batch.values())).shape[1]
+
+    def prefill_and_step():
+        logits, caches = model.prefill(batch, max_len)
+        model.decode_step(logits[:, -1].argmax(-1).to(torch.int32)[:, None],
+                          caches, s)
+    return _host_syncs(torch, prefill_and_step)
 
 
 class _Capture:
@@ -6231,12 +6385,9 @@ def lm_qwen2(torch, mods, cfgs, kops, failures):
 
 def lm_against_cpu(torch, mods, cfgs, failures):
     """(c): full width, 2 layers, one set of weights made on the CPU."""
-    import copy
     import dataclasses
     cfg = dataclasses.replace(cfgs.get_config(_LM_ARCH), n_layers=2)
-    cpu = _lm_model(torch, mods, cfg, "cpu", _LM_SEED)
-    gpu = copy.deepcopy(cpu).to("cuda")
-    atol, rtol = _LM_CPU_TOL
+    cpu, gpu = _cpu_and_card(torch, mods, cfg, _LM_SEED)
     for s in _LM_CPU_PROMPTS:
         what = f"lm {_LM_ARCH} 2 layers S {s} (c) card vs CPU"
         batch = _lm_batch(torch, cfg, 2, s, _LM_SEED + s, "cpu")
@@ -6244,19 +6395,10 @@ def lm_against_cpu(torch, mods, cfgs, failures):
         got, _, got_c, _, _ = _lm_serve(
             torch, gpu, {k: x.cuda() for k, x in batch.items()}, s + 8, 8,
             feed=fed.cuda())
-        err = ratio = 0.0
-        misses = 0
-        for g, w in zip(got, want):
-            e, r = _lm_diff(torch, g.cpu(), w, _LM_CPU_TOL)
-            err, ratio = max(err, e), max(ratio, r)
-            misses += _lm_greedy_misses(torch, g.cpu(), w, _LM_CPU_TOL)
-        cache = 0.0
-        for gc, wc in zip(got_c, want_c):
-            for g, w in ((gc.k, wc.k), (gc.v, wc.v)):
-                w = w.float()
-                row = w.abs().amax(-1, keepdim=True)
-                d = (g.cpu().float() - w).abs()
-                cache = max(cache, float((d / (atol + rtol * row)).max()))
+        err, ratio, misses = _logits_diff(torch, got, want, _LM_CPU_TOL)
+        cache = _rows_ratio(torch, [p for gc, wc in zip(got_c, want_c)
+                                    for p in ((gc.k, wc.k), (gc.v, wc.v))],
+                            _LM_CPU_TOL)
         _lm_finite(torch, got, what, failures)
         if not (ratio <= 1.0 and cache <= 1.0) or misses:
             failures.append(f"{what}: logits max |diff| {err:.4g} "
@@ -6300,29 +6442,30 @@ def lm_others(torch, mods, cfgs, kops, failures):
 
 
 def lm_attention_row(torch, fa, qkv, launches, rate, name, failures,
-                     arch=_LM_ARCH):
+                     arch=_LM_ARCH, causal=True, part="prefill"):
     """(d): the captured call against the plain version, timed: the
-    kernels line's ``flash_attention[lm <arch> prefill]`` row."""
+    kernels line's ``flash_attention[lm <arch> <part>]`` row."""
     import torch.nn.functional as F
     q, k, v = qkv
-    row = f"flash_attention[lm {arch} prefill]"
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
+    row = f"flash_attention[lm {arch} {part}]"
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
     err = float((got.float() - want.float()).abs().max())
-    scaled = fa.scaled_error(got, want, v, True)
+    scaled = fa.scaled_error(got, want, v, causal)
     if not scaled <= fa.SCALED_ERROR_TOL:
         failures.append(f"{row}: scaled error {scaled:.3g} > "
                         f"{fa.SCALED_ERROR_TOL}")
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal))
     plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, causal=True), reps=5, warm=1)
+        q, k, v, causal=causal), reps=5, warm=1)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
+        q, k, v, is_causal=causal))
     b, h, s, d = q.shape
-    flops = 4 * b * h * s * s * d / 2
+    flops = 4 * b * h * s * s * d / (2 if causal else 1)
     nbytes = 4 * b * h * s * d * q.element_size()
     bound, by = bound_ms(nbytes, flops, rate, by_name(_BF16_RATE, name))
-    print(f"check {row} {list(q.shape)} {str(q.dtype)[6:]} causal: max "
+    print(f"check {row} {list(q.shape)} {str(q.dtype)[6:]} "
+          f"{'causal' if causal else 'full'}: max "
           f"|kernel - plain| {err:.3g}, scaled error {scaled:.3g} (tol "
           f"{fa.SCALED_ERROR_TOL}), {ms:.4f} ms ({flops / ms / 1e9:.1f} "
           f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
@@ -6605,13 +6748,56 @@ def _adamw_alone(torch, optimizer, state, device) -> float:
                         for k in ("lr", "grad_norm")))
 
 
+def _step_diff(torch, got, gm, want, wm, state, device):
+    """How far a training step (``got``, its metrics ``gm``) is from
+    another (``want``, ``wm``) from ``state``: (the relative differences
+    of loss, grad_norm and lr; the parameters' largest difference past a
+    bfloat16 ulp in learning rates, m's and v's against the step's
+    largest added |part|; the leaf of each of the last three), computed
+    on ``device``."""
+    err = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+           for k in ("loss", "grad_norm", "lr")}
+    lr = float(wm["lr"])
+    worst = {"param_lr": 0.0, "m": 0.0, "v": 0.0}
+    where = {}
+
+    def keep(what, value, name):
+        if value > worst[what]:
+            worst[what], where[what] = value, name
+    for name, w in want.params.items():
+        g = got.params[name].to(device).double()
+        w = w.to(device).double()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30)))
+                         - 7)
+        keep("param_lr", float(((g - w).abs() - ulp).max()) / lr, name)
+        for what, b in (("m", 0.9), ("v", 0.95)):
+            new_w = getattr(want.opt, what)[name].to(device)
+            added = float((new_w - b * getattr(state.opt, what)[name].to(
+                device)).abs().max())
+            keep(what, _worst(getattr(got.opt, what)[name].to(device), new_w,
+                              added), name)
+    return err, worst, where
+
+
 def train_against_cpu(torch, cfg, device, failures, label="train (b)",
-                      adamw_alone=True):
-    """(b): full width, 2 layers; one set of weights and one mid-training
-    state drawn on ``device`` and copied to the CPU; one step of
-    ``_TRAIN_MICRO`` microbatches on each, then ``adamw_update`` alone on
-    float32 tensors (unless not ``adamw_alone``); the differences computed
-    on ``device``. A MoE
+                      adamw_alone=True, n_layers=2, batch=None, spread=False):
+    """(b): full width, ``n_layers`` layers (None: ``cfg``'s); one set of
+    weights and one mid-training state drawn on ``device`` and copied to
+    the CPU; one step of ``_TRAIN_MICRO`` microbatches on each of
+    ``batch`` (a CPU batch; by default ``_TRAIN_CPU_B`` x
+    ``_TRAIN_CPU_S`` drawn tokens), then ``adamw_update`` alone on float32
+    tensors (unless not ``adamw_alone``); the differences computed on
+    ``device``. With ``spread``, the CPU also takes the step in the model's
+    other exact forms (one microbatch; an xLSTM's recurrent mLSTM), each
+    the same function in another float order; the loss, grad_norm, m and
+    v of the card's step are held to the larger of ``_TRAIN_TOL`` and
+    twice the largest difference those CPU steps show from the first, the
+    model's own spread under a reordering (an xLSTM's gates carry a
+    rounding's difference past ``_TRAIN_TOL``'s element limits even on the
+    CPU), and the parameters are printed, not held: their difference in
+    learning rates is not scale-free, it grows with an element's gradient
+    error against the synthetic state's sqrt(v) of ``_TRAIN_MOMENT``
+    (PERF.md). A MoE
     config's step on ``device`` runs on the CPU's routing
     (``tests/torch_routing.py``), its own differing choices near ties."""
     import copy
@@ -6619,14 +6805,16 @@ def train_against_cpu(torch, cfg, device, failures, label="train (b)",
     import numpy as np
     mods = importlib.import_module("repro_torch.models")
     from repro_torch.train import make_train_step, optimizer
-    cfg = dataclasses.replace(cfg, n_layers=2)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dev = _lm_model(torch, mods, cfg, device, _TRAIN_SEED)
     cpu = copy.deepcopy(dev).to("cpu")
     state = _mid_training_state(torch, cpu, _TRAIN_SEED, device)
-    tok = torch.from_numpy(np.random.default_rng(_TRAIN_SEED).integers(
-        0, cfg.vocab, (_TRAIN_CPU_B, _TRAIN_CPU_S + 1), dtype=np.int32))
-    batch = {"tokens": tok[:, :-1].contiguous(),
-             "labels": tok[:, 1:].contiguous()}
+    if batch is None:
+        tok = torch.from_numpy(np.random.default_rng(_TRAIN_SEED).integers(
+            0, cfg.vocab, (_TRAIN_CPU_B, _TRAIN_CPU_S + 1), dtype=np.int32))
+        batch = {"tokens": tok[:, :-1].contiguous(),
+                 "labels": tok[:, 1:].contiguous()}
     moe = cfg.n_experts > 0
     t0 = time.perf_counter()
     rt = _routing() if moe else None
@@ -6643,48 +6831,61 @@ def train_against_cpu(torch, cfg, device, failures, label="train (b)",
     _sync(torch, device)
     routing = _route_check(rec, cfg, label, failures) if moe else ""
     tol = _TRAIN_TOL
-    err = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
-           for k in ("loss", "grad_norm", "lr")}
+    err, worst, where = _step_diff(torch, got, gm, want, wm, state, device)
+    # each part's limit: _TRAIN_TOL's, or twice the CPU's own spread
+    limit = {"loss": tol["loss"], "grad_norm": tol["grad_norm"],
+             "param_lr": tol["param_lr"], "m": tol["moments"],
+             "v": tol["moments"]}
+    own = ""
+    if spread:
+        forms = {"one microbatch": (1, contextlib.nullcontext)}
+        if cfg.family == "ssm":
+            forms["recurrent mLSTM"] = (_TRAIN_MICRO, _Recurrent)
+        sp = {}
+        for form, (micro, ctx) in forms.items():
+            with ctx():
+                again, am = make_train_step(cpu, microbatches=micro,
+                                            base_lr=_TRAIN_CPU_LR)(state,
+                                                                   batch)
+            s_err, s_worst, _ = _step_diff(torch, again, am, want, wm, state,
+                                           device)
+            del again
+            sp[form] = {**s_err, **s_worst}
+        for k in limit:
+            limit[k] = max(limit[k], 2 * max(s[k] for s in sp.values()))
+        limit["param_lr"] = math.inf
+        own = ("; the CPU's own spread, its exact forms against the first: "
+               + "; ".join(f"{form} " + ", ".join(
+                   f"{k} {s[k]:.3g}" for k in limit) for form, s in sp.items())
+               + f"; the limits {limit} (the parameters printed, not held)")
     lr = float(wm["lr"])
-    worst = {"param_lr": 0.0, "m": 0.0, "v": 0.0}
-    for name, w in want.params.items():
-        g = got.params[name].double()
-        w = w.to(device).double()
-        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30)))
-                         - 7)
-        worst["param_lr"] = max(worst["param_lr"], float(
-            ((g - w).abs() - ulp).max()) / lr)
-        for what, b in (("m", 0.9), ("v", 0.95)):
-            new_w = getattr(want.opt, what)[name].to(device)
-            added = float((new_w - b * getattr(state.opt, what)[name].to(
-                device)).abs().max())
-            worst[what] = max(worst[what], _worst(
-                getattr(got.opt, what)[name], new_w, added))
     for k in ("loss", "grad_norm"):
-        if not err[k] <= tol[k]:
+        if not err[k] <= limit[k]:
             failures.append(f"{label}: {k} {float(gm[k])} against the "
                             f"CPU's {float(wm[k])}")
-    if not (err["lr"] <= tol["adamw"] and worst["param_lr"] <= tol["param_lr"]
-            and max(worst["m"], worst["v"]) <= tol["moments"]):
+    if not (err["lr"] <= tol["adamw"]
+            and all(worst[k] <= limit[k] for k in ("param_lr", "m", "v"))):
         failures.append(f"{label}: lr {err['lr']:.3g}, parameters "
                         f"{worst['param_lr']:.3g} lr past an ulp, m "
-                        f"{worst['m']:.3g}, v {worst['v']:.3g} (tolerances "
-                        f"{tol})")
+                        f"{worst['m']:.3g}, v {worst['v']:.3g} (limits "
+                        f"{limit})")
     # adamw_update alone, float32 in, float32 out
     adamw = _adamw_alone(torch, optimizer, state, device) if adamw_alone \
         else None
     if adamw is not None and not adamw <= tol["adamw"]:
         failures.append(f"{label}: adamw_update on float32 tensors "
                         f"{adamw:.3g} of each tensor's largest |value|")
-    print(f"check {label} {cfg.name} at 2 layers, B {_TRAIN_CPU_B} S "
-          f"{_TRAIN_CPU_S}, {_TRAIN_MICRO} microbatches, step "
+    print(f"check {label} {cfg.name} at {cfg.n_layers} layers, batch "
+          f"{ {k: list(x.shape) for k, x in batch.items()} }, "
+          f"{_TRAIN_MICRO} microbatches, step "
           f"{_TRAIN_MID_STEP} -> {int(got.opt.step)}, lr {lr:.6g}, {device} "
           f"against the CPU ({cpu_secs:.1f} s there): loss {float(gm['loss'])}"
           f" / {float(wm['loss'])} (rel {err['loss']:.3g}), grad_norm "
           f"{float(gm['grad_norm'])} / {float(wm['grad_norm'])} (rel "
           f"{err['grad_norm']:.3g}), parameters {worst['param_lr']:.3g} lr "
           f"past a bfloat16 ulp, m {worst['m']:.3g} and v {worst['v']:.3g} "
-          f"of the step's largest added |part|; adamw_update on float32 "
+          f"of the step's largest added |part| (at {where}){own}; "
+          f"adamw_update on float32 "
           f"{'not run' if adamw is None else f'{adamw:.3g} relative'}; "
           f"tolerances {tol}{routing}; {card_line()}",
           flush=True)
@@ -6904,25 +7105,21 @@ def moe_against_forward(torch, model, b, s, steps, seed, what, failures):
         failures.append(f"{what}: {dropped} token copies dropped; the check "
                         "needs none")
     tol = _LM_HYBRID_TOL if cfg.family == "hybrid" else _LM_TOL
-    worst, misses = (0.0, 0.0), 0
-    for t, got in enumerate(outs):
-        want = logits[:, s - 1 + t:s + t]
-        err, ratio = _lm_diff(torch, got, want, tol)
-        worst = (max(worst[0], err), max(worst[1], ratio))
-        misses += _lm_greedy_misses(torch, got, want, tol)
-    if not worst[1] <= 1.0 or misses:
-        failures.append(f"{what}: against forward max |diff| {worst[0]:.4g}, "
-                        f"{worst[1]:.3g} of the tolerance {tol}, greedy "
+    err, ratio, misses = _logits_diff(torch, outs, [
+        logits[:, s - 1 + t:s + t] for t in range(len(outs))], tol)
+    if not ratio <= 1.0 or misses:
+        failures.append(f"{what}: against forward max |diff| {err:.4g}, "
+                        f"{ratio:.3g} of the tolerance {tol}, greedy "
                         f"misses {misses}")
     print(f"check {what} against forward, B {b}, prompts of {s}, {steps} "
-          f"steps, {n_moe} MoE calls a forward: max |diff| {worst[0]:.4g}, "
-          f"{worst[1]:.3g} of the tolerance (atol, rtol) {tol}, greedy "
+          f"steps, {n_moe} MoE calls a forward: max |diff| {err:.4g}, "
+          f"{ratio:.3g} of the tolerance (atol, rtol) {tol}, greedy "
           f"misses {misses}, copies dropped {dropped}{routing}; the "
           f"residual stream's largest |decode - forward| over its row's "
           f"largest |value| after each layer: {layers}", flush=True)
 
 
-def _moe_profile(torch, what, fn):
+def _profile_once(torch, what, fn):
     """One profiled call of ``fn``: its device busy ms and its heaviest
     kernels, printed beside the call's wall."""
     t0 = time.perf_counter()
@@ -6983,11 +7180,11 @@ def moe_deepseek(torch, mods, cfgs, kops, failures):
     qkv = tuple(t.contiguous() for t in cap.first)
     del outs, cap, drops
     with torch.inference_mode():
-        _moe_profile(torch, f"{what} prefill", lambda: model.prefill(
+        _profile_once(torch, f"{what} prefill", lambda: model.prefill(
             batch, _MOE_MAX_LEN))
         logits, caches = model.prefill(batch, _MOE_MAX_LEN)
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        _moe_profile(torch, f"{what} decode step", lambda: model.decode_step(
+        _profile_once(torch, f"{what} decode step", lambda: model.decode_step(
             tok, caches, _MOE_PROMPT))
         del logits, caches
     moe_against_forward(torch, model, _MOE_FWD_B, _MOE_FWD_PROMPT,
@@ -7001,11 +7198,9 @@ def moe_deepseek(torch, mods, cfgs, kops, failures):
 def moe_against_cpu(torch, mods, cfgs, failures):
     """(c): full width, 2 layers, one set of weights made on the CPU; the
     card on the CPU's routing."""
-    import copy
     import dataclasses
     cfg = dataclasses.replace(cfgs.get_config(_MOE_ARCH), n_layers=2)
-    cpu = _lm_model(torch, mods, cfg, "cpu", _MOE_SEED)
-    gpu = copy.deepcopy(cpu).to("cuda")
+    cpu, gpu = _cpu_and_card(torch, mods, cfg, _MOE_SEED)
     s, steps = _MOE_CPU_PROMPT, _MOE_CPU_STEPS
     what = f"moe {_MOE_ARCH} 2 layers S {s} (c) card vs CPU"
     batch = _lm_batch(torch, cfg, 2, s, _MOE_SEED + s, "cpu")
@@ -7021,20 +7216,9 @@ def moe_against_cpu(torch, mods, cfgs, failures):
             torch, gpu, {k: x.cuda() for k, x in batch.items()}, s + steps,
             steps, feed=fed.cuda())
     routing = _route_check(rec, cfg, what, failures)
-    atol, rtol = _LM_CPU_TOL
-    err = ratio = 0.0
-    misses = 0
-    for g, w in zip(got, want):
-        e, r = _lm_diff(torch, g.cpu(), w, _LM_CPU_TOL)
-        err, ratio = max(err, e), max(ratio, r)
-        misses += _lm_greedy_misses(torch, g.cpu(), w, _LM_CPU_TOL)
-    cache = 0.0
-    for gc, wc in zip(got_c, want_c):
-        for g, w in zip(gc, wc):
-            w = w.float()
-            row = w.abs().amax(-1, keepdim=True)
-            d = (g.cpu().float() - w).abs()
-            cache = max(cache, float((d / (atol + rtol * row)).max()))
+    err, ratio, misses = _logits_diff(torch, got, want, _LM_CPU_TOL)
+    cache = _rows_ratio(torch, [p for gc, wc in zip(got_c, want_c)
+                                for p in zip(gc, wc)], _LM_CPU_TOL)
     _lm_finite(torch, got, what, failures)
     if not (ratio <= 1.0 and cache <= 1.0) or misses:
         failures.append(f"{what}: logits max |diff| {err:.4g} ({ratio:.3g} "
@@ -7048,32 +7232,32 @@ def moe_against_cpu(torch, mods, cfgs, failures):
     torch.cuda.empty_cache()
 
 
-class _ScanClock:
-    """CUDA events around each ``mamba._selective_scan`` call while
-    entered: ``ms()`` sums them after a synchronize."""
+class _FnClock:
+    """CUDA events around each call of ``mod.<name>`` (looked up at call
+    time, as the module's own calls look it up) while entered: ``ms()``
+    sums them after a synchronize."""
 
-    def __init__(self, torch):
-        from repro_torch.models import mamba
-        self.torch, self.mod, self.events = torch, mamba, []
+    def __init__(self, torch, mod, name):
+        self.torch, self.mod, self.name, self.events = torch, mod, name, []
 
     def __enter__(self):
-        scan = self.scan = self.mod._selective_scan
+        fn = self.fn = getattr(self.mod, self.name)
         torch = self.torch
 
         def timed(*args):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = scan(*args)
+            out = fn(*args)
             end.record()
             self.events.append((start, end))
             return out
 
-        self.mod._selective_scan = timed
+        setattr(self.mod, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.mod._selective_scan = self.scan
+        setattr(self.mod, self.name, self.fn)
 
     def ms(self) -> float:
         self.torch.cuda.synchronize()
@@ -7093,7 +7277,8 @@ def moe_others(torch, mods, cfgs, kops, failures):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kops.reset_launch_counts()
-        with _ScanClock(torch) as clock:
+        with _FnClock(torch, importlib.import_module(
+                "repro_torch.models.mamba"), "_selective_scan") as clock:
             outs, fed, _, t_prefill, t_decode = _lm_serve(
                 torch, model, batch, _MOE_PROMPT + 4, 4)
         counts = kops.launch_counts()
@@ -7160,6 +7345,405 @@ def run_moe(torch, fa, kops, rate, name):
 
 
 # ---------------------------------------------------------------------------
+# phase 9e: the xLSTM and encoder-decoder families (xlstm-125M and
+# seamless-m4t-large-v2 at full width and depth)
+# ---------------------------------------------------------------------------
+
+def _xl_module():
+    return importlib.import_module("repro_torch.models.xlstm")
+
+
+def xl_full(torch, mods, cfgs, kops, failures):
+    """(a) and (b) at xlstm-125M's full CONFIG."""
+    cfg = cfgs.get_config(_XL_ARCH)
+    what = f"xlstm {_XL_ARCH}"
+    model = _lm_model(torch, mods, cfg, "cuda", _XE_SEED)
+    batch = _lm_batch(torch, cfg, _XL_BATCH, _XL_PROMPT, _XE_SEED, "cuda")
+    max_len = _XL_PROMPT + _XL_STEPS
+    _lm_serve(torch, model, batch, max_len, 2)    # warm-up
+    syncs = _lm_host_syncs(torch, model, batch, max_len)
+    if syncs:
+        failures.append(f"{what}: {len(syncs)} host syncs in a prefill and "
+                        f"a decode step: {syncs[:3]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    outs, _, first, t_prefill, t_decode = _lm_serve(
+        torch, model, batch, max_len, _XL_STEPS)
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if sum(counts.values()):
+        failures.append(f"{what}: launches {dict(_nonzero(counts))}; no "
+                        "kernel of the port computes the xLSTM")
+    _lm_finite(torch, outs, what, failures)
+    state_bytes = sum(x.numel() * x.element_size() for c in first for x in c)
+    del outs, first
+    # the loops' shares of one more prefill, timed by CUDA events
+    xl = _xl_module()
+    with _FnClock(torch, xl, "_slstm_scan") as sl, \
+            _FnClock(torch, xl, "_mlstm_chunkwise") as ml:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(batch, max_len)
+        torch.cuda.synchronize()
+        t_clocked = (time.perf_counter() - t0) * 1e3
+    n_tok = _XL_BATCH * _XL_STEPS
+    n_slstm = sum(cfg.is_slstm_layer(i) for i in range(cfg.n_layers))
+    print(f"{what} (a): {cfg.n_layers} layers ({n_slstm} "
+          f"sLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+          f"{cfg.vocab}, {sum(p.numel() for p in model.parameters())} "
+          f"parameters; prefill {_XL_BATCH}x{_XL_PROMPT} tokens in "
+          f"{t_prefill * 1e3:.3f} ms "
+          f"({_XL_BATCH * _XL_PROMPT / t_prefill:.1f} tokens/s), "
+          f"{_XL_STEPS} decode steps at {t_decode / _XL_STEPS * 1e3:.3f} ms "
+          f"a step ({n_tok / t_decode:.1f} tokens/s), max_memory_allocated "
+          f"{peak / 1e9:.3f} GB, the states {state_bytes / 1e6:.3f} MB, "
+          f"launches {dict(_nonzero(counts))}, host syncs {len(syncs)}; a "
+          f"prefill timed with its loops {t_clocked:.3f} ms: the sLSTM "
+          f"loops ({len(sl.events)}) {sl.ms():.3f} ms "
+          f"({sl.ms() / t_clocked:.3f}), the mLSTM chunk loops "
+          f"({len(ml.events)}) {ml.ms():.3f} ms ({ml.ms() / t_clocked:.3f}); "
+          f"{card_line()}", flush=True)
+    with torch.inference_mode():
+        _profile_once(torch, f"{what} prefill", lambda: model.prefill(
+            batch, max_len))
+        logits, caches = model.prefill(batch, max_len)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        _profile_once(torch, f"{what} decode step", lambda: model.decode_step(
+            tok, caches, _XL_PROMPT))
+        del logits, caches
+    xl_against_forward(torch, model, f"{what} (b) decode", failures)
+    del model
+    torch.cuda.empty_cache()
+
+
+def xl_against_forward(torch, model, what, failures):
+    """(b): prefill and decode fed drawn tokens against ``forward`` at each
+    prompt length of ``_XL_FWD_PROMPTS``; ``forward`` in the two mLSTM
+    modes."""
+    cfg = model.cfg
+    b, steps = _XL_FWD_B, _XL_FWD_STEPS
+    seq = None
+    for s in _XL_FWD_PROMPTS:
+        seq = _lm_batch(torch, cfg, b, s + steps, _XE_SEED + s,
+                        model.device)["tokens"]
+        batch, fed = {"tokens": seq[:, :s]}, seq[:, s:]
+        with _LayerOuts() as l_serve:
+            outs, _, _, _, _ = _lm_serve(torch, model, batch, s + steps,
+                                         steps, feed=fed)
+        with _LayerOuts() as l_fwd, torch.inference_mode():
+            model.forward({"tokens": seq})
+        _lm_finite(torch, outs, what, failures)
+        _lm_against_forward(torch, model, batch, outs, fed, _LM_TOL,
+                            f"{what} B {b} S {s}", failures)
+        print(f"{what} B {b} S {s}: the residual stream's largest |decode - "
+              "forward| over its row's largest |value| after each layer: "
+              + _layer_drift(torch, cfg, l_fwd.outs, l_serve.outs, s, steps),
+              flush=True)
+        del l_serve, l_fwd
+    xl = _xl_module()
+    tokens = {"tokens": seq[:, :_XL_FWD_PROMPTS[0]]}
+    old = xl.MLSTM_MODE
+    try:
+        with torch.inference_mode():
+            xl.MLSTM_MODE = "recurrent"
+            rec, _ = model.forward(tokens)
+            xl.MLSTM_MODE = "chunkwise"
+            chk, _ = model.forward(tokens)
+    finally:
+        xl.MLSTM_MODE = old
+    err, ratio = _lm_diff(torch, chk, rec, _XL_MODES_TOL)
+    if not ratio <= 1.0:
+        failures.append(f"{what}: chunkwise against recurrent max |diff| "
+                        f"{err:.4g}, {ratio:.3g} of the tolerance")
+    print(f"check {what}: forward, MLSTM_MODE chunkwise against recurrent "
+          f"at {cfg.n_layers} layers, B {b} S {tokens['tokens'].shape[1]}: "
+          f"max |diff| {err:.4g}, {ratio:.3g} of (atol, rtol) "
+          f"{_XL_MODES_TOL}", flush=True)
+
+
+def xl_against_cpu(torch, mods, cfgs, failures):
+    """(c): full width and depth, prompts of ``_XL_CPU_PROMPT``, the card
+    fed the CPU's greedy tokens."""
+    cfg = cfgs.get_config(_XL_ARCH)
+    cpu, gpu = _cpu_and_card(torch, mods, cfg, _XE_SEED)
+    s, steps = _XL_CPU_PROMPT, _XL_CPU_STEPS
+    what = f"xlstm {_XL_ARCH} S {s} (c) card vs CPU"
+    batch = _lm_batch(torch, cfg, 2, s, _XE_SEED + s, "cpu")
+    t0 = time.perf_counter()
+    want, fed, want_c, _, _ = _lm_serve(torch, cpu, batch, s + steps, steps)
+    cpu_secs = time.perf_counter() - t0
+    got, _, got_c, _, _ = _lm_serve(
+        torch, gpu, {k: x.cuda() for k, x in batch.items()}, s + steps,
+        steps, feed=fed.cuda())
+    err, ratio, misses = _logits_diff(torch, got, want, _XL_CPU_TOL)
+    # each state tensor against its largest |value|
+    worst = {}
+    for gc, wc in zip(got_c, want_c):
+        for field, g, w in zip(wc._fields, gc, wc):
+            key = f"{type(wc).__name__}.{field}"
+            rel = float((g.cpu() - w).abs().max() / w.abs().max())
+            worst[key] = max(worst.get(key, 0.0), rel)
+    _lm_finite(torch, got, what, failures)
+    bad = {k: v for k, v in worst.items() if not v <= _XL_STATE_TOL}
+    if not ratio <= 1.0 or misses or bad:
+        failures.append(f"{what}: logits max |diff| {err:.4g} ({ratio:.3g} "
+                        f"of the tolerance), greedy misses {misses}, states "
+                        f"past {_XL_STATE_TOL} of their largest |value|: "
+                        f"{bad}")
+    print(f"check {what}: prefill and {steps} decode steps ({cpu_secs:.1f} s "
+          f"on the CPU), logits max |diff| {err:.4g} ({ratio:.3g} of (atol, "
+          f"rtol) {_XL_CPU_TOL}), greedy misses {misses}; each state "
+          f"after the prefill, max |diff| over its largest |value| (limit "
+          f"{_XL_STATE_TOL}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()), flush=True)
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def _ed_frames(torch, cfg, b, t, seed, device):
+    """B utterances of ``t`` frames (the frontend stub's embeddings) and
+    a start token each, drawn with numpy from ``seed``, on ``device``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((b, t, cfg.d_model), dtype=np.float32)
+    start = rng.integers(0, cfg.vocab, (b, 1), dtype=np.int32)
+    return (torch.from_numpy(frames).to(device, torch.bfloat16),
+            torch.from_numpy(start).to(device))
+
+
+def _ed_serve(torch, model, frames, feed, steps):
+    """The encoder-decoder's prefill of ``frames``, then ``steps`` decode
+    steps from position 0, step t fed ``feed[:, t]`` (a [B, 1] start token
+    and then each step's greedy token when ``feed`` has one column): (each
+    step's logits [B, 1, V], the tokens fed [B, steps], the caches, the
+    prefill's seconds, the decode's seconds)."""
+    sync = (torch.cuda.synchronize if model.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    caches = model.prefill({"frames": frames})
+    sync()
+    t_prefill = time.perf_counter() - t0
+    outs, fed = [], []
+    tok = feed[:, 0]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        fed.append(tok)
+        logits, caches = model.decode_step(tok[:, None], caches, t)
+        outs.append(logits)
+        tok = (feed[:, t + 1] if feed.shape[1] > 1 and t + 1 < steps
+               else logits[:, -1].argmax(-1).to(torch.int32))
+    sync()
+    t_decode = time.perf_counter() - t0
+    return outs, torch.stack(fed, dim=1), caches, t_prefill, t_decode
+
+
+def ed_full(torch, mods, cfgs, kops, failures):
+    """(d) and (e) at seamless-m4t-large-v2's full CONFIG: (the first
+    attention call's q, k and v, contiguous; the prefill's launches)."""
+    cfg = cfgs.get_config(_ED_ARCH)
+    what = f"encdec {_ED_ARCH}"
+    t0 = time.perf_counter()
+    model = _lm_model(torch, mods, cfg, "cuda", _XE_SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    frames, start = _ed_frames(torch, cfg, _ED_BATCH, _ED_FRAMES, _XE_SEED,
+                               "cuda")
+    _ed_serve(torch, model, frames, start, 2)    # warm-up
+    syncs = _host_syncs(torch, lambda: model.decode_step(
+        start, model.prefill({"frames": frames}), 0))
+    if syncs:
+        failures.append(f"{what}: {len(syncs)} host syncs in a prefill and "
+                        f"a decode step: {syncs[:3]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    with _Capture(kops) as cap:
+        outs, _, caches, t_prefill, t_decode = _ed_serve(
+            torch, model, frames, start, _ED_STEPS)
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_enc = cfg.n_enc_layers
+    if counts["flash_attention"] != n_enc or \
+            sum(counts.values()) != n_enc or cap.calls != n_enc:
+        failures.append(f"{what}: launches {counts}, {cap.calls} calls; "
+                        f"want {n_enc} flash_attention (one an encoder "
+                        "layer) and nothing else")
+    _lm_finite(torch, outs, what, failures)
+    cross = sum(x.numel() * x.element_size()
+                for x in (caches["cross_k"], caches["cross_v"]))
+    own = sum(x.numel() * x.element_size() for x in caches["self"])
+    n_tok = _ED_BATCH * _ED_STEPS
+    print(f"{what} (d): {n_enc} encoder and {cfg.n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters drawn "
+          f"on the card in {t_init:.1f} s; prefill of {_ED_BATCH}x"
+          f"{_ED_FRAMES} frames in {t_prefill * 1e3:.3f} ms "
+          f"({_ED_BATCH * _ED_FRAMES / t_prefill:.1f} frames/s), "
+          f"{_ED_STEPS} decode steps at {t_decode / _ED_STEPS * 1e3:.3f} ms "
+          f"a step ({n_tok / t_decode:.1f} tokens/s), max_memory_allocated "
+          f"{peak / 1e9:.3f} GB, cross K/V {cross / 1e9:.3f} GB, self "
+          f"caches {own / 1e9:.3f} GB, launches {dict(_nonzero(counts))}, "
+          f"host syncs {len(syncs)}; {card_line()}", flush=True)
+    qkv = tuple(x.contiguous() for x in cap.first)
+    del outs, cap, caches
+    with torch.inference_mode():
+        _profile_once(torch, f"{what} prefill", lambda: model.prefill(
+            {"frames": frames}))
+        caches = model.prefill({"frames": frames})
+        _profile_once(torch, f"{what} decode step", lambda: model.decode_step(
+            start, caches, 0))
+        del caches
+    ed_against_forward(torch, model, f"{what} (e) decode", failures)
+    del model
+    torch.cuda.empty_cache()
+    return qkv, counts["flash_attention"]
+
+
+def ed_against_forward(torch, model, what, failures):
+    """(e): ``_ED_FWD_FRAMES`` frames, ``_ED_FWD_STEPS`` steps fed drawn
+    tokens, against ``forward`` over the frames and those tokens."""
+    import numpy as np
+    cfg = model.cfg
+    frames, _ = _ed_frames(torch, cfg, 2, _ED_FWD_FRAMES, _XE_SEED + 1,
+                           model.device)
+    feed = torch.from_numpy(np.random.default_rng(_XE_SEED + 2).integers(
+        0, cfg.vocab, (2, _ED_FWD_STEPS), dtype=np.int32)).to(model.device)
+    outs, _, _, _, _ = _ed_serve(torch, model, frames, feed, _ED_FWD_STEPS)
+    with torch.inference_mode():
+        logits, _ = model.forward({"frames": frames, "tokens": feed})
+    err, ratio, misses = _logits_diff(torch, outs, [
+        logits[:, t:t + 1] for t in range(len(outs))], _LM_TOL)
+    _lm_finite(torch, outs, what, failures)
+    if not ratio <= 1.0 or misses:
+        failures.append(f"{what}: against forward max |diff| {err:.4g}, "
+                        f"{ratio:.3g} of the tolerance {_LM_TOL}, greedy "
+                        f"misses {misses}")
+    print(f"check {what} against forward, B 2, {_ED_FWD_FRAMES} frames, "
+          f"{_ED_FWD_STEPS} steps fed drawn tokens (the prefill's encoder "
+          f"on the kernel, forward's plain): max |diff| {err:.4g}, "
+          f"{ratio:.3g} of the tolerance (atol, rtol) {_LM_TOL}, greedy "
+          f"misses {misses}", flush=True)
+
+
+def ed_against_cpu(torch, mods, cfgs, failures):
+    """(f): full width, ``_ED_CPU_LAYERS`` encoder and decoder layers, the
+    card fed the CPU's greedy tokens."""
+    import dataclasses
+    cfg = dataclasses.replace(cfgs.get_config(_ED_ARCH),
+                              n_layers=_ED_CPU_LAYERS,
+                              n_enc_layers=_ED_CPU_LAYERS)
+    cpu, gpu = _cpu_and_card(torch, mods, cfg, _XE_SEED)
+    t, steps = _ED_CPU_FRAMES, _ED_CPU_STEPS
+    what = (f"encdec {_ED_ARCH} {_ED_CPU_LAYERS}+{_ED_CPU_LAYERS} layers T "
+            f"{t} (f) card vs CPU")
+    frames, start = _ed_frames(torch, cfg, 2, t, _XE_SEED + t, "cpu")
+    t0 = time.perf_counter()
+    want, fed, want_c, _, _ = _ed_serve(torch, cpu, frames, start, steps)
+    cpu_secs = time.perf_counter() - t0
+    got, _, got_c, _, _ = _ed_serve(torch, gpu, frames.cuda(), fed.cuda(),
+                                    steps)
+    err, ratio, misses = _logits_diff(torch, got, want, _LM_CPU_TOL)
+    cache = _rows_ratio(torch, [(got_c[k], want_c[k])
+                                for k in ("cross_k", "cross_v")], _LM_CPU_TOL)
+    _lm_finite(torch, got, what, failures)
+    if not (ratio <= 1.0 and cache <= 1.0) or misses:
+        failures.append(f"{what}: logits max |diff| {err:.4g} ({ratio:.3g} "
+                        f"of the tolerance), cross K/V {cache:.3g} of it, "
+                        f"greedy misses {misses}")
+    print(f"check {what}: prefill and {steps} decode steps ({cpu_secs:.1f} s "
+          f"on the CPU), logits max |diff| {err:.4g} ({ratio:.3g} of (atol, "
+          f"rtol) {_LM_CPU_TOL}), cross K/V {cache:.3g} of it by row, greedy "
+          f"misses {misses}", flush=True)
+    del gpu
+    torch.cuda.empty_cache()
+
+
+class _Recurrent:
+    """While entered, the xLSTM runs its mLSTM in the recurrent form, the
+    chunkwise form's exact equal in another float order."""
+
+    def __enter__(self):
+        self.mod = _xl_module()
+        self.old, self.mod.MLSTM_MODE = self.mod.MLSTM_MODE, "recurrent"
+
+    def __exit__(self, *exc):
+        self.mod.MLSTM_MODE = self.old
+
+
+def xe_train(torch, cfgs, failures):
+    """(g): a training step of each family against the CPU, each part held
+    against the CPU's own spread as well (``train_against_cpu``): xlstm at
+    full depth, seamless at ``_ED_CPU_LAYERS`` + ``_ED_CPU_LAYERS`` layers
+    on ``_ED_TRAIN_FRAMES`` frames (the reference's train shape:
+    ``max(S // 4, 16)`` tokens)."""
+    import dataclasses
+    import numpy as np
+    train_against_cpu(torch, cfgs.get_config(_XL_ARCH), torch.device("cuda"),
+                      failures, label="xlstm train (g)", adamw_alone=False,
+                      n_layers=None, spread=True)
+    cfg = dataclasses.replace(cfgs.get_config(_ED_ARCH),
+                              n_enc_layers=_ED_CPU_LAYERS)
+    n_tok = max(_ED_TRAIN_FRAMES // 4, 16)
+    rng = np.random.default_rng(_TRAIN_SEED)
+    frames = rng.standard_normal((_TRAIN_CPU_B, _ED_TRAIN_FRAMES,
+                                  cfg.d_model), dtype=np.float32)
+    tok = rng.integers(0, cfg.vocab, (_TRAIN_CPU_B, n_tok + 1),
+                       dtype=np.int32)
+    batch = {"frames": torch.from_numpy(frames).bfloat16(),
+             "tokens": torch.from_numpy(tok[:, :-1].copy()),
+             "labels": torch.from_numpy(tok[:, 1:].copy())}
+    train_against_cpu(torch, cfg, torch.device("cuda"), failures,
+                      label="encdec train (g)", adamw_alone=False,
+                      n_layers=_ED_CPU_LAYERS, batch=batch, spread=True)
+
+
+def run_xlstm_encdec(torch, fa, kops, rate, name):
+    """Phase 9e: the xLSTM and encoder-decoder families; (rows of the
+    kernels line). TF32 is off for the whole phase (the xLSTM's float32
+    products run in full float32) and set back after it. Every part is
+    checked and printed before the phase fails."""
+    cfgs = importlib.import_module("repro_torch.configs")
+    mods = importlib.import_module("repro_torch.models")
+    t0 = time.perf_counter()
+    failures = []
+    marks = [t0]
+
+    def mark():
+        marks.append(time.perf_counter())
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        xl_full(torch, mods, cfgs, kops, failures)
+        mark()
+        xl_against_cpu(torch, mods, cfgs, failures)
+        mark()
+        qkv, launches = ed_full(torch, mods, cfgs, kops, failures)
+        row = lm_attention_row(torch, fa, qkv, launches, rate, name,
+                               failures, arch=_ED_ARCH, causal=False,
+                               part="encode")
+        del qkv
+        mark()
+        ed_against_cpu(torch, mods, cfgs, failures)
+        mark()
+        xe_train(torch, cfgs, failures)
+        mark()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    torch.cuda.empty_cache()
+    print("phase 9e parts, s: (a) and (b) {:.1f}, (c) {:.1f}, (d), (e) and "
+          "(h) {:.1f}, (f) {:.1f}, (g) {:.1f}".format(
+              *(b - a for a, b in zip(marks, marks[1:]))), flush=True)
+    print(f"phase 9e (xLSTM and encoder-decoder): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return [row]
+
+
+# ---------------------------------------------------------------------------
 # --faults: planted faults in the attention and build kernels against the
 # checks of phase 9 and of the build
 # ---------------------------------------------------------------------------
@@ -7192,6 +7776,11 @@ _FAULTS = {
         ("tf_tile<DP, BK>(Vs + stage * BK * LD, vh, tile * BK, s, d, vec);",
          "tf_tile<DP, BK>(Vs + stage * BK * LD, vh, min(tile, 8) * BK, s, d, "
          "vec);", 1)],
+    # the keys past S are left unmasked: on the ragged path (S that the
+    # tiles do not divide) a zero key past S scores 0 and takes weight
+    "ragged_keys_unmasked": [
+        ("if (col >= s || (causal && col > row)) x = kNegInf;",
+         "if (causal && col > row) x = kNegInf;", 3)],
     # the split over K's combine weighs split 1 as 0 (only (d) splits)
     "combine_drops_split_1": [
         ("const float w = exp2f(pm[sp * rows + row] - mx);",
@@ -7265,6 +7854,8 @@ _FAULTS = {
 }
 # the cases that must fail under a fault, beyond the run's exit
 _FAULT_CASES = {"skip_k_tile_200": ("prefill_32k bf16",),
+                "ragged_keys_unmasked": ("ragged_1000 bf16 full",
+                                         "ragged_1000 f32 full"),
                 "combine_drops_split_1": ("d160 bf16", "d192 bf16",
                                           "d160 f32", "d192 f32"),
                 "tf32x3_drops_small": ("train_4k f32", "d160 f32",
@@ -7611,6 +8202,13 @@ def main() -> None:
                          "jamba-v0.1 at a few layers; a MoE training step "
                          "against the CPU) and print its kernels line; "
                          "prints no ok line")
+    ap.add_argument("--xlstm-encdec", action="store_true",
+                    help="run phase 9e alone (xlstm-125M and "
+                         "seamless-m4t-large-v2 at full width and depth: "
+                         "prefill and greedy decode, against forward and "
+                         "the CPU, a training step each against the CPU, "
+                         "the encoder's attention kernel at a ragged S) "
+                         "and print its kernels line; prints no ok line")
     ap.add_argument("--build", action="store_true",
                     help="run the build checks of phase 3 alone (the "
                          "synthetic cases, the route and the launches); "
@@ -7738,6 +8336,11 @@ def main() -> None:
         return
     if args.moe:
         print(json.dumps({"kernels": run_moe(torch, fa, kops, rate, name)}))
+        print(card)
+        return
+    if args.xlstm_encdec:
+        print(json.dumps({"kernels": run_xlstm_encdec(torch, fa, kops, rate,
+                                                      name)}))
         print(card)
         return
     if args.build:
@@ -7888,11 +8491,12 @@ def main() -> None:
         # profile of 20 kernel launches on this thread records 19, even
         # with every scheduler and prefetch thread joined
         profile_serving(torch, catalog, serving_builders, args.profile)
-    # phases 9b, 9c and 9d last: a profile taken after 9b lost one kernel
-    # event of ten
+    # phases 9b-9e last: a profile taken after 9b lost one kernel event of
+    # ten
     rows_out += run_lm(torch, fa, kops, rate, name)
     rows_out += run_train(torch, fused, kops, rate, here)
     rows_out += run_moe(torch, fa, kops, rate, name)
+    rows_out += run_xlstm_encdec(torch, fa, kops, rate, name)
     for r in rows_out:
         if "launches" in r:   # phase 9 counted its own path
             continue

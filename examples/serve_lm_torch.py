@@ -5,12 +5,14 @@ decode over the KV cache, the counterpart of ``examples/serve_lm.py``.
         [--device cpu] [--full]
 
 Runs qwen2-1.5B's SMOKE config on the CUDA device by default and fails when
-there is none; ``--arch`` takes any config the port builds (the dense
-ones, dbrx_132b, deepseek_moe_16b, jamba_v0_1_52b) and refuses the rest
-with ``NotImplementedError``; ``--device cpu`` runs the plain versions,
-``--full`` the full published config with random weights (qwen2-1.5B: 28
-layers, d_model 1536, vocab 151,936). Prefill's attention runs through the
-port's flash attention kernel.
+there is none; ``--arch`` takes any of the ten configs; ``--device cpu``
+runs the plain versions, ``--full`` the full published config with random
+weights (qwen2-1.5B: 28 layers, d_model 1536, vocab 151,936). Prefill's
+attention runs through the port's flash attention kernel. xlstm_125m
+serves tokens like the decoder LMs (its prefill hands each layer's
+recurrent state to decode); seamless_m4t_large_v2 prefills random frames
+(the audio frontend's stub, as in the reference) and decodes greedily from
+a drawn start token.
 """
 
 from __future__ import annotations
@@ -48,13 +50,29 @@ def main(argv=None) -> dict:
 
     batch, prompt_len, gen_len, max_len = 4, 24, 16, 64
     rng = np.random.default_rng(0)
-    prompts = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (batch, prompt_len), dtype=np.int32)
-    ).to(device)
+    if model.is_encdec:
+        # frames of the frontend stub; decode starts from a drawn token at
+        # position 0
+        prompts = torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model), dtype=np.float32)).to(
+                device, torch.bfloat16)
+        start = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (batch,), dtype=np.int32)).to(device)
+    else:
+        prompts = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (batch, prompt_len), dtype=np.int32)
+        ).to(device)
 
-    # prefill: one pass over the prompts fills every layer's KV cache
+    # prefill: one pass over the prompts fills every layer's cache (an
+    # encoder-decoder's: the cross K/V of the encoded frames)
     t0 = time.perf_counter()
-    logits, caches = model.prefill({"tokens": prompts}, max_len)
+    if model.is_encdec:
+        caches = model.prefill({"frames": prompts})
+        logits, caches = model.decode_step(start[:, None], caches, 0)
+        pos0 = 1
+    else:
+        logits, caches = model.prefill({"tokens": prompts}, max_len)
+        pos0 = prompt_len
     next_tok = logits[:, -1].argmax(-1).to(torch.int32)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -64,7 +82,7 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     for i in range(gen_len - 1):
         logits, caches = model.decode_step(next_tok[:, None], caches,
-                                           prompt_len + i)
+                                           pos0 + i)
         next_tok = logits[:, 0].argmax(-1).to(torch.int32)
         out_tokens.append(next_tok)
     _sync(device)
@@ -72,14 +90,19 @@ def main(argv=None) -> dict:
 
     gen = torch.stack(out_tokens, dim=1).cpu().numpy()
     print(f"{cfg.name} on {device}")
-    print(f"prefill: {batch}x{prompt_len} tokens in {t_prefill * 1e3:.1f} ms")
+    print(f"prefill: {batch}x{prompt_len} "
+          f"{'frames' if model.is_encdec else 'tokens'} in "
+          f"{t_prefill * 1e3:.1f} ms")
     print(f"decode:  {gen_len} steps x {batch} seqs in "
           f"{t_decode * 1e3:.1f} ms "
           f"({gen_len * batch / t_decode:.0f} tok/s on {device.type})")
     for b in range(batch):
         print(f"  request {b}: {gen[b].tolist()}")
-    return {"model": model, "prompts": prompts, "tokens": gen,
-            "prefill_s": t_prefill, "decode_s": t_decode}
+    out = {"model": model, "prompts": prompts, "tokens": gen,
+           "prefill_s": t_prefill, "decode_s": t_decode}
+    if model.is_encdec:
+        out["start"] = start
+    return out
 
 
 if __name__ == "__main__":

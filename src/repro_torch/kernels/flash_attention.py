@@ -13,11 +13,20 @@ version. ``block_q`` and ``block_k`` are validated
 as the reference validates them, so both devices refuse the same inputs,
 and change nothing else: the result depends on them only through float
 order.
+
+Without blocks any ``S >= 1`` is taken, which the reference, whose
+default blocks are 128, refuses where 128 does not divide S: the kernels
+cover S with their own tiles, load the rows past S as zeros, write no row
+past S and mask the keys past S to ``-1e30``, so a key past S weighs
+nothing whether the call is causal or not (a zero-padded key would score
+0 without the causal mask). The encoder's self-attention takes any number
+of frames this way, and a causal prefill any prompt length.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -97,7 +106,7 @@ def scaled_error(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor,
     return max(0.0, float((excess / scale[..., None]).max()))
 
 
-def _validate(q, k, v, block_q: int, block_k: int) -> None:
+def _validate(q, k, v, block_q, block_k) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q, k and v must be one [B, H, S, "
                          f"D] shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -110,17 +119,24 @@ def _validate(q, k, v, block_q: int, block_k: int) -> None:
         raise ValueError(f"flash_attention: q, k and v on {q.device}, "
                          f"{k.device}, {v.device}")
     s = q.shape[2]
-    bq, bk = min(block_q, s), min(block_k, s)
+    if s < 1:
+        raise ValueError("flash_attention: S = 0")
+    if block_q is None and block_k is None:
+        return
+    bq = min(DEFAULT_BLOCK_Q if block_q is None else block_q, s)
+    bk = min(DEFAULT_BLOCK_K if block_k is None else block_k, s)
     if bq < 1 or bk < 1 or s % bq or s % bk:
         raise ValueError(f"flash_attention: S = {s} must divide by the "
                          f"blocks ({bq}, {bk})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, block_q: int = DEFAULT_BLOCK_Q,
-                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+                    causal: bool = True, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """q, k, v: [B, H, S, D] of one dtype -> [B, H, S, D] of that dtype.
-    ``S`` must divide by both blocks after they are clipped to ``S``."""
+    Any ``S >= 1`` without blocks; with either block given, ``S`` must
+    divide by both (128 where not given) after they are clipped to ``S``,
+    as the reference requires."""
     _validate(q, k, v, block_q, block_k)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)

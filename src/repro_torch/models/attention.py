@@ -1,15 +1,21 @@
-"""GQA attention: train (full causal), prefill (the port's flash attention
-kernel) and decode (KV cache); the port of ``repro/models/attention.py``.
+"""GQA attention: train (full, causal or not), prefill (the port's flash
+attention kernel), decode (KV cache) and the decoder's cross attention; the
+port of ``repro/models/attention.py``.
 
-``full_attention`` stays plain torch, computed as the reference computes it
-(Q reshaped to ``[B, S, K, H/K, dh]``, the KV heads never repeated), since
-the train path needs autograd. Prefill's causal self-attention is the
-reference's inline softmax attention, which is the plain version of
-``kernels.flash_attention`` once the KV heads are expanded to the query
-heads by ``repeat_interleave``; it runs through ``kernels.ops
-.flash_attention``, so on the card it launches the attention kernel.
-Decode attends over the cache up to ``pos`` in plain torch: no TPU kernel
-computes it in the reference.
+``full_attention`` and ``cross_attention`` stay plain torch, computed as
+the reference computes them (Q reshaped to ``[B, S, K, H/K, dh]``, the KV
+heads never repeated): the train path needs autograd, and cross attention's
+S queries against T memory rows are a shape the kernel does not take.
+Prefill's self-attention, causal in a decoder and full in the
+encoder-decoder's encoder, is the reference's softmax attention, which is
+the plain version of ``kernels.flash_attention`` once the KV heads are
+expanded to the query heads by ``repeat_interleave``; it runs through
+``kernels.ops.flash_attention``, so on the card it launches the attention
+kernel. The kernel is called at the sequence's own length S, whatever it
+is: it masks the keys past S itself, so no padded key weighs in, with or
+without the causal mask, and no ragged call falls back to the plain
+version. Decode attends over the cache up to ``pos`` in plain torch: no
+TPU kernel computes it in the reference.
 """
 
 from __future__ import annotations
@@ -20,10 +26,6 @@ import torch
 
 from ..kernels import ops
 from .layers import DTYPE, _init, apply_rope
-
-# the flash attention kernel's largest block: S must divide by min(this, S)
-_BLOCK = 128
-
 
 def init_attention(cfg, generator, device) -> dict:
     d, h, k, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -83,24 +85,31 @@ def full_attention(params, x, cfg, positions, causal: bool = True):
     return _gqa_context(probs, v, q) @ params["wo"]
 
 
-def causal_self_attention(q, k, v, cfg):
-    """Prefill's causal attention through ``ops.flash_attention``: q [B,S,H,
-    dh], k and v [B,S,K,dh] -> [B, S, H * dh]. The KV heads are expanded
-    to the query heads by ``repeat_interleave`` (query head j reads KV head
-    j // (H/K), as the reference's reshape does) in ``[B, H, S, dh]``
-    layout. Where S does not divide by ``min(128, S)``, Q, K and V get zero
-    rows up to the next multiple of 128 and the padded output rows are
-    dropped: under the causal mask no real query sees a padded key."""
+def cross_attention(params, x, memory, cfg):
+    """The decoder's attention over the encoder's output ``memory`` [B, T,
+    D] (no causal mask, no RoPE): x [B, S, D] -> [B, S, D], plain torch."""
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    h, kn, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, dh)
+    k = (memory @ params["wk"]).reshape(b, t, kn, dh)
+    v = (memory @ params["wv"]).reshape(b, t, kn, dh)
+    probs = torch.softmax(_gqa_scores(q, k, cfg).float(), dim=-1)
+    return _gqa_context(probs, v, q) @ params["wo"]
+
+
+def self_attention(q, k, v, cfg, causal: bool = True):
+    """Prefill's self-attention through ``ops.flash_attention``: q [B, S,
+    H, dh], k and v [B, S, K, dh] -> [B, S, H * dh], at any S. The KV
+    heads are expanded to the query heads by ``repeat_interleave`` (query
+    head j reads KV head j // (H/K), as the reference's reshape does) in
+    ``[B, H, S, dh]`` layout."""
     b, s, h, dh = q.shape
     g = h // cfg.n_kv
     qh = q.transpose(1, 2)
     kh = k.transpose(1, 2).repeat_interleave(g, dim=1)
     vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
-    pad = (-s) % _BLOCK if s % min(_BLOCK, s) else 0
-    if pad:
-        qh, kh, vh = (torch.nn.functional.pad(t, (0, 0, 0, pad))
-                      for t in (qh, kh, vh))
-    out = ops.flash_attention(qh, kh, vh, causal=True)[:, :, :s]
+    out = ops.flash_attention(qh, kh, vh, causal=causal)
     return out.transpose(1, 2).reshape(b, s, h * dh)
 
 

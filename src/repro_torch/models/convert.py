@@ -2,15 +2,17 @@
 port.
 
 ``load_reference(model, params)`` copies the pytree that
-``repro.models.transformer.init_params`` returns (leaves as numpy arrays or
-anything ``np.asarray`` reads) into an ``LMModel`` of the same config. The
-reference stacks its layers in groups of ``cfg.block_period`` on a leading
-axis (``params["blocks"]["pos{j}"][name][g]`` is layer ``g * period +
-j``); the port keeps one module a layer, in the same ``[d_in, d_out]``
-layout, so each leaf is a copy (``reference_leaf`` finds the reference's
-leaf of a port parameter name). Each leaf is read as float32 and cast to
-the parameter's dtype, which is exact for bfloat16 and needs no
-``ml_dtypes``.
+``repro.models.transformer.init_params`` or ``repro.models.encdec
+.init_params`` returns (leaves as numpy arrays or anything ``np.asarray``
+reads) into an ``LMModel`` of the same config. A decoder LM's reference
+stacks its layers in groups of ``cfg.block_period`` on a leading axis
+(``params["blocks"]["pos{j}"][name][g]`` is layer ``g * period + j``); an
+encoder-decoder's stacks one layer a row (``params["enc_blocks"][name][i]``
+is ``enc_layers.<i>``, ``dec_blocks`` likewise). The port keeps one module
+a layer, in the same ``[d_in, d_out]`` layout, so each leaf is a copy
+(``reference_leaf`` finds the reference's leaf of a port parameter name).
+Each leaf is read as float32 and cast to the parameter's dtype, which is
+exact for bfloat16 and needs no ``ml_dtypes``.
 
 ``train_state_from_reference(model, state)`` carries a reference
 ``TrainState`` across: its params into the model, its AdamW ``m`` and ``v``
@@ -28,15 +30,19 @@ from ..train.train_step import TrainState, train_state_init
 
 def reference_leaf(params, name: str, period: int):
     """The reference's leaf (a pytree of ``params``' structure) of the port
-    parameter ``name`` (``embed``, ``layers.<i>.mixer.wq``, ...)."""
+    parameter ``name`` (``embed``, ``layers.<i>.mixer.wq``,
+    ``dec_layers.<i>.cross.wk``, ...)."""
     parts = name.split(".")
-    if parts[0] != "layers":
+    if parts[0] == "layers":
+        i = int(parts[1])
+        node, row = params["blocks"][f"pos{i % period}"], i // period
+    elif parts[0] in ("enc_layers", "dec_layers"):
+        node, row = params[parts[0][:3] + "_blocks"], int(parts[1])
+    else:
         return params[name]
-    i = int(parts[1])
-    node = params["blocks"][f"pos{i % period}"]
     for key in parts[2:]:
         node = node[key]
-    return node[i // period]
+    return node[row]
 
 
 def _copy(dst: torch.Tensor, src) -> None:

@@ -83,17 +83,36 @@ def test_serve_lm_runs_on_cpu(capsys):
 
 
 def test_serve_lm_arch_runs_on_cpu(capsys):
-    """``--arch deepseek_moe_16b`` serves the MoE family's SMOKE config;
-    the families still to port raise ``NotImplementedError``."""
-    out = _load("serve_lm_torch").main(["--arch", "deepseek_moe_16b",
-                                        "--device", "cpu"])
-    assert "deepseek_moe_16b_smoke on cpu" in capsys.readouterr().out
-    assert out["tokens"].shape == (4, 16)
-    assert ((out["tokens"] >= 0) & (out["tokens"] < out["model"].cfg.vocab)
-            ).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _load("serve_lm_torch").main(["--arch", "xlstm_125m", "--device",
-                                      "cpu"])
+    """``--arch`` serves the MoE family's SMOKE config (deepseek_moe_16b),
+    the xLSTM's (xlstm_125m: tokens through each layer's recurrent state)
+    and the encoder-decoder's (seamless_m4t_large_v2: random frames, then
+    greedy decode from a drawn start token). For the last two, ``forward``
+    over the prompt (or the frames) and the tokens fed gives back the same
+    greedy tokens wherever its top two logits are 0.05 apart."""
+    import torch
+    for arch in ("deepseek_moe_16b", "xlstm_125m", "seamless_m4t_large_v2"):
+        out = _load("serve_lm_torch").main(["--arch", arch, "--device",
+                                            "cpu"])
+        assert f"{arch}_smoke on cpu" in capsys.readouterr().out
+        model, gen = out["model"], out["tokens"]
+        assert gen.shape == (4, 16)
+        assert ((gen >= 0) & (gen < model.cfg.vocab)).all()
+        if arch == "deepseek_moe_16b":
+            continue
+        fed = torch.from_numpy(gen[:, :-1])
+        with torch.no_grad():
+            if model.is_encdec:
+                seq = torch.cat([out["start"][:, None], fed], dim=1)
+                logits, _ = model.forward({"frames": out["prompts"],
+                                           "tokens": seq})
+            else:
+                seq = torch.cat([out["prompts"], fed], dim=1)
+                logits, _ = model.forward({"tokens": seq})
+                logits = logits[:, out["prompts"].shape[1] - 1:]
+        top2 = logits.float().topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 0.05
+        assert (logits.float().argmax(-1).numpy() == gen)[sure.numpy()].all()
+        assert int(sure.sum()) >= 16      # of the 64 positions
 
 
 def test_train_lm_runs_on_cpu(capsys):

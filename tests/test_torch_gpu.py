@@ -1209,7 +1209,7 @@ def test_flash_attention_rejects_wrong_inputs_on_card(cuda):
     q = torch.zeros((1, 1, 192, 64), device=cuda)
     ops.reset_launch_counts()
     with pytest.raises(ValueError):     # S does not divide by the blocks
-        flash_attention(q, q, q)
+        flash_attention(q, q, q, block_k=128)
     wide = torch.zeros((1, 1, 128, 257), device=cuda)
     with pytest.raises(ValueError):     # D above the kernel's 256
         flash_attention(wide, wide, wide)
@@ -1531,7 +1531,7 @@ def test_grace_histogram_launches_once_a_card(cuda):
 def test_lm_serving_on_card_matches_cpu(cuda, s):
     """qwen2-1.5B's SMOKE config: one set of weights made on the CPU and
     copied to the card; prefill (through the attention kernel, once a
-    layer; S 200 pads to 256 rows) and 4 greedy decode steps fed the CPU's
+    layer; S 200 a ragged S for it) and 4 greedy decode steps fed the CPU's
     tokens, logits within rtol = atol = 2e-2 of the CPU's."""
     import copy
 
@@ -1788,3 +1788,97 @@ def test_jamba_serving_on_card_matches_cpu(cuda):
     for t, (g, w) in enumerate(zip(got, want)):
         assert torch.isfinite(g[0].float()).all()
         _rows_close(g[0], w[0], 6e-2, f"step {t}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ragged_full_on_card(no_tf32, dtype):
+    """The encoder's call at a ragged T: [2, 16, 200, 64] without the
+    causal mask, no padding, one launch, against the plain version within
+    ``_ATTN_TOL`` and ``SCALED_ERROR_TOL``; q drawn around +1 and k
+    around -1, so that a key past T left unmasked would take most of a
+    row's weight (as ``chip_smoke.py``'s ragged cases draw them)."""
+    from repro_torch.kernels.flash_attention import (
+        SCALED_ERROR_TOL, flash_attention, flash_attention_plain,
+        scaled_error)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, 16, 200, 64), generator=g) + c
+               for c in (1.0, -1.0, 0.0))
+    q, k, v = (x.to(no_tf32, getattr(torch, dtype)) for x in (q, k, v))
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=False)
+    assert float((got.float() - want.float()).abs().max()) <= _ATTN_TOL[dtype]
+    assert scaled_error(got, want, v, False) <= SCALED_ERROR_TOL
+
+
+def test_xlstm_on_card_matches_cpu(no_tf32):
+    """xlstm-125M's SMOKE config (one period of 4 layers: 3 mLSTM, 1
+    sLSTM): one set of weights made on the CPU and copied to the card;
+    prefill of 2 x 100 (a ragged S: chunks of 64 and 36) and 4 greedy
+    decode steps fed the CPU's tokens; no kernel launches; logits each
+    within 0.15 plus 0.15 times its row's largest |value|
+    (``tests/test_torch_xlstm.py``'s tolerance against the reference),
+    each state tensor after the prefill within 0.1 of its largest
+    |value|."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("xlstm_125m", smoke=True)
+    cpu = build_model(cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(no_tf32)
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 100), dtype=np.int32))
+    want = [cpu.prefill({"tokens": tok})]
+    ops.reset_launch_counts()
+    got = [gpu.prefill({"tokens": tok.to(no_tf32)})]
+    assert sum(ops.launch_counts().values()) == 0
+    for gc, wc in zip(got[0][1], want[0][1]):
+        for g, w in zip(gc, wc):
+            assert float((g.cpu() - w).abs().max()) <= \
+                0.1 * float(w.abs().max())
+    for t in range(4):
+        nxt = want[-1][0][:, -1].argmax(-1).to(torch.int32)[:, None]
+        want.append(cpu.decode_step(nxt, want[-1][1], 100 + t))
+        got.append(gpu.decode_step(nxt.to(no_tf32), got[-1][1], 100 + t))
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g[0].float()).all()
+        _rows_close(g[0], w[0], 0.15, f"step {t}")
+
+
+def test_encdec_on_card_matches_cpu(no_tf32):
+    """seamless-m4t-large-v2's SMOKE config (2 encoder and 2 decoder
+    layers): one set of weights made on the CPU and copied to the card;
+    prefill of 2 utterances of 200 frames (a ragged T: the encoder's
+    attention kernel once a layer, nothing else) and 4 greedy decode steps
+    from a drawn start token fed the CPU's tokens; logits and the cross
+    K/V each within 4e-2 plus 4e-2 times its row's largest |value| (twice
+    ``tests/test_torch_encdec.py``'s tolerance against the reference)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("seamless_m4t_large_v2", smoke=True)
+    cpu = build_model(cfg, device="cpu")
+    gpu = copy.deepcopy(cpu).to(no_tf32)
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 200, cfg.d_model), dtype=np.float32)).bfloat16()
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1),
+                                        dtype=np.int32))
+    wc = cpu.prefill({"frames": frames})
+    ops.reset_launch_counts()
+    gc = gpu.prefill({"frames": frames.to(no_tf32)})
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.n_enc_layers == \
+        sum(counts.values())
+    for key in ("cross_k", "cross_v"):
+        _rows_close(gc[key], wc[key], 4e-2, key)
+    for t in range(5):
+        want, wc = cpu.decode_step(tok, wc, t)
+        got, gc = gpu.decode_step(tok.to(no_tf32), gc, t)
+        assert torch.isfinite(got.float()).all()
+        _rows_close(got, want, 4e-2, f"step {t}")
+        tok = want[:, -1].argmax(-1).to(torch.int32)[:, None]

@@ -6,7 +6,6 @@ check. Prefill attention runs through ``kernels.ops.flash_attention``
 attention bit for bit at qwen2's SMOKE config."""
 
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -29,7 +28,8 @@ from repro_torch.models import attention, blocks, layers, model  # noqa: E402
 
 DENSE = ("qwen2_1_5b", "phi4_mini_3_8b", "granite_3_8b", "granite_34b",
          "pixtral_12b")
-PORTED = DENSE + ("dbrx_132b", "deepseek_moe_16b", "jamba_v0_1_52b")
+PORTED = DENSE + ("dbrx_132b", "deepseek_moe_16b", "jamba_v0_1_52b",
+                  "xlstm_125m", "seamless_m4t_large_v2")
 # one bfloat16 ulp, relative
 BF16_RTOL = 2.0 ** -7
 
@@ -146,7 +146,7 @@ def test_prefill_attention_bit_exact_at_qwen2_smoke():
     want = _np(_reference_prefill_attention(q, k, v, cfg))
     tcfg = configs.get_config("qwen2_1_5b", smoke=True)
     ops.reset_launch_counts()
-    got = attention.causal_self_attention(tq, tk, tv, tcfg)
+    got = attention.self_attention(tq, tk, tv, tcfg)
     assert got.dtype == torch.bfloat16
     assert np.array_equal(_np(got), want)
     g = cfg.n_heads // cfg.n_kv
@@ -157,16 +157,16 @@ def test_prefill_attention_bit_exact_at_qwen2_smoke():
 
 
 def test_prefill_attention_padding_path_s200():
-    """S = 200 does not divide by 128: Q, K and V are padded with zero
-    rows to 256 and the padded rows dropped. Float32 inputs: within 1e-6
-    of the unpadded plain version; bfloat16: within one ulp of it and
-    within 2e-2 of the reference."""
+    """S = 200 does not divide by 128: the attention takes it as it is,
+    with no padded rows (the kernel masks the keys past S). Float32
+    inputs: within 1e-6 of the plain version at S 200; bfloat16: within
+    one ulp of it and within 2e-2 of the reference."""
     cfg, (q, k, v), (tq, tk, tv) = _qkv_inputs("qwen2_1_5b", 200, seed=5)
     tcfg = configs.get_config("qwen2_1_5b", smoke=True)
     g = cfg.n_heads // cfg.n_kv
     for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 0.0)):
         xq, xk, xv = (t.to(dtype) for t in (tq, tk, tv))
-        got = attention.causal_self_attention(xq, xk, xv, tcfg)
+        got = attention.self_attention(xq, xk, xv, tcfg)
         plain = flash_attention_plain(
             xq.transpose(1, 2), xk.transpose(1, 2).repeat_interleave(g, 1),
             xv.transpose(1, 2).repeat_interleave(g, 1)).transpose(1, 2)
@@ -235,7 +235,9 @@ def test_specs_equal_reference(arch):
     """input_specs and cache_specs at the full CONFIG, every shape, as
     meta tensors (nothing allocated): the reference's ShapeDtypeStructs'
     shapes and dtypes, its stacked caches (layer i is ``pos{i % period}``
-    of group ``i // period``) one ``KVCache`` or ``MambaState`` a layer."""
+    of group ``i // period``) one ``KVCache``, ``MambaState``,
+    ``MLSTMState`` or ``SLSTMState`` a layer; an encoder-decoder's dict of
+    the stacked self caches and cross K/V as the reference's."""
     cfg = configs.get_config(arch)
     m = model.build_model(cfg, device="meta")
     ref = rmodel.build_model(rconfigs.get_config(arch))
@@ -248,6 +250,16 @@ def test_specs_equal_reference(arch):
             {k: (tuple(s.shape), str(s.dtype)) for k, s in want.items()}
         caches = m.cache_specs(shape)
         rc = ref.cache_specs(rconfigs.SHAPES[name])
+        if cfg.family == "encdec":
+            assert list(caches) == list(rc)
+            assert type(caches["self"]).__name__ == "KVCache"
+            for got, want in ((caches["self"].k, rc["self"].k),
+                              (caches["self"].v, rc["self"].v),
+                              (caches["cross_k"], rc["cross_k"]),
+                              (caches["cross_v"], rc["cross_v"])):
+                assert got.device.type == "meta"
+                assert _spec(got) == (tuple(want.shape), str(want.dtype))
+            continue
         assert len(caches) == cfg.n_layers
         for i, c in enumerate(caches):
             rci = rc[f"pos{i % cfg.block_period}"]
@@ -273,20 +285,18 @@ def test_synthetic_batch_equals_reference(arch):
             assert np.array_equal(_np(got[k]), _np(want[k]))
 
 
-@pytest.mark.parametrize("arch, item", [("xlstm_125m", "3 (xLSTM)"), (
-    "seamless_m4t_large_v2", "4 (encoder-decoder)")])
-def test_non_dense_family_raises(arch, item):
-    """The families still to port raise, naming their ROADMAP item."""
-    cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP Queue A item {item}")):
-        model.build_model(cfg, device="cpu")
-    kinds = {k for i in range(cfg.n_layers) for k in blocks.layer_kind(cfg, i)}
-    if kinds - {"attn", "mlp", "none"}:
-        i = next(i for i in range(cfg.n_layers)
-                 if set(blocks.layer_kind(cfg, i)) - {"attn", "mlp", "none"})
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
-            blocks.init_layer(cfg, i, None, "meta")
+@pytest.mark.parametrize("arch", rconfigs.ARCH_IDS)
+def test_build_model_builds_every_config(arch):
+    """Every family builds at its full CONFIG on ``meta`` (no allocation),
+    with as many parameters as the reference's pytree has elements."""
+    cfg = configs.get_config(arch)
+    m = model.build_model(cfg, device="meta")
+    assert m.is_encdec == (cfg.family == "encdec")
+    assert all(p.device.type == "meta" for p in m.parameters())
+    ref = jax.eval_shape(lambda: rmodel.build_model(
+        rconfigs.get_config(arch)).init(jax.random.key(0)))
+    assert sum(p.numel() for p in m.parameters()) == sum(
+        int(np.prod(x.shape)) for x in jax.tree.leaves(ref))
 
 
 def test_block_period_must_divide_the_layers():
