@@ -334,7 +334,7 @@ In order it:
    timed, and the bound is operations at the card's dense bfloat16 rate,
    or in float32 three times the operations at its TF32 rate (3xTF32),
    with the FFMA bound printed beside it;
-9b. the LM side, after phase 10 and every profile (then only 9c-9e)
+9b. the LM side, after phase 10 and every profile (then only 9c-9f)
    (a profile taken after it lost one kernel event of ten; ``--lm`` runs
    it alone after the build and prints its kernels line and the card
    line, and no ok line): ``repro_torch.models``
@@ -484,6 +484,34 @@ In order it:
    (d)'s prefill ([8, 16, 1000, 64] bfloat16, full) against its plain
    version, timed beside SDPA and the bound: the ``flash_attention[lm
    seamless_m4t_large_v2 encode]`` row, its launches (d)'s prefill's;
+9f. the tools and the sharding policy, after 9e (``--tools`` runs it
+   alone after the build and prints its kernels line and the card line,
+   and no ok line). (a) ``launch.roofline.measure_program`` on qwen2-1.5B's
+   prefill as 9b runs it (full ``CONFIG``, bfloat16, 8 prompts of 512,
+   ``max_len`` 1024; ``flash_attention`` launching once a layer, 28, the
+   counters set to 0 just before one prefill and read just after): the
+   counted FLOPs and bytes, ``model_flops``, the ms by CUDA events, the
+   roofline bound, the dominant term and ``achieved_fraction``, the card
+   line; the count equal to ``meta``'s at full depth, and the same program
+   at 2 layers counted on the card equal to its count on the CPU, exactly
+   (the kernel's report standing for its plain version there); (b) the
+   count of (a)'s first attention call ([8, 12, 512, 128] bfloat16,
+   causal) equal to the bytes and operations of row 10's bound, which it
+   prints; the ``flash_attention[lm qwen2_1_5b prefill 9f]`` row, its
+   launches (a)'s prefill's; (c) ``moe_ffn_a2a`` of one deepseek-moe-16B
+   MoE layer at full width, B 8 x S 512, on a 1 x 4 ``ModelMesh`` naming
+   cuda:0 four times, its experts placed by ``params_shardings`` (each tp
+   rank's 16 experts its local shard), against the local path on the
+   same card: on the local path's routing (``tests/torch_routing.py``,
+   each differing own choice a near tie), the output within rtol = atol =
+   2e-2, aux within 1e-6 relative, the all-reduce's counted bytes
+   (``--cards`` runs (c) alone over the host's cards after its mesh
+   part); (d) ``runtime.elastic.reshard_state`` of a qwen2-1.5B
+   ``TrainState`` at full width and 2 layers (moments drawn, step 7) on
+   the card from (1, 1) to (1, 4) to (2, 2) and back to (1, 1), every
+   leaf bit-equal at each step, each layout's largest position's bytes
+   printed; ``restore_for_mesh`` of a ``CheckpointManager`` checkpoint of
+   it onto (2, 2), bit-equal;
 10. the main path's shapes: every captured standalone probe (W = 1 and
    W = 4) once in one profile, a line each (keys, slots, max_probes, hit
    rate, whether the table fits the L2, bound, device µs) and the sums;
@@ -517,7 +545,8 @@ same rows in memory (their ``Memcpy HtoD`` copies and ms), and last one
 profiled run of phase 8's serving workload with and one without batching.
 ``--attention`` runs phase 9 alone after the build and prints its kernels
 line and the card line, and no ok line (``--lm`` phase 9b, ``--train``
-phase 9c, ``--moe`` phase 9d, ``--xlstm-encdec`` phase 9e); ``--build``
+phase 9c, ``--moe`` phase 9d, ``--xlstm-encdec`` phase 9e, ``--tools``
+phase 9f); ``--build``
 runs phase 3's synthetic builds alone; ``--fused`` the fused program's checks (Q1 and Q6
 and their views), phase 8(a) and the SQL phase's (d) alone; ``--sql`` the
 SQL phase alone; ``--segmented`` the segmented
@@ -583,21 +612,6 @@ import sys
 import tempfile
 import time
 
-# memory rate of the card by name (bytes/s), from NVIDIA's data sheets,
-# then the H100 SXM part's for any other card
-_MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12),
-             ("", 3.35e12))
-# float32 rate outside the tensor cores (operations/s), H100 SXM data sheet
-_F32_RATE = 67e12
-# dense bfloat16 / float16 tensor-core rate of the card by name
-# (operations/s), from NVIDIA's data sheets, then the H100 SXM part's
-_BF16_RATE = (("H100 PCIe", 756e12), ("H100", 989.4e12), ("H200", 989.4e12),
-              ("", 989.4e12))
-# dense TF32 tensor-core rate of the card by name (operations/s), from
-# NVIDIA's data sheets, then the H100 SXM part's; a float32 product costs
-# three TF32 products in the 3xTF32 kernel
-_TF32_RATE = (("H100 PCIe", 378e12), ("H100", 494.7e12), ("H200", 494.7e12),
-              ("", 494.7e12))
 _MAIN_ROWS = 1 << 20
 _SF = 1.0
 # the slices' first queries, then the rest of the 22
@@ -798,10 +812,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def by_name(table, name: str) -> float:
-    """The rate of the first entry of ``table`` whose key is in the card's
-    ``name`` (the last entry's key, "", is in every name)."""
-    return next(rate for key, rate in table if key in name)
+def card_rates(name: str = None):
+    """The card's data-sheet rates by its name (``name``, else card 0's):
+    ``repro_torch.launch.roofline.peaks``, the one table of them (dense
+    bfloat16 ``bf16`` and TF32 ``tf32`` tensor-core rates, float32 outside
+    the tensor cores ``f32``, ``hbm`` bytes/s); a 3xTF32 float32 product
+    costs three TF32 products."""
+    from repro_torch.launch import roofline
+    return roofline.peaks(name)
 
 
 def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
@@ -819,10 +837,11 @@ def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float, rate: float, op_rate: float = _F32_RATE):
+def bound_ms(nbytes: float, ops: float, rate: float, op_rate: float = None):
     """The least time for ``nbytes`` at the memory ``rate`` and ``ops`` at
-    ``op_rate`` (the float32 rate unless a tensor-core kernel says
+    ``op_rate`` (the card's float32 rate unless a tensor-core kernel says
     otherwise): (ms, "bytes" or "operations")."""
+    op_rate = card_rates().f32 if op_rate is None else op_rate
     t_bytes = nbytes / rate * 1e3
     t_ops = ops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -6108,14 +6127,14 @@ def _attention_cases(torch, fa, kops, rate, name, failures):
             # three TF32 products a float32 one; the FFMA bound beside it,
             # the yardstick of the kernel it replaced
             bound, by = bound_ms(nbytes, 3 * flops, rate,
-                                 by_name(_TF32_RATE, name))
+                                 card_rates(name).tf32)
             extra["bound_ffma_ms"] = bound_ms(nbytes, flops, rate)[0]
             if not bound <= ms:
                 failures.append(f"{row}: {ms:.4f} ms is below its bound "
                                 f"{bound:.4f} ms")
         else:
             bound, by = bound_ms(nbytes, flops, rate,
-                                 by_name(_BF16_RATE, name))
+                                 card_rates(name).bf16)
         rows_out.append(dict(
             name=row, route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -6463,7 +6482,7 @@ def lm_attention_row(torch, fa, qkv, launches, rate, name, failures,
     b, h, s, d = q.shape
     flops = 4 * b * h * s * s * d / (2 if causal else 1)
     nbytes = 4 * b * h * s * d * q.element_size()
-    bound, by = bound_ms(nbytes, flops, rate, by_name(_BF16_RATE, name))
+    bound, by = bound_ms(nbytes, flops, rate, card_rates(name).bf16)
     print(f"check {row} {list(q.shape)} {str(q.dtype)[6:]} "
           f"{'causal' if causal else 'full'}: max "
           f"|kernel - plain| {err:.3g}, scaled error {scaled:.3g} (tol "
@@ -7744,6 +7763,282 @@ def run_xlstm_encdec(torch, fa, kops, rate, name):
 
 
 # ---------------------------------------------------------------------------
+# phase 9f: the tools and the sharding policy (launch.roofline,
+# models.sharding, moe_a2a across tp positions, runtime.elastic)
+# ---------------------------------------------------------------------------
+
+def _count_diff(got, want) -> str:
+    """The ATen ops whose counts differ between two ``count_program``
+    records (the first few), for a failure's message."""
+    ops = sorted(set(got["ops"]) | set(want["ops"]))
+    diff = [f"{k}: {got['ops'].get(k)} vs {want['ops'].get(k)}" for k in ops
+            if got["ops"].get(k) != want["ops"].get(k)]
+    return "; ".join(diff[:4])
+
+
+def tools_prefill(torch, mods, cfgs, kops, fa, rate, name, failures):
+    """(a) ``measure_program`` on qwen2-1.5B's prefill (9b's setup) against
+    the card's roofline, its count equal to the CPU's at 2 layers and to
+    ``meta``'s at full depth; (b) row 10's count of the first attention
+    call against its bound's bytes and operations: (the kernels line's
+    row)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import roofline
+    cfg = cfgs.get_config(_LM_ARCH)
+    model = _lm_model(torch, mods, cfg, "cuda", _LM_SEED)
+    batch = _lm_batch(torch, cfg, _LM_BATCH, _LM_PROMPT, _LM_SEED, "cuda")
+    model.prefill(batch, _LM_MAX_LEN)                  # warm-up
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    with _Capture(kops) as cap:
+        model.prefill(batch, _LM_MAX_LEN)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    if counts["flash_attention"] != cfg.n_layers or \
+            sum(counts.values()) != cfg.n_layers:
+        failures.append(f"tools (a): launches {dict(_nonzero(counts))}, want "
+                        f"{cfg.n_layers} flash_attention a prefill")
+    rec = roofline.measure_program(model.prefill, batch, _LM_MAX_LEN,
+                                   warmup=2, iters=10)
+    meta = mods.build_model(cfg, device="meta")
+    on_meta = roofline.count_program(meta.prefill, {
+        k: v.to("meta") for k, v in batch.items()}, _LM_MAX_LEN)
+    if (on_meta["flops"], on_meta["bytes_accessed"]) != (
+            rec["flops"], rec["bytes_accessed"]):
+        failures.append("tools (a): the card's count differs from meta's: "
+                        + _count_diff(roofline.count_program(
+                            model.prefill, batch, _LM_MAX_LEN), on_meta))
+    mf = roofline.model_flops(cfg, ShapeSpec("p", _LM_PROMPT, _LM_BATCH,
+                                             "prefill"))
+    attn = rec["kernels"].get("flash_attention", {})
+    heavy = sorted(rec["ops"].items(), key=lambda kv: -kv[1]["bytes"])[:6]
+    print(f"tools (a) measure_program {_LM_ARCH} prefill {_LM_BATCH}x"
+          f"{_LM_PROMPT} (max_len {_LM_MAX_LEN}): counted flops "
+          f"{rec['flops']}, bytes {rec['bytes_accessed']}, collective bytes "
+          f"{rec['collective_bytes']}; model_flops {mf:.6g}; flash_attention "
+          f"reports {attn}; measured {rec['measured_s'] * 1e3:.4f} ms (CUDA "
+          f"events, 10 calls); roofline_bound_s {rec['roofline_bound_s']:.6g}"
+          f" ({rec['dominant']}); achieved_fraction "
+          f"{rec['achieved_fraction']:.4f}; model_flops / measured "
+          f"{mf / rec['measured_s'] / 1e12:.1f} TFLOP/s "
+          f"({mf / rec['measured_s'] / roofline.peaks(name).bf16:.4f} of the "
+          f"dense bf16 peak); meta's count equal; launches "
+          f"{dict(_nonzero(counts))}; {card_line()}", flush=True)
+    print("tools (a) the count's heaviest ATen ops by bytes: " + "; ".join(
+        f"{k} {v['calls']} calls {v['bytes']} B {v['flops']} FLOP"
+        for k, v in heavy), flush=True)
+    qkv = tuple(t.contiguous() for t in cap.first)
+    del model, meta, cap
+    torch.cuda.empty_cache()
+
+    # the same program at 2 layers: the card's count against the CPU's
+    small = dataclasses.replace(cfg, n_layers=2)
+    cpu, gpu = _cpu_and_card(torch, mods, small, _LM_SEED)
+    on_card = roofline.count_program(gpu.prefill, batch, _LM_MAX_LEN)
+    on_cpu = roofline.count_program(cpu.prefill, {
+        k: v.cpu() for k, v in batch.items()}, _LM_MAX_LEN)
+    same = all(on_card[k] == on_cpu[k] for k in (
+        "flops", "bytes_accessed", "collective_bytes", "kernels"))
+    if not same:
+        failures.append("tools (a): the 2-layer count on the card differs "
+                        "from the CPU's: " + _count_diff(on_card, on_cpu))
+    print(f"check tools (a) 2 layers: card count flops {on_card['flops']} "
+          f"bytes {on_card['bytes_accessed']}, CPU flops {on_cpu['flops']} "
+          f"bytes {on_cpu['bytes_accessed']}: "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+    # (b) row 10's count of the first call against its bound
+    q, k, v = qkv
+    c = roofline.count_program(fa.flash_attention, q, k, v, True)
+    b, h, s, d = q.shape
+    flops, nbytes = 4 * b * h * s * s * d // 2, 4 * b * h * s * d * 2
+    if (c["flops"], c["bytes_accessed"], c["ops"]) != (flops, nbytes, {}):
+        failures.append(f"tools (b): row 10's count {c['flops']}, "
+                        f"{c['bytes_accessed']} (ops {c['ops']}); want "
+                        f"{flops}, {nbytes}")
+    bound, by = bound_ms(c["bytes_accessed"], c["flops"], rate,
+                         card_rates(name).bf16)
+    print(f"check tools (b) row 10 count {list(q.shape)} bf16 causal: flops "
+          f"{c['flops']} (want {flops}), bytes {c['bytes_accessed']} (want "
+          f"{nbytes}), bound {bound:.4f} ms ({by})", flush=True)
+    return lm_attention_row(torch, fa, qkv, counts["flash_attention"], rate,
+                            name, failures, part="prefill 9f")
+
+
+def tools_moe(torch, cfgs, failures, devices=None):
+    """(c) one deepseek-moe-16B MoE layer at full width, B 8 x S 512, on a
+    1 x 4 ``ModelMesh`` naming cuda:0 four times (``devices``: a 1 x N
+    mesh of N cards), its experts placed by ``params_shardings``, against
+    the local path on the same card, on the local path's routing."""
+    import numpy as np
+    from torch_routing import Routed, forced, recorded
+
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import ModelMesh, axes_of
+    from repro_torch.models import moe, moe_a2a
+    from repro_torch.models import sharding as shp
+    cfg = cfgs.get_config(_MOE_ARCH)
+    devices = devices or [torch.device("cuda", 0)] * 4
+    tp = len(devices)
+    gen = torch.Generator("cuda").manual_seed(_MOE_SEED)
+    params = moe.init_moe(cfg, gen, "cuda")
+    x = torch.randn((_MOE_BATCH, _MOE_PROMPT, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    with recorded() as probs:
+        want, waux = moe_a2a.moe_ffn_a2a(params, x, cfg)
+    mesh = ModelMesh(np.array(devices, dtype=object).reshape(1, tp),
+                     ("data", "model"))
+    axes = axes_of(mesh)
+    shardings = shp.params_shardings(params, axes, mesh)
+    placed = {k: shp.device_put(v, shardings[k]) for k, v in params.items()}
+    rec = Routed(cfg.top_k, probs * tp)
+    with shp.use_axes(axes, mesh):
+        with forced(rec):
+            got, aux = moe_a2a.moe_ffn_a2a(placed, x, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            moe_a2a.moe_ffn_a2a(placed, x, cfg)
+        for dev in set(devices):
+            torch.cuda.synchronize(dev)
+        tp_ms = (time.perf_counter() - t0) / 3 * 1e3
+        c = roofline.count_program(moe_a2a.moe_ffn_a2a, placed, x, cfg)
+    local_ms = time_ms(torch, lambda: moe_a2a.moe_ffn_a2a(params, x, cfg),
+                       reps=3, warm=1)
+    what = f"tools (c) moe_ffn_a2a tp {tp} on {sorted({str(d) for d in devices})}"
+    msg = rec.failure(_MOE_MARGIN[_MOE_ARCH], what)
+    if msg:
+        failures.append(msg)
+    err = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    rel = abs(float(aux) - float(waux)) / abs(float(waux))
+    if not ok or not rel <= 1e-6:
+        failures.append(f"{what}: max |diff| {err:.4g} against the local "
+                        f"path (rtol = atol = 2e-2), aux relative {rel:.3g}")
+    ar = c["kernels"].get("moe_a2a.all_reduce", {})
+    print(f"check {what}: B {_MOE_BATCH} x S {_MOE_PROMPT}, {cfg.n_experts} "
+          f"experts, {cfg.n_experts // tp} a rank, experts_w1's shard "
+          f"{tuple(placed['experts_w1'].local((0, 0)).shape)}; against the "
+          f"local path max |diff| {err:.4g} (rtol = atol = 2e-2), aux "
+          f"{float(aux):.7g} vs {float(waux):.7g} (relative {rel:.3g}); "
+          f"{rec.summary(_MOE_MARGIN[_MOE_ARCH])}; the all-reduce's counted "
+          f"bytes {ar.get('collective_bytes')} ({ar.get('calls')} call); "
+          f"{tp_ms:.3f} ms a call (host clock) against the local path's "
+          f"{local_ms:.3f} (CUDA events)", flush=True)
+    del params, placed, x, want, got
+    torch.cuda.empty_cache()
+
+
+def _state_bytes(state, mesh) -> int:
+    from repro_torch.launch.mesh import axes_of
+    from repro_torch.models import sharding as shp
+    return shp.placed_bytes(state, shp.params_shardings(state, axes_of(mesh),
+                                                        mesh))
+
+
+def tools_elastic(torch, mods, cfgs, failures):
+    """(d) ``reshard_state`` of a qwen2-1.5B ``TrainState`` (full width, 2
+    layers, moments drawn) on the card from (1, 1) to (1, 4) to (2, 2) and
+    back, every leaf bit-equal at each step; ``restore_for_mesh`` of a
+    ``CheckpointManager`` checkpoint onto (2, 2), bit-equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.models import sharding as shp
+    from repro_torch.runtime.elastic import reshard_state, restore_for_mesh
+    from repro_torch.train import train_state_init
+    cfg = dataclasses.replace(cfgs.get_config(_LM_ARCH), n_layers=2)
+    model = _lm_model(torch, mods, cfg, "cuda", _LM_SEED)
+    st = train_state_init(model)
+    gen = torch.Generator("cuda").manual_seed(_LM_SEED)
+    st = st._replace(opt=st.opt._replace(
+        step=torch.tensor(7, dtype=torch.int32, device="cuda"),
+        m={k: torch.randn(v.shape, generator=gen, device="cuda")
+           for k, v in st.opt.m.items()},
+        v={k: torch.rand(v.shape, generator=gen, device="cuda")
+           for k, v in st.opt.v.items()}))
+
+    def mesh_of(dp, tp):
+        devs = np.empty((dp, tp), dtype=object)
+        devs.fill(torch.device("cuda", 0))
+        return ModelMesh(devs, ("data", "model"))
+
+    def bad_leaves(placed, what):
+        bad = []
+        shp.tree_map(lambda path, got, ref: bad.append(path) if not (
+            torch.equal(got.full(), ref)) else None, placed, st)
+        if bad:
+            failures.append(f"tools (d) {what}: leaves differ: {bad[:4]}")
+        return len(bad)
+
+    cur, lines = st, []
+    for dp, tp in ((1, 1), (1, 4), (2, 2), (1, 1)):
+        mesh = mesh_of(dp, tp)
+        t0 = time.perf_counter()
+        cur = reshard_state(cur, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        bad = bad_leaves(cur, f"({dp}, {tp})")
+        lines.append(f"({dp}, {tp}) largest position {_state_bytes(st, mesh)}"
+                     f" B in {secs:.2f} s{'' if not bad else f', {bad} BAD'}")
+    tmp = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        mgr = CheckpointManager(tmp, async_save=False)
+        mgr.save(7, st)
+        step, placed, _ = restore_for_mesh(tmp, cur, mesh_of(2, 2))
+        bad = bad_leaves(placed, "restore_for_mesh (2, 2)")
+        if step != 7:
+            failures.append(f"tools (d) restore_for_mesh: step {step}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_leaves = len(st.params) * 3 + 1
+    print(f"check tools (d) reshard_state {_LM_ARCH} 2 layers, {n_leaves} "
+          f"leaves, {_state_bytes(st, mesh_of(1, 1))} B: "
+          f"{'; '.join(lines)}; restore_for_mesh (2, 2) step {step}, "
+          f"{'bit-equal' if not bad else f'{bad} leaves differ'}",
+          flush=True)
+    del model, st, cur, placed
+    torch.cuda.empty_cache()
+
+
+def run_tools(torch, fa, kops, rate, name, cards=False):
+    """Phase 9f: the tools and the sharding policy; (rows of the kernels
+    line). With ``cards`` only (c), over the cards the host has. Every part
+    is checked and printed before the phase fails."""
+    cfgs = importlib.import_module("repro_torch.configs")
+    mods = importlib.import_module("repro_torch.models")
+    t0 = time.perf_counter()
+    failures, rows, marks = [], [], [t0]
+    if cards:
+        n = torch.cuda.device_count()
+        tools_moe(torch, cfgs, failures,
+                  [torch.device("cuda", i) for i in range(n)])
+    else:
+        rows.append(tools_prefill(torch, mods, cfgs, kops, fa, rate, name,
+                                  failures))
+        marks.append(time.perf_counter())
+        tools_moe(torch, cfgs, failures)
+        marks.append(time.perf_counter())
+        tools_elastic(torch, mods, cfgs, failures)
+        marks.append(time.perf_counter())
+        print("phase 9f parts, s: (a) and (b) {:.1f}, (c) {:.1f}, (d) "
+              "{:.1f}".format(*(b - a for a, b in zip(marks, marks[1:]))),
+              flush=True)
+    print(f"phase 9f (tools and sharding): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # --faults: planted faults in the attention and build kernels against the
 # checks of phase 9 and of the build
 # ---------------------------------------------------------------------------
@@ -8209,6 +8504,14 @@ def main() -> None:
                          "the CPU, a training step each against the CPU, "
                          "the encoder's attention kernel at a ragged S) "
                          "and print its kernels line; prints no ok line")
+    ap.add_argument("--tools", action="store_true",
+                    help="run phase 9f alone (measure_program on "
+                         "qwen2-1.5B's prefill against the card's roofline, "
+                         "its count against the CPU's and meta's, row 10's "
+                         "count, moe_ffn_a2a at tp 4 against the local "
+                         "path, reshard_state and restore_for_mesh "
+                         "bit-equal) and print its kernels line; prints no "
+                         "ok line")
     ap.add_argument("--build", action="store_true",
                     help="run the build checks of phase 3 alone (the "
                          "synthetic cases, the route and the launches); "
@@ -8305,10 +8608,10 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
-    rate = by_name(_MEM_RATE, name)
+    rate = card_rates(name).hbm
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}"
           f" memory rate {rate:.3g} B/s, dense bfloat16 rate "
-          f"{by_name(_BF16_RATE, name):.4g} op/s", flush=True)
+          f"{card_rates(name).bf16:.4g} op/s", flush=True)
 
     t0 = time.perf_counter()
     ptxas_dir = tempfile.mkdtemp(prefix="ptxas_")
@@ -8341,6 +8644,11 @@ def main() -> None:
     if args.xlstm_encdec:
         print(json.dumps({"kernels": run_xlstm_encdec(torch, fa, kops, rate,
                                                       name)}))
+        print(card)
+        return
+    if args.tools:
+        print(json.dumps({"kernels": run_tools(torch, fa, kops, rate,
+                                               name)}))
         print(card)
         return
     if args.build:
@@ -8407,6 +8715,7 @@ def main() -> None:
         return
     if args.cards:
         run_mesh_cards(torch, catalog)
+        run_tools(torch, fa, kops, rate, name, cards=True)
         print(card)
         return
     rows_out, launchers = check_fused(torch, fused, queries, catalog, morsel,
@@ -8497,6 +8806,7 @@ def main() -> None:
     rows_out += run_train(torch, fused, kops, rate, here)
     rows_out += run_moe(torch, fa, kops, rate, name)
     rows_out += run_xlstm_encdec(torch, fa, kops, rate, name)
+    rows_out += run_tools(torch, fa, kops, rate, name)
     for r in rows_out:
         if "launches" in r:   # phase 9 counted its own path
             continue

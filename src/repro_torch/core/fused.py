@@ -42,6 +42,19 @@ projections, and each filter ANDs one predicate lane per member into a
 body reads the lane's parameters (PARAM), and ``kernels/csrc/fused_batch.cu``
 runs it with the interpreter it shares with the fused kernel
 (``fused_interp.cuh``). ``apply_batched_stages`` is its plain version.
+
+Under ``launch.roofline.count_program`` each launch reports the work of
+its program on the morsel's n rows (``program_work``), the reckoning of
+rows 1 and 9's bounds in ``PERF.md`` (row 1p's counts the table sectors
+the keys' runs touch, which a count on ``meta`` cannot see): bytes ``n (sum_in size * (width
+or 1) + 1 + sum_stored size + 1)`` (each input column read once, a bytes
+column's row whole, the validity read, each stored output and the output
+validity written) and ``n`` operations an instruction from FILTER on; a
+probe adds 5 bytes a row (``found``, ``bidx``), ``min(8 T, 64 n)`` of
+table and 8 operations a row (as ``kernels.hash_probe``'s probe); a batch
+launch of L lanes writes L mask bytes a row in place of the validity and
+counts an operation for every instruction, a lane loop's body L times. A
+CPU table is lowered to count it as the card would run it.
 """
 
 from __future__ import annotations
@@ -983,6 +996,55 @@ def _lower_probe_key(lw: _Lowering, env, probe_keys, pack,
                    lw.emit("MUL_I32", lw.reg(), shifted, ok), empty)
 
 
+def program_work(program: Program, n: int, lanes: int = 0,
+                 table_size: int = 0):
+    """(operations, bytes) of one launch of ``program`` over ``n`` rows:
+    the closed form in the module's docstring (``lanes`` for a batch
+    launch, ``table_size`` for a probe)."""
+    nbytes = sum(torch.empty((), dtype=d).element_size() * (w or 1)
+                 for d, w in zip(program.in_dtypes, program.in_widths)) + 1
+    alias = program.out_alias or (None,) * len(program.out_names)
+    nbytes += sum(torch.empty((), dtype=d).element_size()
+                  for d, a in zip(program.out_dtypes, alias) if a is None)
+    rows = program.code.tolist()
+    code = [r[0] for r in rows]
+    if not lanes:
+        ops = sum(1 for op in code if op >= OPS["FILTER"])
+        nbytes = n * (nbytes + 1)
+        if program.probe:
+            ops += 8
+            nbytes += 5 * n + min(8 * table_size, 64 * n)
+        return n * ops, nbytes
+    ops, pc = 0, 0
+    while pc < len(code):
+        if code[pc] == OPS["LOOP"]:
+            body = rows[pc][2]
+            ops += body * lanes
+            pc += body + 1
+            continue
+        ops += 1
+        pc += 1
+    return n * ops, n * (nbytes + lanes)
+
+
+def _report_morsel(table, stages, probe, program) -> None:
+    """Report each launch of a ``fused_morsel_program`` call."""
+    with kernel_ops.hidden_work():
+        runs = [program] if program is not None else [
+            p for _, p in lower_split(
+                table, stages,
+                probe_keys=None if probe is None else probe["probe_keys"],
+                pack=None if probe is None else probe["pack"],
+                empty_key=-1 if probe is None else probe["empty_key"])]
+    size = 0 if probe is None else probe["tk"].shape[0]
+    for i, part in enumerate(runs):
+        last = i == len(runs) - 1
+        name = ("fused_morsel_probe" if last and probe is not None
+                else "fused_morsel_program")
+        kernel_ops.report_work(name, *program_work(
+            part, table.capacity, table_size=size if last else 0))
+
+
 def fused_morsel_program(table: TorchTable, stages: Sequence[Stage],
                          probe: Optional[dict] = None,
                          program: Optional[Program] = None):
@@ -1000,6 +1062,10 @@ def fused_morsel_program(table: TorchTable, stages: Sequence[Stage],
     a CPU table it runs ``apply_stages`` and ``apply_probe``.
     """
     kernel_ops.mark_kernel("fused")
+    if kernel_ops.counting_work():
+        _report_morsel(table, stages, probe, program)
+        with kernel_ops.hidden_work():
+            return fused_morsel_program(table, stages, probe, program)
     if not table.validity.is_cuda:
         out = apply_stages(table, stages)
         if probe is None:
@@ -1162,6 +1228,16 @@ def fused_batch_program(table: TorchTable, stages: Sequence[Stage],
     runs ``apply_batched_stages``. Any ``n_members >= 1`` is taken.
     """
     kernel_ops.mark_kernel("fused_batch")
+    if kernel_ops.counting_work():
+        with kernel_ops.hidden_work():
+            lowered = program or lower_stages(table, stages, batch=True)
+        width = LIMITS["kMaxLanes"]
+        for lo in range(0, n_members, width):
+            kernel_ops.report_work("fused_batch_program", *program_work(
+                lowered, table.capacity, min(width, n_members - lo)))
+        with kernel_ops.hidden_work():
+            return fused_batch_program(table, stages, params, n_members,
+                                       program)
     if not table.validity.is_cuda:
         return apply_batched_stages(table, stages, params, n_members)
     if program is None:

@@ -6,6 +6,10 @@ rows (int32[N]) and the total (a 0-d int32 tensor on the mask's device, not
 synchronised). For a CUDA tensor it launches the one-pass decoupled
 look-back scan in ``csrc/block_prefix_sum.cu`` (its header says what bounds
 it); for a CPU tensor it runs the plain version, ``cumsum - mask``.
+
+Under ``launch.roofline.count_program`` a call of N rows reports N
+operations and ``5 N + 4`` bytes (the mask read once, the positions and
+the total written once), the reckoning of row 5's bound in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,14 @@ def block_prefix_sum_plain(mask: torch.Tensor):
     return incl - m, total.reshape(())
 
 
+def block_prefix_sum_work(mask):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    n = mask.shape[0]
+    return n, 5 * n + 4
+
+
+@ops.reports("block_prefix_sum", block_prefix_sum_work)
 def block_prefix_sum(mask: torch.Tensor):
     """mask bool[N] -> (exclusive positions int32[N], total int32 0-d)."""
     ops.mark_kernel("compact")

@@ -21,6 +21,12 @@ past S and mask the keys past S to ``-1e30``, so a key past S weighs
 nothing whether the call is causal or not (a zero-padded key would score
 0 without the causal mask). The encoder's self-attention takes any number
 of frames this way, and a causal prefill any prompt length.
+
+Under ``launch.roofline.count_program`` a call reports ``4 B H S^2 D``
+operations (half of them when ``causal``) and ``4 B H S D`` elements of
+bytes (q, k and v read once, the output written once), the reckoning of
+row 10's bound in ``PERF.md``; on ``meta`` it returns the output's shape
+and computes nothing.
 """
 
 from __future__ import annotations
@@ -130,6 +136,16 @@ def _validate(q, k, v, block_q, block_k) -> None:
                          f"blocks ({bq}, {bk})")
 
 
+def flash_attention_work(q, k, v, causal: bool = True, block_q=None,
+                         block_k=None):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    b, h, s, d = q.shape
+    flops = 4 * b * h * s * s * d // (2 if causal else 1)
+    return flops, 4 * b * h * s * d * q.element_size()
+
+
+@ops.reports("flash_attention", flash_attention_work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
@@ -138,6 +154,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     divide by both (128 where not given) after they are clipped to ``S``,
     as the reference requires."""
     _validate(q, k, v, block_q, block_k)
+    if q.device.type == "meta":     # contiguous, as both versions return it
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
     b, h, s, d = q.shape

@@ -18,6 +18,18 @@ step.
 ``longest_run`` and ``probe_bound`` size a probe's ``max_probes`` from a
 built table with a few torch operations on the table's device; only the
 scalar comes back to the host.
+
+Under ``launch.roofline.count_program`` each call reports 8 operations a
+row or key (a hash and a compare) and these bytes, for n rows or keys and
+T slots: ``build_table`` ``8 n + 8 T`` (every row's key and value read,
+the table written once) plus n for a validity; ``hash_probe`` ``9 n +
+min(8 T, 64 n)`` (the keys in, found and value out, and the table's key
+and value arrays read at most once, at most a 32-byte sector of each a
+key); ``hash_probe_multi`` ``n (8 + 4 m) + min(8 T, 64 n)`` (the counts
+and the ``m`` slots a key out). Rows 6, 6b and 7's bounds in ``PERF.md``
+count the sectors that the valid rows and the keys' runs touch, which a
+count on ``meta`` cannot see, so the count reads every row and takes a
+key's run as one sector.
 """
 
 from __future__ import annotations
@@ -113,6 +125,34 @@ def build_table_plain(keys: torch.Tensor, vals: torch.Tensor, table_size: int,
     return tk, tv
 
 
+def _table_bytes(table_keys, n: int) -> int:
+    return min(8 * table_keys.shape[0], 64 * n)
+
+
+def build_table_work(keys, vals, table_size, empty_key=-1, valid=None):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    n = keys.shape[0]
+    return 8 * n, 8 * n + 8 * table_size + (n if valid is not None else 0)
+
+
+def hash_probe_work(table_keys, table_vals, probe_keys, empty_key=-1,
+                    max_probes=None):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    n = probe_keys.shape[0]
+    return 8 * n, 9 * n + _table_bytes(table_keys, n)
+
+
+def hash_probe_multi_work(table_keys, table_vals, probe_keys, max_matches,
+                          empty_key=-1, max_probes=None):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    n = probe_keys.shape[0]
+    return 8 * n, n * (8 + 4 * max_matches) + _table_bytes(table_keys, n)
+
+
+@ops.reports("build_table", build_table_work)
 def build_table(keys: torch.Tensor, vals: torch.Tensor, table_size: int,
                 empty_key: int = -1, valid: torch.Tensor = None):
     """Insert (key, val) rows into an open-addressing table of
@@ -216,6 +256,7 @@ def hash_probe_plain(table_keys: torch.Tensor, table_vals: torch.Tensor,
     return found, val
 
 
+@ops.reports("hash_probe", hash_probe_work)
 def hash_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
                probe_keys: torch.Tensor, empty_key: int = -1,
                max_probes: int = MAX_PROBES_DEFAULT):
@@ -314,6 +355,7 @@ def hash_probe_multi_plain(table_keys: torch.Tensor, table_vals: torch.Tensor,
     return count, slots
 
 
+@ops.reports("hash_probe_multi", hash_probe_multi_work)
 def hash_probe_multi(table_keys: torch.Tensor, table_vals: torch.Tensor,
                      probe_keys: torch.Tensor, max_matches: int,
                      empty_key: int = -1,

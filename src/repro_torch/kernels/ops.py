@@ -17,6 +17,10 @@ Two kinds of counts are kept:
   integer per kernel wrapper, raised only where a CUDA kernel is actually
   launched. A run on the card reads them to show that its main path went
   through the kernels.
+* **Work reports** (``reports`` / ``report_work``): under
+  ``launch.roofline.count_program`` each wrapper reports the operations
+  and bytes of its kernel (its module's closed form) and runs its body
+  hidden from the count (``hidden_work``), whichever device it runs on.
 
 ``flash_attention`` is the public entry point of the attention kernel, as
 the reference's ``ops.flash_attention`` is: it records the kind
@@ -165,3 +169,80 @@ def flash_attention(q, k, v, causal=True, **kw):
     from .flash_attention import flash_attention as _flash
     mark_kernel("attention")
     return _flash(q, k, v, causal=causal, **kw)
+
+
+# ---------------------------------------------------------------------------
+# work reports (``launch.roofline.count_program``)
+# ---------------------------------------------------------------------------
+#
+# A kernel launched through ctypes is invisible to a dispatch mode, so each
+# wrapper reports the work its kernel does (the closed form in its module's
+# docstring: the reckoning of its row's bound in PERF.md) to every active
+# count, and runs its body hidden: a count then ignores the ATen ops of the
+# plain version (on the CPU or ``meta``) and of the wrapper's own
+# allocations, and a program counts the same on every device. The counts
+# live here, not in ``launch``, so that ``kernels`` imports nothing above it.
+
+
+@contextlib.contextmanager
+def collect_work(sink) -> Iterator[None]:
+    """While entered, ``report_work`` calls ``sink(name, flops, nbytes,
+    collective_bytes)`` on this thread."""
+    stack = _stack("work_stack")
+    stack.append(sink)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def counting_work() -> bool:
+    """True when a count is active and its ops are not hidden."""
+    return bool(_stack("work_stack")) and not work_hidden()
+
+
+def work_hidden() -> bool:
+    """True inside ``hidden_work``: an active count ignores the ATen ops."""
+    return getattr(_tls, "hidden", 0) > 0
+
+
+@contextlib.contextmanager
+def hidden_work() -> Iterator[None]:
+    """Hide the ATen ops of the block, and the reports of the wrappers it
+    calls, from every active count (the reporting wrapper's report stands
+    for them)."""
+    _tls.hidden = getattr(_tls, "hidden", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.hidden -= 1
+
+
+def report_work(name: str, flops: float = 0, nbytes: float = 0,
+                collective_bytes: float = 0) -> None:
+    """Add a kernel's (or a collective's) work to every active count; a
+    no-op outside one or inside ``hidden_work``."""
+    if work_hidden():
+        return
+    for sink in _stack("work_stack"):
+        sink(name, flops, nbytes, collective_bytes)
+
+
+def reports(name: str, work):
+    """Decorate a kernel wrapper: under an active count it reports
+    ``work(*args, **kw)`` -> (flops, bytes) as ``name`` and runs hidden;
+    otherwise it only runs."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            if not counting_work():
+                return fn(*args, **kw)
+            flops, nbytes = work(*args, **kw)
+            report_work(name, flops, nbytes)
+            with hidden_work():
+                return fn(*args, **kw)
+
+        return wrapper
+
+    return deco

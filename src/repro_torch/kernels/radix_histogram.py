@@ -11,6 +11,16 @@ launches its kernel in ``csrc/radix_histogram.cu`` (its header says what
 bounds them); for CPU tensors each runs its plain version: the
 exchange's former torch code for the first, the reference's one-hot sum
 (``repro/kernels/ref.py``) for the second.
+
+Under ``launch.roofline.count_program`` ``radix_histogram`` of N ids
+reports N operations and ``4 N + 4 P`` bytes (each id read once, the
+counts written once: row 8s's bound in ``PERF.md``), and
+``partition_histogram`` of sources of ``n_s`` rows and C key columns
+reports ``10 C sum(n_s)`` operations and ``4 W^2 + sum(n_s) (5 + k)``
+bytes, ``k`` the key bytes of a row as the kernel reads them (4 an int32
+column, the row width a bytes column). Row 8's bound counts the key
+sectors of the live rows alone, which a count on ``meta`` cannot see, so
+the count is that bound with every row live.
 """
 
 from __future__ import annotations
@@ -52,6 +62,14 @@ def radix_histogram_plain(pids: torch.Tensor,
     return counts
 
 
+def radix_histogram_work(pids, num_partitions):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    n = pids.shape[0]
+    return n, 4 * n + 4 * num_partitions
+
+
+@ops.reports("radix_histogram", radix_histogram_work)
 def radix_histogram(pids: torch.Tensor, num_partitions: int) -> torch.Tensor:
     """pids int32[N] -> counts int32[num_partitions]."""
     ops.mark_kernel("partition")
@@ -107,6 +125,20 @@ def partition_histogram_plain(key_cols_per_source, validity_per_source,
     return torch.cat(pids), counts.reshape(w, w)
 
 
+def partition_histogram_work(key_cols_per_source, validity_per_source,
+                             num_partitions):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    ops_, nbytes = 0, 4 * num_partitions ** 2
+    for cols, v in zip(key_cols_per_source, validity_per_source):
+        n = v.shape[0]
+        ops_ += 10 * len(cols) * n
+        nbytes += n * (5 + sum(4 if c.dim() == 1 else c.shape[1]
+                               for c in cols))
+    return ops_, nbytes
+
+
+@ops.reports("radix_histogram", partition_histogram_work)
 def partition_histogram(key_cols_per_source, validity_per_source,
                         num_partitions: int):
     """The metadata phase of a repartition over W = ``num_partitions``

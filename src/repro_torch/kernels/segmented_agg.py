@@ -11,6 +11,13 @@ are built); for a CPU tensor each runs its plain PyTorch version:
 
 ``STACKED_GROUP_LIMIT`` and ``stacked_group_capacity`` size inter-query
 batches (``core.batch``, ``core.scheduler``).
+
+Under ``launch.roofline.count_program`` a call of N rows and G groups
+reports N operations (an add, or a min or max, a row) and ``4 N + (N + G)
+* size`` bytes: the ids read, every row's value read, the G results
+written once (``size`` the values' element bytes). Rows 2-4's bounds in
+``PERF.md`` count the values of the live rows alone, which a count on
+``meta`` cannot see, so the count is the bound with every row live.
 """
 
 from __future__ import annotations
@@ -79,6 +86,14 @@ def _plain(gids, values, num_groups):
     return out[:num_groups]
 
 
+def segmented_work(gids, values, num_groups, kind=None):
+    """(operations, bytes) of one call: the closed form in the module's
+    docstring."""
+    n = gids.shape[0]
+    return n, 4 * n + (n + num_groups) * values.element_size()
+
+
+@ops.reports("segmented_sum", segmented_work)
 def segmented_sum(gids: torch.Tensor, values: torch.Tensor,
                   num_groups: int) -> torch.Tensor:
     """gids int32[N], values float32[N] -> float32[num_groups]."""
@@ -88,6 +103,7 @@ def segmented_sum(gids: torch.Tensor, values: torch.Tensor,
                    num_groups, torch.float32)
 
 
+@ops.reports("segmented_int_sum", segmented_work)
 def segmented_int_sum(gids: torch.Tensor, values: torch.Tensor,
                       num_groups: int) -> torch.Tensor:
     """gids int32[N], values int32[N] -> int32[num_groups] (exact; overflow
@@ -169,6 +185,7 @@ def segmented_minmax_plain(gids: torch.Tensor, values: torch.Tensor,
     return out[:num_groups]
 
 
+@ops.reports("segmented_minmax", segmented_work)
 def segmented_minmax(gids: torch.Tensor, values: torch.Tensor,
                      num_groups: int, kind: str) -> torch.Tensor:
     """gids int32[N], values float32 or int32 [N] -> [num_groups] of the

@@ -1,1 +1,3 @@
-"""Launch helpers of the port: the engine's device mesh (``launch.mesh``)."""
+"""Launch helpers of the port: the device meshes (``launch.mesh``), the
+roofline and its counts (``launch.roofline``), the production-mesh dry
+run (``launch.dryrun``) and its tables (``launch.report``)."""

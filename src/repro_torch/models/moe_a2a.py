@@ -1,5 +1,4 @@
-"""Expert-parallel MoE dispatch without a mesh: the port of
-``repro/models/moe_a2a.py``'s local path.
+"""Expert-parallel MoE dispatch: the port of ``repro/models/moe_a2a.py``.
 
 ``_local_moe`` computes the contribution of experts ``[e_lo, e_lo +
 e_local)`` for all tokens: top-k routing in float32, the Switch aux loss,
@@ -12,10 +11,24 @@ the sort, ``searchsorted`` and the scatters run there, and nothing is read
 back. The scatters are out of place, so autograd differentiates through
 the routing weights, the gather and the combine.
 
-``moe_ffn_a2a`` takes the reference's path without a mesh
-(``moe_a2a.py:197-204``): every expert on this device, plus the shared
-experts. The ``shard_map`` path (each card's experts, one all-reduce of the
-output) waits for ``ROADMAP.md`` Queue A item 6 (sharding).
+``moe_ffn_a2a`` takes the reference's path without a policy
+(``moe_a2a.py:86-93``): every expert on this device, plus the shared
+experts. Under a policy (``models.sharding.use_axes(axes, mesh)``, a
+``launch.mesh.ModelMesh``) whose tp axis divides ``n_experts`` it takes
+the reference's ``shard_map`` path (``:95-129``) over the mesh's positions
+in one process: the batch splits over dp when dp divides it (each dp
+shard's capacity from its own tokens; otherwise every dp row would
+compute the same tokens, so one does); tp rank r runs ``_local_moe`` with
+experts ``[r e_local, (r + 1) e_local)`` on the device of its position,
+on the rank's slice of the expert weights (a ``ShardedTensor`` placed by
+``sharding.params_shardings`` gives its local shard in place, gathering
+only the dimensions the policy also splits over dp); the ranks' outputs
+are summed on rank 0's device in rank order, the reference's ``psum``
+(device-to-device copies and adds, no process group), and aux is the tp
+mean. The all-reduce reports its bytes to an active
+``launch.roofline.count_program``: the result's bytes at each position
+that runs it, as an HLO parse counts an all-reduce in each device's
+program.
 """
 
 from __future__ import annotations
@@ -105,16 +118,90 @@ def _local_moe(flat, params, cfg, e_lo: int, e_local: int, cap: int):
 
 
 def moe_ffn_a2a(params, x, cfg):
-    """x [B, S, D] -> (y, aux): every expert on this device."""
+    """x [B, S, D] -> (y, aux): every expert on this device, or the
+    experts split across the tp positions of the active policy."""
+    from .moe import _capacity
+    from .sharding import current_axes, current_mesh
+
+    axes, mesh = current_axes(), current_mesh()
+    b, s, d = x.shape
+    if (axes is None or mesh is None or axes.tp is None
+            or cfg.n_experts % axes.tp_size != 0):
+        out, aux = _local_moe(x.reshape(b * s, d), params, cfg, 0,
+                              cfg.n_experts, _capacity(b * s, cfg))
+    else:
+        out, aux = _across_tp(params, x, cfg, axes, mesh)
+    out = out.reshape(b, s, d)
+    if cfg.n_shared_experts:
+        out = out + _shared({k: _whole(params[k], x.device) for k in (
+            "shared_w1", "shared_w2", "shared_w3")}, x)
+    return out, aux
+
+
+def _whole(leaf, device):
+    """A parameter leaf as one tensor on ``device``."""
+    from .sharding import ShardedTensor
+    return leaf.full(device) if isinstance(leaf, ShardedTensor) else leaf
+
+
+def _rank_leaf(leaf, position, rows: slice, device):
+    """Experts ``rows`` of ``leaf`` on ``device``: a ``ShardedTensor``'s
+    local shard at ``position`` when it is that slice, else the slice
+    gathered; a tensor's slice (a view on its own device)."""
+    from .sharding import ShardedTensor
+    if isinstance(leaf, ShardedTensor):
+        return leaf.region((rows,), position, device)
+    return leaf[rows].to(device)
+
+
+def _across_tp(params, x, cfg, axes, mesh):
+    """The reference's ``shard_map`` body at every position, in one
+    process -> (out [B * S, D] on x's device, aux)."""
+    from ..kernels import ops
     from .moe import _capacity
 
     b, s, d = x.shape
-    out, aux = _local_moe(x.reshape(b * s, d), params, cfg, 0, cfg.n_experts,
-                          _capacity(b * s, cfg))
-    out = out.reshape(b, s, d)
-    if cfg.n_shared_experts:
-        out = out + _shared(params, x)
-    return out, aux
+    tp = axes.tp_size
+    e_local = cfg.n_experts // tp
+    dp_splits = b % axes.dp_size == 0 and b >= axes.dp_size
+    shards = axes.dp_size if dp_splits else 1
+    local_tokens = b * s // shards
+    cap = _capacity(max(local_tokens, 1), cfg)
+    dp_sizes = [mesh.shape[a] for a in axes.dp]
+    outs, aux = [], None
+    for i in range(shards):
+        coords, rest = {}, i
+        for a, n in reversed(list(zip(axes.dp, dp_sizes))):
+            coords[a], rest = rest % n, rest // n
+        xs = x[i * (b // shards):(i + 1) * (b // shards)].reshape(-1, d)
+        partials, auxes = [], []
+        for r in range(tp):
+            pos = mesh.position(**coords, **{axes.tp: r})
+            dev = mesh.device_at(pos)
+            rows = slice(r * e_local, (r + 1) * e_local)
+            p_local = {"router": _rank_leaf(params["router"], pos,
+                                            slice(None), dev)}
+            for k in ("experts_w1", "experts_w3", "experts_w2"):
+                p_local[k] = _rank_leaf(params[k], pos, rows, dev)
+            o, a = _local_moe(xs.to(dev), p_local, cfg, r * e_local, e_local,
+                              cap)
+            partials.append(o)
+            auxes.append(a)
+        # combine: the all-reduce of the output over the tp ranks
+        home = partials[0].device
+        total = partials[0]
+        for o in partials[1:]:
+            total = total + o.to(home)
+        ops.report_work("moe_a2a.all_reduce", collective_bytes=(
+            axes.dp_size * tp * total.numel() * total.element_size()
+            // shards))
+        outs.append(total.to(x.device))
+        if aux is None:     # the first dp shard's, as the reference's P()
+            tot = auxes[0]
+            for a in auxes[1:]:
+                tot = tot + a.to(tot.device)
+            aux = (tot / tp).to(x.device)
+    return torch.cat(outs), aux
 
 
 def _shared(params, x):

@@ -14,7 +14,10 @@ reference's ``allreduce_compressed`` is a ``psum``/``pmax`` inside
 a list, each on its worker's device, sums the int8 payloads as int32 on
 the first worker's device, takes the largest scale, dequantizes, divides
 by W and hands each worker its copy. No train step calls it, as in the
-reference.
+reference. Under ``launch.roofline.count_program`` it reports W times the
+bytes of a worker's result (each leaf's int32 sums and float32 largest
+scale), as an HLO parse counts the reference's ``psum`` and ``pmax`` in
+each device's program.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+
+from ..kernels import ops
 
 
 def _map(fn, *trees):
@@ -76,6 +81,8 @@ def allreduce_compressed(grads: list, errors: list):
     formula."""
     parts = [compress_tree(g, e) for g, e in zip(grads, errors)]
     n = len(parts)
+    ops.report_work("allreduce_compressed", collective_bytes=n * sum(
+        4 * g.numel() + 4 for g in _leaves(grads[0])))
     home = _leaves(grads[0])[0].device
 
     def reduce_one(*qs_and_ss):

@@ -50,7 +50,11 @@ def make_train_step(model: LMModel, *, microbatches: int = 1,
         with torch.enable_grad():
             logits, aux = torch.func.functional_call(model, leaves, (batch,))
             loss = transformer.loss_of(logits, aux, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            # a leaf the loss does not read (the embedding of a model fed
+            # embeddings) gets zeros, as the reference's jax.grad gives it
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), dict(zip(leaves, grads))
 
     def grads_of(params, batch):
